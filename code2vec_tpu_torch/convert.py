@@ -1,0 +1,65 @@
+"""Carry weights between the JAX package and this one.
+
+The JAX package keeps its params as a dict of arrays (`token_emb`,
+`path_emb`, `target_emb`, `transform`, `attention`; an int8 table is a
+dict `{"q": int8 [V, E], "s": float32 [V, 1]}`). Its leaves, once
+`np.asarray`'d, come here as numpy arrays; a bf16 leaf is a numpy array
+of the `bfloat16` dtype that `ml_dtypes` registers. Both directions keep
+dtypes and bits: bf16 stays bf16, int8 stays int8. Nothing here imports
+JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch.device import resolve_device
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def _tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # a tensor may not share read-only memory
+        a = a.copy()
+    if _is_bf16(a):
+        # numpy has no native bf16: move the bits through int16
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bf16 dtype, as the JAX package uses
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree: Dict[str, Any],
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> Dict[str, Any]:
+    """Numpy param dict (nested dicts allowed) -> the same dict of
+    tensors on `device` (None = the CUDA card)."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor_from_numpy(np.asarray(x), dev)
+    return conv(tree)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `params_from_numpy`: tensors -> host numpy arrays."""
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor_to_numpy(x)
+    return conv(tree)

@@ -1,0 +1,182 @@
+"""The path-context encoder as plain functions over a params dict.
+
+Counterpart of `models/encoder.py` in the JAX package, with the same
+param names: `token_emb` [Vt, E], `path_emb` [Vp, E], `target_emb`
+[Vy, D], `transform` [D, D], `attention` [D], D = 3E. Forward: three
+embedding gathers -> concat to [B, C, D] -> attention pool (the CUDA
+kernel, or the plain version) -> code vector -> logits against
+`target_emb`. The vocab tables are stored in `ModelDims.tables_dtype`;
+`transform` and `attention` stay float32. Predict never applies dropout,
+so `encode` has none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from code2vec_tpu_torch.ops.attention import attention_pool
+from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+
+Table = Union[torch.Tensor, Dict[str, torch.Tensor]]
+Params = Dict[str, Table]
+
+_TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+QUANTIZED_TABLE_KEYS = ("token_emb", "path_emb")
+_SCALE_FLOOR = 1e-12  # all-zero rows quantize against this, not 1/0
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelDims:
+    """Static model dimensions (the JAX package's fields and defaults)."""
+    token_vocab_size: int
+    path_vocab_size: int
+    target_vocab_size: int
+    embeddings_size: int = 128
+    max_contexts: int = 200
+    dropout_keep_rate: float = 0.75
+    # row padding of the vocab tables to a multiple of this
+    vocab_pad_multiple: int = 1
+    # storage dtype of the three vocab tables ("float32" | "bfloat16" |
+    # "int8"); with "int8" the token/path tables are int8 rows plus
+    # per-row float32 scales and target_emb is bf16
+    tables_dtype: str = "float32"
+    # "bag" is the encoder this package has; the transformer fields are
+    # kept so dims carry over from the JAX package unchanged
+    encoder_type: str = "bag"
+    xf_layers: int = 2
+    xf_heads: int = 3
+    xf_mlp_ratio: int = 4
+    xf_remat: bool = False
+    ring_attention: bool = False
+
+    @property
+    def context_vector_size(self) -> int:
+        return 3 * self.embeddings_size
+
+    @property
+    def code_vector_size(self) -> int:
+        return self.context_vector_size
+
+    def padded(self, n: int) -> int:
+        m = self.vocab_pad_multiple
+        return ((n + m - 1) // m) * m
+
+
+def _variance_scaling(generator: torch.Generator, shape, dtype
+                      ) -> torch.Tensor:
+    """Uniform in [-l, l], l = sqrt(3 / fan_avg) (scale 1, "fan_avg"),
+    with fan_in, fan_out = shape[-2], shape[-1], drawn in float32."""
+    fan_avg = (shape[-2] + shape[-1]) / 2.0
+    limit = math.sqrt(3.0 / fan_avg)
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    t.uniform_(-limit, limit, generator=generator)
+    return t.to(dtype)
+
+
+def quantize_table(table: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """float [V, E] -> {"q" int8 [V, E], "s" float32 [V, 1]}, per-row
+    absmax scales."""
+    t = table.to(torch.float32)
+    absmax = t.abs().amax(dim=1, keepdim=True)
+    s = torch.clamp(absmax, min=_SCALE_FLOOR) / 127.0
+    q = torch.round(t / s).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def init_params(generator: torch.Generator, dims: ModelDims,
+                dtype=torch.float32) -> Params:
+    """Variance-scaled init on `generator`'s device. The vocab tables are
+    stored in dims.tables_dtype; `transform` and `attention` in `dtype`.
+    The numbers differ from the JAX package's for the same seed (another
+    generator); carry weights across with convert.py instead."""
+    if dims.encoder_type != "bag":
+        raise NotImplementedError(
+            f"encoder {dims.encoder_type!r} is not ported; only 'bag' is")
+    E = dims.embeddings_size
+    D = dims.context_vector_size
+    quantized = dims.tables_dtype == "int8"
+    t_dtype = torch.bfloat16 if quantized else _TABLE_DTYPES[dims.tables_dtype]
+    g = generator
+    params: Params = {
+        "token_emb": _variance_scaling(
+            g, (dims.padded(dims.token_vocab_size), E), t_dtype),
+        "path_emb": _variance_scaling(
+            g, (dims.padded(dims.path_vocab_size), E), t_dtype),
+        "target_emb": _variance_scaling(
+            g, (dims.padded(dims.target_vocab_size), D), t_dtype),
+        "transform": _variance_scaling(g, (D, D), dtype),
+        "attention": _variance_scaling(g, (D, 1), dtype)[:, 0].contiguous(),
+    }
+    if quantized:
+        for k in QUANTIZED_TABLE_KEYS:
+            params[k] = quantize_table(params[k])
+    return params
+
+
+def take_rows(params: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding-row gather over a float table, or over an int8 {"q", "s"}
+    table with a no-grad dequantizing gather (bf16 output: int8 rows
+    carry at most 8 significant bits)."""
+    t = params[name]
+    flat = ids.reshape(-1)
+    if isinstance(t, dict):
+        rows = (torch.index_select(t["q"], 0, flat).to(torch.float32)
+                * torch.index_select(t["s"], 0, flat)).to(torch.bfloat16)
+    else:
+        rows = torch.index_select(t, 0, flat)
+    return rows.reshape(*ids.shape, rows.shape[-1])
+
+
+def gather_contexts(params: Params, source_ids: torch.Tensor,
+                    path_ids: torch.Tensor, target_ids: torch.Tensor,
+                    compute_dtype=torch.float32) -> torch.Tensor:
+    """[B, C] ids -> [B, C, D] context vectors in the compute dtype."""
+    src = take_rows(params, "token_emb", source_ids)
+    pth = take_rows(params, "path_emb", path_ids)
+    dst = take_rows(params, "token_emb", target_ids)
+    return torch.cat([src, pth, dst], dim=-1).to(compute_dtype)
+
+
+def encode(params: Params, source_ids: torch.Tensor, path_ids: torch.Tensor,
+           target_ids: torch.Tensor, mask: torch.Tensor, *,
+           compute_dtype=torch.float32,
+           use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward to the code vector.
+
+    Args: [B, C] int ids for source token / path / target token, [B, C]
+    float32 mask. Returns (code_vectors [B, D] in the compute dtype,
+    attention [B, C] float32). `use_kernel` pools with the fused kernel
+    (float32 inside, as the Pallas kernel it replaces), else with the
+    plain version in the compute dtype.
+    """
+    contexts = gather_contexts(params, source_ids, path_ids, target_ids,
+                               compute_dtype)
+    if use_kernel:
+        code, attn = attention_pool_fused(
+            contexts, params["transform"], params["attention"], mask)
+        return code.to(compute_dtype), attn
+    return attention_pool(contexts, params["transform"],
+                          params["attention"], mask)
+
+
+def logits_vs_table(table: torch.Tensor, code_vectors: torch.Tensor,
+                    true_target_vocab_size: Optional[int] = None
+                    ) -> torch.Tensor:
+    """[B, V] float32 logits against a (possibly row-padded) target table.
+    Padding rows are set to -1e9 so they never win top-k."""
+    table = table.to(code_vectors.dtype)
+    logits = (code_vectors @ table.T).to(torch.float32)
+    if (true_target_vocab_size is not None
+            and true_target_vocab_size < table.shape[0]):
+        logits[:, true_target_vocab_size:] = -1e9
+    return logits
+
+
+def full_logits(params: Params, code_vectors: torch.Tensor,
+                true_target_vocab_size: Optional[int] = None) -> torch.Tensor:
+    return logits_vs_table(params["target_emb"], code_vectors,
+                           true_target_vocab_size)

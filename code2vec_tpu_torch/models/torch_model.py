@@ -1,0 +1,200 @@
+"""The predict side of the code2vec model on PyTorch.
+
+Counterpart of the predict methods of `Code2VecModel` in the JAX
+package's models/jax_model.py: raw extractor lines are parsed on the
+host (`prepare_predict_rows`), padded to a power-of-two bucket and run
+through the predict step on the device (`predict_device`), and decoded
+into names and attention-ranked paths on the host
+(`decode_predictions`). The serving layer (serving/server.py) calls the
+three phases on different threads.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterable, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch.common import (MethodPredictionResults,
+                                       SpecialVocabWords)
+from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.data.reader import _pad_batch, parse_c2v_rows
+from code2vec_tpu_torch.device import resolve_device
+from code2vec_tpu_torch.models.encoder import ModelDims, Params
+from code2vec_tpu_torch.training.steps import predict_step
+from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs
+
+
+@dataclasses.dataclass
+class PreparedRows:
+    """Pre-parsed predict rows (the host half of `predict`): one row per
+    method, un-padded leading dim. The serving micro-batcher coalesces
+    several requests' rows with `concat` and runs ONE bucketed device
+    call (`predict_prepared`)."""
+
+    labels: np.ndarray
+    src: np.ndarray
+    pth: np.ndarray
+    dst: np.ndarray
+    mask: np.ndarray
+    target_strings: List[str]
+    context_strings: List[List[str]]
+
+    @property
+    def n(self) -> int:
+        return int(self.labels.shape[0])
+
+    def slice(self, start: int, stop: int) -> "PreparedRows":
+        """Row slice [start, stop) as numpy views."""
+        if start == 0 and stop >= self.n:
+            return self
+        return PreparedRows(
+            self.labels[start:stop], self.src[start:stop],
+            self.pth[start:stop], self.dst[start:stop],
+            self.mask[start:stop], self.target_strings[start:stop],
+            self.context_strings[start:stop])
+
+    @staticmethod
+    def concat(items: Sequence["PreparedRows"]) -> "PreparedRows":
+        if not items:
+            raise ValueError("concat of no rows")
+        if len(items) == 1:
+            return items[0]
+        return PreparedRows(
+            labels=np.concatenate([p.labels for p in items]),
+            src=np.concatenate([p.src for p in items]),
+            pth=np.concatenate([p.pth for p in items]),
+            dst=np.concatenate([p.dst for p in items]),
+            mask=np.concatenate([p.mask for p in items]),
+            target_strings=[s for p in items for s in p.target_strings],
+            context_strings=[c for p in items for c in p.context_strings])
+
+
+def _move(table, device: torch.device):
+    if isinstance(table, dict):
+        return {k: v.to(device) for k, v in table.items()}
+    return table.to(device)
+
+
+class Code2VecModel:
+    """Predict-side model over a params dict (see models/encoder.py).
+
+    `device=None` runs on the CUDA card and raises when there is none;
+    tests pass `device="cpu"`."""
+
+    def __init__(self, config: Config, dims: ModelDims,
+                 vocabs: Code2VecVocabs, params: Params,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.config = config
+        self.dims = dims
+        self.vocabs = vocabs
+        self.device = resolve_device(device)
+        self.params = {k: _move(v, self.device) for k, v in params.items()}
+        self.compute_dtype = (torch.bfloat16 if config.USE_BF16
+                              else torch.float32)
+        self.top_k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+
+    # ---- predict raw extractor lines ----
+    def prepare_predict_rows(self, predict_data_lines: Iterable[str]
+                             ) -> PreparedRows:
+        """Host half of `predict`: raw extractor lines -> un-padded
+        per-method index rows."""
+        lines = [ln for ln in predict_data_lines if ln.strip()]
+        labels, src, pth, dst, mask, tstr, cstr = parse_c2v_rows(
+            lines, self.vocabs, self.config.MAX_CONTEXTS, keep_strings=True)
+        return PreparedRows(labels, src, pth, dst, mask, tstr, cstr)
+
+    def predict_bucket_size(self, n: int) -> int:
+        """Padded leading dim for an `n`-method batch: the next power of
+        two, so the device sees O(log n) distinct shapes."""
+        return max(1, 1 << (n - 1).bit_length())
+
+    def device_batch(self, labels, src, pth, dst, mask, weights):
+        dev = self.device
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (labels, src, pth, dst, mask, weights))
+
+    def _run_step(self, batch):
+        with torch.inference_mode():
+            return predict_step(self.params, batch, dims=self.dims,
+                                top_k=self.top_k,
+                                compute_dtype=self.compute_dtype)
+
+    def warmup_predict(self, max_batch: int) -> List[int]:
+        """Run each shape bucket up to `max_batch`'s once (kernel build,
+        allocator and library set-up happen here, not under load).
+        Returns the bucket sizes."""
+        buckets = sorted({self.predict_bucket_size(n)
+                          for n in [1 << i for i in range(
+                              max(1, max_batch).bit_length())]
+                          + [max(1, max_batch)]})
+        C = self.dims.max_contexts
+        for b in buckets:
+            batch = self.device_batch(
+                np.zeros((b,), np.int32), np.zeros((b, C), np.int32),
+                np.zeros((b, C), np.int32), np.zeros((b, C), np.int32),
+                np.zeros((b, C), np.float32), np.zeros((b,), np.float32))
+            out = self._run_step(batch)
+            out[0].cpu()  # waits for the device
+        return buckets
+
+    def predict_device(self, prepared: PreparedRows):
+        """Device phase of `predict`: pad the rows to their power-of-two
+        bucket, run the predict step once, fetch. Returns host arrays
+        `(topk_ids, topk_probs, attention, code)` trimmed to
+        `prepared.n` rows."""
+        n = prepared.n
+        padded_n = self.predict_bucket_size(n)
+        weights = np.zeros((padded_n,), dtype=np.float32)
+        weights[:n] = 1.0
+        labels, src, pth, dst, mask = _pad_batch(
+            (prepared.labels, prepared.src, prepared.pth, prepared.dst,
+             prepared.mask), padded_n)
+        batch = self.device_batch(labels, src, pth, dst, mask, weights)
+        topk_ids, topk_probs, attn, code = self._run_step(batch)
+        return (topk_ids[:n].cpu().numpy(), topk_probs[:n].cpu().numpy(),
+                attn[:n].cpu().numpy(), code[:n].cpu().numpy())
+
+    def decode_predictions(self, prepared: PreparedRows, device_out
+                           ) -> List[MethodPredictionResults]:
+        """Host decode of `predict_device` output rows (row i of
+        `device_out` is row i of `prepared`): vocab lookups + the
+        attention-ranked path-contexts."""
+        topk_ids, topk_probs, attn, code = device_out
+        results = []
+        for i, original in enumerate(prepared.target_strings):
+            res = MethodPredictionResults(original_name=original)
+            for j in range(topk_ids.shape[1]):
+                word = self.vocabs.target_vocab.lookup_word(
+                    int(topk_ids[i, j]))
+                if word == SpecialVocabWords.PAD:
+                    continue
+                res.append_prediction(word, float(topk_probs[i, j]))
+            ctx_fields = prepared.context_strings[i]
+            for j in np.argsort(-attn[i]):
+                if j >= len(ctx_fields) or prepared.mask[i, j] == 0:
+                    continue
+                parts = ctx_fields[j].split(",")
+                if len(parts) != 3:
+                    continue
+                res.append_attention_path(float(attn[i, j]), parts[0],
+                                          parts[1], parts[2])
+            if self.config.export_code_vectors:
+                res.code_vector = code[i]
+            results.append(res)
+        return results
+
+    def predict_prepared(self, prepared: PreparedRows
+                         ) -> List[MethodPredictionResults]:
+        """Device phase + decode in one call."""
+        if prepared.n == 0:
+            return []
+        return self.decode_predictions(prepared,
+                                       self.predict_device(prepared))
+
+    def predict(self, predict_data_lines: Iterable[str]
+                ) -> List[MethodPredictionResults]:
+        return self.predict_prepared(
+            self.prepare_predict_rows(predict_data_lines))

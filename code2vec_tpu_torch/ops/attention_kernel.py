@@ -1,0 +1,108 @@
+"""Fused masked attention pool: the hand-written CUDA kernel and its wrapper.
+
+Counterpart of `ops/pallas_attention.py::attention_pool_pallas` in the JAX
+package (the Pallas TPU kernel `_attention_kernel`). The kernel is
+`csrc/attention_pool.cu`, built with `nvcc` for sm_90a on first use
+(ops/_build.py) and called through ctypes. Its semantics are the Pallas
+kernel's: inputs are taken in float32 (bf16 contexts are widened on
+load), outputs are float32 `code [B, D]` and `attn [B, C]`, and the
+[B, C, D] transformed intermediate never reaches device memory.
+
+`attention_pool_fused` dispatches on where its tensors lie: a CPU tensor
+goes to the plain version `attention_pool_plain`; a CUDA tensor goes to
+the kernel, or the call raises. It counts its kernel launches in
+`attention_pool_fused.launches`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from code2vec_tpu_torch.ops import _build
+from code2vec_tpu_torch.ops.attention import attention_pool
+
+KERNEL = "attention_pool"
+_MAX_D = 512  # one thread per column, acc[32] in registers (see the .cu)
+
+
+def attention_pool_plain(contexts: torch.Tensor, transform: torch.Tensor,
+                         attention: torch.Tensor, mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's plain version: the pool computed in float32."""
+    f32 = torch.float32
+    return attention_pool(contexts.to(f32), transform.to(f32),
+                          attention.to(f32), mask.to(f32))
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    if lib.attention_pool_forward.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        lib.attention_pool_forward.argtypes = [p, i, p, p, p, p, p,
+                                               i, i, i, i, p]
+        lib.attention_pool_forward.restype = i
+        lib.attention_pool_error_string.argtypes = [i]
+        lib.attention_pool_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(contexts, transform, attention, mask):
+    if contexts.dim() != 3:
+        raise ValueError(f"contexts must be [B, C, D], got "
+                         f"{tuple(contexts.shape)}")
+    B, C, D = contexts.shape
+    if tuple(transform.shape) != (D, D) or tuple(attention.shape) != (D,) \
+            or tuple(mask.shape) != (B, C):
+        raise ValueError(
+            f"shape mismatch: contexts {tuple(contexts.shape)}, transform "
+            f"{tuple(transform.shape)}, attention {tuple(attention.shape)}, "
+            f"mask {tuple(mask.shape)}")
+    dev = contexts.device
+    for name, t in (("transform", transform), ("attention", attention),
+                    ("mask", mask)):
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, contexts on {dev}")
+    if contexts.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"contexts must be float32 or bfloat16, got "
+                        f"{contexts.dtype}")
+    if D % 32 or D > _MAX_D:
+        raise ValueError(f"the CUDA kernel takes D a multiple of 32 and at "
+                         f"most {_MAX_D}, got D={D}")
+
+
+def attention_pool_fused(contexts: torch.Tensor, transform: torch.Tensor,
+                         attention: torch.Tensor, mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Same signature as `attention_pool`; float32 outputs."""
+    if contexts.device.type == "cpu":
+        return attention_pool_plain(contexts, transform, attention, mask)
+    if contexts.device.type != "cuda":
+        raise ValueError(f"no attention-pool kernel for device "
+                         f"{contexts.device}")
+    _check(contexts, transform, attention, mask)
+    B, C, D = contexts.shape
+    dev = contexts.device
+    code = torch.empty((B, D), dtype=torch.float32, device=dev)
+    attn = torch.empty((B, C), dtype=torch.float32, device=dev)
+    ctx = contexts.contiguous()
+    tr = transform.to(torch.float32).contiguous()
+    at = attention.to(torch.float32).contiguous()
+    m = mask.to(torch.float32).contiguous()
+    lib = _library()
+    err = lib.attention_pool_forward(
+        ctx.data_ptr(), int(ctx.dtype == torch.bfloat16), tr.data_ptr(),
+        at.data_ptr(), m.data_ptr(), code.data_ptr(), attn.data_ptr(),
+        B, C, D, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = lib.attention_pool_error_string(err).decode()
+        raise RuntimeError(f"attention_pool kernel launch failed: "
+                           f"{msg} (cudaError {err})")
+    attention_pool_fused.launches += 1
+    return code, attn
+
+
+attention_pool_fused.launches = 0

@@ -1,0 +1,28 @@
+"""Comparison helpers shared by the tests that hold the PyTorch port
+against the JAX package (tests/test_torch_*.py)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def assert_topk_agree(ids, probs, ref_ids, ref_probs, tol: float,
+                      rtol: float = 0.0) -> int:
+    """Top-k probabilities agree within `tol + rtol * p`; top-k ids agree
+    at every position whose reference probability p is more than twice
+    that away from both neighbours (closer ones may legitimately swap). The last
+    position is not checked: its lower neighbour is outside the top-k.
+    Returns the number of positions whose ids were checked."""
+    ids, probs = np.asarray(ids), np.asarray(probs)
+    ref_ids, ref_probs = np.asarray(ref_ids), np.asarray(ref_probs)
+    assert ids.shape == ref_ids.shape and probs.shape == ref_probs.shape
+    np.testing.assert_allclose(probs, ref_probs, atol=tol, rtol=rtol)
+    checked = 0
+    for i in range(ids.shape[0]):
+        for j in range(ids.shape[1] - 1):
+            below = ref_probs[i, j] - ref_probs[i, j + 1]
+            above = ref_probs[i, j - 1] - ref_probs[i, j] if j else np.inf
+            if min(below, above) > 2 * (tol + rtol * ref_probs[i, j]):
+                assert ids[i, j] == ref_ids[i, j], (i, j)
+                checked += 1
+    return checked
