@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one CUDA card and check it.
+"""Run the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -7,11 +8,13 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. the card (`nvidia-smi` name and power limit), torch and CUDA versions;
    TF32 is switched off for float32 products and convolutions;
-2. build every kernel of the serving path from `code2vec_tpu_torch/csrc`
-   with `nvcc`;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, with its time beside the plain
-   version's, a library yardstick's and the card's bound;
+2. build every kernel of the ported paths from `code2vec_tpu_torch/csrc`,
+   one `nvcc` per source, all started together; print each entry
+   point's registers and spills;
+3. the attention-pool kernel against its plain PyTorch version on the
+   card, at the serving shapes (B = 1, 7, 64; bf16 and float32 contexts)
+   and the training shape (B = 1024, bf16), with its time beside the
+   plain version's, a library yardstick's and the card's bound;
 4. the serving path at java-large width (vocab sizes 1,301,136 tokens,
    911,417 paths, 261,245 targets; E = 128, C = 200, bf16 tables, bf16
    compute; random weights from seed 0, a synthetic vocab): the port's
@@ -19,7 +22,22 @@ Phases (any failure raises, and the script exits non-zero):
    lines. Every kernel's launch counter is set to 0 just before and read
    just after; each must have launched. One batch is then held against
    the plain path on the card;
-5. a `{"kernels": [...]}` line, the card line, and last
+5. the sparse-row training path at the same width (`TRAIN_BATCH_SIZE`
+   1024, bf16 compute) over a synthetic `.c2v` file whose words are drawn
+   Zipf (s = 1.1) over the vocab, through the trainer entry point, in two
+   configurations: (a) bf16 tables, sampled softmax over 4096 classes
+   (kernel 5 on token, path and target); (b) int8 token/path and bf16
+   target tables, full softmax (kernel 6 on token and path, dense Adam on
+   target). For each: a few steps with the counters at 0 just before and
+   read just after (launches must match the tables updated per step);
+   one step with the kernels against one with the plain versions from
+   the same state, draws and row gradients; the loss falling over 5
+   steps of a repeated batch; the step time and its split by phase;
+6. the live-row Adam kernels against their plain versions on the card,
+   at U = 1, 1000 and the U of a java-large step, for E = 128 bf16,
+   E = 128 float32, E = 384 bf16 (kernel 5) and E = 128 int8 (kernel 6),
+   with their times beside the plain versions' and the bound;
+7. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -29,10 +47,12 @@ nothing of JAX. `--out FILE` also writes every measurement as JSON.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -51,6 +71,20 @@ CODE_TOL, ATTN_TOL = 1e-4, 1e-5
 # bf16 step (2^-8 at |x| < 1) in the code; a few such steps against target
 # weights |w| <= 0.3 move a logit, and so a probability, by ~1e-3 each
 E2E_CODE_TOL, E2E_PROB_RTOL = 2.0 ** -8, 1e-2
+
+# training: batch, sampled classes, steps of the counted run, steps of the
+# repeated-batch run, steps timed
+TRAIN_B, TRAIN_S = 1024, 4096
+TRAIN_STEPS, FALL_STEPS, TIMED_STEPS = 3, 5, 5
+ZIPF_S = 1.1
+# kernel path vs plain path over one training step: the loss pools with
+# the float32 kernel on one side and the bf16 plain pool on the other;
+# both apply the same row gradients, so tables and moments agree to the
+# bit (bounds: 1 ulp tables, 1e-5 of the largest moment)
+LOSS_RTOL, MOMENT_RTOL = 1e-3, 1e-5
+# int8: a q one apart (a value on a rounding edge) on at most this share
+# of the updated elements; s within 2 ulp
+Q_SHARE, S_ULP = 1e-5, 2
 
 # published dense peaks: float32 outside the tensor cores, bf16 tensor
 # cores, HBM bytes/s (NVIDIA data sheets)
@@ -86,6 +120,54 @@ def time_ms(torch, fn, reps: int = 30, warm: int = 3) -> float:
         ts.append(start.elapsed_time(end))
     ts.sort()
     return ts[len(ts) // 2]
+
+
+def profile_calls(torch, fn, n: int):
+    """`fn()` n times under torch.profiler (CPU and CUDA activity) ->
+    wall ms per call (host clock, profiler on), device-busy ms per call
+    (the union of the CUDA kernels' intervals), and device ms per call
+    of each kernel by name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    cuda = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(cuda, "the profiler saw no CUDA kernel")
+    busy, end = 0.0, None
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in cuda):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    by_name = {}
+    for e in cuda:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return {"wall_ms": wall_ms / n, "busy_ms": busy / 1e3 / n,
+            "kernel_ms": {k: us / 1e3 / n for k, us in top}}
+
+
+def kernel_device_ms(torch, fn, name_part: str, n: int = 10) -> float:
+    """Device time of one launch of the kernel whose name holds
+    `name_part`, from the profiler (no host time in it)."""
+    prof = profile_calls(torch, fn, n)
+    hits = [ms for k, ms in prof["kernel_ms"].items() if name_part in k]
+    check(len(hits) == 1, f"profiler kernels matching {name_part}: {hits}")
+    return hits[0]
+
+
+def short_name(kernel: str, width: int = 48) -> str:
+    name = kernel.replace("void ", "").replace("at::native::", "")
+    return name if len(name) <= width else name[:width - 3] + "..."
 
 
 def pool_inputs(torch, B: int, dtype, gen):
@@ -130,37 +212,44 @@ def phase_kernels(torch, peaks, report):
                                                          attention_pool_plain)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for B in BUCKET_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            ctx, tr, at, mask = pool_inputs(torch, B, dtype, gen)
-            code_k, attn_k = attention_pool_fused(ctx, tr, at, mask)
-            code_p, attn_p = attention_pool_plain(ctx, tr, at, mask)
-            torch.cuda.synchronize()
-            err_c = (code_k - code_p).abs().max().item()
-            err_a = (attn_k - attn_p).abs().max().item()
-            empty = mask.sum(-1) == 0
-            check(torch.isfinite(code_k).all() and torch.isfinite(attn_k).all(),
-                  f"non-finite kernel output B={B} {dtype}")
-            check(err_c <= CODE_TOL, f"code max|d| {err_c} > {CODE_TOL} "
-                  f"(B={B}, {dtype})")
-            check(err_a <= ATTN_TOL, f"attn max|d| {err_a} > {ATTN_TOL} "
-                  f"(B={B}, {dtype})")
-            check(bool((code_k[empty] == 0).all() and (attn_k[empty] == 0).all()),
-                  f"all-padding rows not exactly 0 (B={B}, {dtype})")
-            flat = ctx.float().reshape(B * C, D)
-            k_ms = time_ms(torch, lambda: attention_pool_fused(ctx, tr, at, mask))
-            p_ms = time_ms(torch, lambda: attention_pool_plain(ctx, tr, at, mask))
-            lib_ms = time_ms(torch, lambda: torch.matmul(flat, tr))
-            bound = pool_bound(B, ctx.element_size(), peaks)
-            row = {"B": B, "ctx_dtype": str(dtype).replace("torch.", ""),
-                   "max_abs_err_code": err_c, "max_abs_err_attn": err_a,
-                   "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms, **bound}
-            rows.append(row)
-            print(f"  attention_pool B={B:2d} {row['ctx_dtype']:8s} "
-                  f"err code {err_c:.3g} attn {err_a:.3g} | kernel {k_ms:.4f} ms"
-                  f" plain {p_ms:.4f} ms matmul {lib_ms:.4f} ms | bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; tensor-core "
-                  f"{bound['tensor_core_ops_ms']:.4f} ms)", flush=True)
+    both = (torch.bfloat16, torch.float32)
+    cases = [(B, dt) for B in BUCKET_SHAPES for dt in both]
+    cases.append((TRAIN_B, torch.bfloat16))  # the training step's pool
+    for B, dtype in cases:
+        ctx, tr, at, mask = pool_inputs(torch, B, dtype, gen)
+        code_k, attn_k = attention_pool_fused(ctx, tr, at, mask)
+        code_p, attn_p = attention_pool_plain(ctx, tr, at, mask)
+        torch.cuda.synchronize()
+        err_c = (code_k - code_p).abs().max().item()
+        err_a = (attn_k - attn_p).abs().max().item()
+        empty = mask.sum(-1) == 0
+        check(torch.isfinite(code_k).all() and torch.isfinite(attn_k).all(),
+              f"non-finite kernel output B={B} {dtype}")
+        check(err_c <= CODE_TOL, f"code max|d| {err_c} > {CODE_TOL} "
+              f"(B={B}, {dtype})")
+        check(err_a <= ATTN_TOL, f"attn max|d| {err_a} > {ATTN_TOL} "
+              f"(B={B}, {dtype})")
+        check(bool((code_k[empty] == 0).all() and (attn_k[empty] == 0).all()),
+              f"all-padding rows not exactly 0 (B={B}, {dtype})")
+        flat = ctx.float().reshape(B * C, D)
+        k_ms = time_ms(torch, lambda: attention_pool_fused(ctx, tr, at, mask))
+        p_ms = time_ms(torch, lambda: attention_pool_plain(ctx, tr, at, mask))
+        lib_ms = time_ms(torch, lambda: torch.matmul(flat, tr))
+        dev_ms = kernel_device_ms(
+            torch, lambda: attention_pool_fused(ctx, tr, at, mask),
+            "attention_pool_kernel")
+        bound = pool_bound(B, ctx.element_size(), peaks)
+        row = {"B": B, "ctx_dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err_code": err_c, "max_abs_err_attn": err_a,
+               "ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms,
+               "library_ms": lib_ms, **bound}
+        rows.append(row)
+        print(f"  attention_pool B={B:4d} {row['ctx_dtype']:8s} "
+              f"err code {err_c:.3g} attn {err_a:.3g} | kernel {k_ms:.4f} ms"
+              f" (device {dev_ms:.4f})"
+              f" plain {p_ms:.4f} ms matmul {lib_ms:.4f} ms | bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; tensor-core "
+              f"{bound['tensor_core_ops_ms']:.4f} ms)", flush=True)
     report["attention_pool"] = rows
     return rows
 
@@ -197,7 +286,7 @@ def make_requests(np, rng):
     return reqs
 
 
-def phase_serving(torch, np, report):
+def phase_serving(torch, np, vocabs, report):
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.models.encoder import (ModelDims, gather_contexts,
                                                    init_params)
@@ -208,7 +297,6 @@ def phase_serving(torch, np, report):
     from code2vec_tpu_torch.training.steps import predict_head, predict_step
 
     t0 = time.perf_counter()
-    vocabs = synthetic_vocabs()
     dims = ModelDims(token_vocab_size=vocabs.token_vocab.size,
                      path_vocab_size=vocabs.path_vocab.size,
                      target_vocab_size=vocabs.target_vocab.size,
@@ -381,6 +469,419 @@ def phase_serving(torch, np, report):
     return launches
 
 
+def ptxas_report(log: str):
+    """(entry function, registers, spill stores, spill loads) per entry
+    point of an `nvcc -Xptxas -v` log."""
+    out, name, spills = [], None, ("?", "?")
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            parts = ln.replace(",", "").split()
+            spills = (parts[parts.index("spill") - 2],
+                      parts[parts.index("loads") - 3])
+        elif "Used" in ln and "registers" in ln and name:
+            regs = ln.split("Used")[1].split("registers")[0].strip()
+            out.append((name, int(regs), spills[0], spills[1]))
+            name = None
+    return out
+
+
+def phase_build(report):
+    """One `nvcc` per source, all started together."""
+    from code2vec_tpu_torch.ops import _build
+    from code2vec_tpu_torch.ops.attention_kernel import KERNEL as POOL
+    from code2vec_tpu_torch.ops.sparse_update_kernel import KERNEL as ROWS
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        futures = {name: ex.submit(_build.build, name) for name in (POOL, ROWS)}
+        nvcc_s = {name: f.result() for name, f in futures.items()}
+    report["build_s"] = time.perf_counter() - t0
+    report["nvcc_s"] = nvcc_s
+    report["ptxas"] = {}
+    for name in (POOL, ROWS):
+        entries = ptxas_report(_build.build_log(name))
+        report["ptxas"][name] = entries
+        print(f"[2] built {name}: nvcc {nvcc_s[name]:.2f} s", flush=True)
+        for fn, regs, st, ld in entries:
+            print(f"      {fn}: {regs} registers, spill stores {st} B, "
+                  f"spill loads {ld} B", flush=True)
+    print(f"    build phase {report['build_s']:.2f} s", flush=True)
+
+
+def zipf_cdf(np, n: int):
+    w = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** ZIPF_S
+    c = np.cumsum(w)
+    return c / c[-1]
+
+
+def write_training_file(np, path: str, n_methods: int, rng) -> None:
+    """A `.c2v` file of `n_methods` methods with 20..C contexts each;
+    tokens, paths and names are drawn Zipf (s = ZIPF_S) over the
+    synthetic vocab's words, so the unique rows of a batch look like real
+    data's (a few very frequent rows, a long tail)."""
+    tok, pth, tgt = (zipf_cdf(np, JAVA_LARGE[k]) for k in
+                     ("token", "path", "target"))
+    n_ctx = rng.integers(min(20, C), C + 1, n_methods)
+    total = int(n_ctx.sum())
+    src = np.searchsorted(tok, rng.random(total))
+    dst = np.searchsorted(tok, rng.random(total))
+    paths = np.searchsorted(pth, rng.random(total)) * 1000003
+    names = np.searchsorted(tgt, rng.random(n_methods))
+    ctx = [f"tok{a},{p},tok{b}" for a, p, b in
+           zip(src.tolist(), paths.tolist(), dst.tolist())]
+    with open(path, "w") as f:
+        start = 0
+        for i, n in enumerate(n_ctx.tolist()):
+            t = int(names[i])
+            f.write(f"m{t % 4099}|n{t} " + " ".join(ctx[start:start + n])
+                    + "\n")
+            start += n
+
+
+def clone_state(torch, x):
+    """Deep copy of a params / opt-state tree of tensors."""
+    from code2vec_tpu_torch.ops.sparse_update import RowAdamState
+    if isinstance(x, dict):
+        return {k: clone_state(torch, v) for k, v in x.items()}
+    if isinstance(x, RowAdamState):
+        return RowAdamState(m=x.m.clone(), v=x.v.clone())
+    return x.clone()
+
+
+def ulp_diff(torch, a, b) -> int:
+    """Largest distance in units in the last place of a's dtype (float32
+    or bf16) between two tensors of that dtype."""
+    if a.dtype == torch.bfloat16:
+        ia, ib = a.view(torch.int16).long(), b.view(torch.int16).long()
+        sign = 0x7FFF
+    else:
+        ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+        sign = 0x7FFFFFFF
+
+    def ordered(x):
+        return torch.where(x < 0, -(x & sign), x)
+    if a.numel() == 0:
+        return 0
+    return int((ordered(ia) - ordered(ib)).abs().max().item())
+
+
+def compare_tables(torch, name, a, b, n_updated: int):
+    """Kernel-path table against plain-path table: float within 1 ulp,
+    int8 q within 1 on at most Q_SHARE of the updated elements and s
+    within S_ULP ulp. Returns (max abs err, description)."""
+    if isinstance(a, dict):
+        dq = (a["q"].int() - b["q"].int()).abs()
+        n_q = int((dq > 0).sum().item())
+        q_max = int(dq.max().item())
+        s_ulp = ulp_diff(torch, a["s"], b["s"])
+        check(q_max <= 1 and n_q <= Q_SHARE * max(n_updated, 1),
+              f"{name}: q differs by up to {q_max} on {n_q} of {n_updated} "
+              f"updated elements")
+        check(s_ulp <= S_ULP, f"{name}: s differs by {s_ulp} ulp")
+        err = max(float(q_max), (a["s"] - b["s"]).abs().max().item())
+        return err, f"q |d| <= {q_max} on {n_q}/{n_updated}, s {s_ulp} ulp"
+    ulps = ulp_diff(torch, a, b)
+    check(ulps <= 1, f"{name}: {ulps} ulp apart")
+    return ((a.float() - b.float()).abs().max().item(),
+            "bit-identical" if ulps == 0 else f"{ulps} ulp")
+
+
+def compare_moments(torch, name, a, b) -> float:
+    err = (a - b).abs().max().item()
+    top = b.abs().max().item()
+    check(err <= MOMENT_RTOL * max(top, 1e-30),
+          f"{name}: moments max|d| {err} over max {top}")
+    return err
+
+
+def train_config(label: str, tables: str, sampled: bool):
+    from code2vec_tpu_torch.config import Config
+    return label, Config(
+        MAX_CONTEXTS=C, DEFAULT_EMBEDDINGS_SIZE=E, TRAIN_BATCH_SIZE=TRAIN_B,
+        USE_BF16=True, TABLES_DTYPE=tables, USE_SAMPLED_SOFTMAX=sampled,
+        NUM_SAMPLED_CLASSES=TRAIN_S, SPARSE_EMBEDDING_UPDATES=True,
+        EMBEDDING_OPTIMIZER="adam", LR_SCHEDULE="constant", SEED=SEED)
+
+
+def phase_train_config(torch, np, vocabs, data_path, label, cfg, report):
+    """One training configuration at java-large width; returns the
+    counted run's launches and the java-large U per table."""
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import (
+        sparse_requant_adam_fused, sparse_row_adam_fused)
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.training.sparse_steps import (
+        apply_dense_updates, apply_row_updates, loss_and_grads,
+        prepare_step_inputs, row_segments)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Code2VecTrainer(cfg, vocabs)  # device=None: the card
+    check(trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    dims, step_cfg = trainer.dims, trainer.step_config
+    rows_updated = list(trainer.opt_state["rows"])
+    int8_tables = [k for k in rows_updated
+                   if isinstance(trainer.params[k], dict)]
+    float_tables = [k for k in rows_updated if k not in int8_tables]
+    head = (f"sampled softmax S={TRAIN_S}" if cfg.USE_SAMPLED_SOFTMAX
+            else "full softmax")
+    print(f"  ({label}) tables {cfg.TABLES_DTYPE}, {head}; row-updated "
+          f"tables {rows_updated}; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    attention_pool_fused.launches = 0
+    sparse_row_adam_fused.launches = 0
+    sparse_requant_adam_fused.launches = 0
+    t_run = time.perf_counter()
+    losses = trainer.train(data_path, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"attention_pool": attention_pool_fused.launches,
+                "sparse_row_adam": sparse_row_adam_fused.launches,
+                "sparse_requant_adam": sparse_requant_adam_fused.launches}
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"({label}) losses {losses}")
+    want = {"attention_pool": TRAIN_STEPS,
+            "sparse_row_adam": TRAIN_STEPS * len(float_tables),
+            "sparse_requant_adam": TRAIN_STEPS * len(int8_tables)}
+    check(launches == want, f"({label}) launches {launches}, expected "
+          f"{want} for {TRAIN_STEPS} steps")
+    print(f"  ({label}) trainer.train: {TRAIN_STEPS} steps in {run_s:.2f} s "
+          f"(host parse included), losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; launches {launches}",
+          flush=True)
+
+    # ---- one step: kernels vs plain versions from the same state ----
+    reader = C2VTextReader(data_path, vocabs, C, TRAIN_B)
+    batch = trainer.device_batch(next(iter(reader)))
+    draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+    params, state = trainer.params, trainer.opt_state
+    twin_p, twin_s = clone_state(torch, params), clone_state(torch, state)
+    S = min(step_cfg.num_sampled, dims.target_vocab_size)
+    dense, gathered, ctx = prepare_step_inputs(
+        params, batch, draws, use_sampled_softmax=step_cfg.use_sampled_softmax,
+        num_sampled=S, target_vocab=dims.target_vocab_size)
+    loss_k, g_dense, g_rows = loss_and_grads(dims, step_cfg, dense, gathered,
+                                             ctx, use_kernel=True)
+    loss_p, _, _ = loss_and_grads(dims, step_cfg, dense, gathered, ctx,
+                                  use_kernel=False)
+    segments = row_segments(dims, batch, ctx, g_rows)  # once, for both
+    apply_dense_updates(params, state, trainer.optimizer, g_dense)
+    apply_row_updates(params, state, step_cfg, segments, draws.salts,
+                      use_kernel=True)
+    apply_dense_updates(twin_p, twin_s, trainer.optimizer, g_dense)
+    apply_row_updates(twin_p, twin_s, step_cfg, segments, draws.salts,
+                      use_kernel=False)
+    torch.cuda.synchronize()
+    lk, lp = loss_k.item(), loss_p.item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(loss_rel <= LOSS_RTOL, f"({label}) loss kernel {lk} plain {lp}")
+    U = {k: int(u.shape[0]) for k, (u, _s) in segments.items()}
+    errs, notes = {}, []
+    for k in params:
+        n_upd = U.get(k, 0) * dims.embeddings_size
+        errs[k], note = compare_tables(torch, f"({label}) {k}", params[k],
+                                       twin_p[k], n_upd)
+        notes.append(f"{k} {note}")
+    for k, st in state["rows"].items():
+        errs[f"rows.{k}"] = max(
+            compare_moments(torch, f"({label}) {k}.m", st.m, twin_s["rows"][k].m),
+            compare_moments(torch, f"({label}) {k}.v", st.v, twin_s["rows"][k].v))
+    for k in state["dense"]["mu"]:
+        errs[f"dense.{k}"] = max(
+            compare_moments(torch, f"({label}) mu.{k}", state["dense"]["mu"][k],
+                            twin_s["dense"]["mu"][k]),
+            compare_moments(torch, f"({label}) nu.{k}", state["dense"]["nu"][k],
+                            twin_s["dense"]["nu"][k]))
+    trainer.step_num += 1
+    del twin_p, twin_s, dense, gathered, ctx, g_dense, g_rows, segments
+    print(f"  ({label}) kernel step vs plain step: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {loss_rel:.2e}); {'; '.join(notes)}; moments max|d| "
+          f"{max(v for k, v in errs.items() if '.' in k):.3g}; U {U}",
+          flush=True)
+
+    # ---- the loss falls over a repeated batch (and the same draws, so
+    # that only training moves it) ----
+    fixed = trainer.draws_for(TRAIN_B, trainer.step_num)
+    fall = [trainer.train_step(batch, fixed).item() for _ in range(FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f"({label}) loss over a repeated batch: {fall}")
+    print(f"  ({label}) repeated batch, {FALL_STEPS} steps: "
+          f"{', '.join(f'{x:.5f}' for x in fall)}", flush=True)
+
+    # ---- step time and its split by phase ----
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    names = ["draws", "gathers", "forward+backward", "dedup+segment-sum",
+             "dense Adam", "row apply"]
+    split = {n: [] for n in names}
+    for _ in range(TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        d = trainer.draws_for(TRAIN_B, trainer.step_num)
+        ev[1].record()
+        dense, gathered, ctx = prepare_step_inputs(
+            params, batch, d, use_sampled_softmax=step_cfg.use_sampled_softmax,
+            num_sampled=S, target_vocab=dims.target_vocab_size)
+        ev[2].record()
+        _loss, g_dense, g_rows = loss_and_grads(dims, step_cfg, dense,
+                                                gathered, ctx)
+        ev[3].record()
+        segments = row_segments(dims, batch, ctx, g_rows)
+        ev[4].record()
+        apply_dense_updates(params, state, trainer.optimizer, g_dense)
+        ev[5].record()
+        apply_row_updates(params, state, step_cfg, segments, d.salts)
+        ev[6].record()
+        ev[6].synchronize()
+        trainer.step_num += 1
+        for i, n in enumerate(names):
+            split[n].append(ev[i].elapsed_time(ev[i + 1]))
+    med = {n: sorted(v)[len(v) // 2] for n, v in split.items()}
+    step_med = sorted(step_ms)[len(step_ms) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  ({label}) step {step_med:.2f} ms (median of {TIMED_STEPS}, host "
+          f"clock, synchronised); by phase (CUDA events, median): " +
+          ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
+          f"; peak device memory {peak_gb:.2f} GB", flush=True)
+    # ---- where the device time goes, and how busy the device is ----
+    prof = profile_calls(torch, lambda: trainer.train_step(batch),
+                         TIMED_STEPS)
+    busy_share = prof["busy_ms"] / step_med
+    print(f"  ({label}) profiler, {TIMED_STEPS} steps: device busy "
+          f"{prof['busy_ms']:.3f} ms per step = {busy_share:.3f} of the "
+          f"unprofiled step ({prof['busy_ms'] / prof['wall_ms']:.3f} of the "
+          f"profiled {prof['wall_ms']:.2f} ms); largest kernels (ms per "
+          f"step): " + ", ".join(
+              f"{short_name(k)} {ms:.3f}"
+              for k, ms in list(prof["kernel_ms"].items())[:6]), flush=True)
+    report[f"train_{label}"] = {
+        "tables": cfg.TABLES_DTYPE, "sampled": cfg.USE_SAMPLED_SOFTMAX,
+        "launches": launches, "steps": TRAIN_STEPS, "losses": losses,
+        "run_s": run_s, "loss_kernel": lk, "loss_plain": lp,
+        "loss_rel": loss_rel, "errors": errs, "unique_rows": U,
+        "repeated_batch_losses": fall, "step_ms": step_ms,
+        "step_ms_median": step_med, "phase_ms_median": med,
+        "peak_memory_gb": peak_gb, "profile": prof,
+        "device_busy_share": busy_share}
+    del trainer, params, state
+    torch.cuda.empty_cache()
+    return launches, U
+
+
+def row_bound(kind: str, U: int, E: int, peaks):
+    """Least time of one live-row apply: per row, the table row read and
+    written, both f32 moments read and written, the f32 gradient read,
+    the id read (int8 adds the scale read and written), over the HBM
+    rate; ~12 float32 operations per element over the f32 peak."""
+    f32_peak, _bf16_peak, hbm = peaks
+    if kind == "int8":
+        nbytes = U * (22 * E + 12)
+    else:
+        b = 2 if kind == "bfloat16" else 4
+        nbytes = U * E * (2 * b + 20) + 4 * U
+    flops = 12 * U * E
+    ms_bytes, ms_ops = nbytes / hbm * 1e3, flops / f32_peak * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": ms_bytes,
+            "f32_ops_ms": ms_ops, "bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
+
+
+def phase_row_kernels(torch, peaks, java_u, report):
+    """Kernels 5 and 6 against their plain versions on the card."""
+    from code2vec_tpu_torch.ops import quant
+    from code2vec_tpu_torch.training import sparse_update as su
+    from code2vec_tpu_torch.ops.sparse_update import RowAdamState
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    dev = "cuda"
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    lr_t = su.adam_lr_t(torch.tensor(3, dtype=torch.int32, device=dev), 1e-3,
+                        b1, b2)
+    rows = []
+    cases = [("bfloat16", E, "token_emb"), ("float32", E, "token_emb"),
+             ("bfloat16", D, "target_emb"), ("int8", E, "token_emb")]
+    for kind, width, table in cases:
+        V = JAVA_LARGE["token" if width == E else "target"] + 2
+        base = torch.randn((V, width), generator=gen, device=dev) * 0.05
+        m0 = torch.randn((V, width), generator=gen, device=dev) * 1e-3
+        v0 = torch.rand((V, width), generator=gen, device=dev) * 1e-5
+        for U in (1, 1000, java_u[kind][table]):
+            uids = torch.randperm(V, generator=gen, device=dev)[:U].sort() \
+                .values.to(torch.int32)
+            seg = torch.randn((U, width), generator=gen, device=dev) * 1e-2
+
+            def fresh():
+                if kind == "int8":
+                    t = quant.quantize_table(base)
+                else:
+                    t = base.to(getattr(torch, kind))
+                return t, RowAdamState(m0.clone(), v0.clone())
+            k_t, k_s = fresh()
+            p_t, p_s = fresh()
+            ref_t, _ = fresh()
+            su.apply_rows(k_t, k_s, uids, seg, lr_t=lr_t, b1=b1, b2=b2,
+                          eps=eps, salt=0x2545F491, use_kernel=True)
+            su.apply_rows(p_t, p_s, uids, seg, lr_t=lr_t, b1=b1, b2=b2,
+                          eps=eps, salt=0x2545F491, use_kernel=False)
+            torch.cuda.synchronize()
+            err, note = compare_tables(torch, f"{kind} E={width} U={U}", k_t,
+                                       p_t, U * width)
+            m_ulp = ulp_diff(torch, k_s.m, p_s.m)
+            v_ulp = ulp_diff(torch, k_s.v, p_s.v)
+            check(m_ulp <= 1 and v_ulp <= 1,
+                  f"{kind} E={width} U={U}: moments {m_ulp} / {v_ulp} ulp")
+            err = max(err, (k_s.m - p_s.m).abs().max().item(),
+                      (k_s.v - p_s.v).abs().max().item())
+            untouched = torch.ones(V, dtype=torch.bool, device=dev)
+            untouched[uids.long()] = False
+            for a, b in ((k_t, ref_t), (k_s.m, m0), (k_s.v, v0)):
+                pairs = ([(a["q"], b["q"]), (a["s"], b["s"])]
+                         if isinstance(a, dict) else [(a, b)])
+                for x, y in pairs:
+                    check(torch.equal(x[untouched], y[untouched]),
+                          f"{kind} E={width} U={U}: an untouched row changed")
+
+            def run_kernel():
+                su.apply_rows(k_t, k_s, uids, seg, lr_t=lr_t, b1=b1, b2=b2,
+                              eps=eps, salt=7, use_kernel=True)
+
+            def run_plain():
+                su.apply_rows(p_t, p_s, uids, seg, lr_t=lr_t, b1=b1, b2=b2,
+                              eps=eps, salt=7, use_kernel=False)
+            k_ms = time_ms(torch, run_kernel)
+            p_ms = time_ms(torch, run_plain)
+            dev_ms = kernel_device_ms(
+                torch, run_kernel,
+                "requant_adam_kernel" if kind == "int8" else "row_adam_kernel")
+            bound = row_bound(kind, U, width, peaks)
+            row = {"kind": kind, "E": width, "U": U, "V": V,
+                   "max_abs_err": err, "agreement": note,
+                   "moment_ulp": max(m_ulp, v_ulp), "ms": k_ms,
+                   "kernel_device_ms": dev_ms, "plain_ms": p_ms,
+                   "library_ms": None, **bound}
+            rows.append(row)
+            name = "sparse_requant_adam" if kind == "int8" else "sparse_row_adam"
+            print(f"  {name} {kind:8s} E={width} U={U:6d}: {note}, moments "
+                  f"{row['moment_ulp']} ulp | kernel {k_ms:.4f} ms (device "
+                  f"{dev_ms:.4f}) plain {p_ms:.4f} ms | bound "
+                  f"{bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}, {bound['bytes'] / 1e6:.2f} MB)",
+                  flush=True)
+            del k_t, k_s, p_t, p_s, ref_t
+        del base, m0, v0
+    torch.cuda.empty_cache()
+    report["row_kernels"] = rows
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -393,9 +894,7 @@ def main(argv=None) -> int:
         return 2
     import numpy as np
 
-    from code2vec_tpu_torch.ops import _build
-    from code2vec_tpu_torch.ops.attention_kernel import KERNEL as POOL
-
+    t_start = time.perf_counter()
     # ---- 1. the card ----
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -413,36 +912,89 @@ def main(argv=None) -> int:
               "cuda": torch.version.cuda, "peaks_of": peak_name}
 
     # ---- 2. build ----
-    t0 = time.perf_counter()
-    build_s = _build.build(POOL)
-    report["build_s"] = time.perf_counter() - t0
-    regs = [ln.strip() for ln in _build.build_log(POOL).splitlines()
-            if "registers" in ln]
-    print(f"[2] built {POOL}: nvcc {build_s:.2f} s, phase "
-          f"{report['build_s']:.2f} s; ptxas: "
-          f"{' / '.join(regs)}", flush=True)
+    phase_build(report)
 
-    # ---- 3. kernels vs plain versions ----
-    print("[3] kernels vs plain versions (TF32 off)", flush=True)
-    rows = phase_kernels(torch, peaks, report)
+    # ---- 3. the attention-pool kernel vs its plain version ----
+    print("[3] attention-pool kernel vs plain version (TF32 off)", flush=True)
+    pool_rows = phase_kernels(torch, peaks, report)
 
     # ---- 4. the serving path ----
     print("[4] java-large serving path", flush=True)
-    launches = phase_serving(torch, np, report)
+    t0 = time.perf_counter()
+    vocabs = synthetic_vocabs()
+    print(f"  synthetic vocab built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    serve_launches = phase_serving(torch, np, vocabs, report)
 
-    # ---- 5. result ----
-    main_row = next(r for r in rows if r["B"] == 64 and r["ctx_dtype"] == "bfloat16")
-    kernels = [{
-        "name": POOL, "route": "cuda",
-        "source": "code2vec_tpu_torch/csrc/attention_pool.cu",
-        "replaces": "code2vec_tpu/ops/pallas_attention.py:75",
-        "launches": launches[POOL],
-        "max_abs_err": max(max(r["max_abs_err_code"], r["max_abs_err_attn"])
-                           for r in rows),
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]
+    # ---- 5. the training path ----
+    print("[5] java-large sparse-row training path", flush=True)
+    train_launches, java_u = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data_path = os.path.join(tmp, "train.c2v")
+        t0 = time.perf_counter()
+        n_methods = (TRAIN_STEPS + 1) * TRAIN_B
+        write_training_file(np, data_path, n_methods,
+                            np.random.default_rng(SEED))
+        print(f"  synthetic .c2v: {n_methods} methods, "
+              f"{os.path.getsize(data_path) / 1e6:.1f} MB, written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for label, tables, sampled in (("a", "bfloat16", True),
+                                       ("b", "int8", False)):
+            _, cfg = train_config(label, tables, sampled)
+            train_launches[label], java_u[label] = phase_train_config(
+                torch, np, vocabs, data_path, label, cfg, report)
+
+    # ---- 6. the live-row Adam kernels vs their plain versions ----
+    print("[6] live-row Adam kernels vs plain versions", flush=True)
+    row_rows = phase_row_kernels(
+        torch, peaks, {"bfloat16": java_u["a"], "float32": java_u["a"],
+                       "int8": java_u["b"]}, report)
+
+    # ---- 7. result ----
+    # kernel 1's times at the training shape, where most of its device
+    # time on the main paths goes (the serving buckets are in --out)
+    main_pool = next(r for r in pool_rows
+                     if r["B"] == TRAIN_B and r["ctx_dtype"] == "bfloat16")
+    pool_launches = serve_launches["attention_pool"] + sum(
+        v["attention_pool"] for v in train_launches.values())
+
+    def row_entry(name, kind, replaces, launches):
+        main = next(r for r in row_rows if r["kind"] == kind and r["E"] == E
+                    and r["U"] == java_u["a" if kind != "int8" else "b"]
+                    ["token_emb"])
+        return {"name": name, "route": "cuda",
+                "source": "code2vec_tpu_torch/csrc/sparse_row_update.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in row_rows
+                                   if (r["kind"] == "int8") == (kind == "int8")),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": None}
+    kernels = [
+        {"name": "attention_pool", "route": "cuda",
+         "source": "code2vec_tpu_torch/csrc/attention_pool.cu",
+         "replaces": "code2vec_tpu/ops/pallas_attention.py:75",
+         "launches": pool_launches,
+         "max_abs_err": max(max(r["max_abs_err_code"], r["max_abs_err_attn"])
+                            for r in pool_rows),
+         "ms": main_pool["ms"], "plain_ms": main_pool["plain_ms"],
+         "bound_ms": main_pool["bound_ms"], "bound_by": main_pool["bound_by"],
+         "library_ms": main_pool["library_ms"]},
+        row_entry("sparse_row_adam", "bfloat16",
+                  "code2vec_tpu/ops/pallas_sparse_update.py:110",
+                  train_launches["a"]["sparse_row_adam"]),
+        row_entry("sparse_requant_adam", "int8",
+                  "code2vec_tpu/ops/pallas_sparse_update.py:204",
+                  train_launches["b"]["sparse_requant_adam"]),
+    ]
+    for k in kernels:
+        check(k["launches"] >= 1, f"kernel {k['name']} never launched on "
+              f"a main path")
     report["kernels"] = kernels
+    report["launches"] = {"serving": serve_launches, **{
+        f"train_{k}": v for k, v in train_launches.items()}}
+    report["total_s"] = time.perf_counter() - t_start
+    print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

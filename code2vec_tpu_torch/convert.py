@@ -7,6 +7,12 @@ dict `{"q": int8 [V, E], "s": float32 [V, 1]}`). Its leaves, once
 of the `bfloat16` dtype that `ml_dtypes` registers. Both directions keep
 dtypes and bits: bf16 stays bf16, int8 stays int8. Nothing here imports
 JAX.
+
+The sparse-row step's optimizer state crosses the same way. On the JAX
+side it is `{"dense": (ScaleByAdamState(count, mu, nu), EmptyState()),
+"rows": {table: RowAdamState(m, v)}, "count"}`; here it is
+`{"dense": {"count", "mu", "nu"}, "rows": {table: RowAdamState(m, v)},
+"count"}` (training/sparse_steps.init_sparse_opt_state).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.device import resolve_device
+from code2vec_tpu_torch.ops.sparse_update import RowAdamState
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -24,7 +31,8 @@ def _is_bf16(a: np.ndarray) -> bool:
 
 
 def _tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    if not a.flags.c_contiguous:  # (ascontiguousarray makes 0-d 1-d)
+        a = np.ascontiguousarray(a)
     if not a.flags.writeable:  # a tensor may not share read-only memory
         a = a.copy()
     if _is_bf16(a):
@@ -63,3 +71,38 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
             return {k: conv(v) for k, v in x.items()}
         return _tensor_to_numpy(x)
     return conv(tree)
+
+
+def sparse_opt_state_from_numpy(tree: Dict[str, Any],
+                                device: Optional[Union[str, torch.device]]
+                                = None) -> Dict[str, Any]:
+    """The JAX sparse opt state with numpy leaves (the NamedTuples kept,
+    as `jax.tree_util.tree_map(np.asarray, state)` leaves them) -> the
+    port's opt state on `device` (None = the CUDA card)."""
+    dev = resolve_device(device)
+    adam = tree["dense"][0]   # ScaleByAdamState(count, mu, nu)
+    count, mu, nu = adam[0], adam[1], adam[2]
+
+    def t(a):
+        return _tensor_from_numpy(np.asarray(a), dev)
+    return {
+        "dense": {"count": t(count), "mu": {k: t(a) for k, a in mu.items()},
+                  "nu": {k: t(a) for k, a in nu.items()}},
+        "rows": {k: RowAdamState(m=t(st[0]), v=t(st[1]))
+                 for k, st in tree["rows"].items()},
+        "count": t(tree["count"]),
+    }
+
+
+def sparse_opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's sparse opt state -> numpy: {"dense": {"count", "mu",
+    "nu"}, "rows": {table: {"m", "v"}}, "count"}."""
+    d = state["dense"]
+    return {
+        "dense": {"count": _tensor_to_numpy(d["count"]),
+                  "mu": {k: _tensor_to_numpy(x) for k, x in d["mu"].items()},
+                  "nu": {k: _tensor_to_numpy(x) for k, x in d["nu"].items()}},
+        "rows": {k: {"m": _tensor_to_numpy(st.m), "v": _tensor_to_numpy(st.v)}
+                 for k, st in state["rows"].items()},
+        "count": _tensor_to_numpy(state["count"]),
+    }

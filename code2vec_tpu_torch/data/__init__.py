@@ -1,1 +1,1 @@
-"""Host-side parsing of `.c2v` path-context rows."""
+"""Host-side parsing of `.c2v` path-context rows and the training reader."""

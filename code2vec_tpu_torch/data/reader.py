@@ -1,20 +1,43 @@
 """Host-side parsing: `.c2v` path-context rows -> int32 index arrays + mask.
 
-A copy of `parse_c2v_rows` and `_pad_batch` from `data/reader.py` in the
-JAX package. The over-cap downsample draws from the same
-`np.random.default_rng((seed, crc32(sorted bag)))` stream, so both
-packages keep the same contexts of a method with more than
-MAX_CONTEXTS of them.
+A copy of `BatchTensors`, `parse_c2v_rows`, `_pad_batch` and
+`C2VTextReader` from `data/reader.py` in the JAX package. The over-cap
+downsample draws from the same `np.random.default_rng((seed,
+crc32(sorted bag)))` stream, so both packages keep the same contexts of
+a method with more than MAX_CONTEXTS of them, and the reader's shuffle
+is the same `(seed + epoch)` permutation, so both packages see the same
+batches. Host shards are not ported.
 """
 
 from __future__ import annotations
 
 import zlib
-from typing import List
+from typing import Iterator, List, NamedTuple, Optional
 
 import numpy as np
 
 from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs
+
+
+class BatchTensors(NamedTuple):
+    """One host batch. Shapes are static: [B] / [B, C]."""
+    target_index: np.ndarray            # int32 [B]
+    path_source_token_indices: np.ndarray  # int32 [B, C]
+    path_indices: np.ndarray            # int32 [B, C]
+    path_target_token_indices: np.ndarray  # int32 [B, C]
+    context_valid_mask: np.ndarray      # float32 [B, C]; 1.0 = real context
+    num_valid_examples: int             # <= B; B unless final padded batch
+    target_strings: Optional[List[str]] = None
+    context_strings: Optional[List[List[str]]] = None
+
+    def host_arrays(self):
+        """The step's 6-tuple (labels, src, pth, dst, mask, weights);
+        example weights are 1 for the valid rows, 0 for the padding."""
+        weights = np.zeros((self.target_index.shape[0],), dtype=np.float32)
+        weights[:self.num_valid_examples] = 1.0
+        return (self.target_index, self.path_source_token_indices,
+                self.path_indices, self.path_target_token_indices,
+                self.context_valid_mask, weights)
 
 
 def parse_c2v_rows(lines: List[str], vocabs: Code2VecVocabs,
@@ -89,3 +112,60 @@ def _pad_batch(arrs, batch_size: int):
                 [a, np.zeros((pad,) + a.shape[1:], dtype=a.dtype)], axis=0)
         out.append(a)
     return out
+
+
+class C2VTextReader:
+    """Reader over a `.c2v` text file: byte-offset streaming (the file is
+    never held in memory), a `(seed + epoch)` shuffle, padded batches."""
+
+    def __init__(self, path: str, vocabs: Code2VecVocabs, max_contexts: int,
+                 batch_size: int, shuffle: bool = False, seed: int = 0,
+                 keep_strings: bool = False, epoch_offset: int = 0):
+        self.path = path
+        self.vocabs = vocabs
+        self.max_contexts = max_contexts
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.keep_strings = keep_strings
+        self._epoch = epoch_offset
+        self._offsets: Optional[np.ndarray] = None
+
+    def _line_offsets(self) -> np.ndarray:
+        """Byte offsets of non-empty lines (built once)."""
+        if self._offsets is None:
+            offsets = []
+            with open(self.path, "rb") as f:
+                pos = 0
+                for raw in f:
+                    if raw.strip():
+                        offsets.append(pos)
+                    pos += len(raw)
+            self._offsets = np.asarray(offsets, dtype=np.int64)
+        return self._offsets
+
+    def __iter__(self) -> Iterator[BatchTensors]:
+        offsets = self._line_offsets()
+        order = np.arange(len(offsets))
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+            self._epoch += 1
+        with open(self.path, "r", encoding="utf-8", errors="replace") as f:
+            for start in range(0, len(order), self.batch_size):
+                idx = order[start:start + self.batch_size]
+                batch_lines = []
+                for off in offsets[idx]:
+                    f.seek(off)
+                    batch_lines.append(f.readline())
+                yield self._parse_batch(batch_lines)
+
+    def _parse_batch(self, batch_lines: List[str]) -> BatchTensors:
+        labels, src, pth, dst, mask, tstr, cstr = parse_c2v_rows(
+            batch_lines, self.vocabs, self.max_contexts, self.keep_strings)
+        nv = len(batch_lines)
+        labels, src, pth, dst, mask = _pad_batch(
+            (labels, src, pth, dst, mask), self.batch_size)
+        return BatchTensors(labels, src, pth, dst, mask, nv,
+                            tstr if self.keep_strings else None,
+                            cstr if self.keep_strings else None)

@@ -1,2 +1,2 @@
-"""The encoder as functions over a params dict (encoder.py) and the
-predict-side model (torch_model.py)."""
+"""The encoder as functions over a params dict (encoder.py), the
+predict-side model and the trainer (torch_model.py)."""

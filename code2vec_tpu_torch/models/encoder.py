@@ -20,13 +20,12 @@ import torch
 
 from code2vec_tpu_torch.ops.attention import attention_pool
 from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+from code2vec_tpu_torch.ops.quant import QUANTIZED_TABLE_KEYS, quantize_table
 
 Table = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Params = Dict[str, Table]
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-QUANTIZED_TABLE_KEYS = ("token_emb", "path_emb")
-_SCALE_FLOOR = 1e-12  # all-zero rows quantize against this, not 1/0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,16 +74,6 @@ def _variance_scaling(generator: torch.Generator, shape, dtype
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     t.uniform_(-limit, limit, generator=generator)
     return t.to(dtype)
-
-
-def quantize_table(table: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """float [V, E] -> {"q" int8 [V, E], "s" float32 [V, 1]}, per-row
-    absmax scales."""
-    t = table.to(torch.float32)
-    absmax = t.abs().amax(dim=1, keepdim=True)
-    s = torch.clamp(absmax, min=_SCALE_FLOOR) / 127.0
-    q = torch.round(t / s).to(torch.int8)
-    return {"q": q, "s": s}
 
 
 def init_params(generator: torch.Generator, dims: ModelDims,

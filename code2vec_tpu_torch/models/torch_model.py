@@ -1,17 +1,23 @@
-"""The predict side of the code2vec model on PyTorch.
+"""The code2vec model on PyTorch: the predict side and the trainer.
 
-Counterpart of the predict methods of `Code2VecModel` in the JAX
-package's models/jax_model.py: raw extractor lines are parsed on the
-host (`prepare_predict_rows`), padded to a power-of-two bucket and run
-through the predict step on the device (`predict_device`), and decoded
-into names and attention-ranked paths on the host
-(`decode_predictions`). The serving layer (serving/server.py) calls the
-three phases on different threads.
+`Code2VecModel` is the counterpart of the predict methods of
+`Code2VecModel` in the JAX package's models/jax_model.py: raw extractor
+lines are parsed on the host (`prepare_predict_rows`), padded to a
+power-of-two bucket and run through the predict step on the device
+(`predict_device`), and decoded into names and attention-ranked paths on
+the host (`decode_predictions`). The serving layer (serving/server.py)
+calls the three phases on different threads.
+
+`Code2VecTrainer` is the train subset of the same class: it builds the
+sparse-row opt state and step and runs `train(data_path, max_steps)`
+over a `.c2v` file. Only the sparse-row step is ported (see config.py);
+there is no checkpoint, telemetry or evaluation yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
@@ -20,10 +26,15 @@ import torch
 from code2vec_tpu_torch.common import (MethodPredictionResults,
                                        SpecialVocabWords)
 from code2vec_tpu_torch.config import Config
-from code2vec_tpu_torch.data.reader import _pad_batch, parse_c2v_rows
+from code2vec_tpu_torch.data.reader import (BatchTensors, C2VTextReader,
+                                            _pad_batch, parse_c2v_rows)
 from code2vec_tpu_torch.device import resolve_device
-from code2vec_tpu_torch.models.encoder import ModelDims, Params
-from code2vec_tpu_torch.training.steps import predict_step
+from code2vec_tpu_torch.models.encoder import ModelDims, Params, init_params
+from code2vec_tpu_torch.training.optimizers import make_lr, make_optimizer
+from code2vec_tpu_torch.training.sparse_steps import (StepDraws,
+                                                      init_sparse_opt_state,
+                                                      make_draws)
+from code2vec_tpu_torch.training.steps import make_train_step, predict_step
 from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs
 
 
@@ -198,3 +209,101 @@ class Code2VecModel:
                 ) -> List[MethodPredictionResults]:
         return self.predict_prepared(
             self.prepare_predict_rows(predict_data_lines))
+
+
+def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
+    return ModelDims(
+        token_vocab_size=vocabs.token_vocab.size,
+        path_vocab_size=vocabs.path_vocab.size,
+        target_vocab_size=vocabs.target_vocab.size,
+        embeddings_size=config.DEFAULT_EMBEDDINGS_SIZE,
+        max_contexts=config.MAX_CONTEXTS,
+        dropout_keep_rate=config.DROPOUT_KEEP_RATE,
+        tables_dtype=config.TABLES_DTYPE,
+        encoder_type=config.ENCODER_TYPE)
+
+
+class Code2VecTrainer:
+    """Trains the bag model with sparse row updates on one device.
+
+    `params=None` initialises them from `config.SEED`. `device=None` runs
+    on the CUDA card and raises when there is none; tests pass
+    `device="cpu"`. Tables, dense params and moments are updated in
+    place."""
+
+    def __init__(self, config: Config, vocabs: Code2VecVocabs,
+                 params: Optional[Params] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.config = config
+        self.vocabs = vocabs
+        self.device = resolve_device(device)
+        config.verify()  # a sparse run is adam, constant LR, bag encoder
+        if not config.SPARSE_EMBEDDING_UPDATES:
+            raise NotImplementedError(
+                "the dense train step (SPARSE_EMBEDDING_UPDATES=False, "
+                "Adafactor tables) is not ported; set "
+                "SPARSE_EMBEDDING_UPDATES=True, EMBEDDING_OPTIMIZER='adam', "
+                "LR_SCHEDULE='constant'")
+        self.dims = dims_from_config(config, vocabs)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(config.SEED)
+            params = init_params(gen, self.dims)
+        self.params = {k: _move(v, self.device) for k, v in params.items()}
+        self.compute_dtype = (torch.bfloat16 if config.USE_BF16
+                              else torch.float32)
+        self.optimizer = make_optimizer(
+            make_lr(config.LEARNING_RATE, config.LR_SCHEDULE),
+            config.EMBEDDING_OPTIMIZER)
+        self.opt_state = init_sparse_opt_state(
+            self.params, self.optimizer, config.USE_SAMPLED_SOFTMAX)
+        self._train_step = make_train_step(
+            self.dims, self.optimizer,
+            use_sampled_softmax=config.USE_SAMPLED_SOFTMAX,
+            num_sampled=config.NUM_SAMPLED_CLASSES,
+            compute_dtype=self.compute_dtype)
+        self.step_config = self._train_step.cfg
+        self.step_num = 0
+
+    def device_batch(self, b: BatchTensors):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in b.host_arrays())
+
+    def draws_for(self, batch_size: int, step: int) -> StepDraws:
+        """The draws the trainer makes for `step` (seeded from SEED)."""
+        return make_draws(self.dims, self.step_config, self.params,
+                          batch_size, self.config.SEED, step, self.device)
+
+    def train_step(self, batch, draws: Optional[StepDraws] = None
+                   ) -> torch.Tensor:
+        """One step on a device batch tuple; returns the loss tensor."""
+        if draws is None:
+            draws = self.draws_for(batch[0].shape[0], self.step_num)
+        loss = self._train_step(self.params, self.opt_state, batch, draws)
+        self.step_num += 1
+        return loss
+
+    def train(self, data_path: str, max_steps: Optional[int] = None,
+              epochs: int = 1) -> List[float]:
+        """Up to `epochs` shuffled passes over a `.c2v` file, stopping
+        after `max_steps` steps. Logs the loss every
+        NUM_BATCHES_TO_LOG_PROGRESS steps; returns every step's loss."""
+        cfg = self.config
+        reader = C2VTextReader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
+                               cfg.TRAIN_BATCH_SIZE, shuffle=True,
+                               seed=cfg.SEED)
+        losses: List[torch.Tensor] = []
+        for _epoch in range(epochs):
+            left = None if max_steps is None else max_steps - len(losses)
+            if left == 0:
+                break
+            # stops before the reader parses a batch past the last step
+            for b in itertools.islice(reader, left):
+                losses.append(self.train_step(self.device_batch(b)))
+                if len(losses) % cfg.NUM_BATCHES_TO_LOG_PROGRESS == 0:
+                    cfg.log(f"step {self.step_num}: loss "
+                            f"{losses[-1].item():.5f}")
+        values = torch.stack(losses).cpu().tolist() if losses else []
+        if values:
+            cfg.log(f"trained {len(values)} steps to step {self.step_num}: "
+                    f"loss {values[0]:.5f} -> {values[-1]:.5f}")
+        return values

@@ -1,2 +1,6 @@
-"""Pooling ops: the plain PyTorch attention pool (attention.py) and the
-hand-written CUDA kernel that fuses it (attention_kernel.py)."""
+"""Ops: the plain PyTorch attention pool (attention.py) and the
+hand-written CUDA kernel that fuses it (attention_kernel.py), the
+live-row Adam kernels (sparse_update_kernel.py) and their plain
+versions (sparse_update.py), int8 tables and the
+dither stream (quant.py), the sampled-softmax sampler (sampled_softmax.py).
+"""

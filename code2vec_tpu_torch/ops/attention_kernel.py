@@ -12,6 +12,17 @@ load), outputs are float32 `code [B, D]` and `attn [B, C]`, and the
 goes to the plain version `attention_pool_plain`; a CUDA tensor goes to
 the kernel, or the call raises. It counts its kernel launches in
 `attention_pool_fused.launches`.
+
+`attention_pool_train` is the differentiable pool of the training step,
+the counterpart of the JAX package's custom-VJP `attention_pool_fused`:
+on CUDA tensors its forward is the kernel and its backward recomputes
+the plain pool in the contexts' dtype under autograd (`_fused_bwd` in
+ops/pallas_attention.py, which rematerialises the pool rather than
+keeping a backward kernel). The JAX package's sparse-row step pools
+with the plain XLA version instead; the port uses the kernel on the
+card, as the JAX dense step does, so the plain pool is not on the main
+path when a card is present. On CPU tensors it is the plain pool, as in
+the JAX sparse step.
 """
 
 from __future__ import annotations
@@ -106,3 +117,45 @@ def attention_pool_fused(contexts: torch.Tensor, transform: torch.Tensor,
 
 
 attention_pool_fused.launches = 0
+
+
+class _KernelPoolRecomputeBackward(torch.autograd.Function):
+    """Forward: the CUDA kernel (float32 code, attention weights not
+    differentiated). Backward: the VJP of the plain pool recomputed in
+    the contexts' dtype, with the code widened to float32."""
+
+    @staticmethod
+    def forward(ctx, contexts, transform, attention, mask):
+        code, attn = attention_pool_fused(contexts, transform, attention,
+                                          mask)
+        ctx.save_for_backward(contexts, transform, attention, mask)
+        ctx.mark_non_differentiable(attn)
+        return code, attn
+
+    @staticmethod
+    def backward(ctx, d_code, _d_attn):
+        contexts, transform, attention, mask = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:3]
+        leaves = [x.detach().requires_grad_(need)
+                  for x, need in zip((contexts, transform, attention), needs)]
+        with torch.enable_grad():
+            code, _attn = attention_pool(leaves[0], leaves[1], leaves[2],
+                                         mask)
+            wanted = [x for x, need in zip(leaves, needs) if need]
+            grads = iter(torch.autograd.grad(code.to(torch.float32), wanted,
+                                             d_code))
+        return (*(next(grads) if need else None for need in needs), None)
+
+
+def attention_pool_train(contexts: torch.Tensor, transform: torch.Tensor,
+                         attention: torch.Tensor, mask: torch.Tensor, *,
+                         use_kernel: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The differentiable pool of the training step -> (code [B, D] in
+    the contexts' dtype, attn [B, C] float32). CUDA tensors with
+    `use_kernel` go through the kernel; otherwise the plain pool runs."""
+    if use_kernel and contexts.device.type != "cpu":
+        code, attn = _KernelPoolRecomputeBackward.apply(
+            contexts, transform, attention, mask)
+        return code.to(contexts.dtype), attn
+    return attention_pool(contexts, transform, attention, mask)

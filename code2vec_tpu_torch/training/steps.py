@@ -1,7 +1,14 @@
-"""The predict and encode steps as plain functions on device tensors.
+"""The train, predict and encode steps as plain functions on device
+tensors.
 
-Counterparts of `make_predict_step` and `make_encode_step` in the JAX
-package's training/steps.py, with that path's casts: the contexts are
+`make_train_step` is the sparse-row branch of the JAX package's
+step-construction entry point (training/sparse_steps.py); the dense
+step is not ported, and the trainer refuses a configuration that needs
+it.
+
+The predict and encode steps are the counterparts of `make_predict_step`
+and `make_encode_step` in the JAX package's training/steps.py, with that
+path's casts: the contexts are
 gathered in the compute dtype, the pool's code vector is cast to the
 compute dtype before the logits product against `target_emb`, and the
 returned code vector is that value widened to float32. The
@@ -14,12 +21,39 @@ of tensors on the params' device.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
 from code2vec_tpu_torch.models.encoder import (ModelDims, Params, encode,
                                                full_logits)
+from code2vec_tpu_torch.training.optimizers import AdamF32Moments
+from code2vec_tpu_torch.training.sparse_steps import (SparseStepConfig,
+                                                      sparse_train_step)
+
+
+def make_train_step(dims: ModelDims, optimizer: AdamF32Moments, *,
+                    use_sampled_softmax: bool = False,
+                    num_sampled: int = 4096,
+                    compute_dtype=torch.float32,
+                    use_kernel: bool = True) -> Callable:
+    """Returns the sparse-row `step(params, opt_state, batch, draws) ->
+    loss`, which updates params and opt_state in place. `optimizer` is the
+    dense optimizer the opt state was built with (sparse_steps.
+    init_sparse_opt_state); its learning rate is the tables' row-Adam LR
+    too, as in the JAX package."""
+    cfg = SparseStepConfig(learning_rate=optimizer.learning_rate,
+                           use_sampled_softmax=use_sampled_softmax,
+                           num_sampled=num_sampled,
+                           compute_dtype=compute_dtype)
+
+    def step(params, opt_state, batch, draws):
+        return sparse_train_step(params, opt_state, batch, draws, dims=dims,
+                                 cfg=cfg, dense_opt=optimizer,
+                                 use_kernel=use_kernel)
+
+    step.cfg = cfg
+    return step
 
 
 def encode_step(params: Params, batch, *, compute_dtype=torch.float32,

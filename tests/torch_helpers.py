@@ -26,3 +26,30 @@ def assert_topk_agree(ids, probs, ref_ids, ref_probs, tol: float,
                 assert ids[i, j] == ref_ids[i, j], (i, j)
                 checked += 1
     return checked
+
+
+def max_ulp_diff(a, b) -> int:
+    """Largest distance in float32 units in the last place between two
+    arrays (both widened to float32; +0 and -0 are 0 apart)."""
+    a = np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)
+    b = np.ascontiguousarray(np.asarray(b, np.float32)).view(np.int32)
+    assert a.shape == b.shape
+
+    def ordered(x):
+        x = x.astype(np.int64)
+        return np.where(x < 0, -(x & 0x7FFFFFFF), x)
+    if a.size == 0:
+        return 0
+    return int(np.max(np.abs(ordered(a) - ordered(b))))
+
+
+def assert_close_f32_ulp(a, b, n: int) -> None:
+    """|a - b| within `n` float32 ulp of the largest |b| in the array: a
+    fused multiply-add rounds once where a separate multiply and add
+    round twice, and when the two terms cancel that difference is an ulp
+    of the terms, not of their sum."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    assert a.shape == b.shape
+    if b.size:
+        tol = n * float(np.spacing(np.max(np.abs(b))))
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol)
