@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Run the PyTorch port's serving, training and evaluation paths on one
+CUDA card and check them.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -11,10 +11,11 @@ Phases (any failure raises, and the script exits non-zero):
 2. build every kernel of the ported paths from `code2vec_tpu_torch/csrc`,
    one `nvcc` per source, all started together; print each entry
    point's registers and spills;
-3. the attention-pool kernel against its plain PyTorch version on the
-   card, at the serving shapes (B = 1, 7, 64; bf16 and float32 contexts)
-   and the training shape (B = 1024, bf16), with its time beside the
-   plain version's, a library yardstick's and the card's bound;
+3. the attention-pool kernel (kernel 1) against its plain PyTorch
+   version on the card, at the serving shapes (B = 1, 7, 64; bf16 and
+   float32 contexts) and the training shape (B = 1024, bf16), with its
+   time beside the plain version's, a library yardstick's and the card's
+   bound;
 4. the serving path at java-large width (vocab sizes 1,301,136 tokens,
    911,417 paths, 261,245 targets; E = 128, C = 200, bf16 tables, bf16
    compute; random weights from seed 0, a synthetic vocab): the port's
@@ -33,11 +34,33 @@ Phases (any failure raises, and the script exits non-zero):
    one step with the kernels against one with the plain versions from
    the same state, draws and row gradients; the loss falling over 5
    steps of a repeated batch; the step time and its split by phase;
-6. the live-row Adam kernels against their plain versions on the card,
-   at U = 1, 1000 and the U of a java-large step, for E = 128 bf16,
-   E = 128 float32, E = 384 bf16 (kernel 5) and E = 128 int8 (kernel 6),
-   with their times beside the plain versions' and the bound;
-7. a `{"kernels": [...]}` line, the card line, and last
+6. the live-row Adam kernels (5 and 6) against their plain versions on
+   the card, at U = 1, 1000 and the U of a java-large step, for E = 128
+   bf16, E = 128 float32, E = 384 bf16 (kernel 5) and E = 128 int8
+   (kernel 6), with their times beside the plain versions' and the bound;
+7. the dense int8 requantize kernel (kernel 4) against its plain version
+   on the card, at (V, E) = (1, 128), (1000, 128), (257, 100) and the two
+   java-large int8 tables (1,301,138 and 911,419 rows of 128), bf16
+   updates and one float32 case: q and s bit-identical, its time beside
+   the plain version's and the byte bound;
+8. the dense training path (the default step) at the same width through
+   the trainer, over the same file, in two configurations: (c) the JAX
+   package's defaults: bf16 tables, full softmax, Adafactor on the
+   tables, Adam on TRANSFORM / ATTENTION, cosine LR; (d) int8 token/path
+   and bf16 target tables, sampled softmax over 4096, Adafactor, cosine
+   LR (kernel 4 on token and path every step). For each: counted steps
+   (kernel 4 twice a step in (d), never in (c), kernel 1 once a step);
+   one step with the kernels against one with the plain versions from the
+   same state and draws (loss within 1e-3; the same optimizer update
+   applied by both gives bit-identical tables, q and s); the loss falling
+   over 5 steps of a repeated batch; the step time, its split by phase
+   and the device busy share;
+9. evaluation: `Code2VecTrainer.evaluate` over a synthetic 4096-method
+   test file at TEST_BATCH_SIZE 1024 (counted: kernel 1 once a batch),
+   its results and methods/s; the kernel path held against the plain
+   path batch by batch (loss within 1e-3, top-1 equal on 99% of the
+   methods);
+10. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -57,6 +80,7 @@ import threading
 import time
 
 SEED = 0
+DEV = "cuda"  # where the kernel-4 phase makes its tables
 C, E = 200, 128
 D = 3 * E
 JAVA_LARGE = {"token": 1301136, "path": 911417, "target": 261245}
@@ -85,6 +109,18 @@ LOSS_RTOL, MOMENT_RTOL = 1e-3, 1e-5
 # int8: a q one apart (a value on a rounding edge) on at most this share
 # of the updated elements; s within 2 ulp
 Q_SHARE, S_ULP = 1e-5, 2
+# kernel 4 (dense requantize): the test cases, (V, E, update dtype)
+REQUANT_CASES = ((1, E, "bfloat16"), (1000, E, "bfloat16"),
+                 (257, 100, "bfloat16"), (1000, E, "float32"),
+                 (JAVA_LARGE["token"] + 2, E, "bfloat16"),
+                 (JAVA_LARGE["path"] + 2, E, "bfloat16"))
+# float32 operations per element of one requantize: pass 1 multiply, add,
+# abs, max; pass 2 multiply, add, divide, add, round, 2 clamps; the hash
+# 2 multiplies, 3 xors, 3 shifts, a convert, a multiply, a subtract
+REQUANT_OPS = 21
+# evaluation: methods in the test file; the kernel path's top-1 must equal
+# the plain path's on this share of them
+EVAL_METHODS, EVAL_TOP1_SHARE = 4096, 0.99
 
 # published dense peaks: float32 outside the tensor cores, bf16 tensor
 # cores, HBM bytes/s (NVIDIA data sheets)
@@ -491,15 +527,17 @@ def phase_build(report):
     """One `nvcc` per source, all started together."""
     from code2vec_tpu_torch.ops import _build
     from code2vec_tpu_torch.ops.attention_kernel import KERNEL as POOL
+    from code2vec_tpu_torch.ops.requant_kernel import KERNEL as REQUANT
     from code2vec_tpu_torch.ops.sparse_update_kernel import KERNEL as ROWS
+    names = (POOL, ROWS, REQUANT)
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        futures = {name: ex.submit(_build.build, name) for name in (POOL, ROWS)}
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        futures = {name: ex.submit(_build.build, name) for name in names}
         nvcc_s = {name: f.result() for name, f in futures.items()}
     report["build_s"] = time.perf_counter() - t0
     report["nvcc_s"] = nvcc_s
     report["ptxas"] = {}
-    for name in (POOL, ROWS):
+    for name in names:
         entries = ptxas_report(_build.build_log(name))
         report["ptxas"][name] = entries
         print(f"[2] built {name}: nvcc {nvcc_s[name]:.2f} s", flush=True)
@@ -882,6 +920,334 @@ def phase_row_kernels(torch, peaks, java_u, report):
     return rows
 
 
+def requant_bound(V: int, E: int, upd_bytes: int, peaks):
+    """Least time of one dense requantize: q read and written, s read and
+    written, the update read, over the HBM rate; REQUANT_OPS float32
+    operations per element over the float32 peak."""
+    f32_peak, _bf16_peak, hbm = peaks
+    nbytes = V * E * (2 + upd_bytes) + 8 * V
+    flops = REQUANT_OPS * V * E
+    ms_bytes, ms_ops = nbytes / hbm * 1e3, flops / f32_peak * 1e3
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": ms_bytes,
+            "f32_ops_ms": ms_ops, "bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "bytes" if ms_bytes >= ms_ops else "operations"}
+
+
+def phase_requant_kernel(torch, peaks, report):
+    """Kernel 4 against its plain version on the card: q and s
+    bit-identical in every case (every third row takes a zero update)."""
+    from code2vec_tpu_torch.ops import quant
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    rows = []
+    for V, width, upd_name in REQUANT_CASES:
+        upd_dtype = getattr(torch, upd_name)
+        base = torch.randn((V, width), generator=gen, device=DEV) * 0.3
+        upd = torch.randn((V, width), generator=gen, device=DEV) * 0.005
+        upd[::3] = 0  # rows the step leaves alone
+        upd = upd.to(upd_dtype)
+        k_t = quant.quantize_table(base)
+        q0 = k_t["q"].clone()
+        del base
+        p_t = quant.requantize_reference(k_t, upd, 0x2545F491)
+        quant.requantize(k_t, upd, 0x2545F491)  # the kernel, in place
+        torch.cuda.synchronize()
+        check(torch.equal(k_t["q"], p_t["q"]), f"requantize V={V} E={width} "
+              f"{upd_name}: q differs from the plain version")
+        check(torch.equal(k_t["s"], p_t["s"]), f"requantize V={V} E={width} "
+              f"{upd_name}: s differs from the plain version")
+        # a zero-update row requantizes to itself up to the dither tail
+        flips = int((k_t["q"][::3] != q0[::3]).sum().item())
+        check(flips <= max(1, q0[::3].numel() // 10000),
+              f"requantize V={V}: {flips} elements of zero-update rows moved")
+        del p_t, q0
+        torch.cuda.empty_cache()
+        reps = 30 if V < 100000 else 10
+
+        def run_kernel():
+            quant.requantize(k_t, upd, 7)
+
+        def run_plain():
+            quant.requantize(k_t, upd, 7, use_kernel=False)
+        k_ms = time_ms(torch, run_kernel, reps=reps)
+        p_ms = time_ms(torch, run_plain, reps=reps)
+        dev_ms = kernel_device_ms(torch, run_kernel, "requant_kernel")
+        bound = requant_bound(V, width, upd.element_size(), peaks)
+        row = {"V": V, "E": width, "update": upd_name, "max_abs_err": 0.0,
+               "zero_update_flips": flips, "ms": k_ms,
+               "kernel_device_ms": dev_ms, "plain_ms": p_ms,
+               "library_ms": None, **bound}
+        rows.append(row)
+        print(f"  requantize V={V:8d} E={width} {upd_name:8s}: q, s "
+              f"bit-identical ({flips} zero-update flips) | kernel "
+              f"{k_ms:.4f} ms (device {dev_ms:.4f}) plain {p_ms:.4f} ms | "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+              f"{bound['bytes'] / 1e6:.1f} MB)", flush=True)
+        del k_t, upd
+        torch.cuda.empty_cache()
+    report["requant_kernel"] = rows
+    return rows
+
+
+def dense_config(label: str, tables: str, sampled: bool):
+    """The JAX package's defaults (dense step, Adafactor, cosine LR) at
+    java-large width, with the given tables and softmax."""
+    from code2vec_tpu_torch.config import Config
+    cfg = Config(MAX_CONTEXTS=C, DEFAULT_EMBEDDINGS_SIZE=E,
+                 TRAIN_BATCH_SIZE=TRAIN_B, TABLES_DTYPE=tables,
+                 USE_SAMPLED_SOFTMAX=sampled, NUM_SAMPLED_CLASSES=TRAIN_S,
+                 SEED=SEED)
+    check((cfg.SPARSE_EMBEDDING_UPDATES, cfg.EMBEDDING_OPTIMIZER,
+           cfg.LR_SCHEDULE, cfg.USE_BF16) ==
+          (False, "adafactor", "cosine", True), f"({label}) not the defaults")
+    return label, cfg
+
+
+def phase_dense_config(torch, np, vocabs, data_path, label, cfg, report):
+    """One dense training configuration at java-large width; returns the
+    counted run's launches."""
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import (
+        sparse_requant_adam_fused, sparse_row_adam_fused)
+    from code2vec_tpu_torch.training.draws import quantized_keys
+    from code2vec_tpu_torch.training.steps import (apply_dense_updates,
+                                                   dense_loss_and_grads,
+                                                   make_train_loss_fn)
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Code2VecTrainer(cfg, vocabs)  # device=None: the card
+    check(trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    dims, step_cfg = trainer.dims, trainer.step_config
+    qkeys = quantized_keys(trainer.params)
+    head = (f"sampled softmax S={TRAIN_S}" if cfg.USE_SAMPLED_SOFTMAX
+            else "full softmax")
+    print(f"  ({label}) tables {cfg.TABLES_DTYPE}, {head}, Adafactor + Adam, "
+          f"cosine LR; int8 tables {qkeys}; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    attention_pool_fused.launches = 0
+    requantize_fused.launches = 0
+    sparse_row_adam_fused.launches = 0
+    sparse_requant_adam_fused.launches = 0
+    t_run = time.perf_counter()
+    losses = trainer.train(data_path, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = {"attention_pool": attention_pool_fused.launches,
+                "requantize": requantize_fused.launches,
+                "sparse_row_adam": sparse_row_adam_fused.launches,
+                "sparse_requant_adam": sparse_requant_adam_fused.launches}
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"({label}) losses {losses}")
+    want = {"attention_pool": TRAIN_STEPS,
+            "requantize": TRAIN_STEPS * len(qkeys),
+            "sparse_row_adam": 0, "sparse_requant_adam": 0}
+    check(launches == want, f"({label}) launches {launches}, expected "
+          f"{want} for {TRAIN_STEPS} steps")
+    print(f"  ({label}) trainer.train: {TRAIN_STEPS} steps in {run_s:.2f} s "
+          f"(host parse included; LR horizon {trainer.total_steps} steps), "
+          f"losses {', '.join(f'{x:.5f}' for x in losses)}; launches "
+          f"{launches}", flush=True)
+
+    # ---- one step: kernels vs plain versions from the same state ----
+    reader = C2VTextReader(data_path, vocabs, C, TRAIN_B)
+    batch = trainer.device_batch(next(iter(reader)))
+    draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+    params, state, opt = trainer.params, trainer.opt_state, trainer.optimizer
+    kw = dict(use_sampled_softmax=step_cfg.use_sampled_softmax,
+              num_sampled=step_cfg.num_sampled,
+              compute_dtype=step_cfg.compute_dtype)
+    loss_fn_k = make_train_loss_fn(dims, use_kernel=True, **kw)
+    loss_fn_p = make_train_loss_fn(dims, use_kernel=False, **kw)
+    loss_k, grads, view = dense_loss_and_grads(params, batch, draws,
+                                               loss_fn_k)
+    loss_p, _, _ = dense_loss_and_grads(params, batch, draws, loss_fn_p)
+    updates = opt.update(grads, state, view)
+    twin = clone_state(torch, params)
+    apply_dense_updates(params, updates, draws.salts, use_kernel=True)
+    apply_dense_updates(twin, updates, draws.salts, use_kernel=False)
+    torch.cuda.synchronize()
+    lk, lp = loss_k.item(), loss_p.item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(loss_rel <= LOSS_RTOL, f"({label}) loss kernel {lk} plain {lp}")
+    for k in params:
+        pairs = ([(f"{k}.q", params[k]["q"], twin[k]["q"]),
+                  (f"{k}.s", params[k]["s"], twin[k]["s"])]
+                 if isinstance(params[k], dict) else [(k, params[k], twin[k])])
+        for name, a, b in pairs:
+            check(torch.equal(a, b), f"({label}) {name}: kernel step and "
+                  f"plain step differ given the same update")
+    trainer.step_num += 1
+    del twin, grads, view, updates
+    torch.cuda.empty_cache()
+    print(f"  ({label}) kernel step vs plain step: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {loss_rel:.2e}); the same update gives bit-identical "
+          f"params{' (q, s of ' + ', '.join(qkeys) + ')' if qkeys else ''}",
+          flush=True)
+
+    # ---- the loss falls over a repeated batch (and the same draws) ----
+    fixed = trainer.draws_for(TRAIN_B, trainer.step_num)
+    fall = [trainer.train_step(batch, fixed).item() for _ in range(FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f"({label}) loss over a repeated batch: {fall}")
+    print(f"  ({label}) repeated batch, {FALL_STEPS} steps: "
+          f"{', '.join(f'{x:.5f}' for x in fall)}", flush=True)
+
+    # ---- step time and its split by phase ----
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    names = ["draws", "forward+backward", "optimizer", "apply/requantize"]
+    split = {n: [] for n in names}
+    for _ in range(TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        d = trainer.draws_for(TRAIN_B, trainer.step_num)
+        ev[1].record()
+        _loss, grads, view = dense_loss_and_grads(params, batch, d, loss_fn_k)
+        ev[2].record()
+        updates = opt.update(grads, state, view)
+        ev[3].record()
+        apply_dense_updates(params, updates, d.salts)
+        ev[4].record()
+        ev[4].synchronize()
+        trainer.step_num += 1
+        for i, n in enumerate(names):
+            split[n].append(ev[i].elapsed_time(ev[i + 1]))
+    del grads, view, updates
+    med = {n: sorted(v)[len(v) // 2] for n, v in split.items()}
+    step_med = sorted(step_ms)[len(step_ms) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  ({label}) step {step_med:.2f} ms (median of {TIMED_STEPS}, host "
+          f"clock, synchronised); by phase (CUDA events, median): " +
+          ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
+          f"; peak device memory {peak_gb:.2f} GB", flush=True)
+    prof = profile_calls(torch, lambda: trainer.train_step(batch),
+                         TIMED_STEPS)
+    busy_share = prof["busy_ms"] / step_med
+    print(f"  ({label}) profiler, {TIMED_STEPS} steps: device busy "
+          f"{prof['busy_ms']:.3f} ms per step = {busy_share:.3f} of the "
+          f"unprofiled step ({prof['busy_ms'] / prof['wall_ms']:.3f} of the "
+          f"profiled {prof['wall_ms']:.2f} ms); largest kernels (ms per "
+          f"step): " + ", ".join(
+              f"{short_name(k)} {ms:.3f}"
+              for k, ms in list(prof["kernel_ms"].items())[:6]), flush=True)
+    report[f"train_{label}"] = {
+        "tables": cfg.TABLES_DTYPE, "sampled": cfg.USE_SAMPLED_SOFTMAX,
+        "optimizer": "adafactor", "lr_schedule": cfg.LR_SCHEDULE,
+        "lr_horizon": trainer.total_steps, "launches": launches,
+        "steps": TRAIN_STEPS, "losses": losses, "run_s": run_s,
+        "loss_kernel": lk, "loss_plain": lp, "loss_rel": loss_rel,
+        "repeated_batch_losses": fall, "step_ms": step_ms,
+        "step_ms_median": step_med, "phase_ms_median": med,
+        "peak_memory_gb": peak_gb, "profile": prof,
+        "device_busy_share": busy_share}
+    del trainer, params, state, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def eval_plain(torch, params, batch, dims, top_k: int):
+    """The evaluation step with the attention pool's plain float32
+    version where the kernel runs (the code cast to bf16 after, as the
+    kernel path casts it): (loss_sum, top-k ids)."""
+    import torch.nn.functional as F
+    from code2vec_tpu_torch.models.encoder import full_logits, gather_contexts
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_plain
+    labels, src, pth, dst, mask, weights = batch
+    ctx = gather_contexts(params, src, pth, dst, torch.bfloat16)
+    code, _ = attention_pool_plain(ctx, params["transform"],
+                                   params["attention"], mask)
+    logits = full_logits(params, code.to(torch.bfloat16),
+                         dims.target_vocab_size)
+    ce = torch.clamp(F.cross_entropy(logits, labels.long(), reduction="none"),
+                     min=0.0)
+    return (ce * weights).sum(), torch.topk(logits, top_k, dim=-1).indices
+
+
+def phase_eval(torch, np, vocabs, test_path, report):
+    """`evaluate` over the test file (counted), then the kernel path
+    against the plain path batch by batch."""
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.training.steps import eval_step
+    _, cfg = dense_config("eval", "bfloat16", False)
+    trainer = Code2VecTrainer(cfg, vocabs)  # device=None: the card
+    # the same stretch as the serving phase: initial tables near 0 make
+    # every logit the same and the top-1 comparison vacuous
+    for key, reach in (("token_emb", 1.0), ("path_emb", 1.0),
+                       ("target_emb", 0.3)):
+        t = trainer.params[key]
+        t.mul_(reach / t.float().abs().max().item())
+    top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+    n_batches = -(-EVAL_METHODS // cfg.TEST_BATCH_SIZE)
+    trainer.evaluate(test_path)  # warm: allocator, library set-up
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    attention_pool_fused.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = trainer.evaluate(test_path)
+    eval_s = time.perf_counter() - t
+    launches = {"attention_pool": attention_pool_fused.launches}
+    check(launches["attention_pool"] == n_batches,
+          f"eval: attention_pool launched {launches['attention_pool']} times "
+          f"for {n_batches} batches")
+    check(np.isfinite(results.loss) and len(results.topk_acc) == top_k and
+          all(0 <= a <= 1 for a in results.topk_acc) and
+          0 <= results.subtoken_f1 <= 1, f"eval results {results}")
+    rate = EVAL_METHODS / eval_s
+    print(f"  evaluate: {EVAL_METHODS} methods in {n_batches} batches of "
+          f"{cfg.TEST_BATCH_SIZE}, {eval_s:.3f} s ({rate:.0f} methods/s, "
+          f"host parse and decode included); {results}; launches "
+          f"{launches}", flush=True)
+
+    # ---- the kernel path vs the plain path, batch by batch ----
+    reader = C2VTextReader(test_path, vocabs, C, cfg.TEST_BATCH_SIZE)
+    loss_k = loss_p = 0.0
+    same = total = 0
+    with torch.inference_mode():
+        for b in reader:
+            batch = trainer.device_batch(b)
+            lk, ids_k, _ = eval_step(trainer.params, batch, dims=trainer.dims,
+                                     top_k=top_k,
+                                     compute_dtype=torch.bfloat16)
+            lp, ids_p = eval_plain(torch, trainer.params, batch, trainer.dims,
+                                   top_k)
+            nv = b.num_valid_examples
+            loss_k += lk.item()
+            loss_p += lp.item()
+            same += int((ids_k[:nv, 0] == ids_p[:nv, 0]).sum().item())
+            total += nv
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    share = same / total
+    check(loss_rel <= LOSS_RTOL, f"eval loss kernel {loss_k} plain {loss_p}")
+    check(share >= EVAL_TOP1_SHARE, f"eval top-1 equal on {same}/{total}")
+    print(f"  eval kernel path vs plain path: loss sum {loss_k:.4f} vs "
+          f"{loss_p:.4f} (rel {loss_rel:.2e}); top-1 equal on {same}/{total}",
+          flush=True)
+    report["eval"] = {
+        "methods": EVAL_METHODS, "batch": cfg.TEST_BATCH_SIZE,
+        "seconds": eval_s, "methods_per_s": rate, "launches": launches,
+        "loss": results.loss, "topk_acc": results.topk_acc,
+        "subtoken_f1": results.subtoken_f1, "loss_rel_kernel_plain": loss_rel,
+        "top1_equal_share": share}
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -926,17 +1292,21 @@ def main(argv=None) -> int:
           flush=True)
     serve_launches = phase_serving(torch, np, vocabs, report)
 
-    # ---- 5. the training path ----
+    # ---- 5. the sparse-row training path ----
     print("[5] java-large sparse-row training path", flush=True)
     train_launches, java_u = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         data_path = os.path.join(tmp, "train.c2v")
+        test_path = os.path.join(tmp, "test.c2v")
         t0 = time.perf_counter()
         n_methods = (TRAIN_STEPS + 1) * TRAIN_B
         write_training_file(np, data_path, n_methods,
                             np.random.default_rng(SEED))
-        print(f"  synthetic .c2v: {n_methods} methods, "
-              f"{os.path.getsize(data_path) / 1e6:.1f} MB, written in "
+        write_training_file(np, test_path, EVAL_METHODS,
+                            np.random.default_rng(SEED + 1))
+        print(f"  synthetic .c2v: {n_methods} training and {EVAL_METHODS} "
+              f"test methods, {os.path.getsize(data_path) / 1e6:.1f} + "
+              f"{os.path.getsize(test_path) / 1e6:.1f} MB, written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for label, tables, sampled in (("a", "bfloat16", True),
                                        ("b", "int8", False)):
@@ -944,19 +1314,39 @@ def main(argv=None) -> int:
             train_launches[label], java_u[label] = phase_train_config(
                 torch, np, vocabs, data_path, label, cfg, report)
 
-    # ---- 6. the live-row Adam kernels vs their plain versions ----
-    print("[6] live-row Adam kernels vs plain versions", flush=True)
-    row_rows = phase_row_kernels(
-        torch, peaks, {"bfloat16": java_u["a"], "float32": java_u["a"],
-                       "int8": java_u["b"]}, report)
+        # ---- 6. the live-row Adam kernels vs their plain versions ----
+        print("[6] live-row Adam kernels vs plain versions", flush=True)
+        row_rows = phase_row_kernels(
+            torch, peaks, {"bfloat16": java_u["a"], "float32": java_u["a"],
+                           "int8": java_u["b"]}, report)
 
-    # ---- 7. result ----
+        # ---- 7. the dense requantize kernel vs its plain version ----
+        print("[7] dense int8 requantize kernel vs plain version", flush=True)
+        requant_rows = phase_requant_kernel(torch, peaks, report)
+
+        # ---- 8. the dense training path ----
+        print("[8] java-large dense training path (the default step)",
+              flush=True)
+        for label, tables, sampled in (("c", "bfloat16", False),
+                                       ("d", "int8", True)):
+            _, cfg = dense_config(label, tables, sampled)
+            train_launches[label] = phase_dense_config(
+                torch, np, vocabs, data_path, label, cfg, report)
+
+        # ---- 9. evaluation ----
+        print("[9] java-large evaluation", flush=True)
+        eval_launches = phase_eval(torch, np, vocabs, test_path, report)
+
+    # ---- 10. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
                      if r["B"] == TRAIN_B and r["ctx_dtype"] == "bfloat16")
     pool_launches = serve_launches["attention_pool"] + sum(
-        v["attention_pool"] for v in train_launches.values())
+        v["attention_pool"] for v in train_launches.values()) \
+        + eval_launches["attention_pool"]
+    main_requant = next(r for r in requant_rows
+                        if r["V"] == JAVA_LARGE["token"] + 2)
 
     def row_entry(name, kind, replaces, launches):
         main = next(r for r in row_rows if r["kind"] == kind and r["E"] == E
@@ -986,13 +1376,22 @@ def main(argv=None) -> int:
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
                   train_launches["b"]["sparse_requant_adam"]),
+        {"name": "requantize", "route": "cuda",
+         "source": "code2vec_tpu_torch/csrc/requant.cu",
+         "replaces": "code2vec_tpu/ops/pallas_requant.py:85",
+         "launches": train_launches["d"]["requantize"],
+         "max_abs_err": max(r["max_abs_err"] for r in requant_rows),
+         "ms": main_requant["ms"], "plain_ms": main_requant["plain_ms"],
+         "bound_ms": main_requant["bound_ms"],
+         "bound_by": main_requant["bound_by"], "library_ms": None},
     ]
     for k in kernels:
         check(k["launches"] >= 1, f"kernel {k['name']} never launched on "
               f"a main path")
     report["kernels"] = kernels
-    report["launches"] = {"serving": serve_launches, **{
-        f"train_{k}": v for k, v in train_launches.items()}}
+    report["launches"] = {"serving": serve_launches, "eval": eval_launches,
+                          **{f"train_{k}": v
+                             for k, v in train_launches.items()}}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -1,17 +1,19 @@
-"""Configuration of the ported paths: serving and the sparse-row step.
+"""Configuration of the ported paths: serving, the dense and the
+sparse-row training steps, and evaluation.
 
 The fields the port reads, under the names and defaults of `Config` in
 the JAX package's config.py, so a setting means the same in both. No
 command line yet.
 
-Training is ported for one combination only, the sparse-row step:
-`SPARSE_EMBEDDING_UPDATES=True`, `EMBEDDING_OPTIMIZER="adam"`,
-`LR_SCHEDULE="constant"` and the `bag` encoder, the three of which
-`verify` requires of a sparse run, as the JAX package's does. The
-defaults are the JAX package's (dense Adafactor step, cosine LR), so a
-caller sets the sparse fields explicitly; the trainer refuses the dense
-step with `NotImplementedError`. The port has one head (`code2vec`) and
-trains on one device, so it has no head or mesh fields yet.
+The defaults are the JAX package's: the dense step with Adafactor on the
+tables, Adam on TRANSFORM / ATTENTION, a cosine learning rate, bf16
+tables and full softmax. `SPARSE_EMBEDDING_UPDATES=True` selects the
+sparse-row step, which `verify` allows only with `EMBEDDING_OPTIMIZER=
+"adam"`, `LR_SCHEDULE="constant"` and the `bag` encoder, as the JAX
+package's does. The transformer encoder is not ported: the trainer
+refuses it with `NotImplementedError`. The port has one head
+(`code2vec`) and trains on one device, so it has no head or mesh fields
+yet.
 """
 
 from __future__ import annotations
@@ -50,18 +52,28 @@ class Config:
     # ---- training ----
     DROPOUT_KEEP_RATE: float = 0.75
     TRAIN_BATCH_SIZE: int = 1024
+    TEST_BATCH_SIZE: int = 1024
+    # epochs of a `train` call; with the example count and the batch
+    # size it sets a decaying schedule's horizon
+    NUM_TRAIN_EPOCHS: int = 20
     NUM_BATCHES_TO_LOG_PROGRESS: int = 100
     LEARNING_RATE: float = 0.001
-    # "cosine" | "linear" | "warmup_cosine" | "constant"; only "constant"
-    # is ported
+    # "cosine" | "linear" | "warmup_cosine" | "constant"
     LR_SCHEDULE: str = "cosine"
+    # "warmup_cosine" warmup length; 0 = auto (5% of the horizon)
+    LR_WARMUP_STEPS: int = 0
+    # LAMB-style per-array trust-ratio rescale
+    # (training/optimizers.make_optimizer)
+    TRUST_RATIO: bool = False
+    # "all": every optimizer branch; "dense": TRANSFORM / ATTENTION only
+    TRUST_RATIO_SCOPE: str = "all"
     SEED: int = 239
     USE_SAMPLED_SOFTMAX: bool = False
     NUM_SAMPLED_CLASSES: int = 4096
     # touched-rows-only (lazy) Adam for the vocab tables: dedup +
     # segment-sum + the live-row kernels (training/sparse_steps.py)
     SPARSE_EMBEDDING_UPDATES: bool = False
-    # "adafactor" (not ported) | "adam"
+    # "adafactor" (tables; Adam on TRANSFORM / ATTENTION) | "adam"
     EMBEDDING_OPTIMIZER: str = "adafactor"
 
     def log(self, msg: str) -> None:
@@ -77,6 +89,34 @@ class Config:
         if self.TABLES_DTYPE not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"TABLES_DTYPE must be float32, bfloat16 or "
                              f"int8 (got {self.TABLES_DTYPE!r}).")
+        if self.TABLES_DTYPE == "int8":
+            if self.ENCODER_TYPE != "bag":
+                raise ValueError(
+                    "TABLES_DTYPE int8 supports the bag encoder only "
+                    "(the transformer gathers the tables directly).")
+            if self.TRUST_RATIO:
+                raise ValueError(
+                    "TABLES_DTYPE int8 is incompatible with TRUST_RATIO "
+                    "(the trust rescale needs ||param|| of the flat table "
+                    "the quantized step never materializes).")
+        if self.LR_WARMUP_STEPS < 0:
+            raise ValueError("LR_WARMUP_STEPS must be >= 0.")
+        if self.LR_WARMUP_STEPS > 0 and self.LR_SCHEDULE != "warmup_cosine":
+            raise ValueError(
+                "LR_WARMUP_STEPS applies only to LR_SCHEDULE "
+                "warmup_cosine (other schedules have no warmup phase and "
+                "would silently ignore it).")
+        if (self.TRUST_RATIO and self.TRUST_RATIO_SCOPE == "dense"
+                and self.EMBEDDING_OPTIMIZER != "adafactor"):
+            raise ValueError(
+                "TRUST_RATIO_SCOPE dense requires EMBEDDING_OPTIMIZER "
+                "adafactor (adam runs one transform over all params; no "
+                "table/dense split).")
+        if self.TRUST_RATIO and self.SPARSE_EMBEDDING_UPDATES:
+            raise ValueError(
+                "TRUST_RATIO is not supported with SPARSE_EMBEDDING_UPDATES "
+                "(the sparse row-update kernel bypasses the optimizer chain "
+                "for the tables).")
         if self.SPARSE_EMBEDDING_UPDATES and \
                 self.EMBEDDING_OPTIMIZER != "adam":
             # the live-row update IS row-Adam; adafactor's factored

@@ -8,11 +8,20 @@ of the `bfloat16` dtype that `ml_dtypes` registers. Both directions keep
 dtypes and bits: bf16 stays bf16, int8 stays int8. Nothing here imports
 JAX.
 
-The sparse-row step's optimizer state crosses the same way. On the JAX
-side it is `{"dense": (ScaleByAdamState(count, mu, nu), EmptyState()),
-"rows": {table: RowAdamState(m, v)}, "count"}`; here it is
-`{"dense": {"count", "mu", "nu"}, "rows": {table: RowAdamState(m, v)},
-"count"}` (training/sparse_steps.init_sparse_opt_state).
+The optimizer states cross the same way:
+- the dense step's: optax's `MultiTransformState` (`PartitionState` in
+  newer optax) / `MaskedState` /
+  `FactoredState` / `ScaleByAdamState` / `ScaleByScheduleState` /
+  `EmptyState` tree on the JAX side; here the same NamedTuples
+  (training/optimizers.py) with a multi-transform state as a dict
+  {label: chain state}, and optax's `MaskedState` wrappers and
+  `MaskedNode` placeholders, which hold no values, left out. The leaves
+  keep their dtypes (Adafactor's bf16 moments stay bf16);
+- the sparse-row step's: `{"dense": (ScaleByAdamState(count, mu, nu),
+  EmptyState()), "rows": {table: RowAdamState(m, v)}, "count"}` on the
+  JAX side; here `{"dense": {"count", "mu", "nu"}, "rows": {table:
+  RowAdamState(m, v)}, "count"}` (training/sparse_steps.
+  init_sparse_opt_state).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ import torch
 
 from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.ops.sparse_update import RowAdamState
+from code2vec_tpu_torch.training import optimizers
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -106,3 +116,47 @@ def sparse_opt_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
                  for k, st in state["rows"].items()},
         "count": _tensor_to_numpy(state["count"]),
     }
+
+
+_STATES = {cls.__name__: cls for cls in (
+    optimizers.EmptyState, optimizers.ScaleByAdamState,
+    optimizers.FactoredState, optimizers.ScaleByScheduleState)}
+
+
+def dense_opt_state_from_numpy(tree: Any,
+                               device: Optional[Union[str, torch.device]]
+                               = None) -> Any:
+    """The JAX dense optimizer state with numpy leaves (optax's
+    NamedTuples kept, as `jax.tree_util.tree_map(np.asarray, state)`
+    leaves them) -> the port's state on `device` (None = the CUDA
+    card)."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        name = type(x).__name__
+        if name in ("MultiTransformState", "PartitionState"):
+            return {label: conv(st) for label, st in x.inner_states.items()}
+        if name == "MaskedState":
+            return conv(x.inner_state)
+        if name in _STATES:
+            return _STATES[name](*(conv(f) for f in x))
+        if isinstance(x, tuple):
+            return tuple(conv(f) for f in x)
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()
+                    if type(v).__name__ != "MaskedNode"}
+        return _tensor_from_numpy(np.asarray(x), dev)
+    return conv(tree)
+
+
+def dense_opt_state_to_numpy(state: Any) -> Any:
+    """The port's dense optimizer state -> the same tree with host numpy
+    leaves; its leaves come in the order of the JAX state's
+    `jax.tree_util.tree_leaves`."""
+    if isinstance(state, torch.Tensor):
+        return _tensor_to_numpy(state)
+    if isinstance(state, dict):
+        return {k: dense_opt_state_to_numpy(v) for k, v in state.items()}
+    if type(state).__name__ in _STATES:
+        return type(state)(*(dense_opt_state_to_numpy(f) for f in state))
+    return tuple(dense_opt_state_to_numpy(f) for f in state)

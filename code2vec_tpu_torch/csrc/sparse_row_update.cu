@@ -50,11 +50,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "quant_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
-constexpr float kScaleFloor = 1e-12f;
 constexpr long long kMaxRows = 0x7fffffffLL * kRowsPerBlock;  // grid.x limit
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -82,22 +83,6 @@ __device__ __forceinline__ AdamOut adam(float p, float m, float v, float g,
   const float denom = __fadd_rn(__fsqrt_rn(o.v), hp.eps);
   o.p = __fsub_rn(p, __fdiv_rn(__fmul_rn(lr_t, o.m), denom));
   return o;
-}
-
-// ops/quant.py::dither_from_index, in uint32 arithmetic
-__device__ __forceinline__ float dither(uint32_t idx, uint32_t salt) {
-  uint32_t h = (idx ^ salt) * 2654435761u;
-  h ^= h >> 16;
-  h *= 2246822519u;
-  h ^= h >> 13;
-  return __fsub_rn(__fmul_rn(static_cast<float>(h >> 8), 1.0f / 16777216.0f), 0.5f);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
 }
 
 template <typename T>
@@ -148,38 +133,18 @@ requant_adam_kernel(int8_t* __restrict__ q, float* __restrict__ s, float* __rest
     const AdamOut o = adam(p, m_row[c], v_row[c], g_row[c], lr_t, hp);
     amax = fmaxf(amax, fabsf(o.p));
   }
-  amax = warp_max(amax);
-  const float s_new = __fdiv_rn(fmaxf(amax, kScaleFloor), 127.0f);
+  const float s_new = c2v::row_scale(c2v::warp_max(amax));
 
   // pass 2: the same update again, requantized against s_new, and written
   const uint32_t base = static_cast<uint32_t>(row) * static_cast<uint32_t>(E);
   for (int c = lane; c < E; c += 32) {
     const float p = __fmul_rn(static_cast<float>(q_row[c]), scale);
     const AdamOut o = adam(p, m_row[c], v_row[c], g_row[c], lr_t, hp);
-    const float x = __fdiv_rn(o.p, s_new);
-    const float r = rintf(__fadd_rn(x, dither(base + static_cast<uint32_t>(c), salt)));
-    q_row[c] = static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+    q_row[c] = c2v::quantize(o.p, s_new, c2v::dither(base + static_cast<uint32_t>(c), salt));
     m_row[c] = o.m;
     v_row[c] = o.v;
   }
   if (lane == 0) s[row] = s_new;
-}
-
-// Runs `launch` on `device` and leaves the calling thread's current device
-// as it was.
-template <typename F>
-cudaError_t on_device(int device, F launch) {
-  int prev = 0;
-  cudaError_t err = cudaGetDevice(&prev);
-  if (err != cudaSuccess) return err;
-  if (prev != device && (err = cudaSetDevice(device)) != cudaSuccess) return err;
-  launch();
-  err = cudaGetLastError();
-  if (prev != device) {
-    const cudaError_t restore = cudaSetDevice(prev);
-    if (err == cudaSuccess) err = restore;
-  }
-  return err;
 }
 
 unsigned grid_for(long long U) {
@@ -208,7 +173,7 @@ extern "C" int sparse_row_adam_launch(void* table, int table_bf16, void* m, void
   const auto* lr = static_cast<const float*>(lr_t);
   auto* mm = static_cast<float*>(m);
   auto* vv = static_cast<float*>(v);
-  return static_cast<int>(on_device(device, [&] {
+  return static_cast<int>(c2v::on_device(device, [&] {
     if (table_bf16)
       row_adam_kernel<__nv_bfloat16><<<grid_for(U), kThreads, 0, s>>>(
           static_cast<__nv_bfloat16*>(table), mm, vv, ids, g, lr, U, V, E, hp);
@@ -231,7 +196,7 @@ extern "C" int sparse_requant_adam_launch(void* q, void* s, void* m, void* v,
   if (U == 0) return 0;
   const AdamHp hp{b1, one_minus_b1, b2, one_minus_b2, eps};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(on_device(device, [&] {
+  return static_cast<int>(c2v::on_device(device, [&] {
     requant_adam_kernel<<<grid_for(U), kThreads, 0, st>>>(
         static_cast<int8_t*>(q), static_cast<float*>(s), static_cast<float*>(m),
         static_cast<float*>(v), static_cast<const int*>(uids),

@@ -1,7 +1,8 @@
 """Host-side parsing: `.c2v` path-context rows -> int32 index arrays + mask.
 
-A copy of `BatchTensors`, `parse_c2v_rows`, `_pad_batch` and
-`C2VTextReader` from `data/reader.py` in the JAX package. The over-cap
+A copy of `BatchTensors`, `parse_c2v_rows`, `_pad_batch`,
+`count_examples` (text files only) and `C2VTextReader` from
+`data/reader.py` in the JAX package. The over-cap
 downsample draws from the same `np.random.default_rng((seed,
 crc32(sorted bag)))` stream, so both packages keep the same contexts of
 a method with more than MAX_CONTEXTS of them, and the reader's shuffle
@@ -112,6 +113,13 @@ def _pad_batch(arrs, batch_size: int):
                 [a, np.zeros((pad,) + a.shape[1:], dtype=a.dtype)], axis=0)
         out.append(a)
     return out
+
+
+def count_examples(path: str) -> int:
+    """Number of examples (non-empty lines) in a `.c2v` file: what sizes
+    a learning-rate schedule."""
+    with open(path, "rb") as f:
+        return sum(1 for raw in f if raw.strip())
 
 
 class C2VTextReader:

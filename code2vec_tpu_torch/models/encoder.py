@@ -6,8 +6,10 @@ param names: `token_emb` [Vt, E], `path_emb` [Vp, E], `target_emb`
 embedding gathers -> concat to [B, C, D] -> attention pool (the CUDA
 kernel, or the plain version) -> code vector -> logits against
 `target_emb`. The vocab tables are stored in `ModelDims.tables_dtype`;
-`transform` and `attention` stay float32. Predict never applies dropout,
-so `encode` has none.
+`transform` and `attention` stay float32. `encode(train=True)` is the
+training forward: dropout with a keep mask drawn by the caller
+(training/draws.py) and the differentiable pool (kernel forward,
+plain-recompute backward on the card).
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from code2vec_tpu_torch.ops.attention import attention_pool
-from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
-from code2vec_tpu_torch.ops.quant import QUANTIZED_TABLE_KEYS, quantize_table
+from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
+                                                     attention_pool_train)
+from code2vec_tpu_torch.ops.quant import (QUANTIZED_TABLE_KEYS,
+                                          dequantized_rows, quantize_table,
+                                          quantized_take)
 
 Table = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Params = Dict[str, Table]
@@ -107,16 +112,18 @@ def init_params(generator: torch.Generator, dims: ModelDims,
 
 
 def take_rows(params: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
-    """Embedding-row gather over a float table, or over an int8 {"q", "s"}
-    table with a no-grad dequantizing gather (bf16 output: int8 rows
-    carry at most 8 significant bits)."""
+    """Embedding-row gather that understands the three table storages: a
+    float table (differentiable: its gradient is a dense scatter-add), an
+    int8 {"q", "s"} table (a no-grad dequantizing gather, bf16 output:
+    int8 rows carry at most 8 significant bits), and an int8 table with a
+    gradient carrier "g" attached by the quantized training step (the
+    straight-through gather of ops/quant.py)."""
     t = params[name]
-    flat = ids.reshape(-1)
     if isinstance(t, dict):
-        rows = (torch.index_select(t["q"], 0, flat).to(torch.float32)
-                * torch.index_select(t["s"], 0, flat)).to(torch.bfloat16)
-    else:
-        rows = torch.index_select(t, 0, flat)
+        if "g" in t:
+            return quantized_take(t["g"], t, ids)
+        return dequantized_rows(t, ids)
+    rows = torch.index_select(t, 0, ids.reshape(-1))
     return rows.reshape(*ids.shape, rows.shape[-1])
 
 
@@ -130,20 +137,41 @@ def gather_contexts(params: Params, source_ids: torch.Tensor,
     return torch.cat([src, pth, dst], dim=-1).to(compute_dtype)
 
 
+def apply_dropout(contexts: torch.Tensor, keep: torch.Tensor,
+                  keep_rate: float) -> torch.Tensor:
+    """where(keep, x / keep_rate, 0), the division in the contexts' dtype
+    (the rate rounded to it first, as JAX does with a Python scalar)."""
+    rate = torch.full((), keep_rate, dtype=contexts.dtype,
+                      device=contexts.device)
+    return torch.where(keep, contexts / rate, torch.zeros_like(rate))
+
+
 def encode(params: Params, source_ids: torch.Tensor, path_ids: torch.Tensor,
            target_ids: torch.Tensor, mask: torch.Tensor, *,
-           compute_dtype=torch.float32,
-           use_kernel: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+           compute_dtype=torch.float32, use_kernel: bool = True,
+           train: bool = False, keep: Optional[torch.Tensor] = None,
+           dropout_keep_rate: float = 1.0
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward to the code vector.
 
     Args: [B, C] int ids for source token / path / target token, [B, C]
     float32 mask. Returns (code_vectors [B, D] in the compute dtype,
     attention [B, C] float32). `use_kernel` pools with the fused kernel
     (float32 inside, as the Pallas kernel it replaces), else with the
-    plain version in the compute dtype.
+    plain version in the compute dtype. `train=True` drops out the
+    contexts where the bool mask `keep` [B, C, D] is False (when
+    `dropout_keep_rate` < 1) and pools with the differentiable training
+    pool (`attention_pool_train`: the kernel forward on the card, the
+    plain pool on the CPU).
     """
     contexts = gather_contexts(params, source_ids, path_ids, target_ids,
                                compute_dtype)
+    if train:
+        if dropout_keep_rate < 1.0:
+            contexts = apply_dropout(contexts, keep, dropout_keep_rate)
+        return attention_pool_train(contexts, params["transform"],
+                                    params["attention"], mask,
+                                    use_kernel=use_kernel)
     if use_kernel:
         code, attn = attention_pool_fused(
             contexts, params["transform"], params["attention"], mask)
@@ -161,7 +189,9 @@ def logits_vs_table(table: torch.Tensor, code_vectors: torch.Tensor,
     logits = (code_vectors @ table.T).to(torch.float32)
     if (true_target_vocab_size is not None
             and true_target_vocab_size < table.shape[0]):
-        logits[:, true_target_vocab_size:] = -1e9
+        col = torch.arange(table.shape[0], device=logits.device)
+        logits = torch.where(col[None, :] < true_target_vocab_size, logits,
+                             -1e9)
     return logits
 
 

@@ -1,0 +1,54 @@
+"""Host-side evaluation metrics.
+
+Counterpart of `MetricAccumulator` in the JAX package's
+models/model_base.py: exact-match top-k accuracy over the legal
+predictions, and subtoken TP/FP/FN of the first legal prediction against
+the true name. The port evaluates on one device, so it has no
+cross-host merge.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from code2vec_tpu_torch.common import (EvaluationResults, SubtokenStatistics,
+                                       filter_impossible_names)
+
+
+class MetricAccumulator:
+    """Accumulates top-k exact-match accuracy, subtoken statistics and the
+    summed loss over an evaluation run."""
+
+    def __init__(self, top_k: int):
+        self.top_k = top_k
+        self.num_examples = 0
+        self.topk_correct = np.zeros((top_k,), dtype=np.int64)
+        self.subtoken_stats = SubtokenStatistics()
+        self.loss_sum = 0.0
+
+    def update_batch(self, original_names: Sequence[str],
+                     predicted_words: Sequence[Sequence[str]],
+                     loss_sum: float = 0.0) -> None:
+        self.loss_sum += float(loss_sum)
+        for original, topk in zip(original_names, predicted_words):
+            self.num_examples += 1
+            legal = filter_impossible_names(list(topk))
+            # the original found at rank r of the legal list counts for
+            # every k > r
+            if original in legal:
+                rank = legal.index(original)
+                if rank < self.top_k:
+                    self.topk_correct[rank:] += 1
+            top_prediction = legal[0] if legal else ""
+            self.subtoken_stats.update(original, top_prediction)
+
+    def results(self) -> EvaluationResults:
+        n = max(self.num_examples, 1)
+        return EvaluationResults(
+            topk_acc=(self.topk_correct / n).tolist(),
+            subtoken_precision=self.subtoken_stats.precision,
+            subtoken_recall=self.subtoken_stats.recall,
+            subtoken_f1=self.subtoken_stats.f1,
+            loss=self.loss_sum / n)

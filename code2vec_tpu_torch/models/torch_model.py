@@ -8,10 +8,11 @@ power-of-two bucket and run through the predict step on the device
 the host (`decode_predictions`). The serving layer (serving/server.py)
 calls the three phases on different threads.
 
-`Code2VecTrainer` is the train subset of the same class: it builds the
-sparse-row opt state and step and runs `train(data_path, max_steps)`
-over a `.c2v` file. Only the sparse-row step is ported (see config.py);
-there is no checkpoint, telemetry or evaluation yet.
+`Code2VecTrainer` is the train and evaluate subset of the same class: it
+builds the optimizer, its state and the step (the dense step by default,
+the sparse-row step under SPARSE_EMBEDDING_UPDATES), runs
+`train(data_path, max_steps)` over a `.c2v` file and `evaluate(test_path)`
+over another. There is no checkpoint or telemetry yet.
 """
 
 from __future__ import annotations
@@ -23,18 +24,24 @@ from typing import Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from code2vec_tpu_torch.common import (MethodPredictionResults,
+from code2vec_tpu_torch.common import (EvaluationResults,
+                                       MethodPredictionResults,
                                        SpecialVocabWords)
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data.reader import (BatchTensors, C2VTextReader,
-                                            _pad_batch, parse_c2v_rows)
+                                            _pad_batch, count_examples,
+                                            parse_c2v_rows)
 from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.models.encoder import ModelDims, Params, init_params
-from code2vec_tpu_torch.training.optimizers import make_lr, make_optimizer
-from code2vec_tpu_torch.training.sparse_steps import (StepDraws,
-                                                      init_sparse_opt_state,
-                                                      make_draws)
-from code2vec_tpu_torch.training.steps import make_train_step, predict_step
+from code2vec_tpu_torch.models.model_base import MetricAccumulator
+from code2vec_tpu_torch.ops.quant import opt_param_view
+from code2vec_tpu_torch.training.draws import StepDraws, make_draws
+from code2vec_tpu_torch.training.optimizers import (AdamF32Moments, make_lr,
+                                                    make_optimizer,
+                                                    schedule_total_steps)
+from code2vec_tpu_torch.training.sparse_steps import init_sparse_opt_state
+from code2vec_tpu_torch.training.steps import (eval_step, make_train_step,
+                                               predict_step)
 from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs
 
 
@@ -224,12 +231,20 @@ def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
 
 
 class Code2VecTrainer:
-    """Trains the bag model with sparse row updates on one device.
+    """Trains and evaluates the bag model on one device.
 
-    `params=None` initialises them from `config.SEED`. `device=None` runs
-    on the CUDA card and raises when there is none; tests pass
-    `device="cpu"`. Tables, dense params and moments are updated in
-    place."""
+    The dense step (the default) or the sparse-row step
+    (SPARSE_EMBEDDING_UPDATES) updates tables, dense params and the
+    optimizer state in place. `params=None` initialises them from
+    `config.SEED`. `device=None` runs on the CUDA card and raises when
+    there is none; tests pass `device="cpu"`.
+
+    A decaying learning rate needs the run's horizon,
+    `schedule_total_steps(examples in the file, TRAIN_BATCH_SIZE,
+    epochs)`: the first `train` call fixes it from its file and epochs
+    (the optimizer state's structure does not depend on it, so the state
+    is built at construction with a horizon of 1, as the JAX package
+    builds it for an evaluation-only model)."""
 
     def __init__(self, config: Config, vocabs: Code2VecVocabs,
                  params: Optional[Params] = None,
@@ -237,13 +252,11 @@ class Code2VecTrainer:
         self.config = config
         self.vocabs = vocabs
         self.device = resolve_device(device)
-        config.verify()  # a sparse run is adam, constant LR, bag encoder
-        if not config.SPARSE_EMBEDDING_UPDATES:
+        config.verify()  # the JAX package's rules, ValueError
+        if config.ENCODER_TYPE != "bag":
             raise NotImplementedError(
-                "the dense train step (SPARSE_EMBEDDING_UPDATES=False, "
-                "Adafactor tables) is not ported; set "
-                "SPARSE_EMBEDDING_UPDATES=True, EMBEDDING_OPTIMIZER='adam', "
-                "LR_SCHEDULE='constant'")
+                f"encoder {config.ENCODER_TYPE!r} is not ported; only "
+                "'bag' is")
         self.dims = dims_from_config(config, vocabs)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.SEED)
@@ -251,18 +264,34 @@ class Code2VecTrainer:
         self.params = {k: _move(v, self.device) for k, v in params.items()}
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
+        self.total_steps: Optional[int] = None
+        if config.SPARSE_EMBEDDING_UPDATES:
+            self.optimizer = AdamF32Moments(config.LEARNING_RATE)
+            self.opt_state = init_sparse_opt_state(
+                self.params, self.optimizer, config.USE_SAMPLED_SOFTMAX)
+            self._build_step()
+        else:
+            self._build_dense_optimizer(1)
+            self.opt_state = self.optimizer.init(opt_param_view(self.params))
+        self.step_num = 0
+
+    def _build_dense_optimizer(self, total_steps: int) -> None:
+        cfg = self.config
         self.optimizer = make_optimizer(
-            make_lr(config.LEARNING_RATE, config.LR_SCHEDULE),
-            config.EMBEDDING_OPTIMIZER)
-        self.opt_state = init_sparse_opt_state(
-            self.params, self.optimizer, config.USE_SAMPLED_SOFTMAX)
+            make_lr(cfg.LEARNING_RATE, cfg.LR_SCHEDULE, total_steps,
+                    cfg.LR_WARMUP_STEPS),
+            cfg.EMBEDDING_OPTIMIZER, cfg.TRUST_RATIO, cfg.TRUST_RATIO_SCOPE)
+        self._build_step()
+
+    def _build_step(self) -> None:
+        cfg = self.config
         self._train_step = make_train_step(
             self.dims, self.optimizer,
-            use_sampled_softmax=config.USE_SAMPLED_SOFTMAX,
-            num_sampled=config.NUM_SAMPLED_CLASSES,
-            compute_dtype=self.compute_dtype)
+            use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+            num_sampled=cfg.NUM_SAMPLED_CLASSES,
+            compute_dtype=self.compute_dtype,
+            sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
         self.step_config = self._train_step.cfg
-        self.step_num = 0
 
     def device_batch(self, b: BatchTensors):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -283,11 +312,21 @@ class Code2VecTrainer:
         return loss
 
     def train(self, data_path: str, max_steps: Optional[int] = None,
-              epochs: int = 1) -> List[float]:
-        """Up to `epochs` shuffled passes over a `.c2v` file, stopping
-        after `max_steps` steps. Logs the loss every
-        NUM_BATCHES_TO_LOG_PROGRESS steps; returns every step's loss."""
+              epochs: Optional[int] = None) -> List[float]:
+        """Up to `epochs` (default NUM_TRAIN_EPOCHS) shuffled passes over
+        a `.c2v` file, stopping after `max_steps` steps. Logs the loss
+        every NUM_BATCHES_TO_LOG_PROGRESS steps; returns every step's
+        loss."""
         cfg = self.config
+        if epochs is None:
+            epochs = cfg.NUM_TRAIN_EPOCHS
+        if (self.total_steps is None and not cfg.SPARSE_EMBEDDING_UPDATES
+                and cfg.LR_SCHEDULE != "constant"):
+            self.total_steps = schedule_total_steps(
+                count_examples(data_path), cfg.TRAIN_BATCH_SIZE, epochs)
+            self._build_dense_optimizer(self.total_steps)
+            cfg.log(f"lr schedule {cfg.LR_SCHEDULE} over "
+                    f"{self.total_steps} steps")
         reader = C2VTextReader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
                                cfg.TRAIN_BATCH_SIZE, shuffle=True,
                                seed=cfg.SEED)
@@ -307,3 +346,25 @@ class Code2VecTrainer:
             cfg.log(f"trained {len(values)} steps to step {self.step_num}: "
                     f"loss {values[0]:.5f} -> {values[-1]:.5f}")
         return values
+
+    def evaluate(self, test_path: str) -> EvaluationResults:
+        """Top-k accuracy, subtoken precision / recall / F1 and the mean
+        loss over a `.c2v` file, in TEST_BATCH_SIZE batches (no dropout,
+        full softmax)."""
+        cfg = self.config
+        top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+        reader = C2VTextReader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
+                               cfg.TEST_BATCH_SIZE, shuffle=False,
+                               keep_strings=True)
+        acc = MetricAccumulator(top_k)
+        target_vocab = self.vocabs.target_vocab
+        for b in reader:
+            with torch.inference_mode():
+                loss_sum, topk_ids, _probs = eval_step(
+                    self.params, self.device_batch(b), dims=self.dims,
+                    top_k=top_k, compute_dtype=self.compute_dtype)
+            nv = b.num_valid_examples
+            words = [[target_vocab.lookup_word(int(i)) for i in row]
+                     for row in topk_ids[:nv].cpu().numpy()]
+            acc.update_batch(b.target_strings[:nv], words, loss_sum.item())
+        return acc.results()

@@ -7,9 +7,11 @@ a plain C interface:
          -Xcompiler -fPIC -Xptxas -v -o build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in `code2vec_tpu_torch/build/`, keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is not. The compiler's output (ptxas register and shared-memory report
-included) is kept beside it as `<name>-<hash>.log`. Nothing is built at
+source, the `csrc/` headers it includes with `#include "..."` (followed
+through headers that include others) and the flags, so an edited source
+or header is rebuilt and an unchanged one is not. The compiler's output
+(ptxas register and shared-memory report included) is kept beside it as
+`<name>-<hash>.log`. Nothing is built at
 import time: the package imports on machines without `nvcc`.
 """
 
@@ -18,11 +20,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -30,6 +33,8 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -54,9 +59,28 @@ def nvcc_path() -> str:
     return found
 
 
+def source_files(name: str) -> List[str]:
+    """`csrc/<name>.cu` and every `csrc/` file it includes with a quoted
+    `#include`, directly or through another such header, in the order
+    first seen."""
+    seen, todo = [], [name + ".cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(SRC_DIR, rel), "rb") as f:
+            text = f.read()
+        todo += [m.decode() for m in _INCLUDE.findall(text)
+                 if os.path.exists(os.path.join(SRC_DIR, m.decode()))]
+    return [os.path.join(SRC_DIR, rel) for rel in seen]
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(SRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    for path in source_files(name):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

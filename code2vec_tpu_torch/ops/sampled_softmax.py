@@ -1,9 +1,8 @@
-"""Sampled softmax over a large target vocabulary: the candidate sampler
-and the log-expected-count correction.
+"""Sampled softmax over a large target vocabulary: the candidate sampler,
+the log-expected-count correction and the loss.
 
-A copy of the parts of `ops/sampled_softmax.py` in the JAX package that
-the sparse-row training step needs, under the same names and with
-`tf.nn.sampled_softmax_loss`'s semantics:
+A copy of `ops/sampled_softmax.py` in the JAX package, under the same
+names and with `tf.nn.sampled_softmax_loss`'s semantics:
 
 - candidates are log-uniform over [0, V): P(k) = log((k+2)/(k+1)) /
   log(V+1), drawn UNIQUE (TF's unique=True) by the Gumbel-top-k trick,
@@ -12,13 +11,18 @@ the sparse-row training step needs, under the same names and with
   and the true class's logit, with the deterministic effective draw
   count `_effective_num_tries` solved once on the host per (S, V).
 
+- sampled negatives equal to an example's label are masked to -1e9
+  (TF's remove_accidental_hits=True).
+
 The Gumbel noise comes from a `torch.Generator`, so the ids differ from
-the JAX package's for the same seed; tests hand both sides the same ids.
+the JAX package's for the same seed; tests hand both sides the same ids,
+and `sampled_softmax_loss` takes the step's sampled ids instead of a key.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -79,3 +83,47 @@ def _log_expected_count(ids: torch.Tensor, num_sampled: int,
         return torch.zeros_like(p)
     T = _effective_num_tries(num_sampled, vocab_size)
     return torch.log(-torch.expm1(T * torch.log1p(-p)))
+
+
+def sampled_softmax_from_gathered(
+        code_vectors: torch.Tensor, true_w: torch.Tensor,
+        samp_w: torch.Tensor, true_corr: torch.Tensor,
+        samp_corr: torch.Tensor, accidental: torch.Tensor,
+        example_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The loss core over pre-gathered target rows: code [B, D], true_w
+    [B, D], samp_w [S, D], corrections [B] / [S], accidental [B, S]
+    collisions, optional [B] example weights -> the scalar mean loss."""
+    dtype = code_vectors.dtype
+    true_logits = (code_vectors * true_w.to(dtype)).sum(dim=-1).to(
+        torch.float32) - true_corr
+    sampled_logits = (code_vectors @ samp_w.to(dtype).T).to(torch.float32) \
+        - samp_corr[None, :]
+    sampled_logits = torch.where(accidental, -1e9, sampled_logits)
+    logits = torch.cat([true_logits[:, None], sampled_logits], dim=1)
+    per_example = -torch.log_softmax(logits, dim=-1)[:, 0]
+    if example_weights is not None:
+        denom = torch.clamp(example_weights.sum(), min=1.0)
+        return (per_example * example_weights).sum() / denom
+    return per_example.mean()
+
+
+def sampled_softmax_loss(target_table: torch.Tensor,
+                         code_vectors: torch.Tensor, labels: torch.Tensor,
+                         sampled: torch.Tensor, num_sampled: int,
+                         example_weights: Optional[torch.Tensor] = None,
+                         vocab_size: Optional[int] = None) -> torch.Tensor:
+    """The sampled-softmax loss against a [V_padded, D] target table,
+    with the step's sampled ids [S] drawn from [0, vocab_size). The two
+    row gathers are differentiable: the table's gradient is the sum of
+    their dense scatter-adds."""
+    if vocab_size is None:
+        vocab_size = target_table.shape[0]
+    num_sampled = min(num_sampled, vocab_size)
+    return sampled_softmax_from_gathered(
+        code_vectors,
+        true_w=torch.index_select(target_table, 0, labels),
+        samp_w=torch.index_select(target_table, 0, sampled),
+        true_corr=_log_expected_count(labels, num_sampled, vocab_size),
+        samp_corr=_log_expected_count(sampled, num_sampled, vocab_size),
+        accidental=sampled[None, :] == labels[:, None],
+        example_weights=example_weights)

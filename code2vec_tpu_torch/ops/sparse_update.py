@@ -9,9 +9,10 @@ the rows back, in place:
 
 - float32 / bfloat16 tables: `row_adam_math` (`apply_rows_plain`, the
   plain version of kernel 5);
-- int8 {q, s} tables: dequantize, the same Adam, per-row absmax
-  rescale and the counter-hash dither of ops/quant.py over the absolute
-  element index `row * E + col`, round half to even, clip to +-127
+- int8 {q, s} tables: dequantize, the same Adam, then the row tail of
+  ops/quant.py (`requant_rows`: per-row absmax rescale, counter-hash
+  dither over the absolute element index `row * E + col`, round half to
+  even, clip to +-127) shared with the dense requantize
   (`requant_row_math`, `apply_quant_rows_plain`: the plain version of
   kernel 6).
 
@@ -26,8 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from code2vec_tpu_torch.ops.quant import (_SCALE_FLOOR, QuantTable,
-                                          dither_from_index)
+from code2vec_tpu_torch.ops.quant import QuantTable, requant_rows
 
 
 class RowAdamState(NamedTuple):
@@ -52,17 +52,7 @@ def requant_row_math(q, s, m, v, g, row_ids, salt, lr_t, b1: float,
     clip to +-127."""
     f = q.to(torch.float32) * s
     p_new, m_new, v_new = row_adam_math(f, m, v, g, lr_t, b1, b2, eps)
-    absmax = p_new.abs().amax(dim=1, keepdim=True)
-    # a true division: a Python divisor would turn into a multiply by
-    # its reciprocal on CUDA tensors
-    s_new = torch.clamp(absmax, min=_SCALE_FLOOR) / torch.full(
-        (), 127.0, dtype=torch.float32, device=absmax.device)
-    x = p_new / s_new
-    emb = q.shape[-1]
-    cols = torch.arange(emb, dtype=torch.int64, device=q.device)
-    idx = row_ids.to(torch.int64)[:, None] * emb + cols
-    q_new = torch.clamp(torch.round(x + dither_from_index(idx, salt)),
-                        -127, 127).to(torch.int8)
+    q_new, s_new = requant_rows(p_new, row_ids, salt)
     return q_new, s_new, m_new, v_new
 
 

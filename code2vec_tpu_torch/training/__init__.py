@@ -1,3 +1,5 @@
-"""Device steps as plain functions: predict and encode (steps.py), the
-sparse-row train step (sparse_steps.py) with its row update
-(sparse_update.py, sparse_adam.py) and dense optimizer (optimizers.py)."""
+"""Device steps as plain functions: the dense train, eval, predict and
+encode steps (steps.py), the sparse-row train step (sparse_steps.py) with
+its row update (sparse_update.py, sparse_adam.py), the optimizers and
+learning-rate schedules (optimizers.py), and a step's random inputs
+(draws.py)."""

@@ -1,0 +1,59 @@
+"""The random inputs of a training step, shared by the dense and the
+sparse-row steps.
+
+The JAX package draws a step's randomness from the step's key inside the
+jitted step: the dropout keep mask, the sampled-softmax candidate ids
+and one uint32 dither salt per int8 table. JAX threefry and torch's
+generators never agree, so the port takes these as a `StepDraws`: tests
+pass draws made on the JAX side exactly as its step makes them, and the
+trainer draws them from generators seeded from (seed, step).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from code2vec_tpu_torch.models.encoder import ModelDims
+from code2vec_tpu_torch.ops.quant import QUANTIZED_TABLE_KEYS, is_quantized
+from code2vec_tpu_torch.ops.sampled_softmax import log_uniform_sample
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """The random inputs of one step."""
+    keep: Optional[torch.Tensor]    # bool [B, C, 3E]; None without dropout
+    sampled: Optional[torch.Tensor]  # int32 [S]; None under full softmax
+    salts: Dict[str, int]           # uint32 dither salt per int8 table
+
+
+def quantized_keys(params) -> list:
+    """The int8 tables, sorted (the order the salts are drawn in)."""
+    return sorted(k for k in QUANTIZED_TABLE_KEYS if is_quantized(params[k]))
+
+
+def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
+               step: int, device) -> StepDraws:
+    """A step's draws from generators seeded from (seed, step): the keep
+    mask and the sampled ids on `device`, the salts on the host. `cfg` is
+    the step's config (its `use_sampled_softmax` and `num_sampled`)."""
+    ss = np.random.SeedSequence((seed, step))
+    torch_seed, salt_seed = (int(x) for x in ss.generate_state(2, np.uint64))
+    gen = torch.Generator(device=device).manual_seed(torch_seed >> 1)
+    keep = None
+    if dims.dropout_keep_rate < 1.0:
+        shape = (batch_size, dims.max_contexts, dims.context_vector_size)
+        keep = torch.rand(shape, generator=gen, device=device) \
+            < dims.dropout_keep_rate
+    sampled = None
+    if cfg.use_sampled_softmax:
+        S = min(cfg.num_sampled, dims.target_vocab_size)
+        sampled = log_uniform_sample(gen, S, dims.target_vocab_size)
+    qkeys = quantized_keys(params)
+    salts = np.random.default_rng(salt_seed).integers(
+        0, 2 ** 32, size=len(qkeys), dtype=np.uint64)
+    return StepDraws(keep=keep, sampled=sampled,
+                     salts={k: int(s) for k, s in zip(qkeys, salts)})

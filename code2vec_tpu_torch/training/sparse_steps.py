@@ -26,39 +26,31 @@ Orders that decide the segment sums are the JAX package's: token ids are
 concatenate -> cast to the compute dtype -> `where(keep, x / keep_rate,
 0)`, the division in the compute dtype.
 
-Randomness is drawn per step into a `StepDraws`: the [B, C, 3E] dropout
-keep mask, the [S] sampled ids and one uint32 salt per int8 table.
-Tests pass draws made by the JAX side; without them the step draws from
-a `torch.Generator` seeded from (seed, step).
+Randomness is drawn per step into a `StepDraws` (training/draws.py): the
+[B, C, 3E] dropout keep mask, the [S] sampled ids and one uint32 salt
+per int8 table. Tests pass draws made by the JAX side; without them the
+step draws from a `torch.Generator` seeded from (seed, step).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from code2vec_tpu_torch.models.encoder import ModelDims
+from code2vec_tpu_torch.models.encoder import (ModelDims, apply_dropout,
+                                               logits_vs_table, take_rows)
 from code2vec_tpu_torch.ops.attention_kernel import attention_pool_train
-from code2vec_tpu_torch.ops.quant import is_quantized
-from code2vec_tpu_torch.ops.sampled_softmax import (_log_expected_count,
-                                                    log_uniform_sample)
+from code2vec_tpu_torch.ops.sampled_softmax import (
+    _log_expected_count, sampled_softmax_from_gathered)
+from code2vec_tpu_torch.training.draws import StepDraws
 from code2vec_tpu_torch.training.optimizers import AdamF32Moments
 from code2vec_tpu_torch.training.sparse_adam import init_row_adam
 from code2vec_tpu_torch.training.sparse_update import (adam_lr_t,
                                                        apply_rows,
                                                        dedup_segment_sum)
-
-
-@dataclasses.dataclass
-class StepDraws:
-    """The random inputs of one step."""
-    keep: Optional[torch.Tensor]    # bool [B, C, 3E]; None without dropout
-    sampled: Optional[torch.Tensor]  # int32 [S]; None under full softmax
-    salts: Dict[str, int]           # uint32 dither salt per int8 table
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,12 +72,6 @@ def dense_keys(use_sampled_softmax: bool):
     return keys
 
 
-def quantized_keys(params) -> list:
-    """The int8 tables, sorted (the order the salts are drawn in)."""
-    return sorted(k for k in ("token_emb", "path_emb")
-                  if is_quantized(params[k]))
-
-
 def init_sparse_opt_state(params, dense_opt: AdamF32Moments,
                           use_sampled_softmax: bool) -> dict:
     """{"dense": dense Adam state, "rows": {table: RowAdamState},
@@ -98,43 +84,6 @@ def init_sparse_opt_state(params, dense_opt: AdamF32Moments,
     return {"dense": dense_opt.init(dense), "rows": rows,
             "count": torch.zeros((), dtype=torch.int32,
                                  device=params["transform"].device)}
-
-
-def make_draws(dims: ModelDims, cfg: SparseStepConfig, params,
-               batch_size: int, seed: int, step: int, device) -> StepDraws:
-    """A step's draws from generators seeded from (seed, step): the keep
-    mask and the sampled ids on `device`, the salts on the host."""
-    ss = np.random.SeedSequence((seed, step))
-    torch_seed, salt_seed = (int(x) for x in ss.generate_state(2, np.uint64))
-    gen = torch.Generator(device=device).manual_seed(torch_seed >> 1)
-    keep = None
-    if dims.dropout_keep_rate < 1.0:
-        shape = (batch_size, dims.max_contexts, dims.context_vector_size)
-        keep = torch.rand(shape, generator=gen, device=device) \
-            < dims.dropout_keep_rate
-    sampled = None
-    if cfg.use_sampled_softmax:
-        S = min(cfg.num_sampled, dims.target_vocab_size)
-        sampled = log_uniform_sample(gen, S, dims.target_vocab_size)
-    qkeys = quantized_keys(params)
-    salts = np.random.default_rng(salt_seed).integers(
-        0, 2 ** 32, size=len(qkeys), dtype=np.uint64)
-    return StepDraws(keep=keep, sampled=sampled,
-                     salts={k: int(s) for k, s in zip(qkeys, salts)})
-
-
-def _gather_rows(table, ids: torch.Tensor) -> torch.Tensor:
-    """Row gather in the dtype autograd differentiates: a float table
-    as it is; an int8 {q, s} table dequantized after the gather, to bf16
-    (q * s carries at most 8 significant bits)."""
-    flat = ids.reshape(-1)
-    if is_quantized(table):
-        rows = (torch.index_select(table["q"], 0, flat).to(torch.float32)
-                * torch.index_select(table["s"], 0, flat)
-                ).to(torch.bfloat16)
-    else:
-        rows = torch.index_select(table, 0, flat)
-    return rows.reshape(*ids.shape, rows.shape[-1])
 
 
 def prepare_step_inputs(params, batch, draws: StepDraws, *,
@@ -156,18 +105,25 @@ def prepare_step_inputs(params, batch, draws: StepDraws, *,
         ctx["accidental"] = sampled[None, :] == labels[:, None]    # [B, S]
 
     with torch.no_grad():
-        gathered = {"src_e": _gather_rows(params["token_emb"], src),
-                    "pth_e": _gather_rows(params["path_emb"], pth),
-                    "dst_e": _gather_rows(params["token_emb"], dst)}
+        gathered = {"src_e": take_rows(params, "token_emb", src),
+                    "pth_e": take_rows(params, "path_emb", pth),
+                    "dst_e": take_rows(params, "token_emb", dst)}
         if use_sampled_softmax:
-            gathered["true_w"] = _gather_rows(params["target_emb"], labels)
-            gathered["samp_w"] = _gather_rows(params["target_emb"],
-                                              ctx["sampled"])
+            gathered["true_w"] = take_rows(params, "target_emb", labels)
+            gathered["samp_w"] = take_rows(params, "target_emb",
+                                           ctx["sampled"])
     for t in gathered.values():
         t.requires_grad_(True)
     dense = {k: params[k].detach().requires_grad_(True)
              for k in dense_keys(use_sampled_softmax)}
     return dense, gathered, ctx
+
+
+def weighted_mean(values: torch.Tensor, weights: torch.Tensor
+                  ) -> torch.Tensor:
+    """sum(values * weights) / max(sum(weights), 1)."""
+    denom = torch.clamp(weights.sum(), min=1.0)
+    return (values * weights).sum() / denom
 
 
 def make_gathered_loss(dims: ModelDims, ctx, *, use_sampled_softmax: bool,
@@ -182,35 +138,20 @@ def make_gathered_loss(dims: ModelDims, ctx, *, use_sampled_softmax: bool,
             [gathered["src_e"], gathered["pth_e"], gathered["dst_e"]],
             dim=-1).to(compute_dtype)
         if dims.dropout_keep_rate < 1.0:
-            # the scalar is rounded to the compute dtype before the
-            # division, as JAX does with a Python scalar
-            rate = torch.full((), dims.dropout_keep_rate, dtype=compute_dtype,
-                              device=contexts.device)
-            contexts = torch.where(ctx["keep"], contexts / rate,
-                                   torch.zeros_like(rate))
+            contexts = apply_dropout(contexts, ctx["keep"],
+                                     dims.dropout_keep_rate)
         code, _ = attention_pool_train(contexts, dense["transform"],
                                        dense["attention"], mask,
                                        use_kernel=use_kernel)
         if use_sampled_softmax:
-            true_w = gathered["true_w"].to(code.dtype)
-            samp_w = gathered["samp_w"].to(code.dtype)
-            true_logits = (code * true_w).sum(dim=-1).to(torch.float32) \
-                - ctx["true_corr"]
-            samp_logits = (code @ samp_w.T).to(torch.float32) \
-                - ctx["samp_corr"][None, :]
-            samp_logits = torch.where(ctx["accidental"], -1e9, samp_logits)
-            logits = torch.cat([true_logits[:, None], samp_logits], dim=1)
-            per_ex = -torch.log_softmax(logits, dim=-1)[:, 0]
-        else:
-            table = dense["target_emb"].to(code.dtype)
-            logits = (code @ table.T).to(torch.float32)
-            if table.shape[0] > V:  # padding rows never win
-                col = torch.arange(table.shape[0], device=logits.device)
-                logits = torch.where(col[None, :] < V, logits, -1e9)
-            per_ex = F.cross_entropy(logits, ctx["labels"].to(torch.int64),
-                                     reduction="none")
-        denom = torch.clamp(weights.sum(), min=1.0)
-        return (per_ex * weights).sum() / denom
+            return sampled_softmax_from_gathered(
+                code, gathered["true_w"], gathered["samp_w"],
+                ctx["true_corr"], ctx["samp_corr"], ctx["accidental"],
+                weights)
+        logits = logits_vs_table(dense["target_emb"], code, V)
+        per_ex = F.cross_entropy(logits, ctx["labels"].to(torch.int64),
+                                 reduction="none")
+        return weighted_mean(per_ex, weights)
 
     return loss_fn
 

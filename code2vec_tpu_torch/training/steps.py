@@ -1,19 +1,38 @@
-"""The train, predict and encode steps as plain functions on device
+"""The train, eval, predict and encode steps as plain functions on device
 tensors.
 
-`make_train_step` is the sparse-row branch of the JAX package's
-step-construction entry point (training/sparse_steps.py); the dense
-step is not ported, and the trainer refuses a configuration that needs
-it.
+Counterpart of `training/steps.py` in the JAX package.
 
-The predict and encode steps are the counterparts of `make_predict_step`
-and `make_encode_step` in the JAX package's training/steps.py, with that
-path's casts: the contexts are
-gathered in the compute dtype, the pool's code vector is cast to the
-compute dtype before the logits product against `target_emb`, and the
-returned code vector is that value widened to float32. The
-[B, D] x [D, V] logits product stays a `torch.matmul`, as XLA computes it
-outside any Pallas kernel in the JAX package.
+`make_train_step` is the one step-construction entry point:
+- the dense step (the default: `make_train_step`'s dense branch and
+  `_make_quantized_train_step` in the JAX package): the loss
+  (`make_train_loss_fn`) is differentiated with respect to every param,
+  so each vocab table gets a dense [V, E] gradient (the gathers' dense
+  scatter-adds, `token_emb`'s two summed), the optimizer
+  (training/optimizers.make_optimizer: Adafactor on the tables, Adam on
+  TRANSFORM / ATTENTION, or Adam everywhere) turns the gradients into
+  updates, and the updates are added to the params. With int8
+  token/path tables the gradients reach a bf16 "carrier" through the
+  straight-through gather (ops/quant.quantized_take), the optimizer sees
+  a flat [V, E] bf16 stand-in for each (ops/quant.opt_param_view), and
+  the update is applied by `requantize` (kernel 4 on the card) under the
+  table's dither salt;
+- `sparse_updates=True`: the sparse-row step (training/sparse_steps.py).
+
+Unlike the JAX functions, which donate their buffers and return new
+ones, the port's steps update the params and the optimizer state IN
+PLACE and return only the loss, a 0-d device tensor. A step's
+randomness comes in as a `StepDraws` (training/draws.py). The phases of
+the dense step, which a caller may time or compare apart, are
+`dense_loss_and_grads` (forward + backward), the optimizer's `update`
+and `apply_dense_updates` (the adds and requantizes).
+
+The eval, predict and encode steps keep the predict path's casts: the
+contexts are gathered in the compute dtype, the pool's code vector is
+cast to the compute dtype before the logits product against
+`target_emb`, and a returned code vector is that value widened to
+float32. The [B, D] x [D, V] logits product stays a `torch.matmul`, as
+XLA computes it outside any Pallas kernel in the JAX package.
 
 `batch` is the JAX step's tuple `(labels, src, pth, dst, mask, weights)`
 of tensors on the params' device.
@@ -21,39 +40,171 @@ of tensors on the params' device.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+from typing import Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from code2vec_tpu_torch.models.encoder import (ModelDims, Params, encode,
                                                full_logits)
-from code2vec_tpu_torch.training.optimizers import AdamF32Moments
+from code2vec_tpu_torch.ops.quant import opt_param_view, requantize
+from code2vec_tpu_torch.ops.sampled_softmax import sampled_softmax_loss
+from code2vec_tpu_torch.training.draws import StepDraws, quantized_keys
+from code2vec_tpu_torch.training.optimizers import (AdamF32Moments,
+                                                    GradientTransformation)
 from code2vec_tpu_torch.training.sparse_steps import (SparseStepConfig,
-                                                      sparse_train_step)
+                                                      sparse_train_step,
+                                                      weighted_mean)
 
 
-def make_train_step(dims: ModelDims, optimizer: AdamF32Moments, *,
+@dataclasses.dataclass(frozen=True)
+class DenseStepConfig:
+    """What the dense step needs besides dims and the optimizer."""
+    use_sampled_softmax: bool = False
+    num_sampled: int = 4096
+    compute_dtype: torch.dtype = torch.float32
+
+
+def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
+                       num_sampled: int = 4096, compute_dtype=torch.float32,
+                       use_kernel: bool = True) -> Callable:
+    """The training-time loss `loss_fn(params, batch, draws)`: dropout
+    with the draws' keep mask, the training pool, sampled softmax over
+    the draws' ids or full softmax, weighted by the example weights."""
+    V = dims.target_vocab_size
+
+    def loss_fn(params, batch, draws: StepDraws) -> torch.Tensor:
+        labels, src, pth, dst, mask, weights = batch
+        code, _attn = encode(params, src, pth, dst, mask,
+                             compute_dtype=compute_dtype,
+                             use_kernel=use_kernel, train=True,
+                             keep=draws.keep,
+                             dropout_keep_rate=dims.dropout_keep_rate)
+        if use_sampled_softmax:
+            return sampled_softmax_loss(
+                params["target_emb"], code, labels, draws.sampled,
+                num_sampled, example_weights=weights, vocab_size=V)
+        logits = full_logits(params, code, V)
+        ce = F.cross_entropy(logits, labels.to(torch.int64),
+                             reduction="none")
+        return weighted_mean(ce, weights)
+
+    return loss_fn
+
+
+def dense_loss_and_grads(params: Params, batch, draws: StepDraws,
+                         loss_fn: Callable
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                                    Dict[str, torch.Tensor]]:
+    """Forward + backward of the dense step -> (loss, grads, the
+    optimizer's params view). Float params are differentiated as they
+    are; an int8 table's gradient is its carrier's, a dense bf16 [V, E],
+    and the view holds the carrier in the table's place."""
+    qkeys = quantized_keys(params)
+    view = opt_param_view(params)
+    leaves = {k: view[k].detach().requires_grad_(True) for k in params}
+    virt = {k: (dict(params[k], g=leaves[k]) if k in qkeys else leaves[k])
+            for k in params}
+    keys = list(params)
+    with torch.enable_grad():
+        loss = loss_fn(virt, batch, draws)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+    return loss.detach(), dict(zip(keys, grads)), view
+
+
+@torch.no_grad()
+def apply_dense_updates(params: Params, updates: Dict[str, torch.Tensor],
+                        salts: Dict[str, int], *,
+                        use_kernel: bool = True) -> None:
+    """The optimizer's updates added to the params in place: an int8
+    table through `requantize` under its salt (kernel 4 with
+    `use_kernel` on the card), any other param as `(p + u)` cast to its
+    dtype (`optax.apply_updates`)."""
+    qkeys = quantized_keys(params)
+    for k, u in updates.items():
+        if k in qkeys:
+            requantize(params[k], u, salts[k], use_kernel=use_kernel)
+        else:
+            p = params[k]
+            p.copy_((p + u).to(p.dtype))
+
+
+def dense_train_step(params: Params, opt_state, batch, draws: StepDraws, *,
+                     loss_fn: Callable, optimizer: GradientTransformation,
+                     use_kernel: bool = True) -> torch.Tensor:
+    """One dense training step, in place on `params` and `opt_state`
+    (from `optimizer.init(opt_param_view(params))`). Returns the loss."""
+    loss, grads, view = dense_loss_and_grads(params, batch, draws, loss_fn)
+    updates = optimizer.update(grads, opt_state, view)
+    apply_dense_updates(params, updates, draws.salts, use_kernel=use_kernel)
+    return loss
+
+
+def make_train_step(dims: ModelDims, optimizer, *,
                     use_sampled_softmax: bool = False,
                     num_sampled: int = 4096,
                     compute_dtype=torch.float32,
-                    use_kernel: bool = True) -> Callable:
-    """Returns the sparse-row `step(params, opt_state, batch, draws) ->
-    loss`, which updates params and opt_state in place. `optimizer` is the
-    dense optimizer the opt state was built with (sparse_steps.
-    init_sparse_opt_state); its learning rate is the tables' row-Adam LR
-    too, as in the JAX package."""
-    cfg = SparseStepConfig(learning_rate=optimizer.learning_rate,
-                           use_sampled_softmax=use_sampled_softmax,
-                           num_sampled=num_sampled,
-                           compute_dtype=compute_dtype)
+                    use_kernel: bool = True,
+                    sparse_updates: bool = False) -> Callable:
+    """Returns `step(params, opt_state, batch, draws) -> loss`, which
+    updates params and opt_state in place.
 
-    def step(params, opt_state, batch, draws):
-        return sparse_train_step(params, opt_state, batch, draws, dims=dims,
-                                 cfg=cfg, dense_opt=optimizer,
-                                 use_kernel=use_kernel)
+    The dense step takes the optimizer of `make_optimizer`; its state is
+    `optimizer.init(opt_param_view(params))`. `sparse_updates=True`
+    builds the sparse-row step instead: `optimizer` is then the dense
+    params' `AdamF32Moments`, whose learning rate is the tables' row-Adam
+    LR too, and the state comes from sparse_steps.init_sparse_opt_state.
+    `use_kernel=False` runs the plain pool and the plain requantize or
+    row apply on any device."""
+    if sparse_updates:
+        if not isinstance(optimizer, AdamF32Moments):
+            raise TypeError("the sparse-row step takes AdamF32Moments, got "
+                            f"{type(optimizer).__name__}")
+        cfg = SparseStepConfig(learning_rate=optimizer.learning_rate,
+                               use_sampled_softmax=use_sampled_softmax,
+                               num_sampled=num_sampled,
+                               compute_dtype=compute_dtype)
+
+        def step(params, opt_state, batch, draws):
+            return sparse_train_step(params, opt_state, batch, draws,
+                                     dims=dims, cfg=cfg, dense_opt=optimizer,
+                                     use_kernel=use_kernel)
+    else:
+        cfg = DenseStepConfig(use_sampled_softmax=use_sampled_softmax,
+                              num_sampled=num_sampled,
+                              compute_dtype=compute_dtype)
+        loss_fn = make_train_loss_fn(
+            dims, use_sampled_softmax=use_sampled_softmax,
+            num_sampled=num_sampled, compute_dtype=compute_dtype,
+            use_kernel=use_kernel)
+
+        def step(params, opt_state, batch, draws):
+            return dense_train_step(params, opt_state, batch, draws,
+                                    loss_fn=loss_fn, optimizer=optimizer,
+                                    use_kernel=use_kernel)
 
     step.cfg = cfg
     return step
+
+
+def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
+              compute_dtype=torch.float32, use_kernel: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (loss_sum 0-d, topk_ids [B, k], topk_probs [B, k]): no dropout,
+    full softmax; the per-example cross entropy is clamped at 0 (a
+    logsumexp minus a logit can round a hair below it) and weighted by
+    the example weights."""
+    labels, src, pth, dst, mask, weights = batch
+    code, _attn = encode(params, src, pth, dst, mask,
+                         compute_dtype=compute_dtype, use_kernel=use_kernel)
+    logits = full_logits(params, code, dims.target_vocab_size)
+    ce = torch.clamp(F.cross_entropy(logits, labels.to(torch.int64),
+                                     reduction="none"), min=0.0)
+    loss_sum = (ce * weights).sum()
+    topk_probs, topk_ids = torch.topk(torch.softmax(logits, dim=-1), top_k,
+                                      dim=-1)
+    return loss_sum, topk_ids, topk_probs
 
 
 def encode_step(params: Params, batch, *, compute_dtype=torch.float32,

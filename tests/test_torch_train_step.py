@@ -56,9 +56,10 @@ from code2vec_tpu_torch.ops import sampled_softmax as tss
 from code2vec_tpu_torch.ops.attention import attention_pool
 from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
                                                      attention_pool_train)
+from code2vec_tpu_torch.training import optimizers as topt
+from code2vec_tpu_torch.training.draws import StepDraws, make_draws
 from code2vec_tpu_torch.training.optimizers import (AdamF32Moments, make_lr,
                                                     make_optimizer)
-from code2vec_tpu_torch.training.sparse_steps import StepDraws, make_draws
 # the port's step updates in place and donates nothing
 from code2vec_tpu_torch.training.steps import \
     make_train_step as make_port_train_step
@@ -120,7 +121,8 @@ def _run_both(tables_dtype, compute, sampled, steps, seed=0):
         compute_dtype=getattr(jnp, compute), sparse_update_fused=False)
     tstep = make_port_train_step(td, AdamF32Moments(LR),
                                  use_sampled_softmax=sampled, num_sampled=S,
-                                 compute_dtype=getattr(torch, compute))
+                                 compute_dtype=getattr(torch, compute),
+                                 sparse_updates=True)
     r = np.random.default_rng(seed + 1)
     losses = []
     for i in range(steps):
@@ -336,7 +338,8 @@ def test_make_draws_is_seeded_by_seed_and_step():
     dims = _dims(tenc, "int8")
     params = tenc.init_params(torch.Generator().manual_seed(0), dims)
     cfg = make_port_train_step(dims, AdamF32Moments(LR),
-                               use_sampled_softmax=True, num_sampled=S).cfg
+                               use_sampled_softmax=True, num_sampled=S,
+                               sparse_updates=True).cfg
     assert cfg.learning_rate == LR
     a = make_draws(dims, cfg, params, 64, 239, 0, torch.device("cpu"))
     b = make_draws(dims, cfg, params, 64, 239, 0, torch.device("cpu"))
@@ -469,8 +472,8 @@ _DENSE = {"SPARSE_EMBEDDING_UPDATES": False}
 
 @pytest.mark.parametrize("change,error", [
     ({**_DENSE, "EMBEDDING_OPTIMIZER": "adafactor", "LR_SCHEDULE": "cosine"},
-     NotImplementedError),
-    ({**_DENSE, "LR_SCHEDULE": "cosine"}, NotImplementedError),
+     None),
+    ({**_DENSE, "LR_SCHEDULE": "cosine"}, None),
     ({**_DENSE, "ENCODER_TYPE": "transformer"}, NotImplementedError),
     ({"LR_SCHEDULE": "cosine"}, ValueError),
     ({"ENCODER_TYPE": "transformer"}, ValueError),
@@ -480,14 +483,27 @@ _DENSE = {"SPARSE_EMBEDDING_UPDATES": False}
 ])
 def test_trainer_refuses_unported_and_invalid_configs(tmp_path, change,
                                                       error):
-    """The dense step is not ported: any configuration that needs it
-    raises NotImplementedError (the JAX defaults included). A sparse
-    configuration the JAX package's `Config.verify` rejects (another
-    optimizer, schedule or encoder) raises its ValueError. Nothing
-    switches quietly to another path."""
+    """The dense step trains (the JAX defaults: Adafactor and a cosine
+    LR; Adam and a cosine LR), with the dense optimizer's state and the
+    loss falling over two epochs of a tiny file. The transformer encoder
+    is not ported and raises NotImplementedError. A sparse configuration
+    the JAX package's `Config.verify` rejects (another optimizer,
+    schedule or encoder) raises its ValueError. Nothing switches quietly
+    to another path."""
     _jv, tv = _vocabs(tmp_path)
-    with pytest.raises(error):
-        Code2VecTrainer(_sparse_config(**change), tv, device="cpu")
+    if error is not None:
+        with pytest.raises(error):
+            Code2VecTrainer(_sparse_config(**change), tv, device="cpu")
+        return
+    path = str(tmp_path / "train.c2v")
+    _write_c2v(path, 32, seed=4)
+    trainer = Code2VecTrainer(_sparse_config(**change), tv, device="cpu")
+    assert not isinstance(trainer.optimizer, AdamF32Moments)
+    assert "opt_state" in vars(trainer) and "rows" not in trainer.opt_state
+    losses = trainer.train(path, epochs=2)
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert trainer.total_steps == 4
+    assert np.mean(losses[-2:]) < np.mean(losses[:2])
 
 
 @pytest.mark.parametrize("field", ["HEAD", "MESH_DATA_AXIS",
@@ -518,19 +534,33 @@ def test_trainer_reads_no_batch_past_its_last_step(tmp_path, monkeypatch):
 
 
 def test_default_config_is_the_unported_dense_step(tmp_path):
-    """The port's Config keeps the JAX defaults, so a default training
-    run raises rather than train another way; a schedule and Adafactor
-    raise in their factories too."""
+    """The port's Config keeps the JAX defaults, and they build the dense
+    Adafactor step: Adafactor's factored state on the tables, Adam's on
+    TRANSFORM / ATTENTION, each with its schedule count. Every schedule
+    and both optimizers construct (a schedule needs its horizon)."""
     _jv, tv = _vocabs(tmp_path)
     cfg = Config()
     assert (cfg.SPARSE_EMBEDDING_UPDATES, cfg.EMBEDDING_OPTIMIZER,
-            cfg.LR_SCHEDULE) == (False, "adafactor", "cosine")
-    with pytest.raises(NotImplementedError):
-        Code2VecTrainer(dataclasses.replace(cfg, MAX_CONTEXTS=C), tv,
-                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_lr(LR, "cosine")
-    with pytest.raises(NotImplementedError):
-        make_optimizer(LR, "adafactor")
-    assert make_lr(LR) == LR and isinstance(make_optimizer(LR, "adam"),
-                                            AdamF32Moments)
+            cfg.LR_SCHEDULE, cfg.TABLES_DTYPE, cfg.USE_SAMPLED_SOFTMAX) == \
+        (False, "adafactor", "cosine", "bfloat16", False)
+    trainer = Code2VecTrainer(dataclasses.replace(cfg, MAX_CONTEXTS=C,
+                                                  DEFAULT_EMBEDDINGS_SIZE=E),
+                              tv, device="cpu")
+    state = trainer.opt_state
+    assert set(state) == {"table", "small"}
+    assert isinstance(state["table"][0], topt.FactoredState)
+    assert isinstance(state["table"][2], topt.ScaleByScheduleState)
+    assert isinstance(state["small"][0], topt.ScaleByAdamState)
+    assert set(state["table"][0].v) == {"token_emb", "path_emb",
+                                        "target_emb"}
+    assert set(state["small"][0].mu) == {"transform", "attention"}
+    assert state["table"][0].v["token_emb"].dtype == torch.bfloat16
+    assert make_lr(LR) == LR
+    for schedule in ("cosine", "linear", "warmup_cosine"):
+        with pytest.raises(ValueError):
+            make_lr(LR, schedule)
+        lr = make_lr(LR, schedule, 100)
+        assert 0 <= float(lr(torch.tensor(50, dtype=torch.int32))) <= LR
+        for opt in ("adafactor", "adam"):
+            assert isinstance(make_optimizer(lr, opt),
+                              topt.GradientTransformation)
