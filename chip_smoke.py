@@ -60,7 +60,27 @@ Phases (any failure raises, and the script exits non-zero):
    its results and methods/s; the kernel path held against the plain
    path batch by batch (loss within 1e-3, top-1 equal on 99% of the
    methods);
-10. a `{"kernels": [...]}` line, the card line, and last
+10. the fused multi-head attention kernels (2: forward, 3: backward as
+   launches 3a and 3b) against their plain versions on the card, at
+   (B, H, C, hd) = (1, 3, 200, 128), (7, ...), (64, ...) and
+   (1024, ...) in bf16 and (4, 4, 200, 96), (16, 2, 24, 16) in float32,
+   with their times (CUDA events and profiler device time, 3a and 3b
+   apart) beside the plain versions', the SDPA yardstick's and the bound;
+11. the transformer path-encoder (bench.py's configuration: L = 2,
+   H = 3, bf16) behind the `PredictionServer`, 32 concurrent requests:
+   kernel 2 launches L times a device batch and kernel 1 never; one
+   batch held against the plain path (the plain versions of kernels 2
+   and 3 in the kernels' place);
+12. (e) the transformer dense training path through the trainer
+   (Adafactor tables, Adam on the rest at a constant 1e-3, sampled
+   softmax over 4096): counted steps (kernels 2 and 3 L times a step),
+   one kernel step against one plain step from the same state and draws
+   (loss, the "xf" gradients), an XF_REMAT step (kernel 2 2L times, the
+   same loss), the loss falling over 5 steps of a repeated batch, the
+   step time, its split by phase, the device busy share and peak memory;
+13. evaluation of a transformer model over the 4096-method test file
+   (kernel 2 L times a batch), against the plain path batch by batch;
+14. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -80,7 +100,7 @@ import threading
 import time
 
 SEED = 0
-DEV = "cuda"  # where the kernel-4 phase makes its tables
+DEV = "cuda"  # where the kernel-4 and transformer phases make tensors
 C, E = 200, 128
 D = 3 * E
 JAVA_LARGE = {"token": 1301136, "path": 911417, "target": 261245}
@@ -122,6 +142,46 @@ REQUANT_OPS = 21
 # the plain path's on this share of them
 EVAL_METHODS, EVAL_TOP1_SHARE = 4096, 0.99
 
+# the transformer path-encoder (bench.py's configuration): layers, heads
+XF_L, XF_H = 2, 3
+# kernels 2 and 3 against their plain versions: (B, H, C, hd), dtype; the
+# java-large head shape at a serving bucket of 1, 7 and 64 and the
+# training batch, then H = 4's hd = 96 and the test shape, in float32
+XF_CASES = (((1, XF_H, C, D // XF_H), "bfloat16"),
+            ((7, XF_H, C, D // XF_H), "bfloat16"),
+            ((64, XF_H, C, D // XF_H), "bfloat16"),
+            ((TRAIN_B, XF_H, C, D // XF_H), "bfloat16"),
+            ((4, 4, C, 96), "float32"), ((16, 2, 24, 16), "float32"))
+# max |kernel - plain| over the largest |plain| value of each output.
+# float32: the kernels sum the 200- and 128-term products in another
+# order than cuBLAS and take expf where PyTorch takes its own exp, a few
+# float32 ulp of the terms (2^-24 = 6e-8) per sum, a few sums deep.
+# bf16: each output is rounded to bf16 once on both sides, and a float32
+# difference can put it on the other side of a rounding edge: one bf16
+# step, at most 2^-7 of the value and so of the largest.
+XF_TOL = {"float32": 2e-5, "bfloat16": 2.0 ** -7}
+# kernel path vs plain path through the transformer (bf16 activations):
+# a one-step difference in a bf16 attention output travels through the
+# out projection, the MLP and the next layer; the code vector is held
+# within 4 bf16 steps of its largest value; each pool weight, the exp of
+# a float32 logit over those activations, within 4 bf16 steps (2^-5) of
+# its method's largest weight; a code difference of a few bf16 steps
+# over D = 384 moves a logit against the stretched target table by up
+# to ~0.1, so a top-k probability within 10 % of itself
+XF_E2E_CODE_RTOL, XF_E2E_ATTN_RTOL, XF_E2E_PROB_RTOL = 2.0 ** -5, 2.0 ** -5, 0.1
+# the xf gradients of one training step, kernels vs plain versions, over
+# each leaf's largest value: dq, dk and dv are rounded to bf16 on both
+# sides, and a one-step difference (2^-8 to 2^-7 of a value) travels
+# through the layer's weight products; readings on an H100 80GB HBM3 at
+# 700 W were 5.2e-3 and 5.6e-3, and the bound is under twice that
+XF_GRAD_RTOL = 1e-2
+
+# profiled runs of one measurement before its device times are reported
+# as not measured; host seconds of idle at each end of a profiled window,
+# so that device activity the trace places a little off the host's
+# window (a few microseconds of kernels in a short one) is kept
+PROFILE_TRIES, PROFILE_PAD_S = 3, 0.05
+
 # published dense peaks: float32 outside the tensor cores, bf16 tensor
 # cores, HBM bytes/s (NVIDIA data sheets)
 PEAKS = {"H100 SXM": (67e12, 989e12, 3.35e12),
@@ -162,20 +222,31 @@ def profile_calls(torch, fn, n: int):
     """`fn()` n times under torch.profiler (CPU and CUDA activity) ->
     wall ms per call (host clock, profiler on), device-busy ms per call
     (the union of the CUDA kernels' intervals), and device ms per call
-    of each kernel by name, largest first."""
+    of each kernel by name, largest first. A profiled run that records no
+    CUDA activity at all (the CUPTI trace now and then comes back empty)
+    is profiled again, up to PROFILE_TRIES times; then None: the device
+    times are not measured, which fails no check."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    cuda = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(cuda, "the profiler saw no CUDA kernel")
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
+        cuda = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if cuda:
+            break
+    else:
+        print(f"  the profiler saw no CUDA activity in {PROFILE_TRIES} runs: "
+              f"device times not measured", flush=True)
+        return None
     busy, end = 0.0, None
     for s, e in sorted((e.time_range.start, e.time_range.end) for e in cuda):
         if end is None or s > end:
@@ -192,13 +263,45 @@ def profile_calls(torch, fn, n: int):
             "kernel_ms": {k: us / 1e3 / n for k, us in top}}
 
 
-def kernel_device_ms(torch, fn, name_part: str, n: int = 10) -> float:
+def kernel_device_ms(torch, fn, name_part: str, n: int = 10):
     """Device time of one launch of the kernel whose name holds
-    `name_part`, from the profiler (no host time in it)."""
+    `name_part`, from the profiler (no host time in it); None where the
+    profiler saw no CUDA activity."""
     prof = profile_calls(torch, fn, n)
+    if prof is None:
+        return None
     hits = [ms for k, ms in prof["kernel_ms"].items() if name_part in k]
     check(len(hits) == 1, f"profiler kernels matching {name_part}: {hits}")
     return hits[0]
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def profile_step(torch, label: str, fn, step_ms: float, top: int = 6,
+                 name_part: str = ""):
+    """Profile TIMED_STEPS runs of the step `fn` and print where the
+    device time goes -> (profile or None, device busy share of the
+    unprofiled step or None, device ms per step of the kernels whose name
+    holds `name_part` or None)."""
+    prof = profile_calls(torch, fn, TIMED_STEPS)
+    if prof is None:
+        print(f"  ({label}) device busy share and kernel times not measured",
+              flush=True)
+        return None, None, None
+    busy_share = prof["busy_ms"] / step_ms
+    part_ms = sum(ms for k, ms in prof["kernel_ms"].items() if name_part in k)
+    part = (f"kernels matching {name_part!r} {part_ms:.3f} ms per step; "
+            if name_part else "")
+    print(f"  ({label}) profiler, {TIMED_STEPS} steps: device busy "
+          f"{prof['busy_ms']:.3f} ms per step = {busy_share:.3f} of the "
+          f"unprofiled step ({prof['busy_ms'] / prof['wall_ms']:.3f} of the "
+          f"profiled {prof['wall_ms']:.2f} ms); {part}largest kernels (ms per "
+          f"step): " + ", ".join(f"{short_name(k)} {ms:.3f}"
+                                 for k, ms in list(prof["kernel_ms"].items())[:top]),
+          flush=True)
+    return prof, busy_share, (part_ms if name_part else None)
 
 
 def short_name(kernel: str, width: int = 48) -> str:
@@ -282,7 +385,7 @@ def phase_kernels(torch, peaks, report):
         rows.append(row)
         print(f"  attention_pool B={B:4d} {row['ctx_dtype']:8s} "
               f"err code {err_c:.3g} attn {err_a:.3g} | kernel {k_ms:.4f} ms"
-              f" (device {dev_ms:.4f})"
+              f" (device {fmt_ms(dev_ms)})"
               f" plain {p_ms:.4f} ms matmul {lib_ms:.4f} ms | bound "
               f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; tensor-core "
               f"{bound['tensor_core_ops_ms']:.4f} ms)", flush=True)
@@ -529,7 +632,8 @@ def phase_build(report):
     from code2vec_tpu_torch.ops.attention_kernel import KERNEL as POOL
     from code2vec_tpu_torch.ops.requant_kernel import KERNEL as REQUANT
     from code2vec_tpu_torch.ops.sparse_update_kernel import KERNEL as ROWS
-    names = (POOL, ROWS, REQUANT)
+    from code2vec_tpu_torch.ops.xf_attention_kernel import KERNEL as XF
+    names = (POOL, ROWS, REQUANT, XF)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         futures = {name: ex.submit(_build.build, name) for name in names}
@@ -791,16 +895,8 @@ def phase_train_config(torch, np, vocabs, data_path, label, cfg, report):
           ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
           f"; peak device memory {peak_gb:.2f} GB", flush=True)
     # ---- where the device time goes, and how busy the device is ----
-    prof = profile_calls(torch, lambda: trainer.train_step(batch),
-                         TIMED_STEPS)
-    busy_share = prof["busy_ms"] / step_med
-    print(f"  ({label}) profiler, {TIMED_STEPS} steps: device busy "
-          f"{prof['busy_ms']:.3f} ms per step = {busy_share:.3f} of the "
-          f"unprofiled step ({prof['busy_ms'] / prof['wall_ms']:.3f} of the "
-          f"profiled {prof['wall_ms']:.2f} ms); largest kernels (ms per "
-          f"step): " + ", ".join(
-              f"{short_name(k)} {ms:.3f}"
-              for k, ms in list(prof["kernel_ms"].items())[:6]), flush=True)
+    prof, busy_share, _ = profile_step(
+        torch, label, lambda: trainer.train_step(batch), step_med)
     report[f"train_{label}"] = {
         "tables": cfg.TABLES_DTYPE, "sampled": cfg.USE_SAMPLED_SOFTMAX,
         "launches": launches, "steps": TRAIN_STEPS, "losses": losses,
@@ -909,7 +1005,7 @@ def phase_row_kernels(torch, peaks, java_u, report):
             name = "sparse_requant_adam" if kind == "int8" else "sparse_row_adam"
             print(f"  {name} {kind:8s} E={width} U={U:6d}: {note}, moments "
                   f"{row['moment_ulp']} ulp | kernel {k_ms:.4f} ms (device "
-                  f"{dev_ms:.4f}) plain {p_ms:.4f} ms | bound "
+                  f"{fmt_ms(dev_ms)}) plain {p_ms:.4f} ms | bound "
                   f"{bound['bound_ms']:.4f} ms "
                   f"({bound['bound_by']}, {bound['bytes'] / 1e6:.2f} MB)",
                   flush=True)
@@ -979,7 +1075,7 @@ def phase_requant_kernel(torch, peaks, report):
         rows.append(row)
         print(f"  requantize V={V:8d} E={width} {upd_name:8s}: q, s "
               f"bit-identical ({flips} zero-update flips) | kernel "
-              f"{k_ms:.4f} ms (device {dev_ms:.4f}) plain {p_ms:.4f} ms | "
+              f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}) plain {p_ms:.4f} ms | "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
               f"{bound['bytes'] / 1e6:.1f} MB)", flush=True)
         del k_t, upd
@@ -1130,16 +1226,8 @@ def phase_dense_config(torch, np, vocabs, data_path, label, cfg, report):
           f"clock, synchronised); by phase (CUDA events, median): " +
           ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
           f"; peak device memory {peak_gb:.2f} GB", flush=True)
-    prof = profile_calls(torch, lambda: trainer.train_step(batch),
-                         TIMED_STEPS)
-    busy_share = prof["busy_ms"] / step_med
-    print(f"  ({label}) profiler, {TIMED_STEPS} steps: device busy "
-          f"{prof['busy_ms']:.3f} ms per step = {busy_share:.3f} of the "
-          f"unprofiled step ({prof['busy_ms'] / prof['wall_ms']:.3f} of the "
-          f"profiled {prof['wall_ms']:.2f} ms); largest kernels (ms per "
-          f"step): " + ", ".join(
-              f"{short_name(k)} {ms:.3f}"
-              for k, ms in list(prof["kernel_ms"].items())[:6]), flush=True)
+    prof, busy_share, _ = profile_step(
+        torch, label, lambda: trainer.train_step(batch), step_med)
     report[f"train_{label}"] = {
         "tables": cfg.TABLES_DTYPE, "sampled": cfg.USE_SAMPLED_SOFTMAX,
         "optimizer": "adafactor", "lr_schedule": cfg.LR_SCHEDULE,
@@ -1246,6 +1334,523 @@ def phase_eval(torch, np, vocabs, test_path, report):
     return launches
 
 
+# ---- the transformer path-encoder (kernels 2 and 3) ----
+
+def xf_inputs(torch, shape, dtype, gen):
+    """q, k, v ~ N(0, 1) in `dtype`, a log mask (log 1e-30 on a masked
+    key) cycling through: random, all padding but key 0, full."""
+    B, _H, Cq, _hd = shape
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    mask = (torch.rand((B, Cq), generator=gen, device="cuda") > 0.3).float()
+    mask[:, 0] = 1
+    mask[1::3] = 0
+    mask[1::3, 0] = 1
+    mask[2::3] = 1
+    return q, k, v, torch.log(torch.clamp(mask, min=1e-30))
+
+
+def xf_bound(shape, elem: int, peaks, pair: int, wide: int, tensors: int):
+    """Least time of one attention call over (b, h) blocks: `tensors`
+    [B, H, C, hd] arrays read or written once and the mask read, over the
+    HBM rate; [C, C, hd] products (2 C^2 hd operations each) at the peak
+    of their operand types: `pair` products of two input arrays (q k^T,
+    dO v^T) at the bf16 tensor-core peak when the inputs are bf16 (a bf16
+    product is exact in a float32 sum), `wide` products with a float32
+    operand (the softmax weights A, or dL) at the float32 peak, as every
+    product of float32 inputs."""
+    f32_peak, bf16_peak, hbm = peaks
+    B, H, Cq, hd = shape
+    nbytes = tensors * B * H * Cq * hd * elem + 4 * B * Cq
+    per_product = 2 * Cq * Cq * hd * B * H
+    pair_peak = bf16_peak if elem == 2 else f32_peak
+    ms_bytes = nbytes / hbm * 1e3
+    ms_ops = (pair * per_product / pair_peak
+              + wide * per_product / f32_peak) * 1e3
+    flops = (pair + wide) * per_product
+    return {"bytes": nbytes, "flops": flops, "bytes_ms": ms_bytes,
+            "ops_ms": ms_ops, "tensor_core_ops_ms": flops / bf16_peak * 1e3,
+            "bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "operations" if ms_ops >= ms_bytes else "bytes"}
+
+
+def phase_xf_kernels(torch, peaks, report):
+    """Kernels 2 and 3 against their plain versions on the card."""
+    import torch.nn.functional as F
+    from code2vec_tpu_torch.ops import xf_attention as xa
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = {"forward": [], "backward": []}
+    for shape, dname in XF_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v, lm = xf_inputs(torch, shape, dtype, gen)
+        do = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        tol = XF_TOL[dname]
+        got = [xa.mha_forward_fused(q, k, v, lm),
+               *xa.mha_backward_fused(q, k, v, lm, do)]
+        want = [xa.mha_forward_plain(q, k, v, lm),
+                *xa.mha_backward_plain(q, k, v, lm, do)]
+        torch.cuda.synchronize()
+        errs, rels = [], []
+        for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
+            check(bool(torch.isfinite(a).all()), f"xf {shape} {dtype}: "
+                  f"non-finite {name}")
+            err = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            check(err <= tol * top, f"xf {shape} {dtype}: {name} max|d| "
+                  f"{err} over {tol} x {top}")
+            errs.append(err)
+            rels.append(err / top)
+        elem = q.element_size()
+        k2_ms = time_ms(torch, lambda: xa.mha_forward_fused(q, k, v, lm))
+        k3_ms = time_ms(torch, lambda: xa.mha_backward_fused(q, k, v, lm, do))
+        p2_ms = time_ms(torch, lambda: xa.mha_forward_plain(q, k, v, lm))
+        p3_ms = time_ms(torch, lambda: xa.mha_backward_plain(q, k, v, lm, do))
+        k2_dev = kernel_device_ms(
+            torch, lambda: xa.mha_forward_fused(q, k, v, lm), "mha_fwd_kernel")
+        k3a_dev = kernel_device_ms(
+            torch, lambda: xa.mha_backward_fused(q, k, v, lm, do),
+            "mha_bwd_dq_kernel")
+        k3b_dev = kernel_device_ms(
+            torch, lambda: xa.mha_backward_fused(q, k, v, lm, do),
+            "mha_bwd_dkv_kernel")
+        # the library yardstick (never called by the port): SDPA with the
+        # additive mask, forward, and its backward through autograd
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        am = lm.to(dtype)[:, None, None, :]
+        l2_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            sq, sk, sv, attn_mask=am))
+        so = F.scaled_dot_product_attention(sq, sk, sv, attn_mask=am)
+        l3_ms = time_ms(torch, lambda: torch.autograd.grad(
+            so, (sq, sk, sv), do, retain_graph=True))
+        del sq, sk, sv, so
+        # kernel 2: q k^T, A v; kernel 3 as the Pallas kernel counts it:
+        # q k^T, dO v^T, A^T dO, dL k, dL^T q; 3a + 3b recompute q k^T and
+        # dO v^T in both launches
+        b2 = xf_bound(shape, elem, peaks, 1, 1, 4)
+        b3 = xf_bound(shape, elem, peaks, 2, 3, 7)
+        b3_split = xf_bound(shape, elem, peaks, 4, 3, 7)
+        common = {"shape": list(shape), "dtype": dname}
+        rows["forward"].append({
+            **common, "max_abs_err": errs[0], "rel_err": rels[0],
+            "ms": k2_ms, "kernel_device_ms": k2_dev, "plain_ms": p2_ms,
+            "library_ms": l2_ms, **b2})
+        rows["backward"].append({
+            **common, "max_abs_err": max(errs[1:]), "rel_err": max(rels[1:]),
+            "ms": k3_ms, "kernel_device_ms": (
+                None if None in (k3a_dev, k3b_dev) else k3a_dev + k3b_dev),
+            "kernel_3a_device_ms": k3a_dev, "kernel_3b_device_ms": k3b_dev,
+            "plain_ms": p3_ms, "library_ms": l3_ms, **b3,
+            "split_ops_ms": b3_split["ops_ms"]})
+        print(f"  mha {tuple(shape)} {dname:8s} rel err o {rels[0]:.2g} "
+              f"dq/dk/dv {max(rels[1:]):.2g} | kernel 2 {k2_ms:.4f} ms "
+              f"(device {fmt_ms(k2_dev)}) plain {p2_ms:.4f} sdpa {l2_ms:.4f} "
+              f"bound {b2['bound_ms']:.4f} ({b2['bound_by']}) | kernel 3 "
+              f"{k3_ms:.4f} ms (device 3a {fmt_ms(k3a_dev)} + 3b "
+              f"{fmt_ms(k3b_dev)}) "
+              f"plain {p3_ms:.4f} sdpa bwd {l3_ms:.4f} bound "
+              f"{b3['bound_ms']:.4f} ({b3['bound_by']}; 3a/3b recompute "
+              f"{b3_split['ops_ms']:.4f})", flush=True)
+        del q, k, v, lm, do, got, want
+        torch.cuda.empty_cache()
+    report["xf_kernels"] = rows
+    return rows
+
+
+def xf_counts():
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.xf_attention import (mha_backward_fused,
+                                                     mha_forward_fused)
+    return {"attention_pool": attention_pool_fused.launches,
+            "xf_attention_forward": mha_forward_fused.launches,
+            "xf_attention_backward": mha_backward_fused.launches}
+
+
+def zero_xf_counts():
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.xf_attention import (mha_backward_fused,
+                                                     mha_forward_fused)
+    attention_pool_fused.launches = 0
+    mha_forward_fused.launches = 0
+    mha_backward_fused.launches = 0
+
+
+def stretch_tables(params) -> None:
+    """The serving phase's stretch: leaf embeddings uniform in [-1, 1],
+    the target table in [-0.3, 0.3] (initial tables near 0 make every
+    logit the same and a top-k comparison vacuous)."""
+    for key, reach in (("token_emb", 1.0), ("path_emb", 1.0),
+                      ("target_emb", 0.3)):
+        t = params[key]
+        t.mul_(reach / t.float().abs().max().item())
+
+
+def xf_config(**kw):
+    """bench.py's transformer configuration at java-large width: L = 2,
+    H = 3 (hd = 128), bf16 tables and compute, B = 1024, Adafactor tables
+    and Adam elsewhere at a constant 1e-3, sampled softmax over 4096."""
+    from code2vec_tpu_torch.config import Config
+    base = dict(MAX_CONTEXTS=C, DEFAULT_EMBEDDINGS_SIZE=E,
+                TRAIN_BATCH_SIZE=TRAIN_B, TABLES_DTYPE="bfloat16",
+                USE_BF16=True, ENCODER_TYPE="transformer", XF_LAYERS=XF_L,
+                XF_HEADS=XF_H, LEARNING_RATE=1e-3, LR_SCHEDULE="constant",
+                USE_SAMPLED_SOFTMAX=True, NUM_SAMPLED_CLASSES=TRAIN_S,
+                SEED=SEED)
+    base.update(kw)
+    return Config(**base)
+
+
+def phase_xf_serving(torch, np, vocabs, report):
+    """The transformer model behind the port's PredictionServer."""
+    from code2vec_tpu_torch.models.encoder import init_params
+    from code2vec_tpu_torch.models.torch_model import (Code2VecModel,
+                                                       dims_from_config)
+    from code2vec_tpu_torch.serving.server import PredictionServer
+    from code2vec_tpu_torch.training.steps import predict_step
+
+    config = xf_config(SERVE_BATCH_MAX=64, SERVE_DEADLINE_MS=30000.0)
+    dims = dims_from_config(config, vocabs)
+    params = init_params(torch.Generator(device=DEV).manual_seed(SEED), dims)
+    stretch_tables(params)
+    model = Code2VecModel(config, dims, vocabs, params)  # the card
+    check(model.device.type == "cuda", f"model on {model.device}")
+    requests = make_requests(np, np.random.default_rng(SEED + 2))
+    server = PredictionServer(config, model)
+    try:
+        server.start(warmup=True)
+        results = [None] * len(requests)
+        latency_ms = [None] * len(requests)
+        errors = []
+
+        def client(i0):
+            try:
+                for i in range(i0, len(requests), N_CLIENTS):
+                    t = time.perf_counter()
+                    results[i] = server.predict_lines(requests[i])
+                    latency_ms[i] = (time.perf_counter() - t) * 1e3
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+
+        # ---- the main path: counts at 0 just before, read just after ----
+        zero_xf_counts()
+        batches0 = server.batches
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(N_CLIENTS)]
+        t_run = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t_run
+        launches = xf_counts()
+        device_batches = server.batches - batches0
+        check(not any(t.is_alive() for t in threads), "a client thread hung")
+        if errors:
+            raise errors[0]
+        n_methods = 0
+        for lines, res in zip(requests, results):
+            check(res is not None and len(res) == len(lines),
+                  "a request got the wrong number of results")
+            for r in res:
+                n_methods += 1
+                check(len(r.predictions) in (TOP_K - 1, TOP_K),
+                      f"{len(r.predictions)} predictions")
+                check(all(np.isfinite(p["probability"]) for p in
+                          r.predictions), "bad probability")
+        want = {"attention_pool": 0,
+                "xf_attention_forward": XF_L * device_batches,
+                "xf_attention_backward": 0}
+        check(device_batches >= 1 and launches == want,
+              f"xf serving launches {launches}, expected {want}")
+        lat = np.array(latency_ms)
+        print(f"  served {len(requests)} requests / {n_methods} methods from "
+              f"{N_CLIENTS} threads in {wall_s:.3f} s: {device_batches} device "
+              f"batches, launches {launches}; request p50 "
+              f"{np.percentile(lat, 50):.2f} ms p99 "
+              f"{np.percentile(lat, 99):.2f} ms", flush=True)
+
+        flat_lines = [ln for req in requests for ln in req]
+        prepared = model.prepare_predict_rows(flat_lines[:64])
+        ts = []
+        for _ in range(7):
+            t = time.perf_counter()
+            model.predict_device(prepared)
+            ts.append((time.perf_counter() - t) * 1e3)
+        bucket64_ms = sorted(ts)[len(ts) // 2]
+
+        # ---- one batch: kernel path vs plain path on the card ----
+        batch = model.device_batch(
+            prepared.labels, prepared.src, prepared.pth, prepared.dst,
+            prepared.mask, np.ones(prepared.n, np.float32))
+        with torch.inference_mode():
+            kw = dict(dims=dims, top_k=TOP_K, compute_dtype=torch.bfloat16)
+            ids_k, probs_k, attn_k, code_k = predict_step(model.params, batch,
+                                                          **kw)
+            ids_p, probs_p, attn_p, code_p = predict_step(
+                model.params, batch, use_kernel=False, **kw)
+        code_err = (code_k - code_p).abs().max().item()
+        code_top = code_p.abs().max().item()
+        attn_err = (attn_k - attn_p).abs().max().item()
+        attn_rel = ((attn_k - attn_p).abs().amax(dim=-1)
+                    / attn_p.amax(dim=-1)).max().item()
+        prob_err = ((probs_k - probs_p).abs() / probs_p).max().item()
+        check(code_err <= XF_E2E_CODE_RTOL * code_top,
+              f"xf serving code max|d| {code_err} of {code_top}")
+        check(attn_rel <= XF_E2E_ATTN_RTOL, f"xf serving attn max|d| "
+              f"{attn_rel} of a method's largest weight")
+        check(prob_err <= XF_E2E_PROB_RTOL,
+              f"xf serving prob max rel d {prob_err}")
+        # top-k ids equal wherever the plain path's probabilities are more
+        # than twice the tolerance apart (closer ones may swap)
+        ids_k, ids_p = ids_k.cpu().numpy(), ids_p.cpu().numpy()
+        pp = probs_p.float().cpu().numpy()
+        checked = 0
+        for i in range(ids_p.shape[0]):
+            for j in range(TOP_K - 1):
+                gap = min(pp[i, j] - pp[i, j + 1],
+                          pp[i, j - 1] - pp[i, j] if j else np.inf)
+                if gap > 2 * XF_E2E_PROB_RTOL * pp[i, j]:
+                    check(ids_k[i, j] == ids_p[i, j], f"xf top-k id {i},{j}")
+                    checked += 1
+        check(checked >= prepared.n // 2, f"only {checked} separated top-k "
+              f"ids over {prepared.n} methods")
+        print(f"  predict_device 64 methods {bucket64_ms:.3f} ms; kernel path "
+              f"vs plain path, {prepared.n} methods: code max|d| "
+              f"{code_err:.3g} (of {code_top:.3g}), attn {attn_err:.3g} "
+              f"({attn_rel:.3g} of a method's largest), "
+              f"top-k prob max rel d {prob_err:.3g}, {checked} separated "
+              f"top-k ids equal", flush=True)
+    finally:
+        server.close()
+    report["xf_serving"] = {
+        "requests": len(requests), "methods": n_methods,
+        "device_batches": device_batches, "launches": launches,
+        "wall_s": wall_s, "request_ms_p50": float(np.percentile(lat, 50)),
+        "request_ms_p99": float(np.percentile(lat, 99)),
+        "predict_device_ms_64": bucket64_ms, "e2e_code_err": code_err,
+        "e2e_attn_err": attn_err, "e2e_attn_rel": attn_rel,
+        "e2e_prob_rel": prob_err,
+        "e2e_ids_checked": checked}
+    del model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_xf_train(torch, np, vocabs, data_path, report):
+    """Configuration (e): the transformer dense step through the trainer."""
+    import dataclasses
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.training.steps import (apply_dense_updates,
+                                                   dense_loss_and_grads,
+                                                   make_train_loss_fn)
+    label = "e"
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = xf_config()
+    trainer = Code2VecTrainer(cfg, vocabs)  # device=None: the card
+    check(trainer.device.type == "cuda", f"trainer on {trainer.device}")
+    dims, step_cfg = trainer.dims, trainer.step_config
+    xf_n = sum(t.numel() for t in trainer.opt_state["small"][0].mu.values())
+    print(f"  ({label}) transformer L={XF_L} H={XF_H} (hd {D // XF_H}), "
+          f"{xf_n} Adam params, tables bf16, sampled softmax S={TRAIN_S}, "
+          f"Adafactor + Adam at a constant {cfg.LEARNING_RATE}; set up in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    zero_xf_counts()
+    t_run = time.perf_counter()
+    losses = trainer.train(data_path, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = xf_counts()
+    want = {"attention_pool": 0, "xf_attention_forward": XF_L * TRAIN_STEPS,
+            "xf_attention_backward": XF_L * TRAIN_STEPS}
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"({label}) losses {losses}")
+    check(launches == want, f"({label}) launches {launches}, expected {want}")
+    print(f"  ({label}) trainer.train: {TRAIN_STEPS} steps in {run_s:.2f} s "
+          f"(host parse included), losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}; launches {launches}",
+          flush=True)
+
+    # ---- one step: kernels vs plain versions from the same state ----
+    reader = C2VTextReader(data_path, vocabs, C, TRAIN_B)
+    batch = trainer.device_batch(next(iter(reader)))
+    draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+    params, state, opt = trainer.params, trainer.opt_state, trainer.optimizer
+    kw = dict(use_sampled_softmax=step_cfg.use_sampled_softmax,
+              num_sampled=step_cfg.num_sampled,
+              compute_dtype=step_cfg.compute_dtype)
+    loss_fn = make_train_loss_fn(dims, **kw)
+    loss_k, grads_k, _view = dense_loss_and_grads(params, batch, draws,
+                                                  loss_fn)
+    loss_p, grads_p, _ = dense_loss_and_grads(
+        params, batch, draws, make_train_loss_fn(dims, use_kernel=False, **kw))
+    torch.cuda.synchronize()
+    lk, lp = loss_k.item(), loss_p.item()
+    loss_rel = abs(lk - lp) / abs(lp)
+    check(loss_rel <= LOSS_RTOL, f"({label}) loss kernel {lk} plain {lp}")
+    grad_rel = 0.0
+    for key, g in grads_p.items():
+        if key.startswith("xf/"):
+            top = g.float().abs().max().item()
+            err = (grads_k[key].float() - g.float()).abs().max().item()
+            grad_rel = max(grad_rel, err / max(top, 1e-30))
+    check(grad_rel <= XF_GRAD_RTOL, f"({label}) xf grads kernel vs plain "
+          f"{grad_rel} of the largest")
+    del grads_p, _view
+    # the XF_REMAT step from the same state and draws: kernel 2 runs twice
+    # per layer, and the loss and grads are the same bit for bit (the same
+    # operations on the same inputs)
+    remat_fn = make_train_loss_fn(dataclasses.replace(dims, xf_remat=True),
+                                  **kw)
+    zero_xf_counts()
+    loss_r, grads_r, _ = dense_loss_and_grads(params, batch, draws, remat_fn)
+    torch.cuda.synchronize()
+    remat_launches = xf_counts()
+    lr_ = loss_r.item()
+    check(remat_launches == {"attention_pool": 0,
+                             "xf_attention_forward": 2 * XF_L,
+                             "xf_attention_backward": XF_L},
+          f"({label}) remat launches {remat_launches}")
+    check(lr_ == lk, f"({label}) remat loss {lr_} vs {lk}")
+    remat_grad_rel = max(
+        (grads_r[k].float() - g.float()).abs().max().item()
+        / max(g.float().abs().max().item(), 1e-30)
+        for k, g in grads_k.items() if k.startswith("xf/"))
+    check(remat_grad_rel == 0.0,
+          f"({label}) remat xf grads differ by {remat_grad_rel}")
+    del grads_r, grads_k
+    torch.cuda.empty_cache()
+    print(f"  ({label}) kernel step vs plain step: loss {lk:.6f} vs {lp:.6f} "
+          f"(rel {loss_rel:.2e}), xf grads max|d| {grad_rel:.3g} of the "
+          f"largest; XF_REMAT step: loss {lr_:.6f}, grads max|d| "
+          f"{remat_grad_rel:.3g}, launches {remat_launches}", flush=True)
+
+    # ---- the loss falls over a repeated batch (and the same draws) ----
+    fixed = trainer.draws_for(TRAIN_B, trainer.step_num)
+    fall = [trainer.train_step(batch, fixed).item() for _ in range(FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f"({label}) loss over a repeated batch: {fall}")
+    print(f"  ({label}) repeated batch, {FALL_STEPS} steps: "
+          f"{', '.join(f'{x:.5f}' for x in fall)}", flush=True)
+
+    # ---- step time and its split by phase ----
+    step_ms = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    names = ["draws", "forward+backward", "optimizer", "apply"]
+    split = {n: [] for n in names}
+    for _ in range(TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        d = trainer.draws_for(TRAIN_B, trainer.step_num)
+        ev[1].record()
+        _loss, grads, view = dense_loss_and_grads(params, batch, d, loss_fn)
+        ev[2].record()
+        updates = opt.update(grads, state, view)
+        ev[3].record()
+        apply_dense_updates(params, updates, d.salts)
+        ev[4].record()
+        ev[4].synchronize()
+        trainer.step_num += 1
+        for i, n in enumerate(names):
+            split[n].append(ev[i].elapsed_time(ev[i + 1]))
+    del grads, view, updates
+    med = {n: sorted(v)[len(v) // 2] for n, v in split.items()}
+    step_med = sorted(step_ms)[len(step_ms) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  ({label}) step {step_med:.2f} ms (median of {TIMED_STEPS}, host "
+          f"clock, synchronised); by phase (CUDA events, median): " +
+          ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
+          f"; peak device memory {peak_gb:.2f} GB", flush=True)
+    # kernels 2 and 3 are mha_fwd_kernel, mha_bwd_dq_kernel, mha_bwd_dkv_kernel
+    prof, busy_share, xf_ms = profile_step(
+        torch, label, lambda: trainer.train_step(batch), step_med, top=8,
+        name_part="mha_")
+    report[f"train_{label}"] = {
+        "config": "bench.py transformer", "layers": XF_L, "heads": XF_H,
+        "launches": launches, "steps": TRAIN_STEPS, "losses": losses,
+        "run_s": run_s, "loss_kernel": lk, "loss_plain": lp,
+        "loss_rel": loss_rel, "xf_grad_rel": grad_rel, "remat_loss": lr_,
+        "remat_launches": remat_launches, "remat_grad_rel": remat_grad_rel,
+        "repeated_batch_losses": fall, "step_ms": step_ms,
+        "step_ms_median": step_med, "phase_ms_median": med,
+        "peak_memory_gb": peak_gb, "profile": prof,
+        "device_busy_share": busy_share, "xf_kernels_ms_per_step": xf_ms}
+    del trainer, params, state, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_xf_eval(torch, np, vocabs, test_path, report):
+    """`evaluate` of a transformer model over the test file (counted),
+    then the kernel path against the plain path batch by batch."""
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.training.steps import eval_step
+    cfg = xf_config()
+    trainer = Code2VecTrainer(cfg, vocabs)  # device=None: the card
+    stretch_tables(trainer.params)
+    top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+    n_batches = -(-EVAL_METHODS // cfg.TEST_BATCH_SIZE)
+    trainer.evaluate(test_path)  # warm: allocator, library set-up
+
+    # ---- the main path: counts at 0 just before, read just after ----
+    zero_xf_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = trainer.evaluate(test_path)
+    eval_s = time.perf_counter() - t
+    launches = xf_counts()
+    want = {"attention_pool": 0, "xf_attention_forward": XF_L * n_batches,
+            "xf_attention_backward": 0}
+    check(launches == want, f"xf eval launches {launches}, expected {want}")
+    check(np.isfinite(results.loss) and len(results.topk_acc) == top_k,
+          f"xf eval results {results}")
+    rate = EVAL_METHODS / eval_s
+    print(f"  evaluate: {EVAL_METHODS} methods in {n_batches} batches of "
+          f"{cfg.TEST_BATCH_SIZE}, {eval_s:.3f} s ({rate:.0f} methods/s, "
+          f"host parse and decode included); {results}; launches "
+          f"{launches}", flush=True)
+
+    reader = C2VTextReader(test_path, vocabs, C, cfg.TEST_BATCH_SIZE)
+    loss_k = loss_p = 0.0
+    same = total = 0
+    with torch.inference_mode():
+        for b in reader:
+            batch = trainer.device_batch(b)
+            kw = dict(dims=trainer.dims, top_k=top_k,
+                      compute_dtype=torch.bfloat16)
+            lk, ids_k, _ = eval_step(trainer.params, batch, **kw)
+            lp, ids_p, _ = eval_step(trainer.params, batch, use_kernel=False,
+                                     **kw)
+            nv = b.num_valid_examples
+            loss_k += lk.item()
+            loss_p += lp.item()
+            same += int((ids_k[:nv, 0] == ids_p[:nv, 0]).sum().item())
+            total += nv
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    share = same / total
+    check(loss_rel <= LOSS_RTOL, f"xf eval loss kernel {loss_k} plain {loss_p}")
+    check(share >= EVAL_TOP1_SHARE, f"xf eval top-1 equal on {same}/{total}")
+    print(f"  eval kernel path vs plain path: loss sum {loss_k:.4f} vs "
+          f"{loss_p:.4f} (rel {loss_rel:.2e}); top-1 equal on {same}/{total}",
+          flush=True)
+    report["xf_eval"] = {
+        "methods": EVAL_METHODS, "batch": cfg.TEST_BATCH_SIZE,
+        "seconds": eval_s, "methods_per_s": rate, "launches": launches,
+        "loss": results.loss, "topk_acc": results.topk_acc,
+        "subtoken_f1": results.subtoken_f1, "loss_rel_kernel_plain": loss_rel,
+        "top1_equal_share": share}
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1337,7 +1942,23 @@ def main(argv=None) -> int:
         print("[9] java-large evaluation", flush=True)
         eval_launches = phase_eval(torch, np, vocabs, test_path, report)
 
-    # ---- 10. result ----
+        # ---- 10. kernels 2 and 3 vs their plain versions ----
+        print("[10] fused-MHA kernels (2, 3) vs plain versions (TF32 off)",
+              flush=True)
+        xf_rows = phase_xf_kernels(torch, peaks, report)
+
+        # ---- 11.-13. the transformer path-encoder ----
+        print("[11] java-large transformer serving path", flush=True)
+        xf_launches = {"serving": phase_xf_serving(torch, np, vocabs, report)}
+        print("[12] java-large transformer dense training path (e)",
+              flush=True)
+        xf_launches["train_e"] = phase_xf_train(torch, np, vocabs, data_path,
+                                                report)
+        print("[13] java-large transformer evaluation", flush=True)
+        xf_launches["eval"] = phase_xf_eval(torch, np, vocabs, test_path,
+                                            report)
+
+    # ---- 14. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -1385,13 +2006,29 @@ def main(argv=None) -> int:
          "bound_ms": main_requant["bound_ms"],
          "bound_by": main_requant["bound_by"], "library_ms": None},
     ]
+    # kernels 2 and 3 at the training shape, where most of their launches'
+    # work is (the other shapes are in --out)
+    for name, direction, line in (("xf_attention_forward", "forward", 120),
+                                  ("xf_attention_backward", "backward", 138)):
+        main_row = next(r for r in xf_rows[direction]
+                        if r["shape"][0] == TRAIN_B)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "code2vec_tpu_torch/csrc/xf_attention.cu",
+            "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
+            "launches": sum(v[name] for v in xf_launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"]})
     for k in kernels:
         check(k["launches"] >= 1, f"kernel {k['name']} never launched on "
               f"a main path")
     report["kernels"] = kernels
     report["launches"] = {"serving": serve_launches, "eval": eval_launches,
                           **{f"train_{k}": v
-                             for k, v in train_launches.items()}}
+                             for k, v in train_launches.items()},
+                          **{f"xf_{k}": v for k, v in xf_launches.items()}}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -10,10 +10,11 @@ tables, Adam on TRANSFORM / ATTENTION, a cosine learning rate, bf16
 tables and full softmax. `SPARSE_EMBEDDING_UPDATES=True` selects the
 sparse-row step, which `verify` allows only with `EMBEDDING_OPTIMIZER=
 "adam"`, `LR_SCHEDULE="constant"` and the `bag` encoder, as the JAX
-package's does. The transformer encoder is not ported: the trainer
-refuses it with `NotImplementedError`. The port has one head
+package's does. `ENCODER_TYPE="transformer"` selects the transformer
+path-encoder (`XF_LAYERS` pre-norm layers of `XF_HEADS` heads) for
+serving, the dense step and evaluation. The port has one head
 (`code2vec`) and trains on one device, so it has no head or mesh fields
-yet.
+yet, and no `RING_ATTENTION`, which needs a mesh.
 """
 
 from __future__ import annotations
@@ -47,7 +48,12 @@ class Config:
 
     # ---- model ----
     DEFAULT_EMBEDDINGS_SIZE: int = 128
-    ENCODER_TYPE: str = "bag"   # "bag" | "transformer" (not ported)
+    ENCODER_TYPE: str = "bag"   # "bag" | "transformer"
+    # transformer layers and heads (the head width is 3E / XF_HEADS)
+    XF_LAYERS: int = 2
+    XF_HEADS: int = 3
+    # recompute each transformer layer in the backward pass
+    XF_REMAT: bool = False
 
     # ---- training ----
     DROPOUT_KEEP_RATE: float = 0.75
@@ -89,6 +95,16 @@ class Config:
         if self.TABLES_DTYPE not in ("float32", "bfloat16", "int8"):
             raise ValueError(f"TABLES_DTYPE must be float32, bfloat16 or "
                              f"int8 (got {self.TABLES_DTYPE!r}).")
+        if self.ENCODER_TYPE not in ("bag", "transformer"):
+            raise ValueError(f"ENCODER_TYPE must be bag or transformer (got "
+                             f"{self.ENCODER_TYPE!r}).")
+        if self.ENCODER_TYPE == "transformer" and (
+                self.XF_HEADS <= 0
+                or (3 * self.DEFAULT_EMBEDDINGS_SIZE) % self.XF_HEADS):
+            raise ValueError(
+                f"XF_HEADS ({self.XF_HEADS}) must divide the context vector "
+                f"size 3 * DEFAULT_EMBEDDINGS_SIZE "
+                f"({3 * self.DEFAULT_EMBEDDINGS_SIZE}).")
         if self.TABLES_DTYPE == "int8":
             if self.ENCODER_TYPE != "bag":
                 raise ValueError(

@@ -2,7 +2,8 @@
 
 The JAX package keeps its params as a dict of arrays (`token_emb`,
 `path_emb`, `target_emb`, `transform`, `attention`; an int8 table is a
-dict `{"q": int8 [V, E], "s": float32 [V, 1]}`). Its leaves, once
+dict `{"q": int8 [V, E], "s": float32 [V, 1]}`; the transformer's "xf"
+subtree nests dicts in a list of layers). Its leaves, once
 `np.asarray`'d, come here as numpy arrays; a bf16 leaf is a numpy array
 of the `bfloat16` dtype that `ml_dtypes` registers. Both directions keep
 dtypes and bits: bf16 stays bf16, int8 stays int8. Nothing here imports
@@ -15,8 +16,13 @@ The optimizer states cross the same way:
   `EmptyState` tree on the JAX side; here the same NamedTuples
   (training/optimizers.py) with a multi-transform state as a dict
   {label: chain state}, and optax's `MaskedState` wrappers and
-  `MaskedNode` placeholders, which hold no values, left out. The leaves
-  keep their dtypes (Adafactor's bf16 moments stay bf16);
+  `MaskedNode` placeholders, which hold no values, left out. A
+  per-param dict of the state (Adam's `mu`, ...) is flat, keyed by path
+  as the port's optimizers see the params (tree.py): the JAX state's
+  nested "xf" moments become "xf/in_proj", "xf/layers/0/qkv", ..., and
+  come back nested, so that `jax.tree_util.tree_leaves` lists both in
+  one order. The leaves keep their dtypes (Adafactor's bf16 moments stay
+  bf16);
 - the sparse-row step's: `{"dense": (ScaleByAdamState(count, mu, nu),
   EmptyState()), "rows": {table: RowAdamState(m, v)}, "count"}` on the
   JAX side; here `{"dense": {"count", "mu", "nu"}, "rows": {table:
@@ -31,6 +37,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import tree
 from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.ops.sparse_update import RowAdamState
 from code2vec_tpu_torch.training import optimizers
@@ -60,27 +67,19 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def params_from_numpy(tree: Dict[str, Any],
+def params_from_numpy(params: Dict[str, Any],
                       device: Optional[Union[str, torch.device]] = None
                       ) -> Dict[str, Any]:
-    """Numpy param dict (nested dicts allowed) -> the same dict of
-    tensors on `device` (None = the CUDA card)."""
+    """Numpy param dict (nested dicts and lists allowed) -> the same tree
+    of tensors on `device` (None = the CUDA card)."""
     dev = resolve_device(device)
-
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor_from_numpy(np.asarray(x), dev)
-    return conv(tree)
+    return tree.map_leaves(
+        lambda x: _tensor_from_numpy(np.asarray(x), dev), params)
 
 
-def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """The inverse of `params_from_numpy`: tensors -> host numpy arrays."""
-    def conv(x):
-        if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
-        return _tensor_to_numpy(x)
-    return conv(tree)
+    return tree.map_leaves(_tensor_to_numpy, params)
 
 
 def sparse_opt_state_from_numpy(tree: Dict[str, Any],
@@ -123,7 +122,7 @@ _STATES = {cls.__name__: cls for cls in (
     optimizers.FactoredState, optimizers.ScaleByScheduleState)}
 
 
-def dense_opt_state_from_numpy(tree: Any,
+def dense_opt_state_from_numpy(state: Any,
                                device: Optional[Union[str, torch.device]]
                                = None) -> Any:
     """The JAX dense optimizer state with numpy leaves (optax's
@@ -143,10 +142,10 @@ def dense_opt_state_from_numpy(tree: Any,
         if isinstance(x, tuple):
             return tuple(conv(f) for f in x)
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()
+            return {k: conv(v) for k, v in tree.flatten(x).items()
                     if type(v).__name__ != "MaskedNode"}
         return _tensor_from_numpy(np.asarray(x), dev)
-    return conv(tree)
+    return conv(state)
 
 
 def dense_opt_state_to_numpy(state: Any) -> Any:
@@ -156,7 +155,8 @@ def dense_opt_state_to_numpy(state: Any) -> Any:
     if isinstance(state, torch.Tensor):
         return _tensor_to_numpy(state)
     if isinstance(state, dict):
-        return {k: dense_opt_state_to_numpy(v) for k, v in state.items()}
+        return tree.unflatten({k: dense_opt_state_to_numpy(v)
+                               for k, v in state.items()})
     if type(state).__name__ in _STATES:
         return type(state)(*(dense_opt_state_to_numpy(f) for f in state))
     return tuple(dense_opt_state_to_numpy(f) for f in state)

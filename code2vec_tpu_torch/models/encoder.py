@@ -10,13 +10,19 @@ kernel, or the plain version) -> code vector -> logits against
 training forward: dropout with a keep mask drawn by the caller
 (training/draws.py) and the differentiable pool (kernel forward,
 plain-recompute backward on the card).
+
+`ModelDims.encoder_type` picks the encoder: "bag" (`encode`) or
+"transformer" (models/transformer_encoder.py, whose params sit under
+`params["xf"]` beside the tables); `get_encode_fn` returns the one to
+call, with `encode`'s signature.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -48,13 +54,15 @@ class ModelDims:
     # "int8"); with "int8" the token/path tables are int8 rows plus
     # per-row float32 scales and target_emb is bf16
     tables_dtype: str = "float32"
-    # "bag" is the encoder this package has; the transformer fields are
-    # kept so dims carry over from the JAX package unchanged
+    # "bag" (the attention pool) or "transformer" (a set transformer over
+    # the contexts, models/transformer_encoder.py)
     encoder_type: str = "bag"
     xf_layers: int = 2
     xf_heads: int = 3
     xf_mlp_ratio: int = 4
+    # recompute each transformer layer in the backward pass
     xf_remat: bool = False
+    # needs a mesh with a context axis, which the port has not: ignored
     ring_attention: bool = False
 
     @property
@@ -84,12 +92,12 @@ def _variance_scaling(generator: torch.Generator, shape, dtype
 def init_params(generator: torch.Generator, dims: ModelDims,
                 dtype=torch.float32) -> Params:
     """Variance-scaled init on `generator`'s device. The vocab tables are
-    stored in dims.tables_dtype; `transform` and `attention` in `dtype`.
+    stored in dims.tables_dtype; `transform` and `attention` in `dtype`;
+    the transformer's "xf" subtree (float32) is added for that encoder.
     The numbers differ from the JAX package's for the same seed (another
     generator); carry weights across with convert.py instead."""
-    if dims.encoder_type != "bag":
-        raise NotImplementedError(
-            f"encoder {dims.encoder_type!r} is not ported; only 'bag' is")
+    if dims.encoder_type not in ("bag", "transformer"):
+        raise ValueError(f"unknown encoder {dims.encoder_type!r}")
     E = dims.embeddings_size
     D = dims.context_vector_size
     quantized = dims.tables_dtype == "int8"
@@ -108,6 +116,11 @@ def init_params(generator: torch.Generator, dims: ModelDims,
     if quantized:
         for k in QUANTIZED_TABLE_KEYS:
             params[k] = quantize_table(params[k])
+    if dims.encoder_type == "transformer":
+        # imported here: transformer_encoder imports this module
+        from code2vec_tpu_torch.models.transformer_encoder import \
+            init_xf_params
+        params["xf"] = init_xf_params(g, dims)
     return params
 
 
@@ -178,6 +191,28 @@ def encode(params: Params, source_ids: torch.Tensor, path_ids: torch.Tensor,
         return code.to(compute_dtype), attn
     return attention_pool(contexts, params["transform"],
                           params["attention"], mask)
+
+
+def get_encode_fn(dims: ModelDims) -> Callable:
+    """The encode function of dims.encoder_type, with `encode`'s
+    signature: `encode` itself for the bag, `encode_transformer` bound to
+    `dims` for the transformer."""
+    if dims.encoder_type == "transformer":
+        from code2vec_tpu_torch.models.transformer_encoder import \
+            encode_transformer
+        return functools.partial(encode_transformer, dims=dims)
+    return encode
+
+
+def unused_param_keys(dims: ModelDims) -> Tuple[str, ...]:
+    """The top-level params the encoder of dims.encoder_type never reads:
+    the bag pool's `transform` and `attention` under the transformer
+    (`init_params` makes them for either encoder, as the JAX package's
+    does). The dense step gives these zero gradients, as `jax.grad` does,
+    and every other leaf must get one from the loss."""
+    if dims.encoder_type == "transformer":
+        return ("transform", "attention")
+    return ()
 
 
 def logits_vs_table(table: torch.Tensor, code_vectors: torch.Tensor,

@@ -8,6 +8,9 @@ power-of-two bucket and run through the predict step on the device
 the host (`decode_predictions`). The serving layer (serving/server.py)
 calls the three phases on different threads.
 
+Both run the encoder of `ENCODER_TYPE`: the bag encoder or the
+transformer path-encoder (models/transformer_encoder.py).
+
 `Code2VecTrainer` is the train and evaluate subset of the same class: it
 builds the optimizer, its state and the step (the dense step by default,
 the sparse-row step under SPARSE_EMBEDDING_UPDATES), runs
@@ -24,6 +27,7 @@ from typing import Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from code2vec_tpu_torch import tree
 from code2vec_tpu_torch.common import (EvaluationResults,
                                        MethodPredictionResults,
                                        SpecialVocabWords)
@@ -90,10 +94,10 @@ class PreparedRows:
             context_strings=[c for p in items for c in p.context_strings])
 
 
-def _move(table, device: torch.device):
-    if isinstance(table, dict):
-        return {k: v.to(device) for k, v in table.items()}
-    return table.to(device)
+def _move(params: Params, device: torch.device) -> Params:
+    """The params tree (int8 tables, the transformer's nested "xf"
+    subtree) with every tensor on `device`."""
+    return tree.map_leaves(lambda t: t.to(device), params)
 
 
 class Code2VecModel:
@@ -109,7 +113,7 @@ class Code2VecModel:
         self.dims = dims
         self.vocabs = vocabs
         self.device = resolve_device(device)
-        self.params = {k: _move(v, self.device) for k, v in params.items()}
+        self.params = _move(params, self.device)
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
         self.top_k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
@@ -227,11 +231,15 @@ def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
         max_contexts=config.MAX_CONTEXTS,
         dropout_keep_rate=config.DROPOUT_KEEP_RATE,
         tables_dtype=config.TABLES_DTYPE,
-        encoder_type=config.ENCODER_TYPE)
+        encoder_type=config.ENCODER_TYPE,
+        xf_layers=config.XF_LAYERS,
+        xf_heads=config.XF_HEADS,
+        xf_remat=config.XF_REMAT)
 
 
 class Code2VecTrainer:
-    """Trains and evaluates the bag model on one device.
+    """Trains and evaluates the model (bag or transformer encoder) on one
+    device.
 
     The dense step (the default) or the sparse-row step
     (SPARSE_EMBEDDING_UPDATES) updates tables, dense params and the
@@ -253,15 +261,11 @@ class Code2VecTrainer:
         self.vocabs = vocabs
         self.device = resolve_device(device)
         config.verify()  # the JAX package's rules, ValueError
-        if config.ENCODER_TYPE != "bag":
-            raise NotImplementedError(
-                f"encoder {config.ENCODER_TYPE!r} is not ported; only "
-                "'bag' is")
         self.dims = dims_from_config(config, vocabs)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.SEED)
             params = init_params(gen, self.dims)
-        self.params = {k: _move(v, self.device) for k, v in params.items()}
+        self.params = _move(params, self.device)
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
         self.total_steps: Optional[int] = None

@@ -36,6 +36,8 @@ from typing import Dict
 
 import torch
 
+from code2vec_tpu_torch import tree
+
 QuantTable = Dict[str, torch.Tensor]  # {"q": int8 [V, E], "s": f32 [V, 1]}
 
 # keys that may be stored quantized under tables_dtype == "int8"
@@ -114,14 +116,16 @@ def quantized_take(carrier: torch.Tensor, qt: QuantTable,
 
 
 def opt_param_view(params):
-    """The optimizer's view of a params dict: each quantized table as a
-    flat [V, E] bf16 stand-in matching the carrier gradient the
-    quantized step feeds it (a broadcast zero: its values are never
-    read), everything else as is."""
+    """The optimizer's view of a params dict: a flat dict of tensors keyed
+    by path (tree.flatten: a nested subtree such as the transformer's
+    "xf" becomes "xf/in_proj", "xf/layers/0/qkv", ...), each quantized
+    table as a flat [V, E] bf16 stand-in matching the carrier gradient
+    the quantized step feeds it (a broadcast zero: its values are never
+    read), every other leaf as is."""
     return {k: (torch.zeros((), dtype=torch.bfloat16,
                             device=v["q"].device).expand(v["q"].shape)
                 if is_quantized(v) else v)
-            for k, v in params.items()}
+            for k, v in tree.flatten(params, is_leaf=is_quantized).items()}
 
 
 def _mul32(h: torch.Tensor, k: int) -> torch.Tensor:

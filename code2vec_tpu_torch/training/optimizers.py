@@ -10,11 +10,17 @@ optax's arithmetic and dtypes, over dicts of tensors:
   and `scale(-1)` make `optax.adafactor(lr, multiply_by_parameter_scale=
   False, momentum=None)`, the default optimizer of the vocab tables;
 - `scale_by_adam` + `scale_by_learning_rate` is stock `optax.adam`, on
-  TRANSFORM and ATTENTION beside Adafactor; `scale_by_adam_f32_moments`
+  TRANSFORM, ATTENTION and the transformer's "xf" leaves beside
+  Adafactor; `scale_by_adam_f32_moments`
   (the JAX package's own) keeps float32 moments for the `adam` branch;
-- `scale_by_trust_ratio` is LAMB's per-array rescale;
+- `scale_by_trust_ratio` is LAMB's per-array (per-leaf) rescale;
 - `chain` and `multi_transform` compose them; `make_optimizer` builds
   every branch of the JAX package's function.
+
+The transforms work over flat dicts of tensors. Nested params (the
+transformer's "xf" subtree) reach them flattened to path-keyed leaves
+("xf/layers/0/qkv", ops/quant.opt_param_view), so every leaf is its own
+array, as optax treats each leaf of a pytree.
 
 Each transform's state is a NamedTuple with optax's name and fields
 (`FactoredState(count, v_row, v_col, v)`, `ScaleByAdamState(count, mu,
@@ -523,7 +529,8 @@ def make_optimizer(learning_rate, embedding_optimizer: str = "adafactor",
     `make_optimizer`. `learning_rate` is a float or a schedule (make_lr).
 
     - "adafactor" (the default): Adafactor on the vocab tables, Adam on
-      TRANSFORM / ATTENTION, by key label;
+      every other leaf (TRANSFORM / ATTENTION, the "xf" subtree), labelled
+      by the top-level key;
     - "adam": Adam with float32 moments on every param;
     - `trust_ratio`: LAMB's rescale between the preconditioner and the
       learning rate, on every branch ("all") or on the dense params only

@@ -3,15 +3,24 @@ tensors.
 
 Counterpart of `training/steps.py` in the JAX package.
 
+Every step encodes through `get_encode_fn(dims)`: the bag encoder or the
+transformer path-encoder, as `dims.encoder_type` says.
+
 `make_train_step` is the one step-construction entry point:
 - the dense step (the default: `make_train_step`'s dense branch and
   `_make_quantized_train_step` in the JAX package): the loss
-  (`make_train_loss_fn`) is differentiated with respect to every param,
+  (`make_train_loss_fn`) is differentiated with respect to every param
+  leaf (the transformer's nested "xf" leaves included; a leaf the
+  encoder does not use, `encoder.unused_param_keys`, gets a zero
+  gradient, as `jax.grad` gives it, and any other leaf the loss does
+  not reach raises),
   so each vocab table gets a dense [V, E] gradient (the gathers' dense
   scatter-adds, `token_emb`'s two summed), the optimizer
   (training/optimizers.make_optimizer: Adafactor on the tables, Adam on
-  TRANSFORM / ATTENTION, or Adam everywhere) turns the gradients into
-  updates, and the updates are added to the params. With int8
+  TRANSFORM / ATTENTION and the "xf" leaves, or Adam everywhere) turns
+  the gradients into updates, and the updates are added to the params.
+  The optimizer sees the params as a flat dict keyed by path
+  (ops/quant.opt_param_view, tree.py). With int8
   token/path tables the gradients reach a bf16 "carrier" through the
   straight-through gather (ops/quant.quantized_take), the optimizer sees
   a flat [V, E] bf16 stand-in for each (ops/quant.opt_param_view), and
@@ -46,9 +55,12 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from code2vec_tpu_torch.models.encoder import (ModelDims, Params, encode,
-                                               full_logits)
-from code2vec_tpu_torch.ops.quant import opt_param_view, requantize
+from code2vec_tpu_torch import tree
+from code2vec_tpu_torch.models.encoder import (ModelDims, Params, full_logits,
+                                               get_encode_fn,
+                                               unused_param_keys)
+from code2vec_tpu_torch.ops.quant import (is_quantized, opt_param_view,
+                                          requantize)
 from code2vec_tpu_torch.ops.sampled_softmax import sampled_softmax_loss
 from code2vec_tpu_torch.training.draws import StepDraws, quantized_keys
 from code2vec_tpu_torch.training.optimizers import (AdamF32Moments,
@@ -71,8 +83,10 @@ def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
                        use_kernel: bool = True) -> Callable:
     """The training-time loss `loss_fn(params, batch, draws)`: dropout
     with the draws' keep mask, the training pool, sampled softmax over
-    the draws' ids or full softmax, weighted by the example weights."""
+    the draws' ids or full softmax, weighted by the example weights.
+    `loss_fn.unused_keys` names the top-level params it never reads."""
     V = dims.target_vocab_size
+    encode = get_encode_fn(dims)
 
     def loss_fn(params, batch, draws: StepDraws) -> torch.Tensor:
         labels, src, pth, dst, mask, weights = batch
@@ -90,6 +104,7 @@ def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
                              reduction="none")
         return weighted_mean(ce, weights)
 
+    loss_fn.unused_keys = unused_param_keys(dims)
     return loss_fn
 
 
@@ -98,35 +113,51 @@ def dense_loss_and_grads(params: Params, batch, draws: StepDraws,
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                                     Dict[str, torch.Tensor]]:
     """Forward + backward of the dense step -> (loss, grads, the
-    optimizer's params view). Float params are differentiated as they
-    are; an int8 table's gradient is its carrier's, a dense bf16 [V, E],
-    and the view holds the carrier in the table's place."""
+    optimizer's params view), the grads and the view flat dicts keyed by
+    path. Float leaves are differentiated as they are; a leaf under one
+    of `loss_fn.unused_keys` gets zeros, and any other leaf the loss
+    does not reach raises; an int8 table's gradient is its carrier's, a
+    dense bf16 [V, E], and the view holds the carrier in the table's
+    place."""
     qkeys = quantized_keys(params)
     view = opt_param_view(params)
-    leaves = {k: view[k].detach().requires_grad_(True) for k in params}
-    virt = {k: (dict(params[k], g=leaves[k]) if k in qkeys else leaves[k])
-            for k in params}
-    keys = list(params)
+    leaves = {k: t.detach().requires_grad_(True) for k, t in view.items()}
+    virt = tree.unflatten({k: t for k, t in leaves.items()
+                           if k not in qkeys})
+    for k in qkeys:
+        virt[k] = dict(params[k], g=leaves[k])
+    keys = list(leaves)
     with torch.enable_grad():
         loss = loss_fn(virt, batch, draws)
-        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
-    return loss.detach(), dict(zip(keys, grads)), view
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys],
+                                    allow_unused=True)
+    unused = set(loss_fn.unused_keys)
+    out = {}
+    for k, g in zip(keys, grads):
+        if g is None:
+            if k.split("/")[0] not in unused:
+                raise RuntimeError(f"param {k!r} gets no gradient from the "
+                                   "loss")
+            g = torch.zeros_like(leaves[k])
+        out[k] = g
+    return loss.detach(), out, view
 
 
 @torch.no_grad()
 def apply_dense_updates(params: Params, updates: Dict[str, torch.Tensor],
                         salts: Dict[str, int], *,
                         use_kernel: bool = True) -> None:
-    """The optimizer's updates added to the params in place: an int8
-    table through `requantize` under its salt (kernel 4 with
-    `use_kernel` on the card), any other param as `(p + u)` cast to its
-    dtype (`optax.apply_updates`)."""
+    """The optimizer's updates (keyed by path) added to the params in
+    place: an int8 table through `requantize` under its salt (kernel 4
+    with `use_kernel` on the card), any other leaf as `(p + u)` cast to
+    its dtype (`optax.apply_updates`)."""
     qkeys = quantized_keys(params)
+    leaves = tree.flatten(params, is_leaf=is_quantized)
     for k, u in updates.items():
         if k in qkeys:
             requantize(params[k], u, salts[k], use_kernel=use_kernel)
         else:
-            p = params[k]
+            p = leaves[k]
             p.copy_((p + u).to(p.dtype))
 
 
@@ -196,8 +227,9 @@ def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
     logsumexp minus a logit can round a hair below it) and weighted by
     the example weights."""
     labels, src, pth, dst, mask, weights = batch
-    code, _attn = encode(params, src, pth, dst, mask,
-                         compute_dtype=compute_dtype, use_kernel=use_kernel)
+    code, _attn = get_encode_fn(dims)(params, src, pth, dst, mask,
+                                      compute_dtype=compute_dtype,
+                                      use_kernel=use_kernel)
     logits = full_logits(params, code, dims.target_vocab_size)
     ce = torch.clamp(F.cross_entropy(logits, labels.to(torch.int64),
                                      reduction="none"), min=0.0)
@@ -207,12 +239,14 @@ def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
     return loss_sum, topk_ids, topk_probs
 
 
-def encode_step(params: Params, batch, *, compute_dtype=torch.float32,
+def encode_step(params: Params, batch, *, dims: ModelDims,
+                compute_dtype=torch.float32,
                 use_kernel: bool = True) -> torch.Tensor:
     """-> code_vectors [B, D] float32 (encoder only, no logits)."""
     _labels, src, pth, dst, mask, _weights = batch
-    code, _attn = encode(params, src, pth, dst, mask,
-                         compute_dtype=compute_dtype, use_kernel=use_kernel)
+    code, _attn = get_encode_fn(dims)(params, src, pth, dst, mask,
+                                      compute_dtype=compute_dtype,
+                                      use_kernel=use_kernel)
     return code.to(torch.float32)
 
 
@@ -229,10 +263,12 @@ def predict_head(params: Params, code: torch.Tensor, dims: ModelDims,
 def predict_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
                  compute_dtype=torch.float32, use_kernel: bool = True):
     """-> (topk_ids [B, k], topk_probs [B, k], attention [B, C] float32,
-    code_vectors [B, D] float32). `use_kernel=False` pools with the plain
-    version in the compute dtype (the JAX step's `use_pallas=False`)."""
+    code_vectors [B, D] float32). `use_kernel=False` runs the kernels'
+    plain versions: the bag's pool in the compute dtype (the JAX step's
+    `use_pallas=False`), the transformer's attention as `plain_mha`."""
     _labels, src, pth, dst, mask, _weights = batch
-    code, attn = encode(params, src, pth, dst, mask,
-                        compute_dtype=compute_dtype, use_kernel=use_kernel)
+    code, attn = get_encode_fn(dims)(params, src, pth, dst, mask,
+                                     compute_dtype=compute_dtype,
+                                     use_kernel=use_kernel)
     topk_ids, topk_probs = predict_head(params, code, dims, top_k)
     return topk_ids, topk_probs, attn, code.to(torch.float32)

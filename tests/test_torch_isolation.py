@@ -49,6 +49,17 @@ def test_forbidden_pattern_tells_the_packages_apart():
     assert not _FORBIDDEN.match("jaxtyping")
 
 
+@pytest.mark.parametrize("module", [
+    "ops/xf_attention.py", "ops/xf_attention_kernel.py",
+    "models/transformer_encoder.py", "tree.py"])
+def test_scan_covers_the_transformer_modules(module):
+    """The transformer slice's modules are among the scanned sources and
+    import neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_in_port_sources(path):
@@ -79,7 +90,7 @@ print(len(names), loaded)
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     n, loaded = r.stdout.strip().split(" ", 1)
-    assert int(n) >= 15 and loaded == "[]"
+    assert int(n) >= 35 and loaded == "[]"
 
 
 def test_default_device_is_the_card_and_never_the_cpu():

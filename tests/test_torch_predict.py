@@ -86,7 +86,8 @@ def test_encode_step_is_the_predict_code_vector(compute):
     tbatch = tuple(torch.from_numpy(a) for a in batch)
     dt = getattr(torch, compute)
     with torch.inference_mode():
-        code = encode_step(params, tbatch, compute_dtype=dt, use_kernel=True)
+        code = encode_step(params, tbatch, dims=tdims, compute_dtype=dt,
+                           use_kernel=True)
         *_, code_p = predict_step(params, tbatch, dims=tdims, top_k=TOP_K,
                                   compute_dtype=dt, use_kernel=True)
     assert code.dtype == torch.float32 and torch.equal(code, code_p)

@@ -474,7 +474,8 @@ _DENSE = {"SPARSE_EMBEDDING_UPDATES": False}
     ({**_DENSE, "EMBEDDING_OPTIMIZER": "adafactor", "LR_SCHEDULE": "cosine"},
      None),
     ({**_DENSE, "LR_SCHEDULE": "cosine"}, None),
-    ({**_DENSE, "ENCODER_TYPE": "transformer"}, NotImplementedError),
+    ({**_DENSE, "ENCODER_TYPE": "transformer", "LR_SCHEDULE": "cosine"},
+     None),
     ({"LR_SCHEDULE": "cosine"}, ValueError),
     ({"ENCODER_TYPE": "transformer"}, ValueError),
     ({"EMBEDDING_OPTIMIZER": "adafactor"}, ValueError),
@@ -484,9 +485,9 @@ _DENSE = {"SPARSE_EMBEDDING_UPDATES": False}
 def test_trainer_refuses_unported_and_invalid_configs(tmp_path, change,
                                                       error):
     """The dense step trains (the JAX defaults: Adafactor and a cosine
-    LR; Adam and a cosine LR), with the dense optimizer's state and the
-    loss falling over two epochs of a tiny file. The transformer encoder
-    is not ported and raises NotImplementedError. A sparse configuration
+    LR; Adam and a cosine LR; the transformer encoder with Adam), with
+    the dense optimizer's state and the loss falling over two epochs of
+    a tiny file. A sparse configuration
     the JAX package's `Config.verify` rejects (another optimizer,
     schedule or encoder) raises its ValueError. Nothing switches quietly
     to another path."""
