@@ -22,7 +22,9 @@ Phases (any failure raises, and the script exits non-zero):
    `PredictionServer` answers 32 concurrent requests of raw extractor
    lines. Every kernel's launch counter is set to 0 just before and read
    just after; each must have launched. One batch is then held against
-   the plain path on the card;
+   the plain path on the card; the tie-stable top-k (`topk_stable`) over
+   its [64, 261,247] probabilities against a stable sort (the same ids)
+   and timed beside `torch.topk`;
 5. the sparse-row training path at the same width (`TRAIN_BATCH_SIZE`
    1024, bf16 compute) over a synthetic `.c2v` file whose words are drawn
    Zipf (s = 1.1) over the vocab, through the trainer entry point, in two
@@ -59,13 +61,16 @@ Phases (any failure raises, and the script exits non-zero):
    test file at TEST_BATCH_SIZE 1024 (counted: kernel 1 once a batch),
    its results and methods/s; the kernel path held against the plain
    path batch by batch (loss within 1e-3, top-1 equal on 99% of the
-   methods);
-10. the fused multi-head attention kernels (2: forward, 3: backward as
-   launches 3a and 3b) against their plain versions on the card, at
-   (B, H, C, hd) = (1, 3, 200, 128), (7, ...), (64, ...) and
-   (1024, ...) in bf16 and (4, 4, 200, 96), (16, 2, 24, 16) in float32,
-   with their times (CUDA events and profiler device time, 3a and 3b
-   apart) beside the plain versions', the SDPA yardstick's and the bound;
+   methods); the tie-stable top-k at [1024, 261,247], as in 4;
+10. the fused multi-head attention kernels (2: forward, on bf16 the
+   tensor-core `mha_fwd_tc_kernel`; 3: backward as launches 3a and 3b)
+   against their plain versions on the card, at (B, H, C, hd) =
+   (1, 3, 200, 128), (7, ...), (64, ...), (1024, ...), (4, 4, 200, 96)
+   and a ragged (16, 3, 37, 128) in bf16 and (4, 4, 200, 96),
+   (16, 2, 24, 16) in float32; kernel 2 twice on the same inputs gives
+   the same bits; their times (CUDA events and profiler device time, 3a
+   and 3b apart) beside the plain versions', the SDPA yardstick's and the
+   bound;
 11. the transformer path-encoder (bench.py's configuration: L = 2,
    H = 3, bf16) behind the `PredictionServer`, 32 concurrent requests:
    kernel 2 launches L times a device batch and kernel 1 never; one
@@ -146,12 +151,16 @@ EVAL_METHODS, EVAL_TOP1_SHARE = 4096, 0.99
 XF_L, XF_H = 2, 3
 # kernels 2 and 3 against their plain versions: (B, H, C, hd), dtype; the
 # java-large head shape at a serving bucket of 1, 7 and 64 and the
-# training batch, then H = 4's hd = 96 and the test shape, in float32
+# training batch, H = 4's hd = 96 and a ragged C in bf16, then hd = 96 and
+# the test shape in float32
 XF_CASES = (((1, XF_H, C, D // XF_H), "bfloat16"),
             ((7, XF_H, C, D // XF_H), "bfloat16"),
             ((64, XF_H, C, D // XF_H), "bfloat16"),
             ((TRAIN_B, XF_H, C, D // XF_H), "bfloat16"),
+            ((4, 4, C, 96), "bfloat16"), ((16, XF_H, 37, D // XF_H), "bfloat16"),
             ((4, 4, C, 96), "float32"), ((16, 2, 24, 16), "float32"))
+# kernel 2's kernel by input dtype, as the profiler names it
+XF_FWD_KERNEL = {"bfloat16": "mha_fwd_tc_kernel", "float32": "mha_fwd_kernel"}
 # max |kernel - plain| over the largest |plain| value of each output.
 # float32: the kernels sum the 200- and 128-term products in another
 # order than cuBLAS and take expf where PyTorch takes its own exp, a few
@@ -425,10 +434,36 @@ def make_requests(np, rng):
     return reqs
 
 
+def time_topk(torch, probs, label: str, report) -> None:
+    """The tie-stable top-k (`topk_stable`, the eval and predict steps'
+    top-k) over one batch's probabilities [B, V] on the card: its ids must
+    equal a stable sort's cut to TOP_K (the reference's order, the lowest
+    id first among equal values); its time beside `torch.topk`'s and the
+    stable sort's, and the rows where `torch.topk`'s ids differ."""
+    from code2vec_tpu_torch.training.steps import topk_stable
+    ids = topk_stable(probs, TOP_K)[1]
+    sort_ids = torch.sort(probs, dim=-1, descending=True,
+                          stable=True).indices[:, :TOP_K]
+    check(torch.equal(ids, sort_ids), f"topk_stable vs a stable sort, {label}")
+    differ = int((torch.topk(probs, TOP_K, dim=-1).indices != ids)
+                 .any(dim=-1).sum().item())
+    ms = time_ms(torch, lambda: topk_stable(probs, TOP_K), reps=10)
+    topk_ms = time_ms(torch, lambda: torch.topk(probs, TOP_K, dim=-1), reps=10)
+    sort_ms = time_ms(torch, lambda: torch.sort(
+        probs, dim=-1, descending=True, stable=True), reps=10)
+    B, V = probs.shape
+    print(f"  top-k over [{B}, {V}]: topk_stable {ms:.4f} ms (ids equal a "
+          f"stable sort's), torch.topk {topk_ms:.4f} ms (its ids differ on "
+          f"{differ} of {B} rows), stable sort {sort_ms:.4f} ms", flush=True)
+    report[f"topk_{label}"] = {
+        "shape": [B, V], "topk_stable_ms": ms, "torch_topk_ms": topk_ms,
+        "stable_sort_ms": sort_ms, "torch_topk_rows_differ": differ}
+
+
 def phase_serving(torch, np, vocabs, report):
     from code2vec_tpu_torch.config import Config
-    from code2vec_tpu_torch.models.encoder import (ModelDims, gather_contexts,
-                                                   init_params)
+    from code2vec_tpu_torch.models.encoder import (ModelDims, full_logits,
+                                                   gather_contexts, init_params)
     from code2vec_tpu_torch.models.torch_model import Code2VecModel
     from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
                                                          attention_pool_plain)
@@ -594,6 +629,11 @@ def phase_serving(torch, np, vocabs, report):
               f"max|d| {code_err:.3g}, attn max|d| {attn_err:.3g}, top-k prob "
               f"max rel d {prob_rel:.3g}, {checked} separated top-k ids equal",
               flush=True)
+        with torch.inference_mode():
+            probs = torch.softmax(full_logits(model.params, code_p,
+                                              dims.target_vocab_size), dim=-1)
+            time_topk(torch, probs, "serving", report)
+        del probs
     finally:
         server.close()
     report["serving"] = {
@@ -1250,6 +1290,7 @@ def eval_plain(torch, params, batch, dims, top_k: int):
     import torch.nn.functional as F
     from code2vec_tpu_torch.models.encoder import full_logits, gather_contexts
     from code2vec_tpu_torch.ops.attention_kernel import attention_pool_plain
+    from code2vec_tpu_torch.training.steps import topk_stable
     labels, src, pth, dst, mask, weights = batch
     ctx = gather_contexts(params, src, pth, dst, torch.bfloat16)
     code, _ = attention_pool_plain(ctx, params["transform"],
@@ -1258,13 +1299,15 @@ def eval_plain(torch, params, batch, dims, top_k: int):
                          dims.target_vocab_size)
     ce = torch.clamp(F.cross_entropy(logits, labels.long(), reduction="none"),
                      min=0.0)
-    return (ce * weights).sum(), torch.topk(logits, top_k, dim=-1).indices
+    return (ce * weights).sum(), topk_stable(torch.softmax(logits, dim=-1),
+                                             top_k)[1]
 
 
 def phase_eval(torch, np, vocabs, test_path, report):
     """`evaluate` over the test file (counted), then the kernel path
     against the plain path batch by batch."""
     from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.encoder import full_logits, get_encode_fn
     from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
     from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
     from code2vec_tpu_torch.training.steps import eval_step
@@ -1323,6 +1366,15 @@ def phase_eval(torch, np, vocabs, test_path, report):
     print(f"  eval kernel path vs plain path: loss sum {loss_k:.4f} vs "
           f"{loss_p:.4f} (rel {loss_rel:.2e}); top-1 equal on {same}/{total}",
           flush=True)
+    with torch.inference_mode():
+        _labels, src, pth, dst, mask, _w = batch
+        code, _ = get_encode_fn(trainer.dims)(trainer.params, src, pth, dst,
+                                              mask, compute_dtype=torch.bfloat16)
+        probs = torch.softmax(full_logits(trainer.params, code,
+                                          trainer.dims.target_vocab_size),
+                              dim=-1)
+        time_topk(torch, probs, "eval", report)
+    del probs, code
     report["eval"] = {
         "methods": EVAL_METHODS, "batch": cfg.TEST_BATCH_SIZE,
         "seconds": eval_s, "methods_per_s": rate, "launches": launches,
@@ -1354,11 +1406,12 @@ def xf_bound(shape, elem: int, peaks, pair: int, wide: int, tensors: int):
     """Least time of one attention call over (b, h) blocks: `tensors`
     [B, H, C, hd] arrays read or written once and the mask read, over the
     HBM rate; [C, C, hd] products (2 C^2 hd operations each) at the peak
-    of their operand types: `pair` products of two input arrays (q k^T,
-    dO v^T) at the bf16 tensor-core peak when the inputs are bf16 (a bf16
-    product is exact in a float32 sum), `wide` products with a float32
-    operand (the softmax weights A, or dL) at the float32 peak, as every
-    product of float32 inputs."""
+    of their operand types: `pair` products of two bf16 operands (q k^T,
+    dO v^T, and the bf16 kernel 2's e_t v, one per term) at the bf16
+    tensor-core peak when the inputs are bf16 (a bf16 product is exact in
+    a float32 sum), `wide` products with a float32 operand (the softmax
+    weights A, or dL) at the float32 peak, as every product of float32
+    inputs."""
     f32_peak, bf16_peak, hbm = peaks
     B, H, Cq, hd = shape
     nbytes = tensors * B * H * Cq * hd * elem + 4 * B * Cq
@@ -1378,6 +1431,8 @@ def phase_xf_kernels(torch, peaks, report):
     """Kernels 2 and 3 against their plain versions on the card."""
     import torch.nn.functional as F
     from code2vec_tpu_torch.ops import xf_attention as xa
+    from code2vec_tpu_torch.ops.xf_attention_kernel import tc_terms
+    terms = tc_terms()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {"forward": [], "backward": []}
     for shape, dname in XF_CASES:
@@ -1389,7 +1444,10 @@ def phase_xf_kernels(torch, peaks, report):
                *xa.mha_backward_fused(q, k, v, lm, do)]
         want = [xa.mha_forward_plain(q, k, v, lm),
                 *xa.mha_backward_plain(q, k, v, lm, do)]
+        again = xa.mha_forward_fused(q, k, v, lm)
         torch.cuda.synchronize()
+        check(torch.equal(again, got[0]), f"xf {shape} {dtype}: kernel 2 "
+              f"gave other bits on a second launch")
         errs, rels = [], []
         for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
             check(bool(torch.isfinite(a).all()), f"xf {shape} {dtype}: "
@@ -1406,7 +1464,8 @@ def phase_xf_kernels(torch, peaks, report):
         p2_ms = time_ms(torch, lambda: xa.mha_forward_plain(q, k, v, lm))
         p3_ms = time_ms(torch, lambda: xa.mha_backward_plain(q, k, v, lm, do))
         k2_dev = kernel_device_ms(
-            torch, lambda: xa.mha_forward_fused(q, k, v, lm), "mha_fwd_kernel")
+            torch, lambda: xa.mha_forward_fused(q, k, v, lm),
+            XF_FWD_KERNEL[dname])
         k3a_dev = kernel_device_ms(
             torch, lambda: xa.mha_backward_fused(q, k, v, lm, do),
             "mha_bwd_dq_kernel")
@@ -1424,17 +1483,27 @@ def phase_xf_kernels(torch, peaks, report):
         l3_ms = time_ms(torch, lambda: torch.autograd.grad(
             so, (sq, sk, sv), do, retain_graph=True))
         del sq, sk, sv, so
-        # kernel 2: q k^T, A v; kernel 3 as the Pallas kernel counts it:
-        # q k^T, dO v^T, A^T dO, dL k, dL^T q; 3a + 3b recompute q k^T and
-        # dO v^T in both launches
-        b2 = xf_bound(shape, elem, peaks, 1, 1, 4)
+        # kernel 2 on bf16 (the tensor cores): q k^T and e_t v for each of
+        # the `terms` bf16 terms of the weights (its second pass
+        # recomputes q k^T: one more); on float32, and as the CUDA-core
+        # design priced bf16: q k^T and A v with float32 A.
+        # Kernel 3 as the Pallas kernel counts it: q k^T, dO v^T, A^T dO,
+        # dL k, dL^T q; 3a + 3b recompute q k^T and dO v^T in both launches
+        b2_f32_weights = xf_bound(shape, elem, peaks, 1, 1, 4)
+        b2 = xf_bound(shape, elem, peaks, 1 + terms, 0, 4) \
+            if elem == 2 else b2_f32_weights
+        b2_two_pass = xf_bound(shape, elem, peaks, 2 + terms, 0, 4)
         b3 = xf_bound(shape, elem, peaks, 2, 3, 7)
         b3_split = xf_bound(shape, elem, peaks, 4, 3, 7)
         common = {"shape": list(shape), "dtype": dname}
         rows["forward"].append({
-            **common, "max_abs_err": errs[0], "rel_err": rels[0],
+            **common, "kernel": XF_FWD_KERNEL[dname], "max_abs_err": errs[0],
+            "rel_err": rels[0], "bits_differ_share": (
+                got[0] != want[0]).float().mean().item(),
             "ms": k2_ms, "kernel_device_ms": k2_dev, "plain_ms": p2_ms,
-            "library_ms": l2_ms, **b2})
+            "library_ms": l2_ms, **b2,
+            "bound_ms_float32_weights": b2_f32_weights["bound_ms"],
+            "two_pass_ops_ms": b2_two_pass["ops_ms"]})
         rows["backward"].append({
             **common, "max_abs_err": max(errs[1:]), "rel_err": max(rels[1:]),
             "ms": k3_ms, "kernel_device_ms": (
@@ -1443,15 +1512,17 @@ def phase_xf_kernels(torch, peaks, report):
             "plain_ms": p3_ms, "library_ms": l3_ms, **b3,
             "split_ops_ms": b3_split["ops_ms"]})
         print(f"  mha {tuple(shape)} {dname:8s} rel err o {rels[0]:.2g} "
-              f"dq/dk/dv {max(rels[1:]):.2g} | kernel 2 {k2_ms:.4f} ms "
+              f"dq/dk/dv {max(rels[1:]):.2g} | kernel 2 "
+              f"({XF_FWD_KERNEL[dname]}, bits equal twice) {k2_ms:.4f} ms "
               f"(device {fmt_ms(k2_dev)}) plain {p2_ms:.4f} sdpa {l2_ms:.4f} "
-              f"bound {b2['bound_ms']:.4f} ({b2['bound_by']}) | kernel 3 "
+              f"bound {b2['bound_ms']:.4f} ({b2['bound_by']}; float32 A v "
+              f"{b2_f32_weights['bound_ms']:.4f}) | kernel 3 "
               f"{k3_ms:.4f} ms (device 3a {fmt_ms(k3a_dev)} + 3b "
               f"{fmt_ms(k3b_dev)}) "
               f"plain {p3_ms:.4f} sdpa bwd {l3_ms:.4f} bound "
               f"{b3['bound_ms']:.4f} ({b3['bound_by']}; 3a/3b recompute "
               f"{b3_split['ops_ms']:.4f})", flush=True)
-        del q, k, v, lm, do, got, want
+        del q, k, v, lm, do, got, want, again
         torch.cuda.empty_cache()
     report["xf_kernels"] = rows
     return rows
@@ -2007,17 +2078,21 @@ def main(argv=None) -> int:
          "bound_by": main_requant["bound_by"], "library_ms": None},
     ]
     # kernels 2 and 3 at the training shape, where most of their launches'
-    # work is (the other shapes are in --out)
-    for name, direction, line in (("xf_attention_forward", "forward", 120),
-                                  ("xf_attention_backward", "backward", 138)):
+    # work is (the other shapes are in --out); every launch on the main
+    # paths is bf16, so kernel 2's is the tensor-core kernel
+    for name, counter, direction, line in (
+            (XF_FWD_KERNEL["bfloat16"], "xf_attention_forward", "forward", 120),
+            ("xf_attention_backward", "xf_attention_backward", "backward",
+             138)):
         main_row = next(r for r in xf_rows[direction]
                         if r["shape"][0] == TRAIN_B)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "code2vec_tpu_torch/csrc/xf_attention.cu",
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
-            "launches": sum(v[name] for v in xf_launches.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]),
+            "launches": sum(v[counter] for v in xf_launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
+                               if r.get("kernel", name) == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})

@@ -14,26 +14,74 @@
 //                         dL = A * (dA - rowsum(dA * A)),
 //                         dq = dL k * s,  dk = dL^T q * s
 //
-// in float32 FMA on the CUDA cores (the Pallas kernels' products take float32
+// with the Pallas kernels' float32 semantics (their products take float32
 // operands and accumulate in float32), outputs in q's dtype, and no [C, C]
 // tensor ever reaches device memory. Every query row is computed, padded ones
 // too: their outputs flow on through the layer as in the JAX package.
 //
-// The Pallas kernels keep a whole (b, h) block, q, k, v, o and the float32
-// [C, C] logits, in ~16 MB of VMEM. A Hopper block has 227 KB of shared
-// memory and the [200, 200] float32 logits alone take 160 KB, so these kernels
-// tile over rows and keep each row's logits in registers:
+// Kernel 2 on bf16 inputs (the only dtype of the main paths):
+// `mha_fwd_tc_kernel`, on the tensor cores (warp-level mma.sync m16n8k16,
+// bf16 operands, float32 accumulators). One block per (b, h), one warp per
+// 16 query rows (13 warps at C = 200: 208 row slots, 96 % live). Q, K and V
+// are staged once in shared memory with 16-byte cp.async copies (V in a
+// second group that lands while the first pass runs) at a row stride of
+// hd + 8 elements: 16-byte aligned rows for ldmatrix, and the 8 rows of one
+// ldmatrix phase on distinct banks. Rows past C are zero-filled and their
+// keys get the mask -inf, so their weights are exactly 0 (0 x garbage could
+// be NaN). The arithmetic:
+//   - q k^T: bf16 x bf16 products are exact in float32, so the mma gives the
+//     Pallas logits up to the order of the sum. Each logit is scaled and
+//     masked with a separate multiply and add (__fmul_rn, __fadd_rn), as the
+//     Pallas kernel rounds them.
+//   - two passes over the keys, 16 at a time: the first takes the exact row
+//     maximum m, the second recomputes the same logits (the same mma
+//     sequence, the same bits), e = exp(L - m) and the row sum l. Nothing is
+//     rescaled: m is the Pallas kernel's m.
+//   - A v with float32 weights: the tensor cores take bf16, so each e is
+//     split into three bf16 terms, e = e_hi + e_mid + e_lo (each the bf16 of
+//     what the terms before it left; three hold all 24 bits of e), and o
+//     takes the three products e_t v. Two terms (a 2^-16 residual) were
+//     within XF_TOL but not enough end to end (PERF.md). The weights go
+//     from the logits' accumulator fragments to the A-operand fragments in
+//     registers (the layouts agree), V through ldmatrix.trans.
+//   - the tensor cores' float32 sum truncates: an accumulator carried
+//     through many mma drifts toward zero by about an ulp of itself at each.
+//     So each mma step gets a fresh accumulator, added to the running
+//     float32 sum with one IEEE add: q k^T per 16 columns of hd, A v per 16
+//     keys (its three terms smallest first).
+//   - normalised once per row at the end (FlashAttention-2 style):
+//     o = (sum_j e_j v_j) / l, where the Pallas kernel divides each weight by
+//     l before the product; the two differ by a float32 rounding.
+//   - no atomics and a fixed order of every sum: the same inputs give the
+//     same bits on every launch.
+// float32 inputs keep `mha_fwd_kernel` (float32 FMA on the CUDA cores,
+// below).
 //
-//   - kernel 2 and kernel 3a run one block per (b, h, tile of 64 query rows),
-//     the tiles of one (b, h) next to each other in the grid so that they
-//     find its K and V in L2. K and V are staged in shared memory in the
-//     input dtype (2 x 52 KB for bf16 at C = 200, hd = 128; 2 x 104 KB for
-//     float32). A warp carries 4 query rows at once; a lane owns the keys
-//     j = lane + 32 t, so a row's logits, max, exp and sum live in registers
-//     and warp shuffles. A row's q (and do) comes from device memory, one
-//     broadcast load per pair of columns. For the A v product the roles turn:
-//     a lane owns pairs of output columns and the row's weights are
-//     broadcast by shuffle, key by key.
+// Bound of kernel 2 on bf16 on an H100 SXM at the training shape (B = 1024,
+// H = 3, C = 200, hd = 128): 629 MB moved, 0.188 ms at 3.35 TB/s; four bf16
+// products of 2 C^2 hd per (b, h) (q k^T and the three e_t v; 126 GFLOP) at
+// the 989 TFLOP/s tensor-core peak, 0.127 ms. So bytes bound it. The design
+// reads each input once and writes o once; what it adds is the second q k^T
+// (a fifth product: 0.159 ms at the peak), the float32 adds of the fresh
+// accumulators, and one block per SM (170 KB of shared memory), with V's
+// copy overlapping the first pass.
+//
+// The float32 forward and kernel 3 keep the CUDA-core design. The Pallas
+// kernels keep a whole (b, h) block, q, k, v, o and the float32 [C, C]
+// logits, in ~16 MB of VMEM. A Hopper block has 227 KB of shared memory and
+// the [200, 200] float32 logits alone take 160 KB, so these kernels tile over
+// rows and keep each row's logits in registers:
+//
+//   - `mha_fwd_kernel` (float32) and kernel 3a run one block per (b, h, tile
+//     of 64 query rows), the tiles of one (b, h) next to each other in the
+//     grid so that they find its K and V in L2. K and V are staged in shared
+//     memory in the input dtype (2 x 52 KB for bf16 at C = 200, hd = 128;
+//     2 x 104 KB for float32). A warp carries 4 query rows at once; a lane
+//     owns the keys j = lane + 32 t, so a row's logits, max, exp and sum live
+//     in registers and warp shuffles. A row's q (and do) comes from device
+//     memory, one broadcast load per pair of columns. For the A v product the
+//     roles turn: a lane owns pairs of output columns and the row's weights
+//     are broadcast by shuffle, key by key.
 //   - kernel 3a recomputes the logits and the softmax as kernel 2 does, then
 //     dA_ij = do_i . v_j, delta_i = sum_j A_ij dA_ij (the Pallas kernel's row
 //     sum; not do . o, which was rounded to the input dtype) and dq, and
@@ -50,18 +98,14 @@
 //     8-byte reads). At a 256-byte stride each such read is a 32-way bank
 //     conflict.
 //
-// Bound on an H100 SXM at the training shape (B = 1024, H = 3, C = 200,
-// hd = 128, bf16), counting the Pallas kernels' work with each product of
-// 2 C^2 hd per (b, h) (31.5 GFLOP in all) at the peak of its operand types:
-// a product of two bf16 inputs (q k^T, do v^T) is exact in a float32 sum and
-// goes at the 989 TFLOP/s bf16 tensor-core peak, one with a float32 operand
-// (the weights A, or dL) at the 67 TFLOP/s float32 peak. Kernel 2 (q k^T,
-// A v): 0.50 ms, against 629 MB moved (0.19 ms at 3.35 TB/s). Kernel 3
-// (q k^T, do v^T, A^T do, dL k, dL^T q): 1.47 ms, against 1.10 GB (0.33 ms).
-// Both are bound by operations. The 3a / 3b split computes q k^T and do v^T
-// twice: 7 products, 1.54 ms. With every product on the bf16 tensor cores
-// (wgmma) the bounds would be 0.064 and 0.16 ms; that and TMA staging are
-// later work.
+// Bound of kernel 3 at the training shape, counting the Pallas kernel's work
+// with each product of 2 C^2 hd per (b, h) (31.5 GFLOP each) at the peak of
+// its operand types: a product of two bf16 inputs (q k^T, do v^T) is exact in
+// a float32 sum and goes at the 989 TFLOP/s bf16 tensor-core peak, one with a
+// float32 operand (the weights A, or dL) at the 67 TFLOP/s float32 peak:
+// q k^T, do v^T, A^T do, dL k, dL^T q, 1.47 ms, against 1.10 GB (0.33 ms).
+// It is bound by operations. The 3a / 3b split computes q k^T and do v^T
+// twice: 7 products, 1.54 ms. Tensor cores for kernel 3 are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -316,6 +360,266 @@ mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   }
 }
 
+// ---- kernel 2 on bf16: the tensor cores ----
+
+constexpr int kTcPad = 8;  // staged row stride hd + 8 elements
+constexpr int kTcThreads = 32 * (kMaxC / 16);  // one warp per 16 rows of C <= 256
+constexpr int kTerms = 3;  // bf16 terms of each float32 softmax weight
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8 and gets, of each matrix, row l / 4, columns
+// 2 (l % 4) and 2 (l % 4) + 1 (transposed: rows and columns swap)
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d += a b: a 16 x 16 bf16 (row-major fragments), b 16 x 8 bf16 (column-
+// major), d 16 x 8 float32. Lane l holds d's rows l / 4 (d[0], d[1]) and
+// l / 4 + 8 (d[2], d[3]) at columns 2 (l % 4) and 2 (l % 4) + 1. The
+// tensor cores' float32 sum is not an IEEE one: measured against float32,
+// an accumulator carried through many mma loses about an ulp of itself
+// toward zero at each (PERF.md).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  const __nv_bfloat162 v = __halves2bfloat162(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// the weights (x, y) of two neighbouring keys as kTerms bf16 pairs into
+// register `slot` of each term's A fragment: term t is bf16 of what the
+// terms before it left (each remainder is exact in float32; three terms
+// hold all 24 bits of a float32 weight)
+__device__ __forceinline__ void split_terms(float x, float y, unsigned (&w)[kTerms][4],
+                                            int slot) {
+#pragma unroll
+  for (int t = 0; t < kTerms; ++t) {
+    const __nv_bfloat16 hx = __float2bfloat16_rn(x), hy = __float2bfloat16_rn(y);
+    w[t][slot] = pack_bf16(hx, hy);
+    x = __fsub_rn(x, __bfloat162float(hx));
+    y = __fsub_rn(y, __bfloat162float(hy));
+  }
+}
+
+// d += the products in `part`, a fresh accumulator: each of its values is
+// added to d with one IEEE float32 add
+__device__ __forceinline__ void add_part(float (&d)[4], const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = __fadd_rn(d[e], part[e]);
+}
+
+// the logits of this warp's 16 rows against keys j0 .. j0 + 15:
+// x[n][0..1] row g, x[n][2..3] row g + 8, keys j0 + 8 n + 2 (lane % 4) + {0, 1};
+// the 16 columns of each k-step go to a fresh accumulator
+template <int HD>
+__device__ __forceinline__ void tc_logits(float (&x)[2][4], const __nv_bfloat16* qa,
+                                          const __nv_bfloat16* kb, const float* mask_s,
+                                          int j0, int t4, float scale) {
+  constexpr int P = HD + kTcPad;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 16; ++ks) {
+    unsigned a[4], b[4];
+    ldmatrix_x4(a, qa + ks * 16);
+    ldmatrix_x4(b, kb + j0 * P + ks * 16);
+    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(t0, a, b[0], b[1]);
+    mma_bf16(t1, a, b[2], b[3]);
+    add_part(x[0], t0);
+    add_part(x[1], t1);
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float2 mk = *reinterpret_cast<const float2*>(mask_s + j0 + 8 * n + 2 * t4);
+    x[n][0] = logit(x[n][0], scale, mk.x);
+    x[n][1] = logit(x[n][1], scale, mk.y);
+    x[n][2] = logit(x[n][2], scale, mk.x);
+    x[n][3] = logit(x[n][3], scale, mk.y);
+  }
+}
+
+// kernel 2 on bf16: o for one (b, h); blockDim.x = 32 * ceil(C / 16)
+template <int HD>
+__global__ void __launch_bounds__(kTcThreads, 1)
+mha_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ log_mask,
+                  __nv_bfloat16* __restrict__ o, int H, int C, float scale) {
+  constexpr int P = HD + kTcPad;
+  constexpr int NT = HD / 8;      // 8-column tiles of o
+  constexpr int PIECES = HD / 8;  // 16-byte pieces of a row
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Cp = (C + 15) & ~15;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* k_s = q_s + Cp * P;
+  __nv_bfloat16* v_s = k_s + Cp * P;
+  float* mask_s = reinterpret_cast<float*>(v_s + Cp * P);
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const long long base = static_cast<long long>(bh) * C * HD;
+
+  // stage Q and K (group 0), then V (group 1); rows past C are zeros
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  for (int idx = threadIdx.x; idx < Cp * PIECES; idx += blockDim.x) {
+    const int row = idx / PIECES;
+    const int col = (idx - row * PIECES) * 8;
+    __nv_bfloat16* qd = q_s + row * P + col;
+    __nv_bfloat16* kd = k_s + row * P + col;
+    if (row < C) {
+      cp_async16(qd, q + base + static_cast<long long>(row) * HD + col);
+      cp_async16(kd, k + base + static_cast<long long>(row) * HD + col);
+    } else {
+      *reinterpret_cast<uint4*>(qd) = zero;
+      *reinterpret_cast<uint4*>(kd) = zero;
+    }
+  }
+  cp_async_commit();
+  for (int idx = threadIdx.x; idx < Cp * PIECES; idx += blockDim.x) {
+    const int row = idx / PIECES;
+    const int col = (idx - row * PIECES) * 8;
+    __nv_bfloat16* vd = v_s + row * P + col;
+    if (row < C)
+      cp_async16(vd, v + base + static_cast<long long>(row) * HD + col);
+    else
+      *reinterpret_cast<uint4*>(vd) = zero;
+  }
+  cp_async_commit();
+  for (int j = threadIdx.x; j < Cp; j += blockDim.x)
+    mask_s[j] = j < C ? __ldg(log_mask + static_cast<long long>(b) * C + j) : -INFINITY;
+  cp_async_wait<1>();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  // ldmatrix row addresses: Q as the A operand (rows row0 + lane % 16,
+  // columns 8 (lane / 16)); K as the B operand of q k^T (keys lane % 8 +
+  // 8 (lane / 16), columns 8 ((lane / 8) % 2)); V as the B operand of A v,
+  // transposed (keys lane % 16, columns 8 (lane / 16))
+  const __nv_bfloat16* qa = q_s + (row0 + (lane & 15)) * P + (lane >> 4) * 8;
+  const __nv_bfloat16* kb = k_s + ((lane & 7) + ((lane >> 4) << 3)) * P + ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* vb = v_s + (lane & 15) * P + (lane >> 4) * 8;
+
+  // pass 1: the exact row maxima (rows g and g + 8 of the warp's tile)
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll 2
+  for (int j0 = 0; j0 < Cp; j0 += 16) {
+    float x[2][4];
+    tc_logits<HD>(x, qa, kb, mask_s, j0, t4, scale);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      m0 = fmaxf(m0, fmaxf(x[n][0], x[n][1]));
+      m1 = fmaxf(m1, fmaxf(x[n][2], x[n][3]));
+    }
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(kFull, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(kFull, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(kFull, m1, 2));
+
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // pass 2: e = exp(L - m), the row sums, o += e v term by term
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float l0 = 0.f, l1 = 0.f;
+  for (int j0 = 0; j0 < Cp; j0 += 16) {
+    float x[2][4];
+    tc_logits<HD>(x, qa, kb, mask_s, j0, t4, scale);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      x[n][0] = expf(x[n][0] - m0);  // 0 past C
+      x[n][1] = expf(x[n][1] - m0);
+      x[n][2] = expf(x[n][2] - m1);
+      x[n][3] = expf(x[n][3] - m1);
+      l0 += x[n][0];
+      l0 += x[n][1];
+      l1 += x[n][2];
+      l1 += x[n][3];
+    }
+    // the A operand over these 16 keys: rows g / g + 8, keys 2 (lane % 4)
+    // (+ 8): the accumulator fragments of the two 8-key tiles, in terms.
+    // Each 8-column tile of o takes the terms smallest first in a fresh
+    // accumulator, then one add: the chunk's sum is truncated at most at
+    // the size of the chunk's own contribution
+    unsigned w[kTerms][4];
+    split_terms(x[0][0], x[0][1], w, 0);
+    split_terms(x[0][2], x[0][3], w, 1);
+    split_terms(x[1][0], x[1][1], w, 2);
+    split_terms(x[1][2], x[1][3], w, 3);
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      unsigned bv[4];
+      ldmatrix_x4_trans(bv, vb + j0 * P + np * 16);
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int t = kTerms - 1; t >= 0; --t) {
+        mma_bf16(t0, w[t], bv[0], bv[1]);
+        mma_bf16(t1, w[t], bv[2], bv[3]);
+      }
+      add_part(acc[2 * np], t0);
+      add_part(acc[2 * np + 1], t1);
+    }
+  }
+  l0 += __shfl_xor_sync(kFull, l0, 1);
+  l0 += __shfl_xor_sync(kFull, l0, 2);
+  l1 += __shfl_xor_sync(kFull, l1, 1);
+  l1 += __shfl_xor_sync(kFull, l1, 2);
+
+  // o = acc / l in bf16; rows past C are not stored
+  const int r0 = row0 + g, r1 = row0 + g + 8;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = 8 * n + 2 * t4;
+    if (r0 < C)
+      store2(o + base + static_cast<long long>(r0) * HD + col,
+             make_float2(__fdiv_rn(acc[n][0], l0), __fdiv_rn(acc[n][1], l0)));
+    if (r1 < C)
+      store2(o + base + static_cast<long long>(r1) * HD + col,
+             make_float2(__fdiv_rn(acc[n][2], l1), __fdiv_rn(acc[n][3], l1)));
+  }
+}
+
 // kernel 3a: dq and the row statistics for one (b, h) and one tile of query
 // rows
 template <typename T, int R>
@@ -483,6 +787,43 @@ cudaError_t launch_forward(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+// kernel 2 on bf16: staged Q, K and V at C rounded up to 16 rows, and the
+// mask
+int tc_smem_bytes(int C, int hd) {
+  const int cp = (C + 15) & ~15;
+  return 3 * cp * (hd + kTcPad) * 2 + cp * 4;
+}
+
+template <int HD>
+cudaError_t launch_forward_tc_hd(const void* q, const void* k, const void* v, const void* mask,
+                                 void* o, Shape sh, float scale, int device, cudaStream_t s) {
+  static std::atomic<bool> done[kMaxDevices];
+  auto* kernel = mha_fwd_tc_kernel<HD>;
+  cudaError_t err = ensure_smem_limit(kernel, done, device);
+  if (err != cudaSuccess) return err;
+  const int warps = (sh.C + 15) / 16;
+  kernel<<<sh.B * sh.H, 32 * warps, tc_smem_bytes(sh.C, HD), s>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(mask),
+      static_cast<__nv_bfloat16*>(o), sh.H, sh.C, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_forward_tc(const void* q, const void* k, const void* v, const void* mask,
+                              void* o, Shape sh, float scale, int device, cudaStream_t s) {
+  switch (sh.hd) {
+    case 16: return launch_forward_tc_hd<16>(q, k, v, mask, o, sh, scale, device, s);
+    case 32: return launch_forward_tc_hd<32>(q, k, v, mask, o, sh, scale, device, s);
+    case 48: return launch_forward_tc_hd<48>(q, k, v, mask, o, sh, scale, device, s);
+    case 64: return launch_forward_tc_hd<64>(q, k, v, mask, o, sh, scale, device, s);
+    case 80: return launch_forward_tc_hd<80>(q, k, v, mask, o, sh, scale, device, s);
+    case 96: return launch_forward_tc_hd<96>(q, k, v, mask, o, sh, scale, device, s);
+    case 112: return launch_forward_tc_hd<112>(q, k, v, mask, o, sh, scale, device, s);
+    case 128: return launch_forward_tc_hd<128>(q, k, v, mask, o, sh, scale, device, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_backward(const void* q, const void* k, const void* v, const void* mask,
                             const void* dout, void* dq, void* dk, void* dv, void* stats,
@@ -539,8 +880,9 @@ int on_device(int device, Fn fn) {
 // q, k, v, o: [B, H, C, hd] float32 (bf16 = 0) or bfloat16 (bf16 = 1);
 // log_mask: [B, C] float32; scale: 1 / sqrt(hd) in float32. All contiguous,
 // 16-byte aligned, on `device`; C <= 256, hd a multiple of 16 up to 128.
-// Launches kernel 2 on `stream` without synchronising; returns the CUDA
-// error code of the launch (0 on success).
+// Launches kernel 2 on `stream` without synchronising (bf16:
+// mha_fwd_tc_kernel on the tensor cores; float32: mha_fwd_kernel); returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int xf_attention_forward(const void* q, const void* k, const void* v,
                                     const void* log_mask, void* o, int bf16, int B, int H,
                                     int C, int hd, float scale, int device, void* stream) {
@@ -549,7 +891,7 @@ extern "C" int xf_attention_forward(const void* q, const void* k, const void* v,
   if (check_shape(sh, elem) != cudaSuccess) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return on_device(device, [&] {
-    return bf16 ? launch_forward<__nv_bfloat16>(q, k, v, log_mask, o, sh, scale, device, s)
+    return bf16 ? launch_forward_tc(q, k, v, log_mask, o, sh, scale, device, s)
                 : launch_forward<float>(q, k, v, log_mask, o, sh, scale, device, s);
   });
 }
@@ -572,6 +914,10 @@ extern "C" int xf_attention_backward(const void* q, const void* k, const void* v
                                          scale, device, s);
   });
 }
+
+// The bf16 terms each float32 softmax weight is split into in
+// mha_fwd_tc_kernel (its A v takes one tensor-core product per term).
+extern "C" int xf_attention_tc_terms() { return kTerms; }
 
 extern "C" const char* xf_attention_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

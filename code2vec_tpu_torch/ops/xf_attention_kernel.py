@@ -4,7 +4,10 @@
 ops/_build.py) holds kernel 2, the forward (counterpart of `_fwd_kernel`
 in the JAX package's ops/xf_attention.py), and kernel 3, the backward
 (`_bwd_kernel`) as two launches: 3a (dq and the row statistics) and 3b
-(dk and dv). The launchers here check their inputs, allocate the outputs
+(dk and dv). Kernel 2 runs bf16 inputs on the tensor cores
+(`mha_fwd_tc_kernel`: mma.sync with the float32 weights split into three
+bf16 terms) and float32 inputs on the CUDA cores (`mha_fwd_kernel`). The
+launchers here check their inputs, allocate the outputs
 and the [B, H, C, 3] float32 statistics scratch, and launch on PyTorch's
 current stream; they raise on anything the kernels do not take and on a
 launch error. Dispatch by device, the plain versions and the launch
@@ -27,9 +30,10 @@ MAX_SMEM = 227 * 1024
 
 
 def smem_bytes(C: int, hd: int, element_size: int) -> int:
-    """Shared memory of one block: two staged [C, hd] blocks at a row
-    stride of hd + 2 elements, and kernel 3b's three float32 statistics
-    per query."""
+    """Shared memory of one block of the CUDA-core kernels: two staged
+    [C, hd] blocks at a row stride of hd + 2 elements, and kernel 3b's
+    three float32 statistics per query. (The bf16 forward's Q, K and V at
+    a stride of hd + 8 take at most 205 KB, at C = 256 and hd = 128.)"""
     return 2 * C * (hd + 2) * element_size + 3 * C * 4
 
 
@@ -45,7 +49,16 @@ def _library() -> ctypes.CDLL:
         lib.xf_attention_backward.restype = i
         lib.xf_attention_error_string.argtypes = [i]
         lib.xf_attention_error_string.restype = ctypes.c_char_p
+        lib.xf_attention_tc_terms.argtypes = []
+        lib.xf_attention_tc_terms.restype = i
     return lib
+
+
+def tc_terms() -> int:
+    """The bf16 terms each float32 softmax weight is split into on the
+    tensor cores (kernel 2 on bf16 runs one A v product per term), as
+    the built kernel has it."""
+    return int(_library().xf_attention_tc_terms())
 
 
 def _operand(t: torch.Tensor) -> torch.Tensor:

@@ -41,7 +41,9 @@ contexts are gathered in the compute dtype, the pool's code vector is
 cast to the compute dtype before the logits product against
 `target_emb`, and a returned code vector is that value widened to
 float32. The [B, D] x [D, V] logits product stays a `torch.matmul`, as
-XLA computes it outside any Pallas kernel in the JAX package.
+XLA computes it outside any Pallas kernel in the JAX package. Their
+top-k goes through `topk_stable`, which orders equal probabilities as
+`jax.lax.top_k` does (the lowest id first); `torch.topk` does not.
 
 `batch` is the JAX step's tuple `(labels, src, pth, dst, mask, weights)`
 of tensors on the params' device.
@@ -219,6 +221,24 @@ def make_train_step(dims: ModelDims, optimizer, *,
     return step
 
 
+def topk_stable(probs: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` over the last axis of probabilities p >= 0 (no -0):
+    -> (values [..., k], ids [..., k] int64), by descending value and,
+    among equal values, the lowest id first, at the k-th value's boundary
+    too. `torch.topk` runs over one int64 key per element, the float32
+    bits of p (ordered as p is, since p >= 0) above 2^32 - 1 - id, so the
+    keys are distinct and their order is the reference's. The key is a
+    [..., V] int64 tensor: 2.1 GB at [1024, 261,247]."""
+    probs = probs.to(torch.float32).contiguous()
+    V = probs.shape[-1]
+    low = 0xFFFFFFFF - torch.arange(V, dtype=torch.int64, device=probs.device)
+    key = probs.view(torch.int32).to(torch.int64)
+    key.bitwise_left_shift_(32).bitwise_or_(low)
+    ids = torch.topk(key, k, dim=-1).indices
+    return torch.gather(probs, -1, ids), ids
+
+
 def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
               compute_dtype=torch.float32, use_kernel: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -234,8 +254,7 @@ def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
     ce = torch.clamp(F.cross_entropy(logits, labels.to(torch.int64),
                                      reduction="none"), min=0.0)
     loss_sum = (ce * weights).sum()
-    topk_probs, topk_ids = torch.topk(torch.softmax(logits, dim=-1), top_k,
-                                      dim=-1)
+    topk_probs, topk_ids = topk_stable(torch.softmax(logits, dim=-1), top_k)
     return loss_sum, topk_ids, topk_probs
 
 
@@ -253,10 +272,9 @@ def encode_step(params: Params, batch, *, dims: ModelDims,
 def predict_head(params: Params, code: torch.Tensor, dims: ModelDims,
                  top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Code vectors (compute dtype) -> (topk_ids [B, k], topk_probs [B, k])
-    under a full softmax over the target vocab."""
+    under a full softmax over the target vocab (`topk_stable`'s order)."""
     logits = full_logits(params, code, dims.target_vocab_size)
-    probs = torch.softmax(logits, dim=-1)
-    topk_probs, topk_ids = torch.topk(probs, top_k, dim=-1)
+    topk_probs, topk_ids = topk_stable(torch.softmax(logits, dim=-1), top_k)
     return topk_ids, topk_probs
 
 

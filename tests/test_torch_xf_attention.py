@@ -25,7 +25,7 @@ import torch
 
 from code2vec_tpu.ops import xf_attention as jxa
 from code2vec_tpu_torch.ops import xf_attention as txa
-from code2vec_tpu_torch.ops.xf_attention_kernel import check_inputs
+from code2vec_tpu_torch.ops.xf_attention_kernel import check_inputs, tc_terms
 
 SHAPES = {"small": (3, 2, 24, 16), "grouped": (16, 2, 24, 16),
           "java": (2, 2, 200, 96)}
@@ -199,17 +199,96 @@ def test_plain_mha_is_fused_mha_through_the_plain_versions(dtype):
             txa.mha_backward_fused.launches) == (n2, n3)
 
 
+# chip_smoke.py's XF_TOL["bfloat16"]: the kernel against the plain version
+# on the card, over the largest |output|
+XF_TOL_BF16 = 2.0 ** -7
+# the bf16 terms of each float32 weight in mha_fwd_tc_kernel (the card
+# test holds the built kernel to it)
+TC_TERMS = 3
+
+
+def _tc_forward_emulated(q, k, v, log_mask, terms=TC_TERMS):
+    """Kernel 2's bf16 tensor-core arithmetic (mha_fwd_tc_kernel) in plain
+    PyTorch on float32 tensors holding bf16 values: q k^T as float32 sums
+    of 16-column partial products (bf16 x bf16 products are exact), the
+    scale and the mask rounded apart, the exact row max, e = exp(L - m)
+    and its row sum l, e split into `terms` bf16 terms (each the bf16 of
+    what the terms before it left), o summed in float32 over 16-key
+    chunks, each chunk's products taken smallest term first, divided by l
+    once per row, rounded to bf16. -> (o, the largest |e - sum of the
+    terms| over e, for e >= 2^-100: below that a third term can be
+    subnormal, and such a weight moves no output)."""
+    hd = q.shape[-1]
+    scale = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+    dots = torch.zeros(q.shape[:-1] + (k.shape[2],))
+    for c0 in range(0, hd, 16):
+        cols = slice(c0, c0 + 16)
+        dots = dots + torch.matmul(q[..., cols], k[..., cols].transpose(-1, -2))
+    logits = dots * scale + log_mask[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    parts, rest = [], e
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    seen = e >= 2.0 ** -100
+    residual = (rest.abs()[seen] / e[seen]).max().item()
+    o = torch.zeros_like(q)
+    for j0 in range(0, q.shape[2], 16):
+        keys = slice(j0, j0 + 16)
+        chunk = torch.zeros_like(q)
+        for part in reversed(parts):
+            chunk = chunk + torch.matmul(part[..., keys], v[..., keys, :])
+        o = o + chunk
+    return (o / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16), residual
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 200, 128), (2, 4, 200, 96),
+                                   (2, 3, 37, 128)])
+def test_tensor_core_split_keeps_pallas_semantics(shape):
+    """The bf16 kernel 2's arithmetic (the float32 weights as three bf16
+    terms, emulated on the CPU) against `_mha_fwd_pallas` in interpret
+    mode, with every key but key 0 masked in batch row 1 (where B > 1):
+    within XF_TOL["bfloat16"] = 2^-7 of the largest |output|, the
+    tolerance chip_smoke.py holds the kernel to on the card (each output
+    is rounded to bf16 once on both sides, and a float32 difference can
+    move it one bf16 step), and equal to its bits on all but 0.1 % of the
+    outputs. The three terms leave at most 2^-24 of each weight (of
+    2^-100 or more). Two
+    terms leave 2^-16 and already change 0.1-0.2 % of the outputs' bits
+    (more on the card), too many for the transformer's end-to-end checks
+    there; the weights rounded to bf16 once, as SDPA does, change 19-41 %
+    at these shapes."""
+    q, k, v, lm = _inputs(shape, "bfloat16", seed=11)
+    if shape[0] > 1:
+        lm[1, 1:] = np.log(np.float32(1e-30))
+    jq, jk, jv = _jax((q, k, v), "bfloat16")
+    want = _f32(jxa._mha_fwd_pallas(jq, jk, jv, jnp.asarray(lm),
+                                    interpret=True))
+    got, residual = _tc_forward_emulated(
+        *(torch.from_numpy(a) for a in (q, k, v, lm)))
+    assert residual <= 2.0 ** -24
+    err = np.abs(_f32(got) - want).max()
+    assert err <= XF_TOL_BF16 * np.abs(want).max()
+    assert (_f32(got) != want).mean() <= 1e-3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(dtype):
     """Kernels 2 and 3 against their plain versions on the card, at the
-    small shapes and at the java-large head shape (7, 3, 200, 128):
-    float32 within 2e-5 of the largest output (200-term float32 sums in
-    another order), bf16 within 2^-7 of it (one bf16 rounding apart)."""
+    small shapes, the java-large head shape (7, 3, 200, 128), H = 4's
+    hd = 96 and a ragged C = 37: float32 within 2e-5 of the largest
+    output (200-term float32 sums in another order), bf16 within 2^-7 of
+    it (one bf16 rounding apart); kernel 2 gives the same bits twice, and
+    splits each weight into the TC_TERMS terms that
+    test_tensor_core_split_keeps_pallas_semantics emulates."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for shape in ((3, 2, 24, 16), (16, 2, 24, 16), (7, 3, 200, 128)):
+    assert tc_terms() == TC_TERMS
+    for shape in ((3, 2, 24, 16), (16, 2, 24, 16), (7, 3, 200, 128),
+                  (4, 4, 200, 96), (5, 3, 37, 128)):
         q, k, v, lm = (t.cuda() for t in _torch(_inputs(shape), "float32"))
         q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
         do = torch.randn_like(q.float()).to(q.dtype)
@@ -225,3 +304,4 @@ def test_kernels_match_plain_on_card(dtype):
         for a, b in zip(got, want):
             top = b.float().abs().max().item()
             assert (a.float() - b.float()).abs().max().item() <= rel * top
+        assert torch.equal(txa.mha_forward_fused(q, k, v, lm), got[0])
