@@ -63,14 +63,15 @@ Phases (any failure raises, and the script exits non-zero):
    path batch by batch (loss within 1e-3, top-1 equal on 99% of the
    methods); the tie-stable top-k at [1024, 261,247], as in 4;
 10. the fused multi-head attention kernels (2: forward, on bf16 the
-   tensor-core `mha_fwd_tc_kernel`; 3: backward as launches 3a and 3b)
-   against their plain versions on the card, at (B, H, C, hd) =
-   (1, 3, 200, 128), (7, ...), (64, ...), (1024, ...), (4, 4, 200, 96)
-   and a ragged (16, 3, 37, 128) in bf16 and (4, 4, 200, 96),
-   (16, 2, 24, 16) in float32; kernel 2 twice on the same inputs gives
-   the same bits; their times (CUDA events and profiler device time, 3a
-   and 3b apart) beside the plain versions', the SDPA yardstick's and the
-   bound;
+   tensor-core `mha_fwd_tc_kernel`; 3: backward as launches 3a and 3b, on
+   bf16 the tensor-core `mha_bwd_dq_tc_kernel` and
+   `mha_bwd_dkv_tc_kernel`) against their plain versions on the card, at
+   (B, H, C, hd) = (1, 3, 200, 128), (7, ...), (64, ...), (1024, ...),
+   (4, 4, 200, 96) and a ragged (16, 3, 37, 128) in bf16 and
+   (4, 4, 200, 96), (16, 2, 24, 16) in float32; kernels 2 and 3 twice on
+   the same inputs give the same bits; their times (CUDA events and
+   profiler device time, 3a and 3b apart, by the kernels' names) beside
+   the plain versions', the SDPA yardstick's and the bound;
 11. the transformer path-encoder (bench.py's configuration: L = 2,
    H = 3, bf16) behind the `PredictionServer`, 32 concurrent requests:
    kernel 2 launches L times a device batch and kernel 1 never; one
@@ -159,8 +160,11 @@ XF_CASES = (((1, XF_H, C, D // XF_H), "bfloat16"),
             ((TRAIN_B, XF_H, C, D // XF_H), "bfloat16"),
             ((4, 4, C, 96), "bfloat16"), ((16, XF_H, 37, D // XF_H), "bfloat16"),
             ((4, 4, C, 96), "float32"), ((16, 2, 24, 16), "float32"))
-# kernel 2's kernel by input dtype, as the profiler names it
+# kernel 2's kernel and kernel 3's two (3a, 3b) by input dtype, as the
+# profiler names them (each name is in no other's)
 XF_FWD_KERNEL = {"bfloat16": "mha_fwd_tc_kernel", "float32": "mha_fwd_kernel"}
+XF_BWD_KERNELS = {"bfloat16": ("mha_bwd_dq_tc_kernel", "mha_bwd_dkv_tc_kernel"),
+                  "float32": ("mha_bwd_dq_kernel", "mha_bwd_dkv_kernel")}
 # max |kernel - plain| over the largest |plain| value of each output.
 # float32: the kernels sum the 200- and 128-term products in another
 # order than cuBLAS and take expf where PyTorch takes its own exp, a few
@@ -1444,10 +1448,14 @@ def phase_xf_kernels(torch, peaks, report):
                *xa.mha_backward_fused(q, k, v, lm, do)]
         want = [xa.mha_forward_plain(q, k, v, lm),
                 *xa.mha_backward_plain(q, k, v, lm, do)]
-        again = xa.mha_forward_fused(q, k, v, lm)
+        again = [xa.mha_forward_fused(q, k, v, lm),
+                 *xa.mha_backward_fused(q, k, v, lm, do)]
         torch.cuda.synchronize()
-        check(torch.equal(again, got[0]), f"xf {shape} {dtype}: kernel 2 "
+        check(torch.equal(again[0], got[0]), f"xf {shape} {dtype}: kernel 2 "
               f"gave other bits on a second launch")
+        check(all(torch.equal(a, b) for a, b in zip(again[1:], got[1:])),
+              f"xf {shape} {dtype}: kernel 3 gave other bits on a second "
+              f"launch")
         errs, rels = [], []
         for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
             check(bool(torch.isfinite(a).all()), f"xf {shape} {dtype}: "
@@ -1466,12 +1474,11 @@ def phase_xf_kernels(torch, peaks, report):
         k2_dev = kernel_device_ms(
             torch, lambda: xa.mha_forward_fused(q, k, v, lm),
             XF_FWD_KERNEL[dname])
+        k3a_name, k3b_name = XF_BWD_KERNELS[dname]
         k3a_dev = kernel_device_ms(
-            torch, lambda: xa.mha_backward_fused(q, k, v, lm, do),
-            "mha_bwd_dq_kernel")
+            torch, lambda: xa.mha_backward_fused(q, k, v, lm, do), k3a_name)
         k3b_dev = kernel_device_ms(
-            torch, lambda: xa.mha_backward_fused(q, k, v, lm, do),
-            "mha_bwd_dkv_kernel")
+            torch, lambda: xa.mha_backward_fused(q, k, v, lm, do), k3b_name)
         # the library yardstick (never called by the port): SDPA with the
         # additive mask, forward, and its backward through autograd
         sq, sk, sv = (t.detach().clone().requires_grad_(True)
@@ -1488,13 +1495,21 @@ def phase_xf_kernels(torch, peaks, report):
         # recomputes q k^T: one more); on float32, and as the CUDA-core
         # design priced bf16: q k^T and A v with float32 A.
         # Kernel 3 as the Pallas kernel counts it: q k^T, dO v^T, A^T dO,
-        # dL k, dL^T q; 3a + 3b recompute q k^T and dO v^T in both launches
+        # dL k, dL^T q; on bf16 (the tensor cores) the last three as
+        # `terms` products each, on float32, and as the CUDA-core design
+        # priced bf16, with float32 A and dL. What the split runs: on bf16
+        # 3a takes q k^T three times and dO v^T twice, 3b K Q^T twice and
+        # V dO^T once, and the three term products; the CUDA-core pair
+        # q k^T and dO v^T twice each
         b2_f32_weights = xf_bound(shape, elem, peaks, 1, 1, 4)
         b2 = xf_bound(shape, elem, peaks, 1 + terms, 0, 4) \
             if elem == 2 else b2_f32_weights
         b2_two_pass = xf_bound(shape, elem, peaks, 2 + terms, 0, 4)
-        b3 = xf_bound(shape, elem, peaks, 2, 3, 7)
-        b3_split = xf_bound(shape, elem, peaks, 4, 3, 7)
+        b3_f32_weights = xf_bound(shape, elem, peaks, 2, 3, 7)
+        b3 = xf_bound(shape, elem, peaks, 2 + 3 * terms, 0, 7) \
+            if elem == 2 else b3_f32_weights
+        b3_split = xf_bound(shape, elem, peaks, 8 + 3 * terms, 0, 7) \
+            if elem == 2 else xf_bound(shape, elem, peaks, 4, 3, 7)
         common = {"shape": list(shape), "dtype": dname}
         rows["forward"].append({
             **common, "kernel": XF_FWD_KERNEL[dname], "max_abs_err": errs[0],
@@ -1505,11 +1520,16 @@ def phase_xf_kernels(torch, peaks, report):
             "bound_ms_float32_weights": b2_f32_weights["bound_ms"],
             "two_pass_ops_ms": b2_two_pass["ops_ms"]})
         rows["backward"].append({
-            **common, "max_abs_err": max(errs[1:]), "rel_err": max(rels[1:]),
+            **common, "kernel": "+".join(XF_BWD_KERNELS[dname]),
+            "max_abs_err": max(errs[1:]), "rel_err": max(rels[1:]),
+            "bits_differ_share": max(
+                (a != b).float().mean().item()
+                for a, b in zip(got[1:], want[1:])),
             "ms": k3_ms, "kernel_device_ms": (
                 None if None in (k3a_dev, k3b_dev) else k3a_dev + k3b_dev),
             "kernel_3a_device_ms": k3a_dev, "kernel_3b_device_ms": k3b_dev,
             "plain_ms": p3_ms, "library_ms": l3_ms, **b3,
+            "bound_ms_float32_weights": b3_f32_weights["bound_ms"],
             "split_ops_ms": b3_split["ops_ms"]})
         print(f"  mha {tuple(shape)} {dname:8s} rel err o {rels[0]:.2g} "
               f"dq/dk/dv {max(rels[1:]):.2g} | kernel 2 "
@@ -1517,10 +1537,11 @@ def phase_xf_kernels(torch, peaks, report):
               f"(device {fmt_ms(k2_dev)}) plain {p2_ms:.4f} sdpa {l2_ms:.4f} "
               f"bound {b2['bound_ms']:.4f} ({b2['bound_by']}; float32 A v "
               f"{b2_f32_weights['bound_ms']:.4f}) | kernel 3 "
-              f"{k3_ms:.4f} ms (device 3a {fmt_ms(k3a_dev)} + 3b "
-              f"{fmt_ms(k3b_dev)}) "
+              f"({k3a_name} + {k3b_name}, bits equal twice) {k3_ms:.4f} ms "
+              f"(device 3a {fmt_ms(k3a_dev)} + 3b {fmt_ms(k3b_dev)}) "
               f"plain {p3_ms:.4f} sdpa bwd {l3_ms:.4f} bound "
-              f"{b3['bound_ms']:.4f} ({b3['bound_by']}; 3a/3b recompute "
+              f"{b3['bound_ms']:.4f} ({b3['bound_by']}; float32 A, dL "
+              f"{b3_f32_weights['bound_ms']:.4f}; the split's products "
               f"{b3_split['ops_ms']:.4f})", flush=True)
         del q, k, v, lm, do, got, want, again
         torch.cuda.empty_cache()
@@ -1840,7 +1861,8 @@ def phase_xf_train(torch, np, vocabs, data_path, report):
           f"clock, synchronised); by phase (CUDA events, median): " +
           ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
           f"; peak device memory {peak_gb:.2f} GB", flush=True)
-    # kernels 2 and 3 are mha_fwd_kernel, mha_bwd_dq_kernel, mha_bwd_dkv_kernel
+    # kernels 2 and 3 on bf16 are mha_fwd_tc_kernel, mha_bwd_dq_tc_kernel and
+    # mha_bwd_dkv_tc_kernel
     prof, busy_share, xf_ms = profile_step(
         torch, label, lambda: trainer.train_step(batch), step_med, top=8,
         name_part="mha_")
@@ -2079,11 +2101,12 @@ def main(argv=None) -> int:
     ]
     # kernels 2 and 3 at the training shape, where most of their launches'
     # work is (the other shapes are in --out); every launch on the main
-    # paths is bf16, so kernel 2's is the tensor-core kernel
+    # paths is bf16, so they are the tensor-core kernels, and max_abs_err
+    # is over the bf16 rows
     for name, counter, direction, line in (
             (XF_FWD_KERNEL["bfloat16"], "xf_attention_forward", "forward", 120),
-            ("xf_attention_backward", "xf_attention_backward", "backward",
-             138)):
+            ("+".join(XF_BWD_KERNELS["bfloat16"]), "xf_attention_backward",
+             "backward", 138)):
         main_row = next(r for r in xf_rows[direction]
                         if r["shape"][0] == TRAIN_B)
         kernels.append({
@@ -2092,7 +2115,7 @@ def main(argv=None) -> int:
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
             "launches": sum(v[counter] for v in xf_launches.values()),
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
-                               if r.get("kernel", name) == name),
+                               if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": main_row["library_ms"]})

@@ -4,14 +4,16 @@
 ops/_build.py) holds kernel 2, the forward (counterpart of `_fwd_kernel`
 in the JAX package's ops/xf_attention.py), and kernel 3, the backward
 (`_bwd_kernel`) as two launches: 3a (dq and the row statistics) and 3b
-(dk and dv). Kernel 2 runs bf16 inputs on the tensor cores
-(`mha_fwd_tc_kernel`: mma.sync with the float32 weights split into three
-bf16 terms) and float32 inputs on the CUDA cores (`mha_fwd_kernel`). The
-launchers here check their inputs, allocate the outputs
-and the [B, H, C, 3] float32 statistics scratch, and launch on PyTorch's
-current stream; they raise on anything the kernels do not take and on a
-launch error. Dispatch by device, the plain versions and the launch
-counts are in ops/xf_attention.py.
+(dk and dv). bf16 inputs run on the tensor cores (mma.sync, each float32
+operand of a product split into three bf16 terms): kernel 2 as
+`mha_fwd_tc_kernel`, kernel 3 as `mha_bwd_dq_tc_kernel` and
+`mha_bwd_dkv_tc_kernel`. float32 inputs run on the CUDA cores
+(`mha_fwd_kernel`, `mha_bwd_dq_kernel`, `mha_bwd_dkv_kernel`). The
+launchers here check their inputs, allocate the outputs and the
+[B, H, C, 3] float32 statistics scratch, and launch on PyTorch's current
+stream; they raise on anything the kernels do not take and on a launch
+error. Dispatch by device, the plain versions and the launch counts are
+in ops/xf_attention.py.
 """
 
 from __future__ import annotations
@@ -27,14 +29,46 @@ KERNEL = "xf_attention"
 MAX_C = 256          # a lane owns at most 8 keys (see the .cu)
 MAX_HD = 128         # a lane owns at most 2 output column pairs
 MAX_SMEM = 227 * 1024
+TC_PAD = 8           # the tensor-core kernels' staged row stride: hd + 8
+BWD_TC_ROWS = 208    # own rows of a bf16 kernel-3 block: at most 13 warps
+
+
+def _rows16(C: int) -> int:
+    return (C + 15) // 16 * 16
+
+
+def _bwd_tc_smem(cp: int, rows: int, hd: int) -> int:
+    """bf16 kernel 3, a block of `rows` own rows: the other side's two
+    blocks at cp rows, the own side's two at `rows`, and 3b's three float32
+    statistics per query."""
+    return (2 * cp + 2 * rows) * (hd + TC_PAD) * 2 + 3 * cp * 4
+
+
+def bwd_tc_rows(C: int, hd: int) -> int:
+    """The own rows (queries in 3a, keys in 3b) of one bf16 kernel-3 block,
+    as the .cu's `bwd_tc_rows` picks them: at most 208, within the shared
+    memory, the tiles of one (b, h) as even as 16-row steps allow."""
+    cp = _rows16(C)
+    t = min(cp, BWD_TC_ROWS)
+    while t > 16 and _bwd_tc_smem(cp, t, hd) > MAX_SMEM:
+        t -= 16
+    tiles = -(-cp // t)
+    return 16 * -(-(cp // 16) // tiles)
 
 
 def smem_bytes(C: int, hd: int, element_size: int) -> int:
-    """Shared memory of one block of the CUDA-core kernels: two staged
-    [C, hd] blocks at a row stride of hd + 2 elements, and kernel 3b's
-    three float32 statistics per query. (The bf16 forward's Q, K and V at
-    a stride of hd + 8 take at most 205 KB, at C = 256 and hd = 128.)"""
-    return 2 * C * (hd + 2) * element_size + 3 * C * 4
+    """Shared memory of the largest block among the kernels that run on
+    this dtype. float32, the CUDA-core kernels: two staged [C, hd] blocks
+    at a row stride of hd + 2 elements, and kernel 3b's three float32
+    statistics per query. bf16, the tensor-core kernels (C rounded up to
+    16 rows, stride hd + 8): kernel 2's Q, K, V and mask; kernel 3's two
+    blocks of C rows, two of its tile's rows and the statistics (223 KB at
+    C = 200 and hd = 128, the most of any shape)."""
+    if element_size == 4:
+        return 2 * C * (hd + 2) * element_size + 3 * C * 4
+    cp = _rows16(C)
+    forward = 3 * cp * (hd + TC_PAD) * 2 + cp * 4
+    return max(forward, _bwd_tc_smem(cp, bwd_tc_rows(C, hd), hd))
 
 
 def _library() -> ctypes.CDLL:
@@ -55,9 +89,10 @@ def _library() -> ctypes.CDLL:
 
 
 def tc_terms() -> int:
-    """The bf16 terms each float32 softmax weight is split into on the
-    tensor cores (kernel 2 on bf16 runs one A v product per term), as
-    the built kernel has it."""
+    """The bf16 terms each float32 operand of a tensor-core product is
+    split into (kernel 2's weights in A v; kernel 3's weights and dL in
+    A^T dO, dL K and dL^T Q; one product per term), as the built kernel
+    has it."""
     return int(_library().xf_attention_tc_terms())
 
 
@@ -130,7 +165,8 @@ def mha_forward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       log_mask: torch.Tensor, do: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel 3 (3a then 3b): (dq, dk, dv), each like q."""
+    """Kernel 3 (3a then 3b; on bf16 the tensor-core pair): (dq, dk, dv),
+    each like q."""
     check_inputs(q, k, v, log_mask, do)
     B, H, C, hd = q.shape
     q, k, v, do = _operand(q), _operand(k), _operand(v), _operand(do)

@@ -25,7 +25,9 @@ import torch
 
 from code2vec_tpu.ops import xf_attention as jxa
 from code2vec_tpu_torch.ops import xf_attention as txa
-from code2vec_tpu_torch.ops.xf_attention_kernel import check_inputs, tc_terms
+from code2vec_tpu_torch.ops.xf_attention_kernel import (bwd_tc_rows,
+                                                        check_inputs,
+                                                        smem_bytes, tc_terms)
 
 SHAPES = {"small": (3, 2, 24, 16), "grouped": (16, 2, 24, 16),
           "java": (2, 2, 200, 96)}
@@ -149,8 +151,9 @@ def test_reference_matches_jax_reference(dtype):
 def test_wrappers_are_the_plain_versions_on_cpu_and_check_inputs():
     """On CPU tensors the wrappers return their plain versions' values
     exactly and launch nothing; the kernel launchers refuse other devices,
-    a C over 256, an hd that is not a multiple of 16 up to 128, float16,
-    and a mismatched mask."""
+    a C over 256, an hd that is not a multiple of 16 up to 128, float32
+    over the shared memory, float16, and a mismatched mask, and take bf16
+    at C = 256."""
     q, k, v, lm = _torch(_inputs((2, 2, 12, 16)), "float32")
     do = torch.ones_like(q)
     assert torch.equal(txa.mha_forward_fused(q, k, v, lm),
@@ -168,6 +171,14 @@ def test_wrappers_are_the_plain_versions_on_cpu_and_check_inputs():
                            "shared memory"):
             check_inputs(t, t, t, torch.empty(shape[0], shape[2],
                                               device="meta"))
+    # bf16 runs the tensor-core kernels, which take every C <= 256: kernel
+    # 3's block is all of C = 200 (13 warps, 223 KB of shared memory), two
+    # tiles of 128 rows at C = 256
+    t = torch.empty((1, 1, 256, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="no fused-MHA kernel"):
+        check_inputs(t, t, t, torch.empty(1, 256, device="meta"))
+    assert (bwd_tc_rows(200, 128), bwd_tc_rows(256, 128)) == (208, 128)
+    assert smem_bytes(200, 128, 2) == 228800
     t = torch.empty((1, 1, 8, 16), dtype=torch.float16, device="meta")
     with pytest.raises(TypeError):
         check_inputs(t, t, t, torch.empty(1, 8, device="meta"))
@@ -202,44 +213,63 @@ def test_plain_mha_is_fused_mha_through_the_plain_versions(dtype):
 # chip_smoke.py's XF_TOL["bfloat16"]: the kernel against the plain version
 # on the card, over the largest |output|
 XF_TOL_BF16 = 2.0 ** -7
-# the bf16 terms of each float32 weight in mha_fwd_tc_kernel (the card
-# test holds the built kernel to it)
+# the bf16 terms of each float32 operand of the tensor-core kernels'
+# products (the card test holds the built kernel to it)
 TC_TERMS = 3
 
 
-def _tc_forward_emulated(q, k, v, log_mask, terms=TC_TERMS):
-    """Kernel 2's bf16 tensor-core arithmetic (mha_fwd_tc_kernel) in plain
-    PyTorch on float32 tensors holding bf16 values: q k^T as float32 sums
-    of 16-column partial products (bf16 x bf16 products are exact), the
-    scale and the mask rounded apart, the exact row max, e = exp(L - m)
-    and its row sum l, e split into `terms` bf16 terms (each the bf16 of
-    what the terms before it left), o summed in float32 over 16-key
-    chunks, each chunk's products taken smallest term first, divided by l
-    once per row, rounded to bf16. -> (o, the largest |e - sum of the
-    terms| over e, for e >= 2^-100: below that a third term can be
-    subnormal, and such a weight moves no output)."""
-    hd = q.shape[-1]
-    scale = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
-    dots = torch.zeros(q.shape[:-1] + (k.shape[2],))
-    for c0 in range(0, hd, 16):
-        cols = slice(c0, c0 + 16)
-        dots = dots + torch.matmul(q[..., cols], k[..., cols].transpose(-1, -2))
-    logits = dots * scale + log_mask[:, None, None, :]
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    parts, rest = [], e
+def _split(x, terms=TC_TERMS):
+    """x as `terms` bf16 terms, each the bf16 of what the terms before it
+    left -> (the terms, the largest |x - their sum| over |x|, for
+    |x| >= 2^-100: below that a third term can be subnormal, and such a
+    value moves no output)."""
+    parts, rest = [], x
     for _ in range(terms):
         part = rest.to(torch.bfloat16).float()
         parts.append(part)
         rest = rest - part
-    seen = e >= 2.0 ** -100
-    residual = (rest.abs()[seen] / e[seen]).max().item()
-    o = torch.zeros_like(q)
-    for j0 in range(0, q.shape[2], 16):
-        keys = slice(j0, j0 + 16)
-        chunk = torch.zeros_like(q)
+    seen = x.abs() >= 2.0 ** -100
+    residual = (rest.abs()[seen] / x.abs()[seen]).max().item()
+    return parts, residual
+
+
+def _tc_dots(a, b):
+    """a b^T over the last axis as float32 sums of 16-column partial
+    products (the bf16 x bf16 products are exact in float32)."""
+    out = 0
+    for c0 in range(0, a.shape[-1], 16):
+        cols = slice(c0, c0 + 16)
+        out = out + torch.matmul(a[..., cols], b[..., cols].transpose(-1, -2))
+    return out
+
+
+def _tc_sum(parts, b):
+    """sum_j x_ij b_j with x as its bf16 terms: over 16-row chunks of b,
+    each chunk's products taken smallest term first, the chunks summed in
+    float32."""
+    out = 0
+    for j0 in range(0, b.shape[-2], 16):
+        rows = slice(j0, j0 + 16)
+        chunk = 0
         for part in reversed(parts):
-            chunk = chunk + torch.matmul(part[..., keys], v[..., keys, :])
-        o = o + chunk
+            chunk = chunk + torch.matmul(part[..., rows], b[..., rows, :])
+        out = out + chunk
+    return out
+
+
+def _tc_forward_emulated(q, k, v, log_mask, terms=TC_TERMS):
+    """Kernel 2's bf16 tensor-core arithmetic (mha_fwd_tc_kernel) in plain
+    PyTorch on float32 tensors holding bf16 values: q k^T as _tc_dots, the
+    scale and the mask rounded apart, the exact row max, e = exp(L - m)
+    and its row sum l, e split into `terms` bf16 terms, o = _tc_sum of
+    them with v, divided by l once per row, rounded to bf16. -> (o, the
+    largest term residual of e)."""
+    hd = q.shape[-1]
+    scale = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+    logits = _tc_dots(q, k) * scale + log_mask[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    parts, residual = _split(e, terms)
+    o = _tc_sum(parts, v)
     return (o / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16), residual
 
 
@@ -273,22 +303,89 @@ def test_tensor_core_split_keeps_pallas_semantics(shape):
     assert (_f32(got) != want).mean() <= 1e-3
 
 
+def _tc_backward_emulated(q, k, v, log_mask, do, terms=TC_TERMS):
+    """Kernel 3's bf16 tensor-core arithmetic (mha_bwd_dq_tc_kernel and
+    mha_bwd_dkv_tc_kernel) in plain PyTorch on float32 tensors holding
+    bf16 values: q k^T and do v^T as _tc_dots, the scale and the mask
+    rounded apart, the exact row max, e = exp(L - m) and l = rowsum(e),
+    delta = rowsum(dA * A) from the float32 weights as rowsum(e dA) / l,
+    A = e times the float32 reciprocal of l, dL = A (dA - delta); A and dL
+    split into `terms` bf16 terms for A^T do, dL k and dL^T q (_tc_sum),
+    dq and dk times the scale, each rounded to bf16.
+    -> ((dq, dk, dv), the largest term residual of A and dL)."""
+    hd = q.shape[-1]
+    scale = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+    logits = _tc_dots(q, k) * scale + log_mask[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l = e.sum(dim=-1, keepdim=True)
+    da = _tc_dots(do, v)
+    delta = (e * da).sum(dim=-1, keepdim=True) / l
+    attn = e * (1.0 / l)
+    dl = attn * (da - delta)
+    a_t, res_a = _split(attn.transpose(-1, -2), terms)
+    dl_parts, res_dl = _split(dl, terms)
+    dl_t = [p.transpose(-1, -2) for p in dl_parts]
+    dv = _tc_sum(a_t, do)
+    dq = _tc_sum(dl_parts, k) * scale
+    dk = _tc_sum(dl_t, q) * scale
+    grads = tuple(g.to(torch.bfloat16) for g in (dq, dk, dv))
+    return grads, max(res_a, res_dl)
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 200, 128), (2, 4, 200, 96),
+                                   (2, 3, 37, 128)])
+def test_tensor_core_backward_keeps_pallas_semantics(shape):
+    """The bf16 kernel 3's arithmetic (the float32 weights A and dL as
+    three bf16 terms, emulated on the CPU) against `_mha_bwd_pallas` in
+    interpret mode, with every key but key 0 masked in batch row 1 (where
+    B > 1): dq, dk and dv within XF_TOL["bfloat16"] = 2^-7 of each one's
+    largest |value|, the tolerance chip_smoke.py holds the kernel to on
+    the card (each gradient is rounded to bf16 once on both sides, and a
+    float32 difference can move it one bf16 step), and equal to its bits
+    on all but 0.1 % of the values (0.02-0.06 % differ at these shapes).
+    The three terms leave at most 2^-24 of each weight and each dL (of
+    2^-100 or more). Two terms leave about 2^-17 and change 0.17-0.27 %
+    of the gradients' bits here, as they did the forward's where two terms
+    failed end to end on the card."""
+    q, k, v, lm = _inputs(shape, "bfloat16", seed=13)
+    if shape[0] > 1:
+        lm[1, 1:] = np.log(np.float32(1e-30))
+    do = np.asarray(jnp.asarray(
+        np.random.default_rng(14).normal(size=shape), jnp.bfloat16),
+        np.float32)
+    jq, jk, jv, jdo = _jax((q, k, v, do), "bfloat16")
+    want = [_f32(g) for g in jxa._mha_bwd_pallas(
+        jq, jk, jv, jnp.asarray(lm), jdo, interpret=True)]
+    got, residual = _tc_backward_emulated(
+        *(torch.from_numpy(a) for a in (q, k, v, lm, do)))
+    assert residual <= 2.0 ** -24
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        err = np.abs(_f32(g) - w).max()
+        assert err <= XF_TOL_BF16 * np.abs(w).max(), name
+        assert (_f32(g) != w).mean() <= 1e-3, name
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernels_match_plain_on_card(dtype):
     """Kernels 2 and 3 against their plain versions on the card, at the
     small shapes, the java-large head shape (7, 3, 200, 128), H = 4's
-    hd = 96 and a ragged C = 37: float32 within 2e-5 of the largest
-    output (200-term float32 sums in another order), bf16 within 2^-7 of
-    it (one bf16 rounding apart); kernel 2 gives the same bits twice, and
-    splits each weight into the TC_TERMS terms that
-    test_tensor_core_split_keeps_pallas_semantics emulates."""
+    hd = 96, a ragged C = 37 and C = 256 (bf16 kernel 3 in two tiles of
+    query and key rows): float32 within 2e-5 of the largest output
+    (200-term float32 sums in another order), bf16 within 2^-7 of it (one
+    bf16 rounding apart); kernels 2 and 3 give the same bits twice, and
+    split each float32 operand into the TC_TERMS terms that
+    test_tensor_core_split_keeps_pallas_semantics and
+    test_tensor_core_backward_keeps_pallas_semantics emulate."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this check there")
     torch.backends.cuda.matmul.allow_tf32 = False
     assert tc_terms() == TC_TERMS
-    for shape in ((3, 2, 24, 16), (16, 2, 24, 16), (7, 3, 200, 128),
-                  (4, 4, 200, 96), (5, 3, 37, 128)):
+    shapes = [(3, 2, 24, 16), (16, 2, 24, 16), (7, 3, 200, 128),
+              (4, 4, 200, 96), (5, 3, 37, 128)]
+    if dtype == "bfloat16":
+        shapes.append((2, 3, 256, 128))
+    for shape in shapes:
         q, k, v, lm = (t.cuda() for t in _torch(_inputs(shape), "float32"))
         q, k, v = (t.to(getattr(torch, dtype)) for t in (q, k, v))
         do = torch.randn_like(q.float()).to(q.dtype)
@@ -305,3 +402,5 @@ def test_kernels_match_plain_on_card(dtype):
             top = b.float().abs().max().item()
             assert (a.float() - b.float()).abs().max().item() <= rel * top
         assert torch.equal(txa.mha_forward_fused(q, k, v, lm), got[0])
+        for a, b in zip(txa.mha_backward_fused(q, k, v, lm, do), got[1:]):
+            assert torch.equal(a, b)
