@@ -11,11 +11,14 @@ Phases (any failure raises, and the script exits non-zero):
 2. build every kernel of the ported paths from `code2vec_tpu_torch/csrc`,
    one `nvcc` per source, all started together; print each entry
    point's registers and spills;
-3. the attention-pool kernel (kernel 1) against its plain PyTorch
-   version on the card, at the serving shapes (B = 1, 7, 64; bf16 and
-   float32 contexts) and the training shape (B = 1024, bf16), with its
-   time beside the plain version's, a library yardstick's and the card's
-   bound;
+3. the attention-pool kernel (kernel 1; bf16 contexts on the tensor
+   cores: `pool_split_kernel`, `attention_pool_tc_kernel`,
+   `pool_combine_kernel`; float32 on the CUDA cores:
+   `attention_pool_kernel`) against its plain PyTorch version on the
+   card, at the serving shapes (B = 1, 7, 64; bf16 and float32
+   contexts) and the training shape (B = 1024, bf16), twice on the same
+   inputs (the same bits), with its time beside the plain version's,
+   float32 and bf16 `torch.matmul` yardsticks' and the card's bound;
 4. the serving path at java-large width (vocab sizes 1,301,136 tokens,
    911,417 paths, 261,245 targets; E = 128, C = 200, bf16 tables, bf16
    compute; random weights from seed 0, a synthetic vocab): the port's
@@ -43,8 +46,10 @@ Phases (any failure raises, and the script exits non-zero):
 7. the dense int8 requantize kernel (kernel 4) against its plain version
    on the card, at (V, E) = (1, 128), (1000, 128), (257, 100) and the two
    java-large int8 tables (1,301,138 and 911,419 rows of 128), bf16
-   updates and one float32 case: q and s bit-identical, its time beside
-   the plain version's and the byte bound;
+   updates and one float32 case (E = 128 on the 16-byte
+   `requant_vec_kernel`, E = 100 on the scalar `requant_kernel`): q and
+   s bit-identical, its time beside the plain version's and the byte
+   bound;
 8. the dense training path (the default step) at the same width through
    the trainer, over the same file, in two configurations: (c) the JAX
    package's defaults: bf16 tables, full softmax, Adafactor on the
@@ -276,16 +281,20 @@ def profile_calls(torch, fn, n: int):
             "kernel_ms": {k: us / 1e3 / n for k, us in top}}
 
 
-def kernel_device_ms(torch, fn, name_part: str, n: int = 10):
-    """Device time of one launch of the kernel whose name holds
-    `name_part`, from the profiler (no host time in it); None where the
-    profiler saw no CUDA activity."""
+def kernel_device_ms(torch, fn, name_parts, n: int = 10):
+    """Device time of one call of `fn`, from the profiler (no host time
+    in it): the kernel whose name holds `name_parts` (a string), or the
+    sum over several such kernels (a tuple of strings, one launch each);
+    None where the profiler saw no CUDA activity."""
     prof = profile_calls(torch, fn, n)
     if prof is None:
         return None
-    hits = [ms for k, ms in prof["kernel_ms"].items() if name_part in k]
-    check(len(hits) == 1, f"profiler kernels matching {name_part}: {hits}")
-    return hits[0]
+    total = 0.0
+    for part in ((name_parts,) if isinstance(name_parts, str) else name_parts):
+        hits = [ms for k, ms in prof["kernel_ms"].items() if part in k]
+        check(len(hits) == 1, f"profiler kernels matching {part}: {hits}")
+        total += hits[0]
+    return total
 
 
 def fmt_ms(ms) -> str:
@@ -343,34 +352,56 @@ def pool_inputs(torch, B: int, dtype, gen):
     return ctx, tr.contiguous(), at.contiguous(), mask
 
 
-def pool_bound(B: int, ctx_bytes: int, peaks):
+# kernel 1's launches by context dtype, as the profiler names them (each
+# name is in no other's): bf16 on the tensor cores (split T, the tiles,
+# combine), float32 on the CUDA cores
+POOL_KERNELS = {"bfloat16": ("pool_split_kernel", "attention_pool_tc_kernel",
+                             "pool_combine_kernel"),
+                "float32": ("attention_pool_kernel",)}
+
+
+def pool_bound(B: int, ctx_bytes: int, peaks, terms: int):
     """Least time for one pool call: each input read once, each output
-    written once, against the float32 FMA peak (the kernel's arithmetic)."""
+    written once, over the HBM rate; the [B C, D] x [D, D] product at the
+    peak of its operand types: on bf16 contexts, `terms` products (one per
+    bf16 term of the float32 T) at the bf16 tensor-core peak, on float32
+    contexts one at the float32 peak; the epilogue's 4 B C D operations
+    (tanh, the dot with a, the weighted sum) at the float32 peak.
+    `bound_ms_float32` prices the product at the float32 peak whatever
+    the dtype (the CUDA-core design's arithmetic)."""
     f32_peak, bf16_peak, hbm = peaks
     nbytes = B * C * D * ctx_bytes + D * D * 4 + D * 4 + B * C * 4 \
         + B * D * 4 + B * C * 4
-    flops = 2 * B * C * D * D + 4 * B * C * D
+    product = 2 * B * C * D * D
+    epilogue = 4 * B * C * D
     ms_bytes = nbytes / hbm * 1e3
-    ms_f32 = flops / f32_peak * 1e3
-    ms_tc = flops / bf16_peak * 1e3
-    return {"bytes": nbytes, "flops": flops, "bytes_ms": ms_bytes,
+    ms_f32 = (product + epilogue) / f32_peak * 1e3
+    ms_tc = (terms * product / bf16_peak + epilogue / f32_peak) * 1e3
+    ms_ops = ms_tc if ctx_bytes == 2 else ms_f32
+    return {"bytes": nbytes, "flops": (terms if ctx_bytes == 2 else 1)
+            * product + epilogue, "bytes_ms": ms_bytes,
             "f32_ops_ms": ms_f32, "tensor_core_ops_ms": ms_tc,
-            "bound_ms": max(ms_bytes, ms_f32),
-            "bound_by": "operations" if ms_f32 >= ms_bytes else "bytes"}
+            "bound_ms": max(ms_bytes, ms_ops),
+            "bound_by": "operations" if ms_ops >= ms_bytes else "bytes",
+            "bound_ms_float32": max(ms_bytes, ms_f32)}
 
 
 def phase_kernels(torch, peaks, report):
     from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
-                                                         attention_pool_plain)
+                                                         attention_pool_plain,
+                                                         tc_terms)
+    terms = tc_terms()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
     both = (torch.bfloat16, torch.float32)
     cases = [(B, dt) for B in BUCKET_SHAPES for dt in both]
     cases.append((TRAIN_B, torch.bfloat16))  # the training step's pool
     for B, dtype in cases:
+        dname = str(dtype).replace("torch.", "")
         ctx, tr, at, mask = pool_inputs(torch, B, dtype, gen)
         code_k, attn_k = attention_pool_fused(ctx, tr, at, mask)
         code_p, attn_p = attention_pool_plain(ctx, tr, at, mask)
+        code_2, attn_2 = attention_pool_fused(ctx, tr, at, mask)
         torch.cuda.synchronize()
         err_c = (code_k - code_p).abs().max().item()
         err_a = (attn_k - attn_p).abs().max().item()
@@ -383,25 +414,34 @@ def phase_kernels(torch, peaks, report):
               f"(B={B}, {dtype})")
         check(bool((code_k[empty] == 0).all() and (attn_k[empty] == 0).all()),
               f"all-padding rows not exactly 0 (B={B}, {dtype})")
+        check(torch.equal(code_2, code_k) and torch.equal(attn_2, attn_k),
+              f"kernel 1 gave other bits on a second launch (B={B}, {dtype})")
         flat = ctx.float().reshape(B * C, D)
+        flat_bf16 = ctx.to(torch.bfloat16).reshape(B * C, D)
+        tr_bf16 = tr.to(torch.bfloat16)
         k_ms = time_ms(torch, lambda: attention_pool_fused(ctx, tr, at, mask))
         p_ms = time_ms(torch, lambda: attention_pool_plain(ctx, tr, at, mask))
         lib_ms = time_ms(torch, lambda: torch.matmul(flat, tr))
+        lib_bf16_ms = time_ms(torch, lambda: torch.matmul(flat_bf16, tr_bf16))
         dev_ms = kernel_device_ms(
             torch, lambda: attention_pool_fused(ctx, tr, at, mask),
-            "attention_pool_kernel")
-        bound = pool_bound(B, ctx.element_size(), peaks)
-        row = {"B": B, "ctx_dtype": str(dtype).replace("torch.", ""),
+            POOL_KERNELS[dname])
+        bound = pool_bound(B, ctx.element_size(), peaks, terms)
+        row = {"B": B, "ctx_dtype": dname, "kernel": "+".join(POOL_KERNELS[dname]),
+               "tc_terms": terms if dtype == torch.bfloat16 else None,
                "max_abs_err_code": err_c, "max_abs_err_attn": err_a,
                "ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms,
-               "library_ms": lib_ms, **bound}
+               "library_ms": lib_ms, "library_bf16_ms": lib_bf16_ms, **bound}
         rows.append(row)
-        print(f"  attention_pool B={B:4d} {row['ctx_dtype']:8s} "
-              f"err code {err_c:.3g} attn {err_a:.3g} | kernel {k_ms:.4f} ms"
-              f" (device {fmt_ms(dev_ms)})"
-              f" plain {p_ms:.4f} ms matmul {lib_ms:.4f} ms | bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; tensor-core "
-              f"{bound['tensor_core_ops_ms']:.4f} ms)", flush=True)
+        print(f"  attention_pool B={B:4d} {dname:8s} "
+              f"err code {err_c:.3g} attn {err_a:.3g} (bits equal twice) | "
+              f"kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)})"
+              f" plain {p_ms:.4f} ms matmul f32 {lib_ms:.4f} bf16 "
+              f"{lib_bf16_ms:.4f} ms | bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; float32 product "
+              f"{bound['bound_ms_float32']:.4f} ms)", flush=True)
+        del ctx, tr, at, mask, flat, flat_bf16
+        torch.cuda.empty_cache()
     report["attention_pool"] = rows
     return rows
 
@@ -1077,6 +1117,7 @@ def phase_requant_kernel(torch, peaks, report):
     """Kernel 4 against its plain version on the card: q and s
     bit-identical in every case (every third row takes a zero update)."""
     from code2vec_tpu_torch.ops import quant
+    from code2vec_tpu_torch.ops.requant_kernel import kernel_name
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     rows = []
     for V, width, upd_name in REQUANT_CASES:
@@ -1110,14 +1151,16 @@ def phase_requant_kernel(torch, peaks, report):
             quant.requantize(k_t, upd, 7, use_kernel=False)
         k_ms = time_ms(torch, run_kernel, reps=reps)
         p_ms = time_ms(torch, run_plain, reps=reps)
-        dev_ms = kernel_device_ms(torch, run_kernel, "requant_kernel")
+        name = kernel_name(k_t, upd)
+        dev_ms = kernel_device_ms(torch, run_kernel, name)
         bound = requant_bound(V, width, upd.element_size(), peaks)
-        row = {"V": V, "E": width, "update": upd_name, "max_abs_err": 0.0,
+        row = {"V": V, "E": width, "update": upd_name, "kernel": name,
+               "max_abs_err": 0.0,
                "zero_update_flips": flips, "ms": k_ms,
                "kernel_device_ms": dev_ms, "plain_ms": p_ms,
                "library_ms": None, **bound}
         rows.append(row)
-        print(f"  requantize V={V:8d} E={width} {upd_name:8s}: q, s "
+        print(f"  requantize V={V:8d} E={width} {upd_name:8s} ({name}): q, s "
               f"bit-identical ({flips} zero-update flips) | kernel "
               f"{k_ms:.4f} ms (device {fmt_ms(dev_ms)}) plain {p_ms:.4f} ms | "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
@@ -2075,7 +2118,7 @@ def main(argv=None) -> int:
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None}
     kernels = [
-        {"name": "attention_pool", "route": "cuda",
+        {"name": main_pool["kernel"], "route": "cuda",
          "source": "code2vec_tpu_torch/csrc/attention_pool.cu",
          "replaces": "code2vec_tpu/ops/pallas_attention.py:75",
          "launches": pool_launches,
@@ -2090,7 +2133,7 @@ def main(argv=None) -> int:
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
                   train_launches["b"]["sparse_requant_adam"]),
-        {"name": "requantize", "route": "cuda",
+        {"name": main_requant["kernel"], "route": "cuda",
          "source": "code2vec_tpu_torch/csrc/requant.cu",
          "replaces": "code2vec_tpu/ops/pallas_requant.py:85",
          "launches": train_launches["d"]["requantize"],

@@ -1,12 +1,17 @@
-"""Fused masked attention pool: the hand-written CUDA kernel and its wrapper.
+"""Fused masked attention pool: the hand-written CUDA kernels and their
+wrapper.
 
 Counterpart of `ops/pallas_attention.py::attention_pool_pallas` in the JAX
-package (the Pallas TPU kernel `_attention_kernel`). The kernel is
+package (the Pallas TPU kernel `_attention_kernel`). The kernels are
 `csrc/attention_pool.cu`, built with `nvcc` for sm_90a on first use
-(ops/_build.py) and called through ctypes. Its semantics are the Pallas
-kernel's: inputs are taken in float32 (bf16 contexts are widened on
-load), outputs are float32 `code [B, D]` and `attn [B, C]`, and the
-[B, C, D] transformed intermediate never reaches device memory.
+(ops/_build.py) and called through ctypes. Their semantics are the Pallas
+kernel's: T and the attention vector are float32, bf16 contexts are exact
+in float32, outputs are float32 `code [B, D]` and `attn [B, C]`, and the
+[B, C, D] transformed intermediate never reaches device memory. bf16
+contexts (every launch of the main paths) run on the tensor cores, T split
+into `tc_terms()` bf16 terms, in three launches (split T, one block per
+tile of up to 112 contexts, combine the tiles) that count as one; float32
+contexts run on the CUDA cores in float32 FMA. The choice is by dtype.
 
 `attention_pool_fused` dispatches on where its tensors lie: a CPU tensor
 goes to the plain version `attention_pool_plain`; a CUDA tensor goes to
@@ -36,7 +41,7 @@ from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops.attention import attention_pool
 
 KERNEL = "attention_pool"
-_MAX_D = 512  # one thread per column, acc[32] in registers (see the .cu)
+_MAX_D = 512  # one thread per column (float32), 32 columns a warp (bf16)
 
 
 def attention_pool_plain(contexts: torch.Tensor, transform: torch.Tensor,
@@ -53,12 +58,29 @@ def _library() -> ctypes.CDLL:
     if lib.attention_pool_forward.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.attention_pool_forward.argtypes = [p, i, p, p, p, p, p,
+        lib.attention_pool_forward.argtypes = [p, i, p, p, p, p, p, p,
                                                i, i, i, i, p]
         lib.attention_pool_forward.restype = i
+        lib.attention_pool_tc_scratch_bytes.argtypes = [i, i, i]
+        lib.attention_pool_tc_scratch_bytes.restype = ctypes.c_longlong
+        lib.attention_pool_tc_terms.argtypes = []
+        lib.attention_pool_tc_terms.restype = i
         lib.attention_pool_error_string.argtypes = [i]
         lib.attention_pool_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def tc_terms() -> int:
+    """The bf16 terms the tensor-core kernel splits the float32 T into
+    (one product per term), as the built kernel has it."""
+    return int(_library().attention_pool_tc_terms())
+
+
+def _operand(t: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Contiguous, in `dtype` if given, and 16-byte aligned (the kernels
+    read 16-byte pieces and pairs)."""
+    t = (t if dtype is None else t.to(dtype)).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _check(contexts, transform, attention, mask):
@@ -99,14 +121,19 @@ def attention_pool_fused(contexts: torch.Tensor, transform: torch.Tensor,
     dev = contexts.device
     code = torch.empty((B, D), dtype=torch.float32, device=dev)
     attn = torch.empty((B, C), dtype=torch.float32, device=dev)
-    ctx = contexts.contiguous()
-    tr = transform.to(torch.float32).contiguous()
-    at = attention.to(torch.float32).contiguous()
-    m = mask.to(torch.float32).contiguous()
+    ctx = _operand(contexts)
+    tr, at, m = (_operand(t, torch.float32) for t in (transform, attention,
+                                                        mask))
     lib = _library()
+    bf16 = ctx.dtype == torch.bfloat16
+    scratch = None
+    if bf16:  # T's terms and the tiles' partial results
+        scratch = torch.empty(lib.attention_pool_tc_scratch_bytes(B, C, D),
+                              dtype=torch.uint8, device=dev)
     err = lib.attention_pool_forward(
-        ctx.data_ptr(), int(ctx.dtype == torch.bfloat16), tr.data_ptr(),
-        at.data_ptr(), m.data_ptr(), code.data_ptr(), attn.data_ptr(),
+        ctx.data_ptr(), int(bf16), tr.data_ptr(), at.data_ptr(),
+        m.data_ptr(), code.data_ptr(), attn.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         B, C, D, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.attention_pool_error_string(err).decode()

@@ -4,8 +4,13 @@ Counterpart of `ops/pallas_requant.py` in the JAX package (kernel 4,
 `_requantize_fused_impl`). The kernel is `csrc/requant.cu`, built with
 `nvcc` for sm_90a on first use (ops/_build.py) and called through ctypes.
 It applies a dense [V, E] update (bf16 or float32) to an int8 {q, s}
-table in place, one warp per row: dequantize, add, per-row absmax
-rescale, counter-hash dither, round half to even, clip to +-127.
+table in place: dequantize, add, per-row absmax rescale, counter-hash
+dither, round half to even, clip to +-127. Rows of E = 16 L (L a power
+of two up to 32, java-large's E = 128) at 16-byte aligned pointers take
+`requant_vec_kernel` (16 elements a lane in 16-byte loads and stores,
+the row's values kept in registers); every other table the scalar
+`requant_kernel` (one warp per row). Both give the same bits
+(`kernel_name` says which one a table takes).
 
 `requantize_fused` dispatches on where its tensors lie: CPU tensors go to
 the plain version in quant.py (`requantize_reference`, through
@@ -33,9 +38,19 @@ def _library() -> ctypes.CDLL:
         lib.requant_launch.argtypes = [p, p, p, i, ctypes.c_uint,
                                        ctypes.c_longlong, i, i, p]
         lib.requant_launch.restype = i
+        lib.requant_vec_lanes.argtypes = [p, p, i]
+        lib.requant_vec_lanes.restype = i
         lib.requant_error_string.argtypes = [i]
         lib.requant_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def kernel_name(qt: QuantTable, update: torch.Tensor) -> str:
+    """The CUDA kernel `requantize_fused` launches for this table and
+    update (the profiler's name for it)."""
+    lanes = _library().requant_vec_lanes(qt["q"].data_ptr(),
+                                         update.data_ptr(), qt["q"].shape[1])
+    return "requant_vec_kernel" if lanes else "requant_kernel"
 
 
 def requantize_fused(qt: QuantTable, update: torch.Tensor, salt: int

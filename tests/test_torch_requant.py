@@ -16,7 +16,9 @@ Tolerances, each test repeating its own:
 - `dequantize_table` and the gather's forward exact, its dense carrier
   gradient exact (the same bf16 scatter-adds in the same order).
 The `cuda`-marked tests hold kernel 4 against its plain version on the
-card bit for bit, and `quantize_table` on the card against the CPU.
+card bit for bit, on its vector kernel (E = 128, 64) and its scalar one
+(a ragged E, an unaligned q), and `quantize_table` on the card against
+the CPU.
 """
 
 import os
@@ -33,7 +35,8 @@ from code2vec_tpu.ops.pallas_requant import requantize_fused as j_fused
 from code2vec_tpu_torch import convert
 from code2vec_tpu_torch.ops import _build
 from code2vec_tpu_torch.ops import quant as tquant
-from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+from code2vec_tpu_torch.ops.requant_kernel import (kernel_name,
+                                                   requantize_fused)
 from torch_helpers import max_ulp_diff
 
 CPU = torch.device("cpu")
@@ -165,24 +168,57 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     assert after["attention_pool"] == before["attention_pool"]
 
 
+# (V, E, the kernel that takes it): E = 128, 64 (16 L, L a power of two) on
+# the 16-byte vector kernel, V = 4099 past several blocks with a ragged
+# last row group; E = 100 (ragged) and 48 (L = 3) on the scalar kernel
+CARD_CASES = [(1, 128, "requant_vec_kernel"), (1000, 128, "requant_vec_kernel"),
+              (4099, 128, "requant_vec_kernel"), (65, 64, "requant_vec_kernel"),
+              (257, 100, "requant_kernel"), (40, 48, "requant_kernel")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("V,E", [(1, 128), (1000, 128), (257, 100)])
+@pytest.mark.parametrize("V,E,kernel", CARD_CASES)
 @pytest.mark.parametrize("upd_dtype", [torch.bfloat16, torch.float32])
-def test_kernel_matches_plain_version_on_the_card(V, E, upd_dtype):
-    """Kernel 4 against its plain version on the card, one launch: q and
-    s bit-identical."""
+def test_kernel_matches_plain_version_on_the_card(V, E, kernel, upd_dtype):
+    """Kernel 4 against its plain version on the card, one launch of the
+    kernel the table's width takes: q and s bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(V + E)
     base = torch.randn((V, E), generator=gen, device="cuda") * 0.3
     upd = (torch.randn((V, E), generator=gen, device="cuda")
            * 0.005).to(upd_dtype)
+    upd[::3] = 0
     k = tquant.quantize_table(base)
+    assert kernel_name(k, upd) == kernel
     p = tquant.requantize_reference(k, upd, 0x9E3779B9)
     launches = requantize_fused.launches
     tquant.requantize(k, upd, 0x9E3779B9)
     torch.cuda.synchronize()
     assert requantize_fused.launches == launches + 1
+    assert torch.equal(k["q"], p["q"]) and torch.equal(k["s"], p["s"])
+
+
+@pytest.mark.cuda
+def test_unaligned_table_takes_the_scalar_kernel_on_the_card():
+    """A q one byte off 16-byte alignment (a view into a larger buffer)
+    goes to the scalar kernel, with the same bits as the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    V, E = 300, 128
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    k = tquant.quantize_table(
+        torch.randn((V, E), generator=gen, device="cuda") * 0.3)
+    buf = torch.empty(V * E + 1, dtype=torch.int8, device="cuda")
+    q = buf[1:].view(V, E)
+    q.copy_(k["q"])
+    k["q"] = q
+    upd = (torch.randn((V, E), generator=gen, device="cuda")
+           * 0.005).to(torch.bfloat16)
+    assert kernel_name(k, upd) == "requant_kernel"
+    p = tquant.requantize_reference(k, upd, 77)
+    tquant.requantize(k, upd, 77)
+    torch.cuda.synchronize()
     assert torch.equal(k["q"], p["q"]) and torch.equal(k["s"], p["s"])
 
 
