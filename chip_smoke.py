@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving, training and evaluation paths on one
-CUDA card and check them.
+"""Run the PyTorch port's serving, training, evaluation and command-line
+paths on one CUDA card and check them.
 
     python3 chip_smoke.py [--out FILE]
 
@@ -91,7 +91,31 @@ Phases (any failure raises, and the script exits non-zero):
    step time, its split by phase, the device busy share and peak memory;
 13. evaluation of a transformer model over the 4096-method test file
    (kernel 2 L times a batch), against the plain path batch by batch;
-14. a `{"kernels": [...]}` line, the card line, and last
+14. the command line (`cli.main([...])` in this process, as
+   `python3 -m code2vec_tpu_torch` runs it) at the same width, bf16:
+   a `.dict.c2v` of the synthetic vocab and the port's binarize of the
+   training and test files; 2 epochs of 4 steps with `--save`, `--test`
+   and `--infeed_prefetch 2` (counted: kernel 1 once a step and once an
+   evaluation batch); the latest step reloaded bit-identical to the
+   trainer's state at save time, its checksums verified; that step set
+   aside and the same command rerun with `--auto_resume` (the restored
+   step, epoch offset and steps; the final state within RESUME_RTOL of
+   the set-aside one, the losses within RESUME_LOSS_RTOL), beside a second uninterrupted run (the noise
+   floor, within the bound) and a resume whose reader replays the first
+   epoch's order (the control, outside it); a flipped
+   byte in the latest state quarantined and the load fallen back to the
+   step before; `--release`, then `--load <released> --test` with the
+   w2v, t2v and code-vector exports (the evaluation equal to the one
+   before the release; rows, widths, finite values); one-epoch save and
+   `--load` round trips with `--sparse_embeddings` (kernel 5) and
+   `--tables_dtype int8` (kernel 4), bit-identical; then the loop's
+   steps/s and methods/s past its first epoch (binary shards or text,
+   the infeed 2 ahead or synchronous, in alternating pairs), its device
+   busy share and kernel 1's launches by name in a profiled run, an
+   async save's blocked time against a synchronous
+   one's, the writer's time, the state's bytes, the sha256 time and the
+   load-and-verify time;
+15. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -273,12 +297,14 @@ def profile_calls(torch, fn, n: int):
         elif e > end:
             busy += e - end
             end = e
-    by_name = {}
+    by_name, count = {}, {}
     for e in cuda:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        count[e.name] = count.get(e.name, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall_ms / n, "busy_ms": busy / 1e3 / n,
-            "kernel_ms": {k: us / 1e3 / n for k, us in top}}
+            "kernel_ms": {k: us / 1e3 / n for k, us in top},
+            "kernel_launches": count}
 
 
 def kernel_device_ms(torch, fn, name_parts, n: int = 10):
@@ -1989,6 +2015,569 @@ def phase_xf_eval(torch, np, vocabs, test_path, report):
     return launches
 
 
+# ---- the command line (cli.py): train, checkpoint, resume, release ----
+
+# epochs of the command line's main run (4 steps an epoch at TRAIN_B over
+# the training file), and of the sparse and int8 round trips
+CLI_EPOCHS, CLI_ROUNDTRIP_EPOCHS = 2, 1
+# the loop's throughput: runs of LOOP_EPOCHS epochs timed past the first,
+# infeed 2 and 0 in LOOP_PAIRS alternating pairs (text: one pair of
+# TEXT_LOOP_EPOCHS, its parse ten times the step); the profiled run
+LOOP_EPOCHS, LOOP_PAIRS, TEXT_LOOP_EPOCHS, PROFILE_EPOCHS = 11, 3, 3, 6
+# the resumed run against the uninterrupted one on the card: the dense
+# step's bf16 index_add_ into the table gradients adds with atomics, so
+# two runs from the same state may round a row's sum in another order,
+# and Adafactor's normalised update carries that into the table. Each
+# tensor of the final state is compared by |a - b|_2 / |b|_2 (the worst
+# tensor is held within RESUME_RTOL) and by its largest |a - b| over its
+# largest |b| (printed only: it does not separate the two readings
+# below), the last epoch's losses by the largest relative difference
+# (within RESUME_LOSS_RTOL). The bounds lie between two readings this
+# phase also takes: a second uninterrupted run (the noise floor, which
+# must be within them) and a resume whose reader replays epoch 1's order
+# in epoch 2 (the control, which must be outside them). Readings on an
+# H100 80GB HBM3 at 700 W, three runs: floor 0.018-0.029 and 9e-7-2.5e-6,
+# control 0.179-0.180 and 5.5e-5 (the max reading 0.10-0.20 against
+# 0.38). The control varies little and the floor more, so the l2 bound
+# sits nearer the control.
+RESUME_RTOL, RESUME_LOSS_RTOL = 0.1, 1e-5
+
+
+def write_dict_file(path: str, n_examples: int) -> None:
+    """`.dict.c2v` histograms of the synthetic vocab: every word counted
+    once, so the capped vocabularies keep every word in the order
+    `synthetic_vocabs` gives them (ties keep insertion order)."""
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump({f"tok{i}": 1 for i in range(JAVA_LARGE["token"])}, f)
+        pickle.dump({str(1000003 * i): 1 for i in range(JAVA_LARGE["path"])},
+                    f)
+        pickle.dump({f"m{i % 4099}|n{i}": 1
+                     for i in range(JAVA_LARGE["target"])}, f)
+        pickle.dump(n_examples, f)
+
+
+class Recorder:
+    """Wraps `Code2VecTrainer` methods for the length of a `with`: every
+    trainer `from_config` makes (and its step then), each step's loss
+    tensor, each evaluation's results, and a clone on the device of the
+    state each `save` is called with (only the last kept)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.made, self.steps_at_load = [], []
+        self.losses, self.evals = [], []
+        self.saved = None
+
+    def __enter__(self):
+        from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+        self.cls = Code2VecTrainer
+        self.real = {k: getattr(Code2VecTrainer, k) for k in
+                     ("from_config", "train_step", "evaluate", "save")}
+        rec, real, torch = self, self.real, self.torch
+        real_from = real["from_config"].__func__
+
+        def from_config(cls, *a, **k):
+            t = real_from(cls, *a, **k)
+            rec.made.append(t)
+            rec.steps_at_load.append(t.step_num)
+            return t
+
+        def train_step(self, batch, draws=None):
+            loss = real["train_step"](self, batch, draws)
+            rec.losses.append(loss)
+            return loss
+
+        def evaluate(self, *a, **k):
+            res = real["evaluate"](self, *a, **k)
+            rec.evals.append((self.step_num, res))
+            return res
+
+        def save(self, *a, **k):
+            from code2vec_tpu_torch.training.checkpoint import map_state
+            rec.saved = None
+            rec.saved = (self.step_num, map_state(
+                lambda t: t.detach().clone(),
+                {"params": self.params, "opt_state": self.opt_state}))
+            return real["save"](self, *a, **k)
+        Code2VecTrainer.from_config = classmethod(from_config)
+        Code2VecTrainer.train_step = train_step
+        Code2VecTrainer.evaluate = evaluate
+        Code2VecTrainer.save = save
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.real.items():
+            setattr(self.cls, k, v)
+        return False
+
+    def loss_values(self):
+        return [x.item() for x in self.losses]
+
+
+def named_tensors(x, path=""):
+    """[(path, tensor)] of a state tree, depth first (NamedTuple fields by
+    name)."""
+    if hasattr(x, "shape"):
+        return [(path, x)]
+    if isinstance(x, dict):
+        items = x.items()
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        items = zip(x._fields, x)
+    elif isinstance(x, (list, tuple)):
+        items = enumerate(x)
+    else:
+        return []
+    return [nt for k, v in items for nt in named_tensors(v, f"{path}/{k}")]
+
+
+def state_diff(torch, a, b) -> dict:
+    """Two state trees, tensor by tensor: how many, how many not
+    bit-identical, and the worst tensor by |a - b|_2 / |b|_2 ("l2") and
+    by max |a - b| / max |b| ("max"), each with its path."""
+    ta, tb = named_tensors(a), named_tensors(b)
+    check([p for p, _ in ta] == [p for p, _ in tb] and len(ta) > 0,
+          f"state trees differ: {len(ta)} vs {len(tb)} tensors")
+    out = {"tensors": len(ta), "differ": 0, "l2": 0.0, "l2_at": None,
+           "max": 0.0, "max_at": None}
+    for (name, x), (_, y) in zip(ta, tb):
+        x = x.to(y.device)
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"{name}: {tuple(x.shape)} {x.dtype} vs {tuple(y.shape)} "
+              f"{y.dtype}")
+        if torch.equal(x, y):
+            continue
+        out["differ"] += 1
+        d, y = x.float() - y.float(), y.float()
+        for key, rel in (
+                ("l2", d.norm().item() / max(y.norm().item(), 1e-30)),
+                ("max", d.abs().max().item() / max(y.abs().max().item(),
+                                                    1e-30))):
+            if rel >= out[key]:
+                out[key], out[f"{key}_at"] = rel, name
+    return out
+
+
+def loss_rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def count_lines(path: str) -> int:
+    n = 0
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            n += block.count(b"\n")
+    return n
+
+
+def check_vectors_file(np, path: str, rows: int, width: int, label: str):
+    """Row count, width and finite values (of the first and last 2000
+    rows) of a w2v file (with its header) or a `.vectors` file."""
+    n = count_lines(path)
+    check(n == rows, f"{label}: {n} lines, expected {rows}")
+    with open(path) as f:
+        lines = f.read().splitlines()
+    body = lines[1:] if len(lines[0].split(" ")) == 2 else lines
+    for ln in body[:2000] + body[-2000:]:
+        vals = ln.split(" ")[-width:]
+        check(len(ln.split(" ")) in (width, width + 1),
+              f"{label}: a line of {len(ln.split(' '))} fields")
+        check(np.isfinite(np.array(vals, dtype=np.float64)).all(),
+              f"{label}: a value not finite")
+    return n
+
+
+def loop_window(torch, trainer, path: str, epochs: int, steps: int):
+    """steps/s of `trainer.train(path, epochs=epochs)` past its first
+    epoch: the clock starts, after a synchronize, at the first step of
+    epoch 2 (past the reader's open, the producer's start and the first
+    batches) and stops, after a synchronize, when the call returns (its
+    end: the producer's join and the losses' copy to the host)."""
+    real, calls, t0 = trainer.train_step, [0], []
+
+    def step(batch, draws=None):
+        if calls[0] == steps:
+            torch.cuda.synchronize()
+            t0.append(time.perf_counter())
+        calls[0] += 1
+        return real(batch, draws)
+
+    trainer.train_step = step
+    try:
+        trainer.train(path, epochs=epochs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        del trainer.train_step
+    check(calls[0] == epochs * steps and t0, f"(loop) {calls[0]} steps")
+    return (epochs - 1) * steps / (t1 - t0[0])
+
+
+def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
+    """The command line through `cli.main([...])` in this process at
+    java-large width; returns the launches of its counted runs."""
+    import shutil
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data import binarize
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import (
+        sparse_requant_adam_fused, sparse_row_adam_fused)
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    def counters_zero():
+        for k in (attention_pool_fused, requantize_fused,
+                  sparse_row_adam_fused, sparse_requant_adam_fused):
+            k.launches = 0
+
+    def counters():
+        return {"attention_pool": attention_pool_fused.launches,
+                "requantize": requantize_fused.launches,
+                "sparse_row_adam": sparse_row_adam_fused.launches,
+                "sparse_requant_adam": sparse_requant_adam_fused.launches}
+
+    def cli_run(label, *argv):
+        t = time.perf_counter()
+        rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        check(rc == 0, f"({label}) cli.main exited {rc}")
+        return time.perf_counter() - t
+
+    out = {}
+    n_train = count_lines(data_prefix + ".train.c2v")
+    n_test = count_lines(test_path)
+    steps = -(-n_train // TRAIN_B)
+    check(steps >= 4, f"{steps} steps an epoch")
+    # ---- 1. the .dict.c2v and the binary shards ----
+    t = time.perf_counter()
+    write_dict_file(data_prefix + ".dict.c2v", n_train)
+    dict_s = time.perf_counter() - t
+    t = time.perf_counter()
+    binarize.main(["--data", data_prefix, "--max_contexts", str(C)])
+    bin_s = time.perf_counter() - t
+    print(f"  .dict.c2v written in {dict_s:.1f} s; binarize (the port's) "
+          f"{bin_s:.1f} s; {n_train} training, {n_test} test methods",
+          flush=True)
+    base = ["--data", data_prefix, "--test", test_path, "--batch_size",
+            TRAIN_B, "--max_contexts", C, "--epochs", CLI_EPOCHS,
+            "--infeed_prefetch", 2]
+    ck = os.path.join(tmp, "ckpt")
+
+    # ---- 2. train with --save and --test (the main path) ----
+    with Recorder(torch) as rec:
+        counters_zero()
+        run_s = cli_run("train", *base, "--save", ck)
+        launches = counters()
+    trained = rec.made[-1]
+    first_losses = rec.loss_values()
+    want_steps = CLI_EPOCHS * steps
+    check(len(first_losses) == want_steps and all(np.isfinite(first_losses))
+          and trained.step_num == want_steps, f"(train) {len(first_losses)} "
+          f"steps to step {trained.step_num}: {first_losses}")
+    want = {"attention_pool": want_steps + CLI_EPOCHS * -(-n_test // TRAIN_B),
+            "requantize": 0, "sparse_row_adam": 0, "sparse_requant_adam": 0}
+    check(launches == want, f"(train) launches {launches}, expected {want}")
+    check([s for s, _ in ckpt._step_dirs(ck)]
+          == [steps * (e + 1) for e in range(CLI_EPOCHS)],
+          f"(train) step dirs {ckpt._step_dirs(ck)}")
+    evals = {step: res for step, res in rec.evals}
+    for step, res in rec.evals:
+        check(np.isfinite(res.loss) and 0 <= res.subtoken_f1 <= 1,
+              f"(train) evaluation at step {step}: {res}")
+    print(f"  (train) cli.main {CLI_EPOCHS} epochs x {steps} steps in "
+          f"{run_s:.1f} s; losses {', '.join(f'{x:.4f}' for x in first_losses)}"
+          f"; launches {launches}", flush=True)
+    for step, res in rec.evals:
+        print(f"  (train) evaluation at step {step}: {res}", flush=True)
+
+    # ---- 3. the reloaded latest step is the state at save time ----
+    last = ckpt.latest_step(ck)
+    check(rec.saved is not None and rec.saved[0] == last,
+          f"(train) last save {rec.saved and rec.saved[0]} vs {last}")
+    for s_, _d in ckpt._step_dirs(ck):
+        check(ckpt.verify_step(ck, s_) is True, f"checksums of step {s_}")
+    t = time.perf_counter()
+    loaded = ckpt.load_checkpoint(ck)
+    load_s = time.perf_counter() - t
+    diff = state_diff(torch, {"params": loaded["params"],
+                              "opt_state": loaded["opt_state"]}, rec.saved[1])
+    n_t = diff["tensors"]
+    check(diff["differ"] == 0 and loaded["step"] == last,
+          f"(reload) {diff['differ']} of {n_t} tensors differ from the state "
+          f"at save")
+    state_bytes = os.path.getsize(os.path.join(
+        ck, f"step_{last}", "state", ckpt.STATE_FILE))
+    print(f"  (reload) step {last}: {n_t} tensors bit-identical to the "
+          f"trainer's at save time; checksums verify; {state_bytes / 1e9:.3f}"
+          f" GB, loaded and verified in {load_s:.2f} s", flush=True)
+    del loaded, rec, trained
+
+    # ---- 4. resume: the last step set aside, the same command rerun ----
+    # beside it, the noise floor (the uninterrupted command again) and the
+    # control (the resume with its reader's epoch offset forced to 0)
+    import code2vec_tpu_torch.models.torch_model as torch_model
+    aside = os.path.join(tmp, "aside")
+    os.makedirs(aside)
+    shutil.move(os.path.join(ck, f"step_{last}"), aside)
+    ck_wrong, ck_floor = os.path.join(tmp, "ckpt_wrong"), os.path.join(
+        tmp, "ckpt_floor")
+    shutil.copytree(ck, ck_wrong)
+    topo = ckpt.load_step_topology(ck, ckpt.latest_step(ck))
+    with Recorder(torch) as rec:
+        resume_s = cli_run("resume", *base, "--save", ck, "--auto_resume")
+    resumed_from = rec.steps_at_load[-1]
+    resumed_losses = rec.loss_values()
+    check(resumed_from == last - steps and topo["epoch"] == CLI_EPOCHS - 1,
+          f"(resume) restored step {resumed_from}, topology {topo}")
+    check(len(resumed_losses) == steps and rec.made[-1].step_num == last,
+          f"(resume) {len(resumed_losses)} steps to {rec.made[-1].step_num}")
+    del rec
+    real_open = torch_model.open_reader
+    torch_model.open_reader = lambda *a, **k: real_open(
+        *a, **dict(k, epoch_offset=0) if "epoch_offset" in k else k)
+    try:
+        with Recorder(torch) as rec:
+            cli_run("control", *base, "--save", ck_wrong, "--auto_resume")
+    finally:
+        torch_model.open_reader = real_open
+    wrong_losses = rec.loss_values()
+    check(len(wrong_losses) == steps and rec.made[-1].step_num == last,
+          f"(control) {len(wrong_losses)} steps to {rec.made[-1].step_num}")
+    del rec
+    with Recorder(torch) as rec:
+        cli_run("floor", *base, "--save", ck_floor)
+    floor_losses = rec.loss_values()
+    del rec
+    b = ckpt.load_checkpoint(aside)
+    resume = {}
+    for name, d, losses in (("resume", ck, resumed_losses),
+                            ("floor", ck_floor, floor_losses[-steps:]),
+                            ("control", ck_wrong, wrong_losses)):
+        a = ckpt.load_checkpoint(d)
+        check(a["step"] == b["step"] == last, f"({name}) step {a['step']}")
+        resume[name] = {**state_diff(torch, a, b),
+                        "loss_rel": loss_rel(losses, first_losses[-steps:])}
+        del a
+        r = resume[name]
+        print(f"  ({name}) final state: {r['differ']} of {r['tensors']} "
+              f"tensors not bit-identical; the worst |a - b|_2 / |b|_2 "
+              f"{r['l2']:.3g} ({r['l2_at']}), max |a - b| / max |b| "
+              f"{r['max']:.3g} ({r['max_at']}); the last {steps} losses "
+              f"within {r['loss_rel']:.2e} of the uninterrupted run's",
+              flush=True)
+    del b
+    print(f"  (resume) --auto_resume in {resume_s:.1f} s: restored step "
+          f"{resumed_from} (epoch offset {topo['epoch']}), {steps} steps to "
+          f"step {last}; bounds {RESUME_RTOL:.3g} on the l2 reading, "
+          f"{RESUME_LOSS_RTOL:.3g} on the losses", flush=True)
+    for name in ("resume", "floor"):
+        check(resume[name]["l2"] <= RESUME_RTOL and
+              resume[name]["loss_rel"] <= RESUME_LOSS_RTOL,
+              f"({name}) outside the bounds: {resume[name]}")
+    check(resume["control"]["l2"] > RESUME_RTOL and
+          resume["control"]["loss_rel"] > RESUME_LOSS_RTOL,
+          f"(control) a resume in the wrong epoch order is within a bound: "
+          f"{resume['control']}")
+    for d in (aside, ck_wrong, ck_floor):
+        shutil.rmtree(d)
+
+    # ---- 5. a flipped byte: quarantine, and the step before ----
+    path = os.path.join(ck, f"step_{last}", "state", ckpt.STATE_FILE)
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0x01]))
+    logs = []
+    t = time.perf_counter()
+    fallback = ckpt.load_checkpoint(ck, log=logs.append)
+    quarantine_s = time.perf_counter() - t
+    check(fallback["step"] == last - steps and ckpt.latest_step(ck)
+          == last - steps and os.path.isdir(os.path.join(
+              ck, "quarantine", f"step_{last}")),
+          f"(corrupt) loaded step {fallback['step']}, latest "
+          f"{ckpt.latest_step(ck)}: {logs}")
+    print(f"  (corrupt) one byte of step {last} flipped: quarantined, the "
+          f"load fell back to step {fallback['step']} in {quarantine_s:.2f} s",
+          flush=True)
+    del fallback
+    shutil.rmtree(os.path.join(ck, "quarantine"))
+
+    # ---- 6. release, then --load <released> --test and the exports ----
+    rel = os.path.join(tmp, "released")
+    release_s = cli_run("release", "--load", ck, "--release", "--save", rel)
+    check(ckpt.load_manifest(rel)["released"] is True and
+          ckpt.latest_step(rel) == last - steps, "(release) manifest / step")
+    w2v, t2v = os.path.join(tmp, "tok.w2v"), os.path.join(tmp, "tgt.w2v")
+    with Recorder(torch) as rec:
+        export_s = cli_run("export", "--load", rel, "--test", test_path,
+                           "--export_code_vectors", "--save_w2v", w2v,
+                           "--save_t2v", t2v)
+    pre = evals[last - steps]
+    post = rec.evals[-1][1]
+    check((post.topk_acc, post.subtoken_precision, post.subtoken_recall,
+           post.subtoken_f1, post.loss) ==
+          (pre.topk_acc, pre.subtoken_precision, pre.subtoken_recall,
+           pre.subtoken_f1, pre.loss),
+          f"(release) evaluation {post} vs before the release {pre}")
+    check_vectors_file(np, w2v, vocabs.token_vocab.size + 1, E, "w2v")
+    check_vectors_file(np, t2v, vocabs.target_vocab.size + 1, D, "t2v")
+    check_vectors_file(np, test_path + ".vectors", n_test, D, "vectors")
+    print(f"  (release) in {release_s:.1f} s; --load <released> --test: "
+          f"the same evaluation as before the release ({post}); w2v "
+          f"{vocabs.token_vocab.size} x {E}, t2v {vocabs.target_vocab.size} x "
+          f"{D}, {n_test} code vectors x {D}, finite; {export_s:.1f} s",
+          flush=True)
+    del rec
+    for p in (w2v, t2v, test_path + ".vectors"):
+        os.remove(p)
+    shutil.rmtree(rel)
+
+    # ---- 7. one-epoch round trips: --sparse_embeddings, --tables_dtype int8
+    trips = {}
+    for label, flags, counter, per_step in (
+            ("sparse", ["--sparse_embeddings", "--embedding_optimizer", "adam",
+                        "--lr_schedule", "constant"], "sparse_row_adam", 2),
+            ("int8", ["--tables_dtype", "int8"], "requantize", 2)):
+        d = os.path.join(tmp, f"ckpt_{label}")
+        with Recorder(torch) as rec:
+            counters_zero()
+            trip_s = cli_run(label, "--data", data_prefix, "--batch_size",
+                             TRAIN_B, "--max_contexts", C, "--epochs",
+                             CLI_ROUNDTRIP_EPOCHS, "--save", d, *flags)
+            trip_launches = counters()
+        check(trip_launches[counter] == per_step * steps
+              * CLI_ROUNDTRIP_EPOCHS, f"({label}) launches {trip_launches}")
+        saved = rec.saved[1]
+        del rec
+        t = time.perf_counter()
+        cfg = Config.load_from_args(["--load", d])
+        back = Code2VecTrainer.from_config(cfg, vocabs=vocabs)
+        reload_s = time.perf_counter() - t
+        diff = state_diff(
+            torch, {"params": back.params, "opt_state": back.opt_state}, saved)
+        n_t = diff["tensors"]
+        check(diff["differ"] == 0, f"({label}) {diff['differ']} of {n_t} "
+              f"tensors differ after the reload")
+        size = os.path.getsize(os.path.join(
+            d, f"step_{back.step_num}", "state", ckpt.STATE_FILE))
+        print(f"  ({label}) {CLI_ROUNDTRIP_EPOCHS} epoch in {trip_s:.1f} s, "
+              f"launches {trip_launches}; --load: {n_t} tensors bit-identical"
+              f" ({size / 1e9:.3f} GB state, loaded in {reload_s:.1f} s)",
+              flush=True)
+        trips[label] = {"launches": trip_launches, "seconds": trip_s,
+                        "state_bytes": size, "reload_s": reload_s,
+                        "tensors": n_t}
+        del back, saved
+        torch.cuda.empty_cache()
+        shutil.rmtree(d)
+    shutil.rmtree(ck)
+
+    # ---- 8. the loop's numbers on the default configuration ----
+    cfg = Config(MAX_CONTEXTS=C, TRAIN_BATCH_SIZE=TRAIN_B, SEED=SEED,
+                 NUM_TRAIN_EPOCHS=1)
+    trainer = Code2VecTrainer(cfg, vocabs)
+    text_dir = os.path.join(tmp, "text")
+    os.makedirs(text_dir)
+    text_path = os.path.join(text_dir, "java.train.c2v")
+    shutil.copy(data_prefix + ".train.c2v", text_path)
+    bin_path = data_prefix + ".train.c2v"
+    trainer.train(bin_path, epochs=1)  # warm: allocator, libraries
+    _, cfg_a = train_config("a", "bfloat16", True)
+    trainer_a = Code2VecTrainer(cfg_a, vocabs)
+    trainer_a.train(bin_path, epochs=1)
+    loop = {}
+    for name, tr, path, epochs, pairs in (
+            ("c_binary", trainer, bin_path, LOOP_EPOCHS, LOOP_PAIRS),
+            ("a_binary", trainer_a, bin_path, LOOP_EPOCHS, LOOP_PAIRS),
+            ("c_text", trainer, text_path, TEXT_LOOP_EPOCHS, 1)):
+        runs = {2: [], 0: []}
+        for pair in range(pairs):  # 2 0, 0 2, 2 0, ...
+            for depth in ((2, 0) if pair % 2 == 0 else (0, 2)):
+                tr.config.INFEED_PREFETCH = depth
+                runs[depth].append(loop_window(torch, tr, path, epochs,
+                                               steps))
+        loop[name] = {"window_steps": (epochs - 1) * steps, **{
+            f"prefetch{d}": {"steps_per_s": v, "methods_per_s": [
+                x * n_train / steps for x in v]} for d, v in runs.items()}}
+        print(f"  (loop) {name}, epochs 2..{epochs} ({(epochs - 1) * steps} "
+              f"steps) of each run, steps/s over {pairs} alternating "
+              f"pair(s): " + "; ".join(
+                  f"prefetch {d}: " + ", ".join(f"{x:.2f}" for x in v)
+                  + f" (median {sorted(v)[len(v) // 2] * n_train / steps:.0f}"
+                  f" methods/s)" for d, v in runs.items()), flush=True)
+    cfg.INFEED_PREFETCH = cfg_a.INFEED_PREFETCH = 2
+    del trainer_a
+    torch.cuda.empty_cache()
+    prof = profile_calls(
+        torch, lambda: trainer.train(bin_path, epochs=PROFILE_EPOCHS), 1)
+    pool_names = POOL_KERNELS["bfloat16"]
+    if prof is None:
+        busy = pool_prof = None
+    else:
+        busy = prof["busy_ms"] / prof["wall_ms"]
+        # printed, not checked: the wrapper's counter is the exact count,
+        # and a trace that drops an event also understates the busy share
+        pool_prof = {k: sum(c for n, c in prof["kernel_launches"].items()
+                            if k in n) for k in pool_names}
+    print(f"  (loop) profiled run ({PROFILE_EPOCHS} epochs, "
+          f"{PROFILE_EPOCHS * steps} steps, binary, prefetch 2, reader and "
+          f"thread set-up included): device busy "
+          f"{fmt_ms(prof and prof['busy_ms'])} of {fmt_ms(prof and prof['wall_ms'])}"
+          f" ms = {'not measured' if busy is None else f'{busy:.3f}'}; "
+          f"kernel 1's launches in the trace by name {pool_prof} (the "
+          f"wrapper counted {PROFILE_EPOCHS * steps})", flush=True)
+    saves = {}
+    for mode in ("async", "sync"):
+        cfg.ASYNC_CHECKPOINT = mode == "async"
+        d = os.path.join(tmp, f"save_{mode}")
+        trainer.save(d, block=False)
+        blocked = trainer.save_blocked_ms
+        t = time.perf_counter()
+        if trainer._ckpt_writer is not None:
+            trainer._ckpt_writer.wait()
+        drain = (time.perf_counter() - t) * 1e3
+        total = (trainer._ckpt_writer.last_total_ms if mode == "async"
+                 else blocked)
+        t = time.perf_counter()
+        ckpt.write_step_checksums(d, trainer.step_num)
+        sha_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        back = ckpt.load_checkpoint(d)
+        load_ms = (time.perf_counter() - t) * 1e3
+        size = os.path.getsize(os.path.join(
+            d, f"step_{trainer.step_num}", "state", ckpt.STATE_FILE))
+        saves[mode] = {"blocked_ms": blocked, "writer_total_ms": total,
+                       "wait_ms": drain, "state_bytes": size,
+                       "sha256_ms": sha_ms, "load_verify_ms": load_ms}
+        del back
+        shutil.rmtree(d)
+    print("  (save) " + "; ".join(
+        f"{k}: loop blocked {v['blocked_ms']:.1f} ms, writer {v['writer_total_ms']:.0f}"
+        f" ms, {v['state_bytes'] / 1e9:.3f} GB, sha256 {v['sha256_ms']:.0f} ms, "
+        f"load + verify {v['load_verify_ms']:.0f} ms" for k, v in saves.items()),
+        flush=True)
+    trainer.close_session()
+    del trainer
+    torch.cuda.empty_cache()
+    out.update({"steps_per_epoch": steps, "dict_s": dict_s,
+                "binarize_s": bin_s, "train_s": run_s, "launches": launches,
+                "losses": first_losses,
+                "evals": {str(k): v.__dict__ if hasattr(v, "__dict__")
+                          else str(v) for k, v in evals.items()},
+                "state_bytes": state_bytes, "load_s": load_s,
+                "resume_s": resume_s, "resume": resume,
+                "quarantine_s": quarantine_s, "release_s": release_s,
+                "export_s": export_s, "round_trips": trips, "loop": loop,
+                "device_busy_share": busy, "pool_launches_profiled": pool_prof,
+                "saves": saves})
+    report["cli"] = out
+    return {"train": launches, **{k: v["launches"] for k, v in trips.items()}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -2037,8 +2626,9 @@ def main(argv=None) -> int:
     print("[5] java-large sparse-row training path", flush=True)
     train_launches, java_u = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        data_path = os.path.join(tmp, "train.c2v")
-        test_path = os.path.join(tmp, "test.c2v")
+        data_prefix = os.path.join(tmp, "java")
+        data_path = data_prefix + ".train.c2v"
+        test_path = data_prefix + ".test.c2v"
         t0 = time.perf_counter()
         n_methods = (TRAIN_STEPS + 1) * TRAIN_B
         write_training_file(np, data_path, n_methods,
@@ -2094,14 +2684,21 @@ def main(argv=None) -> int:
         xf_launches["eval"] = phase_xf_eval(torch, np, vocabs, test_path,
                                             report)
 
-    # ---- 14. result ----
+        # ---- 14. the command line ----
+        print("[14] the command line (cli.main) at java-large width",
+              flush=True)
+        cli_launches = phase_cli(torch, np, vocabs, tmp, data_prefix,
+                                 test_path, report)
+
+    # ---- 15. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
                      if r["B"] == TRAIN_B and r["ctx_dtype"] == "bfloat16")
     pool_launches = serve_launches["attention_pool"] + sum(
         v["attention_pool"] for v in train_launches.values()) \
-        + eval_launches["attention_pool"]
+        + eval_launches["attention_pool"] + sum(
+            v["attention_pool"] for v in cli_launches.values())
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -2129,14 +2726,16 @@ def main(argv=None) -> int:
          "library_ms": main_pool["library_ms"]},
         row_entry("sparse_row_adam", "bfloat16",
                   "code2vec_tpu/ops/pallas_sparse_update.py:110",
-                  train_launches["a"]["sparse_row_adam"]),
+                  train_launches["a"]["sparse_row_adam"]
+                  + cli_launches["sparse"]["sparse_row_adam"]),
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
                   train_launches["b"]["sparse_requant_adam"]),
         {"name": main_requant["kernel"], "route": "cuda",
          "source": "code2vec_tpu_torch/csrc/requant.cu",
          "replaces": "code2vec_tpu/ops/pallas_requant.py:85",
-         "launches": train_launches["d"]["requantize"],
+         "launches": train_launches["d"]["requantize"]
+         + cli_launches["int8"]["requantize"],
          "max_abs_err": max(r["max_abs_err"] for r in requant_rows),
          "ms": main_requant["ms"], "plain_ms": main_requant["plain_ms"],
          "bound_ms": main_requant["bound_ms"],
@@ -2169,7 +2768,8 @@ def main(argv=None) -> int:
     report["launches"] = {"serving": serve_launches, "eval": eval_launches,
                           **{f"train_{k}": v
                              for k, v in train_launches.items()},
-                          **{f"xf_{k}": v for k, v in xf_launches.items()}}
+                          **{f"xf_{k}": v for k, v in xf_launches.items()},
+                          **{f"cli_{k}": v for k, v in cli_launches.items()}}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

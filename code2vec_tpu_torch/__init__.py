@@ -21,7 +21,12 @@ kernels of csrc/xf_attention.cu, ops/xf_attention.py):
   (training/sparse_steps.py) with live-row Adam on the tables through
   the kernels of csrc/sparse_row_update.cu;
 - evaluation (`Code2VecTrainer.evaluate`): top-k accuracy and subtoken
-  precision / recall / F1 (models/model_base.py).
+  precision / recall / F1 (models/model_base.py);
+- the command line (`python3 -m code2vec_tpu_torch`, cli.py) with the
+  JAX package's flags: preprocess and binarize (data/), binary shards
+  through a prefetching infeed (data/prefetch.py), checkpoints in the
+  JAX package's step-dir protocol with an async writer, auto-resume and
+  release (training/checkpoint.py), and the w2v / code-vector exports.
 
 The sparse-row step and int8 tables take the bag encoder only, as in the
 JAX package. Nested params (the transformer's "xf" subtree) meet the

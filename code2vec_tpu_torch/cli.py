@@ -1,0 +1,114 @@
+"""The command line: `python3 -m code2vec_tpu_torch ...`.
+
+A copy of `main` of the JAX package's `code2vec.py`, in its dispatch
+order, for the ported flags (config.Config.arguments_parser):
+
+  python3 -m code2vec_tpu_torch --data <prefix> --test <file> \\
+      --save/--load <ckpt> [--auto_resume] [--release] \\
+      [--export_code_vectors] [--save_w2v <p>] [--save_t2v <p>] \\
+      [--backend gpu|cpu] [--framework ...]
+
+1. `--auto_resume` with `--save` and `--data`: a checkpoint already in
+   `--save` is loaded (before `--load`, a fine-tune's starting point)
+   and its run continued;
+2. with `--load`: the checkpoint's `tables_dtype` is adopted (its head
+   must be code2vec), then the configuration is verified a second time;
+3. `--release`: an inference-only copy of the loaded checkpoint, and
+   nothing else;
+4. `--data`: train (with `--save`, a checkpoint every SAVE_EVERY_EPOCHS
+   epochs; with `--test`, an evaluation after each);
+5. `--save_w2v` / `--save_t2v`: the token / target tables in word2vec
+   text format;
+6. `--test` without `--data`: evaluate and print the results; with
+   `--export_code_vectors`, also `<test>.vectors`.
+
+`--backend gpu` (the default) runs on the CUDA card and exits 2 where
+there is none; it never falls back to the CPU. `--backend cpu` runs on
+the CPU. Errors of the command line exit 2.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+from typing import List, Optional
+
+import torch
+
+from code2vec_tpu_torch.config import Config
+from code2vec_tpu_torch.vocab.vocabularies import VocabType
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    try:
+        config = Config.load_from_args(argv)
+    except ValueError as e:
+        return _error(str(e))
+    if config.BACKEND == "gpu" and not torch.cuda.is_available():
+        return _error("--backend gpu (the default) needs a CUDA card and "
+                      "none is available; pass --backend cpu to run on the "
+                      "CPU")
+    device = "cpu" if config.BACKEND == "cpu" else None
+    from code2vec_tpu_torch.training.checkpoint import latest_step
+    if config.AUTO_RESUME and config.is_saving and config.is_training:
+        step = latest_step(config.save_path)
+        if step is not None:
+            if config.is_loading and config.load_path != config.save_path:
+                config.log(f"--auto_resume: --save has checkpoint step "
+                           f"{step}; resuming from it instead of --load "
+                           f"{config.load_path}")
+            else:
+                config.log(f"--auto_resume: found checkpoint step {step} in "
+                           f"{config.save_path}; resuming")
+            config.load_path = config.save_path
+    if config.is_loading:
+        mpath = os.path.join(config.load_path, "manifest.json")
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                manifest = json.load(f)
+            head = manifest.get("head", "code2vec")
+            if head != "code2vec":
+                return _error(f"checkpoint was trained with --head {head}, "
+                              "which is not ported to code2vec_tpu_torch "
+                              "yet")
+            config.TABLES_DTYPE = manifest.get("tables_dtype",
+                                               config.TABLES_DTYPE)
+    # verified again now that the checkpoint's values are in
+    try:
+        config.verify_command_line()
+    except ValueError as e:
+        return _error(str(e))
+
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    try:
+        model = Code2VecTrainer.from_config(config, device=device)
+    except ValueError as e:
+        return _error(str(e))
+    config.log(f"model loaded: framework=pytorch backend={config.BACKEND} "
+               f"device={model.device}")
+    if config.release:
+        model.release()
+        return 0
+    if config.is_training:
+        model.train()
+    if config.save_w2v:
+        model.save_word2vec_format(config.save_w2v, VocabType.Token)
+        config.log(f"token embeddings (w2v format) -> {config.save_w2v}")
+    if config.save_t2v:
+        model.save_word2vec_format(config.save_t2v, VocabType.Target)
+        config.log(f"target embeddings (w2v format) -> {config.save_t2v}")
+    if config.is_testing and not config.is_training:
+        results = model.evaluate()
+        print(str(results))
+        if config.export_code_vectors:
+            dest = config.test_data_path + ".vectors"
+            model.export_code_vectors_file(config.test_data_path, dest)
+            config.log(f"code vectors -> {dest}")
+    model.close_session()
+    return 0

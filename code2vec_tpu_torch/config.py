@@ -1,9 +1,15 @@
-"""Configuration of the ported paths: serving, the dense and the
-sparse-row training steps, and evaluation.
+"""Configuration of the port: the fields it reads and its command line.
 
-The fields the port reads, under the names and defaults of `Config` in
-the JAX package's config.py, so a setting means the same in both. No
-command line yet.
+The fields under the names and defaults of `Config` in the JAX package's
+config.py, so a setting means the same in both, and the JAX package's
+flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
+command line of the ported flags runs unchanged through
+`python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
+have yet (`--predict` and the serving flags, `--attack`, `--head
+varmisuse`, `--infeed_chunk 2`, the mesh, telemetry and fault flags,
+...) is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
+`cpu`; `--framework` accepts the JAX package's values as aliases of this
+implementation.
 
 The defaults are the JAX package's: the dense step with Adafactor on the
 tables, Adam on TRANSFORM / ATTENTION, a cosine learning rate, bf16
@@ -11,22 +17,28 @@ tables and full softmax. `SPARSE_EMBEDDING_UPDATES=True` selects the
 sparse-row step, which `verify` allows only with `EMBEDDING_OPTIMIZER=
 "adam"`, `LR_SCHEDULE="constant"` and the `bag` encoder, as the JAX
 package's does. `ENCODER_TYPE="transformer"` selects the transformer
-path-encoder (`XF_LAYERS` pre-norm layers of `XF_HEADS` heads) for
-serving, the dense step and evaluation. The port has one head
-(`code2vec`) and trains on one device, so it has no head or mesh fields
-yet, and no `RING_ATTENTION`, which needs a mesh.
+path-encoder (`XF_LAYERS` pre-norm layers of `XF_HEADS` heads). The port
+has one head (`code2vec`) and trains on one device, so it has no head or
+mesh fields, and no `RING_ATTENTION`, which needs a mesh.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import logging
+import sys
+from typing import List, Optional
 
 
 @dataclasses.dataclass
 class Config:
     # contexts kept per method (over-cap rows are downsampled at parse)
     MAX_CONTEXTS: int = 200
+    # vocabulary caps of `.dict.c2v` loading (the java-large sizes)
+    MAX_TOKEN_VOCAB_SIZE: int = 1301136
+    MAX_TARGET_VOCAB_SIZE: int = 261245
+    MAX_PATH_VOCAB_SIZE: int = 911417
     TOP_K_WORDS_CONSIDERED_DURING_PREDICTION: int = 10
     # compute in bfloat16 (contexts, pool input, logits product)
     USE_BF16: bool = True
@@ -81,6 +93,61 @@ class Config:
     SPARSE_EMBEDDING_UPDATES: bool = False
     # "adafactor" (tables; Adam on TRANSFORM / ATTENTION) | "adam"
     EMBEDDING_OPTIMIZER: str = "adafactor"
+
+    # ---- the training loop (Code2VecTrainer.train) ----
+    # save (with --save) and evaluate (with --test) every this many epochs
+    SAVE_EVERY_EPOCHS: int = 1
+    # committed step dirs kept in --save
+    MAX_TO_KEEP: int = 10
+    # epoch saves through the background writer
+    # (training/checkpoint.AsyncCheckpointWriter); False saves in the loop
+    ASYNC_CHECKPOINT: bool = True
+    # batches the infeed thread prepares ahead of the step
+    # (data/prefetch.py); 0 copies each batch in the loop
+    INFEED_PREFETCH: int = 2
+
+    # ---- the command line (the JAX package's flag names) ----
+    BACKEND: str = "gpu"            # --backend: "gpu" (CUDA) | "cpu"
+    DL_FRAMEWORK: str = "pytorch"   # --framework (JAX values are aliases)
+    train_data_path: Optional[str] = None   # --data <prefix>
+    test_data_path: Optional[str] = None    # --test <file>
+    save_path: Optional[str] = None         # --save <ckpt>
+    load_path: Optional[str] = None         # --load <ckpt>
+    release: bool = False                   # --release
+    # --auto_resume: an existing checkpoint in --save is loaded and its
+    # run continued (the same command line resumes after a restart)
+    AUTO_RESUME: bool = False
+    save_w2v: Optional[str] = None          # --save_w2v <path>
+    save_t2v: Optional[str] = None          # --save_t2v <path>
+
+    @property
+    def is_training(self) -> bool:
+        return bool(self.train_data_path)
+
+    @property
+    def is_testing(self) -> bool:
+        return bool(self.test_data_path)
+
+    @property
+    def is_loading(self) -> bool:
+        return bool(self.load_path)
+
+    @property
+    def is_saving(self) -> bool:
+        return bool(self.save_path)
+
+    def data_path(self, split: str) -> str:
+        """Path of one split's `.c2v` file: `<prefix>.<split>.c2v`."""
+        if self.train_data_path is None:
+            raise ValueError("no --data prefix")
+        return f"{self.train_data_path}.{split}.c2v"
+
+    @property
+    def word_freq_dict_path(self) -> Optional[str]:
+        """The `.dict.c2v` histograms preprocessing wrote."""
+        if not self.train_data_path:
+            return None
+        return f"{self.train_data_path}.dict.c2v"
 
     def log(self, msg: str) -> None:
         logging.getLogger("code2vec_tpu_torch").info(msg)
@@ -149,3 +216,167 @@ class Config:
             raise ValueError(
                 "SPARSE_EMBEDDING_UPDATES supports the bag encoder only "
                 "(the sparse step trains no transformer params).")
+        if self.INFEED_PREFETCH < 0:
+            raise ValueError("--infeed_prefetch must be >= 0.")
+        if self.SAVE_EVERY_EPOCHS < 1:
+            raise ValueError("SAVE_EVERY_EPOCHS must be >= 1.")
+        if self.MAX_TO_KEEP < 1:
+            raise ValueError("MAX_TO_KEEP must be >= 1.")
+        if self.BACKEND not in ("gpu", "cpu"):
+            raise ValueError(
+                f"--backend {self.BACKEND}: this implementation runs on a "
+                "CUDA card (gpu) or the cpu")
+        if self.DL_FRAMEWORK not in _FRAMEWORKS:
+            raise ValueError(f"--framework {self.DL_FRAMEWORK!r} unknown "
+                             f"(expected one of {', '.join(_FRAMEWORKS)}).")
+
+    def verify_command_line(self) -> None:
+        """`verify` and the rules of the command line's surface."""
+        self.verify()
+        if self.DL_FRAMEWORK != "pytorch":
+            self.log(f"--framework {self.DL_FRAMEWORK}: running the PyTorch "
+                     "implementation (this package's only one; the flag is "
+                     "accepted as an alias for reference compatibility)")
+        if not (self.is_training or self.is_loading):
+            raise ValueError(
+                "Must train (--data) or load a trained model (--load).")
+        if self.release and not self.is_loading:
+            raise ValueError("--release requires --load.")
+
+    # ---- the command line ----
+    @classmethod
+    def arguments_parser(cls) -> argparse.ArgumentParser:
+        """The JAX package's flags (names and `dest`s) of the ported
+        fields. `--head` and `--infeed_chunk` take only the values the
+        port has (code2vec; 1)."""
+        p = argparse.ArgumentParser(
+            prog="python3 -m code2vec_tpu_torch",
+            description="code2vec on PyTorch", allow_abbrev=False)
+        p.add_argument("--data", dest="data_path", default=None,
+                       help="path prefix of {train,val,test}.c2v data")
+        p.add_argument("--test", dest="test_path", default=None,
+                       help="path to a .c2v test file")
+        p.add_argument("--save", dest="save_path", default=None)
+        p.add_argument("--load", dest="load_path", default=None)
+        p.add_argument("--release", action="store_true")
+        p.add_argument("--auto_resume", action="store_true",
+                       help="resume from --save's latest checkpoint "
+                            "when one exists")
+        p.add_argument("--export_code_vectors", action="store_true")
+        p.add_argument("--save_w2v", dest="save_w2v", default=None)
+        p.add_argument("--save_t2v", dest="save_t2v", default=None)
+        p.add_argument("--framework", dest="dl_framework", default=None,
+                       choices=list(_FRAMEWORKS),
+                       help="accepted for compatibility; always runs the "
+                            "PyTorch implementation")
+        p.add_argument("--backend", dest="backend", default=None,
+                       choices=["gpu", "cpu", "tpu"],
+                       help="gpu (default): the CUDA card; cpu")
+        p.add_argument("--max_contexts", dest="max_contexts", type=int,
+                       default=None)
+        p.add_argument("--batch_size", dest="batch_size", type=int,
+                       default=None)
+        p.add_argument("--epochs", dest="epochs", type=int, default=None)
+        p.add_argument("--lr", dest="lr", type=float, default=None)
+        p.add_argument("--lr_schedule", dest="lr_schedule", default=None,
+                       choices=["constant", "cosine", "linear",
+                                "warmup_cosine"])
+        p.add_argument("--warmup_steps", dest="warmup_steps", type=int,
+                       default=None)
+        p.add_argument("--trust_ratio_scope", dest="trust_ratio_scope",
+                       default=None, choices=["all", "dense"])
+        p.add_argument("--trust_ratio", dest="trust_ratio",
+                       action="store_true")
+        p.add_argument("--infeed_prefetch", dest="infeed_prefetch",
+                       type=int, default=None,
+                       help="batches the infeed prepares ahead of the "
+                            "step (0 = synchronous)")
+        p.add_argument("--infeed_chunk", dest="infeed_chunk", type=int,
+                       default=None, help="1 only (not ported)")
+        p.add_argument("--async_checkpoint", dest="async_checkpoint",
+                       default=None, choices=["on", "off"])
+        p.add_argument("--sampled_softmax", dest="sampled_softmax",
+                       action="store_true")
+        p.add_argument("--num_sampled", dest="num_sampled", type=int,
+                       default=None)
+        p.add_argument("--encoder", dest="encoder", default=None,
+                       choices=["bag", "transformer"])
+        p.add_argument("--xf_layers", dest="xf_layers", type=int,
+                       default=None)
+        p.add_argument("--xf_heads", dest="xf_heads", type=int,
+                       default=None)
+        p.add_argument("--xf_remat", dest="xf_remat", action="store_true")
+        p.add_argument("--head", dest="head", default=None,
+                       help="code2vec only (not ported: varmisuse)")
+        p.add_argument("--tables_dtype", dest="tables_dtype", default=None,
+                       choices=["float32", "bfloat16", "int8"])
+        p.add_argument("--no_bf16", dest="no_bf16", action="store_true")
+        p.add_argument("--sparse_embeddings", dest="sparse_embeddings",
+                       action="store_true")
+        p.add_argument("--embedding_optimizer", dest="embedding_optimizer",
+                       default=None, choices=["adam", "adafactor"])
+        p.add_argument("--seed", dest="seed", type=int, default=None)
+        return p
+
+    @classmethod
+    def load_from_args(cls, args: Optional[List[str]] = None) -> "Config":
+        """Parse a command line (default: sys.argv) into a verified
+        Config. ValueError on a flag that is not ported and on an
+        invalid combination."""
+        ns, unknown = cls.arguments_parser().parse_known_args(
+            args if args is not None else sys.argv[1:])
+        flags = sorted({a.split("=", 1)[0] for a in unknown
+                        if a.startswith("-")})
+        if unknown:
+            raise ValueError(
+                "not ported to code2vec_tpu_torch yet: "
+                + " ".join(flags or unknown))
+        if ns.head not in (None, "code2vec"):
+            raise ValueError(f"--head {ns.head}: not ported to "
+                             "code2vec_tpu_torch yet (only code2vec)")
+        if ns.infeed_chunk not in (None, 1):
+            raise ValueError(f"--infeed_chunk {ns.infeed_chunk}: the chunked "
+                             "infeed is not ported to code2vec_tpu_torch "
+                             "yet (only 1)")
+        cfg = cls()
+        cfg.train_data_path = ns.data_path
+        cfg.test_data_path = ns.test_path
+        cfg.save_path = ns.save_path
+        cfg.load_path = ns.load_path
+        cfg.release = ns.release
+        cfg.AUTO_RESUME = ns.auto_resume
+        cfg.export_code_vectors = ns.export_code_vectors
+        cfg.save_w2v = ns.save_w2v
+        cfg.save_t2v = ns.save_t2v
+        for dest, field in (
+                ("dl_framework", "DL_FRAMEWORK"), ("backend", "BACKEND"),
+                ("max_contexts", "MAX_CONTEXTS"),
+                ("batch_size", "TRAIN_BATCH_SIZE"),
+                ("epochs", "NUM_TRAIN_EPOCHS"), ("lr", "LEARNING_RATE"),
+                ("lr_schedule", "LR_SCHEDULE"),
+                ("warmup_steps", "LR_WARMUP_STEPS"),
+                ("trust_ratio_scope", "TRUST_RATIO_SCOPE"),
+                ("infeed_prefetch", "INFEED_PREFETCH"),
+                ("num_sampled", "NUM_SAMPLED_CLASSES"),
+                ("encoder", "ENCODER_TYPE"), ("xf_layers", "XF_LAYERS"),
+                ("xf_heads", "XF_HEADS"), ("tables_dtype", "TABLES_DTYPE"),
+                ("embedding_optimizer", "EMBEDDING_OPTIMIZER"),
+                ("seed", "SEED")):
+            value = getattr(ns, dest)
+            if value is not None:
+                setattr(cfg, field, value)
+        for dest, field, value in (
+                ("trust_ratio", "TRUST_RATIO", True),
+                ("sampled_softmax", "USE_SAMPLED_SOFTMAX", True),
+                ("xf_remat", "XF_REMAT", True),
+                ("no_bf16", "USE_BF16", False),
+                ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
+            if getattr(ns, dest):
+                setattr(cfg, field, value)
+        if ns.async_checkpoint is not None:
+            cfg.ASYNC_CHECKPOINT = ns.async_checkpoint == "on"
+        cfg.verify_command_line()
+        return cfg
+
+
+_FRAMEWORKS = ("pytorch", "jax", "tensorflow", "keras")

@@ -1,0 +1,250 @@
+"""The training infeed: batches parsed and copied to the card ahead of
+the step that takes them.
+
+A copy of `data/prefetch.py` in the JAX package: a daemon thread runs
+the host side of the next `depth` batches (reading, padding, the
+host-to-device copy) while the card runs the current step;
+`persistent_epochs` keeps that one thread running across epoch
+boundaries, so the next epoch's first batches are ready while the
+boundary's save and evaluation run. `--infeed_prefetch 0` is the
+synchronous control (`_SyncInfeed`). The chunked infeed
+(`--infeed_chunk > 1`) is not ported.
+
+On the card the put function is `PinnedRingPut`: each field of a batch
+is written into one of `depth + 1` page-locked host buffers, copied with
+`copy_(non_blocking=True)` on a side `torch.cuda.Stream` into a device
+tensor allocated on that stream, and a CUDA event is recorded behind the
+copies. The producer waits on a slot's previous event before it writes
+the slot again (the copy out of it has finished). The consumer
+(`PinnedRingPut.ready`, on the thread that runs the steps) makes its
+current stream wait on the batch's event and marks the device tensors
+as used on that stream (`record_stream`), so the caching allocator does
+not hand their memory to the side stream while a step may still read
+them.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+_SENTINEL = object()
+_EPOCH_END = object()
+
+
+class _Producer:
+    """A daemon thread running `produce(put)` into a queue of `depth`
+    items, then a (sentinel, exception) item. `put(item)` returns False
+    once `close` was called, so an abandoned producer stops; `get`
+    returns the next item, None after the end (for good), and raises the
+    producer's exception where it was put. `close` releases the thread
+    and the batches it holds."""
+
+    def __init__(self, produce: Callable, depth: int, name: str = None):
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._done = False
+
+        def run() -> None:
+            try:
+                produce(self.put)
+            except BaseException as e:  # raised again on the consumer
+                self.put((_SENTINEL, e))
+            else:
+                self.put((_SENTINEL, None))
+
+        self._thread = threading.Thread(target=run, daemon=True, name=name)
+        self._thread.start()
+
+    def put(self, item) -> bool:
+        # a bounded wait, so that close can interrupt a full queue
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def get(self):
+        if self._done:
+            return None
+        item = self._q.get()
+        if item[0] is not _SENTINEL:
+            return item
+        self._done = True
+        self._thread.join()
+        if item[1] is not None:
+            raise item[1]
+        return None
+
+    def close(self) -> None:
+        self._stop.set()
+        while self._thread.is_alive():  # drain, so a blocked put returns
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.05)
+
+
+class DevicePrefetcher:
+    """Iterate `(put_fn(batch), batch)` pairs with `put_fn` run up to
+    `depth` batches ahead on a producer thread; `ready_fn`, when given,
+    runs on the consumer's thread on each device batch before it is
+    yielded (`PinnedRingPut.ready`). The host batch rides along for its
+    host-side fields (num_valid_examples, target_strings). An exception
+    of the producer is raised in the consumer at its position. Each
+    `__iter__` is one epoch; a consumer that stops early releases the
+    thread."""
+
+    def __init__(self, batches: Iterable, put_fn: Callable, depth: int = 2,
+                 ready_fn: Optional[Callable] = None):
+        if depth < 1:
+            raise ValueError(f"prefetch depth {depth} < 1")
+        self._depth = depth
+        self._batches = batches
+        self._put_fn = put_fn
+        self._ready_fn = ready_fn
+
+    def _produce(self, put: Callable) -> bool:
+        """One pass over the batches; False if the consumer went away."""
+        for b in self._batches:
+            if not put((self._put_fn(b), b)):
+                return False
+        return True
+
+    def _emit(self, item) -> Tuple:
+        dev, host = item
+        return (dev if self._ready_fn is None else self._ready_fn(dev)), host
+
+    def __iter__(self) -> Iterator[Tuple]:
+        producer = _Producer(self._produce, self._depth)
+        try:
+            while (item := producer.get()) is not None:
+                yield self._emit(item)
+        finally:
+            producer.close()
+
+
+class _SyncInfeed:
+    """depth 0: the copy runs in the consumer's loop (the A/B control of
+    `--infeed_prefetch 0`); re-iterable like DevicePrefetcher."""
+
+    def __init__(self, batches: Iterable, put_fn: Callable):
+        self._batches = batches
+        self._put_fn = put_fn
+
+    def __iter__(self) -> Iterator[Tuple]:
+        for b in self._batches:
+            yield self._put_fn(b), b
+
+
+def prefetch_to_device(batches: Iterable, put_fn: Callable, depth: int = 2,
+                       ready_fn: Optional[Callable] = None
+                       ) -> Iterable[Tuple]:
+    """The infeed: `depth` batches ahead on a producer thread, or
+    synchronous at depth 0."""
+    if depth <= 0:
+        return _SyncInfeed(batches, put_fn)
+    return DevicePrefetcher(batches, put_fn, depth, ready_fn)
+
+
+def persistent_epochs(infeed, num_epochs: int, first_epoch: int = 1
+                      ) -> Iterator[Tuple[int, Iterator[Tuple]]]:
+    """Yields `(epoch, epoch_batches)` for epochs `first_epoch ..
+    num_epochs` (1-based; `first_epoch > 1` is the auto-resume path, the
+    reader's `epoch_offset` replaying the matching shuffle). For a
+    threaded infeed one producer thread runs every pass over the reader
+    back to back, with an epoch-end marker between them, so it prepares
+    epoch k + 1 while the consumer does epoch k's boundary work. Each
+    pass is one `iter(reader)`, the same seeded permutation as a fresh
+    thread would draw. The synchronous infeed re-iterates per epoch.
+
+    The consumer drains each epoch's iterator before it takes the next
+    pair; abandoning the generator releases the producer thread."""
+    epochs = range(first_epoch, num_epochs + 1)
+    if not isinstance(infeed, DevicePrefetcher):
+        for epoch in epochs:
+            yield epoch, iter(infeed)
+        return
+
+    def produce(put: Callable) -> None:
+        for _ in epochs:
+            if not (infeed._produce(put) and put((_EPOCH_END, None))):
+                return
+
+    producer = _Producer(produce, infeed._depth, name="train-infeed")
+
+    def epoch_iter() -> Iterator[Tuple]:
+        while (item := producer.get()) is not None \
+                and item[0] is not _EPOCH_END:
+            yield infeed._emit(item)
+
+    try:
+        for epoch in epochs:
+            yield epoch, epoch_iter()
+    finally:
+        producer.close()
+
+
+def _dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+class PinnedRingPut:
+    """The card's put function for a prefetching infeed: host arrays ->
+    device tensors through a ring of `slots` page-locked buffers per
+    field and asynchronous copies on a side stream (see the module
+    docstring). Called on the producer thread; `ready` on the
+    consumer's."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._slots: List[Optional[Tuple[List[torch.Tensor],
+                                         torch.cuda.Event]]] = [None] * slots
+        self._next = 0
+
+    def _buffers(self, slot: int, arrays) -> List[torch.Tensor]:
+        held = self._slots[slot]
+        if held is not None:
+            # the copies out of this slot's buffers have finished
+            held[1].synchronize()
+            bufs = held[0]
+            if all(b.shape == a.shape and b.dtype == _dtype(a)
+                   for b, a in zip(bufs, arrays)):
+                return bufs
+        return [torch.empty(a.shape, dtype=_dtype(a), pin_memory=True)
+                for a in arrays]
+
+    def __call__(self, arrays) -> Tuple[Tuple[torch.Tensor, ...],
+                                        torch.cuda.Event]:
+        slot = self._next
+        self._next = (slot + 1) % len(self._slots)
+        bufs = self._buffers(slot, arrays)
+        out = []
+        with torch.cuda.stream(self.stream):
+            for buf, a in zip(bufs, arrays):
+                buf.numpy()[...] = a
+                d = torch.empty(buf.shape, dtype=buf.dtype,
+                                device=self.device)
+                d.copy_(buf, non_blocking=True)
+                out.append(d)
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        self._slots[slot] = (bufs, event)
+        return tuple(out), event
+
+    def ready(self, item) -> Tuple[torch.Tensor, ...]:
+        tensors, event = item
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(event)
+        for t in tensors:
+            t.record_stream(stream)
+        return tensors
+

@@ -1,17 +1,28 @@
-"""Host-side parsing: `.c2v` path-context rows -> int32 index arrays + mask.
+"""Host-side input: `.c2v` text or binary shards -> int32 index arrays + mask.
 
-A copy of `BatchTensors`, `parse_c2v_rows`, `_pad_batch`,
-`count_examples` (text files only) and `C2VTextReader` from
-`data/reader.py` in the JAX package. The over-cap
-downsample draws from the same `np.random.default_rng((seed,
-crc32(sorted bag)))` stream, so both packages keep the same contexts of
-a method with more than MAX_CONTEXTS of them, and the reader's shuffle
-is the same `(seed + epoch)` permutation, so both packages see the same
-batches. Host shards are not ported.
+A copy of `data/reader.py` in the JAX package: `BatchTensors`,
+`parse_c2v_rows`, the text reader `C2VTextReader`, the binary-shard
+reader `BinaryShardReader` over data/binarize.py's memmapped int32
+rows, `open_reader` (the binary shard when a `.bin` sibling exists),
+`count_examples` and `steps_per_epoch`. The over-cap downsample draws
+from the same `np.random.default_rng((seed, crc32(sorted bag)))` stream,
+so both packages keep the same contexts of a method with more than
+MAX_CONTEXTS of them; each epoch's shuffle is the same `(seed + epoch)`
+permutation, and the binary reader sorts the rows inside each batch as
+the JAX package's does, so both packages see the same batches in the
+same row order (and so draw dropout for the same rows). `epoch_offset`
+starts the shuffle stream at a later epoch (an auto-resumed run replays
+the data order of the run it continues).
+
+The port feeds one device from one process: the readers take
+`host_shard` / `num_host_shards` as the JAX package's do, but only
+`0 / 1`.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import zlib
 from typing import Iterator, List, NamedTuple, Optional
 
@@ -115,11 +126,25 @@ def _pad_batch(arrs, batch_size: int):
     return out
 
 
-def count_examples(path: str) -> int:
-    """Number of examples (non-empty lines) in a `.c2v` file: what sizes
-    a learning-rate schedule."""
-    with open(path, "rb") as f:
-        return sum(1 for raw in f if raw.strip())
+def _aligned_num_batches(global_examples: int, num_host_shards: int,
+                         batch_size: int) -> int:
+    """Batches every host emits an epoch: ceil(ceil(N / H) / B)."""
+    largest_shard = -(-global_examples // num_host_shards)
+    return -(-largest_shard // batch_size)
+
+
+def steps_per_epoch(num_examples: int, batch_size: int,
+                    num_host_shards: int = 1) -> int:
+    """Train steps one epoch takes (the last batch padded): a resume
+    divides a restored step count by this to recover its epochs."""
+    return _aligned_num_batches(num_examples, num_host_shards, batch_size)
+
+
+def _one_host(host_shard: int, num_host_shards: int) -> None:
+    if (host_shard, num_host_shards) != (0, 1):
+        raise ValueError(
+            f"host shard {host_shard} of {num_host_shards}: the port reads "
+            "on one host (host_shard 0 of 1)")
 
 
 class C2VTextReader:
@@ -128,7 +153,9 @@ class C2VTextReader:
 
     def __init__(self, path: str, vocabs: Code2VecVocabs, max_contexts: int,
                  batch_size: int, shuffle: bool = False, seed: int = 0,
-                 keep_strings: bool = False, epoch_offset: int = 0):
+                 keep_strings: bool = False, host_shard: int = 0,
+                 num_host_shards: int = 1, epoch_offset: int = 0):
+        _one_host(host_shard, num_host_shards)
         self.path = path
         self.vocabs = vocabs
         self.max_contexts = max_contexts
@@ -177,3 +204,110 @@ class C2VTextReader:
         return BatchTensors(labels, src, pth, dst, mask, nv,
                             tstr if self.keep_strings else None,
                             cstr if self.keep_strings else None)
+
+
+class BinaryShardReader:
+    """Reader over the pre-tokenized int32 shard data/binarize.py writes:
+    a memmapped [N, 1 + 3*C] int32 matrix (label, src*C, path*C, tgt*C)
+    and its JSON manifest."""
+
+    def __init__(self, prefix: str, batch_size: int, shuffle: bool = False,
+                 seed: int = 0, host_shard: int = 0,
+                 num_host_shards: int = 1,
+                 expected_max_contexts: Optional[int] = None,
+                 keep_strings: bool = False, epoch_offset: int = 0):
+        _one_host(host_shard, num_host_shards)
+        with open(prefix + ".bin.json", "r") as f:
+            self.manifest = json.load(f)
+        self.target_strings: Optional[List[str]] = None
+        if keep_strings:
+            # the original target names, for the subtoken metrics (an
+            # out-of-vocab target collapses to OOV in the index)
+            with open(prefix + ".bin.targets", encoding="utf-8") as f:
+                self.target_strings = [ln.rstrip("\n") for ln in f]
+        self.max_contexts = int(self.manifest["max_contexts"])
+        if (expected_max_contexts is not None
+                and expected_max_contexts != self.max_contexts):
+            raise ValueError(
+                f"binary shard {prefix}.bin was built with max_contexts="
+                f"{self.max_contexts} but the run requests "
+                f"{expected_max_contexts}; re-binarize or match the flag")
+        self.num_examples = int(self.manifest["num_examples"])
+        row_width = 1 + 3 * self.max_contexts
+        self.data = np.memmap(prefix + ".bin", dtype=np.int32, mode="r",
+                              shape=(self.num_examples, row_width))
+        self.pad_index = int(self.manifest["pad_index"])
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = epoch_offset
+
+    def __iter__(self) -> Iterator[BatchTensors]:
+        C = self.max_contexts
+        order = np.arange(self.num_examples)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            rng.shuffle(order)
+            self._epoch += 1
+        for start in range(0, len(order), self.batch_size):
+            # ascending rows inside a batch: a forward-only read of the
+            # memmap; the batch's members are the shuffled ones
+            sorted_idx = np.sort(order[start:start + self.batch_size])
+            rows = np.asarray(self.data[sorted_idx])
+            labels = rows[:, 0].astype(np.int32)
+            src = rows[:, 1:1 + C]
+            pth = rows[:, 1 + C:1 + 2 * C]
+            dst = rows[:, 1 + 2 * C:1 + 3 * C]
+            mask = (pth != self.pad_index).astype(np.float32)
+            nv = rows.shape[0]
+            tstr = None
+            if self.target_strings is not None:
+                tstr = [self.target_strings[i] for i in sorted_idx]
+            labels, src, pth, dst, mask = _pad_batch(
+                (labels, src, pth, dst, mask), self.batch_size)
+            yield BatchTensors(labels, np.ascontiguousarray(src),
+                               np.ascontiguousarray(pth),
+                               np.ascontiguousarray(dst), mask, nv, tstr)
+
+
+def _prefix(path_or_prefix: str) -> str:
+    if path_or_prefix.endswith(".c2v"):
+        return path_or_prefix[:-len(".c2v")]
+    return path_or_prefix
+
+
+def count_examples(path_or_prefix: str) -> int:
+    """Examples in a split: from the binary manifest when there is one,
+    else the non-empty lines of the `.c2v` file. It sizes a learning-rate
+    schedule."""
+    prefix = _prefix(path_or_prefix)
+    if os.path.exists(prefix + ".bin.json"):
+        with open(prefix + ".bin.json") as f:
+            return int(json.load(f)["num_examples"])
+    with open(path_or_prefix, "rb") as f:
+        return sum(1 for raw in f if raw.strip())
+
+
+def open_reader(path_or_prefix: str, vocabs: Code2VecVocabs,
+                max_contexts: int, batch_size: int, shuffle: bool = False,
+                seed: int = 0, keep_strings: bool = False,
+                host_shard: int = 0, num_host_shards: int = 1,
+                epoch_offset: int = 0):
+    """The binary reader when a `.bin` sibling exists (and, for
+    `keep_strings`, its `.bin.targets`), else the text reader.
+    `epoch_offset` starts the shuffle stream at that epoch."""
+    prefix = _prefix(path_or_prefix)
+    have_bin = os.path.exists(prefix + ".bin.json")
+    have_targets = os.path.exists(prefix + ".bin.targets")
+    if have_bin and (not keep_strings or have_targets):
+        return BinaryShardReader(prefix, batch_size, shuffle=shuffle,
+                                 seed=seed, host_shard=host_shard,
+                                 num_host_shards=num_host_shards,
+                                 expected_max_contexts=max_contexts,
+                                 keep_strings=keep_strings,
+                                 epoch_offset=epoch_offset)
+    return C2VTextReader(path_or_prefix, vocabs, max_contexts, batch_size,
+                         shuffle=shuffle, seed=seed,
+                         keep_strings=keep_strings, host_shard=host_shard,
+                         num_host_shards=num_host_shards,
+                         epoch_offset=epoch_offset)

@@ -1,10 +1,12 @@
-"""Host-side evaluation metrics.
+"""Host-side evaluation metrics and the embedding exports.
 
-Counterpart of `MetricAccumulator` in the JAX package's
-models/model_base.py: exact-match top-k accuracy over the legal
+Counterpart of models/model_base.py in the JAX package:
+`MetricAccumulator` (exact-match top-k accuracy over the legal
 predictions, and subtoken TP/FP/FN of the first legal prediction against
-the true name. The port evaluates on one device, so it has no
-cross-host merge.
+the true name; the port evaluates on one device, so it has no cross-host
+merge) and `Code2VecModelBase.save_word2vec_format` (a `<V> <dim>`
+header, then one `word v1 ... vdim` line per index, each value as
+`%.6f`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import numpy as np
 
 from code2vec_tpu_torch.common import (EvaluationResults, SubtokenStatistics,
                                        filter_impossible_names)
+from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs, VocabType
 
 
 class MetricAccumulator:
@@ -52,3 +55,31 @@ class MetricAccumulator:
             subtoken_recall=self.subtoken_stats.recall,
             subtoken_f1=self.subtoken_stats.f1,
             loss=self.loss_sum / n)
+
+
+def vector_line(row: np.ndarray) -> str:
+    """A vector as the exports write it: each value "%.6f", " "-separated
+    (the JAX package's `" ".join(f"{x:.6f}" for x in row)`, the same
+    characters, in one format call)."""
+    return " ".join(["%.6f"] * len(row)) % tuple(row.tolist())
+
+
+class Code2VecModelBase:
+    """What both models share: `vocabs` and the word2vec export of a
+    table (`get_embedding_table` gives it as float32 [V, dim])."""
+
+    vocabs: Code2VecVocabs
+
+    def get_embedding_table(self, vocab_type: VocabType) -> np.ndarray:
+        raise NotImplementedError
+
+    def save_word2vec_format(self, dest_path: str,
+                             vocab_type: VocabType) -> None:
+        vocab = self.vocabs.get(vocab_type)
+        table = self.get_embedding_table(vocab_type)
+        n, dim = vocab.size, table.shape[1]
+        with open(dest_path, "w", encoding="utf-8") as f:
+            f.write(f"{n} {dim}\n")
+            for idx in range(n):
+                f.write(f"{vocab.lookup_word(idx)} "
+                        f"{vector_line(table[idx])}\n")

@@ -11,18 +11,30 @@ calls the three phases on different threads.
 Both run the encoder of `ENCODER_TYPE`: the bag encoder or the
 transformer path-encoder (models/transformer_encoder.py).
 
-`Code2VecTrainer` is the train and evaluate subset of the same class: it
-builds the optimizer, its state and the step (the dense step by default,
-the sparse-row step under SPARSE_EMBEDDING_UPDATES), runs
-`train(data_path, max_steps)` over a `.c2v` file and `evaluate(test_path)`
-over another. There is no checkpoint or telemetry yet.
+`Code2VecTrainer` is the train, evaluate, checkpoint and export part of
+the same class: it builds the optimizer, its state and the step (the
+dense step by default, the sparse-row step under
+SPARSE_EMBEDDING_UPDATES). `train()` is the JAX package's training loop
+without its telemetry, tracing and profiling: the auto-resume epoch
+offset (models/setup.py), the reader of the train split (binary shards
+when binarized, data/reader.open_reader), the prefetching infeed kept
+warm across epochs (data/prefetch.py; pinned host buffers and a side
+stream on the card), step-keyed draws, and at every SAVE_EVERY_EPOCHS
+epoch boundary an async checkpoint save (training/checkpoint.py) then an
+evaluation. `from_config` builds the command line's model (cli.py):
+vocabularies from the `.dict.c2v` histograms, or with `--load` dims,
+vocabularies, params, optimizer state and step from a checkpoint.
+`release`, `save_word2vec_format` and `export_code_vectors_file` are the
+command line's exports.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
-from typing import Iterable, List, Optional, Sequence, Union
+import time
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -32,21 +44,29 @@ from code2vec_tpu_torch.common import (EvaluationResults,
                                        MethodPredictionResults,
                                        SpecialVocabWords)
 from code2vec_tpu_torch.config import Config
-from code2vec_tpu_torch.data.reader import (BatchTensors, C2VTextReader,
-                                            _pad_batch, count_examples,
+from code2vec_tpu_torch.data.prefetch import (PinnedRingPut,
+                                              persistent_epochs,
+                                              prefetch_to_device)
+from code2vec_tpu_torch.data.reader import (BatchTensors, _pad_batch,
+                                            count_examples, open_reader,
                                             parse_c2v_rows)
 from code2vec_tpu_torch.device import resolve_device
 from code2vec_tpu_torch.models.encoder import ModelDims, Params, init_params
-from code2vec_tpu_torch.models.model_base import MetricAccumulator
-from code2vec_tpu_torch.ops.quant import opt_param_view
+from code2vec_tpu_torch.models.model_base import (Code2VecModelBase,
+                                                  MetricAccumulator,
+                                                  vector_line)
+from code2vec_tpu_torch.models.setup import lr_horizon, resume_epoch_offset
+from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
+                                          opt_param_view)
+from code2vec_tpu_torch.training import checkpoint as ckpt
 from code2vec_tpu_torch.training.draws import StepDraws, make_draws
-from code2vec_tpu_torch.training.optimizers import (AdamF32Moments, make_lr,
-                                                    make_optimizer,
-                                                    schedule_total_steps)
+from code2vec_tpu_torch.training.optimizers import (
+    AdamF32Moments, make_lr, make_optimizer, resolve_checkpoint_schedule,
+    resolve_checkpoint_warmup)
 from code2vec_tpu_torch.training.sparse_steps import init_sparse_opt_state
-from code2vec_tpu_torch.training.steps import (eval_step, make_train_step,
-                                               predict_step)
-from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs
+from code2vec_tpu_torch.training.steps import (encode_step, eval_step,
+                                               make_train_step, predict_step)
+from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs, VocabType
 
 
 @dataclasses.dataclass
@@ -237,31 +257,96 @@ def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
         xf_remat=config.XF_REMAT)
 
 
-class Code2VecTrainer:
-    """Trains and evaluates the model (bag or transformer encoder) on one
-    device.
+def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
+                   dims: ModelDims) -> None:
+    """A loaded checkpoint's dims and optimizer configuration into `cfg`
+    (they fix the state's structure, whatever the flags asked), as the
+    JAX package's model adopts them; the schedule and warmup are the
+    checkpoint's, a conflicting request logged. ValueError on what the
+    port does not have."""
+    head = manifest.get("head", "code2vec")
+    if head != "code2vec":
+        raise ValueError(f"checkpoint was trained with --head {head}, which "
+                         "is not ported to code2vec_tpu_torch yet")
+    if dims.ring_attention:
+        raise ValueError("checkpoint was trained with --ring_attention, "
+                         "which needs a mesh the port does not have")
+    cfg.MAX_CONTEXTS = dims.max_contexts
+    cfg.DEFAULT_EMBEDDINGS_SIZE = dims.embeddings_size
+    cfg.DROPOUT_KEEP_RATE = dims.dropout_keep_rate
+    cfg.TABLES_DTYPE = dims.tables_dtype
+    cfg.ENCODER_TYPE = dims.encoder_type
+    cfg.XF_LAYERS = dims.xf_layers
+    cfg.XF_HEADS = dims.xf_heads
+    cfg.XF_REMAT = dims.xf_remat
+    cfg.USE_SAMPLED_SOFTMAX = manifest.get("use_sampled_softmax",
+                                           cfg.USE_SAMPLED_SOFTMAX)
+    cfg.NUM_SAMPLED_CLASSES = manifest.get("num_sampled",
+                                           cfg.NUM_SAMPLED_CLASSES)
+    cfg.SPARSE_EMBEDDING_UPDATES = manifest.get(
+        "sparse_embedding_updates", cfg.SPARSE_EMBEDDING_UPDATES)
+    # checkpoints older than the key were trained with Adam
+    cfg.EMBEDDING_OPTIMIZER = manifest.get("embedding_optimizer", "adam")
+    cfg.TRUST_RATIO = manifest.get("trust_ratio", False)
+    cfg.TRUST_RATIO_SCOPE = manifest.get("trust_ratio_scope", "all")
+    cfg.LR_SCHEDULE = resolve_checkpoint_schedule(cfg.LR_SCHEDULE, manifest,
+                                                  cfg.log)
+    cfg.LR_WARMUP_STEPS = resolve_checkpoint_warmup(
+        cfg.LR_SCHEDULE, cfg.LR_WARMUP_STEPS, manifest, cfg.log)
+
+
+def _like(loaded, template, what: str, device: torch.device):
+    """`loaded` (a restored state tree) on `device`, after checking that
+    it has the structure, shapes and dtypes of `template`."""
+    def sig(x):
+        return ckpt.map_state(lambda t: (tuple(t.shape), t.dtype), x)
+    if sig(loaded) != sig(template):
+        raise ValueError(f"the checkpoint's {what} do not match this "
+                         "model's (another optimizer, table dtype or dims)")
+    return ckpt.map_state(lambda t: t.to(device), loaded)
+
+
+class _StepBudget:
+    """A re-iterable reader that stops after `steps` batches in all, over
+    however many passes: `train(max_steps=n)` reads n batches, also with
+    a producer thread running ahead."""
+
+    def __init__(self, reader, steps: int):
+        self._reader = reader
+        self._left = steps
+
+    def __iter__(self):
+        for b in itertools.islice(self._reader, self._left):
+            self._left -= 1
+            yield b
+
+
+class Code2VecTrainer(Code2VecModelBase):
+    """Trains, evaluates, checkpoints and exports the model (bag or
+    transformer encoder) on one device.
 
     The dense step (the default) or the sparse-row step
     (SPARSE_EMBEDDING_UPDATES) updates tables, dense params and the
     optimizer state in place. `params=None` initialises them from
     `config.SEED`. `device=None` runs on the CUDA card and raises when
-    there is none; tests pass `device="cpu"`.
+    there is none; tests pass `device="cpu"`. `dims` (default: from the
+    config and the vocabularies) is a checkpoint's when loading.
 
-    A decaying learning rate needs the run's horizon,
-    `schedule_total_steps(examples in the file, TRAIN_BATCH_SIZE,
-    epochs)`: the first `train` call fixes it from its file and epochs
-    (the optimizer state's structure does not depend on it, so the state
-    is built at construction with a horizon of 1, as the JAX package
-    builds it for an evaluation-only model)."""
+    A decaying learning rate needs the run's horizon
+    (models/setup.lr_horizon): the first `train` call fixes it from its
+    file and epochs (the optimizer state's structure does not depend on
+    it, so the state is built at construction with a horizon of 1, as
+    the JAX package builds it for an evaluation-only model)."""
 
     def __init__(self, config: Config, vocabs: Code2VecVocabs,
                  params: Optional[Params] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 dims: Optional[ModelDims] = None):
         self.config = config
         self.vocabs = vocabs
         self.device = resolve_device(device)
         config.verify()  # the JAX package's rules, ValueError
-        self.dims = dims_from_config(config, vocabs)
+        self.dims = dims_from_config(config, vocabs) if dims is None else dims
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.SEED)
             params = init_params(gen, self.dims)
@@ -278,6 +363,56 @@ class Code2VecTrainer:
             self._build_dense_optimizer(1)
             self.opt_state = self.optimizer.init(opt_param_view(self.params))
         self.step_num = 0
+        # the background checkpoint writer, started at the first async save
+        self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = None
+        # the epoch an epoch-boundary save records in topology.json
+        self._save_epoch: Optional[int] = None
+        # the train loop's time blocked by its last save (ms)
+        self.save_blocked_ms: Optional[float] = None
+
+    @classmethod
+    def from_config(cls, config: Config,
+                    device: Optional[Union[str, torch.device]] = None,
+                    vocabs: Optional[Code2VecVocabs] = None
+                    ) -> "Code2VecTrainer":
+        """The command line's model. With `load_path`: dims, vocabularies
+        (unless given), params, optimizer state and step from the
+        checkpoint (params only from a released one), its configuration
+        adopted into `config`; else vocabularies from the `.dict.c2v`
+        histograms of `train_data_path`, capped at MAX_*_VOCAB_SIZE."""
+        if not config.is_loading:
+            if vocabs is None:
+                if config.word_freq_dict_path is None:
+                    raise ValueError("need --data (for its .dict.c2v) or "
+                                     "--load")
+                vocabs = Code2VecVocabs.load_from_dict_file(
+                    config.word_freq_dict_path, config.MAX_TOKEN_VOCAB_SIZE,
+                    config.MAX_PATH_VOCAB_SIZE, config.MAX_TARGET_VOCAB_SIZE)
+            return cls(config, vocabs, device=device)
+        manifest = ckpt.load_manifest(config.load_path)
+        dims = ckpt.load_dims(config.load_path)
+        adopt_manifest(config, manifest, dims)
+        if vocabs is None:
+            vocabs = ckpt.load_vocabs(config.load_path)
+        sizes = (vocabs.token_vocab.size, vocabs.path_vocab.size,
+                 vocabs.target_vocab.size)
+        if sizes != (dims.token_vocab_size, dims.path_vocab_size,
+                     dims.target_vocab_size):
+            raise ValueError(f"vocab sizes {sizes} do not match the "
+                             f"checkpoint's dims {dims}")
+        trainer = cls(config, vocabs, device=device, dims=dims)
+        state = ckpt.load_checkpoint(config.load_path, log=config.log)
+        trainer.params = _like(state["params"], trainer.params, "params",
+                               trainer.device)
+        if manifest.get("released"):
+            # no optimizer state: the fresh one matches the step
+            trainer.step_num = int(manifest.get("step", 0))
+        else:
+            trainer.opt_state = _like(state["opt_state"], trainer.opt_state,
+                                      "optimizer state", trainer.device)
+            trainer.step_num = int(state["step"])
+        config.log(f"loaded {config.load_path} at step {trainer.step_num}")
+        return trainer
 
     def _build_dense_optimizer(self, total_steps: int) -> None:
         cfg = self.config
@@ -301,6 +436,14 @@ class Code2VecTrainer:
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in b.host_arrays())
 
+    def _put_fns(self, depth: int):
+        """(put, ready) of an infeed `depth` ahead: a pinned ring on the
+        card (`ready` on the consumer's thread), else `device_batch`."""
+        if self.device.type == "cuda" and depth > 0:
+            ring = PinnedRingPut(self.device, depth + 1)
+            return (lambda b: ring(b.host_arrays())), ring.ready
+        return self.device_batch, None
+
     def draws_for(self, batch_size: int, step: int) -> StepDraws:
         """The draws the trainer makes for `step` (seeded from SEED)."""
         return make_draws(self.dims, self.step_config, self.params,
@@ -315,60 +458,213 @@ class Code2VecTrainer:
         self.step_num += 1
         return loss
 
-    def train(self, data_path: str, max_steps: Optional[int] = None,
+    def train(self, data_path: Optional[str] = None,
+              max_steps: Optional[int] = None,
               epochs: Optional[int] = None) -> List[float]:
-        """Up to `epochs` (default NUM_TRAIN_EPOCHS) shuffled passes over
-        a `.c2v` file, stopping after `max_steps` steps. Logs the loss
-        every NUM_BATCHES_TO_LOG_PROGRESS steps; returns every step's
-        loss."""
+        """The training loop over `data_path` (default: the `--data`
+        prefix's train split), up to `epochs` (default NUM_TRAIN_EPOCHS)
+        shuffled passes, stopping after `max_steps` steps (and then
+        without the boundary work of the epoch it stops in). With
+        AUTO_RESUME a restored run trains only its remaining epochs. At
+        each SAVE_EVERY_EPOCHS boundary: an async save to `save_path`
+        (its writer overlaps the evaluation), then an evaluation of
+        `test_data_path`; the last save is committed before it returns.
+        Logs the loss every NUM_BATCHES_TO_LOG_PROGRESS steps; returns
+        every step's loss."""
         cfg = self.config
+        from_cli = data_path is None
+        if from_cli:
+            data_path = cfg.data_path("train")
         if epochs is None:
             epochs = cfg.NUM_TRAIN_EPOCHS
+
+        def n_examples() -> int:
+            # the dict pickle carries the train split's count
+            return ((self.vocabs.num_training_examples if from_cli else None)
+                    or count_examples(data_path))
+
         if (self.total_steps is None and not cfg.SPARSE_EMBEDDING_UPDATES
                 and cfg.LR_SCHEDULE != "constant"):
-            self.total_steps = schedule_total_steps(
-                count_examples(data_path), cfg.TRAIN_BATCH_SIZE, epochs)
+            self.total_steps = lr_horizon(cfg, n_examples,
+                                          restored_step=self.step_num,
+                                          epochs=epochs)
             self._build_dense_optimizer(self.total_steps)
             cfg.log(f"lr schedule {cfg.LR_SCHEDULE} over "
                     f"{self.total_steps} steps")
-        reader = C2VTextReader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
-                               cfg.TRAIN_BATCH_SIZE, shuffle=True,
-                               seed=cfg.SEED)
+        completed = resume_epoch_offset(cfg, self.step_num, n_examples,
+                                        cfg.log)
+        reader = open_reader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
+                             cfg.TRAIN_BATCH_SIZE, shuffle=True,
+                             seed=cfg.SEED, epoch_offset=completed)
+        if max_steps is not None:
+            reader = _StepBudget(reader, max_steps)
+        put, ready = self._put_fns(cfg.INFEED_PREFETCH)
+        infeed = prefetch_to_device(reader, put, cfg.INFEED_PREFETCH, ready)
         losses: List[torch.Tensor] = []
-        for _epoch in range(epochs):
-            left = None if max_steps is None else max_steps - len(losses)
-            if left == 0:
-                break
-            # stops before the reader parses a batch past the last step
-            for b in itertools.islice(reader, left):
-                losses.append(self.train_step(self.device_batch(b)))
-                if len(losses) % cfg.NUM_BATCHES_TO_LOG_PROGRESS == 0:
-                    cfg.log(f"step {self.step_num}: loss "
-                            f"{losses[-1].item():.5f}")
+        try:
+            with contextlib.closing(persistent_epochs(
+                    infeed, epochs, first_epoch=completed + 1)) as passes:
+                for epoch, batches in passes:
+                    for dev_batch, _batch in batches:
+                        losses.append(self.train_step(dev_batch))
+                        if self.step_num % cfg.NUM_BATCHES_TO_LOG_PROGRESS \
+                                == 0:
+                            cfg.log(f"epoch {epoch} step {self.step_num}: "
+                                    f"loss {losses[-1].item():.5f}")
+                    if max_steps is not None and len(losses) >= max_steps:
+                        break
+                    self._epoch_end(epoch)
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.wait()  # the last save is committed
+        finally:
+            if self._ckpt_writer is not None:
+                # an exception's teardown: the error in flight is raised,
+                # a writer error stays pending for the next wait
+                self._ckpt_writer.drain_quiet()
         values = torch.stack(losses).cpu().tolist() if losses else []
         if values:
             cfg.log(f"trained {len(values)} steps to step {self.step_num}: "
                     f"loss {values[0]:.5f} -> {values[-1]:.5f}")
         return values
 
-    def evaluate(self, test_path: str) -> EvaluationResults:
+    def _epoch_end(self, epoch: int) -> None:
+        """The boundary's save (async: the evaluation runs while the
+        writer drains) and evaluation."""
+        cfg = self.config
+        if epoch % cfg.SAVE_EVERY_EPOCHS:
+            return
+        if cfg.is_saving:
+            self._save_epoch = epoch  # -> the step's topology.json
+            self.save(cfg.save_path, block=False)
+        if cfg.is_testing:
+            results = self.evaluate()
+            cfg.log(f"epoch {epoch} evaluation: {results}")
+
+    def evaluate(self, test_path: Optional[str] = None) -> EvaluationResults:
         """Top-k accuracy, subtoken precision / recall / F1 and the mean
-        loss over a `.c2v` file, in TEST_BATCH_SIZE batches (no dropout,
+        loss over a `.c2v` file (default: `test_data_path`; its binary
+        shard when binarized), in TEST_BATCH_SIZE batches (no dropout,
         full softmax)."""
         cfg = self.config
+        test_path = test_path or cfg.test_data_path
+        if not test_path:
+            raise ValueError("evaluate needs a test file (--test)")
         top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
-        reader = C2VTextReader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
-                               cfg.TEST_BATCH_SIZE, shuffle=False,
-                               keep_strings=True)
+        reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
+                             cfg.TEST_BATCH_SIZE, shuffle=False,
+                             keep_strings=True)
         acc = MetricAccumulator(top_k)
         target_vocab = self.vocabs.target_vocab
-        for b in reader:
+        put, ready = self._put_fns(cfg.INFEED_PREFETCH)
+        for dev_batch, b in prefetch_to_device(reader, put,
+                                               cfg.INFEED_PREFETCH, ready):
             with torch.inference_mode():
                 loss_sum, topk_ids, _probs = eval_step(
-                    self.params, self.device_batch(b), dims=self.dims,
-                    top_k=top_k, compute_dtype=self.compute_dtype)
+                    self.params, dev_batch, dims=self.dims, top_k=top_k,
+                    compute_dtype=self.compute_dtype)
             nv = b.num_valid_examples
+            names = (b.target_strings[:nv] if b.target_strings else
+                     [target_vocab.lookup_word(int(i))
+                      for i in b.target_index[:nv]])
             words = [[target_vocab.lookup_word(int(i)) for i in row]
                      for row in topk_ids[:nv].cpu().numpy()]
-            acc.update_batch(b.target_strings[:nv], words, loss_sum.item())
+            acc.update_batch(names, words, loss_sum.item())
         return acc.results()
+
+    # ---- persistence ----
+    def _checkpoint_writer(self) -> ckpt.AsyncCheckpointWriter:
+        if self._ckpt_writer is None:
+            self._ckpt_writer = ckpt.AsyncCheckpointWriter(
+                log=self.config.log)
+        return self._ckpt_writer
+
+    def save(self, path: Optional[str] = None, block: bool = True) -> None:
+        """Save the state as step `step_num` of `path` (default
+        `save_path`). With ASYNC_CHECKPOINT the background writer takes
+        a snapshot and `block=False` returns once it is queued; else the
+        save runs here. `save_blocked_ms` is the time this call took."""
+        cfg = self.config
+        path = path or cfg.save_path
+        if not path:
+            raise ValueError("save needs a checkpoint dir (--save)")
+        t0 = time.perf_counter()
+        state = {"params": self.params, "opt_state": self.opt_state,
+                 "step": self.step_num}
+        extra = {"use_sampled_softmax": cfg.USE_SAMPLED_SOFTMAX,
+                 "num_sampled": cfg.NUM_SAMPLED_CLASSES,
+                 "sparse_embedding_updates": cfg.SPARSE_EMBEDDING_UPDATES,
+                 "embedding_optimizer": cfg.EMBEDDING_OPTIMIZER,
+                 "trust_ratio": cfg.TRUST_RATIO,
+                 "trust_ratio_scope": cfg.TRUST_RATIO_SCOPE,
+                 "lr_schedule": cfg.LR_SCHEDULE,
+                 "lr_warmup_steps": cfg.LR_WARMUP_STEPS,
+                 # the JAX package's augmentation, which the port has not
+                 "adv_rename_prob": 0.0, "adv_rename_mode": "uniform"}
+        # the epoch of a boundary save, consumed here: a later manual
+        # save must not record it
+        topology = {"epoch": self._save_epoch}
+        self._save_epoch = None
+        if cfg.ASYNC_CHECKPOINT:
+            writer = self._checkpoint_writer()
+            writer.submit(path, state, self.step_num, self.vocabs,
+                          self.dims, extra_manifest=extra,
+                          max_to_keep=cfg.MAX_TO_KEEP, topology=topology)
+            if block:
+                writer.wait()
+        else:
+            ckpt.save_checkpoint(path, state, self.step_num, self.vocabs,
+                                 self.dims, extra_manifest=extra,
+                                 max_to_keep=cfg.MAX_TO_KEEP,
+                                 topology=topology)
+        self.save_blocked_ms = (time.perf_counter() - t0) * 1e3
+        cfg.log(f"{'queued' if cfg.ASYNC_CHECKPOINT and not block else 'saved'}"
+                f" checkpoint step {self.step_num} -> {path} (loop blocked "
+                f"{self.save_blocked_ms:.1f} ms)")
+
+    def release(self) -> None:
+        """`--release`: the loaded checkpoint's params, without optimizer
+        state, to `save_path` (default `<load_path>.release`)."""
+        cfg = self.config
+        if not cfg.load_path:
+            raise ValueError("--release requires --load")
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait()
+        dest = cfg.save_path or (cfg.load_path.rstrip("/") + ".release")
+        ckpt.release_checkpoint(cfg.load_path, dest, self.params)
+        cfg.log(f"released inference checkpoint -> {dest}")
+
+    def close_session(self) -> None:
+        """The commit barrier of the last save, and the writer's end."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.close()
+
+    # ---- exports ----
+    def get_embedding_table(self, vocab_type: VocabType) -> np.ndarray:
+        """A vocab table as float32 [vocab size, dim] on the host (an int8
+        table dequantized)."""
+        key = {VocabType.Token: "token_emb", VocabType.Path: "path_emb",
+               VocabType.Target: "target_emb"}[vocab_type]
+        table = self.params[key]
+        if is_quantized(table):
+            table = dequantize_table(table)
+        table = table.to(torch.float32).cpu().numpy()
+        return table[:self.vocabs.get(vocab_type).size]
+
+    def export_code_vectors_file(self, test_path: str,
+                                 dest_path: str) -> None:
+        """`--export_code_vectors`: one code vector a test example, in the
+        file's order, each value as %.6f."""
+        cfg = self.config
+        reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
+                             cfg.TEST_BATCH_SIZE, shuffle=False,
+                             keep_strings=True)
+        put, ready = self._put_fns(cfg.INFEED_PREFETCH)
+        with open(dest_path, "w", encoding="utf-8") as f:
+            for dev_batch, b in prefetch_to_device(
+                    reader, put, cfg.INFEED_PREFETCH, ready):
+                with torch.inference_mode():
+                    code = encode_step(self.params, dev_batch,
+                                       dims=self.dims,
+                                       compute_dtype=self.compute_dtype)
+                for row in code[:b.num_valid_examples].cpu().numpy():
+                    f.write(vector_line(row) + "\n")

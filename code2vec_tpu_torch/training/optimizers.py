@@ -516,10 +516,43 @@ def warmup_length(total_steps: int, warmup_steps: int) -> int:
 
 
 def schedule_total_steps(num_examples: int, batch_size: int,
-                         epochs: int) -> int:
+                         epochs: int, restored_step: int = 0) -> int:
     """The decay horizon: the steps of `epochs` passes over
-    `num_examples` in batches of `batch_size` (the last one padded)."""
-    return -(-num_examples // batch_size) * epochs
+    `num_examples` in batches of `batch_size` (the last one padded),
+    plus a restored optimizer step for a fine-tune (its count already
+    sits there, so without the extension the schedule would start at its
+    floor)."""
+    return -(-num_examples // batch_size) * epochs + restored_step
+
+
+def resolve_checkpoint_schedule(requested: str, manifest: dict,
+                                log) -> str:
+    """The schedule a loaded model uses: the checkpoint's (its optimizer
+    state was built for it); a different request is logged."""
+    ckpt_schedule = manifest.get("lr_schedule", "constant")
+    if requested != ckpt_schedule:
+        log(f"--lr_schedule {requested!r} ignored: using the "
+            f"checkpoint's {ckpt_schedule!r} (the optimizer state "
+            "structure is fixed at first training)")
+    return ckpt_schedule
+
+
+def resolve_checkpoint_warmup(schedule: str, requested: int,
+                              manifest: dict, log) -> int:
+    """The warmup a loaded model uses: the checkpoint's effective length
+    for `warmup_cosine` (a different request is logged), 0 for any
+    other schedule."""
+    if schedule != "warmup_cosine":
+        if requested > 0:
+            log(f"--warmup_steps {requested} ignored: the checkpoint's "
+                f"schedule is {schedule!r} (no warmup phase)")
+        return 0
+    ckpt_warmup = int(manifest.get("lr_warmup_steps", 0))
+    if ckpt_warmup > 0 and requested > 0 and requested != ckpt_warmup:
+        log(f"--warmup_steps {requested} ignored: using the "
+            f"checkpoint's effective warmup {ckpt_warmup} (the LR "
+            "trajectory is fixed at first training)")
+    return ckpt_warmup if ckpt_warmup > 0 else requested
 
 
 def make_optimizer(learning_rate, embedding_optimizer: str = "adafactor",

@@ -1,8 +1,11 @@
 """Vocabulary runtime: word <-> index maps for tokens, paths and targets.
 
-A copy of `vocab/vocabularies.py` in the JAX package, trimmed to what the
-serving path uses. `Code2VecVocabs.save` / `load` keep the same pickle
-layout (a dict of three word lists, specials first, plus
+A copy of `vocab/vocabularies.py` in the JAX package. `Code2VecVocabs.
+load_from_dict_file` builds the vocabularies from the `.dict.c2v`
+histograms preprocessing writes (data/preprocess.py), each cut to its
+MAX_*_VOCAB_SIZE cap by descending count, ties in insertion order, so
+both packages give every word the same index. `save` / `load` keep the
+same pickle layout (a dict of three word lists, specials first, plus
 `num_training_examples`), so a vocab sidecar written by either package
 loads in the other as is. Lookups run on the host; the device only sees
 int32 index tensors.
@@ -62,6 +65,16 @@ class Vocab:
     def lookup_word(self, index: int) -> str:
         return self.index_to_word.get(index, SpecialVocabWords.OOV)
 
+    @classmethod
+    def create_from_freq_dict(cls, vocab_type: VocabType,
+                              freq_dict: Dict[str, int],
+                              max_size: int) -> "Vocab":
+        """Keep the `max_size` most frequent words (ties broken by
+        insertion order, as `Counter.most_common` breaks them)."""
+        words = [w for w, _ in sorted(freq_dict.items(),
+                                      key=lambda kv: (-kv[1],))][:max_size]
+        return cls(vocab_type, words)
+
     # ---- (de)serialization: list of words in index order, specials first ----
     def to_word_list(self) -> List[str]:
         return [self.index_to_word[i] for i in range(self.size)]
@@ -90,6 +103,24 @@ class Code2VecVocabs:
                 VocabType.Path: self.path_vocab,
                 VocabType.Target: self.target_vocab}[vocab_type]
 
+    @classmethod
+    def load_from_dict_file(cls, dict_path: str, max_token_vocab_size: int,
+                            max_path_vocab_size: int,
+                            max_target_vocab_size: int) -> "Code2VecVocabs":
+        """The vocabularies of the `.dict.c2v` histograms preprocessing
+        wrote, each cut to its cap."""
+        (token_counts, path_counts, target_counts,
+         num_examples) = read_count_dicts(dict_path)
+        return cls(
+            Vocab.create_from_freq_dict(VocabType.Token, token_counts,
+                                        max_token_vocab_size),
+            Vocab.create_from_freq_dict(VocabType.Path, path_counts,
+                                        max_path_vocab_size),
+            Vocab.create_from_freq_dict(VocabType.Target, target_counts,
+                                        max_target_vocab_size),
+            num_training_examples=num_examples,
+        )
+
     # ---- checkpoint sidecar: the vocab is saved next to the model so
     # loading needs no dataset ----
     def save(self, path: str) -> None:
@@ -113,3 +144,26 @@ class Code2VecVocabs:
             Vocab.from_word_list(VocabType.Target, d["target"]),
             num_training_examples=d.get("num_training_examples"),
         )
+
+
+def read_count_dicts(dict_path: str):
+    """The `.dict.c2v` sequential-pickle layout: the token, path and
+    target count dicts, then the number of training examples (absent in
+    older files: None). Unpickling runs code: read only files that
+    preprocessing wrote."""
+    with open(dict_path, "rb") as f:
+        token_counts = pickle.load(f)
+        path_counts = pickle.load(f)
+        target_counts = pickle.load(f)
+        try:
+            num_examples = pickle.load(f)
+        except EOFError:
+            num_examples = None
+    return token_counts, path_counts, target_counts, num_examples
+
+
+def read_token_counts(dict_path: str) -> Dict[str, int]:
+    """Just the token histogram, the file's first object (the path and
+    target dicts are not read)."""
+    with open(dict_path, "rb") as f:
+        return pickle.load(f)
