@@ -115,7 +115,33 @@ Phases (any failure raises, and the script exits non-zero):
    async save's blocked time against a synchronous
    one's, the writer's time, the state's bytes, the sha256 time and the
    load-and-verify time;
-15. a `{"kernels": [...]}` line, the card line, and last
+15. the `--predict` REPL: the native extractor built from the port's
+   C++ sources (both targets together) and checked against
+   `tests/golden/*.expected`; `python3 -m code2vec_tpu_torch --load
+   <[14]'s released model> --predict` as a subprocess in a directory
+   holding a copy of Input.java, fed three Enters then `q` (exit 0; for
+   every method its name, k predictions, at most SHOW_TOP_CONTEXTS
+   attention lines and the latency line; the first request's time and
+   the cached p50); the REPL in this process under torch.profiler
+   (counted: kernel 1 once a device batch), its top-1 names held against
+   a `PredictionServer.predict_lines` run with the plain versions in the
+   kernels' place; a `.py` file through the Python frontend and the
+   server; a `serve/extract` crash (the request fails with
+   ExtractorError, the pool restarts, the next request answers);
+16. the trainer observed and faulted, on (c)'s configuration and [14]'s
+   data: `cli.main` with `--telemetry_dir --trace --watchdog_stall_s
+   --profile --profile_steps 2` for 2 epochs with `--save` and `--test`
+   (counted: kernel 1 once a step and once an evaluation batch; a step
+   event a step, nonzero device-memory gauges, the eval events, the
+   summary's percentiles, `train/step` spans linked to `infeed/produce`,
+   no stall, a Chrome trace naming kernel 1); `ckpt/write` EIO retried
+   and committed, with `train/nan_loss` at step 3 recorded; `ckpt/write`
+   ENOSPC with the torn marker (the run gives up, `state.tmp/` stays, a
+   load falls back); `train/kill` at step 6 in a subprocess, then
+   `--auto_resume` within [14]'s resume bounds of the uninterrupted run;
+   the telemetry's cost on the loop's steps/s for (c) and (a), on and
+   off in alternating pairs;
+17. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -2381,7 +2407,8 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
           resume["control"]["loss_rel"] > RESUME_LOSS_RTOL,
           f"(control) a resume in the wrong epoch order is within a bound: "
           f"{resume['control']}")
-    for d in (aside, ck_wrong, ck_floor):
+    # the uninterrupted run's last step (`aside`) stays for [16]
+    for d in (ck_wrong, ck_floor):
         shutil.rmtree(d)
 
     # ---- 5. a flipped byte: quarantine, and the step before ----
@@ -2434,7 +2461,6 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
     del rec
     for p in (w2v, t2v, test_path + ".vectors"):
         os.remove(p)
-    shutil.rmtree(rel)
 
     # ---- 7. one-epoch round trips: --sparse_embeddings, --tables_dtype int8
     trips = {}
@@ -2575,7 +2601,499 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
                 "device_busy_share": busy, "pool_launches_profiled": pool_prof,
                 "saves": saves})
     report["cli"] = out
-    return {"train": launches, **{k: v["launches"] for k, v in trips.items()}}
+    # the released model for [15]; the uninterrupted run's final state
+    # and losses for [16]
+    kept = {"released": rel, "uninterrupted": aside,
+            "losses": first_losses, "steps": steps, "base": base}
+    return {"train": launches,
+            **{k: v["launches"] for k, v in trips.items()}}, kept
+
+
+# ---- [15] the REPL, [16] the trainer observed and faulted ----
+
+# [15]: Enters fed to the REPL before `q`; kernel 1's bound on a
+# probability, the end-to-end tolerance of the kernel path against the
+# plain path where two top-1 names differ
+REPL_ENTERS, REPL_PROB_TOL = 3, 1e-4
+# [16]: the loop timed with the telemetry, the trace and the watchdog on
+# against all off, runs of TELE_LOOP_EPOCHS epochs timed past the first, in
+# TELE_LOOP_PAIRS alternating pairs (ten: a 5 % difference is within one
+# call's spread of (a)'s host-bound loop); the watchdog's deadline
+TELE_LOOP_EPOCHS, TELE_LOOP_PAIRS, WATCHDOG_S = 6, 10, 120
+
+
+def repl_blocks(lines):
+    """The REPL's printed methods: [(name, [(probability, predicted)],
+    attention lines, latency line)] in order."""
+    out, cur = [], None
+    for ln in lines:
+        if ln.startswith("Original name:"):
+            cur = [ln.split("\t", 1)[1], [], 0, None]
+            out.append(cur)
+        elif cur is not None and ln.startswith("\t("):
+            prob, name = ln[2:].split(") predicted: ", 1)
+            cur[1].append((float(prob), name))
+        elif cur is not None and "\tcontext: " in ln:
+            cur[2] += 1
+        elif ln.startswith("latency: "):
+            for blk in out:
+                if blk[3] is None:
+                    blk[3] = ln
+    return out
+
+
+def request_ms(latency_line: str) -> float:
+    """The request time of a REPL latency line."""
+    return float(latency_line.split("latency: request ", 1)[1].split(" ", 1)[0])
+
+
+def phase_repl(torch, np, tmp, kept, report):
+    """[15]: the native extractor built and checked against the golden
+    files, `--predict` as a subprocess, the REPL in this process with
+    kernel 1 counted and its names held against the plain path, the
+    Python frontend, and an extractor crash survived."""
+    import shutil
+    import unittest.mock
+
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.extractor import native
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.resilience import faults
+    from code2vec_tpu_torch.serving import interactive_predict
+    from code2vec_tpu_torch.serving.extractor import Extractor, ExtractorError
+    from code2vec_tpu_torch.serving.server import PredictionServer
+    from code2vec_tpu_torch.training.steps import predict_step
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    # ---- the extractor: both targets built together, then the golden files
+    def timed(build):
+        t0 = time.perf_counter()
+        return build(), time.perf_counter() - t0
+
+    t = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as ex:
+        (binary, bin_s), (_lib, lib_s) = [
+            f.result() for f in (ex.submit(timed, native.binary_path),
+                                 ex.submit(timed, native.library_path))]
+    out["extractor_build_s"] = time.perf_counter() - t
+    golden = os.path.join(repo, "tests", "golden")
+    for name in ("Example.java", "Hard.java"):
+        r = subprocess.run([binary, "--file", os.path.join(golden, name)],
+                           capture_output=True, text=True, timeout=120)
+        with open(os.path.join(golden, name + ".expected")) as f:
+            want = f.read()
+        check(r.returncode == 0 and r.stdout == want,
+              f"(extractor) c2v_extract --file {name} differs from "
+              f"{name}.expected (exit {r.returncode}): {r.stderr[-500:]}")
+    print(f"  extractor built from the port's sources in "
+          f"{out['extractor_build_s']:.1f} s (c2v_extract {bin_s:.1f} s, "
+          f"libc2v.so {lib_s:.1f} s, together); "
+          f"c2v_extract --file on Example.java and Hard.java equals their "
+          f".expected", flush=True)
+
+    # ---- --predict as a subprocess: three Enters, then q ----
+    work = os.path.join(tmp, "repl")
+    os.makedirs(work)
+    shutil.copy(os.path.join(repo, "Input.java"), work)
+    rel = kept["released"]
+    t = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "code2vec_tpu_torch", "--load", rel,
+         "--predict"], cwd=work, input="\n" * REPL_ENTERS + "q\n",
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=repo))
+    out["subprocess_s"] = time.perf_counter() - t
+    check(r.returncode == 0, f"(repl) --predict exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    _names, java_lines = Extractor(Config()).extract_paths(
+        os.path.join(work, "Input.java"))
+    n_methods = len(java_lines)
+    blocks = repl_blocks(r.stdout.splitlines())
+    check(len(blocks) == REPL_ENTERS * n_methods,
+          f"(repl) {len(blocks)} methods printed for {REPL_ENTERS} requests "
+          f"of {n_methods}")
+    for name, preds, n_attn, latency in blocks:
+        check(len(preds) in (TOP_K - 1, TOP_K) and all(
+            0 <= p <= 1 and np.isfinite(p) for p, _n in preds),
+            f"(repl) {name}: predictions {preds}")
+        check(1 <= n_attn <= interactive_predict.SHOW_TOP_CONTEXTS,
+              f"(repl) {name}: {n_attn} attention lines")
+        check(latency is not None, f"(repl) {name}: no latency line")
+    check(r.stdout.rstrip().endswith("Exiting..."), "(repl) no exit line")
+    req_ms = [request_ms(blocks[i * n_methods][3])
+              for i in range(REPL_ENTERS)]
+    out.update({"requests_ms": req_ms, "first_ms": req_ms[0],
+                "cached_p50_ms": float(np.median(req_ms[1:]))})
+    print(f"  python3 -m code2vec_tpu_torch --load <[14]'s released model> "
+          f"--predict: exit 0 in {out['subprocess_s']:.1f} s, {n_methods} "
+          f"methods a request, request ms {', '.join(f'{x:.1f}' for x in req_ms)}"
+          f"; the first (extract + device) {req_ms[0]:.1f} ms, the cached "
+          f"p50 {out['cached_p50_ms']:.2f} ms", flush=True)
+
+    # ---- the REPL in this process: kernel 1 counted, names vs plain ----
+    cfg = Config.load_from_args(["--load", rel])
+    trainer = Code2VecTrainer.from_config(cfg)
+    model = trainer.predictor()
+    keys = iter([""] * REPL_ENTERS + ["q"])
+    repl = interactive_predict.InteractivePredictor(cfg, model)
+    printed = []
+
+    def run_repl():
+        with unittest.mock.patch("builtins.input", lambda *a: next(keys)), \
+                unittest.mock.patch("builtins.print",
+                                    lambda *a, **k: printed.append(
+                                        " ".join(map(str, a)))):
+            repl.predict(os.path.join(work, "Input.java"))
+
+    from torch.profiler import ProfilerActivity, profile
+    attention_pool_fused.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_repl()
+        torch.cuda.synchronize()
+    launches = {"attention_pool": attention_pool_fused.launches}
+    batches = repl.server.batches
+    check(batches >= 1 and launches["attention_pool"] == batches,
+          f"(repl) kernel 1 launched {launches['attention_pool']} times for "
+          f"{batches} device batches")
+    cuda_events = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    # printed, not checked (the wrapper's counter is the count): the
+    # batcher thread's launches may not reach the trace
+    named = {k: sum(k in n for n in cuda_events)
+             for k in POOL_KERNELS["bfloat16"]} if cuda_events else None
+    got = repl_blocks(printed)[:n_methods]
+
+    def plain_step(batch):
+        with torch.inference_mode():
+            return predict_step(plain.params, batch, dims=plain.dims,
+                                top_k=plain.top_k,
+                                compute_dtype=plain.compute_dtype,
+                                use_kernel=False)
+    plain = trainer.predictor()
+    plain._run_step = plain_step
+    with PredictionServer(cfg, plain) as server:
+        want = server.predict_lines(java_lines, deadline_ms=0)
+    n_equal = 0
+    for (name, preds, _a, _l), w in zip(got, want):
+        check(name == w.original_name, f"(repl) {name} vs {w.original_name}")
+        w_top = (w.predictions[0]["probability"],
+                 str(w.predictions[0]["name"]))
+        if preds[0][1] == w_top[1]:
+            n_equal += 1
+        else:
+            check(abs(preds[0][0] - w_top[0]) <= REPL_PROB_TOL,
+                  f"(repl) {name}: top-1 {preds[0]} vs the plain path's "
+                  f"{w_top}, beyond {REPL_PROB_TOL}")
+    print(f"  the REPL in this process under torch.profiler: kernel 1 "
+          f"launched {launches['attention_pool']} times for {batches} device "
+          f"batch(es) (by name in the trace of {len(cuda_events)} CUDA "
+          f"events: {'not measured' if named is None else named}); top-1 "
+          f"names equal to "
+          f"the plain path's on {n_equal} of {n_methods} methods (the others "
+          f"within {REPL_PROB_TOL})", flush=True)
+
+    # ---- the Python frontend, and an extractor crash survived ----
+    py = os.path.join(work, "demo.py")
+    with open(py, "w") as f:
+        f.write("def read_all_lines(path):\n    with open(path) as f:\n"
+                "        return [ln.strip() for ln in f]\n")
+    with PredictionServer(cfg, model) as server:
+        res = server.predict_file(py, deadline_ms=0, language="python")
+    check(len(res) == 1 and res[0].original_name == "read|all|lines" and
+          len(res[0].predictions) >= TOP_K - 1,
+          f"(python) {[(x.original_name, len(x.predictions)) for x in res]}")
+    faults.install({"sites": {"serve/extract": {"action": "raise"}}},
+                   log=lambda _m: None)
+    try:
+        with PredictionServer(cfg, model) as server:
+            try:
+                server.predict_file(os.path.join(work, "Input.java"),
+                                    deadline_ms=0)
+                check(False, "(crash) the injected extractor crash passed")
+            except ExtractorError as e:
+                crash = str(e)
+            pool = server.extractor_pool()
+            pool.restart_thread.join(timeout=60)
+            check(not pool.restarting, "(crash) the pool did not restart")
+            after = server.predict_file(os.path.join(work, "Input.java"),
+                                        deadline_ms=0)
+            check(len(after) == n_methods, "(crash) no results after restart")
+    finally:
+        faults.clear()
+    print(f"  Extractor(language=\"python\") through the server: "
+          f"{res[0].original_name} -> {res[0].predictions[0]['name']}; "
+          f"serve/extract raise: the request failed with ExtractorError "
+          f"({crash!r}), the pool restarted, the next request answered "
+          f"{len(after)} methods", flush=True)
+    del trainer, model, plain
+    torch.cuda.empty_cache()
+    out.update({"methods": n_methods, "launches": launches,
+                "device_batches": batches, "launches_by_name": named,
+                "top1_equal": n_equal})
+    report["repl"] = out
+    return launches
+
+
+def run_events(tele_dir: str):
+    """The events of each run under a telemetry dir, oldest first."""
+    runs = []
+    for name in sorted(os.listdir(tele_dir)):
+        with open(os.path.join(tele_dir, name, "events.jsonl")) as f:
+            runs.append([json.loads(ln) for ln in f])
+    return runs
+
+
+def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
+                   report):
+    """[16]: the command line with the telemetry, the trace, the
+    watchdog and the profiler window on (c)'s configuration and [14]'s
+    data; the `ckpt/write`, `train/nan_loss` and `train/kill` failpoints;
+    then the telemetry's cost on the loop of (c) and (a)."""
+    import errno
+    import shutil
+    import signal
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.resilience import retry
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    steps, base = kept["steps"], [str(a) for a in kept["base"]]
+    n_test = count_lines(test_path)
+    out = {}
+
+    def cli_run(label, *argv):
+        t = time.perf_counter()
+        rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+        check(rc == 0, f"({label}) cli.main exited {rc}")
+        return time.perf_counter() - t
+
+    # ---- 1. telemetry, trace, watchdog and profiler (the main path) ----
+    tele, prof_dir = os.path.join(tmp, "tele"), os.path.join(tmp, "prof")
+    real_load = Config.load_from_args.__func__
+
+    def load_logging_every_epoch(cls, args=None):
+        # the memory gauges ride the progress log's cadence: once an epoch
+        cfg = real_load(cls, args)
+        cfg.NUM_BATCHES_TO_LOG_PROGRESS = steps
+        return cfg
+    Config.load_from_args = classmethod(load_logging_every_epoch)
+    try:
+        attention_pool_fused.launches = 0
+        run_s = cli_run("observed", *base, "--save", os.path.join(tmp, "ck16"),
+                        "--telemetry_dir", tele, "--trace",
+                        "--watchdog_stall_s", WATCHDOG_S, "--profile",
+                        prof_dir, "--profile_steps", 2)
+        launches = {"attention_pool": attention_pool_fused.launches}
+    finally:
+        Config.load_from_args = classmethod(real_load)
+    want_pool = CLI_EPOCHS * (steps + -(-n_test // TRAIN_B))
+    check(launches["attention_pool"] == want_pool,
+          f"(observed) kernel 1 launched {launches} times, expected {want_pool}")
+    (events,) = run_events(tele)
+    step_ev = [e for e in events if e["kind"] == "step"]
+    check([e["step"] for e in step_ev] == list(range(1, CLI_EPOCHS * steps + 1))
+          and all(np.isfinite(e["loss"]) and e["step_ms"] > 0
+                  and e["infeed_wait_ms"] >= 0 for e in step_ev),
+          f"(observed) step events {step_ev}")
+    mem = {e["name"]: e["value"] for e in events if e["kind"] == "gauge"
+           and e["name"].startswith("device/")}
+    check(set(mem) == {"device/bytes_in_use", "device/peak_bytes_in_use"}
+          and all(v > 0 for v in mem.values()), f"(observed) gauges {mem}")
+    evals = [e for e in events if e["kind"] == "eval"]
+    check([e["epoch"] for e in evals] == list(range(1, CLI_EPOCHS + 1)),
+          f"(observed) eval events {evals}")
+    summary = events[-1]
+    check(summary["kind"] == "summary" and all(
+        summary["timers"]["train/step_ms"][f"p{p}_ms"] > 0
+        for p in (50, 95, 99)), f"(observed) summary {summary}")
+    spans = [e for e in events if e["kind"] == "span"]
+    produce = {e["span"] for e in spans if e["name"] == "infeed/produce"}
+    linked = [e for e in spans if e["name"] == "train/step"
+              and any(s in produce for _t, s in e.get("links", []))]
+    check(len(linked) == CLI_EPOCHS * steps,
+          f"(observed) {len(linked)} train/step spans linked to "
+          f"infeed/produce")
+    stalls = [e for e in events if e["kind"] == "stall"]
+    dumps = [n for n in os.listdir(os.path.join(tele, os.listdir(tele)[0]))
+             if n.startswith("stall_dump")]
+    check(not stalls and not dumps, f"(observed) the watchdog fired: {stalls}")
+    traces = os.listdir(prof_dir)
+    check(len(traces) == 1, f"(observed) profile dir {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        chrome = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in chrome if e.get("cat") == "kernel"]
+    named = {k: sum(k in n for n in kernels) for k in POOL_KERNELS["bfloat16"]}
+    # a CUPTI trace now and then comes back without device activity (see
+    # profile_calls): then kernel 1's names are not measured; a trace with
+    # kernels must name kernel 1's
+    check(not kernels or all(named.values()),
+          f"(observed) the chrome trace's {len(kernels)} kernels do not name "
+          f"kernel 1's launches: {named}")
+    if not kernels:
+        named = None
+    print(f"  (observed) cli.main {CLI_EPOCHS} epochs x {steps} steps with "
+          f"--telemetry_dir --trace --watchdog_stall_s {WATCHDOG_S} --profile "
+          f"--profile_steps 2 in {run_s:.1f} s: {len(step_ev)} step events, "
+          f"gauges {mem}, {len(evals)} eval events, step_ms p50/p95/p99 "
+          + "/".join(f"{summary['timers']['train/step_ms'][f'p{p}_ms']:.2f}"
+                     for p in (50, 95, 99))
+          + f"; {len(linked)} train/step spans linked to infeed/produce; no "
+          f"stall; the chrome trace ({os.path.getsize(os.path.join(prof_dir, traces[0])) / 1e6:.1f}"
+          f" MB) names kernel 1 ({named}); launches {launches}", flush=True)
+    shutil.rmtree(tele)
+    shutil.rmtree(os.path.join(tmp, "ck16"))
+
+    # ---- 2. ckpt/write EIO (retried) with train/nan_loss at step 3 ----
+    d, tele2 = os.path.join(tmp, "ck_eio"), os.path.join(tmp, "tele_eio")
+    retries0 = retry.stats().get("checkpoint-io", {}).get("retries", 0)
+    cli_run("eio", "--data", data_prefix, "--batch_size", TRAIN_B,
+            "--max_contexts", C, "--epochs", 1, "--save", d,
+            "--telemetry_dir", tele2, "--faults", json.dumps({"sites": {
+                "ckpt/write": {"action": "io_error", "errno": "EIO",
+                               "times": 1},
+                "train/nan_loss": {"at": 3}}}))
+    retried = retry.stats()["checkpoint-io"]["retries"] - retries0
+    (events,) = run_events(tele2)
+    nan_steps = [e["step"] for e in events if e["kind"] == "step"
+                 and not np.isfinite(e["loss"])]
+    retry_ev = [e for e in events if e["kind"] == "retry"]
+    check(retried == 1 and len(retry_ev) == 1
+          and retry_ev[0]["policy"] == "checkpoint-io",
+          f"(eio) retries {retried}, events {retry_ev}")
+    check(ckpt.latest_step(d) == steps and ckpt.verify_step(d, steps) is True,
+          f"(eio) latest step {ckpt.latest_step(d)}")
+    # the alert that acts on a non-finite loss comes with the live metrics
+    # plane (health monitors, alert rules), not ported yet
+    check(nan_steps == [3], f"(nan) non-finite losses at steps {nan_steps}")
+    print(f"  (eio) ckpt/write EIO once: retried {retried} time "
+          f"({retry_ev[0]['error'][:60]}), step {steps} committed and its "
+          f"checksums verify; (nan) train/nan_loss at 3: the step events' "
+          f"non-finite losses at steps {nan_steps}", flush=True)
+    shutil.rmtree(d)
+    shutil.rmtree(tele2)
+
+    # ---- 3. ckpt/write ENOSPC with the torn marker: the run gives up ----
+    d = os.path.join(tmp, "ck_enospc")
+    try:
+        cli.main([str(a) for a in (
+            "--data", data_prefix, "--batch_size", TRAIN_B, "--max_contexts",
+            C, "--epochs", CLI_EPOCHS, "--save", d, "--faults", json.dumps(
+                {"sites": {"ckpt/write": {"action": "io_error",
+                                          "errno": "ENOSPC",
+                                          "partial": True, "at": 2}}}))])
+        check(False, "(enospc) the run did not fail")
+    except OSError as e:
+        check(e.errno == errno.ENOSPC, f"(enospc) {e!r}")
+        gave_up = repr(e)
+    last = CLI_EPOCHS * steps
+    torn = os.path.join(d, f"step_{last}", "state.tmp")
+    check(os.path.isdir(torn) and not os.path.exists(
+        os.path.join(d, f"step_{last}", "state")),
+        f"(enospc) step_{last}: {os.listdir(os.path.join(d, f'step_{last}'))}")
+    fallback = ckpt.load_checkpoint(d)["step"]
+    check(ckpt.latest_step(d) == fallback == last - steps,
+          f"(enospc) loaded step {fallback}")
+    print(f"  (enospc) ckpt/write ENOSPC at the second save: the run failed "
+          f"with {gave_up}, step_{last}/state.tmp/ left behind, a load fell "
+          f"back to step {fallback}", flush=True)
+    shutil.rmtree(d)
+    torch.cuda.empty_cache()
+
+    # ---- 4. train/kill at step 6, then --auto_resume ----
+    d, tele3 = os.path.join(tmp, "ck_kill"), os.path.join(tmp, "tele_kill")
+    kill_at = steps + 2
+    cmd = [sys.executable, "-m", "code2vec_tpu_torch", *base, "--save", d,
+           # synchronous saves: the epoch-1 step is committed before the kill
+           "--async_checkpoint", "off", "--telemetry_dir", tele3]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    t = time.perf_counter()
+    r = subprocess.run(cmd + ["--faults", json.dumps({"sites": {
+        "train/kill": {"action": "kill", "at": kill_at}}})],
+        capture_output=True, text=True, timeout=600, env=env)
+    kill_s = time.perf_counter() - t
+    check(r.returncode == -signal.SIGKILL and ckpt.latest_step(d) == steps,
+          f"(kill) exit {r.returncode}, latest step {ckpt.latest_step(d)}: "
+          f"{r.stderr[-2000:]}")
+    t = time.perf_counter()
+    r = subprocess.run(cmd + ["--auto_resume"], capture_output=True,
+                       text=True, timeout=600, env=env)
+    resume_s = time.perf_counter() - t
+    check(r.returncode == 0, f"(kill) --auto_resume exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    killed, resumed = run_events(tele3)
+    killed_steps = [e["step"] for e in killed if e["kind"] == "step"]
+    resumed_losses = [e["loss"] for e in resumed if e["kind"] == "step"]
+    # the kill lands after step `kill_at` and before its step event
+    check(killed_steps == list(range(1, kill_at))
+          and [e["step"] for e in resumed if e["kind"] == "step"]
+          == list(range(steps + 1, CLI_EPOCHS * steps + 1)),
+          f"(kill) steps {killed_steps} then {resumed}")
+    a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
+    diff = {**state_diff(torch, a, b),
+            "loss_rel": loss_rel(resumed_losses, kept["losses"][-steps:])}
+    del a, b
+    check(diff["l2"] <= RESUME_RTOL and diff["loss_rel"] <= RESUME_LOSS_RTOL,
+          f"(kill) outside the resume bounds: {diff}")
+    print(f"  (kill) train/kill at step {kill_at}: SIGKILL after "
+          f"{kill_s:.1f} s (latest step {steps}); --auto_resume in "
+          f"{resume_s:.1f} s trained steps {steps + 1}..{CLI_EPOCHS * steps}; "
+          f"final state vs the uninterrupted run's: the worst |a - b|_2 / "
+          f"|b|_2 {diff['l2']:.3g} ({diff['l2_at']}), losses within "
+          f"{diff['loss_rel']:.2e} (bounds {RESUME_RTOL}, {RESUME_LOSS_RTOL})",
+          flush=True)
+    shutil.rmtree(d)
+    shutil.rmtree(tele3)
+    shutil.rmtree(kept["uninterrupted"])
+
+    # ---- 5. the telemetry's cost on the loop: all on vs all off ----
+    cfg_c = Config(MAX_CONTEXTS=C, TRAIN_BATCH_SIZE=TRAIN_B, SEED=SEED,
+                   NUM_TRAIN_EPOCHS=1)
+    _, cfg_a = train_config("a", "bfloat16", True)
+    path = data_prefix + ".train.c2v"
+    tele4 = os.path.join(tmp, "tele_cost")
+    cost = {}
+    for label, cfg in (("c", cfg_c), ("a", cfg_a)):
+        trainer = Code2VecTrainer(cfg, vocabs)
+        trainer.train(path, epochs=1)  # warm: allocator, libraries
+        runs = {"on": [], "off": []}
+        for pair in range(TELE_LOOP_PAIRS):  # on off, off on, ...
+            for mode in (("on", "off") if pair % 2 == 0 else ("off", "on")):
+                on = mode == "on"
+                cfg.TELEMETRY_DIR = tele4 if on else None
+                cfg.TRACE = on
+                cfg.WATCHDOG_STALL_S = WATCHDOG_S if on else 0.0
+                runs[mode].append(loop_window(torch, trainer, path,
+                                              TELE_LOOP_EPOCHS, steps))
+        cfg.TELEMETRY_DIR, cfg.TRACE, cfg.WATCHDOG_STALL_S = None, False, 0.0
+        cost[label] = runs
+        med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+        print(f"  (cost) ({label}) steps/s over epochs 2..{TELE_LOOP_EPOCHS} "
+              f"({(TELE_LOOP_EPOCHS - 1) * steps} steps), {TELE_LOOP_PAIRS} "
+              f"alternating pairs: telemetry + trace + watchdog on "
+              + ", ".join(f"{x:.2f}" for x in runs["on"]) + "; all off "
+              + ", ".join(f"{x:.2f}" for x in runs["off"])
+              + f"; medians {med['on']:.2f} vs {med['off']:.2f} "
+              f"({(1 - med['on'] / med['off']) * 100:+.1f} % slower on)",
+              flush=True)
+        trainer.close_session()
+        del trainer
+        torch.cuda.empty_cache()
+        shutil.rmtree(tele4, ignore_errors=True)
+    out.update({"observed_s": run_s, "launches": launches,
+                "memory_gauges": mem, "profile_named": named,
+                "eio_retries": retried, "nan_steps": nan_steps,
+                "enospc": gave_up, "kill_s": kill_s, "resume_s": resume_s,
+                "resume": diff, "telemetry_cost_steps_per_s": cost})
+    report["observed"] = out
+    return launches
 
 
 def main(argv=None) -> int:
@@ -2605,14 +3123,25 @@ def main(argv=None) -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
     report = {"card": card, "kind": kind, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "peaks_of": peak_name}
+              "cuda": torch.version.cuda, "peaks_of": peak_name,
+              "phase_s": {}}
+    t_lap = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """Print and record the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        report["phase_s"][phase] = now - t_lap[0]
+        print(f"  phase {phase}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
 
     # ---- 2. build ----
     phase_build(report)
+    lap("[2]")
 
     # ---- 3. the attention-pool kernel vs its plain version ----
     print("[3] attention-pool kernel vs plain version (TF32 off)", flush=True)
     pool_rows = phase_kernels(torch, peaks, report)
+    lap("[3]")
 
     # ---- 4. the serving path ----
     print("[4] java-large serving path", flush=True)
@@ -2621,6 +3150,7 @@ def main(argv=None) -> int:
     print(f"  synthetic vocab built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     serve_launches = phase_serving(torch, np, vocabs, report)
+    lap("[4]")
 
     # ---- 5. the sparse-row training path ----
     print("[5] java-large sparse-row training path", flush=True)
@@ -2647,13 +3177,16 @@ def main(argv=None) -> int:
 
         # ---- 6. the live-row Adam kernels vs their plain versions ----
         print("[6] live-row Adam kernels vs plain versions", flush=True)
+        lap("[5]")
         row_rows = phase_row_kernels(
             torch, peaks, {"bfloat16": java_u["a"], "float32": java_u["a"],
                            "int8": java_u["b"]}, report)
 
         # ---- 7. the dense requantize kernel vs its plain version ----
         print("[7] dense int8 requantize kernel vs plain version", flush=True)
+        lap("[6]")
         requant_rows = phase_requant_kernel(torch, peaks, report)
+        lap("[7]")
 
         # ---- 8. the dense training path ----
         print("[8] java-large dense training path (the default step)",
@@ -2666,20 +3199,25 @@ def main(argv=None) -> int:
 
         # ---- 9. evaluation ----
         print("[9] java-large evaluation", flush=True)
+        lap("[8]")
         eval_launches = phase_eval(torch, np, vocabs, test_path, report)
+        lap("[9]")
 
         # ---- 10. kernels 2 and 3 vs their plain versions ----
         print("[10] fused-MHA kernels (2, 3) vs plain versions (TF32 off)",
               flush=True)
         xf_rows = phase_xf_kernels(torch, peaks, report)
+        lap("[10]")
 
         # ---- 11.-13. the transformer path-encoder ----
         print("[11] java-large transformer serving path", flush=True)
         xf_launches = {"serving": phase_xf_serving(torch, np, vocabs, report)}
+        lap("[11]")
         print("[12] java-large transformer dense training path (e)",
               flush=True)
         xf_launches["train_e"] = phase_xf_train(torch, np, vocabs, data_path,
                                                 report)
+        lap("[12]")
         print("[13] java-large transformer evaluation", flush=True)
         xf_launches["eval"] = phase_xf_eval(torch, np, vocabs, test_path,
                                             report)
@@ -2687,10 +3225,28 @@ def main(argv=None) -> int:
         # ---- 14. the command line ----
         print("[14] the command line (cli.main) at java-large width",
               flush=True)
-        cli_launches = phase_cli(torch, np, vocabs, tmp, data_prefix,
-                                 test_path, report)
+        lap("[13]")
+        cli_launches, kept = phase_cli(torch, np, vocabs, tmp, data_prefix,
+                                       test_path, report)
+        lap("[14]")
 
-    # ---- 15. result ----
+        # ---- 15. the REPL ----
+        print("[15] the --predict REPL on the card, through the extractor "
+              "pool", flush=True)
+        # `kept` holds [14]'s paths, step count and losses, no clock value
+        repl_launches = phase_repl(  # graftlint: disable=nondeterminism
+            torch, np, tmp, kept, report)
+        lap("[15]")
+
+        # ---- 16. the trainer observed and faulted ----
+        print("[16] the trainer observed (telemetry, trace, watchdog, "
+              "profiler) and faulted (ckpt/write, train/kill, "
+              "train/nan_loss)", flush=True)
+        observed_launches = phase_observed(  # graftlint: disable=nondeterminism
+            torch, np, vocabs, tmp, data_prefix, test_path, kept, report)
+        lap("[16]")
+
+    # ---- 17. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -2698,7 +3254,9 @@ def main(argv=None) -> int:
     pool_launches = serve_launches["attention_pool"] + sum(
         v["attention_pool"] for v in train_launches.values()) \
         + eval_launches["attention_pool"] + sum(
-            v["attention_pool"] for v in cli_launches.values())
+            v["attention_pool"] for v in cli_launches.values()) \
+        + repl_launches["attention_pool"] \
+        + observed_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -2769,7 +3327,8 @@ def main(argv=None) -> int:
                           **{f"train_{k}": v
                              for k, v in train_launches.items()},
                           **{f"xf_{k}": v for k, v in xf_launches.items()},
-                          **{f"cli_{k}": v for k, v in cli_launches.items()}}
+                          **{f"cli_{k}": v for k, v in cli_launches.items()},
+                          "repl": repl_launches, "observed": observed_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -26,7 +26,19 @@ kernels of csrc/xf_attention.cu, ops/xf_attention.py):
   JAX package's flags: preprocess and binarize (data/), binary shards
   through a prefetching infeed (data/prefetch.py), checkpoints in the
   JAX package's step-dir protocol with an async writer, auto-resume and
-  release (training/checkpoint.py), and the w2v / code-vector exports.
+  release (training/checkpoint.py), and the w2v / code-vector exports;
+- `--predict`: the REPL over Input.java (serving/interactive_predict.py)
+  through the extractor pool (serving/extractor.py) and the prediction
+  server; the native Java extractor is the port's own copy of the C++
+  sources (extractor/), built at first use with the host compiler
+  (ops/_build.build_host), beside the Python AST frontend;
+- the run's record and its recovery seams: the telemetry registry and
+  its JSONL event log, request and step traces, the stall watchdog and
+  the train-loop recorder (obs/), the `torch.profiler` window
+  (training/profiler.py), TensorBoard scalars (training/scalars.py) and
+  the seeded failpoints (resilience/faults.py) at the checkpoint write,
+  the infeed, the step and the extractor, wired into the trainer and
+  the server.
 
 The sparse-row step and int8 tables take the bag encoder only, as in the
 JAX package. Nested params (the transformer's "xf" subtree) meet the
@@ -37,4 +49,4 @@ package: it keeps its own copies of the host-side modules it needs.
 Entry points run on the CUDA card unless the caller asks for the CPU.
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

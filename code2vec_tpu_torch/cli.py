@@ -4,10 +4,14 @@ A copy of `main` of the JAX package's `code2vec.py`, in its dispatch
 order, for the ported flags (config.Config.arguments_parser):
 
   python3 -m code2vec_tpu_torch --data <prefix> --test <file> \\
-      --save/--load <ckpt> [--auto_resume] [--release] \\
+      --save/--load <ckpt> [--auto_resume] [--predict] [--release] \\
       [--export_code_vectors] [--save_w2v <p>] [--save_t2v <p>] \\
+      [--telemetry_dir <d> [--trace] [--watchdog_stall_s <s>]] \\
+      [--profile <d>] [--tensorboard <d>] [--faults <json>] \\
       [--backend gpu|cpu] [--framework ...]
 
+0. `--faults`: the failpoint registry is armed before anything is built
+   (a bad spec exits 2);
 1. `--auto_resume` with `--save` and `--data`: a checkpoint already in
    `--save` is loaded (before `--load`, a fine-tune's starting point)
    and its run continued;
@@ -19,7 +23,10 @@ order, for the ported flags (config.Config.arguments_parser):
    epochs; with `--test`, an evaluation after each);
 5. `--save_w2v` / `--save_t2v`: the token / target tables in word2vec
    text format;
-6. `--test` without `--data`: evaluate and print the results; with
+6. `--predict`: the REPL over Input.java in the working directory
+   (serving/interactive_predict.py), through the extractor pool and the
+   prediction server;
+7. else `--test` without `--data`: evaluate and print the results; with
    `--export_code_vectors`, also `<test>.vectors`.
 
 `--backend gpu` (the default) runs on the CUDA card and exits 2 where
@@ -50,6 +57,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         config = Config.load_from_args(argv)
     except ValueError as e:
         return _error(str(e))
+    if not config.FAULTS:
+        return _run(config)
+    # armed before anything is built (the sites fetch their handles at
+    # setup time), and disarmed when this run ends: main may be called
+    # again in the same process
+    from code2vec_tpu_torch.resilience import faults
+    try:
+        faults.install(config.FAULTS, log=config.log)
+    except ValueError as e:
+        return _error(f"--faults: {e}")
+    try:
+        return _run(config)
+    finally:
+        faults.clear()
+
+
+def _run(config: Config) -> int:
     if config.BACKEND == "gpu" and not torch.cuda.is_available():
         return _error("--backend gpu (the default) needs a CUDA card and "
                       "none is available; pass --backend cpu to run on the "
@@ -103,7 +127,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if config.save_t2v:
         model.save_word2vec_format(config.save_t2v, VocabType.Target)
         config.log(f"target embeddings (w2v format) -> {config.save_t2v}")
-    if config.is_testing and not config.is_training:
+    if config.is_predict:
+        from code2vec_tpu_torch.serving.interactive_predict import (
+            InteractivePredictor)
+        InteractivePredictor(config, model.predictor()).predict()
+    elif config.is_testing and not config.is_training:
         results = model.evaluate()
         print(str(results))
         if config.export_code_vectors:

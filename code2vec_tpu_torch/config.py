@@ -5,9 +5,10 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--predict` and the serving flags, `--attack`, `--head
-varmisuse`, `--infeed_chunk 2`, the mesh, telemetry and fault flags,
-...) is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
+have yet (the live metrics plane's `--metrics_port`, `--alerts_*` and
+`--phase_*`, the replica, port, reload and autoscale serving flags,
+`--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh flags, ...)
+is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
 `cpu`; `--framework` accepts the JAX package's values as aliases of this
 implementation.
 
@@ -55,6 +56,8 @@ class Config:
     SERVE_DEADLINE_MS: float = 2000.0
     # LRU prediction-cache entries (0 disables)
     SERVE_CACHE_SIZE: int = 1024
+    # persistent extractor worker pool size (serving/extractor.py)
+    SERVE_EXTRACT_WORKERS: int = 2
     # attach each method's code vector to its prediction result
     export_code_vectors: bool = False
 
@@ -119,6 +122,33 @@ class Config:
     AUTO_RESUME: bool = False
     save_w2v: Optional[str] = None          # --save_w2v <path>
     save_t2v: Optional[str] = None          # --save_t2v <path>
+    is_predict: bool = False                # --predict: the REPL
+
+    # ---- the run's record and its recovery seams ----
+    # --profile <dir>: a torch.profiler window over PROFILE_STEPS
+    # training steps from PROFILE_START_STEP, its Chrome trace in <dir>
+    PROFILE_DIR: Optional[str] = None
+    PROFILE_STEPS: int = 10
+    PROFILE_START_STEP: int = 5  # past the first steps' kernel builds
+    # --tensorboard <dir>: train and eval scalars (a warn-once no-op
+    # where torch.utils.tensorboard cannot be imported)
+    TENSORBOARD_DIR: Optional[str] = None
+    # --telemetry_dir <dir>: a per-run manifest and JSONL event log (a
+    # step event a step, which waits for the card every step; device
+    # memory gauges; serving latency). Unset: one boolean check a step
+    TELEMETRY_DIR: Optional[str] = None
+    # --trace: span trees of serving requests and train steps in the
+    # event log (needs --telemetry_dir)
+    TRACE: bool = False
+    # --watchdog_stall_s: progress deadline of the train loop, infeed
+    # producer, checkpoint writer and serving batcher (0 = off; needs
+    # --telemetry_dir); --watchdog_mode: warn records, raise also makes
+    # the stall a StallError at the component's next beat
+    WATCHDOG_STALL_S: float = 0.0
+    WATCHDOG_MODE: str = "warn"
+    # --faults <file-or-inline-json>: the seeded failpoints
+    # (resilience/faults.py); unset, every site is one None check
+    FAULTS: Optional[str] = None
 
     @property
     def is_training(self) -> bool:
@@ -216,6 +246,36 @@ class Config:
             raise ValueError(
                 "SPARSE_EMBEDDING_UPDATES supports the bag encoder only "
                 "(the sparse step trains no transformer params).")
+        if self.SERVE_BATCH_MAX < 1 or (
+                self.SERVE_BATCH_MAX & (self.SERVE_BATCH_MAX - 1)):
+            # the flush cap is the largest warmed bucket
+            raise ValueError("--serve_batch_max must be a power of two "
+                             f"(got {self.SERVE_BATCH_MAX}).")
+        if self.SERVE_BATCH_TIMEOUT_MS < 0:
+            raise ValueError("--serve_batch_timeout_ms must be >= 0.")
+        if self.SERVE_QUEUE_DEPTH < 1:
+            raise ValueError("--serve_queue_depth must be >= 1.")
+        if self.SERVE_DEADLINE_MS < 0:
+            raise ValueError("--serve_deadline_ms must be >= 0.")
+        if self.SERVE_CACHE_SIZE < 0:
+            raise ValueError("--serve_cache_size must be >= 0.")
+        if self.SERVE_EXTRACT_WORKERS < 1:
+            raise ValueError("--serve_extract_workers must be >= 1.")
+        if self.TRACE and not self.TELEMETRY_DIR:
+            raise ValueError(
+                "--trace requires --telemetry_dir (spans are recorded "
+                "through the run's JSONL event log).")
+        if self.WATCHDOG_STALL_S < 0:
+            raise ValueError("--watchdog_stall_s must be >= 0.")
+        if self.WATCHDOG_STALL_S > 0 and not self.TELEMETRY_DIR:
+            raise ValueError(
+                "--watchdog_stall_s requires --telemetry_dir (stall "
+                "events and diagnostic dumps live in the run dir).")
+        if self.WATCHDOG_MODE not in ("warn", "raise"):
+            raise ValueError("--watchdog_mode must be warn or raise "
+                             f"(got {self.WATCHDOG_MODE!r}).")
+        if self.PROFILE_STEPS < 1:
+            raise ValueError("--profile_steps must be >= 1.")
         if self.INFEED_PREFETCH < 0:
             raise ValueError("--infeed_prefetch must be >= 0.")
         if self.SAVE_EVERY_EPOCHS < 1:
@@ -240,6 +300,8 @@ class Config:
         if not (self.is_training or self.is_loading):
             raise ValueError(
                 "Must train (--data) or load a trained model (--load).")
+        if self.is_predict and not self.is_loading:
+            raise ValueError("--predict requires --load.")
         if self.release and not self.is_loading:
             raise ValueError("--release requires --load.")
 
@@ -258,6 +320,7 @@ class Config:
                        help="path to a .c2v test file")
         p.add_argument("--save", dest="save_path", default=None)
         p.add_argument("--load", dest="load_path", default=None)
+        p.add_argument("--predict", action="store_true")
         p.add_argument("--release", action="store_true")
         p.add_argument("--auto_resume", action="store_true",
                        help="resume from --save's latest checkpoint "
@@ -316,6 +379,50 @@ class Config:
         p.add_argument("--embedding_optimizer", dest="embedding_optimizer",
                        default=None, choices=["adam", "adafactor"])
         p.add_argument("--seed", dest="seed", type=int, default=None)
+        p.add_argument("--profile", dest="profile_dir", default=None,
+                       help="write a torch.profiler Chrome trace of a few "
+                            "training steps to this directory")
+        p.add_argument("--profile_steps", dest="profile_steps", type=int,
+                       default=None)
+        p.add_argument("--tensorboard", dest="tensorboard_dir",
+                       default=None,
+                       help="write loss/throughput/eval scalars as "
+                            "TensorBoard summaries to this directory")
+        p.add_argument("--telemetry_dir", dest="telemetry_dir",
+                       default=None,
+                       help="run telemetry: per-run manifest + JSONL "
+                            "event log (per-step step_ms / infeed_wait_ms "
+                            "/ loss, device-memory gauges, serving "
+                            "latency)")
+        p.add_argument("--trace", dest="trace", action="store_true",
+                       help="span trees for serving requests and train "
+                            "steps in the telemetry event log (requires "
+                            "--telemetry_dir)")
+        p.add_argument("--watchdog_stall_s", dest="watchdog_stall_s",
+                       type=float, default=None,
+                       help="stall watchdog progress deadline in seconds "
+                            "(0 = off; requires --telemetry_dir)")
+        p.add_argument("--watchdog_mode", dest="watchdog_mode",
+                       default=None, choices=["warn", "raise"])
+        p.add_argument("--serve_batch_max", dest="serve_batch_max",
+                       type=int, default=None,
+                       help="max methods per coalesced serving batch "
+                            "(power of two)")
+        p.add_argument("--serve_batch_timeout_ms",
+                       dest="serve_batch_timeout_ms", type=float,
+                       default=None)
+        p.add_argument("--serve_queue_depth", dest="serve_queue_depth",
+                       type=int, default=None)
+        p.add_argument("--serve_deadline_ms", dest="serve_deadline_ms",
+                       type=float, default=None)
+        p.add_argument("--serve_cache_size", dest="serve_cache_size",
+                       type=int, default=None)
+        p.add_argument("--serve_extract_workers",
+                       dest="serve_extract_workers", type=int,
+                       default=None)
+        p.add_argument("--faults", dest="faults", default=None,
+                       help="fault injection: a JSON file (or inline JSON) "
+                            "arming named failpoints")
         return p
 
     @classmethod
@@ -344,6 +451,7 @@ class Config:
         cfg.save_path = ns.save_path
         cfg.load_path = ns.load_path
         cfg.release = ns.release
+        cfg.is_predict = ns.predict
         cfg.AUTO_RESUME = ns.auto_resume
         cfg.export_code_vectors = ns.export_code_vectors
         cfg.save_w2v = ns.save_w2v
@@ -361,7 +469,19 @@ class Config:
                 ("encoder", "ENCODER_TYPE"), ("xf_layers", "XF_LAYERS"),
                 ("xf_heads", "XF_HEADS"), ("tables_dtype", "TABLES_DTYPE"),
                 ("embedding_optimizer", "EMBEDDING_OPTIMIZER"),
-                ("seed", "SEED")):
+                ("seed", "SEED"), ("profile_dir", "PROFILE_DIR"),
+                ("profile_steps", "PROFILE_STEPS"),
+                ("tensorboard_dir", "TENSORBOARD_DIR"),
+                ("telemetry_dir", "TELEMETRY_DIR"),
+                ("watchdog_stall_s", "WATCHDOG_STALL_S"),
+                ("watchdog_mode", "WATCHDOG_MODE"),
+                ("serve_batch_max", "SERVE_BATCH_MAX"),
+                ("serve_batch_timeout_ms", "SERVE_BATCH_TIMEOUT_MS"),
+                ("serve_queue_depth", "SERVE_QUEUE_DEPTH"),
+                ("serve_deadline_ms", "SERVE_DEADLINE_MS"),
+                ("serve_cache_size", "SERVE_CACHE_SIZE"),
+                ("serve_extract_workers", "SERVE_EXTRACT_WORKERS"),
+                ("faults", "FAULTS")):
             value = getattr(ns, dest)
             if value is not None:
                 setattr(cfg, field, value)
@@ -369,7 +489,7 @@ class Config:
                 ("trust_ratio", "TRUST_RATIO", True),
                 ("sampled_softmax", "USE_SAMPLED_SOFTMAX", True),
                 ("xf_remat", "XF_REMAT", True),
-                ("no_bf16", "USE_BF16", False),
+                ("no_bf16", "USE_BF16", False), ("trace", "TRACE", True),
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):
                 setattr(cfg, field, value)

@@ -10,6 +10,15 @@ boundary's save and evaluation run. `--infeed_prefetch 0` is the
 synchronous control (`_SyncInfeed`). The chunked infeed
 (`--infeed_chunk > 1`) is not ported.
 
+`build_train_infeed` is the train loop's infeed: it adds the
+`infeed/produce` failpoint (resilience/faults.py; an injected raise on
+the producer thread surfaces in the consumer at its position, the path
+a real read or copy failure takes), the `instrument` hook (the trace's
+`infeed/produce` span a batch, obs/loop.py) and the producer's watchdog
+heartbeat, which beats on every queue-put attempt (a put blocked on a
+full queue beats too: then the consumer is the slow one) and goes idle
+when the producer is done. None of them synchronises with the card.
+
 On the card the put function is `PinnedRingPut`: each field of a batch
 is written into one of `depth + 1` page-locked host buffers, copied with
 `copy_(non_blocking=True)` on a side `torch.cuda.Stream` into a device
@@ -42,12 +51,15 @@ class _Producer:
     once `close` was called, so an abandoned producer stops; `get`
     returns the next item, None after the end (for good), and raises the
     producer's exception where it was put. `close` releases the thread
-    and the batches it holds."""
+    and the batches it holds. `heartbeat` (obs/watchdog.py) beats on
+    every put attempt and goes idle when the thread ends."""
 
-    def __init__(self, produce: Callable, depth: int, name: str = None):
+    def __init__(self, produce: Callable, depth: int, name: str = None,
+                 heartbeat=None):
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._done = False
+        self._heartbeat = heartbeat
 
         def run() -> None:
             try:
@@ -56,6 +68,11 @@ class _Producer:
                 self.put((_SENTINEL, e))
             else:
                 self.put((_SENTINEL, None))
+            finally:
+                # idle last (the sentinel put beats): a finished
+                # producer is exempt from the deadline, not stalled
+                if heartbeat is not None:
+                    heartbeat.idle()
 
         self._thread = threading.Thread(target=run, daemon=True, name=name)
         self._thread.start()
@@ -63,6 +80,8 @@ class _Producer:
     def put(self, item) -> bool:
         # a bounded wait, so that close can interrupt a full queue
         while not self._stop.is_set():
+            if self._heartbeat is not None:
+                self._heartbeat.beat()
             try:
                 self._q.put(item, timeout=0.1)
                 return True
@@ -100,16 +119,17 @@ class DevicePrefetcher:
     host-side fields (num_valid_examples, target_strings). An exception
     of the producer is raised in the consumer at its position. Each
     `__iter__` is one epoch; a consumer that stops early releases the
-    thread."""
+    thread. `heartbeat` is the producer thread's (see `_Producer`)."""
 
     def __init__(self, batches: Iterable, put_fn: Callable, depth: int = 2,
-                 ready_fn: Optional[Callable] = None):
+                 ready_fn: Optional[Callable] = None, heartbeat=None):
         if depth < 1:
             raise ValueError(f"prefetch depth {depth} < 1")
         self._depth = depth
         self._batches = batches
         self._put_fn = put_fn
         self._ready_fn = ready_fn
+        self._heartbeat = heartbeat
 
     def _produce(self, put: Callable) -> bool:
         """One pass over the batches; False if the consumer went away."""
@@ -123,7 +143,8 @@ class DevicePrefetcher:
         return (dev if self._ready_fn is None else self._ready_fn(dev)), host
 
     def __iter__(self) -> Iterator[Tuple]:
-        producer = _Producer(self._produce, self._depth)
+        producer = _Producer(self._produce, self._depth,
+                             heartbeat=self._heartbeat)
         try:
             while (item := producer.get()) is not None:
                 yield self._emit(item)
@@ -145,13 +166,35 @@ class _SyncInfeed:
 
 
 def prefetch_to_device(batches: Iterable, put_fn: Callable, depth: int = 2,
-                       ready_fn: Optional[Callable] = None
+                       ready_fn: Optional[Callable] = None, heartbeat=None
                        ) -> Iterable[Tuple]:
     """The infeed: `depth` batches ahead on a producer thread, or
     synchronous at depth 0."""
     if depth <= 0:
         return _SyncInfeed(batches, put_fn)
-    return DevicePrefetcher(batches, put_fn, depth, ready_fn)
+    return DevicePrefetcher(batches, put_fn, depth, ready_fn, heartbeat)
+
+
+def build_train_infeed(batches: Iterable, put_fn: Callable, depth: int,
+                       ready_fn: Optional[Callable] = None,
+                       instrument: Optional[Callable] = None,
+                       heartbeat=None) -> Iterable[Tuple]:
+    """The train loop's infeed: `prefetch_to_device` with the
+    `infeed/produce` failpoint around `put_fn` (only when armed: one
+    hit a batch), `instrument(put_fn)` (the trace hook, run on the
+    producer thread once a batch) and the producer's `heartbeat`. All
+    three default to off and then cost nothing."""
+    from code2vec_tpu_torch.resilience import faults
+    fp = faults.point("infeed/produce")
+    if fp.armed:
+        inner = put_fn
+
+        def put_fn(b):
+            fp.fire()
+            return inner(b)
+    if instrument is not None:
+        put_fn = instrument(put_fn)
+    return prefetch_to_device(batches, put_fn, depth, ready_fn, heartbeat)
 
 
 def persistent_epochs(infeed, num_epochs: int, first_epoch: int = 1
@@ -178,7 +221,8 @@ def persistent_epochs(infeed, num_epochs: int, first_epoch: int = 1
             if not (infeed._produce(put) and put((_EPOCH_END, None))):
                 return
 
-    producer = _Producer(produce, infeed._depth, name="train-infeed")
+    producer = _Producer(produce, infeed._depth, name="train-infeed",
+                         heartbeat=infeed._heartbeat)
 
     def epoch_iter() -> Iterator[Tuple]:
         while (item := producer.get()) is not None \

@@ -15,7 +15,8 @@ transformer path-encoder (models/transformer_encoder.py).
 the same class: it builds the optimizer, its state and the step (the
 dense step by default, the sparse-row step under
 SPARSE_EMBEDDING_UPDATES). `train()` is the JAX package's training loop
-without its telemetry, tracing and profiling: the auto-resume epoch
+with its telemetry, tracing, stall watchdog, profiler window and
+failpoints (not its live metrics plane): the auto-resume epoch
 offset (models/setup.py), the reader of the train split (binary shards
 when binarized, data/reader.open_reader), the prefetching infeed kept
 warm across epochs (data/prefetch.py; pinned host buffers and a side
@@ -25,7 +26,8 @@ evaluation. `from_config` builds the command line's model (cli.py):
 vocabularies from the `.dict.c2v` histograms, or with `--load` dims,
 vocabularies, params, optimizer state and step from a checkpoint.
 `release`, `save_word2vec_format` and `export_code_vectors_file` are the
-command line's exports.
+command line's exports; `predictor()` is the predict-side model over the
+trainer's params, which `--predict` serves.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from code2vec_tpu_torch.common import (EvaluationResults,
                                        SpecialVocabWords)
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data.prefetch import (PinnedRingPut,
+                                              build_train_infeed,
                                               persistent_epochs,
                                               prefetch_to_device)
 from code2vec_tpu_torch.data.reader import (BatchTensors, _pad_batch,
@@ -56,10 +59,16 @@ from code2vec_tpu_torch.models.model_base import (Code2VecModelBase,
                                                   MetricAccumulator,
                                                   vector_line)
 from code2vec_tpu_torch.models.setup import lr_horizon, resume_epoch_offset
+from code2vec_tpu_torch.obs import (SpanChannel, Telemetry, Tracer,
+                                    TrainStepRecorder, Watchdog,
+                                    infeed_produce_instrument)
 from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
                                           opt_param_view)
+from code2vec_tpu_torch.resilience import faults, retry
 from code2vec_tpu_torch.training import checkpoint as ckpt
 from code2vec_tpu_torch.training.draws import StepDraws, make_draws
+from code2vec_tpu_torch.training.profiler import StepProfiler
+from code2vec_tpu_torch.training.scalars import ScalarWriter
 from code2vec_tpu_torch.training.optimizers import (
     AdamF32Moments, make_lr, make_optimizer, resolve_checkpoint_schedule,
     resolve_checkpoint_warmup)
@@ -137,15 +146,29 @@ class Code2VecModel:
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
         self.top_k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+        # the serving layer installs its registry and tracer here (the
+        # serve/parse_ms, encode_ms and predict_ms spans, the encode and
+        # device trace spans); off by default
+        self.telemetry = Telemetry.disabled()
+        self.tracer = Tracer.disabled()
 
     # ---- predict raw extractor lines ----
     def prepare_predict_rows(self, predict_data_lines: Iterable[str]
                              ) -> PreparedRows:
         """Host half of `predict`: raw extractor lines -> un-padded
-        per-method index rows."""
-        lines = [ln for ln in predict_data_lines if ln.strip()]
-        labels, src, pth, dst, mask, tstr, cstr = parse_c2v_rows(
-            lines, self.vocabs, self.config.MAX_CONTEXTS, keep_strings=True)
+        per-method index rows, timed as `serve/parse_ms`."""
+        parse_span = self.telemetry.span("serve/parse_ms")
+        try:
+            lines = [ln for ln in predict_data_lines if ln.strip()]
+            labels, src, pth, dst, mask, tstr, cstr = parse_c2v_rows(
+                lines, self.vocabs, self.config.MAX_CONTEXTS,
+                keep_strings=True)
+        except BaseException:
+            # a malformed row must not leak the span, and a dead parse
+            # must not land in the parse_ms histogram
+            parse_span.cancel()
+            raise
+        parse_span.stop()
         return PreparedRows(labels, src, pth, dst, mask, tstr, cstr)
 
     def predict_bucket_size(self, n: int) -> int:
@@ -188,16 +211,46 @@ class Code2VecModel:
         `(topk_ids, topk_probs, attention, code)` trimmed to
         `prepared.n` rows."""
         n = prepared.n
-        padded_n = self.predict_bucket_size(n)
-        weights = np.zeros((padded_n,), dtype=np.float32)
-        weights[:n] = 1.0
-        labels, src, pth, dst, mask = _pad_batch(
-            (prepared.labels, prepared.src, prepared.pth, prepared.dst,
-             prepared.mask), padded_n)
-        batch = self.device_batch(labels, src, pth, dst, mask, weights)
-        topk_ids, topk_probs, attn, code = self._run_step(batch)
-        return (topk_ids[:n].cpu().numpy(), topk_probs[:n].cpu().numpy(),
-                attn[:n].cpu().numpy(), code[:n].cpu().numpy())
+        # host phase: rows -> padded device batch (serve/encode_ms); the
+        # trace spans parent to the batcher's serve/batch_flush span
+        # (the thread's current one)
+        tracing = self.tracer.enabled
+        encode_span = self.telemetry.span("serve/encode_ms")
+        t_encode = self.tracer.start_span("serve/encode", n=n) \
+            if tracing else None
+        try:
+            padded_n = self.predict_bucket_size(n)
+            weights = np.zeros((padded_n,), dtype=np.float32)
+            weights[:n] = 1.0
+            labels, src, pth, dst, mask = _pad_batch(
+                (prepared.labels, prepared.src, prepared.pth, prepared.dst,
+                 prepared.mask), padded_n)
+            batch = self.device_batch(labels, src, pth, dst, mask, weights)
+        except BaseException:
+            encode_span.cancel()
+            raise
+        finally:
+            if t_encode is not None:
+                t_encode.end()
+        encode_span.stop()
+        # device phase: the step and the copies to the host, which wait
+        # for it (serve/predict_ms)
+        predict_span = self.telemetry.span("serve/predict_ms")
+        t_device = self.tracer.start_span("serve/device",
+                                          padded_n=padded_n) \
+            if tracing else None
+        try:
+            topk_ids, topk_probs, attn, code = self._run_step(batch)
+            out = (topk_ids[:n].cpu().numpy(), topk_probs[:n].cpu().numpy(),
+                   attn[:n].cpu().numpy(), code[:n].cpu().numpy())
+        except BaseException:
+            predict_span.cancel()
+            raise
+        finally:
+            if t_device is not None:
+                t_device.end()
+        predict_span.stop()
+        return out
 
     def decode_predictions(self, prepared: PreparedRows, device_out
                            ) -> List[MethodPredictionResults]:
@@ -369,6 +422,12 @@ class Code2VecTrainer(Code2VecModelBase):
         self._save_epoch: Optional[int] = None
         # the train loop's time blocked by its last save (ms)
         self.save_blocked_ms: Optional[float] = None
+        # the run's telemetry, trace and checkpoint-writer heartbeat:
+        # `train` installs them (off until then)
+        self.telemetry = Telemetry.disabled()
+        self.tracer = Tracer.disabled()
+        self._trace_recorder: Optional[TrainStepRecorder] = None
+        self._ckpt_heartbeat = None
 
     @classmethod
     def from_config(cls, config: Config,
@@ -436,6 +495,12 @@ class Code2VecTrainer(Code2VecModelBase):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in b.host_arrays())
 
+    def predictor(self) -> Code2VecModel:
+        """The predict-side model (the serving path, `--predict`) over
+        this trainer's params, shared, not copied."""
+        return Code2VecModel(self.config, self.dims, self.vocabs,
+                             self.params, device=self.device)
+
     def _put_fns(self, depth: int):
         """(put, ready) of an infeed `depth` ahead: a pinned ring on the
         card (`ready` on the consumer's thread), else `device_batch`."""
@@ -470,7 +535,20 @@ class Code2VecTrainer(Code2VecModelBase):
         (its writer overlaps the evaluation), then an evaluation of
         `test_data_path`; the last save is committed before it returns.
         Logs the loss every NUM_BATCHES_TO_LOG_PROGRESS steps; returns
-        every step's loss."""
+        every step's loss.
+
+        Observed as the JAX package's loop is: the `--profile` window
+        (training/profiler.py), `--tensorboard` scalars
+        (training/scalars.py), the run's telemetry under
+        `--telemetry_dir` (obs/: a step event a step, which reads the
+        loss to the host and so waits for the card every step), the
+        `--trace` span trees, and the `--watchdog_stall_s` heartbeats of
+        the loop, the checkpoint writer and the infeed producer. The
+        `train/nan_loss` and `train/kill` failpoints act after each
+        step. Not here: the JAX loop's live metrics plane (`/metrics`,
+        health monitors, alert rules), its phase profiler and its sparse
+        step-floor gauges (they need the traffic model the port has not
+        yet)."""
         cfg = self.config
         from_cli = data_path is None
         if from_cli:
@@ -498,47 +576,147 @@ class Code2VecTrainer(Code2VecModelBase):
                              seed=cfg.SEED, epoch_offset=completed)
         if max_steps is not None:
             reader = _StepBudget(reader, max_steps)
+        profiler = StepProfiler(cfg.PROFILE_DIR, cfg.PROFILE_START_STEP,
+                                cfg.PROFILE_STEPS, cfg.log)
+        scalars = ScalarWriter(cfg.TENSORBOARD_DIR)
+        # off (no --telemetry_dir), every hook below is a shared no-op:
+        # one boolean check a step
+        telemetry = Telemetry.create(cfg.TELEMETRY_DIR, config=cfg,
+                                     component="train",
+                                     scalar_writer=scalars, log=cfg.log)
+        self.telemetry = telemetry
+        if cfg.ASYNC_CHECKPOINT or cfg.TRACE or cfg.WATCHDOG_STALL_S > 0:
+            # the checkpoint writer, the infeed producer (trace spans)
+            # and the watchdog record into it from other threads
+            telemetry.make_threadsafe()
+        tracer = Tracer.create(telemetry) if cfg.TRACE \
+            else Tracer.disabled()
+        self.tracer = tracer
+        watchdog = Watchdog.create(
+            telemetry, stall_s=cfg.WATCHDOG_STALL_S, mode=cfg.WATCHDOG_MODE,
+            tracer=tracer, log=cfg.log)
+        loop_hb = watchdog.register("train_loop")
+        self._ckpt_heartbeat = watchdog.register("checkpoint_writer")
+        infeed_channel = SpanChannel() if tracer.enabled else None
+        recorder = TrainStepRecorder(
+            telemetry, gauge_every=cfg.NUM_BATCHES_TO_LOG_PROGRESS,
+            tracer=tracer, infeed_channel=infeed_channel,
+            heartbeat=loop_hb if watchdog.enabled else None)
+        self._trace_recorder = recorder
+        watchdog.start()
+        # a set-once config echo (static: never reads as stale)
+        telemetry.gauge("train/max_contexts", cfg.MAX_CONTEXTS, emit=False,
+                        static=True)
+        # the first deadline also covers the first step's kernel builds
+        loop_hb.busy()
+        infeed_hb = watchdog.register("infeed_producer")
         put, ready = self._put_fns(cfg.INFEED_PREFETCH)
-        infeed = prefetch_to_device(reader, put, cfg.INFEED_PREFETCH, ready)
+        infeed = build_train_infeed(
+            reader, put, cfg.INFEED_PREFETCH, ready,
+            instrument=infeed_produce_instrument(tracer, infeed_channel),
+            heartbeat=infeed_hb if watchdog.enabled else None)
+        if telemetry.enabled:
+            retry.set_telemetry(telemetry)
+        # disarmed (no --faults), each is one attribute read a step
+        nan_fp, kill_fp = faults.train_step_points()
         losses: List[torch.Tensor] = []
+        steps_into_training = 0
+        window_examples, window_start = 0, time.perf_counter()
         try:
             with contextlib.closing(persistent_epochs(
                     infeed, epochs, first_epoch=completed + 1)) as passes:
                 for epoch, batches in passes:
-                    for dev_batch, _batch in batches:
-                        losses.append(self.train_step(dev_batch))
+                    for dev_batch, batch in recorder.wrap(batches):
+                        profiler.tick(steps_into_training, self.params)
+                        loss = self.train_step(dev_batch)
+                        if nan_fp.armed and nan_fp.hit():
+                            loss = loss * float("nan")  # poison the loss
+                        if kill_fp.armed:
+                            kill_fp.fire(step=self.step_num)
+                        losses.append(loss)
+                        steps_into_training += 1
+                        window_examples += batch.num_valid_examples
+                        loss_f = (recorder.end_step(
+                            self.step_num, loss, batch.num_valid_examples,
+                            params=self.params)
+                            if recorder.enabled else None)
                         if self.step_num % cfg.NUM_BATCHES_TO_LOG_PROGRESS \
                                 == 0:
+                            if loss_f is None:
+                                loss_f = loss.item()
+                            ex_s = window_examples / max(
+                                time.perf_counter() - window_start, 1e-9)
                             cfg.log(f"epoch {epoch} step {self.step_num}: "
-                                    f"loss {losses[-1].item():.5f}")
+                                    f"loss {loss_f:.5f}, {ex_s:.1f} ex/s")
+                            scalars.write(self.step_num, {
+                                "train/loss": loss_f,
+                                "train/examples_per_sec": ex_s,
+                                "train/path_contexts_per_sec":
+                                    ex_s * cfg.MAX_CONTEXTS})
+                            window_examples = 0
+                            window_start = time.perf_counter()
                     if max_steps is not None and len(losses) >= max_steps:
                         break
-                    self._epoch_end(epoch)
+                    if self._epoch_end(epoch, telemetry, scalars):
+                        # boundary work is progress: re-arm the loop's
+                        # deadline (size --watchdog_stall_s above the
+                        # evaluation's time) and restart the throughput
+                        # window
+                        loop_hb.beat()
+                        window_examples = 0
+                        window_start = time.perf_counter()
             if self._ckpt_writer is not None:
                 self._ckpt_writer.wait()  # the last save is committed
+            watchdog.poll()  # raise mode: a stalled run dies loudly here
         finally:
+            loop_hb.idle()
+            watchdog.stop()  # no raise: must not mask the loop's error
             if self._ckpt_writer is not None:
                 # an exception's teardown: the error in flight is raised,
                 # a writer error stays pending for the next wait
                 self._ckpt_writer.drain_quiet()
+            if telemetry.enabled:
+                retry.set_telemetry(None)
+        profiler.finish(self.params)
+        telemetry.close()
+        scalars.close()
         values = torch.stack(losses).cpu().tolist() if losses else []
         if values:
             cfg.log(f"trained {len(values)} steps to step {self.step_num}: "
                     f"loss {values[0]:.5f} -> {values[-1]:.5f}")
         return values
 
-    def _epoch_end(self, epoch: int) -> None:
+    def _epoch_end(self, epoch: int, telemetry: Telemetry,
+                   scalars: ScalarWriter) -> bool:
         """The boundary's save (async: the evaluation runs while the
-        writer drains) and evaluation."""
+        writer drains) and evaluation (the `train/eval_ms` span and an
+        `eval` event). True when there was boundary work."""
         cfg = self.config
         if epoch % cfg.SAVE_EVERY_EPOCHS:
-            return
+            return False
         if cfg.is_saving:
             self._save_epoch = epoch  # -> the step's topology.json
             self.save(cfg.save_path, block=False)
         if cfg.is_testing:
-            results = self.evaluate()
+            eval_span = telemetry.span("train/eval_ms")
+            try:
+                results = self.evaluate()
+            except BaseException:
+                eval_span.cancel()  # a dead evaluation: dropped
+                raise
+            eval_ms = eval_span.stop()
             cfg.log(f"epoch {epoch} evaluation: {results}")
+            scalars.write(self.step_num, {
+                "eval/loss": results.loss,
+                "eval/top1": results.topk_acc[0],
+                "eval/subtoken_f1": results.subtoken_f1,
+                "eval/subtoken_precision": results.subtoken_precision,
+                "eval/subtoken_recall": results.subtoken_recall})
+            telemetry.event("eval", epoch=epoch, step=self.step_num,
+                            loss=results.loss,
+                            subtoken_f1=results.subtoken_f1,
+                            eval_ms=round(eval_ms, 3))
+        return cfg.is_saving or cfg.is_testing
 
     def evaluate(self, test_path: Optional[str] = None) -> EvaluationResults:
         """Top-k accuracy, subtoken precision / recall / F1 and the mean
@@ -575,7 +753,7 @@ class Code2VecTrainer(Code2VecModelBase):
     def _checkpoint_writer(self) -> ckpt.AsyncCheckpointWriter:
         if self._ckpt_writer is None:
             self._ckpt_writer = ckpt.AsyncCheckpointWriter(
-                log=self.config.log)
+                log=self.config.log, heartbeat=self._ckpt_heartbeat)
         return self._ckpt_writer
 
     def save(self, path: Optional[str] = None, block: bool = True) -> None:
@@ -604,19 +782,57 @@ class Code2VecTrainer(Code2VecModelBase):
         # save must not record it
         topology = {"epoch": self._save_epoch}
         self._save_epoch = None
-        if cfg.ASYNC_CHECKPOINT:
-            writer = self._checkpoint_writer()
-            writer.submit(path, state, self.step_num, self.vocabs,
-                          self.dims, extra_manifest=extra,
-                          max_to_keep=cfg.MAX_TO_KEEP, topology=topology)
-            if block:
-                writer.wait()
-        else:
-            ckpt.save_checkpoint(path, state, self.step_num, self.vocabs,
-                                 self.dims, extra_manifest=extra,
-                                 max_to_keep=cfg.MAX_TO_KEEP,
-                                 topology=topology)
+        # trace: the save's blocked window links the step that triggered
+        # it, and the writer thread parents its train/save_write span to
+        # this one
+        trace_span = None
+        if self.tracer.enabled:
+            last = self._trace_recorder.last_step_context \
+                if self._trace_recorder is not None else None
+            trace_span = self.tracer.start_trace(
+                "train/save_blocked", step=int(self.step_num),
+                is_async=bool(cfg.ASYNC_CHECKPOINT))
+            if last is not None:
+                trace_span.links.append(last)
+        blocked_span = self.telemetry.span("train/save_blocked_ms")
+        try:
+            if cfg.ASYNC_CHECKPOINT:
+                writer = self._checkpoint_writer()
+                writer.submit(path, state, self.step_num, self.vocabs,
+                              self.dims, extra_manifest=extra,
+                              max_to_keep=cfg.MAX_TO_KEEP, topology=topology,
+                              telemetry=self.telemetry,
+                              tracer=self.tracer
+                              if trace_span is not None else None,
+                              trace_ctx=trace_span.context()
+                              if trace_span is not None else None)
+                if block:
+                    writer.wait()
+            else:
+                ckpt.save_checkpoint(path, state, self.step_num, self.vocabs,
+                                     self.dims, extra_manifest=extra,
+                                     max_to_keep=cfg.MAX_TO_KEEP,
+                                     topology=topology)
+        except BaseException:
+            # a failed submit or save (a sticky writer error, a dead
+            # disk) leaks neither the span nor the open trace
+            blocked_span.cancel()
+            if trace_span is not None:
+                trace_span.end(outcome="error")
+            raise
         self.save_blocked_ms = (time.perf_counter() - t0) * 1e3
+        blocked_span.stop()
+        if not cfg.ASYNC_CHECKPOINT:
+            # the synchronous save is its own writer: total == blocked
+            self.telemetry.record_ms("train/save_total_ms",
+                                     self.save_blocked_ms)
+            self.telemetry.event("save_committed", step=self.step_num,
+                                 total_ms=round(self.save_blocked_ms, 3))
+        if trace_span is not None:
+            trace_span.end(blocked_ms=round(self.save_blocked_ms, 3))
+        self.telemetry.event("save", step=self.step_num,
+                             blocked_ms=round(self.save_blocked_ms, 3),
+                             is_async=bool(cfg.ASYNC_CHECKPOINT))
         cfg.log(f"{'queued' if cfg.ASYNC_CHECKPOINT and not block else 'saved'}"
                 f" checkpoint step {self.step_num} -> {path} (loop blocked "
                 f"{self.save_blocked_ms:.1f} ms)")

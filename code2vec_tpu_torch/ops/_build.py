@@ -13,6 +13,11 @@ or header is rebuilt and an unchanged one is not. The compiler's output
 (ptxas register and shared-memory report included) is kept beside it as
 `<name>-<hash>.log`. Nothing is built at
 import time: the package imports on machines without `nvcc`.
+
+`build_host` compiles host C++ (the native path-context extractor under
+`extractor/`) with the host compiler (`$CXX`, else `c++`), one compiler
+call per target, into `build/<subdir>/`, keyed the same way by a hash of
+its sources, headers and flags.
 """
 
 from __future__ import annotations
@@ -38,10 +43,12 @@ _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_locks: Dict[str, threading.Lock] = {}
 
 
 class KernelBuildError(RuntimeError):
-    """`nvcc` is missing or refused a source."""
+    """A compiler (`nvcc`, the host C++ compiler) is missing or refused a
+    source."""
 
 
 def nvcc_path() -> str:
@@ -131,3 +138,50 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _libs[name] = lib
         return lib
+
+
+def cxx_path() -> str:
+    """The host C++ compiler: `$CXX`, else `c++` or `g++` on PATH."""
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        found = shutil.which(cand) if cand else None
+        if found is not None:
+            return found
+    raise KernelBuildError("no host C++ compiler ($CXX, c++ or g++ on PATH)")
+
+
+def build_host(target: str, src_dir: str, sources: List[str],
+               flags: List[str], suffix: str = "") -> str:
+    """Compile the host C++ `sources` (file names in `src_dir`) into
+    `build/<target>-<hash><suffix>` in one compiler call, unless it is
+    already built; returns its path. The hash covers every `.cc` / `.h`
+    of `src_dir` and the flags. Raises `KernelBuildError` with the
+    compiler's stderr when it fails."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(src_dir)):
+        if name.endswith((".cc", ".h")):
+            with open(os.path.join(src_dir, name), "rb") as f:
+                h.update(name.encode() + b"\0" + f.read())
+    h.update(" ".join([*flags, *sources]).encode())
+    out = os.path.join(BUILD_DIR, f"{target}-{h.hexdigest()[:16]}{suffix}")
+    with _lock:  # one build a target at a time, targets in parallel
+        target_lock = _host_locks.setdefault(target, threading.Lock())
+    with target_lock:
+        if os.path.exists(out):
+            return out
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [cxx_path(), *flags, "-o", tmp,
+               *(os.path.join(src_dir, s) for s in sources)]
+        try:
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE)
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"build of {target} failed ({cmd[0]} exit "
+                    f"{proc.returncode}):\n"
+                    + proc.stderr.decode(errors="replace"))
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return out

@@ -1,11 +1,16 @@
-"""The retry policy of checkpoint IO.
+"""The retry policy of checkpoint IO and the extractor pool's restart.
 
 A copy of `RetryPolicy` from `resilience/retry.py` in the JAX package:
 jittered exponential backoff, a per-call attempt budget (a policy is
 shared, a budget is not), and a `giveup` predicate for errors that a
-retry cannot fix (ENOSPC). The JAX package's telemetry hooks and its
-distributed-runtime policy are not ported. Sleep and randomness are
-injectable, so tests neither sleep nor depend on chance.
+retry cannot fix (ENOSPC). Its telemetry is module-global and optional:
+`set_telemetry()` points the counters (`resilience/retry`,
+`resilience/retry_exhausted`, `resilience/retry_giveup`) and `retry`
+events at a registry; without one, `stats()` still answers "did
+anything retry" in-process. A call that succeeds first time records
+nothing. The JAX package's distributed-runtime policy is not ported.
+Sleep and randomness are injectable, so tests neither sleep nor depend
+on chance.
 """
 
 from __future__ import annotations
@@ -13,9 +18,44 @@ from __future__ import annotations
 import random
 import threading
 import time
-from typing import Callable, Optional, Tuple, Type
+from typing import Callable, Dict, Optional, Tuple, Type
 
-__all__ = ["RetryPolicy"]
+__all__ = ["RetryPolicy", "set_telemetry", "stats"]
+
+_TELEMETRY = None
+_STATS: Dict[str, Dict[str, int]] = {}
+_STATS_LOCK = threading.Lock()
+
+
+def set_telemetry(telemetry) -> None:
+    """Point retry counters/events at a Telemetry registry (None to
+    detach). The train loop wires its own."""
+    global _TELEMETRY
+    _TELEMETRY = telemetry
+
+
+def stats() -> Dict[str, Dict[str, int]]:
+    """Per-policy {retries, exhausted, giveup} counts (in-process,
+    telemetry or not)."""
+    with _STATS_LOCK:
+        return {k: dict(v) for k, v in _STATS.items()}
+
+
+def _record(policy: str, outcome: str, attempt: int, error: str,
+            delay_s: float) -> None:
+    with _STATS_LOCK:
+        row = _STATS.setdefault(policy, {"retries": 0, "exhausted": 0,
+                                         "giveup": 0})
+        key = {"retry": "retries", "exhausted": "exhausted",
+               "giveup": "giveup"}[outcome]
+        row[key] += 1
+    tele = _TELEMETRY
+    if tele is not None and tele.enabled:
+        tele.count("resilience/retry" if outcome == "retry"
+                   else f"resilience/retry_{outcome}")
+        tele.event("retry", policy=policy, outcome=outcome,
+                   attempt=attempt, error=error[:200],
+                   delay_s=round(delay_s, 4))
 
 
 class RetryPolicy:
@@ -63,8 +103,13 @@ class RetryPolicy:
             try:
                 return fn(*args, **kwargs)
             except self.retry_on as e:
-                if (self.giveup is not None and self.giveup(e)) \
-                        or attempt >= self.max_attempts:
+                if self.giveup is not None and self.giveup(e):
+                    _record(self.name, "giveup", attempt, repr(e), 0.0)
                     raise
-                self._sleep(self.delay_s(attempt))
+                if attempt >= self.max_attempts:
+                    _record(self.name, "exhausted", attempt, repr(e), 0.0)
+                    raise
+                d = self.delay_s(attempt)
+                _record(self.name, "retry", attempt, repr(e), d)
+                self._sleep(d)
         raise AssertionError("unreachable")  # the loop returns or raises

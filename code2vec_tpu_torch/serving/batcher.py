@@ -1,7 +1,6 @@
 """Dynamic micro-batching for the prediction server.
 
-A copy of `serving/batcher.py` of the JAX package without its telemetry
-hooks. Concurrent predict requests land in a bounded queue; a single
+A copy of `serving/batcher.py` of the JAX package. Concurrent predict requests land in a bounded queue; a single
 batcher thread coalesces them into one device batch, flushing on
 `max_batch` total methods or a `timeout_ms` deadline, whichever comes
 first. `submit()` on a full queue returns False (the caller sheds with
@@ -10,7 +9,10 @@ are shed at dequeue time.
 
 Model-agnostic and stdlib-only: requests carry an opaque `rows` payload
 plus its leading-dim size `n`; the server supplies
-`batch_fn(requests) -> per-request results`.
+`batch_fn(requests) -> per-request results`. With a `telemetry`
+registry it records the queue depth, shed requests and each batch's
+size and occupancy (`serve/queue_depth`, `serve/shed`, `serve/batches`,
+`serve/batch_methods`, `serve/batch_occupancy`).
 """
 
 from __future__ import annotations
@@ -32,18 +34,26 @@ class PredictRequest:
     """One in-flight predict request: an opaque `rows` payload, its
     leading-dim size `n`, and an absolute monotonic `deadline` (None = no
     deadline). The submitting thread blocks on `wait()`; the batcher
-    thread resolves it via `finish()` / `fail()`."""
+    thread resolves it via `finish()` / `fail()`.
+
+    `trace_ctx` is the request-scoped tracing handoff: an opaque
+    `obs.trace.SpanContext` the client thread attaches and the
+    batcher-thread flush reads to parent / link its spans (`enqueued_at`
+    doubles as the queue-wait span's start: both use `time.monotonic`,
+    the tracer's clock)."""
 
     __slots__ = ("rows", "n", "deadline", "enqueued_at", "result",
-                 "error", "_done", "_lock")
+                 "error", "trace_ctx", "_done", "_lock")
 
     def __init__(self, rows: Any, n: int,
-                 deadline: Optional[float] = None):
+                 deadline: Optional[float] = None,
+                 trace_ctx: Any = None):
         if n < 1:
             raise ValueError("empty requests never reach the batcher")
         self.rows = rows
         self.n = n
         self.deadline = deadline
+        self.trace_ctx = trace_ctx
         self.enqueued_at = time.monotonic()
         self.result: Any = None
         self.error: Optional[BaseException] = None
@@ -90,7 +100,7 @@ class MicroBatcher:
     def __init__(self, batch_fn: Callable[[Sequence[PredictRequest]],
                                           Sequence[Any]],
                  *, max_batch: int = 64, timeout_ms: float = 2.0,
-                 queue_depth: int = 128):
+                 queue_depth: int = 128, telemetry=None):
         if max_batch < 1 or queue_depth < 1 or timeout_ms < 0:
             raise ValueError("max_batch and queue_depth must be >= 1 and "
                              "timeout_ms >= 0")
@@ -98,6 +108,9 @@ class MicroBatcher:
         self.max_batch = max_batch
         self.timeout_s = timeout_ms / 1e3
         self.queue_depth = queue_depth
+        from code2vec_tpu_torch.obs import Telemetry
+        self._tele = telemetry if telemetry is not None \
+            else Telemetry.disabled()
         self._q: collections.deque = collections.deque()
         self._cond = threading.Condition()
         self._running = False
@@ -144,7 +157,9 @@ class MicroBatcher:
             if not self._running or len(self._q) >= self.queue_depth:
                 return False
             self._q.append(req)
+            depth = len(self._q)
             self._cond.notify()
+        self._tele.gauge("serve/queue_depth", depth, emit=False)
         return True
 
     @property
@@ -188,6 +203,9 @@ class MicroBatcher:
                 self._cond.wait(remaining)
                 if self._thread is not me:
                     break
+            # the drain side keeps the gauge honest too
+            depth = len(self._q)
+        self._tele.gauge("serve/queue_depth", depth, emit=False)
         return batch
 
     def _shed_expired(self, batch: List[PredictRequest]
@@ -198,9 +216,13 @@ class MicroBatcher:
             if req.done:
                 continue  # already resolved by its waiter
             if req.deadline is not None and now > req.deadline:
-                req.fail(ServerOverloaded(
-                    f"deadline exceeded after "
-                    f"{(now - req.enqueued_at) * 1e3:.0f} ms in queue"))
+                if req.fail(ServerOverloaded(
+                        f"deadline exceeded after "
+                        f"{(now - req.enqueued_at) * 1e3:.0f} ms in "
+                        f"queue")):
+                    # counted only when this fail resolved it: the
+                    # waiter's timeout path counts its own shed
+                    self._tele.count("serve/shed")
             else:
                 live.append(req)
         return live
@@ -216,6 +238,11 @@ class MicroBatcher:
             batch = self._shed_expired(batch)
             if not batch:
                 continue
+            n = sum(r.n for r in batch)
+            self._tele.count("serve/batches")
+            self._tele.record_ms("serve/batch_methods", n)
+            self._tele.gauge("serve/batch_occupancy",
+                             round(n / self.max_batch, 4), emit=False)
             try:
                 results = self._batch_fn(batch)
             except BaseException as e:  # noqa: BLE001 — forwarded, not hidden

@@ -22,7 +22,11 @@ written by `torch.save` where the JAX package writes an orbax tree:
   advisory; `load_manifest` corrects it from the committed dirs).
 - MAX_TO_KEEP pruning keeps the newest steps.
 - Transient IO errors retry (`resilience/retry.RetryPolicy`); ENOSPC
-  does not, a full disk does not empty on a backoff schedule.
+  does not, a full disk does not empty on a backoff schedule. The
+  `ckpt/write` failpoint (resilience/faults.py) fires inside the retried
+  write: a slow disk, a transient EIO (retried), ENOSPC (given up; with
+  `partial`, the torn `state.tmp/` left behind), a kill before the
+  rename.
 
 `state.pt` holds plain dicts, lists, tuples, ints and CPU tensors, so it
 loads with `torch.load(weights_only=True)`: each optimizer-state
@@ -38,7 +42,9 @@ that produced them, and records an event; the one writer thread makes
 its own stream wait on that event and copies the clones to the host on
 it (a copy on the loop's stream would queue behind the next steps),
 then writes, commits, hashes and prunes. One save is in flight at a
-time: a second `submit` blocks until the first commits, never drops.
+time: a second `submit` blocks until the first commits, never drops. Its
+watchdog heartbeat is busy from a job's pickup to its commit, so a write
+hung in disk IO reads as a stall.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ import torch
 
 from code2vec_tpu_torch.models.encoder import ModelDims
 from code2vec_tpu_torch.ops.sparse_update import RowAdamState
+from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.resilience.retry import RetryPolicy
 from code2vec_tpu_torch.training import optimizers
 from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs
@@ -235,7 +242,14 @@ def save_checkpoint(ckpt_dir: str, state: Dict[str, Any], step: int,
     Tensors on the card are copied to the host on the current stream."""
     os.makedirs(ckpt_dir, exist_ok=True)
     step_dir = os.path.join(ckpt_dir, f"step_{step}")
-    _CKPT_IO_RETRY.call(_write_state, step_dir, state)
+
+    def write() -> None:
+        # the failpoint INSIDE the retried callable: an injected EIO is
+        # retried here, an ENOSPC given up
+        faults.fire("ckpt/write", path=step_dir, step=step)
+        _write_state(step_dir, state)
+
+    _CKPT_IO_RETRY.call(write)
     write_step_checksums(ckpt_dir, step)
     write_step_topology(ckpt_dir, step, topology)
     _write_sidecars(ckpt_dir, vocabs,
@@ -409,12 +423,16 @@ class AsyncCheckpointWriter:
 
     `save_fn` (default: this module's `save_checkpoint`, looked up at
     write time) is injectable for crash tests; `last_total_ms` is the
-    last save's time in the writer."""
+    last save's time in the writer. `heartbeat` (obs/watchdog.py) is
+    busy from a job's pickup to its commit. A job's `telemetry` gets
+    the `train/save_total_ms` timer and a `save_committed` event, its
+    `tracer` a `train/save_write` span parented to `trace_ctx`."""
 
     def __init__(self, log: Optional[Callable[[str], None]] = None,
-                 save_fn: Optional[Callable] = None):
+                 save_fn: Optional[Callable] = None, heartbeat=None):
         self._log = log or (lambda _m: None)
         self._save_fn = save_fn
+        self._heartbeat = heartbeat
         self._cond = threading.Condition()
         self._job: Optional[Dict[str, Any]] = None
         self._error: Optional[BaseException] = None
@@ -433,9 +451,12 @@ class AsyncCheckpointWriter:
                vocabs: Code2VecVocabs, dims: ModelDims, *,
                extra_manifest: Optional[Dict[str, Any]] = None,
                max_to_keep: int = 10,
-               topology: Optional[Dict[str, Any]] = None) -> None:
+               topology: Optional[Dict[str, Any]] = None,
+               telemetry=None, tracer=None, trace_ctx=None) -> None:
         """Snapshot `state` and queue its save; blocks while an earlier
-        save is in flight."""
+        save is in flight. `trace_ctx` (with its `tracer`) is the
+        cross-thread span handoff: the writer parents its
+        `train/save_write` span to the loop's save span."""
         snap, event = snapshot_state(state)
         with self._cond:
             self._raise_pending()
@@ -448,7 +469,9 @@ class AsyncCheckpointWriter:
                 "ckpt_dir": ckpt_dir, "state": snap, "event": event,
                 "step": step, "vocabs": vocabs, "dims": dims,
                 "extra_manifest": extra_manifest,
-                "max_to_keep": max_to_keep, "topology": topology}
+                "max_to_keep": max_to_keep, "topology": topology,
+                "telemetry": telemetry, "tracer": tracer,
+                "trace_ctx": trace_ctx}
             if self._thread is None:
                 self._thread = threading.Thread(
                     target=self._run, daemon=True, name="ckpt-writer")
@@ -474,8 +497,13 @@ class AsyncCheckpointWriter:
                 if self._job is None:
                     return  # closed and drained
                 job = self._job
+            hb = self._heartbeat
             try:
+                if hb is not None:
+                    hb.busy()  # the deadline runs while writing
                 t0 = time.perf_counter()
+                tracer = job["tracer"]
+                t0_trace = tracer.clock() if tracer is not None else 0.0
                 save_fn = self._save_fn or save_checkpoint
                 with self._on_own_stream(job["event"]):
                     save_fn(job["ckpt_dir"], job["state"], job["step"],
@@ -484,6 +512,16 @@ class AsyncCheckpointWriter:
                             max_to_keep=job["max_to_keep"],
                             topology=job["topology"])
                 self.last_total_ms = (time.perf_counter() - t0) * 1e3
+                if tracer is not None:
+                    tracer.record_span(
+                        "train/save_write", t0_trace, tracer.clock(),
+                        parent=job["trace_ctx"], step=int(job["step"]))
+                tele = job["telemetry"]
+                if tele is not None:
+                    tele.record_ms("train/save_total_ms",
+                                   self.last_total_ms)
+                    tele.event("save_committed", step=int(job["step"]),
+                               total_ms=round(self.last_total_ms, 3))
                 self._log(f"async checkpoint step {job['step']} committed "
                           f"-> {job['ckpt_dir']} ({self.last_total_ms:.0f} "
                           f"ms in background)")
@@ -491,6 +529,8 @@ class AsyncCheckpointWriter:
                 with self._cond:
                     self._error = e
             finally:
+                if hb is not None:
+                    hb.idle()
                 with self._cond:
                     self._job = None
                     self._cond.notify_all()

@@ -227,14 +227,14 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--predict"], "--predict"),
+    (["--metrics_port", "9100"], "--metrics_port"),
     (["--head", "varmisuse"], "--head varmisuse"),
     (["--attack", "untargeted"], "--attack"),
     (["--infeed_chunk", "2"], "--infeed_chunk 2"),
     (["--mesh_data", "2"], "--mesh_data"),
-    (["--telemetry_dir", "t"], "--telemetry_dir"),
+    (["--phase_profile", "on"], "--phase_profile"),
     (["--no_pallas"], "--no_pallas"),
-    (["--serve_batch_max", "16"], "--serve_batch_max"),
+    (["--serve_replicas", "2"], "--serve_replicas"),
     (["--backend", "tpu"], "--backend tpu"),
 ])
 def test_unported_flags_exit_2_naming_them(dataset, flags, named, capsys):
@@ -262,6 +262,30 @@ def test_flags_the_port_has_take_the_jax_spelling():
     assert cfg.word_freq_dict_path == "p.dict.c2v"
     with pytest.raises(ValueError, match="release requires"):
         Config.load_from_args(["--data", "p", "--release"])
+    cfg = Config.load_from_args([
+        "--load", "m", "--predict", "--telemetry_dir", "t", "--trace",
+        "--watchdog_stall_s", "30", "--watchdog_mode", "raise",
+        "--profile", "pd", "--profile_steps", "4", "--tensorboard", "tb",
+        "--faults", '{"sites": {}}', "--serve_batch_max", "16",
+        "--serve_batch_timeout_ms", "0.5", "--serve_queue_depth", "9",
+        "--serve_deadline_ms", "0", "--serve_cache_size", "3",
+        "--serve_extract_workers", "4"])
+    assert (cfg.is_predict, cfg.TELEMETRY_DIR, cfg.TRACE,
+            cfg.WATCHDOG_STALL_S, cfg.WATCHDOG_MODE, cfg.PROFILE_DIR,
+            cfg.PROFILE_STEPS, cfg.TENSORBOARD_DIR, cfg.FAULTS,
+            cfg.SERVE_BATCH_MAX, cfg.SERVE_BATCH_TIMEOUT_MS,
+            cfg.SERVE_QUEUE_DEPTH, cfg.SERVE_DEADLINE_MS,
+            cfg.SERVE_CACHE_SIZE, cfg.SERVE_EXTRACT_WORKERS) == (
+        True, "t", True, 30.0, "raise", "pd", 4, "tb", '{"sites": {}}', 16,
+        0.5, 9, 0.0, 3, 4)
+    for argv, match in ((["--data", "p", "--predict"], "predict requires"),
+                        (["--load", "m", "--trace"], "trace requires"),
+                        (["--load", "m", "--watchdog_stall_s", "5"],
+                         "watchdog_stall_s requires"),
+                        (["--load", "m", "--serve_batch_max", "12"],
+                         "power of two")):
+        with pytest.raises(ValueError, match=match):
+            Config.load_from_args(argv)
 
 
 @pytest.fixture(scope="module")
