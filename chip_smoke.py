@@ -37,8 +37,10 @@ Phases (any failure raises, and the script exits non-zero):
    target). For each: a few steps with the counters at 0 just before and
    read just after (launches must match the tables updated per step);
    one step with the kernels against one with the plain versions from
-   the same state, draws and row gradients; the loss falling over 5
-   steps of a repeated batch; the step time and its split by phase;
+   the same state, draws and row gradients; one step run twice from one
+   cloned state with the same draws (every param and optimizer tensor
+   and the loss the same bits); the loss falling over 5 steps of a
+   repeated batch; the step time and its split by phase;
 6. the live-row Adam kernels (5 and 6) against their plain versions on
    the card, at U = 1, 1000 and the U of a java-large step, for E = 128
    bf16, E = 128 float32, E = 384 bf16 (kernel 5) and E = 128 int8
@@ -59,9 +61,11 @@ Phases (any failure raises, and the script exits non-zero):
    (kernel 4 twice a step in (d), never in (c), kernel 1 once a step);
    one step with the kernels against one with the plain versions from the
    same state and draws (loss within 1e-3; the same optimizer update
-   applied by both gives bit-identical tables, q and s); the loss falling
-   over 5 steps of a repeated batch; the step time, its split by phase
-   and the device busy share;
+   applied by both gives bit-identical tables, q and s); one step twice
+   from one cloned state (the same bits); in (c) the gathers' backward
+   scatters (ops/scatter.py's fixed order) timed beside `index_add_`;
+   the loss falling over 5 steps of a repeated batch; the step time,
+   its split by phase and the device busy share;
 9. evaluation: `Code2VecTrainer.evaluate` over a synthetic 4096-method
    test file at TEST_BATCH_SIZE 1024 (counted: kernel 1 once a batch),
    its results and methods/s; the kernel path held against the plain
@@ -87,8 +91,16 @@ Phases (any failure raises, and the script exits non-zero):
    softmax over 4096): counted steps (kernels 2 and 3 L times a step),
    one kernel step against one plain step from the same state and draws
    (loss, the "xf" gradients), an XF_REMAT step (kernel 2 2L times, the
-   same loss), the loss falling over 5 steps of a repeated batch, the
-   step time, its split by phase, the device busy share and peak memory;
+   same loss), one step twice from one cloned state (the same bits), the
+   loss falling over 5 steps of a repeated batch, the step time, its
+   split by phase, the device busy share and peak memory; then a trained
+   state (XF_TRAINED_EPOCHS more epochs through `train`, 32 steps): the
+   xf gradients of the kernel path against the plain path's printed,
+   and each layer's q, k, v and log_mask captured where they reach
+   `fused_mha`: kernel 2's o within 1 bf16 ulp of a float64 oracle
+   rounded once to bf16 where a float32 evaluation resolves it, and
+   differing from it on at most twice the plain version's share of the
+   elements;
 13. evaluation of a transformer model over the 4096-method test file
    (kernel 2 L times a batch), against the plain path batch by batch;
 14. the command line (`cli.main([...])` in this process, as
@@ -99,10 +111,10 @@ Phases (any failure raises, and the script exits non-zero):
    evaluation batch); the latest step reloaded bit-identical to the
    trainer's state at save time, its checksums verified; that step set
    aside and the same command rerun with `--auto_resume` (the restored
-   step, epoch offset and steps; the final state within RESUME_RTOL of
-   the set-aside one, the losses within RESUME_LOSS_RTOL), beside a second uninterrupted run (the noise
-   floor, within the bound) and a resume whose reader replays the first
-   epoch's order (the control, outside it); a flipped
+   step, epoch offset and steps; the final state and the losses
+   bit-identical to the set-aside run's), beside a second uninterrupted
+   run (bit-identical too) and a resume whose reader replays the first
+   epoch's order (the control, which must differ); a flipped
    byte in the latest state quarantined and the load fallen back to the
    step before; `--release`, then `--load <released> --test` with the
    w2v, t2v and code-vector exports (the evaluation equal to the one
@@ -138,10 +150,23 @@ Phases (any failure raises, and the script exits non-zero):
    and committed, with `train/nan_loss` at step 3 recorded; `ckpt/write`
    ENOSPC with the torn marker (the run gives up, `state.tmp/` stays, a
    load falls back); `train/kill` at step 6 in a subprocess, then
-   `--auto_resume` within [14]'s resume bounds of the uninterrupted run;
+   `--auto_resume`, bit-identical to [14]'s uninterrupted run;
    the telemetry's cost on the loop's steps/s for (c) and (a), on and
    off in alternating pairs;
-17. a `{"kernels": [...]}` line, the card line, and last
+17. the live metrics plane on (c)'s configuration and [14]'s data:
+   `cli.main` with `--telemetry_dir --metrics_port --alerts_mode raise
+   --watchdog_stall_s` scraped by a thread while it runs (`/metrics`
+   parses with the port's promtext and holds `train_loss`, the
+   `train_step_ms` summary, `health_*` and `alert_active`; `/healthz`
+   200; `/vars` names the card; counted: kernel 1 once a step and an
+   evaluation batch); an `infeed/produce` sleep past a 1 s deadline
+   flips `/healthz` 200 -> 503 -> 200; `train/nan_loss` under
+   `--alerts_mode raise` ends the run with an `AlertError` and one
+   `alert` event; `--no_pallas` launches kernel 1 zero times with losses
+   within LOSS_RTOL of the default run's; the plane's cost on the loop
+   (on against off with the telemetry and trace on in both; the metrics
+   port alone against nothing), in alternating pairs;
+18. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -243,6 +268,10 @@ XF_E2E_CODE_RTOL, XF_E2E_ATTN_RTOL, XF_E2E_PROB_RTOL = 2.0 ** -5, 2.0 ** -5, 0.1
 # through the layer's weight products; readings on an H100 80GB HBM3 at
 # 700 W were 5.2e-3 and 5.6e-3, and the bound is under twice that
 XF_GRAD_RTOL = 1e-2
+# Step B's trained state of (e): epochs of the 4-batch training file
+# trained past the measurements (32 steps; earlier readings of the gap
+# at such states were 0.0208-0.0294)
+XF_TRAINED_EPOCHS = 8
 
 # profiled runs of one measurement before its device times are reported
 # as not measured; host seconds of idle at each end of a profiled window,
@@ -873,6 +902,75 @@ def compare_moments(torch, name, a, b) -> float:
     return err
 
 
+def same_bits_twice(torch, trainer, batch, label, report) -> None:
+    """One step of `trainer` run twice from one cloned state with one set
+    of draws: every param and optimizer tensor and the loss must be the
+    same bits (the gathers' backward and the segment sum add in a fixed
+    order, ops/scatter.py). The state is left as the second step made
+    it."""
+    from code2vec_tpu_torch.training.checkpoint import (map_state,
+                                                        state_tensors)
+    draws = trainer.draws_for(batch[0].shape[0], trainer.step_num)
+    live = {"params": trainer.params, "opt_state": trainer.opt_state}
+    start = map_state(lambda t: t.detach().clone(), live)
+    runs = []
+    for _ in range(2):
+        for dst, src in zip(state_tensors(live), state_tensors(start)):
+            dst.copy_(src)
+        loss = trainer._train_step(trainer.params, trainer.opt_state, batch,
+                                   draws)
+        runs.append((loss.detach().clone(),
+                     map_state(lambda t: t.detach().clone(), live)))
+    torch.cuda.synchronize()
+    trainer.step_num += 1
+    diff = state_diff(torch, runs[0][1], runs[1][1])
+    same_loss = torch.equal(runs[0][0], runs[1][0])
+    check(diff["differ"] == 0 and same_loss,
+          f"({label}) one step twice from one state: {diff['differ']} of "
+          f"{diff['tensors']} tensors differ (worst l2 {diff['l2']:.3g} at "
+          f"{diff['l2_at']}), the same loss: {same_loss}")
+    report[f"same_bits_{label}"] = {"tensors": diff["tensors"],
+                                    "loss": runs[0][0].item()}
+    print(f"  ({label}) one step twice from one cloned state and draws: all "
+          f"{diff['tensors']} param and optimizer tensors and the loss "
+          f"({runs[0][0].item():.6f}) the same bits", flush=True)
+    del start, runs
+    torch.cuda.empty_cache()
+
+
+def time_scatters(torch, trainer, batch) -> dict:
+    """The dense step's three gather backwards as (c) runs them (token
+    rows at src and at dst, path rows at pth; bf16 rows, zero where the
+    context is masked, as the step's cotangents are): `scatter_rows`
+    (ops/scatter.py: float32 sums in a fixed order, no atomics) against
+    `index_add_` (the atomics it replaced) on the same inputs,
+    CUDA-event ms for the three (median of 10)."""
+    from code2vec_tpu_torch.ops.scatter import scatter_rows
+    _labels, src, pth, dst, mask, _w = batch
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    cases = []
+    for key, ids in (("token_emb", src), ("token_emb", dst),
+                     ("path_emb", pth)):
+        V = trainer.params[key].shape[0]
+        rows = torch.randn((ids.numel(), E), generator=gen, device=DEV,
+                           dtype=torch.float32)
+        rows = (rows * mask.reshape(-1, 1)).to(torch.bfloat16)
+        cases.append((ids.reshape(-1), rows, V))
+    fixed_ms = time_ms(torch, lambda: [scatter_rows(i, r, V, torch.bfloat16)
+                                       for i, r, V in cases], reps=10)
+    atomic_ms = time_ms(torch, lambda: [
+        torch.zeros((V, E), dtype=torch.bfloat16, device=DEV).index_add_(
+            0, i, r) for i, r, V in cases], reps=10)
+    longest = max(int(torch.unique(i, return_counts=True)[1].max().item())
+                  for i, _r, _V in cases)
+    print(f"  (c) the gathers' backward, three scatters of "
+          f"{cases[0][0].numel()} rows (the longest run of one id "
+          f"{longest}): fixed-order scatter_rows {fixed_ms:.3f} ms, index_add_ "
+          f"{atomic_ms:.3f} ms (CUDA events, median of 10)", flush=True)
+    return {"scatter_rows_ms": fixed_ms, "index_add_ms": atomic_ms,
+            "rows": cases[0][0].numel(), "longest_run": longest}
+
+
 def train_config(label: str, tables: str, sampled: bool):
     from code2vec_tpu_torch.config import Config
     return label, Config(
@@ -980,6 +1078,9 @@ def phase_train_config(torch, np, vocabs, data_path, label, cfg, report):
           f"(rel {loss_rel:.2e}); {'; '.join(notes)}; moments max|d| "
           f"{max(v for k, v in errs.items() if '.' in k):.3g}; U {U}",
           flush=True)
+
+    # ---- the same bits twice (Step A's reading) ----
+    same_bits_twice(torch, trainer, batch, label, report)
 
     # ---- the loss falls over a repeated batch (and the same draws, so
     # that only training moves it) ----
@@ -1323,6 +1424,11 @@ def phase_dense_config(torch, np, vocabs, data_path, label, cfg, report):
           f"(rel {loss_rel:.2e}); the same update gives bit-identical "
           f"params{' (q, s of ' + ', '.join(qkeys) + ')' if qkeys else ''}",
           flush=True)
+
+    # ---- the same bits twice (Step A's reading) ----
+    same_bits_twice(torch, trainer, batch, label, report)
+    if label == "c":
+        report["scatter_c"] = time_scatters(torch, trainer, batch)
 
     # ---- the loss falls over a repeated batch (and the same draws) ----
     fixed = trainer.draws_for(TRAIN_B, trainer.step_num)
@@ -1915,6 +2021,9 @@ def phase_xf_train(torch, np, vocabs, data_path, report):
           f"largest; XF_REMAT step: loss {lr_:.6f}, grads max|d| "
           f"{remat_grad_rel:.3g}, launches {remat_launches}", flush=True)
 
+    # ---- the same bits twice (Step A's reading) ----
+    same_bits_twice(torch, trainer, batch, label, report)
+
     # ---- the loss falls over a repeated batch (and the same draws) ----
     fixed = trainer.draws_for(TRAIN_B, trainer.step_num)
     fall = [trainer.train_step(batch, fixed).item() for _ in range(FALL_STEPS)]
@@ -1961,6 +2070,7 @@ def phase_xf_train(torch, np, vocabs, data_path, report):
     prof, busy_share, xf_ms = profile_step(
         torch, label, lambda: trainer.train_step(batch), step_med, top=8,
         name_part="mha_")
+    xf_trained_readings(torch, np, trainer, data_path, batch, report)
     report[f"train_{label}"] = {
         "config": "bench.py transformer", "layers": XF_L, "heads": XF_H,
         "launches": launches, "steps": TRAIN_STEPS, "losses": losses,
@@ -1974,6 +2084,95 @@ def phase_xf_train(torch, np, vocabs, data_path, report):
     del trainer, params, state, opt
     torch.cuda.empty_cache()
     return launches
+
+
+def xf_trained_readings(torch, np, trainer, data_path, batch, report):
+    """Step B: kernel 2 at a trained state of (e). The trainer trains
+    XF_TRAINED_EPOCHS more epochs through `Code2VecTrainer.train`; the xf
+    gradients of the kernel path against the plain path's from that
+    state are printed (not bounded: the near-init check holds them to
+    XF_GRAD_RTOL); each layer's q, k, v and log_mask as they reach
+    `fused_mha` in one forward of `batch` are captured, and kernel 2, its
+    plain version and the float64 oracle (rounded once to bf16) run on
+    them. Kernel 2's o must lie within 1 bf16 ulp of the oracle on every
+    element a float32 evaluation resolves (ops/xf_attention.py's
+    RESOLVABLE_SHARE: on o near 0 from cancelling terms a float32 sum,
+    the plain version's too, lies several ulps off; those are read, not
+    bounded), and differ from it on at most twice the plain version's
+    share of all the elements."""
+    import code2vec_tpu_torch.models.transformer_encoder as xfe
+    from code2vec_tpu_torch.ops.xf_attention import (bf16_ulp_readings,
+                                                     mha_forward_fused,
+                                                     mha_forward_oracle,
+                                                     mha_forward_plain)
+    from code2vec_tpu_torch.training.steps import (dense_loss_and_grads,
+                                                   make_train_loss_fn)
+    label = "e"
+    step0 = trainer.step_num
+    t = time.perf_counter()
+    losses = trainer.train(data_path, epochs=XF_TRAINED_EPOCHS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    check(len(losses) >= 32 and all(np.isfinite(losses)),
+          f"({label}) trained {len(losses)} steps: {losses[-3:]}")
+    cfg = trainer.step_config
+    kw = dict(use_sampled_softmax=cfg.use_sampled_softmax,
+              num_sampled=cfg.num_sampled, compute_dtype=cfg.compute_dtype)
+    draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+    _lk, grads_k, _ = dense_loss_and_grads(
+        trainer.params, batch, draws, make_train_loss_fn(trainer.dims, **kw))
+    _lp, grads_p, _ = dense_loss_and_grads(
+        trainer.params, batch, draws,
+        make_train_loss_fn(trainer.dims, use_kernel=False, **kw))
+    gap = max((grads_k[k].float() - g.float()).abs().max().item()
+              / max(g.float().abs().max().item(), 1e-30)
+              for k, g in grads_p.items() if k.startswith("xf/"))
+    del grads_k, grads_p
+    print(f"  ({label}) trained {len(losses)} more steps (to step "
+          f"{trainer.step_num}, from {step0}) in {train_s:.1f} s, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; the xf gradients of the "
+          f"kernel path vs the plain path from there: max|d| {gap:.4g} of "
+          f"the largest (printed; near init it is held to {XF_GRAD_RTOL})",
+          flush=True)
+    captured = []
+    real = xfe.fused_mha
+
+    def capture(q, k, v, log_mask):
+        captured.append((q.detach().clone(), k.detach().clone(),
+                         v.detach().clone(), log_mask.detach().clone()))
+        return real(q, k, v, log_mask)
+
+    xfe.fused_mha = capture
+    try:
+        with torch.no_grad():
+            make_train_loss_fn(trainer.dims, **kw)(trainer.params, batch,
+                                                  draws)
+    finally:
+        xfe.fused_mha = real
+    check(len(captured) == XF_L, f"({label}) captured {len(captured)} layers")
+    layers = []
+    for i, (q, k, v, m) in enumerate(captured):
+        oracle = mha_forward_oracle(q, k, v, m)
+        kern = bf16_ulp_readings(mha_forward_fused(q, k, v, m), *oracle)
+        plain = bf16_ulp_readings(mha_forward_plain(q, k, v, m), *oracle)
+        del oracle
+        layers.append({"kernel": kern, "plain": plain})
+        print(f"  ({label}) layer {i}, q/k/v {tuple(q.shape)} bf16: o against "
+              f"the float64 oracle rounded once to bf16: kernel 2 at most "
+              f"{kern['max_ulp']} ulp where float32 resolves it, "
+              f"{kern['share'] * 100:.4f} % of the elements differ; the "
+              f"plain version {plain['max_ulp']} ulp, "
+              f"{plain['share'] * 100:.4f} %; on the "
+              f"{kern['rest_share'] * 100:.3f} % of elements near 0 (|o| < "
+              f"2^-7 of sum a|v|) kernel 2 {kern['max_ulp_rest']} ulp, "
+              f"the plain version {plain['max_ulp_rest']}", flush=True)
+        check(kern["max_ulp"] <= 1 and kern["share"] <= 2 * plain["share"],
+              f"({label}) layer {i}: kernel 2 {kern} against the plain "
+              f"version's {plain}")
+    del captured
+    torch.cuda.empty_cache()
+    report["xf_trained"] = {"steps": len(losses), "train_s": train_s,
+                            "grad_gap": gap, "layers": layers}
 
 
 def phase_xf_eval(torch, np, vocabs, test_path, report):
@@ -2050,23 +2249,19 @@ CLI_EPOCHS, CLI_ROUNDTRIP_EPOCHS = 2, 1
 # infeed 2 and 0 in LOOP_PAIRS alternating pairs (text: one pair of
 # TEXT_LOOP_EPOCHS, its parse ten times the step); the profiled run
 LOOP_EPOCHS, LOOP_PAIRS, TEXT_LOOP_EPOCHS, PROFILE_EPOCHS = 11, 3, 3, 6
-# the resumed run against the uninterrupted one on the card: the dense
-# step's bf16 index_add_ into the table gradients adds with atomics, so
-# two runs from the same state may round a row's sum in another order,
-# and Adafactor's normalised update carries that into the table. Each
-# tensor of the final state is compared by |a - b|_2 / |b|_2 (the worst
-# tensor is held within RESUME_RTOL) and by its largest |a - b| over its
-# largest |b| (printed only: it does not separate the two readings
-# below), the last epoch's losses by the largest relative difference
-# (within RESUME_LOSS_RTOL). The bounds lie between two readings this
-# phase also takes: a second uninterrupted run (the noise floor, which
-# must be within them) and a resume whose reader replays epoch 1's order
-# in epoch 2 (the control, which must be outside them). Readings on an
-# H100 80GB HBM3 at 700 W, three runs: floor 0.018-0.029 and 9e-7-2.5e-6,
-# control 0.179-0.180 and 5.5e-5 (the max reading 0.10-0.20 against
-# 0.38). The control varies little and the floor more, so the l2 bound
-# sits nearer the control.
-RESUME_RTOL, RESUME_LOSS_RTOL = 0.1, 1e-5
+# the resumed run against the uninterrupted one on the card: every op
+# of the steps adds in a fixed order (the gathers' backward and the
+# segment sum through ops/scatter.py, with no atomics;
+# code2vec_tpu_torch/tools/determinism.py finds no op left that adds
+# with atomics, and one step twice gives the same bits in (a)-(e)), so
+# a resume is held to the JAX package's contract: every tensor of the
+# final state bit-identical to the uninterrupted run's, and the last
+# epoch's losses equal. A second uninterrupted run (the floor) must be
+# bit-identical too; a resume whose reader replays epoch 1's order in
+# epoch 2 (the control) must not be. Before the fixed order (on an H100
+# 80GB HBM3 at 700 W) the floor read 0.018-0.029 in the worst tensor's
+# |a - b|_2 / |b|_2 and the control 0.18, and the bounds were 0.1 and
+# 1e-5 (losses).
 
 
 def write_dict_file(path: str, n_examples: int) -> None:
@@ -2213,30 +2408,39 @@ def check_vectors_file(np, path: str, rows: int, width: int, label: str):
     return n
 
 
-def loop_window(torch, trainer, path: str, epochs: int, steps: int):
+def loop_window(torch, trainer, path: str, epochs: int, steps: int,
+                to_last_step: bool = False):
     """steps/s of `trainer.train(path, epochs=epochs)` past its first
     epoch: the clock starts, after a synchronize, at the first step of
     epoch 2 (past the reader's open, the producer's start and the first
     batches) and stops, after a synchronize, when the call returns (its
-    end: the producer's join and the losses' copy to the host)."""
-    real, calls, t0 = trainer.train_step, [0], []
+    end: the producer's join and the losses' copy to the host), or with
+    `to_last_step` when the last step's work is done (the call's
+    teardown, such as stopping a metrics server, left out)."""
+    real, calls, t0, t1 = trainer.train_step, [0], [], []
 
     def step(batch, draws=None):
         if calls[0] == steps:
             torch.cuda.synchronize()
             t0.append(time.perf_counter())
         calls[0] += 1
-        return real(batch, draws)
+        loss = real(batch, draws)
+        if to_last_step and calls[0] == epochs * steps:
+            torch.cuda.synchronize()
+            t1.append(time.perf_counter())
+        return loss
 
     trainer.train_step = step
     try:
         trainer.train(path, epochs=epochs)
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
+        if not to_last_step:
+            t1.append(time.perf_counter())
     finally:
         del trainer.train_step
-    check(calls[0] == epochs * steps and t0, f"(loop) {calls[0]} steps")
-    return (epochs - 1) * steps / (t1 - t0[0])
+    check(calls[0] == epochs * steps and t0 and t1,
+          f"(loop) {calls[0]} steps")
+    return (epochs - 1) * steps / (t1[0] - t0[0])
 
 
 def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
@@ -2397,15 +2601,14 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
     del b
     print(f"  (resume) --auto_resume in {resume_s:.1f} s: restored step "
           f"{resumed_from} (epoch offset {topo['epoch']}), {steps} steps to "
-          f"step {last}; bounds {RESUME_RTOL:.3g} on the l2 reading, "
-          f"{RESUME_LOSS_RTOL:.3g} on the losses", flush=True)
+          f"step {last}; held to the same bits", flush=True)
     for name in ("resume", "floor"):
-        check(resume[name]["l2"] <= RESUME_RTOL and
-              resume[name]["loss_rel"] <= RESUME_LOSS_RTOL,
-              f"({name}) outside the bounds: {resume[name]}")
-    check(resume["control"]["l2"] > RESUME_RTOL and
-          resume["control"]["loss_rel"] > RESUME_LOSS_RTOL,
-          f"(control) a resume in the wrong epoch order is within a bound: "
+        check(resume[name]["differ"] == 0 and resume[name]["loss_rel"] == 0,
+              f"({name}) not bit-identical to the uninterrupted run: "
+              f"{resume[name]}")
+    check(resume["control"]["differ"] > 0
+          and resume["control"]["loss_rel"] > 0,
+          f"(control) a resume in the wrong epoch order is bit-identical: "
           f"{resume['control']}")
     # the uninterrupted run's last step (`aside`) stays for [16]
     for d in (ck_wrong, ck_floor):
@@ -3037,18 +3240,19 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
           == list(range(steps + 1, CLI_EPOCHS * steps + 1)),
           f"(kill) steps {killed_steps} then {resumed}")
     a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
+    # the step events carry the loss to 6 decimals
     diff = {**state_diff(torch, a, b),
-            "loss_rel": loss_rel(resumed_losses, kept["losses"][-steps:])}
+            "losses_equal": resumed_losses == [
+                round(x, 6) for x in kept["losses"][-steps:]]}
     del a, b
-    check(diff["l2"] <= RESUME_RTOL and diff["loss_rel"] <= RESUME_LOSS_RTOL,
-          f"(kill) outside the resume bounds: {diff}")
+    check(diff["differ"] == 0 and diff["losses_equal"],
+          f"(kill) the resume is not bit-identical to the uninterrupted "
+          f"run: {diff}")
     print(f"  (kill) train/kill at step {kill_at}: SIGKILL after "
           f"{kill_s:.1f} s (latest step {steps}); --auto_resume in "
           f"{resume_s:.1f} s trained steps {steps + 1}..{CLI_EPOCHS * steps}; "
-          f"final state vs the uninterrupted run's: the worst |a - b|_2 / "
-          f"|b|_2 {diff['l2']:.3g} ({diff['l2_at']}), losses within "
-          f"{diff['loss_rel']:.2e} (bounds {RESUME_RTOL}, {RESUME_LOSS_RTOL})",
-          flush=True)
+          f"final state bit-identical to the uninterrupted run's "
+          f"({diff['tensors']} tensors), its losses equal", flush=True)
     shutil.rmtree(d)
     shutil.rmtree(tele3)
     shutil.rmtree(kept["uninterrupted"])
@@ -3093,6 +3297,293 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
                 "enospc": gave_up, "kill_s": kill_s, "resume_s": resume_s,
                 "resume": diff, "telemetry_cost_steps_per_s": cost})
     report["observed"] = out
+    return launches
+
+
+# [17]: the plane's cadence in the scraped and the NaN runs (no flag: a
+# wrapped Config.load_from_args sets HEALTH_EVERY_S; the scraped run's
+# ~2-3 s of training then sees a few sweeps, fewer than the loss-spike
+# monitor's 8-sample warmup: a default 1 s cadence saw none in one run of
+# three); the stall leg's deadline and the injected producer sleep beyond
+# it; the NaN's first step; the plane's cost in alternating pairs of loop
+# runs
+SCRAPE_HEALTH_S, PLANE_HEALTH_S = 0.4, 0.05
+STALL_DEADLINE_S, STALL_SLEEP_MS = 1.0, 3000
+NAN_AT, PLANE_LOOP_PAIRS = 3, 3
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(port: int, path: str, timeout: float = 5.0):
+    """(status, body text, ms) of one GET to this machine's `port`."""
+    import urllib.error
+    import urllib.request
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://localhost:{port}{path}",
+                                    timeout=timeout) as r:
+            status, body = r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode("utf-8")
+    return status, body, (time.perf_counter() - t) * 1e3
+
+
+class Poller:
+    """A thread GETting `paths` of `port` every `every_s` while a `with`
+    block runs: each answer's (path, status, body, ms), in order; a
+    refused connection (the server not up yet, or down) is skipped."""
+
+    def __init__(self, port: int, paths, every_s: float = 0.05):
+        self.port, self.paths, self.every_s = port, paths, every_s
+        self.seen = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            for path in self.paths:
+                try:
+                    self.seen.append((path, *http_get(self.port, path,
+                                                      timeout=2.0)))
+                except OSError:
+                    pass
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        check(not self._thread.is_alive(), "the poller did not stop")
+        return False
+
+
+def phase_live_plane(torch, np, vocabs, tmp, data_prefix, test_path, kept,
+                     report):
+    """[17]: the live metrics plane on (c)'s configuration and [14]'s
+    binary data through `cli.main`: `/metrics`, `/healthz` and `/vars`
+    scraped during a run with `--telemetry_dir --metrics_port
+    --alerts_mode raise --watchdog_stall_s`; `/healthz` flipped by an
+    injected infeed stall and back; `train/nan_loss` under
+    `--alerts_mode raise`; `--no_pallas` against the default; the
+    plane's cost on the loop."""
+    import shutil
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.obs import promtext
+    from code2vec_tpu_torch.obs.alerts import AlertError
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+
+    steps, base = kept["steps"], [str(a) for a in kept["base"]]
+    train_only = ["--data", data_prefix, "--batch_size", TRAIN_B,
+                  "--max_contexts", C, "--infeed_prefetch", 2]
+    out, launches = {}, {"attention_pool": 0}
+    real_load = Config.load_from_args.__func__
+
+    def cli_run(label, *argv, health_s=None, expect_rc=0):
+        """cli.main in this process (HEALTH_EVERY_S set when given);
+        kernel 1's launches in it are added to the phase's count."""
+        def load(cls, args=None):
+            cfg = real_load(cls, args)
+            if health_s is not None:
+                cfg.HEALTH_EVERY_S = health_s
+            return cfg
+        Config.load_from_args = classmethod(load)
+        attention_pool_fused.launches = 0
+        t = time.perf_counter()
+        try:
+            rc = cli.main([str(a) for a in argv])
+        finally:
+            Config.load_from_args = classmethod(real_load)
+            torch.cuda.synchronize()
+            launches["attention_pool"] += attention_pool_fused.launches
+        check(rc == expect_rc, f"({label}) cli.main exited {rc}")
+        return time.perf_counter() - t
+
+    # ---- 1. scraped during a run (the main path) ----
+    port, tele = free_port(), os.path.join(tmp, "tele17")
+    pool0 = launches["attention_pool"]
+    with Poller(port, ("/metrics", "/healthz", "/vars")) as poll:
+        run_s = cli_run("scraped", *base, "--telemetry_dir", tele,
+                        "--metrics_port", port, "--alerts_mode", "raise",
+                        "--watchdog_stall_s", WATCHDOG_S,
+                        health_s=SCRAPE_HEALTH_S)
+    pool_scraped = launches["attention_pool"] - pool0
+    want_pool = CLI_EPOCHS * (steps + -(-count_lines(test_path) // TRAIN_B))
+    check(pool_scraped == want_pool, f"(scraped) kernel 1 launched "
+          f"{pool_scraped} times, expected {want_pool}")
+    metrics = [(promtext.parse_prometheus(b), ms)
+               for p, st, b, ms in poll.seen if p == "/metrics" and st == 200]
+    full = [m for m, _ in metrics
+            if promtext.scalar(m, "train_steps")
+            and "health_loss_nonfinite" in m and "alert_active" in m]
+    check(full, f"(scraped) {len(metrics)} scrapes, none during the steps "
+          f"with the health and alert families")
+    fam = full[-1]
+    check(np.isfinite(promtext.scalar(fam, "train_loss"))
+          and promtext.labeled(fam, "train_step_ms", quantile="0.5") > 0
+          and promtext.scalar(fam, "train_step_ms_count") >= 1
+          and all(v == 0 for _l, v in fam["alert_active"]),
+          f"(scraped) families {sorted(fam)}")
+    health = [st for p, st, _b, _ms in poll.seen if p == "/healthz"]
+    check(health and all(st == 200 for st in health),
+          f"(scraped) /healthz answered {sorted(set(health))}")
+    card = [json.loads(b)["identity"]["devices"]
+            for p, st, b, _ms in poll.seen if p == "/vars" and st == 200]
+    check(card and card[-1].get("kind") == torch.cuda.get_device_name(0)
+          and card[-1].get("platform") == "gpu", f"(scraped) /vars {card[-1:]}")
+    scrape_ms = sorted(ms for _m, ms in metrics)
+    with_health = sorted(f for f in fam if f.startswith("health_"))
+    print(f"  (scraped) cli.main {CLI_EPOCHS} epochs x {steps} steps with "
+          f"--telemetry_dir --metrics_port {port} --alerts_mode raise "
+          f"--watchdog_stall_s {WATCHDOG_S} (cadence {SCRAPE_HEALTH_S} s) in "
+          f"{run_s:.1f} s: {len(metrics)} "
+          f"/metrics scrapes parsed (ms p50 {scrape_ms[len(scrape_ms) // 2]:.2f}"
+          f", max {scrape_ms[-1]:.2f}), train_steps "
+          f"{promtext.scalar(fam, 'train_steps'):.0f}, train_loss "
+          f"{promtext.scalar(fam, 'train_loss'):.5f}, step_ms p50 "
+          f"{promtext.labeled(fam, 'train_step_ms', quantile='0.5'):.2f}, "
+          f"{len(with_health)} health_* families, alert_active all 0; "
+          f"/healthz 200 x {len(health)}; /vars names {card[-1]['kind']}; "
+          f"kernel 1 launched {pool_scraped} times", flush=True)
+    http_refused = False
+    try:
+        http_get(port, "/metrics", timeout=1.0)
+    except OSError:
+        http_refused = True
+    check(http_refused, "(scraped) the port still answers after the run")
+    shutil.rmtree(tele)
+    out["scraped"] = {"run_s": run_s, "scrapes": len(metrics),
+                      "scrape_ms": scrape_ms, "healthz_200": len(health),
+                      "health_families": with_health,
+                      "launches": pool_scraped}
+
+    # ---- 2. an injected infeed stall flips /healthz and back ----
+    port, tele = free_port(), os.path.join(tmp, "tele17s")
+    stall = {"sites": {"infeed/produce": {
+        "action": "sleep", "delay_ms": STALL_SLEEP_MS, "at": steps + 2}}}
+    with Poller(port, ("/healthz",)) as poll:
+        cli_run("stall", *train_only, "--epochs", 2, "--telemetry_dir", tele,
+                "--metrics_port", port, "--watchdog_stall_s",
+                STALL_DEADLINE_S, "--faults", json.dumps(stall))
+    seq = [st for _p, st, _b, _ms in poll.seen]
+    flips = [seq[i] for i in range(len(seq)) if i == 0 or seq[i] != seq[i - 1]]
+    stalled = sorted({c for _p, st, b, _ms in poll.seen if st == 503
+                      for c in json.loads(b)["stalled"]})
+    (events,) = run_events(tele)
+    stall_ev = sorted({e.get("component") for e in events
+                       if e["kind"] == "stall"})
+    check(flips[:3] == [200, 503, 200] and "infeed_producer" in stalled,
+          f"(stall) /healthz went {flips}, stalled {stalled}")
+    print(f"  (stall) infeed/produce sleeping {STALL_SLEEP_MS} ms at batch "
+          f"{steps + 2} against a {STALL_DEADLINE_S} s deadline: /healthz "
+          f"{' -> '.join(map(str, flips))} over {len(seq)} polls "
+          f"({seq.count(503)} answered 503, naming {stalled}); stall events "
+          f"{stall_ev}", flush=True)
+    shutil.rmtree(tele)
+    out["stall"] = {"flips": flips, "polls": len(seq), "n_503": seq.count(503),
+                    "stalled": stalled, "stall_events": stall_ev}
+
+    # ---- 3. train/nan_loss under --alerts_mode raise ----
+    tele = os.path.join(tmp, "tele17n")
+    nan = {"sites": {"train/nan_loss": {"action": "nan", "at": NAN_AT,
+                                        "times": -1}}}
+    raised = None
+    try:
+        cli_run("nan", *train_only, "--epochs", 4, "--telemetry_dir", tele,
+                "--alerts_mode", "raise", "--faults", json.dumps(nan),
+                health_s=PLANE_HEALTH_S)
+    except AlertError as e:
+        raised = str(e)  # not the exception: its frames hold the trainer
+    (events,) = run_events(tele)
+    alerts = [e for e in events if e["kind"] == "alert"]
+    step_ev = [e for e in events if e["kind"] == "step"]
+    last = step_ev[-1]["step"] if step_ev else None
+    check(raised is not None and "loss_nonfinite" in raised
+          and [(e["rule"], e["transition"]) for e in alerts]
+          == [("loss_nonfinite", "firing")]
+          and last is not None and NAN_AT < last < 4 * steps,
+          f"(nan) raised {raised!r}, alert events {alerts}, last step {last}")
+    print(f"  (nan) train/nan_loss from step {NAN_AT} under --alerts_mode "
+          f"raise (cadence {PLANE_HEALTH_S} s): AlertError at step {last} "
+          f"({raised}); one alert event ({alerts[0]['rule']} "
+          f"{alerts[0]['transition']})", flush=True)
+    shutil.rmtree(tele)
+    out["nan"] = {"nan_at": NAN_AT, "raised_at_step": last,
+                  "alert_events": len(alerts)}
+
+    # ---- 4. --no_pallas against the default ----
+    runs = {}
+    for label, extra in (("default", []), ("no_pallas", ["--no_pallas"])):
+        n0 = launches["attention_pool"]
+        with Recorder(torch) as rec:
+            cli_run(label, *train_only, "--epochs", 1, *extra)
+        runs[label] = (launches["attention_pool"] - n0, rec.loss_values())
+    (n_def, l_def), (n_off, l_off) = runs["default"], runs["no_pallas"]
+    rel = loss_rel(l_off, l_def)
+    check(n_def == steps and n_off == 0 and len(l_off) == steps
+          and rel <= LOSS_RTOL,
+          f"(no_pallas) kernel 1 {n_def} vs {n_off} launches, losses "
+          f"{l_def} vs {l_off}")
+    print(f"  (no_pallas) kernel 1 launched {n_def} times in the default run "
+          f"and {n_off} with --no_pallas; losses within {rel:.2e} of each "
+          f"other (bound {LOSS_RTOL})", flush=True)
+    out["no_pallas"] = {"launches_default": n_def, "launches_no_pallas": n_off,
+                        "loss_rel": rel}
+
+    # ---- 5. the plane's cost on the loop ----
+    cfg = Config(MAX_CONTEXTS=C, TRAIN_BATCH_SIZE=TRAIN_B, SEED=SEED,
+                 NUM_TRAIN_EPOCHS=1)
+    path = data_prefix + ".train.c2v"
+    tele = os.path.join(tmp, "tele17c")
+    trainer = Code2VecTrainer(cfg, vocabs)
+    trainer.train(path, epochs=1)  # warm: allocator, libraries
+    arms = {"plane": ("on", "off"), "port_only": ("port", "none")}
+    cost = {}
+    for name, (a_on, a_off) in arms.items():
+        runs = {a_on: [], a_off: []}
+        for pair in range(PLANE_LOOP_PAIRS):
+            for arm in ((a_on, a_off) if pair % 2 == 0 else (a_off, a_on)):
+                # telemetry and trace on in both arms of "plane"; the
+                # metrics port alone against nothing in "port_only"
+                cfg.TELEMETRY_DIR = tele if name == "plane" else None
+                cfg.TRACE = name == "plane"
+                cfg.METRICS_PORT = free_port() if arm in ("on", "port") else 0
+                cfg.ALERTS_MODE = "warn" if arm == "on" else "off"
+                runs[arm].append(loop_window(torch, trainer, path,
+                                             TELE_LOOP_EPOCHS, steps,
+                                             to_last_step=True))
+        med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+        cost[name] = {"runs": runs, "medians": med}
+        print(f"  (cost) (c) steps/s over epochs 2..{TELE_LOOP_EPOCHS} to "
+              f"the last step's end, {PLANE_LOOP_PAIRS} alternating pairs, "
+              + ("telemetry + trace in both, the plane (--metrics_port, "
+                 "--alerts_mode warn) on " if name == "plane" else
+                 "--metrics_port alone (an in-memory registry, the per-step "
+                 "loss read) ")
+              + ", ".join(f"{x:.2f}" for x in runs[a_on]) + "; off "
+              + ", ".join(f"{x:.2f}" for x in runs[a_off])
+              + f"; medians {med[a_on]:.2f} vs {med[a_off]:.2f} "
+              f"({(1 - med[a_on] / med[a_off]) * 100:+.1f} % slower on)",
+              flush=True)
+    cfg.TELEMETRY_DIR, cfg.TRACE, cfg.METRICS_PORT = None, False, 0
+    cfg.ALERTS_MODE = "off"
+    trainer.close_session()
+    del trainer
+    torch.cuda.empty_cache()
+    shutil.rmtree(tele, ignore_errors=True)
+    out["cost_steps_per_s"] = cost
+    out["launches"] = launches
+    report["live_plane"] = out
     return launches
 
 
@@ -3246,7 +3737,14 @@ def main(argv=None) -> int:
             torch, np, vocabs, tmp, data_prefix, test_path, kept, report)
         lap("[16]")
 
-    # ---- 17. result ----
+        # ---- 17. the live metrics plane ----
+        print("[17] the live metrics plane (/metrics, /healthz, /vars; "
+              "alerts; --no_pallas) on the card", flush=True)
+        plane_launches = phase_live_plane(  # graftlint: disable=nondeterminism
+            torch, np, vocabs, tmp, data_prefix, test_path, kept, report)
+        lap("[17]")
+
+    # ---- 18. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -3256,7 +3754,8 @@ def main(argv=None) -> int:
         + eval_launches["attention_pool"] + sum(
             v["attention_pool"] for v in cli_launches.values()) \
         + repl_launches["attention_pool"] \
-        + observed_launches["attention_pool"]
+        + observed_launches["attention_pool"] \
+        + plane_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -3328,7 +3827,8 @@ def main(argv=None) -> int:
                              for k, v in train_launches.items()},
                           **{f"xf_{k}": v for k, v in xf_launches.items()},
                           **{f"cli_{k}": v for k, v in cli_launches.items()},
-                          "repl": repl_launches, "observed": observed_launches}
+                          "repl": repl_launches, "observed": observed_launches,
+                          "live_plane": plane_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -5,10 +5,9 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (the live metrics plane's `--metrics_port`, `--alerts_*` and
-`--phase_*`, the replica, port, reload and autoscale serving flags,
-`--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh flags, ...)
-is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
+have yet (`--phase_*`, the replica, port, reload and autoscale serving
+flags, `--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh
+flags, ...) is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
 `cpu`; `--framework` accepts the JAX package's values as aliases of this
 implementation.
 
@@ -28,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 from typing import List, Optional
 
@@ -150,6 +150,40 @@ class Config:
     # (resilience/faults.py); unset, every site is one None check
     FAULTS: Optional[str] = None
 
+    # ---- the live metrics plane (obs/exposition.py, health.py,
+    # alerts.py) ----
+    # --metrics_port: serve /metrics (Prometheus text), /healthz
+    # (watchdog liveness and page alerts), /vars (a JSON snapshot) and
+    # /clock from a daemon-thread HTTP server on this port; 0 = off.
+    # Without --telemetry_dir the registry lives in memory only
+    METRICS_PORT: int = 0
+    # --alerts_mode: "off" | "warn" | "raise". warn/raise run the health
+    # monitors and alert rules off the hot path, with an `alert` event a
+    # transition; raise also makes a firing alert an AlertError at the
+    # train loop's next step
+    ALERTS_MODE: str = "off"
+    # --alerts_rules: a JSON file of rules replacing the built-in ones
+    ALERTS_RULES: Optional[str] = None
+    # the monitors' and rules' cadence in seconds (no flag: tests set it)
+    HEALTH_EVERY_S: float = 1.0
+
+    # ---- kernel selection (the JAX package's Pallas switches) ----
+    # --no_pallas: the plain attention pool (kernel 1) and the plain MHA
+    # (kernels 2, 3) in place of the kernels, on any device
+    USE_PALLAS: bool = True
+    # --requant_pallas (int8 tables, kernel 4) and --sparse_update_pallas
+    # (--sparse_embeddings, kernels 5 and 6): "auto" = the kernel on a
+    # CUDA tensor, the plain version on a CPU one; "fused" = the kernel
+    # (a CPU run refuses it); "reference" = the plain version
+    REQUANT_PALLAS: str = "auto"
+    SPARSE_UPDATE_PALLAS: str = "auto"
+
+    # ---- logging ----
+    # -v / --verbose: 1 logs at INFO, 0 at WARNING
+    VERBOSE_MODE: int = 1
+    # --logs-path: also append the log to this file
+    LOG_PATH: Optional[str] = None
+
     @property
     def is_training(self) -> bool:
         return bool(self.train_data_path)
@@ -179,8 +213,27 @@ class Config:
             return None
         return f"{self.train_data_path}.dict.c2v"
 
+    def get_logger(self) -> logging.Logger:
+        """The package's logger at VERBOSE_MODE's level, with a file
+        handler on LOG_PATH (added once per path); its records also go
+        to the root logger's handlers (`python3 -m code2vec_tpu_torch`
+        logs to standard output)."""
+        logger = logging.getLogger("code2vec_tpu_torch")
+        logger.setLevel(logging.INFO if self.VERBOSE_MODE >= 1
+                        else logging.WARNING)
+        if self.LOG_PATH:
+            path = os.path.abspath(self.LOG_PATH)
+            if not any(getattr(h, "baseFilename", None) == path
+                       for h in logger.handlers):
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                fh = logging.FileHandler(path)
+                fh.setFormatter(logging.Formatter(
+                    "%(asctime)s %(levelname)s %(message)s"))
+                logger.addHandler(fh)
+        return logger
+
     def log(self, msg: str) -> None:
-        logging.getLogger("code2vec_tpu_torch").info(msg)
+        self.get_logger().info(msg)
 
     def verify(self) -> None:
         """The JAX package's `Config.verify` rules for the ported fields;
@@ -274,6 +327,34 @@ class Config:
         if self.WATCHDOG_MODE not in ("warn", "raise"):
             raise ValueError("--watchdog_mode must be warn or raise "
                              f"(got {self.WATCHDOG_MODE!r}).")
+        if not 0 <= self.METRICS_PORT <= 65535:
+            raise ValueError(
+                f"--metrics_port must be in [0, 65535] "
+                f"(got {self.METRICS_PORT}).")
+        if self.ALERTS_MODE not in ("off", "warn", "raise"):
+            raise ValueError(
+                "--alerts_mode must be off, warn or raise "
+                f"(got {self.ALERTS_MODE!r}).")
+        if self.ALERTS_MODE != "off" and not self.TELEMETRY_DIR:
+            raise ValueError(
+                "--alerts_mode warn/raise requires --telemetry_dir "
+                "(alert events are recorded through the run's JSONL "
+                "event log; --metrics_port alone works without it).")
+        if self.ALERTS_RULES and self.ALERTS_MODE == "off":
+            raise ValueError(
+                "--alerts_rules without --alerts_mode warn|raise "
+                "would be silently ignored.")
+        if self.HEALTH_EVERY_S <= 0:
+            raise ValueError("HEALTH_EVERY_S must be positive.")
+        if self.REQUANT_PALLAS not in ("auto", "fused", "reference"):
+            raise ValueError(
+                "--requant_pallas must be auto, fused or reference "
+                f"(got {self.REQUANT_PALLAS!r}).")
+        if self.SPARSE_UPDATE_PALLAS not in ("auto", "fused",
+                                             "reference"):
+            raise ValueError(
+                "--sparse_update_pallas must be auto, fused or "
+                f"reference (got {self.SPARSE_UPDATE_PALLAS!r}).")
         if self.PROFILE_STEPS < 1:
             raise ValueError("--profile_steps must be >= 1.")
         if self.INFEED_PREFETCH < 0:
@@ -374,11 +455,28 @@ class Config:
         p.add_argument("--tables_dtype", dest="tables_dtype", default=None,
                        choices=["float32", "bfloat16", "int8"])
         p.add_argument("--no_bf16", dest="no_bf16", action="store_true")
+        p.add_argument("--no_pallas", dest="no_pallas",
+                       action="store_true",
+                       help="the plain attention pool and MHA in place of "
+                            "kernels 1, 2 and 3 (the A/B control)")
+        p.add_argument("--requant_pallas", dest="requant_pallas",
+                       default=None,
+                       choices=["auto", "fused", "reference"],
+                       help="int8 requantize: kernel 4 (fused; auto on "
+                            "the card) or its plain version (reference)")
+        p.add_argument("--sparse_update_pallas",
+                       dest="sparse_update_pallas", default=None,
+                       choices=["auto", "fused", "reference"],
+                       help="the live-row update under "
+                            "--sparse_embeddings: kernels 5 and 6 "
+                            "(fused; auto on the card) or their plain "
+                            "versions (reference)")
         p.add_argument("--sparse_embeddings", dest="sparse_embeddings",
                        action="store_true")
         p.add_argument("--embedding_optimizer", dest="embedding_optimizer",
                        default=None, choices=["adam", "adafactor"])
         p.add_argument("--seed", dest="seed", type=int, default=None)
+        p.add_argument("--logs-path", dest="logs_path", default=None)
         p.add_argument("--profile", dest="profile_dir", default=None,
                        help="write a torch.profiler Chrome trace of a few "
                             "training steps to this directory")
@@ -404,6 +502,26 @@ class Config:
                             "(0 = off; requires --telemetry_dir)")
         p.add_argument("--watchdog_mode", dest="watchdog_mode",
                        default=None, choices=["warn", "raise"])
+        p.add_argument("--metrics_port", dest="metrics_port",
+                       type=int, default=None,
+                       help="serve /metrics (Prometheus text), "
+                            "/healthz (watchdog liveness) and /vars "
+                            "(JSON snapshot) on this port from a "
+                            "daemon-thread HTTP server (0 = off; "
+                            "works with or without --telemetry_dir)")
+        p.add_argument("--alerts_mode", dest="alerts_mode",
+                       default=None, choices=["off", "warn", "raise"],
+                       help="training-health monitors + SLO alert "
+                            "rules evaluated off the hot path: warn "
+                            "records edge-triggered alert events, "
+                            "raise additionally surfaces a sticky "
+                            "AlertError at the train loop's next beat "
+                            "(requires --telemetry_dir)")
+        p.add_argument("--alerts_rules", dest="alerts_rules",
+                       default=None,
+                       help="JSON rule file replacing the built-in "
+                            "alert rules (threshold + multi-window "
+                            "burn-rate)")
         p.add_argument("--serve_batch_max", dest="serve_batch_max",
                        type=int, default=None,
                        help="max methods per coalesced serving batch "
@@ -423,6 +541,8 @@ class Config:
         p.add_argument("--faults", dest="faults", default=None,
                        help="fault injection: a JSON file (or inline JSON) "
                             "arming named failpoints")
+        p.add_argument("-v", "--verbose", dest="verbose_mode", type=int,
+                       default=None)
         return p
 
     @classmethod
@@ -481,7 +601,13 @@ class Config:
                 ("serve_deadline_ms", "SERVE_DEADLINE_MS"),
                 ("serve_cache_size", "SERVE_CACHE_SIZE"),
                 ("serve_extract_workers", "SERVE_EXTRACT_WORKERS"),
-                ("faults", "FAULTS")):
+                ("faults", "FAULTS"), ("metrics_port", "METRICS_PORT"),
+                ("alerts_mode", "ALERTS_MODE"),
+                ("alerts_rules", "ALERTS_RULES"),
+                ("requant_pallas", "REQUANT_PALLAS"),
+                ("sparse_update_pallas", "SPARSE_UPDATE_PALLAS"),
+                ("logs_path", "LOG_PATH"),
+                ("verbose_mode", "VERBOSE_MODE")):
             value = getattr(ns, dest)
             if value is not None:
                 setattr(cfg, field, value)
@@ -490,6 +616,7 @@ class Config:
                 ("sampled_softmax", "USE_SAMPLED_SOFTMAX", True),
                 ("xf_remat", "XF_REMAT", True),
                 ("no_bf16", "USE_BF16", False), ("trace", "TRACE", True),
+                ("no_pallas", "USE_PALLAS", False),
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):
                 setattr(cfg, field, value)

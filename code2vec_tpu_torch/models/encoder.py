@@ -32,6 +32,7 @@ from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
 from code2vec_tpu_torch.ops.quant import (QUANTIZED_TABLE_KEYS,
                                           dequantized_rows, quantize_table,
                                           quantized_take)
+from code2vec_tpu_torch.ops.scatter import take_rows_det
 
 Table = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Params = Dict[str, Table]
@@ -126,7 +127,8 @@ def init_params(generator: torch.Generator, dims: ModelDims,
 
 def take_rows(params: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
     """Embedding-row gather that understands the three table storages: a
-    float table (differentiable: its gradient is a dense scatter-add), an
+    float table (differentiable: its gradient is a dense scatter-add in
+    a fixed order, ops/scatter.py), an
     int8 {"q", "s"} table (a no-grad dequantizing gather, bf16 output:
     int8 rows carry at most 8 significant bits), and an int8 table with a
     gradient carrier "g" attached by the quantized training step (the
@@ -136,8 +138,7 @@ def take_rows(params: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
         if "g" in t:
             return quantized_take(t["g"], t, ids)
         return dequantized_rows(t, ids)
-    rows = torch.index_select(t, 0, ids.reshape(-1))
-    return rows.reshape(*ids.shape, rows.shape[-1])
+    return take_rows_det(t, ids)
 
 
 def gather_contexts(params: Params, source_ids: torch.Tensor,

@@ -14,9 +14,10 @@ transformer path-encoder (models/transformer_encoder.py).
 `Code2VecTrainer` is the train, evaluate, checkpoint and export part of
 the same class: it builds the optimizer, its state and the step (the
 dense step by default, the sparse-row step under
-SPARSE_EMBEDDING_UPDATES). `train()` is the JAX package's training loop
-with its telemetry, tracing, stall watchdog, profiler window and
-failpoints (not its live metrics plane): the auto-resume epoch
+SPARSE_EMBEDDING_UPDATES), with the kernels the kernel-selection flags
+choose. `train()` is the JAX package's training loop with its
+telemetry, tracing, stall watchdog, live metrics plane, profiler window
+and failpoints: the auto-resume epoch
 offset (models/setup.py), the reader of the train split (binary shards
 when binarized, data/reader.open_reader), the prefetching infeed kept
 warm across epochs (data/prefetch.py; pinned host buffers and a side
@@ -61,9 +62,12 @@ from code2vec_tpu_torch.models.model_base import (Code2VecModelBase,
 from code2vec_tpu_torch.models.setup import lr_horizon, resume_epoch_offset
 from code2vec_tpu_torch.obs import (SpanChannel, Telemetry, Tracer,
                                     TrainStepRecorder, Watchdog,
+                                    build_live_plane,
                                     infeed_produce_instrument)
+from code2vec_tpu_torch.obs.alerts import default_train_rules
+from code2vec_tpu_torch.obs.health import default_train_monitors
 from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
-                                          opt_param_view)
+                                          kernel_choice, opt_param_view)
 from code2vec_tpu_torch.resilience import faults, retry
 from code2vec_tpu_torch.training import checkpoint as ckpt
 from code2vec_tpu_torch.training.draws import StepDraws, make_draws
@@ -123,6 +127,18 @@ class PreparedRows:
             context_strings=[c for p in items for c in p.context_strings])
 
 
+def kernel_selection(device: torch.device, pool: bool, requant: bool,
+                     rows: bool) -> str:
+    """The log line naming what each kernel-selection flag chose."""
+    def word(on: bool) -> str:
+        if not on:
+            return "plain version"
+        return "kernel" if device.type == "cuda" else "plain version (cpu)"
+    return (f"kernels on {device}: attention pool / MHA (1-3) "
+            f"{word(pool)}; int8 requantize (4) {word(requant)}; live-row "
+            f"update (5, 6) {word(rows)}")
+
+
 def _move(params: Params, device: torch.device) -> Params:
     """The params tree (int8 tables, the transformer's nested "xf"
     subtree) with every tensor on `device`."""
@@ -146,6 +162,8 @@ class Code2VecModel:
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
         self.top_k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+        # --no_pallas: the plain pool (or MHA) in place of kernels 1-3
+        self.use_kernel = config.USE_PALLAS
         # the serving layer installs its registry and tracer here (the
         # serve/parse_ms, encode_ms and predict_ms spans, the encode and
         # device trace spans); off by default
@@ -185,7 +203,8 @@ class Code2VecModel:
         with torch.inference_mode():
             return predict_step(self.params, batch, dims=self.dims,
                                 top_k=self.top_k,
-                                compute_dtype=self.compute_dtype)
+                                compute_dtype=self.compute_dtype,
+                                use_kernel=self.use_kernel)
 
     def warmup_predict(self, max_batch: int) -> List[int]:
         """Run each shape bucket up to `max_batch`'s once (kernel build,
@@ -406,6 +425,18 @@ class Code2VecTrainer(Code2VecModelBase):
         self.params = _move(params, self.device)
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
+        # the kernel-selection flags, fixed for the trainer's life: the
+        # pool / MHA (--no_pallas), the int8 requantize
+        # (--requant_pallas) and the live-row update
+        # (--sparse_update_pallas); "fused" on the CPU raises here
+        self.use_kernel = config.USE_PALLAS
+        self.requant_kernel = kernel_choice(
+            config.REQUANT_PALLAS, "--requant_pallas", self.device)
+        self.row_kernel = kernel_choice(
+            config.SPARSE_UPDATE_PALLAS, "--sparse_update_pallas",
+            self.device)
+        config.log(kernel_selection(self.device, self.use_kernel,
+                                    self.requant_kernel, self.row_kernel))
         self.total_steps: Optional[int] = None
         if config.SPARSE_EMBEDDING_UPDATES:
             self.optimizer = AdamF32Moments(config.LEARNING_RATE)
@@ -487,7 +518,8 @@ class Code2VecTrainer(Code2VecModelBase):
             self.dims, self.optimizer,
             use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
             num_sampled=cfg.NUM_SAMPLED_CLASSES,
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
+            requant_kernel=self.requant_kernel, row_kernel=self.row_kernel,
             sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
         self.step_config = self._train_step.cfg
 
@@ -542,13 +574,16 @@ class Code2VecTrainer(Code2VecModelBase):
         (training/scalars.py), the run's telemetry under
         `--telemetry_dir` (obs/: a step event a step, which reads the
         loss to the host and so waits for the card every step), the
-        `--trace` span trees, and the `--watchdog_stall_s` heartbeats of
-        the loop, the checkpoint writer and the infeed producer. The
-        `train/nan_loss` and `train/kill` failpoints act after each
-        step. Not here: the JAX loop's live metrics plane (`/metrics`,
-        health monitors, alert rules), its phase profiler and its sparse
-        step-floor gauges (they need the traffic model the port has not
-        yet)."""
+        `--trace` span trees, the `--watchdog_stall_s` heartbeats of
+        the loop, the checkpoint writer and the infeed producer, and the
+        live metrics plane: `--metrics_port` (`/metrics`, `/healthz`,
+        `/vars`, `/clock`; an in-memory registry without
+        `--telemetry_dir`) and `--alerts_mode` (the health monitors and
+        alert rules; under raise a firing alert is an `AlertError` at
+        the next step). The `train/nan_loss` and `train/kill`
+        failpoints act after each step. Not here: the JAX loop's phase
+        profiler and its sparse step-floor gauges (they need the traffic
+        model the port has not yet)."""
         cfg = self.config
         from_cli = data_path is None
         if from_cli:
@@ -584,10 +619,18 @@ class Code2VecTrainer(Code2VecModelBase):
         telemetry = Telemetry.create(cfg.TELEMETRY_DIR, config=cfg,
                                      component="train",
                                      scalar_writer=scalars, log=cfg.log)
+        if cfg.METRICS_PORT > 0 and not telemetry.enabled:
+            # --metrics_port without --telemetry_dir: a scrapeable run
+            # over an in-memory registry (no event log; the per-step
+            # loss read, and its wait for the card, apply either way)
+            telemetry = Telemetry.memory("train")
         self.telemetry = telemetry
-        if cfg.ASYNC_CHECKPOINT or cfg.TRACE or cfg.WATCHDOG_STALL_S > 0:
-            # the checkpoint writer, the infeed producer (trace spans)
-            # and the watchdog record into it from other threads
+        live_plane = cfg.METRICS_PORT > 0 or cfg.ALERTS_MODE != "off"
+        if (cfg.ASYNC_CHECKPOINT or cfg.TRACE or cfg.WATCHDOG_STALL_S > 0
+                or live_plane):
+            # the checkpoint writer, the infeed producer (trace spans),
+            # the watchdog, the health monitors and the exposition
+            # handler record into it or read it from other threads
             telemetry.make_threadsafe()
         tracer = Tracer.create(telemetry) if cfg.TRACE \
             else Tracer.disabled()
@@ -597,13 +640,26 @@ class Code2VecTrainer(Code2VecModelBase):
             tracer=tracer, log=cfg.log)
         loop_hb = watchdog.register("train_loop")
         self._ckpt_heartbeat = watchdog.register("checkpoint_writer")
+        # the live metrics plane: health monitors and alert rules swept
+        # on a cadence thread off the hot path, and the /metrics,
+        # /healthz, /vars, /clock server (obs/exposition.py); shared
+        # no-op singletons with the flags off
+        plane = build_live_plane(
+            telemetry, metrics_port=cfg.METRICS_PORT,
+            alerts_mode=cfg.ALERTS_MODE, alerts_rules=cfg.ALERTS_RULES,
+            health_every_s=cfg.HEALTH_EVERY_S, watchdog=watchdog,
+            monitors=default_train_monitors(),
+            default_rules=default_train_rules, log=cfg.log)
+        alerts = plane.alerts
         infeed_channel = SpanChannel() if tracer.enabled else None
         recorder = TrainStepRecorder(
             telemetry, gauge_every=cfg.NUM_BATCHES_TO_LOG_PROGRESS,
             tracer=tracer, infeed_channel=infeed_channel,
-            heartbeat=loop_hb if watchdog.enabled else None)
+            heartbeat=loop_hb if watchdog.enabled else None,
+            alerts=alerts if alerts.enabled else None)
         self._trace_recorder = recorder
         watchdog.start()
+        plane.start()
         # a set-once config echo (static: never reads as stale)
         telemetry.gauge("train/max_contexts", cfg.MAX_CONTEXTS, emit=False,
                         static=True)
@@ -668,9 +724,11 @@ class Code2VecTrainer(Code2VecModelBase):
             if self._ckpt_writer is not None:
                 self._ckpt_writer.wait()  # the last save is committed
             watchdog.poll()  # raise mode: a stalled run dies loudly here
+            alerts.poll()    # raise mode: so does a firing alert
         finally:
             loop_hb.idle()
             watchdog.stop()  # no raise: must not mask the loop's error
+            plane.stop()
             if self._ckpt_writer is not None:
                 # an exception's teardown: the error in flight is raised,
                 # a writer error stays pending for the next wait
@@ -739,7 +797,8 @@ class Code2VecTrainer(Code2VecModelBase):
             with torch.inference_mode():
                 loss_sum, topk_ids, _probs = eval_step(
                     self.params, dev_batch, dims=self.dims, top_k=top_k,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype,
+                    use_kernel=self.use_kernel)
             nv = b.num_valid_examples
             names = (b.target_strings[:nv] if b.target_strings else
                      [target_vocab.lookup_word(int(i))
@@ -881,6 +940,7 @@ class Code2VecTrainer(Code2VecModelBase):
                 with torch.inference_mode():
                     code = encode_step(self.params, dev_batch,
                                        dims=self.dims,
-                                       compute_dtype=self.compute_dtype)
+                                       compute_dtype=self.compute_dtype,
+                                       use_kernel=self.use_kernel)
                 for row in code[:b.num_valid_examples].cpu().numpy():
                     f.write(vector_line(row) + "\n")

@@ -5,12 +5,20 @@ One registry (`Telemetry`: counters, gauges, p50/p95/p99 timer
 histograms), sinks (a per-run JSONL event log and manifest under
 `--telemetry_dir`, a TensorBoard adapter over `ScalarWriter`, stdout),
 host-vs-device span helpers, request- and step-scoped tracing
-(`Tracer`), the stall watchdog (`Watchdog`) and the train-loop recorder
-(`TrainStepRecorder`). Not here yet: the live metrics plane
-(exposition, promtext, health, alerts), the phase profiler and the fleet
+(`Tracer`), the stall watchdog (`Watchdog`), the train-loop recorder
+(`TrainStepRecorder`), and the live metrics plane: health monitors
+(`HealthEngine`), alert rules (`AlertEngine`) and the `/metrics`,
+`/healthz`, `/vars`, `/clock` server (`MetricsServer`), wired together
+by `build_live_plane`. Not here yet: the phase profiler and the fleet
 collector.
 """
 
+from code2vec_tpu_torch.obs.alerts import (AlertEngine,  # noqa: F401
+                                           AlertError, AlertRule,
+                                           load_rules)
+from code2vec_tpu_torch.obs.exposition import (  # noqa: F401
+    LivePlane, MetricsServer, build_live_plane, render_prometheus)
+from code2vec_tpu_torch.obs.health import HealthEngine  # noqa: F401
 from code2vec_tpu_torch.obs.loop import (TrainStepRecorder,  # noqa: F401
                                          infeed_produce_instrument)
 from code2vec_tpu_torch.obs.sinks import (JsonlSink, ScalarSink,  # noqa: F401

@@ -24,7 +24,8 @@ it consumed (the producer thread sends that span's context through a
 `SpanChannel` in lockstep with the infeed queue). `last_step_context`
 exposes the newest step's context so the epoch-boundary save can link
 the step that triggered it. A heartbeat (`--watchdog_stall_s`) beats
-once per step.
+once per step, and an alert engine (`--alerts_mode raise`) raises its
+sticky `AlertError` at the step after the sweep that fired it.
 
 Cost model: telemetry is opt-in (`--telemetry_dir`), and enabling it
 trades step pipelining for attribution — the per-step loss read waits
@@ -83,12 +84,15 @@ class TrainStepRecorder:
     def __init__(self, telemetry: Telemetry, gauge_every: int = 100,
                  tracer: Optional[Tracer] = None,
                  infeed_channel: Optional[SpanChannel] = None,
-                 heartbeat=None):
+                 heartbeat=None, alerts=None):
         self.enabled = telemetry.enabled
         self._tele = telemetry
         self._tracer = tracer if tracer is not None else Tracer.disabled()
         self._channel = infeed_channel
         self._heartbeat = heartbeat
+        # alert engine (obs/alerts.py): end_step is "the training
+        # loop's next beat" where a raise-mode sticky alert surfaces
+        self._alerts = alerts
         self.last_step_context: Optional[SpanContext] = None
         self._gauge_every = max(1, gauge_every)
         self._steps = 0
@@ -142,6 +146,9 @@ class TrainStepRecorder:
                    loss=round(loss_f, 6), examples=int(n_examples))
         if self._heartbeat is not None:
             self._heartbeat.beat()
+        alerts = self._alerts
+        if alerts is not None and alerts._sticky is not None:
+            alerts.poll()  # raise-mode alert lands at the loop's beat
         if self._tracer.enabled:
             self._trace_step(step, step_ms, n_examples)
         self._steps += 1

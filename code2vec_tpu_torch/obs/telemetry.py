@@ -186,18 +186,21 @@ _NULL_SPAN = _NullSpan()
 _RUN_SEQ = [0]
 
 
+def device_topology() -> Dict[str, Any]:
+    """The devices this process runs on: the card's name and count where
+    CUDA is available, else the CPU."""
+    if torch.cuda.is_available():
+        return {"platform": "gpu", "kind": torch.cuda.get_device_name(),
+                "count": torch.cuda.device_count()}
+    return {"platform": "cpu", "count": 1}
+
+
 def _build_run_manifest(config, component: str) -> Dict[str, Any]:
     """The run's identity: id, component, time, process index and
     count, the device topology and the config. One process on one
-    device (the port's runs): process 0 of 1, the card's name and count
-    where CUDA is available, else the CPU."""
+    device (the port's runs): process 0 of 1."""
     process_index, process_count = 0, 1
-    if torch.cuda.is_available():
-        devices: Dict[str, Any] = {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(),
-            "count": torch.cuda.device_count()}
-    else:
-        devices = {"platform": "cpu", "count": 1}
+    devices = device_topology()
     _RUN_SEQ[0] += 1
     run_id = (f"run-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
               f"-p{process_index}-{_RUN_SEQ[0]}")
@@ -379,6 +382,33 @@ class Telemetry:
         with self._guard():
             for s in self.sinks:
                 s.write(ev)
+
+    def update_manifest(self, **fields: Any) -> bool:
+        """Merge `fields` into this run's `manifest.json` (tmp-write +
+        rename, so readers never see a torn file). The clock handshake
+        (obs/exposition `/clock?commit=1`) persists a measured
+        wall-clock offset this way. False = nothing durable to update
+        (memory registry, or the manifest is unreadable) — callers
+        treat that as "this run can't be clock-committed", not an
+        error."""
+        if not self.run_dir:
+            return False
+        path = os.path.join(self.run_dir, "manifest.json")
+        with self._guard():
+            try:
+                with open(path, encoding="utf-8") as f:
+                    manifest = json.load(f)
+            except (OSError, ValueError):
+                return False
+            manifest.update(fields)
+            tmp = path + ".tmp"
+            try:
+                with open(tmp, "w", encoding="utf-8") as f:
+                    json.dump(manifest, f, indent=2, default=str)
+                os.replace(tmp, path)
+            except OSError:
+                return False
+        return True
 
     # ---- lifecycle ----
     def summary(self) -> Dict[str, Any]:

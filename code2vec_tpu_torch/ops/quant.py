@@ -17,11 +17,11 @@ intermediate leaves the int64 range.
 The dense training step trains int8 tables through a straight-through
 gather (`quantized_take`): rows are gathered from q and s and
 dequantized to bf16, and the backward pass scatter-adds the bf16
-cotangent into a dense bf16 [V, E] gradient for a "carrier" input the
-forward never reads. The optimizer turns that gradient into a dense
-[V, E] update, and `requantize` applies it: dequantize, add, per-row
-absmax rescale, dither over the absolute element index, round half to
-even, clip to +-127. `requantize_reference` is the plain version of
+cotangent (in a fixed order, ops/scatter.py) into a dense bf16 [V, E]
+gradient for a "carrier" input the forward never reads. The optimizer
+turns that gradient into a dense [V, E] update, and `requantize`
+applies it: dequantize, add, per-row absmax rescale, dither over the
+absolute element index, round half to even, clip to +-127. `requantize_reference` is the plain version of
 kernel 4 (ops/requant_kernel.py); `requantize` runs the kernel's
 wrapper, which takes the plain version for CPU tensors.
 
@@ -37,6 +37,7 @@ from typing import Dict
 import torch
 
 from code2vec_tpu_torch import tree
+from code2vec_tpu_torch.ops.scatter import scatter_rows_bf16
 
 QuantTable = Dict[str, torch.Tensor]  # {"q": int8 [V, E], "s": f32 [V, 1]}
 
@@ -90,22 +91,22 @@ def dequantized_rows(qt: QuantTable, ids: torch.Tensor) -> torch.Tensor:
 
 class _QuantizedTake(torch.autograd.Function):
     """Straight-through gather of an int8 table: forward dequantizes the
-    gathered rows to bf16, backward scatter-adds the cotangent, cast to
-    the carrier's dtype, into a dense zero gradient for the carrier."""
+    gathered rows to bf16, backward scatter-adds the bf16 cotangent into
+    a dense zero bf16 gradient for the carrier, in a fixed order and with
+    every add rounded to bf16 (ops/scatter.scatter_rows_bf16)."""
 
     @staticmethod
     def forward(ctx, carrier, q, s, ids):
         ctx.save_for_backward(ids.reshape(-1))
-        ctx.carrier_meta = (carrier.shape, carrier.dtype, carrier.device)
+        # the carrier is the bf16 stand-in of opt_param_view
+        ctx.carrier_rows = carrier.shape[0]
         return dequantized_rows({"q": q, "s": s}, ids)
 
     @staticmethod
     def backward(ctx, g):
         (flat,) = ctx.saved_tensors
-        shape, dtype, device = ctx.carrier_meta
-        dc = torch.zeros(shape, dtype=dtype, device=device).index_add_(
-            0, flat, g.reshape(flat.shape[0], -1).to(dtype))
-        return dc, None, None, None
+        num_rows = ctx.carrier_rows
+        return scatter_rows_bf16(flat, g, num_rows), None, None, None
 
 
 def quantized_take(carrier: torch.Tensor, qt: QuantTable,
@@ -197,3 +198,29 @@ def requantize(qt: QuantTable, update: torch.Tensor, salt: int, *,
     new = requantize_reference(qt, update, salt)
     qt["q"].copy_(new["q"])
     qt["s"].copy_(new["s"])
+
+
+def resolve_tristate_mode(mode: str, flag: str):
+    """The shared auto|fused|reference -> None|True|False mapping of the
+    kernel-selection flags (a copy of the JAX package's). Config.verify()
+    rejects anything else; this raises for callers bypassing verify().
+    `flag` names the offender in the error."""
+    try:
+        return {"auto": None, "fused": True, "reference": False}[mode]
+    except KeyError:
+        raise ValueError(
+            f"{flag} must be auto|fused|reference, got {mode!r}")
+
+
+def kernel_choice(mode: str, flag: str, device) -> bool:
+    """A kernel-selection flag's `use_kernel` for tensors on `device`:
+    "auto" and "fused" the kernel's wrapper (which launches the kernel
+    on a CUDA tensor), "reference" the plain version. "fused" on the CPU
+    raises, naming `flag`: the kernels run on the card only, and the
+    wrapper would take the plain version there."""
+    fused = resolve_tristate_mode(mode, flag)
+    if fused and torch.device(device).type == "cpu":
+        raise ValueError(f"{flag} fused needs the CUDA card (its kernel "
+                         f"runs there); this run is on the cpu: pass "
+                         f"{flag} auto or reference")
+    return fused is not False

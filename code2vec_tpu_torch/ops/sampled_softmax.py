@@ -27,6 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from code2vec_tpu_torch.ops.scatter import take_rows_det
+
 
 def _log_uniform_log_probs(vocab_size: int, device=None) -> torch.Tensor:
     """Per-class log-pmf of the log-uniform distribution, float32 [V]."""
@@ -115,14 +117,14 @@ def sampled_softmax_loss(target_table: torch.Tensor,
     """The sampled-softmax loss against a [V_padded, D] target table,
     with the step's sampled ids [S] drawn from [0, vocab_size). The two
     row gathers are differentiable: the table's gradient is the sum of
-    their dense scatter-adds."""
+    their dense scatter-adds, each in a fixed order (ops/scatter.py)."""
     if vocab_size is None:
         vocab_size = target_table.shape[0]
     num_sampled = min(num_sampled, vocab_size)
     return sampled_softmax_from_gathered(
         code_vectors,
-        true_w=torch.index_select(target_table, 0, labels),
-        samp_w=torch.index_select(target_table, 0, sampled),
+        true_w=take_rows_det(target_table, labels),
+        samp_w=take_rows_det(target_table, sampled),
         true_corr=_log_expected_count(labels, num_sampled, vocab_size),
         samp_corr=_log_expected_count(sampled, num_sampled, vocab_size),
         accidental=sampled[None, :] == labels[:, None],

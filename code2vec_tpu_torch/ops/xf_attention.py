@@ -19,6 +19,10 @@ the output like q.
   (ops/xf_attention_kernel.py), or the call raises. Each counts its
   kernel launches in `.launches` (kernel 3's two launches, 3a and 3b,
   count as one);
+- `mha_forward_oracle`: kernel 2's function in float64, rounded once to
+  bf16, and `bf16_ulp_readings`: how far a bf16 output lies from it, in
+  ulps, over the elements a float32 evaluation can resolve and over the
+  rest;
 - `fused_mha`: the differentiable attention, a `torch.autograd.Function`
   whose forward is `mha_forward_fused` and whose backward is
   `mha_backward_fused`; `log_mask` gets a zero gradient, as in the JAX
@@ -70,6 +74,61 @@ def mha_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = _scale(q.shape[-1], q.device)
     attn = _attention_f32(q.to(F32), k.to(F32), log_mask, scale)
     return torch.matmul(attn, v.to(F32)).to(q.dtype)
+
+
+def round_to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float64 `x` rounded once to bf16, to nearest with ties to even
+    (a cast through float32 would round twice). bf16's subnormals are
+    not handled: every |x| here is far above 2^-126 or 0."""
+    mant, exp = torch.frexp(x)                  # x = mant * 2^exp
+    r = torch.round(torch.ldexp(mant, torch.full_like(exp, 8)))
+    return torch.ldexp(r, exp - 8).to(torch.bfloat16)
+
+
+# an element of o is resolvable by a float32 evaluation where |o| is at
+# least this share of sum_j a_j |v_j|: a float32 sum's error, a few
+# hundred 2^-24 of that magnitude, then stays under half a bf16 ulp of o
+# (2^-9 |o|); below it (o near 0 from cancelling terms) a float32
+# evaluation itself lies several bf16 ulps from the exact value
+RESOLVABLE_SHARE = 2.0 ** -7
+
+
+def mha_forward_oracle(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       log_mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 2's function in float64 (q, k, v, log_mask widened; the
+    scale is the kernels' 1 / sqrt(hd) rounded to float32) -> (o rounded
+    once to bf16: the yardstick kernel 2's and its plain version's bf16
+    outputs are read against, in units in the last place; the float64
+    magnitude sum_j a_j |v_j| of each element's terms)."""
+    d = torch.float64
+    scale = _scale(q.shape[-1], q.device).to(d)
+    logits = torch.matmul(q.to(d), k.to(d).transpose(-1, -2)) * scale \
+        + log_mask.to(d)[:, None, None, :]
+    attn = torch.softmax(logits, dim=-1)
+    vd = v.to(d)
+    return (round_to_bf16(torch.matmul(attn, vd)),
+            torch.matmul(attn, vd.abs()))
+
+
+def bf16_ulp_readings(o: torch.Tensor, oracle: torch.Tensor,
+                      magnitude: torch.Tensor) -> dict:
+    """A bf16 output against `mha_forward_oracle`'s (o, magnitude):
+    `max_ulp`, the largest distance in bf16 units in the last place over
+    the elements a float32 evaluation resolves (|o| >= RESOLVABLE_SHARE
+    of the magnitude); `share`, the share of all elements that differ;
+    `max_ulp_rest` and `rest_share`, the largest distance over the other
+    elements and their share."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    dist = (ordered(o) - ordered(oracle)).abs()
+    ok = oracle.to(torch.float64).abs() >= RESOLVABLE_SHARE * magnitude
+    rest = dist[~ok]
+    return {"max_ulp": int(dist[ok].max().item()) if ok.any() else 0,
+            "share": float((dist > 0).float().mean().item()),
+            "max_ulp_rest": int(rest.max().item()) if rest.numel() else 0,
+            "rest_share": float((~ok).float().mean().item())}
 
 
 def mha_backward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -24,11 +24,13 @@ extractor pool and the batcher all record into it). With `--trace`, one
 trace per request (request, extract, parse, queue wait, batch flush,
 encode, device, decode); with `--watchdog_stall_s`, the batcher
 consumer's heartbeat. The `serve/kill` failpoint fires before any span
-opens.
+opens. The live metrics plane (obs/exposition.build_live_plane):
+`--metrics_port` serves `/metrics`, `/healthz` (readiness: the
+batcher's heartbeat and the page alerts), `/vars` and `/clock` over the
+serving registry, and `--alerts_mode` runs the serving health monitors
+(cache-hit rate, shed rate) and alert rules.
 
-Not here yet (a later slice): the live metrics plane (`/metrics`,
-`/healthz`, the serving health monitors and alert rules) and the replica
-fleet with hot reload.
+Not here yet (a later slice): the replica fleet with hot reload.
 
 Cache semantics: a method whose contexts exceed MAX_CONTEXTS is
 downsampled at parse time by a draw seeded from the same normalized bag
@@ -45,7 +47,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 from code2vec_tpu_torch.common import MethodPredictionResults
 from code2vec_tpu_torch.config import Config
-from code2vec_tpu_torch.obs import Telemetry, Tracer, Watchdog
+from code2vec_tpu_torch.obs import (Telemetry, Tracer, Watchdog,
+                                    build_live_plane)
+from code2vec_tpu_torch.obs.alerts import default_serving_rules
+from code2vec_tpu_torch.obs.health import default_serving_monitors
 from code2vec_tpu_torch.resilience import faults
 from code2vec_tpu_torch.serving.batcher import (MicroBatcher, PredictRequest,
                                                 ServerOverloaded)
@@ -105,7 +110,10 @@ class PredictionServer:
     `batches` (device calls), `cache_hits`, `cache_misses`, `shed`; the
     same events go to `telemetry` (default: an in-memory registry).
     `tracer` (default: on with config.TRACE) and `watchdog` (default:
-    config.WATCHDOG_STALL_S) need a file-backed registry to record."""
+    config.WATCHDOG_STALL_S) need a file-backed registry to record.
+    `health`, `alerts` and `metrics_server` are the live plane's engines
+    (config.METRICS_PORT, ALERTS_MODE), started by `start()` and
+    stopped by `close()`."""
 
     def __init__(self, config: Config, model, telemetry: Telemetry = None,
                  tracer: Tracer = None, watchdog: Watchdog = None,
@@ -136,6 +144,20 @@ class PredictionServer:
                 mode=config.WATCHDOG_MODE, tracer=tracer, log=config.log)
         self.watchdog = watchdog
         self._batcher_hb = watchdog.register("batcher_consumer")
+        # the live metrics plane over the serving registry (readiness
+        # gates on the batcher's heartbeat), with the serving health
+        # monitors and alert rules on a cadence thread; shared no-op
+        # singletons with the flags off
+        self._live_plane = build_live_plane(
+            tele, metrics_port=config.METRICS_PORT,
+            alerts_mode=config.ALERTS_MODE,
+            alerts_rules=config.ALERTS_RULES,
+            health_every_s=config.HEALTH_EVERY_S, watchdog=watchdog,
+            monitors=default_serving_monitors(),
+            default_rules=default_serving_rules, log=config.log)
+        self.health = self._live_plane.health
+        self.alerts = self._live_plane.alerts
+        self.metrics_server = self._live_plane.metrics
         self.cache = cache if cache is not None \
             else PredictionCache(config.SERVE_CACHE_SIZE)
         self.batcher = MicroBatcher(
@@ -177,6 +199,7 @@ class PredictionServer:
                                      warmup_ms=round(self.warmup_ms, 1))
             self.batcher.start()
             self.watchdog.start()
+            self._live_plane.start()
             self._started = True
         return self
 
@@ -189,9 +212,11 @@ class PredictionServer:
                 self._extractor_kwargs = None
             self._started = False
         self.watchdog.stop()
-        # after teardown, so a raise-mode sticky stall cannot leak the
-        # batcher / extractor threads by raising mid-close
+        self._live_plane.stop()
+        # after teardown, so a raise-mode sticky stall or alert cannot
+        # leak the batcher / extractor threads by raising mid-close
         self.watchdog.poll()
+        self.alerts.poll()
 
     def __enter__(self) -> "PredictionServer":
         return self.start()

@@ -35,7 +35,7 @@ step draws from a `torch.Generator` seeded from (seed, step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -222,12 +222,15 @@ def apply_row_updates(params, opt_state, cfg: SparseStepConfig, segments,
 def sparse_train_step(params, opt_state, batch, draws: StepDraws, *,
                       dims: ModelDims, cfg: SparseStepConfig,
                       dense_opt: AdamF32Moments,
-                      use_kernel: bool = True) -> torch.Tensor:
+                      use_kernel: bool = True,
+                      row_kernel: Optional[bool] = None) -> torch.Tensor:
     """One training step, in place on `params` and `opt_state` (from
     init_sparse_opt_state with the same `dense_opt`). `batch` is the
     tuple (labels [B], src/pth/dst [B, C], mask [B, C], weights [B]) on
-    the params' device. `use_kernel=False` runs the plain pool and row
-    apply on any device. Returns the loss (0-d float32 on the device)."""
+    the params' device. `use_kernel=False` runs the plain pool on any
+    device, and the plain row apply too unless `row_kernel` (default:
+    `use_kernel`) says otherwise. Returns the loss (0-d float32 on the
+    device)."""
     S = min(cfg.num_sampled, dims.target_vocab_size)
     dense, gathered, ctx = prepare_step_inputs(
         params, batch, draws, use_sampled_softmax=cfg.use_sampled_softmax,
@@ -237,5 +240,6 @@ def sparse_train_step(params, opt_state, batch, draws: StepDraws, *,
     segments = row_segments(dims, batch, ctx, g_rows)
     apply_dense_updates(params, opt_state, dense_opt, g_dense)
     apply_row_updates(params, opt_state, cfg, segments, draws.salts,
-                      use_kernel=use_kernel)
+                      use_kernel=use_kernel if row_kernel is None
+                      else row_kernel)
     return loss

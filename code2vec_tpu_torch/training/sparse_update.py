@@ -17,8 +17,10 @@ for CUDA tensors and run the plain versions for CPU tensors;
 Differences from the JAX package, none of which changes a value:
 - the compact gradient has exactly U rows (no sentinel padding to a
   kernel block), since the CUDA grid covers U rows;
-- `torch.unique` on a CUDA tensor waits for the device, because the
-  number of unique ids sizes its output;
+- the segment sum (ops/scatter.py) waits for the device, because the
+  number of unique ids sizes its output, and it adds in a fixed order
+  (a tree over each id's rows) where the JAX package's scatter-add
+  adds in the ids' order;
 - the Adam step size `lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)` is one
   float32 tensor computed once per call (`adam_lr_t`), which the plain
   version and the kernel both read, so the two cannot differ by a `pow`;
@@ -33,6 +35,7 @@ from typing import Tuple
 import torch
 
 from code2vec_tpu_torch.ops.quant import QuantTable, is_quantized
+from code2vec_tpu_torch.ops.scatter import segment_sum_rows
 from code2vec_tpu_torch.ops.sparse_update import (RowAdamState,
                                                   apply_quant_rows_plain,
                                                   apply_rows_plain)
@@ -44,14 +47,9 @@ def dedup_segment_sum(ids: torch.Tensor, grads: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[N] ids + [N, E] cotangents -> (sorted unique ids [U] in the ids'
     dtype, [U, E] float32 per-unique-row sums). Accumulates in float32
-    whatever the cotangent dtype."""
-    ids = ids.reshape(-1)
-    grads = grads.reshape(ids.shape[0], -1)
-    uids, inv = torch.unique(ids, sorted=True, return_inverse=True)
-    seg = torch.zeros((uids.shape[0], grads.shape[1]), dtype=torch.float32,
-                      device=grads.device)
-    seg.index_add_(0, inv, grads.to(torch.float32))
-    return uids, seg
+    whatever the cotangent dtype, in a fixed order
+    (ops/scatter.segment_sum_rows: the same bits on every call)."""
+    return segment_sum_rows(ids, grads)
 
 
 def adam_lr_t(count: torch.Tensor, lr: float, b1: float, b2: float

@@ -52,7 +52,7 @@ of tensors on the params' device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -167,7 +167,9 @@ def dense_train_step(params: Params, opt_state, batch, draws: StepDraws, *,
                      loss_fn: Callable, optimizer: GradientTransformation,
                      use_kernel: bool = True) -> torch.Tensor:
     """One dense training step, in place on `params` and `opt_state`
-    (from `optimizer.init(opt_param_view(params))`). Returns the loss."""
+    (from `optimizer.init(opt_param_view(params))`). `use_kernel` picks
+    the requantize of int8 tables (kernel 4 or its plain version); the
+    pool is `loss_fn`'s. Returns the loss."""
     loss, grads, view = dense_loss_and_grads(params, batch, draws, loss_fn)
     updates = optimizer.update(grads, opt_state, view)
     apply_dense_updates(params, updates, draws.salts, use_kernel=use_kernel)
@@ -179,6 +181,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
                     num_sampled: int = 4096,
                     compute_dtype=torch.float32,
                     use_kernel: bool = True,
+                    requant_kernel: Optional[bool] = None,
+                    row_kernel: Optional[bool] = None,
                     sparse_updates: bool = False) -> Callable:
     """Returns `step(params, opt_state, batch, draws) -> loss`, which
     updates params and opt_state in place.
@@ -188,8 +192,10 @@ def make_train_step(dims: ModelDims, optimizer, *,
     builds the sparse-row step instead: `optimizer` is then the dense
     params' `AdamF32Moments`, whose learning rate is the tables' row-Adam
     LR too, and the state comes from sparse_steps.init_sparse_opt_state.
-    `use_kernel=False` runs the plain pool and the plain requantize or
-    row apply on any device."""
+    `use_kernel=False` runs the plain pool (or MHA) on any device, and
+    the plain requantize and row apply too unless `requant_kernel` /
+    `row_kernel` (default: `use_kernel`) say otherwise: the command
+    line's --no_pallas, --requant_pallas and --sparse_update_pallas."""
     if sparse_updates:
         if not isinstance(optimizer, AdamF32Moments):
             raise TypeError("the sparse-row step takes AdamF32Moments, got "
@@ -202,7 +208,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
         def step(params, opt_state, batch, draws):
             return sparse_train_step(params, opt_state, batch, draws,
                                      dims=dims, cfg=cfg, dense_opt=optimizer,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel,
+                                     row_kernel=row_kernel)
     else:
         cfg = DenseStepConfig(use_sampled_softmax=use_sampled_softmax,
                               num_sampled=num_sampled,
@@ -215,7 +222,9 @@ def make_train_step(dims: ModelDims, optimizer, *,
         def step(params, opt_state, batch, draws):
             return dense_train_step(params, opt_state, batch, draws,
                                     loss_fn=loss_fn, optimizer=optimizer,
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel
+                                    if requant_kernel is None
+                                    else requant_kernel)
 
     step.cfg = cfg
     return step

@@ -227,13 +227,13 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--metrics_port", "9100"], "--metrics_port"),
+    (["--serve_port", "8080"], "--serve_port"),
     (["--head", "varmisuse"], "--head varmisuse"),
     (["--attack", "untargeted"], "--attack"),
     (["--infeed_chunk", "2"], "--infeed_chunk 2"),
     (["--mesh_data", "2"], "--mesh_data"),
     (["--phase_profile", "on"], "--phase_profile"),
-    (["--no_pallas"], "--no_pallas"),
+    (["--adv_rename_prob", "0.3"], "--adv_rename_prob"),
     (["--serve_replicas", "2"], "--serve_replicas"),
     (["--backend", "tpu"], "--backend tpu"),
 ])
@@ -286,6 +286,74 @@ def test_flags_the_port_has_take_the_jax_spelling():
                          "power of two")):
         with pytest.raises(ValueError, match=match):
             Config.load_from_args(argv)
+
+
+def test_plane_selection_and_logging_flags_take_the_jax_spelling(tmp_path):
+    """--metrics_port, --alerts_mode, --alerts_rules, --no_pallas,
+    --requant_pallas, --sparse_update_pallas, -v and --logs-path parse
+    to the JAX package's dests and values, and its verify refusals are
+    the port's."""
+    from code2vec_tpu.config import Config as JConfig
+    argv = ["--data", "p", "--telemetry_dir", "t", "--metrics_port", "9",
+            "--alerts_mode", "raise", "--alerts_rules", "r.json",
+            "--no_pallas", "--requant_pallas", "reference",
+            "--sparse_update_pallas", "fused", "-v", "0", "--logs-path",
+            str(tmp_path / "l.log")]
+    jns = JConfig.arguments_parser().parse_args(argv)
+    ns = Config.arguments_parser().parse_args(["--backend", "cpu", *argv])
+    for dest in ("metrics_port", "alerts_mode", "alerts_rules", "no_pallas",
+                 "requant_pallas", "sparse_update_pallas", "verbose_mode",
+                 "logs_path"):
+        assert getattr(ns, dest) == getattr(jns, dest), dest
+    cfg = Config.load_from_args(["--backend", "cpu", *argv])
+    assert (cfg.METRICS_PORT, cfg.ALERTS_MODE, cfg.ALERTS_RULES,
+            cfg.USE_PALLAS, cfg.REQUANT_PALLAS, cfg.SPARSE_UPDATE_PALLAS,
+            cfg.VERBOSE_MODE, cfg.LOG_PATH, cfg.HEALTH_EVERY_S) == (
+        9, "raise", "r.json", False, "reference", "fused", 0,
+        str(tmp_path / "l.log"), 1.0)
+    for extra, match in (
+            (["--alerts_mode", "warn"], "alerts_mode warn/raise requires"),
+            (["--telemetry_dir", "t", "--alerts_rules", "r.json"],
+             "alerts_rules without"),
+            (["--metrics_port", "70000"], r"metrics_port must be in")):
+        with pytest.raises(ValueError, match=match):
+            Config.load_from_args(["--data", "p", *extra])
+        with pytest.raises(ValueError, match=match):
+            JConfig.load_from_args(["--data", "p", *extra]).verify()
+
+
+def test_fused_kernel_flags_on_the_cpu_exit_2_naming_them(dataset, capsys):
+    """`--requant_pallas fused` and `--sparse_update_pallas fused` on
+    `--backend cpu` are refused, naming the flag: the kernels run on the
+    card, and nothing gives way to a plain version silently."""
+    for flag in ("--requant_pallas", "--sparse_update_pallas"):
+        rc = cli.main(["--data", dataset, "--backend", "cpu",
+                       "--max_contexts", str(C), flag, "fused"])
+        assert rc == 2
+        assert f"{flag} fused" in capsys.readouterr().err
+
+
+def test_logs_path_and_verbose_reach_the_log(dataset, tmp_path):
+    """--logs-path appends the run's log to the file; -v 0 logs at
+    WARNING (the INFO lines stay out of the file)."""
+    import logging
+    logger = logging.getLogger("code2vec_tpu_torch")
+    try:
+        for verbose, name in (("1", "info.log"), ("0", "quiet.log")):
+            path = tmp_path / name
+            rc = cli.main(["--data", dataset, "--backend", "cpu",
+                           "--max_contexts", str(C), "--batch_size", "32",
+                           "--epochs", "1", "-v", verbose, "--logs-path",
+                           str(path)])
+            assert rc == 0
+            text = path.read_text() if path.exists() else ""
+            assert ("model loaded" in text) == (verbose == "1"), text
+    finally:
+        for h in list(logger.handlers):
+            if isinstance(h, logging.FileHandler):
+                logger.removeHandler(h)
+                h.close()
+        logger.setLevel(logging.NOTSET)
 
 
 @pytest.fixture(scope="module")
