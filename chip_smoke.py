@@ -166,7 +166,31 @@ Phases (any failure raises, and the script exits non-zero):
    within LOSS_RTOL of the default run's; the plane's cost on the loop
    (on against off with the telemetry and trace on in both; the metrics
    port alone against nothing), in alternating pairs;
-18. a `{"kernels": [...]}` line, the card line, and last
+18. the sampled phase profiler on (c) and (a) through `cli.main` over
+   [14]'s binary data: each run twice over the same steps, with
+   `--phase_profile on --phase_sample_every 2 --telemetry_dir
+   --metrics_port` and without; the final params and optimizer state the
+   same bits; every phase of the kit timed at each sample, the device
+   phases plus `residual_ms` equal to the fused ms (where no chain
+   difference clamped); a mid-run `/metrics` scrape with
+   `health_phase_*` (and, for (a), `health_opt_efficiency`); kernel 1's
+   and kernel 5's launches with and without (counted: the probes add
+   kernel 1, never kernel 5); the sampled steps' `train/step_ms` beside
+   the unsampled median; the per-phase ms, bytes and GB/s; (a)'s
+   `train/step_floor_ms` beside its step; a sampled step's peak
+   allocation beside a fused one's; (c)'s isolated apply probe beside
+   its remainder; the card's streaming ceiling (ops/membench.py);
+19. the restart supervisor (`python3 -m
+   code2vec_tpu_torch.tools.train_supervisor`) over (c) on [14]'s data,
+   as a subprocess: `train/kill` at step 5 with a once-latch marker,
+   one restart, the final state bit-identical to [14]'s uninterrupted
+   run, `/fleet` scraped during it (one member, a measured clock offset
+   committed into the relaunched child's manifest, cohort throughput
+   above 0, no straggler); a flipped byte in the latest step,
+   quarantined before the relaunch, resumed from the step before and
+   finished (bit-identical again), one `checkpoint_quarantined` firing;
+   a child that always fails under `--max_restarts 1`: exit 3, one page;
+20. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -3255,7 +3279,7 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
           f"({diff['tensors']} tensors), its losses equal", flush=True)
     shutil.rmtree(d)
     shutil.rmtree(tele3)
-    shutil.rmtree(kept["uninterrupted"])
+    # the uninterrupted run's last step stays for [19]
 
     # ---- 5. the telemetry's cost on the loop: all on vs all off ----
     cfg_c = Config(MAX_CONTEXTS=C, TRAIN_BATCH_SIZE=TRAIN_B, SEED=SEED,
@@ -3310,13 +3334,6 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
 SCRAPE_HEALTH_S, PLANE_HEALTH_S = 0.4, 0.05
 STALL_DEADLINE_S, STALL_SLEEP_MS = 1.0, 3000
 NAN_AT, PLANE_LOOP_PAIRS = 3, 3
-
-
-def free_port() -> int:
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
 
 
 def http_get(port: int, path: str, timeout: float = 5.0):
@@ -3382,6 +3399,7 @@ def phase_live_plane(torch, np, vocabs, tmp, data_prefix, test_path, kept,
     from code2vec_tpu_torch.obs import promtext
     from code2vec_tpu_torch.obs.alerts import AlertError
     from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.parallel.compat import free_port
 
     steps, base = kept["steps"], [str(a) for a in kept["base"]]
     train_only = ["--data", data_prefix, "--batch_size", TRAIN_B,
@@ -3587,6 +3605,498 @@ def phase_live_plane(torch, np, vocabs, tmp, data_prefix, test_path, kept,
     return launches
 
 
+
+# ---- [18] the phase profiler, [19] the supervisor ----
+
+# [18]: steps between samples (a run of CLI_EPOCHS x 4 steps samples at
+# steps-into-run 2, 4 and 6; the first sample's probes run twice, the
+# warm-up unrecorded); the health cadence of the profiled runs (no flag:
+# a wrapped Config.load_from_args sets it); how long the profiled run's
+# last step waits for a mid-run scrape to see the phase gauges; the
+# phase event's ms are rounded to 0.001, so its identity holds to this
+PHASE_EVERY, PHASE_HEALTH_S, PHASE_GATE_S, PHASE_ID_TOL_MS = 2, 0.05, 60.0, 0.01
+# [19]: the kill's step (in epoch 2, past epoch 1's save), the infeed's
+# sleep per batch in the killed child, the fleet's sweep cadence and the
+# /fleet poll's. A cohort rate is the counter's change over one sweep
+# window, so it reads above 0 only in the sweep that follows a step.
+# That child's infeed is synchronous: a prefetching one fills its queue
+# during a process's slow first step, and the steps after it then run
+# within one sweep. Steps spaced twice the sweep apart give each step
+# such a sweep, and a poll ten times faster than the sweep sees every
+# aggregate (neither the sleep nor the depth changes a value)
+SUP_KILL_AT, SUP_INFEED_SLEEP_MS, SUP_FLEET_S, SUP_POLL_S = 5, 1000, 0.5, 0.05
+SUP_TIMEOUT_S = 900
+
+
+def phase_events_check(np, label, events, kit_phases):
+    """[18]'s checks on one profiled run's `phase` events: every phase
+    of the kit in each; the device phases plus residual_ms equal the
+    fused ms of the sample wherever no chain difference was clamped to
+    0 (a probe that ran faster than the one before it); returns the
+    samples and the clamped ones."""
+    from code2vec_tpu_torch.obs.phases import DEVICE_PHASES
+    check(events, f"({label}) no phase events")
+    clamped = []
+    for e in events:
+        missing = [p for p in kit_phases if f"{p}_ms" not in e]
+        check(not missing, f"({label}) phase event without {missing}: {e}")
+        dev = sum(e.get(f"{p}_ms", 0.0) for p in DEVICE_PHASES)
+        chain = [p for p in kit_phases if p not in ("table_apply",
+                                                     "backward_apply")]
+        if any(e[f"{p}_ms"] == 0.0 for p in chain):
+            clamped.append(e["step"])
+            continue
+        check(abs(dev + e["residual_ms"] - e["fused_ms"]) <= PHASE_ID_TOL_MS,
+              f"({label}) device phases {dev:.3f} + residual "
+              f"{e['residual_ms']:.3f} != fused {e['fused_ms']:.3f}: {e}")
+    check(len(clamped) < len(events),
+          f"({label}) every sample clamped a chain phase: {events}")
+    return clamped
+
+
+def phase_profiler_phase(torch, np, vocabs, tmp, data_prefix, kept, report):
+    """[18]: the sampled phase profiler at java-large width through
+    `cli.main` over [14]'s binary data, for (c) and (a): each run twice
+    over the same steps, profiled (`--phase_profile on
+    --phase_sample_every 2 --telemetry_dir --metrics_port`) and not;
+    the same bits at the end; the phase events, a mid-run scrape, the
+    launches, the per-phase table, (a)'s floor; then the sampled step's
+    peak memory, an isolated apply probe for (c), and the card's
+    streaming ceiling (ops/membench.py)."""
+    import shutil
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data.reader import open_reader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.obs import Telemetry, promtext
+    from code2vec_tpu_torch.obs.phases import PhaseProfiler
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.membench import measure_hbm_ceiling
+    from code2vec_tpu_torch.ops.sparse_update_kernel import \
+        sparse_row_adam_fused
+    from code2vec_tpu_torch.parallel.compat import free_port
+    from code2vec_tpu_torch.training.phase_probes import make_code2vec_probes
+
+    steps = kept["steps"]
+    n_steps = CLI_EPOCHS * steps
+    samples = [s for s in range(n_steps) if s and s % PHASE_EVERY == 0]
+    train_only = ["--data", data_prefix, "--batch_size", TRAIN_B,
+                  "--max_contexts", C, "--epochs", CLI_EPOCHS,
+                  "--infeed_prefetch", 2]
+    configs = (("c", []),
+               ("a", ["--sparse_embeddings", "--embedding_optimizer", "adam",
+                      "--lr_schedule", "constant", "--sampled_softmax",
+                      "--num_sampled", TRAIN_S]))
+    real_load = Config.load_from_args.__func__
+    out, launches = {}, {"attention_pool": 0, "sparse_row_adam": 0}
+
+    def load(cls, args=None):
+        cfg = real_load(cls, args)
+        cfg.HEALTH_EVERY_S = PHASE_HEALTH_S
+        return cfg
+
+    for label, flags in configs:
+        runs = {}
+        for mode in ("off", "on"):
+            tele = os.path.join(tmp, f"tele18_{label}")
+            port = free_port()
+            argv = train_only + flags
+            if mode == "on":
+                argv += ["--phase_profile", "on", "--phase_sample_every",
+                         PHASE_EVERY, "--telemetry_dir", tele,
+                         "--metrics_port", port]
+            want = {"health_phase_embed_gather", "train_phase_fused_step_ms"}
+            if label == "a":
+                want.add("health_opt_efficiency")
+            seen, gate = {}, threading.Event()
+
+            def scrape():
+                deadline = time.monotonic() + PHASE_GATE_S + 60
+                while not gate.is_set() and time.monotonic() < deadline:
+                    try:
+                        _st, body, _ms = http_get(port, "/metrics", 1.0)
+                    except OSError:
+                        time.sleep(0.05)
+                        continue
+                    fam = promtext.parse_prometheus(body)
+                    if want <= set(fam):
+                        seen["fam"] = fam
+                        gate.set()
+                    time.sleep(0.05)
+
+            with Recorder(torch) as rec:
+                real_step = Code2VecTrainer.train_step
+                calls = [0]
+
+                def held(self, batch, draws=None):
+                    # the last step waits for the mid-run scrape
+                    calls[0] += 1
+                    if mode == "on" and calls[0] == n_steps:
+                        gate.wait(timeout=PHASE_GATE_S)
+                    return real_step(self, batch, draws)
+                Code2VecTrainer.train_step = held
+                scraper = threading.Thread(target=scrape, daemon=True)
+                if mode == "on":
+                    scraper.start()
+                Config.load_from_args = classmethod(load)
+                attention_pool_fused.launches = 0
+                sparse_row_adam_fused.launches = 0
+                t = time.perf_counter()
+                try:
+                    rc = cli.main([str(a) for a in argv])
+                finally:
+                    Config.load_from_args = classmethod(real_load)
+                    gate.set()
+                    torch.cuda.synchronize()
+                run_s = time.perf_counter() - t
+                if mode == "on":
+                    scraper.join(timeout=30)
+                n = {"attention_pool": attention_pool_fused.launches,
+                     "sparse_row_adam": sparse_row_adam_fused.launches}
+            check(rc == 0, f"({label} {mode}) cli.main exited {rc}")
+            trainer = rec.made[-1]
+            check(trainer.step_num == n_steps and len(rec.losses) == n_steps,
+                  f"({label} {mode}) {len(rec.losses)} steps")
+            runs[mode] = {"trainer": trainer, "run_s": run_s, "launches": n,
+                          "seen": seen.get("fam"), "tele": tele}
+            for k, v in n.items():
+                launches[k] += v
+            del rec
+        # ---- the same bits with and without the profiler ----
+        diff = state_diff(torch, {"params": runs["on"]["trainer"].params,
+                                  "opt_state": runs["on"]["trainer"].opt_state},
+                          {"params": runs["off"]["trainer"].params,
+                           "opt_state": runs["off"]["trainer"].opt_state})
+        check(diff["differ"] == 0, f"({label}) the profiled run's final "
+              f"state differs from the unprofiled run's: {diff}")
+        # ---- launches: the probes add kernel 1 (forward_pool, backward;
+        # twice at the first sample), never kernel 5 ----
+        per_step = {"attention_pool": 1,
+                    "sparse_row_adam": 3 if label == "a" else 0}
+        want_off = {k: v * n_steps for k, v in per_step.items()}
+        want_on = dict(want_off, attention_pool=want_off["attention_pool"]
+                       + 2 * (len(samples) + 1))
+        check(runs["off"]["launches"] == want_off
+              and runs["on"]["launches"] == want_on,
+              f"({label}) launches off {runs['off']['launches']} (expected "
+              f"{want_off}), on {runs['on']['launches']} (expected {want_on})")
+        # ---- the phase events and the summary ----
+        (events,) = run_events(runs["on"]["tele"])
+        phase_ev = [e for e in events if e["kind"] == "phase"]
+        check([e["step"] for e in phase_ev] == samples,
+              f"({label}) phase events at {[e['step'] for e in phase_ev]}")
+        kit = ["embed_gather", "concat_dense", "forward_pool", "backward",
+               "table_apply"]
+        clamped = phase_events_check(np, label, phase_ev, kit)
+        summary = events[-1]
+        check(summary["kind"] == "summary", f"({label}) no summary")
+        for p in kit + ["infeed_wait", "fused_step"]:
+            stat = summary["timers"].get(f"train/phase/{p}_ms")
+            check(stat is not None and stat["count"] == len(samples),
+                  f"({label}) train/phase/{p}_ms: {stat}")
+        fam = runs["on"]["seen"]
+        check(fam is not None, f"({label}) no mid-run scrape carried "
+              f"health_phase_*{' and health_opt_efficiency' if label == 'a' else ''}")
+        step_ev = {e["step"]: e["step_ms"] for e in events
+                   if e["kind"] == "step"}
+        sampled_ms = [step_ev[s + 1] for s in samples]
+        other = sorted(v for k, v in step_ev.items()
+                       if k - 1 not in samples and k > 1)
+        unsampled_med = other[len(other) // 2]
+        gauges = summary["gauges"]
+        table = []
+        for p in kit:
+            ms = sorted(e[f"{p}_ms"] for e in phase_ev)[len(phase_ev) // 2]
+            nbytes = gauges.get(f"train/phase_bytes/{p}")
+            table.append({"phase": p, "ms": ms, "bytes": nbytes,
+                          "gb_s": nbytes / ms / 1e6 if ms > 0 else None})
+        fused_med = sorted(e["fused_ms"] for e in phase_ev)[len(phase_ev) // 2]
+        floor = gauges.get("train/step_floor_ms")
+        step_p50 = summary["timers"]["train/step_ms"]["p50_ms"]
+        check((floor is not None and floor > 0) == (label == "a"),
+              f"({label}) train/step_floor_ms {floor}")
+        health = {k: promtext.scalar(fam, k) for k in sorted(fam)
+                  if k.startswith("health_phase_")
+                  or k == "health_opt_efficiency"}
+        print(f"  ({label}) cli.main {n_steps} steps profiled every "
+              f"{PHASE_EVERY} ({runs['on']['run_s']:.1f} s) and not "
+              f"({runs['off']['run_s']:.1f} s): final params and optimizer "
+              f"state the same bits ({diff['tensors']} tensors); launches "
+              f"kernel 1 {runs['on']['launches']['attention_pool']} vs "
+              f"{runs['off']['launches']['attention_pool']}, kernel 5 "
+              f"{runs['on']['launches']['sparse_row_adam']} vs "
+              f"{runs['off']['launches']['sparse_row_adam']} (profiled vs "
+              f"not, the wrappers' counts); {len(phase_ev)} samples at "
+              f"{samples}, {len(clamped)} with a chain phase clamped to 0 "
+              f"{clamped}; sampled steps' train/step_ms "
+              + ", ".join(f"{x:.2f}" for x in sampled_ms)
+              + f" beside the unsampled median {unsampled_med:.2f}; fused "
+              f"step median {fused_med:.2f} ms; mid-run scrape {health}",
+              flush=True)
+        print(f"  ({label}) per phase (median of {len(phase_ev)} samples): "
+              + "; ".join(f"{r['phase']} {r['ms']:.3f} ms, "
+                          f"{r['bytes'] / 1e6:.1f} MB, "
+                          + (f"{r['gb_s']:.1f} GB/s" if r["gb_s"] else "-")
+                          for r in table), flush=True)
+        if label == "a":
+            print(f"  (a) train/step_floor_ms {floor:.3f} (the model's bytes "
+                  f"over HBM_CEILING_GBPS) beside the measured step p50 "
+                  f"{step_p50:.2f} ms: opt_efficiency "
+                  f"{floor / step_p50:.3f}", flush=True)
+        # ---- the sampled step's peak memory; (c): the isolated apply ----
+        trainer = runs["on"]["trainer"]
+        batch = trainer.device_batch(next(iter(open_reader(
+            data_prefix + ".train.c2v", trainer.vocabs, C, TRAIN_B,
+            shuffle=False))))
+        draws = trainer.draws_for(batch[0].shape[0], trainer.step_num)
+        prof = trainer.phase_profiler(Telemetry.memory("train"))
+        prof.run_split(trainer.params, trainer.opt_state, batch, draws)
+        torch.cuda.synchronize()
+        peaks = {}
+        for name, fn in (
+                ("fused", lambda: trainer.train_step(batch, draws)),
+                ("sampled", lambda: prof.run_split(
+                    trainer.params, trainer.opt_state, batch, draws))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = torch.cuda.max_memory_allocated() - base
+        apply = None
+        if label == "c":
+            tele_iso = Telemetry.memory("train")
+            iso = PhaseProfiler(
+                tele_iso, fused_step=lambda _p, _s, b, d: trainer.train_step(b, d),
+                probes_factory=lambda: make_code2vec_probes(
+                    trainer.dims, trainer.optimizer,
+                    compute_dtype=trainer.compute_dtype,
+                    use_kernel=trainer.use_kernel, isolated_apply=True),
+                sample_every=1)
+            for _ in range(3):
+                iso.run_split(trainer.params, trainer.opt_state, batch, draws)
+            apply = {"isolated_apply_ms": tele_iso.timers[
+                "train/phase/table_apply_ms"].percentile(50),
+                "fused_ms": tele_iso.timers[
+                    "train/phase/fused_step_ms"].percentile(50),
+                "remainder_ms": sorted(e["table_apply_ms"] for e in phase_ev)[
+                    len(phase_ev) // 2]}
+            print(f"  (c) the isolated apply probe (optimizer update on a "
+                  f"state clone, p + u into scratch): "
+                  f"{apply['isolated_apply_ms']:.3f} ms beside the "
+                  f"remainder table_apply {apply['remainder_ms']:.3f} ms of "
+                  f"the profiled run", flush=True)
+        print(f"  ({label}) peak allocation above the resident state: a "
+              f"fused step {peaks['fused'] / 1e9:.3f} GB, a sampled step "
+              f"(probes, then the fused step) {peaks['sampled'] / 1e9:.3f} GB",
+              flush=True)
+        out[label] = {
+            "runs_s": {m: r["run_s"] for m, r in runs.items()},
+            "launches": {m: r["launches"] for m, r in runs.items()},
+            "tensors": diff["tensors"], "samples": samples,
+            "clamped": clamped, "sampled_step_ms": sampled_ms,
+            "unsampled_step_ms_median": unsampled_med,
+            "fused_ms_median": fused_med, "phases": table,
+            "phase_events": phase_ev, "step_floor_ms": floor,
+            "step_ms_p50": step_p50, "scrape": health,
+            "peak_bytes": peaks, "isolated_apply": apply}
+        for r in runs.values():
+            r["trainer"].close_session()
+            shutil.rmtree(r["tele"], ignore_errors=True)
+        del runs, trainer, prof, batch, draws
+        torch.cuda.empty_cache()
+    ceiling = measure_hbm_ceiling()
+    print(f"  (membench) streaming ceiling (read + write over 1 GiB "
+          f"float32, slope-timed by CUDA events): {ceiling / 1e9:.1f} GB/s; "
+          f"Config.HBM_CEILING_GBPS {Config.HBM_CEILING_GBPS}", flush=True)
+    out["hbm_ceiling_gbps"] = ceiling / 1e9
+    torch.cuda.empty_cache()
+    report["phases"] = out
+    return launches
+
+
+def phase_supervised(torch, np, tmp, data_prefix, kept, report):
+    """[19]: `python3 -m code2vec_tpu_torch.tools.train_supervisor` over
+    (c) on [14]'s data as a subprocess: (i) `train/kill` at step 5 (a
+    once-latch marker), one restart, the final state bit-identical to
+    [14]'s uninterrupted run, `/fleet` scraped during it; (ii) a flipped
+    byte in the latest step: quarantined, resumed from the step before,
+    finished (and bit-identical again), one `checkpoint_quarantined`
+    firing; (iii) a child that always fails under `--max_restarts 1`:
+    exit 3 and one page."""
+    import gc
+    import shutil
+
+    from code2vec_tpu_torch.parallel.compat import free_port
+    from code2vec_tpu_torch.tools.chaos import flip_byte_in_largest_file
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    steps, base = kept["steps"], [str(a) for a in kept["base"]]
+    out = {}
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    gc.collect()
+    torch.cuda.empty_cache()  # the children need the card's memory
+
+    def supervise(label, sup_flags, child, poll_fleet=None):
+        sup_tele = os.path.join(tmp, f"sup19_{label}")
+        cmd = [sys.executable, "-m",
+               "code2vec_tpu_torch.tools.train_supervisor",
+               "--telemetry_dir", sup_tele, "--backoff_base_s", "0.2",
+               "--attempt_timeout_s", str(SUP_TIMEOUT_S - 100),
+               "--out_dir", os.path.join(tmp, f"logs19_{label}"),
+               *[str(a) for a in sup_flags], "--", *child]
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            if poll_fleet is not None:
+                with Poller(poll_fleet, ("/fleet",),
+                            every_s=SUP_POLL_S) as poll:
+                    stdout, _ = proc.communicate(timeout=SUP_TIMEOUT_S)
+                scrapes = [json.loads(b) for _p, st, b, _ms in poll.seen
+                           if st == 200]
+            else:
+                stdout, _ = proc.communicate(timeout=SUP_TIMEOUT_S)
+                scrapes = []
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        (events,) = run_events(sup_tele)
+        shutil.rmtree(sup_tele)
+        return proc.returncode, time.perf_counter() - t, events, scrapes, \
+            stdout
+
+    def firings(events, rule=None, severity=None):
+        return [e for e in events if e["kind"] == "alert"
+                and e["transition"] == "firing"
+                and (rule is None or e["rule"] == rule)
+                and (severity is None or e["severity"] == severity)]
+
+    # ---- (i) train/kill at step 5 under the supervisor, /fleet live ----
+    d, tele_child = os.path.join(tmp, "ck19"), os.path.join(tmp, "tele19")
+    marker = os.path.join(tmp, "killed19.once")
+    child = [sys.executable, "-m", "code2vec_tpu_torch", *base, "--save", d,
+             # synchronous saves: epoch 1's step is committed before the kill
+             "--async_checkpoint", "off", "--telemetry_dir", tele_child]
+    faults = {"sites": {
+        "train/kill": {"action": "kill", "at": SUP_KILL_AT,
+                       "marker": marker},
+        "infeed/produce": {"action": "sleep", "delay_ms": SUP_INFEED_SLEEP_MS,
+                           "prob": 1.0, "times": -1}}}
+    fleet_port, member_base = free_port(), free_port()
+    rc, kill_s, events, scrapes, stdout = supervise(
+        "kill", ["--max_restarts", 2, "--fleet_port", fleet_port,
+                 "--member_metrics_base", member_base, "--fleet_interval_s",
+                 SUP_FLEET_S],
+        child + ["--infeed_prefetch", "0", "--faults", json.dumps(faults)],
+        poll_fleet=fleet_port)
+    attempts = [e for e in events if e["kind"] == "supervisor_attempt"]
+    launches_ev = [e for e in events if e["kind"] == "supervisor_launch"]
+    check(rc == 0 and os.path.exists(marker)
+          and [a["exit_codes"] for a in attempts] == [[-9], [0]]
+          and [e["resume_step"] for e in launches_ev] == [-1, steps]
+          and len(firings(events, "train_process_restarted")) == 1,
+          f"(kill) supervisor exit {rc}, attempts {attempts}, launches "
+          f"{launches_ev}: {stdout[-3000:]}")
+    a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
+    diff = state_diff(torch, a, b)
+    del a, b
+    check(diff["differ"] == 0 and ckpt.latest_step(d) == CLI_EPOCHS * steps,
+          f"(kill) the supervised run's final state is not [14]'s: {diff}")
+    rows = [s for s in scrapes if s.get("cohort", {}).get("hosts_up") == 1]
+    committed = [s for s in rows if s["hosts"][0].get("clock_committed")
+                 and s["hosts"][0].get("clock_offset_s") is not None]
+    moving = [s for s in rows if (s["cohort"].get("pc_per_sec") or 0) > 0]
+    trail = [(h["steps"], h["ex_s"]) for _ts, h in sorted(
+        {s["ts"]: s["hosts"][0] for s in rows}.items())]
+    check(committed and moving and all(
+        s["cohort"]["hosts_total"] == 1 and len(s["hosts"]) == 1
+        and s["cohort"]["straggler_score"] is None for s in rows),
+        f"(kill) /fleet: {len(scrapes)} scrapes, {len(rows)} with the member "
+        f"up, {len(committed)} with a committed offset, {len(moving)} with "
+        f"throughput; each member-up sweep's (steps, ex/s) {trail}; last "
+        f"{scrapes[-1:]}")
+    runs = sorted(os.listdir(tele_child))
+    manifests = []
+    for r in runs:
+        with open(os.path.join(tele_child, r, "manifest.json")) as f:
+            manifests.append(json.load(f).get("clock"))
+    check(len(runs) == 2 and manifests[-1] is not None
+          and manifests[-1].get("wall_offset_s") is not None,
+          f"(kill) the relaunched child's manifest clock block: {manifests}")
+    offsets = sorted({s["hosts"][0]["clock_offset_s"] for s in committed})
+    print(f"  (kill) supervisor + train/kill at step {SUP_KILL_AT} "
+          f"(synchronous infeed, sleep {SUP_INFEED_SLEEP_MS} ms a batch): "
+          f"exit 0 in {kill_s:.1f} s, "
+          f"attempts exited {[a['exit_codes'] for a in attempts]}, the "
+          f"relaunch resumed from step {steps}, one train_process_restarted "
+          f"ticket; final state bit-identical to [14]'s uninterrupted run "
+          f"({diff['tensors']} tensors); /fleet: {len(scrapes)} scrapes, "
+          f"{len(rows)} with the one member up, clock offsets "
+          + ", ".join(f"{x * 1e3:+.3f} ms" for x in offsets)
+          + f" committed (the relaunched child's manifest: "
+          f"{manifests[-1]['wall_offset_s'] * 1e3:+.3f} ms), cohort pc/s up "
+          f"to {max(s['cohort']['pc_per_sec'] for s in moving):.0f} in "
+          f"{len({s['ts'] for s in moving})} of {len(trail)} polled sweeps, "
+          f"no straggler", flush=True)
+    out["kill"] = {"seconds": kill_s, "attempts": attempts,
+                   "tensors": diff["tensors"], "fleet_scrapes": len(scrapes),
+                   "offsets_s": offsets, "manifest_clock": manifests[-1],
+                   "pc_per_sec_max": max(s["cohort"]["pc_per_sec"]
+                                         for s in moving),
+                   "sweeps_polled": len(trail),
+                   "sweeps_moving": len({s["ts"] for s in moving})}
+    shutil.rmtree(tele_child)
+
+    # ---- (ii) a flipped byte in the latest step, then relaunch ----
+    last = ckpt.latest_step(d)
+    flipped = flip_byte_in_largest_file(os.path.join(d, f"step_{last}"))
+    rc, corrupt_s, events, _s, stdout = supervise(
+        "corrupt", ["--max_restarts", 0], child)
+    quarantine = [e for e in events if e["kind"] == "ckpt_quarantine"]
+    launches_ev = [e for e in events if e["kind"] == "supervisor_launch"]
+    check(rc == 0 and os.path.isdir(os.path.join(d, "quarantine",
+                                                 f"step_{last}"))
+          and [e["resume_step"] for e in launches_ev] == [last - steps]
+          and len(firings(events, "checkpoint_quarantined")) == 1
+          and len(quarantine) == 1 and ckpt.latest_step(d) == last,
+          f"(corrupt) exit {rc}, launches {launches_ev}, quarantine "
+          f"{quarantine}: {stdout[-3000:]}")
+    a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
+    diff2 = state_diff(torch, a, b)
+    del a, b
+    check(diff2["differ"] == 0, f"(corrupt) the resumed run's final state "
+          f"is not [14]'s: {diff2}")
+    print(f"  (corrupt) one byte of {os.path.relpath(flipped, tmp)} flipped: "
+          f"quarantined before launch, one checkpoint_quarantined ticket, "
+          f"resumed from step {last - steps} and finished at step {last} in "
+          f"{corrupt_s:.1f} s, bit-identical to [14]'s uninterrupted run",
+          flush=True)
+    out["corrupt"] = {"seconds": corrupt_s, "tensors": diff2["tensors"]}
+    shutil.rmtree(d)
+    shutil.rmtree(os.path.join(tmp, "tele19"), ignore_errors=True)
+
+    # ---- (iii) a child that always fails: the budget runs out ----
+    rc, fail_s, events, _s, stdout = supervise(
+        "fail", ["--max_restarts", 1],
+        [sys.executable, "-c", "import sys; sys.exit(1)"])
+    pages = firings(events, severity="page")
+    check(rc == 3 and [p["rule"] for p in pages]
+          == ["restart_budget_exhausted"],
+          f"(budget) exit {rc}, pages {pages}: {stdout[-2000:]}")
+    print(f"  (budget) a child that always fails, --max_restarts 1: exit 3 "
+          f"in {fail_s:.1f} s, one page (restart_budget_exhausted)",
+          flush=True)
+    out["budget"] = {"seconds": fail_s}
+    for name in ("kill", "corrupt", "fail"):
+        shutil.rmtree(os.path.join(tmp, f"logs19_{name}"), ignore_errors=True)
+    shutil.rmtree(kept["uninterrupted"])
+    report["supervised"] = out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -3744,7 +4254,21 @@ def main(argv=None) -> int:
             torch, np, vocabs, tmp, data_prefix, test_path, kept, report)
         lap("[17]")
 
-    # ---- 18. result ----
+        # ---- 18. the phase profiler ----
+        print("[18] the sampled phase profiler (--phase_profile) on (c) and "
+              "(a), the card's streaming ceiling", flush=True)
+        phase_launches = phase_profiler_phase(  # graftlint: disable=nondeterminism
+            torch, np, vocabs, tmp, data_prefix, kept, report)
+        lap("[18]")
+
+        # ---- 19. the restart supervisor ----
+        print("[19] the restart supervisor (train/kill, a corrupt step, an "
+              "exhausted budget) with the fleet plane", flush=True)
+        phase_supervised(  # graftlint: disable=nondeterminism
+            torch, np, tmp, data_prefix, kept, report)
+        lap("[19]")
+
+    # ---- 20. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -3755,7 +4279,7 @@ def main(argv=None) -> int:
             v["attention_pool"] for v in cli_launches.values()) \
         + repl_launches["attention_pool"] \
         + observed_launches["attention_pool"] \
-        + plane_launches["attention_pool"]
+        + plane_launches["attention_pool"] + phase_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -3784,7 +4308,8 @@ def main(argv=None) -> int:
         row_entry("sparse_row_adam", "bfloat16",
                   "code2vec_tpu/ops/pallas_sparse_update.py:110",
                   train_launches["a"]["sparse_row_adam"]
-                  + cli_launches["sparse"]["sparse_row_adam"]),
+                  + cli_launches["sparse"]["sparse_row_adam"]
+                  + phase_launches["sparse_row_adam"]),
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
                   train_launches["b"]["sparse_requant_adam"]),
@@ -3828,7 +4353,8 @@ def main(argv=None) -> int:
                           **{f"xf_{k}": v for k, v in xf_launches.items()},
                           **{f"cli_{k}": v for k, v in cli_launches.items()},
                           "repl": repl_launches, "observed": observed_launches,
-                          "live_plane": plane_launches}
+                          "live_plane": plane_launches,
+                          "phases": phase_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

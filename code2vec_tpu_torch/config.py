@@ -5,9 +5,9 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--phase_*`, the replica, port, reload and autoscale serving
-flags, `--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh
-flags, ...) is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
+have yet (the replica, port, reload and autoscale serving flags,
+`--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh flags, ...)
+is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
 `cpu`; `--framework` accepts the JAX package's values as aliases of this
 implementation.
 
@@ -108,6 +108,22 @@ class Config:
     # batches the infeed thread prepares ahead of the step
     # (data/prefetch.py); 0 copies each batch in the loop
     INFEED_PREFETCH: int = 2
+    # the card's streaming ceiling in GB/s (ops/membench.py: a read +
+    # write copy over 1 GiB of float32), measured by chip_smoke.py [18]
+    # on an NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi's name and
+    # power limit). It divides the analytic traffic model's bytes into
+    # the live floor gauges (train/step_floor_ms, train/phase_floor_ms/*)
+    # and the phase roofline; running the 1 GiB copy mid-train would
+    # perturb the run
+    HBM_CEILING_GBPS: float = 3034.9
+    # --phase_profile on: every PHASE_SAMPLE_EVERY steps one step is
+    # split into synced probe dispatches (obs/phases.py,
+    # training/phase_probes.py) whose times publish as
+    # train/phase/<p>_ms; the state update stays the fused step, so the
+    # run's bits do not change. Needs a live registry (--telemetry_dir
+    # or --metrics_port); off, one boolean check a step
+    PHASE_PROFILE: str = "off"   # "off" | "on"
+    PHASE_SAMPLE_EVERY: int = 64
 
     # ---- the command line (the JAX package's flag names) ----
     BACKEND: str = "gpu"            # --backend: "gpu" (CUDA) | "cpu"
@@ -346,6 +362,18 @@ class Config:
                 "would be silently ignored.")
         if self.HEALTH_EVERY_S <= 0:
             raise ValueError("HEALTH_EVERY_S must be positive.")
+        if self.PHASE_PROFILE not in ("off", "on"):
+            raise ValueError(
+                "--phase_profile must be off or on "
+                f"(got {self.PHASE_PROFILE!r}).")
+        if self.PHASE_SAMPLE_EVERY < 1:
+            raise ValueError("--phase_sample_every must be >= 1.")
+        if self.PHASE_PROFILE == "on" and not self.TELEMETRY_DIR \
+                and self.METRICS_PORT <= 0:
+            raise ValueError(
+                "--phase_profile on needs a live registry: pass "
+                "--telemetry_dir (persisted phase events) or "
+                "--metrics_port (in-memory, scrape-only).")
         if self.REQUANT_PALLAS not in ("auto", "fused", "reference"):
             raise ValueError(
                 "--requant_pallas must be auto, fused or reference "
@@ -522,6 +550,21 @@ class Config:
                        help="JSON rule file replacing the built-in "
                             "alert rules (threshold + multi-window "
                             "burn-rate)")
+        p.add_argument("--phase_profile", dest="phase_profile",
+                       default=None, choices=["off", "on"],
+                       help="sampled per-phase device timing: every "
+                            "--phase_sample_every steps one step runs "
+                            "phase-split (synced per-phase dispatches; "
+                            "the state update stays the fused step) "
+                            "and publishes train/phase/* timers + "
+                            "health_phase_* roofline gauges (needs "
+                            "--telemetry_dir or --metrics_port)")
+        p.add_argument("--phase_sample_every",
+                       dest="phase_sample_every", type=int,
+                       default=None,
+                       help="steps between phase-split samples "
+                            "(default 64; the non-sampled hot path is "
+                            "untouched)")
         p.add_argument("--serve_batch_max", dest="serve_batch_max",
                        type=int, default=None,
                        help="max methods per coalesced serving batch "
@@ -604,6 +647,8 @@ class Config:
                 ("faults", "FAULTS"), ("metrics_port", "METRICS_PORT"),
                 ("alerts_mode", "ALERTS_MODE"),
                 ("alerts_rules", "ALERTS_RULES"),
+                ("phase_profile", "PHASE_PROFILE"),
+                ("phase_sample_every", "PHASE_SAMPLE_EVERY"),
                 ("requant_pallas", "REQUANT_PALLAS"),
                 ("sparse_update_pallas", "SPARSE_UPDATE_PALLAS"),
                 ("logs_path", "LOG_PATH"),

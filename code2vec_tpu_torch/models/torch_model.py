@@ -16,14 +16,14 @@ the same class: it builds the optimizer, its state and the step (the
 dense step by default, the sparse-row step under
 SPARSE_EMBEDDING_UPDATES), with the kernels the kernel-selection flags
 choose. `train()` is the JAX package's training loop with its
-telemetry, tracing, stall watchdog, live metrics plane, profiler window
-and failpoints: the auto-resume epoch
-offset (models/setup.py), the reader of the train split (binary shards
-when binarized, data/reader.open_reader), the prefetching infeed kept
-warm across epochs (data/prefetch.py; pinned host buffers and a side
-stream on the card), step-keyed draws, and at every SAVE_EVERY_EPOCHS
-epoch boundary an async checkpoint save (training/checkpoint.py) then an
-evaluation. `from_config` builds the command line's model (cli.py):
+telemetry, tracing, stall watchdog, live metrics plane, profiler window,
+sampled phase profiler, step-floor gauges and failpoints: the
+auto-resume epoch offset (models/setup.py), the reader of the train
+split (binary shards when binarized, data/reader.open_reader), the
+prefetching infeed kept warm across epochs (data/prefetch.py; pinned
+host buffers and a side stream on the card), step-keyed draws, and at
+every SAVE_EVERY_EPOCHS epoch boundary an async checkpoint save
+(training/checkpoint.py) then an evaluation. `from_config` builds the command line's model (cli.py):
 vocabularies from the `.dict.c2v` histograms, or with `--load` dims,
 vocabularies, params, optimizer state and step from a checkpoint.
 `release`, `save_word2vec_format` and `export_code_vectors_file` are the
@@ -66,6 +66,7 @@ from code2vec_tpu_torch.obs import (SpanChannel, Telemetry, Tracer,
                                     infeed_produce_instrument)
 from code2vec_tpu_torch.obs.alerts import default_train_rules
 from code2vec_tpu_torch.obs.health import default_train_monitors
+from code2vec_tpu_torch.obs.phases import PhaseProfiler
 from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
                                           kernel_choice, opt_param_view)
 from code2vec_tpu_torch.resilience import faults, retry
@@ -76,7 +77,10 @@ from code2vec_tpu_torch.training.scalars import ScalarWriter
 from code2vec_tpu_torch.training.optimizers import (
     AdamF32Moments, make_lr, make_optimizer, resolve_checkpoint_schedule,
     resolve_checkpoint_warmup)
+from code2vec_tpu_torch.training.phase_probes import make_code2vec_probes
 from code2vec_tpu_torch.training.sparse_steps import init_sparse_opt_state
+from code2vec_tpu_torch.training.sparse_update import (
+    phase_traffic_bytes, sparse_step_floor_bytes, sparse_update_phase_bytes)
 from code2vec_tpu_torch.training.steps import (encode_step, eval_step,
                                                make_train_step, predict_step)
 from code2vec_tpu_torch.vocab.vocabularies import Code2VecVocabs, VocabType
@@ -581,9 +585,12 @@ class Code2VecTrainer(Code2VecModelBase):
         `--telemetry_dir`) and `--alerts_mode` (the health monitors and
         alert rules; under raise a firing alert is an `AlertError` at
         the next step). The `train/nan_loss` and `train/kill`
-        failpoints act after each step. Not here: the JAX loop's phase
-        profiler and its sparse step-floor gauges (they need the traffic
-        model the port has not yet)."""
+        failpoints act after each step. With SPARSE_EMBEDDING_UPDATES the
+        analytic step floor (training/sparse_update.py's traffic model
+        over HBM_CEILING_GBPS) is published once for the health engine's
+        OptEfficiency; `--phase_profile on` splits every
+        PHASE_SAMPLE_EVERY-th step into synced probe dispatches
+        (`phase_profiler`), whose state update is the fused step."""
         cfg = self.config
         from_cli = data_path is None
         if from_cli:
@@ -663,6 +670,9 @@ class Code2VecTrainer(Code2VecModelBase):
         # a set-once config echo (static: never reads as stale)
         telemetry.gauge("train/max_contexts", cfg.MAX_CONTEXTS, emit=False,
                         static=True)
+        if cfg.SPARSE_EMBEDDING_UPDATES:
+            self._publish_step_floor(telemetry)
+        phases = self.phase_profiler(telemetry)
         # the first deadline also covers the first step's kernel builds
         loop_hb.busy()
         infeed_hb = watchdog.register("infeed_producer")
@@ -684,7 +694,21 @@ class Code2VecTrainer(Code2VecModelBase):
                 for epoch, batches in passes:
                     for dev_batch, batch in recorder.wrap(batches):
                         profiler.tick(steps_into_training, self.params)
-                        loss = self.train_step(dev_batch)
+                        if phases.enabled and phases.should_sample(
+                                steps_into_training):
+                            # probes first (measurement only), then the
+                            # fused step, all on the step's one draws
+                            loss = phases.run_split(
+                                self.params, self.opt_state, dev_batch,
+                                self.draws_for(dev_batch[0].shape[0],
+                                               self.step_num),
+                                step=self.step_num,
+                                infeed_wait_ms=recorder.infeed_wait_ms
+                                if recorder.enabled else None,
+                                recorder=recorder
+                                if recorder.enabled else None)
+                        else:
+                            loss = self.train_step(dev_batch)
                         if nan_fp.armed and nan_fp.hit():
                             loss = loss * float("nan")  # poison the loss
                         if kill_fp.armed:
@@ -743,6 +767,58 @@ class Code2VecTrainer(Code2VecModelBase):
             cfg.log(f"trained {len(values)} steps to step {self.step_num}: "
                     f"loss {values[0]:.5f} -> {values[-1]:.5f}")
         return values
+
+    def _publish_step_floor(self, telemetry: Telemetry) -> None:
+        """The sparse-row step's analytic floor, set once (static: facts,
+        not heartbeats): the health engine's OptEfficiency divides
+        `train/step_floor_ms` by the observed p50 step time every sweep,
+        so a step-time regression shows on /metrics mid-run."""
+        cfg = self.config
+        ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
+        step_bytes = sparse_step_floor_bytes(
+            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
+            num_sampled=ns)
+        upd_bytes = sparse_update_phase_bytes(
+            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
+            num_sampled=ns)
+        ceiling = cfg.HBM_CEILING_GBPS * 1e9
+        telemetry.gauge("train/step_floor_ms", step_bytes / ceiling * 1e3,
+                        emit=False, static=True)
+        telemetry.gauge("train/sparse_update_bytes", upd_bytes, emit=False,
+                        static=True)
+        telemetry.gauge("train/sparse_update_floor_ms",
+                        upd_bytes / ceiling * 1e3, emit=False, static=True)
+
+    def phase_profiler(self, telemetry: Telemetry) -> PhaseProfiler:
+        """The run's sampled phase profiler (obs/phases.py) over this
+        trainer's step and probes (training/phase_probes.py), with the
+        analytic per-phase bytes and the card's ceiling: the shared
+        no-op unless PHASE_PROFILE is on and `telemetry` is live. The
+        probes are built at its first sample."""
+        cfg = self.config
+        if cfg.PHASE_PROFILE != "on" or not telemetry.enabled:
+            return PhaseProfiler.disabled()
+        ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
+        phase_bytes = phase_traffic_bytes(
+            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
+            num_sampled=ns, sparse=cfg.SPARSE_EMBEDDING_UPDATES)
+
+        def probes():
+            return make_code2vec_probes(
+                self.dims, self.optimizer,
+                use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+                num_sampled=cfg.NUM_SAMPLED_CLASSES,
+                compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
+                sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
+
+        def fused_step(_params, _opt_state, batch, draws):
+            return self.train_step(batch, draws)  # in place, step_num + 1
+
+        return PhaseProfiler.create(
+            telemetry, fused_step=fused_step, probes_factory=probes,
+            enabled=True,
+            sample_every=cfg.PHASE_SAMPLE_EVERY, phase_bytes=phase_bytes,
+            ceiling_gbps=cfg.HBM_CEILING_GBPS, log=cfg.log)
 
     def _epoch_end(self, epoch: int, telemetry: Telemetry,
                    scalars: ScalarWriter) -> bool:

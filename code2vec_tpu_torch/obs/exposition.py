@@ -36,9 +36,9 @@ stdlib HTTP server on a daemon thread, scrapable by Prometheus or curl:
     this host's wall-clock offset, then COMMITS the measurement back
     (`/clock?commit=1&offset_s=...`): the run writes a `clock` block
     into its manifest (Telemetry.update_manifest).
-
-Not here: the JAX package's `/fleet` (its cohort collector is not
-ported).
+  - `/fleet`: only when a FleetCollector is attached (the supervisor
+    process, obs/fleet.py): the latest cohort aggregate as JSON, or
+    Prometheus text with `?format=prom`; 404 otherwise.
 
 Snapshot-don't-lock discipline: handler threads never take a lock the
 hot path contends on — they read dict snapshots (atomic under the GIL
@@ -176,7 +176,7 @@ class MetricsServer:
     alert tables when attached). Construct via `create()`."""
 
     def __init__(self, telemetry, *, port: int, host: str = "",
-                 watchdog=None, health=None, alerts=None,
+                 watchdog=None, health=None, alerts=None, fleet=None,
                  identity: Optional[Dict[str, Any]] = None,
                  log: Optional[Callable[[str], None]] = None):
         self.enabled = True
@@ -184,6 +184,7 @@ class MetricsServer:
         self.watchdog = watchdog
         self.health = health
         self.alerts = alerts
+        self.fleet = fleet
         self.port = port
         self.host = host
         self.bound_port: Optional[int] = None
@@ -309,8 +310,22 @@ class MetricsServer:
             body = self._clock(urllib.parse.parse_qs(query))
             return (200, "application/json",
                     json.dumps(body, default=str).encode("utf-8"))
+        if path == "/fleet":
+            fleet = self.fleet
+            if fleet is None or not getattr(fleet, "enabled", False):
+                return (404, "text/plain",
+                        b"no fleet collector attached\n")
+            params = urllib.parse.parse_qs(query)
+            if params.get("format", [""])[0] == "prom":
+                return (200,
+                        "text/plain; version=0.0.4; charset=utf-8",
+                        fleet.render_prometheus().encode("utf-8"))
+            return (200, "application/json",
+                    json.dumps(fleet.aggregate(), default=str,
+                               indent=1).encode("utf-8"))
         return (404, "text/plain",
-                b"not found (try /metrics, /healthz, /vars, /clock)\n")
+                b"not found (try /metrics, /healthz, /vars, /clock"
+                b", /fleet)\n")
 
     # ---- lifecycle ----
     def start(self) -> "MetricsServer":
@@ -346,7 +361,8 @@ class MetricsServer:
                 target=self._httpd.serve_forever, daemon=True,
                 name="metrics-exposition")
             self._thread.start()
-        self._log(f"metrics: serving /metrics /healthz /vars /clock on "
+        self._log(f"metrics: serving /metrics /healthz /vars /clock"
+                  f"{' /fleet' if self.fleet is not None else ''} on "
                   f"port {self.bound_port}")
         return self
 
@@ -367,6 +383,7 @@ class _NullMetricsServer(MetricsServer):
     def __init__(self):
         self.enabled = False
         self.telemetry = None
+        self.fleet = None
         self.identity = {}
         self.bound_port = None
 

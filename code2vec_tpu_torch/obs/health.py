@@ -56,17 +56,14 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+# the phases that are device time inside the fused step (infeed wait is
+# host time outside it): PhaseRoofline sums their p50s
+from code2vec_tpu_torch.obs.phases import DEVICE_PHASES
+
 __all__ = ["HealthEngine", "Monitor", "NonFiniteGauges", "EwmaZScore",
            "CounterRate", "TimerShare", "CounterRatio", "OptEfficiency",
            "PhaseRoofline", "default_train_monitors",
            "default_serving_monitors"]
-
-
-# the phases that are device time inside the fused step dispatch (the
-# JAX package's obs/phases.DEVICE_PHASES; infeed wait is host time
-# outside it): PhaseRoofline sums their p50s
-DEVICE_PHASES = ("embed_gather", "concat_dense", "forward_pool",
-                 "backward", "table_apply", "backward_apply")
 
 
 def _is_finite(v: Any) -> bool:
@@ -326,8 +323,8 @@ class OptEfficiency(Monitor):
     a traffic model of its step) divided by the observed p50 step time:
     near 1 means the step runs at its roofline, and ANY step-time
     regression — a new host sync, a slow kernel — pulls the gauge down
-    mid-run. Publishes unknown while the floor gauge is absent (no loop
-    of the port publishes one yet)."""
+    mid-run. Publishes unknown while the floor gauge is absent (the
+    train loop publishes it for the sparse-row step only)."""
 
     def __init__(self, floor_gauge: str = "train/step_floor_ms",
                  timer: str = "train/step_ms",
@@ -374,8 +371,7 @@ class PhaseRoofline(Monitor):
     the fused step" acceptance; far from 1 means the split no longer
     describes the fused step (a new unattributed stage, or fusion wins
     the probes cannot see). Unknown until the first sampled step lands
-    (phase profiling off, as always in the port so far = no timers, no
-    verdict)."""
+    (phase profiling off = no timers, no verdict)."""
 
     _PREFIX = "train/phase/"
 

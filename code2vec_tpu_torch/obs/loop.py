@@ -99,6 +99,31 @@ class TrainStepRecorder:
         self._infeed_wait_ms = 0.0
         self._t_yield = 0.0
 
+    @property
+    def infeed_wait_ms(self) -> float:
+        """Host ms the loop spent waiting on the most recent infeed
+        pop: the phase profiler's `infeed_wait` input (obs/phases.py)."""
+        return self._infeed_wait_ms
+
+    def probe_tick(self) -> None:
+        """Beat the loop heartbeat from inside a long in-step
+        measurement: the phase profiler calls this after every probe
+        dispatch, so its first sample (a kernel's first-use build among
+        it) never reads as a train-loop stall to the watchdog."""
+        if self._heartbeat is not None:
+            self._heartbeat.beat()
+
+    def rebase_step_window(self) -> None:
+        """Restart the current step's timing window. The phase profiler
+        calls this after its probe dispatches, so a SAMPLED step's
+        train/step_ms (and `step` event) records the fused step alone:
+        probe time belongs to the train/phase/* timers, and without the
+        rebase 1/N of the step_ms samples would be probe-laden outliers
+        whose p99 reports the profiler, not the step."""
+        self._t_yield = time.perf_counter()
+        if self._heartbeat is not None:
+            self._heartbeat.beat()
+
     def wrap(self, infeed: Iterable) -> Iterable:
         """Time the infeed pops. Disabled: returns `infeed` itself, so
         the loop iterates exactly what it iterated before."""

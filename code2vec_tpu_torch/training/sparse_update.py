@@ -26,13 +26,27 @@ Differences from the JAX package, none of which changes a value:
   version and the kernel both read, so the two cannot differ by a `pow`;
 - the int8 salt is passed in (a uint32 Python int) rather than drawn
   from a key inside the call.
+
+The analytic traffic model at the end (`sparse_update_traffic_bytes`,
+`sparse_step_floor_bytes`, `phase_traffic_bytes`, ...) is the JAX
+package's, integer for integer: it feeds the train loop's floor gauges
+(`train/step_floor_ms`, read by the health engine's OptEfficiency) and
+the phase profiler's per-phase bytes (PhaseRoofline). It is a floor on
+the work, not a description of this implementation: it keeps the JAX
+package's segment buffer of `_num_slots` rows (the ids rounded up to a
+512-row kernel block) although the port's segment sum is
+ops/scatter.py's pairwise tree over exactly U rows, so one yardstick
+reads the same work whichever package runs it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
+
+from code2vec_tpu_torch import tree
 
 from code2vec_tpu_torch.ops.quant import QuantTable, is_quantized
 from code2vec_tpu_torch.ops.scatter import segment_sum_rows
@@ -41,6 +55,16 @@ from code2vec_tpu_torch.ops.sparse_update import (RowAdamState,
                                                   apply_rows_plain)
 from code2vec_tpu_torch.ops.sparse_update_kernel import (
     sparse_requant_adam_fused, sparse_row_adam_fused)
+
+# the JAX kernel's unique-row slots per program; the traffic model's
+# segment buffer is sized in whole blocks of it
+_BLOCK_ROWS = 512
+
+
+def _num_slots(n_ids: int, block_rows: int) -> int:
+    """n_ids rounded up to a whole number of `block_rows` blocks: the
+    JAX package's static unique-id capacity."""
+    return -(-n_ids // block_rows) * block_rows
 
 
 def dedup_segment_sum(ids: torch.Tensor, grads: torch.Tensor
@@ -111,3 +135,198 @@ def sparse_requant_adam(qt: QuantTable, state: RowAdamState,
     apply_rows(qt, state, uids, seg, lr_t=adam_lr_t(count, lr, b1, b2),
                b1=b1, b2=b2, eps=eps, salt=salt, use_kernel=use_kernel)
     return int(uids.shape[0])
+
+
+# ---- the analytic traffic model (the train loop's floor gauges and the
+# phase profiler's per-phase bytes) ----
+
+def sparse_update_traffic_bytes(table, n_ids: int, unique_rows: int,
+                                *, grad_itemsize: int = 4,
+                                block_rows: int = _BLOCK_ROWS) -> int:
+    """Analytic HBM bytes of ONE sparse apply at U live rows: ids read
+    once, per-occurrence cotangents read once, the compact segment
+    buffer (`_num_slots` rows) written and read once, and per LIVE row:
+    table rows read + written (int8: q AND s) plus both float32 moment
+    rows read + written."""
+    n_slots = _num_slots(n_ids, block_rows)
+    emb = (table["q"] if is_quantized(table) else table).shape[-1]
+    total = n_ids * 4                       # ids read
+    total += n_ids * emb * grad_itemsize    # cotangent rows read
+    total += n_slots * emb * 4 * 2          # segment buffer w + r
+    if is_quantized(table):
+        total += unique_rows * emb * 1 * 2  # q rows r + w
+        total += unique_rows * 4 * 2        # s rows r + w
+    else:
+        total += unique_rows * emb * table.element_size() * 2  # rows r + w
+    total += unique_rows * emb * 4 * 2 * 2          # m and v rows r + w
+    return int(total)
+
+
+def table_id_counts(batch_size: int, max_contexts: int,
+                    num_sampled: int = 0) -> dict:
+    """Per-table gathered-id counts of one sparse train step: token rows
+    for src AND dst, target rows (sampled softmax) for the labels plus
+    the shared sample."""
+    counts = {"token_emb": 2 * batch_size * max_contexts,
+              "path_emb": batch_size * max_contexts}
+    if num_sampled:
+        counts["target_emb"] = batch_size + num_sampled
+    return counts
+
+
+def _table_rows(table) -> Tuple[int, int, int, int]:
+    """(rows, emb, bytes a gathered row reads, cotangent itemsize): an
+    int8 table reads a q row and its float32 scale and takes a bf16
+    cotangent; a float table its row at its own dtype."""
+    if is_quantized(table):
+        rows, emb = table["q"].shape
+        return rows, emb, emb * 1 + 4, 2
+    rows, emb = table.shape
+    return rows, emb, emb * table.element_size(), table.element_size()
+
+
+def sparse_update_phase_bytes(params, batch_size: int,
+                              max_contexts: int, *,
+                              num_sampled: int = 0,
+                              block_rows: int = _BLOCK_ROWS,
+                              processes: int = 1) -> int:
+    """Analytic per-device HBM bytes of the dedup / segment-sum / apply
+    phase alone for one step over the three tables, at the uniform-ids
+    E[U] of each table (the loop's `train/sparse_update_bytes` gauge).
+    `processes` scales the per-process `batch_size` to the global
+    occurrence count, as the JAX package's mesh model does."""
+    total = 0
+    for key, n in table_id_counts(batch_size, max_contexts,
+                                  num_sampled).items():
+        table = params.get(key)
+        if table is None:
+            continue
+        n_global = n * processes
+        num_rows, _emb, _row, grad_itemsize = _table_rows(table)
+        total += sparse_update_traffic_bytes(
+            table, n_global, expected_unique_rows(n_global, num_rows),
+            grad_itemsize=grad_itemsize, block_rows=block_rows)
+    return int(total)
+
+
+def sparse_step_floor_bytes(params, batch_size: int, max_contexts: int,
+                            *, num_sampled: int = 0,
+                            block_rows: int = _BLOCK_ROWS,
+                            data_shards: int = 1,
+                            processes: int = 1) -> int:
+    """Analytic per-device per-step HBM bytes of the FULL sparse-row
+    step: forward row gathers (per occurrence), backward cotangent
+    writes, and the dedup / segment-sum / live-row apply traffic at the
+    uniform-ids E[U] (real corpora are Zipfian, so this over-counts and
+    the derived floor stays conservative). Dense params add their
+    grad / param / moment sweeps. The loop's `train/step_floor_ms`
+    gauge is these bytes over `Config.HBM_CEILING_GBPS`.
+    `processes` / `data_shards` describe a topology as in the JAX
+    package (forward and backward over the device's batch shard, the
+    apply over the global list); the defaults (1, 1) are one device."""
+    counts = table_id_counts(batch_size, max_contexts, num_sampled)
+    total = 0
+    for key, n in counts.items():
+        table = params.get(key)
+        if table is None:
+            continue
+        n_global = n * processes
+        n_local = n_global / data_shards
+        num_rows, emb, row_bytes, grad_itemsize = _table_rows(table)
+        u = expected_unique_rows(n_global, num_rows)
+        total += int(n_local * row_bytes)  # forward row gathers
+        total += int(n_local * emb * grad_itemsize)  # bwd cotangents
+        total += sparse_update_traffic_bytes(
+            table, n_global, u, grad_itemsize=grad_itemsize,
+            block_rows=block_rows)
+    for key, p in params.items():
+        if key in counts or is_quantized(p):
+            continue  # row-gathered tables: counted above
+        for leaf in tree.flatten({key: p}).values():
+            b = leaf.numel() * leaf.element_size()
+            total += b * 4 + b * 4  # grad w+r, param r+w, m/v r+w
+    return int(total)
+
+
+def phase_traffic_bytes(params, batch_size: int, max_contexts: int, *,
+                        num_sampled: int = 0, sparse: bool = False,
+                        compute_itemsize: int = 2,
+                        block_rows: int = _BLOCK_ROWS,
+                        data_shards: int = 1,
+                        processes: int = 1) -> dict:
+    """Analytic per-device HBM bytes of each step phase, keyed by the
+    phase names obs/phases.py publishes (the per-phase form of
+    `sparse_step_floor_bytes`): streaming lower bounds, so derived
+    utilizations are conservative.
+
+      embed_gather — forward row gathers per occurrence (row read +
+        gathered-activation write at the compute dtype), the sampled
+        softmax's target gathers included on both paths.
+      concat_dense — concat write + read of the [B, C, 3E] contexts,
+        the TRANSFORM weights, the transformed-tensor write.
+      forward_pool — transformed read, the weighted reduction, the code
+        write, the sampled logits.
+      backward — activation re-read + context-cotangent write, plus the
+        per-occurrence table cotangents (`sparse`) or those and the
+        dense [V, E] carrier's write + read (dense).
+      table_apply — `sparse`: `sparse_update_phase_bytes`; dense: grad
+        read + param read/write + two float32 moment sweeps per leaf.
+    """
+    counts = table_id_counts(batch_size, max_contexts, num_sampled)
+    gather = 0
+    cot = 0
+    carrier = 0
+    emb_any = 0
+    for key, n in counts.items():
+        table = params.get(key)
+        if table is None:
+            continue
+        n_local = n * processes / data_shards
+        _rows, emb, row_bytes, grad_itemsize = _table_rows(table)
+        table_elems = (table["q"] if is_quantized(table) else table).numel()
+        emb_any = emb
+        gather += int(n_local * (row_bytes + emb * compute_itemsize))
+        cot += int(n_local * emb * grad_itemsize)
+        carrier += table_elems * grad_itemsize * 2  # dense w + r
+    transform = params.get("transform")
+    D = int(transform.shape[0]) if transform is not None else 3 * emb_any
+    B_local = batch_size * processes / max(1, data_shards)
+    ctx_bytes = int(B_local * max_contexts * D * compute_itemsize)
+    out = {"embed_gather": gather}
+    out["concat_dense"] = int(
+        ctx_bytes * 3 + (D * D * 4 if transform is not None else 0))
+    out["forward_pool"] = int(
+        ctx_bytes + B_local * D * compute_itemsize
+        + B_local * (1 + num_sampled) * 4)
+    out["backward"] = int(ctx_bytes * 2
+                          + (cot if sparse else cot + carrier))
+    if sparse:
+        out["table_apply"] = sparse_update_phase_bytes(
+            params, batch_size, max_contexts, num_sampled=num_sampled,
+            block_rows=block_rows, processes=processes)
+    else:
+        apply = 0
+        for key, p in params.items():
+            if is_quantized(p):
+                n = p["q"].numel()
+                apply += n * 2          # carrier grad read
+                apply += n * 2          # q r + w
+                apply += p["s"].numel() * 4 * 2  # s r + w
+                apply += n * 4 * 2 * 2  # Adam-shaped moments
+                continue
+            for leaf in tree.flatten({key: p}).values():
+                b = leaf.numel() * leaf.element_size()
+                apply += b * 3                      # grad r, param r + w
+                apply += leaf.numel() * 4 * 2 * 2   # two f32 moments r+w
+        out["table_apply"] = int(apply)
+    return {k: int(v) for k, v in out.items()}
+
+
+def expected_unique_rows(n_ids: int, num_rows: int) -> int:
+    """E[U] for n uniform draws over V rows: V * (1 - (1 - 1/V)^n).
+    Real corpora are Zipfian (fewer uniques), so a floor derived from it
+    over-counts live-row traffic and stays conservative."""
+    if num_rows <= 0 or n_ids <= 0:
+        return 0
+    return int(num_rows * (1.0 - math.exp(
+        n_ids * math.log1p(-1.0 / num_rows))))

@@ -232,7 +232,7 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
     (["--attack", "untargeted"], "--attack"),
     (["--infeed_chunk", "2"], "--infeed_chunk 2"),
     (["--mesh_data", "2"], "--mesh_data"),
-    (["--phase_profile", "on"], "--phase_profile"),
+    (["--serve_autoscale"], "--serve_autoscale"),
     (["--adv_rename_prob", "0.3"], "--adv_rename_prob"),
     (["--serve_replicas", "2"], "--serve_replicas"),
     (["--backend", "tpu"], "--backend tpu"),

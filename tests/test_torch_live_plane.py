@@ -196,9 +196,9 @@ def test_health_and_alerts_match_jax_under_one_fake_clock(scenario, ticks,
 
 
 def test_opt_efficiency_and_phase_roofline_report_no_data():
-    """No floor gauge and no phase timers in the port: both monitors stay
-    unknown with the JAX package's no-data details, while the step
-    timer is fed. Tolerance:
+    """Before a floor gauge and a sampled phase step are published (a
+    dense run, profiling off), both monitors stay unknown with the JAX
+    package's no-data details, while the step timer is fed. Tolerance:
     none."""
     tele = ttele.Telemetry.memory("train")
     for _ in range(5):
