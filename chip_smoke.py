@@ -190,7 +190,31 @@ Phases (any failure raises, and the script exits non-zero):
    quarantined before the relaunch, resumed from the step before and
    finished (bit-identical again), one `checkpoint_quarantined` firing;
    a child that always fails under `--max_restarts 1`: exit 3, one page;
-20. a `{"kernels": [...]}` line, the card line, and last
+20. the serving fleet at [4]'s java-large width on the card, over HTTP:
+   a `ReplicaPool` of 2 bag replicas (each built by a factory that seeds a
+   fresh generator) behind a `ServingFrontend`, a `ReloadManager` polling
+   every 0.1 s, and the port loadgen's open loop through serving_bench's
+   `HttpPredictClient` in a client process (the JAX `serve_swap_kill`
+   leg's parameters: Poisson arrivals at 120 qps, 16 workers, a quarter
+   re-asking 8 hot keys; 2,400 one-method requests, about 20 s, so that a
+   0.77 GB step is written, hashed and loaded under the load); the
+   serving process's start-up heap is frozen out of the collector
+   (`gc.freeze`) before the pool starts. `serve/kill` raises at the 40th
+   `predict_lines`; 0.5 s in, a writer process (the trainer) commits
+   step 1 (seed 1's weights) through `save_checkpoint`; once it is
+   swapped in, step 2 with a flipped byte. The JAX leg's contract (no error,
+   requests = ok + shed, p99 within the 250 ms SLO, one death and one
+   refill, step 1 swapped under load at generation 1, step 2 refused
+   with `reload_refused` firing, `compile_delta() == 0`, the pool back
+   to 2 ready); kernel 1 launched under the load (counted); every hot
+   key's answer equal to a single `PredictionServer`'s on step 0's
+   weights before the swap, on step 1's after it, one of the two during
+   it; the refilled replica's weights and answers its peers'; `/healthz`
+   200 throughout, polled every 0.05 s; one autoscaler "up" (2 -> 3, the
+   replica's build time) and one "down" after the hold on an injected
+   clock; `/pool`, `/metrics` (the port's promtext) and one `obs_top`
+   frame; memory allocated with 2 replicas, after the swap and with 3;
+21. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -4097,6 +4121,583 @@ def phase_supervised(torch, np, tmp, data_prefix, kept, report):
     report["supervised"] = out
 
 
+# [20] the serving fleet: the JAX `serve_swap_kill` leg's parameters
+# (2 replicas, Poisson arrivals at 120 qps from 16 client workers, a
+# quarter of them re-asking 8 hot keys, `serve/kill` at the 40th
+# predict_lines), with a load long enough (about 20 s) that a 0.77 GB
+# step is written, hashed, verified and swapped while it runs
+FLEET_REPLICAS, FLEET_QPS, FLEET_CONCURRENCY = 2, 120.0, 16
+FLEET_REQUESTS, FLEET_HOT_FRAC, FLEET_HOT_KEYS = 2400, 0.25, 8
+FLEET_KILL_AT, FLEET_POLL_S, FLEET_HEALTHZ_S = 40, 0.1, 0.05
+# the step committed under load holds weights from another seed, so that
+# "the fleet serves the new weights" shows on bf16 tables (the JAX leg's
+# x * 1.001 is below one bf16 step)
+FLEET_NEW_SEED = 1
+
+
+def fleet_requests(np, rng, n: int):
+    """`n` requests of one method each over [4]'s vocabulary (tokens
+    tok<i>, paths 1000003 * i, ~2% out-of-vocab words, 20-400
+    contexts), drawn in bulk."""
+    out = []
+    for _ in range(n):
+        n_ctx = int(rng.integers(20, 401))
+        tok = rng.integers(JAVA_LARGE["token"], size=(n_ctx, 2))
+        pth = rng.integers(JAVA_LARGE["path"], size=n_ctx)
+        unk = rng.random((n_ctx, 3)) < 0.02
+        unk_ids = rng.integers(1 << 30, size=(n_ctx, 3))
+        ctxs = [
+            ",".join((f"unk{unk_ids[i, 0]}" if unk[i, 0] else f"tok{tok[i, 0]}",
+                      f"unk{unk_ids[i, 1]}" if unk[i, 1]
+                      else str(1000003 * int(pth[i])),
+                      f"unk{unk_ids[i, 2]}" if unk[i, 2] else f"tok{tok[i, 1]}"))
+            for i in range(n_ctx)]
+        target = f"m{rng.integers(4099)}|n{rng.integers(JAVA_LARGE['target'])}"
+        out.append([target + " " + " ".join(ctxs)])
+    return out
+
+
+def fleet_dims(vocabs):
+    """[4]'s java-large bag model with bf16 tables."""
+    from code2vec_tpu_torch.models.encoder import ModelDims
+    return ModelDims(token_vocab_size=vocabs.token_vocab.size,
+                     path_vocab_size=vocabs.path_vocab.size,
+                     target_vocab_size=vocabs.target_vocab.size,
+                     embeddings_size=E, max_contexts=C, tables_dtype="bfloat16")
+
+
+def fleet_weights(torch, dims, seed: int, device: str):
+    """Random weights from `seed` on `device`, stretched as [4]'s."""
+    from code2vec_tpu_torch.models.encoder import init_params
+    params = init_params(torch.Generator(device=device).manual_seed(seed),
+                         dims)
+    stretch_tables(params)
+    return params
+
+
+def fleet_writer(reload_dir: str) -> None:
+    """[20]'s trainer, in a process of its own as a trainer is: seed
+    FLEET_NEW_SEED's weights on the host, then at each line of stdin
+    commit the next step through `save_checkpoint` (step 2 with a byte
+    flipped in its largest file), and say so on stdout."""
+    import torch
+
+    from code2vec_tpu_torch.tools.chaos import flip_byte_in_largest_file
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    vocabs = synthetic_vocabs()
+    dims = fleet_dims(vocabs)
+    params = fleet_weights(torch, dims, FLEET_NEW_SEED, "cpu")
+    print("ready", flush=True)
+    for step in (1, 2):
+        if not sys.stdin.readline():
+            return
+        ckpt.save_checkpoint(reload_dir, {"params": params}, step, vocabs,
+                             dims)
+        if step == 2:
+            flip_byte_in_largest_file(os.path.join(reload_dir, "step_2"))
+        print(f"saved {step}", flush=True)
+
+
+def fleet_client(base_url: str, corpus_path: str, out_path: str) -> None:
+    """[20]'s clients, in a process of their own: the port loadgen's open
+    loop through serving_bench's `HttpPredictClient`, at the JAX leg's
+    rate, workers and hot-key skew. Says `start <clock>` before the first
+    request and `done` after the report, every answered request's send
+    and done times and each hot key's answer are written to `out_path`.
+    It imports neither torch nor numpy."""
+    from code2vec_tpu_torch.obs import Telemetry
+    from code2vec_tpu_torch.tools import loadgen
+    from code2vec_tpu_torch.tools.serving_bench import HttpPredictClient
+    with open(corpus_path) as f:
+        corpus = json.load(f)
+    hot = {corpus[i][0]: i for i in range(FLEET_HOT_KEYS)}
+    records, answered = [], []
+
+    class RecordingClient(HttpPredictClient):
+        def predict_lines(self, lines, deadline_ms=None):
+            sent = time.perf_counter()
+            out = super().predict_lines(lines, deadline_ms=deadline_ms)
+            done = time.perf_counter()
+            answered.append((sent, done))
+            if lines[0] in hot:
+                records.append((hot[lines[0]], sent, done, out[0]))
+            return out
+
+    client = RecordingClient(
+        base_url, Telemetry.memory("fleet-clients").make_threadsafe())
+    print(f"start {time.perf_counter()!r}", flush=True)
+    report = loadgen.run_load(
+        client, corpus, mode="open", concurrency=FLEET_CONCURRENCY,
+        qps=FLEET_QPS, arrivals="poisson", hot_key_frac=FLEET_HOT_FRAC,
+        hot_keys=FLEET_HOT_KEYS, seed=SEED)
+    with open(out_path, "w") as f:
+        json.dump({"report": report, "answered": answered,
+                   "records": records}, f)
+    print("done", flush=True)
+
+
+def same_answer(np, got, ref) -> bool:
+    """One method's answer (the front end's JSON) against a reference: the
+    top-k probabilities position by position within E2E_PROB_RTOL, the
+    names equal wherever the reference's neighbours are further apart
+    than twice that ([4]'s comparison)."""
+    g, r = got["predictions"], ref["predictions"]
+    if len(g) != len(r):
+        return False
+    pg = np.array([p["probability"] for p in g])
+    pr = np.array([p["probability"] for p in r])
+    if np.any(np.abs(pg - pr) > E2E_PROB_RTOL * pr):
+        return False
+    for j in range(len(r) - 1):
+        gap_lo = pr[j] - pr[j + 1]
+        gap_hi = pr[j - 1] - pr[j] if j else np.inf
+        if min(gap_lo, gap_hi) > 2 * E2E_PROB_RTOL * pr[j] \
+                and g[j]["name"] != r[j]["name"]:
+            return False
+    return True
+
+
+def phase_fleet(torch, np, vocabs, tmp, report, device: str = "cuda"):
+    """[20]: the serving fleet at java-large width on the card, over HTTP:
+    a `ReplicaPool` of 2 bag replicas behind a `ServingFrontend`, a
+    `ReloadManager` polling every 0.1 s, the load from the port's
+    loadgen through serving_bench's `HttpPredictClient`. Under it: a
+    replica death, a verified step swapped in, a corrupt step refused;
+    then the JAX leg's contract, no mixed weights, a refilled replica
+    answering as its peers, `/healthz` 200 throughout, and one
+    autoscaler decision each way. (`device="cpu"` rehearses the phase's
+    control flow at a small vocabulary; its kernel check then fails.)"""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import Code2VecModel
+    from code2vec_tpu_torch.obs import Telemetry
+    from code2vec_tpu_torch.obs.alerts import (AlertEngine, AlertRule,
+                                               serving_slo_rules)
+    from code2vec_tpu_torch.obs.promtext import parse_prometheus, scalar
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.resilience import faults
+    from code2vec_tpu_torch.serving import (AutoScaler, PredictionServer,
+                                            ReloadManager, ReplicaPool,
+                                            ServingFrontend)
+    from code2vec_tpu_torch.serving.frontend import serialize_prediction
+    from code2vec_tpu_torch.tools import obs_top
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    import gc
+
+    t_phase = time.perf_counter()
+    dims = fleet_dims(vocabs)
+    config = Config(MAX_CONTEXTS=C, USE_BF16=True, TABLES_DTYPE="bfloat16",
+                    SERVE_REPLICAS=FLEET_REPLICAS)
+    reload_dir = os.path.join(tmp, "fleet_ckpt")
+    # the trainer that commits steps 1 and 2 runs in its own process, as a
+    # trainer does: a checkpoint written in this one (torch.save, the
+    # java-large vocab's pickle) holds the interpreter lock that every
+    # serving thread needs (stalls of ~450 ms on the card's host)
+    writer = subprocess.Popen(
+        [sys.executable, "-c", "import json, sys, chip_smoke as cs; "
+         "cs.JAVA_LARGE = json.loads(sys.argv[2]); "
+         "cs.fleet_writer(sys.argv[1])", reload_dir, json.dumps(JAVA_LARGE)],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+
+    def fingerprint(params) -> tuple:
+        return tuple(float(params[k][:4096].float().sum()) for k in
+                     ("token_emb", "path_emb", "target_emb", "transform",
+                      "attention"))
+
+    builds = []
+
+    def factory():
+        """Every call the same weights: a fresh generator seeded with
+        SEED (a refilled or grown replica answers as its peers do)."""
+        t = time.perf_counter()
+        model = Code2VecModel(config, dims, vocabs,
+                              fleet_weights(torch, dims, SEED, device),
+                              device=device)
+        builds.append({"s": time.perf_counter() - t,
+                       "fingerprint": fingerprint(model.params)})
+        return model
+
+    def mem_gb() -> float:
+        if device != "cuda":
+            return 0.0
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() / 1e9
+
+    mem0 = mem_gb()
+    # a long-lived server's start-up heap (the vocab, torch, the earlier
+    # phases) need not be scanned again: full collections scanning it
+    # stopped every serving thread for 135-254 ms, 6 times in a load. The
+    # replicas come after the freeze: a dead one must stay collectable
+    gc.collect()
+    gc.freeze()
+    tele = Telemetry.memory("fleet").make_threadsafe()
+    t = time.perf_counter()
+    pool = ReplicaPool(config, factory, replicas=FLEET_REPLICAS,
+                       telemetry=tele).start()
+    start_s = time.perf_counter() - t
+    mem_2 = mem_gb()
+    alerts = AlertEngine.create(tele, mode="warn",
+                                rules=serving_slo_rules(config.SERVE_SLO_MS))
+    rm = ReloadManager(reload_dir, pool, telemetry=tele, alerts=alerts,
+                       poll_s=FLEET_POLL_S).start()
+    fe = ServingFrontend(pool, port=0, telemetry=tele, alerts=alerts,
+                         reload_manager=rm).start()
+    build_s = ", ".join(f"{b['s']:.2f}" for b in builds)
+    print(f"  pool of {FLEET_REPLICAS} java-large bag replicas started in "
+          f"{start_s:.1f} s (replica builds {build_s} s); memory "
+          f"allocated {mem0:.3f} -> {mem_2:.3f} GB; front end on port "
+          f"{fe.bound_port}", flush=True)
+
+    # the pool's state changes with their host times (swap window, each
+    # replica's drain plus swap, the ready count all along)
+    timeline = []
+    publish = pool._publish
+
+    def publish_timed():
+        publish()
+        with pool._lock:
+            states = {r.idx: r.state for r in pool._replicas}
+        timeline.append((time.perf_counter(), states))
+    pool._publish = publish_timed
+    window = {}
+    swap = pool.swap_params
+
+    def swap_timed(params, generation):
+        window["start"] = time.perf_counter()
+        swap(params, generation)
+        window["end"] = time.perf_counter()
+        window["mem_gb"] = mem_gb()
+    pool.swap_params = swap_timed
+
+    rng = np.random.default_rng(SEED + 20)
+    corpus = fleet_requests(np, rng, FLEET_REQUESTS)
+    t = time.perf_counter()
+    ready = writer.stdout.readline().strip()
+    check(ready == "ready", f"the writer process did not start: {ready!r}")
+    print(f"  {len(corpus)} one-method requests drawn; the writer process "
+          f"holds step 1's weights (seed {FLEET_NEW_SEED}, on its host "
+          f"side) {time.perf_counter() - t:.1f} s later", flush=True)
+
+    events = {}
+
+    def commit(step: int) -> None:
+        writer.stdin.write(f"{step}\n")
+        writer.stdin.flush()
+        said = writer.stdout.readline().strip()
+        if said != f"saved {step}":
+            raise RuntimeError(f"the writer said {said!r} for step {step}")
+
+    def chaos_actions() -> None:
+        try:
+            time.sleep(0.5)  # the load establishes itself first
+            events["save1_start"] = time.perf_counter()
+            commit(1)
+            events["save1_end"] = time.perf_counter()
+            deadline = time.time() + 120
+            while rm.last_step < 1 and time.time() < deadline:
+                time.sleep(0.05)
+            events["swapped"] = time.perf_counter()
+            events["save2_start"] = time.perf_counter()
+            commit(2)  # with a flipped byte
+            events["save2_end"] = time.perf_counter()
+            deadline = time.time() + 120
+            while 2 not in rm.refused and time.time() < deadline:
+                time.sleep(0.05)
+            events["refused"] = time.perf_counter()
+        except Exception as e:  # noqa: BLE001 — failed below
+            events["error"] = repr(e)
+
+    faults.install({"seed": 0, "sites": {
+        "serve/kill": {"action": "raise", "at": FLEET_KILL_AT}}},
+        log=lambda m: print(f"  {m}", flush=True))
+    corpus_path = os.path.join(tmp, "fleet_corpus.json")
+    client_out = os.path.join(tmp, "fleet_client.json")
+    with open(corpus_path, "w") as f:
+        json.dump(corpus, f)
+    # the clients run in a process of their own, as a fleet's clients do:
+    # in this one they took the interpreter lock from the replicas
+    clients = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke as cs; "
+         "cs.fleet_client(*sys.argv[1:])",
+         f"http://127.0.0.1:{fe.bound_port}", corpus_path, client_out],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""),
+        stdout=subprocess.PIPE, text=True)
+    actions = threading.Thread(target=chaos_actions, daemon=True)
+    # the interpreter's full collections during the load (each stops
+    # every serving thread), with their start and length
+    collections, gc_t0 = [], {}
+
+    def gc_timer(phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            gc_t0["t"] = time.perf_counter()
+        elif "t" in gc_t0:
+            collections.append((gc_t0["t"], time.perf_counter() - gc_t0["t"]))
+    gc.callbacks.append(gc_timer)
+    try:
+        # ---- the main path: counts at 0 just before, read just after ----
+        attention_pool_fused.launches = 0
+        with Poller(fe.bound_port, ["/healthz"],
+                    every_s=FLEET_HEALTHZ_S) as health:
+            said = clients.stdout.readline().split()
+            check(said[:1] == ["start"], f"the clients said {said}")
+            t_load = float(said[1])  # CLOCK_MONOTONIC, one per machine
+            actions.start()
+            said = clients.stdout.readline().strip()
+            t_end = time.perf_counter()
+            check(clients.wait(timeout=120) == 0 and said == "done",
+                  f"the clients exited {clients.returncode}: {said!r}")
+            actions.join(timeout=240)
+        launches = {"attention_pool": attention_pool_fused.launches}
+        kill_fired = faults.stats().get("serve/kill", {}).get("fired", 0)
+    finally:
+        gc.unfreeze()
+        gc.callbacks.remove(gc_timer)
+        faults.clear()
+        writer.stdin.close()
+        for proc in (clients, writer):
+            try:
+                proc.wait(timeout=60)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    with open(client_out) as f:
+        seen = json.load(f)
+    load, answered = seen["report"], seen["answered"]
+    records = [(k, sent, done, got) for k, sent, done, got in seen["records"]]
+    check(not actions.is_alive(), "the chaos actions hung")
+    pool.wait_ready(FLEET_REPLICAS, timeout_s=120)
+    compile_delta = pool.compile_delta()
+    table = pool.pool_table()
+    counters = dict(tele.counters)
+    refused_state = next((r["state"] for r in alerts.status_table()
+                          if r["rule"] == "reload_refused"), None)
+    lat = load["latency"]
+    # the loadgen's percentiles read the registry's last 2048 samples; the
+    # check reads every answered request
+    all_ms = np.array([(d - s) * 1e3 for s, d in answered])
+    p99_all = float(np.percentile(all_ms, 99)) if len(all_ms) else np.inf
+
+    # ---- what the run shows (printed before any check) ----
+    def rel(x):
+        return f"{x - t_load:.2f}" if x is not None else "-"
+
+    print(f"  load: {load['requests']} requests in {load['wall_s']:.1f} s "
+          f"({load['throughput_rps']:.1f} ok/s; offered {FLEET_QPS} qps "
+          f"Poisson, {FLEET_CONCURRENCY} workers, hot keys "
+          f"{FLEET_HOT_FRAC} over {FLEET_HOT_KEYS}): ok {load['ok']}, shed "
+          f"{load['shed']}, errors {load['errors']}; client latency over "
+          f"HTTP p50 {lat['p50_ms']:.2f} ms p95 {lat['p95_ms']:.2f} p99 "
+          f"{lat['p99_ms']:.2f} max {lat['max_ms']:.2f} (the last 2048); "
+          f"over all {len(all_ms)}: p50 {np.percentile(all_ms, 50):.2f} p99 "
+          f"{p99_all:.2f} (SLO {config.SERVE_SLO_MS} ms)", flush=True)
+    if load["errors"]:
+        print(f"  first error: {load.get('first_error')}", flush=True)
+    server_ms = {name: tele.timer(f"serve/{name}_ms").summary()
+                 for name in ("request", "parse", "encode", "predict",
+                              "reload_verify", "reload_load")}
+    print("  server side (in-process, p50 / p99 / max ms): " + "; ".join(
+        f"{k} {v['p50_ms']:.2f} / {v['p99_ms']:.2f} / {v['max_ms']:.2f}"
+        for k, v in server_ms.items() if v.get("count")), flush=True)
+    per_replica = {r["replica"]: r["requests"] for r in table["replicas"]}
+    print(f"  requests per live replica {per_replica}; deaths "
+          f"{counters.get('serve/replica_dead', 0)}, refills "
+          f"{counters.get('serve/replica_refill', 0)}, cache hits "
+          f"{counters.get('serve/cache_hit', 0)}, kernel-1 launches "
+          f"{launches['attention_pool']}", flush=True)
+    drains, since, min_ready = {}, {}, FLEET_REPLICAS
+    for ts, states in timeline:
+        if window and window["start"] <= ts <= window["end"]:
+            min_ready = min(min_ready, sum(s == "ready"
+                                           for s in states.values()))
+        for idx, st in states.items():
+            if st == "draining" and idx not in since:
+                since[idx] = ts
+            elif st == "ready" and idx in since and idx not in drains:
+                drains[idx] = (ts - since[idx]) * 1e3
+    print("  timeline (s from the load's start): save 1 "
+          f"{rel(events.get('save1_start'))}-{rel(events.get('save1_end'))}, "
+          f"swap {rel(window.get('start'))}-{rel(window.get('end'))} "
+          f"(each replica's drain + swap ms: "
+          f"{', '.join(f'{k}: {v:.1f}' for k, v in sorted(drains.items()))};"
+          f" at least {min_ready} ready), save 2 + flip "
+          f"{rel(events.get('save2_start'))}-{rel(events.get('save2_end'))},"
+          f" refused {rel(events.get('refused'))}, load end "
+          f"{rel(t_end)}", flush=True)
+    slow = sorted(((d - s) * 1e3, s) for s, d in answered)[-10:][::-1]
+    print("  the 10 slowest requests (ms @ s sent): " + ", ".join(
+        f"{ms:.1f} @ {rel(s)}" for ms, s in slow), flush=True)
+    print(f"  full collections during the load: {len(collections)}" + (
+        ", " + ", ".join(f"{ms * 1e3:.1f} ms @ {rel(t0)}"
+                         for t0, ms in collections[:8]) if collections
+        else ""), flush=True)
+    statuses = [s for _p, s, _b, _ms in health.seen]
+    print(f"  /healthz polled {len(statuses)} times every "
+          f"{FLEET_HEALTHZ_S} s: {sorted(set(statuses))}", flush=True)
+    mem_swap = window.get("mem_gb")
+    if events.get("error"):
+        print(f"  chaos actions failed: {events['error']}", flush=True)
+
+    # ---- no mixed weights: hot keys against one server per weight set ----
+    refs = []
+    step1 = ckpt.load_checkpoint(reload_dir, step=1)["params"]
+    for params in (None, step1):
+        model = factory()
+        if params is not None:
+            model.params = {k: v.to(model.device) for k, v in params.items()}
+        ref_cfg = Config(MAX_CONTEXTS=C, USE_BF16=True,
+                         TABLES_DTYPE="bfloat16", SERVE_CACHE_SIZE=0)
+        with PredictionServer(ref_cfg, model) as server:
+            refs.append([serialize_prediction(server.predict_lines(
+                corpus[i])[0]) for i in range(FLEET_HOT_KEYS)])
+        del model, server
+    del step1
+    gc.collect()  # the reference servers' cycles (server <-> batcher)
+    distinct = sum(not same_answer(np, refs[0][k], refs[1][k])
+                   for k in range(FLEET_HOT_KEYS))
+    mixed, n_old, n_new, n_either = [], 0, 0, 0
+    for k, sent, done, got in records:
+        if window and done < window["start"]:
+            n_old += 1
+            ok = same_answer(np, got, refs[0][k])
+        elif window and sent > window["end"]:
+            n_new += 1
+            ok = same_answer(np, got, refs[1][k])
+        else:
+            n_either += 1
+            ok = (same_answer(np, got, refs[0][k])
+                  or same_answer(np, got, refs[1][k]))
+        if not ok:
+            mixed.append((k, rel(sent), rel(done)))
+    print(f"  hot-key answers: {n_old} before the swap equal step 0's, "
+          f"{n_new} sent after it equal step 1's, {n_either} during it "
+          f"equal one of them; {len(mixed)} do not; the two steps answer "
+          f"differently on {distinct} of {FLEET_HOT_KEYS} keys", flush=True)
+
+    # ---- a refilled replica answers as its peers ----
+    reps = sorted(pool._replicas, key=lambda r: r.idx)
+    refilled = [r for r in reps if r.idx >= FLEET_REPLICAS]
+    lines = [corpus[i][0] for i in range(FLEET_HOT_KEYS)]
+    answers = {r.idx: [serialize_prediction(x)
+                       for x in r.server.model.predict(lines)] for r in reps}
+    fingerprints = {b["fingerprint"] for b in builds}
+
+    # ---- the autoscaler on the live pool, an injected clock ----
+    clk = [0.0]
+    scaler = AutoScaler(pool, telemetry=tele, clock=lambda: clk[0],
+                        hold_s=60.0, rules=[AlertRule(
+                            "fleet_probe", metric="fleet/probe_load", op=">",
+                            value=1.0, severity="page")])
+    fe.autoscaler = scaler
+    tele.gauge("fleet/probe_load", 5.0, emit=False)
+    mem_pre = mem_gb()
+    t = time.perf_counter()
+    up = scaler.tick()
+    grow_s = time.perf_counter() - t
+    size_up, mem_3 = pool.size(), mem_gb()
+    tele.gauge("fleet/probe_load", 0.5, emit=False)
+    clk[0] = 10.0
+    armed = scaler.tick()
+    clk[0] = 71.0
+    down = scaler.tick()
+    size_down = pool.size()
+    print(f"  autoscaler: {up!r} -> {size_up} replicas (a java-large replica "
+          f"built and warmed in {grow_s:.2f} s; memory allocated "
+          f"{mem_pre:.3f} -> {mem_3:.3f} GB), then {armed!r} at t = 10 s, "
+          f"{down!r} at t = 71 s -> {size_down}", flush=True)
+    status, body, _ = http_get(fe.bound_port, "/pool")
+    pool_json = json.loads(body)
+    status_m, metrics_text, _ = http_get(fe.bound_port, "/metrics")
+    metrics = parse_prometheus(metrics_text)
+    top = obs_top.EndpointState(f"127.0.0.1:{fe.bound_port}")
+    top.poll(60.0)
+    frame = obs_top.render([top.poll(60.0)])
+    print("  obs_top over the front end:\n    "
+          + frame.replace("\n", "\n    "), flush=True)
+    fe.stop()
+    rm.stop()
+    pool.close()
+    print(f"  memory allocated: {mem_2:.3f} GB with 2 replicas, "
+          f"{mem_swap if mem_swap is None else round(mem_swap, 3)} GB after "
+          f"the swap (one shared set), {mem_3:.3f} GB with 3 replicas "
+          f"(before the phase {mem0:.3f} GB)", flush=True)
+
+    # ---- the JAX leg's contract, then what only the card shows ----
+    check(not events.get("error"), f"chaos actions: {events.get('error')}")
+    check(load["errors"] == 0, f"{load['errors']} errors: "
+          f"{load.get('first_error')}")
+    check(load["requests"] == load["ok"] + load["shed"],
+          "requests != ok + shed")
+    check(max(lat["p99_ms"], p99_all) <= config.SERVE_SLO_MS,
+          f"p99 {lat['p99_ms']:.2f} (last 2048) / {p99_all:.2f} ms (all) "
+          f"over the {config.SERVE_SLO_MS} ms SLO")
+    check(kill_fired == 1, f"serve/kill fired {kill_fired} times")
+    check(counters.get("serve/replica_dead", 0) == 1
+          and counters.get("serve/replica_refill", 0) == 1,
+          f"deaths {counters.get('serve/replica_dead')}, refills "
+          f"{counters.get('serve/replica_refill')}")
+    check(rm.last_step == 1 and table["generation"] == 1,
+          f"swapped step {rm.last_step}, generation {table['generation']}")
+    check(bool(window) and window["end"] <= t_end, "step 1 not swapped "
+          "under load")
+    check(sorted(rm.refused) == [2], f"refused steps {sorted(rm.refused)}")
+    check(refused_state == "firing", f"reload_refused {refused_state}")
+    check(compile_delta == 0, f"compile_delta {compile_delta}")
+    check(table["ready"] >= FLEET_REPLICAS, f"{table['ready']} ready")
+    check(launches["attention_pool"] >= 1, "kernel 1 never launched under "
+          "the load")
+    check(min_ready >= FLEET_REPLICAS - 1, f"{min_ready} ready mid-swap")
+    check(distinct >= FLEET_HOT_KEYS // 2, f"steps 0 and 1 answer alike on "
+          f"{FLEET_HOT_KEYS - distinct} hot keys: the check would be vacuous")
+    check(n_old >= 1 and n_new >= 1, f"hot-key answers {n_old} before, "
+          f"{n_new} after the swap")
+    check(not mixed, f"answers of neither weight set: {mixed[:5]}")
+    check(len(refilled) == 1, f"refilled replicas {[r.idx for r in refilled]}")
+    check(all(answers[r.idx] == answers[reps[0].idx] for r in reps),
+          "a refilled replica answers otherwise than its peers")
+    check(len(fingerprints) == 1, f"the factory built {len(fingerprints)} "
+          "different weight sets")
+    check(statuses and set(statuses) == {200}
+          and len(statuses) >= (t_end - t_load) / FLEET_HEALTHZ_S / 4,
+          f"/healthz {len(statuses)} polls: {sorted(set(statuses))}")
+    check(up == "up" and size_up == FLEET_REPLICAS + 1 and armed is None
+          and down == "down" and size_down == FLEET_REPLICAS,
+          f"autoscaler {up}, {armed}, {down}; sizes {size_up}, {size_down}")
+    check(status == 200 and pool_json["generation"] == 1
+          and pool_json["reload"]["refused"] == [2]
+          and "autoscale" in pool_json, f"/pool {status}: {body[:300]}")
+    check(status_m == 200 and scalar(metrics, "serve_reloads") == 1
+          and scalar(metrics, "serve_replica_dead") == 1,
+          "/metrics lacks the fleet's counters")
+    check("1/1 hosts up" in frame, "obs_top did not read the front end")
+    seconds = time.perf_counter() - t_phase
+    print(f"  [20] the JAX serve_swap_kill contract held on the card; "
+          f"{seconds:.1f} s", flush=True)
+    report["fleet"] = {
+        "requests": load["requests"], "ok": load["ok"], "shed": load["shed"],
+        "errors": load["errors"], "latency_ms": lat, "p99_all_ms": p99_all,
+        "throughput_rps": load["throughput_rps"], "server_ms": server_ms,
+        "requests_per_replica": per_replica, "drain_swap_ms": drains,
+        "swap_window_s": [window["start"] - t_load, window["end"] - t_load],
+        "events_s": {k: v - t_load for k, v in events.items()
+                     if isinstance(v, float)},
+        "cache_hits": counters.get("serve/cache_hit", 0),
+        "launches": launches, "hot_answers": [n_old, n_new, n_either],
+        "mem_gb": {"before": mem0, "replicas_2": mem_2,
+                   "after_swap": mem_swap, "before_grow": mem_pre,
+                   "replicas_3": mem_3},
+        "full_collections": [[t0 - t_load, ms * 1e3]
+                             for t0, ms in collections],
+        "replica_build_s": [b["s"] for b in builds], "grow_s": grow_s,
+        "healthz_polls": len(statuses), "seconds": seconds}
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -4268,7 +4869,14 @@ def main(argv=None) -> int:
             torch, np, tmp, data_prefix, kept, report)
         lap("[19]")
 
-    # ---- 20. result ----
+        # ---- 20. the serving fleet ----
+        print("[20] the serving fleet over HTTP (replica pool, hot reload, "
+              "a replica death, a refused step, the autoscaler) at "
+              "java-large width", flush=True)
+        fleet_launches = phase_fleet(torch, np, vocabs, tmp, report)
+        lap("[20]")
+
+    # ---- 21. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -4279,7 +4887,8 @@ def main(argv=None) -> int:
             v["attention_pool"] for v in cli_launches.values()) \
         + repl_launches["attention_pool"] \
         + observed_launches["attention_pool"] \
-        + plane_launches["attention_pool"] + phase_launches["attention_pool"]
+        + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
+        + fleet_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -4354,7 +4963,7 @@ def main(argv=None) -> int:
                           **{f"cli_{k}": v for k, v in cli_launches.items()},
                           "repl": repl_launches, "observed": observed_launches,
                           "live_plane": plane_launches,
-                          "phases": phase_launches}
+                          "phases": phase_launches, "fleet": fleet_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -5,10 +5,12 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (the replica, port, reload and autoscale serving flags,
-`--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh flags, ...)
-is an error that names it, never ignored. `--backend` is `gpu` (the CUDA card, the default) or
-`cpu`; `--framework` accepts the JAX package's values as aliases of this
+have yet (`--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh
+flags, ...) is an error that names it, never ignored. The seven serving
+fleet flags (`--serve_port`, `--serve_replicas`, ...) are parsed and
+verified as the JAX package's are; as there, the command line opens no
+socket (the fleet runs through tools/serving_bench.py and the chaos
+leg). `--backend` is `gpu` (the CUDA card, the default) or `cpu`; `--framework` accepts the JAX package's values as aliases of this
 implementation.
 
 The defaults are the JAX package's: the dense step with Adafactor on the
@@ -58,6 +60,28 @@ class Config:
     SERVE_CACHE_SIZE: int = 1024
     # persistent extractor worker pool size (serving/extractor.py)
     SERVE_EXTRACT_WORKERS: int = 2
+    # ---- the serving fleet (serving/frontend.py, replicas.py,
+    # reload.py, autoscale.py): an HTTP front end over a replica pool
+    # with hot weight reload and SLO autoscaling ----
+    # HTTP front-end port (POST /predict, GET /healthz /metrics /pool);
+    # 0 = no socket (the in-process surface still works)
+    SERVE_PORT: int = 0
+    # initial replica count: N PredictionServers (one model each) behind
+    # one shared prediction cache
+    SERVE_REPLICAS: int = 1
+    # autoscaler bounds: the pool never shrinks below min or grows past
+    # max, whatever the SLO rules say
+    SERVE_MIN_REPLICAS: int = 1
+    SERVE_MAX_REPLICAS: int = 4
+    # p99 latency SLO in ms: the autoscaler's serving_p99_slo rule
+    # threshold (serve/request_ms:p99 > slo -> grow the pool)
+    SERVE_SLO_MS: float = 250.0
+    # checkpoint-dir poll cadence for hot weight reload (committed steps
+    # are sha256-verified, then rolled one replica at a time); 0 = off
+    SERVE_RELOAD_POLL_S: float = 0.0
+    # run the SLO autoscaling policy loop (off = a fixed-size pool;
+    # death and refill apply either way)
+    SERVE_AUTOSCALE: bool = False
     # attach each method's code vector to its prediction result
     export_code_vectors: bool = False
 
@@ -330,6 +354,27 @@ class Config:
             raise ValueError("--serve_cache_size must be >= 0.")
         if self.SERVE_EXTRACT_WORKERS < 1:
             raise ValueError("--serve_extract_workers must be >= 1.")
+        if not 0 <= self.SERVE_PORT <= 65535:
+            raise ValueError("--serve_port must be in [0, 65535].")
+        if self.SERVE_MIN_REPLICAS < 1:
+            raise ValueError("--serve_min_replicas must be >= 1.")
+        if self.SERVE_MAX_REPLICAS < self.SERVE_MIN_REPLICAS:
+            raise ValueError(
+                "--serve_max_replicas must be >= --serve_min_replicas "
+                f"(got {self.SERVE_MAX_REPLICAS} < "
+                f"{self.SERVE_MIN_REPLICAS}).")
+        if not (self.SERVE_MIN_REPLICAS <= self.SERVE_REPLICAS
+                <= self.SERVE_MAX_REPLICAS):
+            raise ValueError(
+                "--serve_replicas must sit inside "
+                "[--serve_min_replicas, --serve_max_replicas] "
+                f"(got {self.SERVE_REPLICAS} outside "
+                f"[{self.SERVE_MIN_REPLICAS}, "
+                f"{self.SERVE_MAX_REPLICAS}]).")
+        if self.SERVE_SLO_MS <= 0:
+            raise ValueError("--serve_slo_ms must be > 0.")
+        if self.SERVE_RELOAD_POLL_S < 0:
+            raise ValueError("--serve_reload_poll_s must be >= 0.")
         if self.TRACE and not self.TELEMETRY_DIR:
             raise ValueError(
                 "--trace requires --telemetry_dir (spans are recorded "
@@ -581,6 +626,40 @@ class Config:
         p.add_argument("--serve_extract_workers",
                        dest="serve_extract_workers", type=int,
                        default=None)
+        p.add_argument("--serve_port", dest="serve_port", type=int,
+                       default=None,
+                       help="HTTP front-end port (POST /predict, GET "
+                            "/healthz /metrics /pool); 0 = no socket")
+        p.add_argument("--serve_replicas", dest="serve_replicas",
+                       type=int, default=None,
+                       help="initial replica count behind the serving "
+                            "front-end (one model per replica, one "
+                            "shared prediction cache)")
+        p.add_argument("--serve_min_replicas",
+                       dest="serve_min_replicas", type=int,
+                       default=None,
+                       help="autoscaler floor: the pool never shrinks "
+                            "below this")
+        p.add_argument("--serve_max_replicas",
+                       dest="serve_max_replicas", type=int,
+                       default=None,
+                       help="autoscaler ceiling: the pool never grows "
+                            "past this")
+        p.add_argument("--serve_slo_ms", dest="serve_slo_ms",
+                       type=float, default=None,
+                       help="p99 latency SLO in ms (the autoscaler's "
+                            "serving_p99_slo rule threshold)")
+        p.add_argument("--serve_reload_poll_s",
+                       dest="serve_reload_poll_s", type=float,
+                       default=None,
+                       help="checkpoint-dir poll cadence for hot "
+                            "weight reload (sha256-verified, one "
+                            "replica at a time); 0 = off")
+        p.add_argument("--serve_autoscale", dest="serve_autoscale",
+                       action="store_true",
+                       help="run the SLO autoscaling policy loop "
+                            "(grow on burn-rate/p99 pages, shrink "
+                            "after a sustained quiet window)")
         p.add_argument("--faults", dest="faults", default=None,
                        help="fault injection: a JSON file (or inline JSON) "
                             "arming named failpoints")
@@ -644,6 +723,12 @@ class Config:
                 ("serve_deadline_ms", "SERVE_DEADLINE_MS"),
                 ("serve_cache_size", "SERVE_CACHE_SIZE"),
                 ("serve_extract_workers", "SERVE_EXTRACT_WORKERS"),
+                ("serve_port", "SERVE_PORT"),
+                ("serve_replicas", "SERVE_REPLICAS"),
+                ("serve_min_replicas", "SERVE_MIN_REPLICAS"),
+                ("serve_max_replicas", "SERVE_MAX_REPLICAS"),
+                ("serve_slo_ms", "SERVE_SLO_MS"),
+                ("serve_reload_poll_s", "SERVE_RELOAD_POLL_S"),
                 ("faults", "FAULTS"), ("metrics_port", "METRICS_PORT"),
                 ("alerts_mode", "ALERTS_MODE"),
                 ("alerts_rules", "ALERTS_RULES"),
@@ -662,6 +747,7 @@ class Config:
                 ("xf_remat", "XF_REMAT", True),
                 ("no_bf16", "USE_BF16", False), ("trace", "TRACE", True),
                 ("no_pallas", "USE_PALLAS", False),
+                ("serve_autoscale", "SERVE_AUTOSCALE", True),
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):
                 setattr(cfg, field, value)

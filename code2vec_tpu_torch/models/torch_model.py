@@ -173,6 +173,10 @@ class Code2VecModel:
         # device trace spans); off by default
         self.telemetry = Telemetry.disabled()
         self.tracer = Tracer.disabled()
+        # the input signatures (padded shape, dtype) the predict step has
+        # run: eager PyTorch keeps no compile cache, and one jit compile
+        # of the JAX package is one such signature
+        self._step_signatures: set = set()
 
     # ---- predict raw extractor lines ----
     def prepare_predict_rows(self, predict_data_lines: Iterable[str]
@@ -204,6 +208,9 @@ class Code2VecModel:
                      for a in (labels, src, pth, dst, mask, weights))
 
     def _run_step(self, batch):
+        self._step_signatures.add(
+            (self.compute_dtype,)
+            + tuple((tuple(t.shape), t.dtype) for t in batch))
         with torch.inference_mode():
             return predict_step(self.params, batch, dims=self.dims,
                                 top_k=self.top_k,
@@ -227,6 +234,14 @@ class Code2VecModel:
             out = self._run_step(batch)
             out[0].cpu()  # waits for the device
         return buckets
+
+    def predict_compile_count(self) -> int:
+        """The number of distinct input signatures (padded batch,
+        dtypes) the predict step has run: the JAX package's compiled
+        predict-step variants. The kernel libraries load at their first
+        launch, inside `warmup_predict`, so serving asserts that this
+        stays flat after warm-up (`ReplicaPool.compile_delta`)."""
+        return len(self._step_signatures)
 
     def predict_device(self, prepared: PreparedRows):
         """Device phase of `predict`: pad the rows to their power-of-two

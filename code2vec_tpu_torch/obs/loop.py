@@ -40,8 +40,6 @@ from __future__ import annotations
 import time
 from typing import Iterable, Optional
 
-import torch
-
 from code2vec_tpu_torch.obs.telemetry import Telemetry
 from code2vec_tpu_torch.obs.trace import SpanChannel, SpanContext, Tracer
 
@@ -189,6 +187,7 @@ class TrainStepRecorder:
         q and s both count). A few hundred elements instead of the
         full model, cheap enough for the gauge cadence while still
         moving when any layer's leading column drifts."""
+        import torch
         total = 0.0
         for leaf in _tensors(params):
             probe = leaf if leaf.ndim == 0 else leaf[..., :1]
@@ -223,6 +222,7 @@ class TrainStepRecorder:
         self.last_step_context = root
 
     def _device_memory_gauges(self) -> None:
+        import torch
         if not torch.cuda.is_available():  # the CPU keeps no such stats
             return
         stats = torch.cuda.memory_stats()
@@ -234,6 +234,7 @@ class TrainStepRecorder:
 
 def _tensors(tree):
     """Every tensor of a tree of dicts, lists and tuples."""
+    import torch
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, dict):

@@ -14,7 +14,9 @@ asked JAX (`device_sync`, the manifest's device topology):
     the device work behind a tensor of `tree`, so step latency measures
     the card, not the launch.
 
-Imports only the stdlib and torch. The disabled path (`--telemetry_dir`
+Imports only the stdlib at module scope; torch is imported by the calls
+that touch a tensor or the card, so the serving control plane imports
+without it. The disabled path (`--telemetry_dir`
 unset) is a shared singleton whose `enabled` is False: hot loops guard
 on that one boolean and allocate nothing per step.
 
@@ -35,8 +37,6 @@ import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
 
-import torch
-
 __all__ = ["Telemetry", "TimerStat", "device_sync"]
 
 # percentiles every summary reports; the serving latency line and
@@ -45,6 +45,7 @@ SUMMARY_PERCENTILES = (50, 95, 99)
 
 
 def _first_tensor(tree):
+    import torch
     if isinstance(tree, torch.Tensor):
         return tree
     if isinstance(tree, dict):
@@ -69,6 +70,7 @@ def device_sync(tree) -> None:
     if t is None:
         raise TypeError(f"device_sync: no tensor in {type(tree).__name__}")
     if t.device.type == "cuda":
+        import torch
         torch.cuda.current_stream(t.device).synchronize()
 
 
@@ -189,6 +191,7 @@ _RUN_SEQ = [0]
 def device_topology() -> Dict[str, Any]:
     """The devices this process runs on: the card's name and count where
     CUDA is available, else the CPU."""
+    import torch
     if torch.cuda.is_available():
         return {"platform": "gpu", "kind": torch.cuda.get_device_name(),
                 "count": torch.cuda.device_count()}

@@ -25,10 +25,17 @@ Sites wired through the port:
   serve/extract    serving/extractor.Extractor.extract_paths — worker
                    crash the pool must survive
   serve/kill       serving/server.PredictionServer.predict_lines —
-                   process death on the request path
+                   replica death on the request path (a `raise` is what
+                   a ReplicaPool absorbs: one death, the request retried
+                   on a survivor, a refill)
+  reload/read      serving/reload.ReloadManager — IO failure while
+                   reading a VERIFIED checkpoint's weights for a hot
+                   swap (`io_error`: exercises the reload retry policy;
+                   exhausted retries refuse the step, the pool keeps
+                   serving the weights it has)
 
-(`reload/read` and `dist/init` of the JAX package are wired when the
-hot reload and the multi-process init are ported.)
+(`dist/init` of the JAX package is wired when the multi-process init is
+ported.)
 
 Disabled path (the default): the module-level registry is None, so
 `fire()` is one None check and `point()` returns a shared null handle

@@ -1,4 +1,5 @@
-"""The retry policy of checkpoint IO and the extractor pool's restart.
+"""The retry policy of checkpoint IO, the extractor pool's restart and
+the serving plane's hot reload.
 
 A copy of `RetryPolicy` from `resilience/retry.py` in the JAX package:
 jittered exponential backoff, a per-call attempt budget (a policy is
@@ -64,15 +65,19 @@ class RetryPolicy:
     delay(n) = min(max_delay_s, base_delay_s * multiplier^(n-1)), scaled
     by a uniform draw in [1 - jitter, 1] from the policy's own stream.
     `retry_on` bounds what retries; `giveup(exc) -> bool` vetoes
-    retrying a matching error that backoff cannot fix."""
+    retrying a matching error that backoff cannot fix. `max_elapsed_s`
+    is the wall budget across one call's attempts; `log` gets one line a
+    retry."""
 
     def __init__(self, name: str, *, max_attempts: int = 3,
                  base_delay_s: float = 0.1, max_delay_s: float = 30.0,
                  multiplier: float = 2.0, jitter: float = 0.5,
                  retry_on: Tuple[Type[BaseException], ...] = (Exception,),
                  giveup: Optional[Callable[[BaseException], bool]] = None,
+                 max_elapsed_s: Optional[float] = None,
                  seed: Optional[int] = None,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep,
+                 log: Optional[Callable[[str], None]] = None):
         if max_attempts < 1 or base_delay_s < 0 or not 0.0 <= jitter <= 1.0:
             raise ValueError("RetryPolicy needs max_attempts >= 1, "
                              "base_delay_s >= 0 and jitter in [0, 1]")
@@ -84,9 +89,11 @@ class RetryPolicy:
         self.jitter = jitter
         self.retry_on = retry_on
         self.giveup = giveup
+        self.max_elapsed_s = max_elapsed_s
         self._rng = random.Random(seed)
         self._rng_lock = threading.Lock()
         self._sleep = sleep
+        self._log = log or (lambda _m: None)
 
     def delay_s(self, attempt: int) -> float:
         """Backoff before retry number `attempt` (1-based)."""
@@ -99,6 +106,7 @@ class RetryPolicy:
     def call(self, fn: Callable, *args, **kwargs):
         """Run `fn(*args, **kwargs)` under this policy's budget. The last
         failure, or a giveup, is raised as it is."""
+        t0 = time.monotonic()
         for attempt in range(1, self.max_attempts + 1):
             try:
                 return fn(*args, **kwargs)
@@ -106,10 +114,18 @@ class RetryPolicy:
                 if self.giveup is not None and self.giveup(e):
                     _record(self.name, "giveup", attempt, repr(e), 0.0)
                     raise
-                if attempt >= self.max_attempts:
+                out_of_time = (
+                    self.max_elapsed_s is not None
+                    and time.monotonic() - t0 >= self.max_elapsed_s)
+                if attempt >= self.max_attempts or out_of_time:
                     _record(self.name, "exhausted", attempt, repr(e), 0.0)
                     raise
                 d = self.delay_s(attempt)
                 _record(self.name, "retry", attempt, repr(e), d)
+                self._log(
+                    f"retry[{self.name}]: attempt {attempt}/"
+                    f"{self.max_attempts} failed "
+                    f"({str(e).splitlines()[0][:120]}); retrying in "
+                    f"{d:.2f}s")
                 self._sleep(d)
         raise AssertionError("unreachable")  # the loop returns or raises

@@ -30,7 +30,8 @@ batcher's heartbeat and the page alerts), `/vars` and `/clock` over the
 serving registry, and `--alerts_mode` runs the serving health monitors
 (cache-hit rate, shed rate) and alert rules.
 
-Not here yet (a later slice): the replica fleet with hot reload.
+A `ReplicaPool` (serving/replicas.py) runs N of these behind one shared
+cache, injecting a generation-scoped view of it (`cache=`).
 
 Cache semantics: a method whose contexts exceed MAX_CONTEXTS is
 downsampled at parse time by a draw seeded from the same normalized bag
@@ -71,31 +72,56 @@ def normalize_bag(line: str) -> Tuple[str, Tuple[str, ...]]:
 
 
 class PredictionCache:
-    """Thread-safe LRU over normalized path-context bags; values are the
-    finished `MethodPredictionResults`."""
+    """Thread-safe LRU over normalized path-context bags. Values are the
+    finished `MethodPredictionResults`: a hit skips parse, encode and the
+    device round trip.
+
+    Generations: when a `ReplicaPool` shares one cache across replicas, a
+    hot weight swap must invalidate atomically. Clear and bump happen
+    under the same lock, and a `get`/`put` carrying a stale `generation`
+    is refused, so a mid-roll replica still running old params can
+    neither read new-generation entries nor write old-params results
+    back. Callers that never pass `generation` (the single-server path)
+    are unaffected: None matches any generation."""
 
     def __init__(self, capacity: int):
         self.capacity = capacity
+        self.generation = 0
         self._lock = threading.Lock()
         self._d: "collections.OrderedDict" = collections.OrderedDict()
 
-    def get(self, key) -> Optional[MethodPredictionResults]:
+    def get(self, key, generation: Optional[int] = None
+            ) -> Optional[MethodPredictionResults]:
         if self.capacity <= 0:
             return None
         with self._lock:
+            if generation is not None and generation != self.generation:
+                return None
             val = self._d.get(key)
             if val is not None:
                 self._d.move_to_end(key)
             return val
 
-    def put(self, key, value: MethodPredictionResults) -> None:
+    def put(self, key, value: MethodPredictionResults,
+            generation: Optional[int] = None) -> None:
         if self.capacity <= 0:
             return
         with self._lock:
+            if generation is not None and generation != self.generation:
+                return
             self._d[key] = value
             self._d.move_to_end(key)
             while len(self._d) > self.capacity:
                 self._d.popitem(last=False)
+
+    def invalidate(self, generation: int) -> None:
+        """Drop every entry and advance to `generation` in one critical
+        section, the swap barrier: concurrent readers see either (old
+        entries, old generation) or (empty, new generation), never a
+        mix."""
+        with self._lock:
+            self._d.clear()
+            self.generation = generation
 
     def __len__(self) -> int:
         with self._lock:
@@ -194,9 +220,10 @@ class PredictionServer:
                 self.warmup_buckets = self.model.warmup_predict(
                     self.config.SERVE_BATCH_MAX)
                 self.warmup_ms = (time.perf_counter() - t0) * 1e3
-                self.telemetry.event("serve_warmup",
-                                     buckets=self.warmup_buckets,
-                                     warmup_ms=round(self.warmup_ms, 1))
+                self.telemetry.event(
+                    "serve_warmup", buckets=self.warmup_buckets,
+                    warmup_ms=round(self.warmup_ms, 1),
+                    compiled=self.model.predict_compile_count())
             self.batcher.start()
             self.watchdog.start()
             self._live_plane.start()

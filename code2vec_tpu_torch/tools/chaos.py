@@ -17,10 +17,18 @@ and checks the contract:
                      verification QUARANTINES the step dir, one
                      `checkpoint_quarantined` alert fires, and training
                      resumes from the prior committed step and finishes.
+  serve_swap_kill    A 2-replica pool (serving/replicas.py) under
+                     open-loop Poisson load with hot-key skew takes a
+                     mid-request replica death (`serve/kill`), a rolling
+                     hot swap of a verified committed step
+                     (serving/reload.py) and a refused bit-flipped step:
+                     p99 within the SLO, no request lost, no new predict
+                     signature under load, the pool back to full
+                     strength. It runs in this process, on the tools'
+                     tiny synthetic model.
 
 Not ported yet (`--list` names them): `kill_resume_2proc` and
-`kill_resize` need multi-GPU training; `serve_swap_kill` needs the
-serving fleet (replica pool, hot reload).
+`kill_resize` need multi-GPU training.
 
 Usage (repo root):
 
@@ -28,9 +36,10 @@ Usage (repo root):
   python3 -m code2vec_tpu_torch.tools.chaos kill_resume --backend cpu \
       --out /tmp/chaos
   python3 -m code2vec_tpu_torch.tools.chaos corrupt_checkpoint
+  python3 -m code2vec_tpu_torch.tools.chaos serve_swap_kill --backend cpu
 
-`--backend gpu` (the default) trains on the CUDA card, `cpu` on the CPU.
-Every training process runs under a time limit (`timeout_s`, 600 s by
+`--backend gpu` (the default) trains and serves on the CUDA card (exit 2
+without one), `cpu` on the CPU. Every training process runs under a time limit (`timeout_s`, 600 s by
 default: an uninterrupted run's, and each supervised attempt's). Prints
 a JSON result; exit 0 = the contract held, 1 = it did not.
 """
@@ -61,8 +70,6 @@ _NOT_PORTED = {
                          "(needs multi-GPU training)",
     "kill_resize": "re-form a cohort at N-1 processes (needs multi-GPU "
                    "training)",
-    "serve_swap_kill": "a replica death and a hot reload under load "
-                       "(needs the serving fleet)",
 }
 
 
@@ -334,9 +341,156 @@ def scenario_corrupt_checkpoint(out: str, *, backend: str = "gpu",
     return result
 
 
+def scenario_serve_swap_kill(out: str, *, backend: str = "gpu",
+                             timeout_s: float = 120.0, replicas: int = 2,
+                             requests: int = 768, qps: float = 120.0,
+                             kill_at: int = 40) -> dict:
+    """A replica pool under open-loop Poisson load with hot-key skew takes
+    a mid-request replica death (`serve/kill`), a rolling hot swap of a
+    VERIFIED committed checkpoint and a REFUSED bit-flipped step, and the
+    external contract holds: p99 under the SLO, zero requests lost
+    (sheds are explicit), no new predict signature under load, the pool
+    back to full strength."""
+    import threading
+
+    from code2vec_tpu_torch import tree
+    from code2vec_tpu_torch.obs import Telemetry
+    from code2vec_tpu_torch.obs.alerts import (AlertEngine,
+                                               serving_slo_rules)
+    from code2vec_tpu_torch.resilience import faults
+    from code2vec_tpu_torch.serving import ReloadManager, ReplicaPool
+    from code2vec_tpu_torch.tools import loadgen
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+
+    t0 = time.time()
+    # the loadgen tiny-model recipe: latency is shape-dependent, not
+    # value-dependent, so random weights over tiny vocabs serve fine
+    data_dir = os.path.join(out, "data")
+    os.makedirs(data_dir, exist_ok=True)
+    cfg = loadgen.tiny_config(data_dir)
+    cfg.SERVE_REPLICAS = replicas
+    cfg.SERVE_MAX_REPLICAS = max(replicas, cfg.SERVE_MAX_REPLICAS)
+
+    # one in-band kill: the kill_at-th predict_lines call raises
+    # FaultInjected inside whichever replica serves it (action "kill"
+    # would SIGKILL this whole process); the pool must retry the request
+    # on a survivor and refill in the background
+    faults.install({"seed": 0, "sites": {
+        "serve/kill": {"action": "raise", "at": kill_at}}},
+        log=lambda m: print(f"[chaos] {m}", flush=True))
+
+    tele = Telemetry.memory("chaos-serving").make_threadsafe()
+    pool = ReplicaPool(cfg, loadgen.model_factory(
+        cfg, loadgen.backend_device(backend)),
+        replicas=replicas, telemetry=tele).start()
+    alerts = AlertEngine.create(
+        tele, mode="warn", rules=serving_slo_rules(cfg.SERVE_SLO_MS))
+    reload_dir = os.path.join(out, "serve_ckpt")
+    rm = ReloadManager(reload_dir, pool, telemetry=tele, alerts=alerts,
+                       poll_s=0.1).start()
+
+    progress = {}
+
+    def _chaos_actions() -> None:
+        # vocabs/dims for the sidecars come from a live replica; the
+        # swapped-in params are a real value change (the float32 dense
+        # leaves move; same shapes, so no new predict signature)
+        model = pool._replicas[0].server.model
+        new_params = tree.map_leaves(lambda x: (x * 1.001).to(x.dtype),
+                                     pool.params_template())
+        time.sleep(0.5)  # let the load establish itself first
+        ckpt.save_checkpoint(reload_dir, {"params": new_params}, 1,
+                             model.vocabs, model.dims)
+        deadline = time.time() + timeout_s
+        while rm.last_step < 1 and time.time() < deadline:
+            time.sleep(0.05)
+        if rm.last_step >= 1:
+            progress["swap_ts"] = time.time()
+        ckpt.save_checkpoint(reload_dir, {"params": new_params}, 2,
+                             model.vocabs, model.dims)
+        flip_byte_in_largest_file(os.path.join(reload_dir, "step_2"))
+        deadline = time.time() + timeout_s
+        while 2 not in rm.refused and time.time() < deadline:
+            time.sleep(0.05)
+        if 2 in rm.refused:
+            progress["refused_ts"] = time.time()
+
+    actions = threading.Thread(target=_chaos_actions,
+                               name="chaos-actions", daemon=True)
+    corpus = loadgen.gen_corpus(requests, 1,
+                                max_ctx=min(cfg.MAX_CONTEXTS, 12))
+    try:
+        actions.start()
+        report = loadgen.run_load(
+            pool, corpus, mode="open", concurrency=16, qps=qps,
+            arrivals="poisson", hot_key_frac=0.25, hot_keys=8, seed=0)
+        t_load_end = time.time()
+        actions.join(timeout=2 * timeout_s)
+        # the refill may still be warming when the load drains; it
+        # must land (back to full strength) before the verdict
+        pool.wait_ready(replicas, timeout_s=timeout_s)
+        compile_delta = pool.compile_delta()
+        table = pool.pool_table()
+        counters = dict(tele.counters)
+        fired = faults.stats().get("serve/kill", {}).get("fired", 0)
+        refused_state = next(
+            (r["state"] for r in alerts.status_table()
+             if r["rule"] == "reload_refused"), None)
+    finally:
+        rm.stop()
+        pool.close()
+        faults.clear()
+
+    result = {
+        "scenario": "serve_swap_kill",
+        "backend": backend,
+        "requests": report["requests"],
+        "ok_requests": report["ok"],
+        "shed": report["shed"],
+        "errors": report["errors"],
+        "p50_ms": report["latency"]["p50_ms"],
+        "p99_ms": report["latency"]["p99_ms"],
+        "slo_ms": cfg.SERVE_SLO_MS,
+        "throughput_rps": report["throughput_rps"],
+        "kill_fired": fired == 1,
+        "replica_dead": counters.get("serve/replica_dead", 0),
+        "replica_refill": counters.get("serve/replica_refill", 0),
+        "reloads": counters.get("serve/reloads", 0),
+        "reload_refused": counters.get("serve/reload_refused", 0),
+        "swapped_step": rm.last_step,
+        "refused_steps": sorted(rm.refused),
+        "swap_under_load": ("swap_ts" in progress
+                            and progress["swap_ts"] <= t_load_end),
+        "refused_alert_state": refused_state,
+        "pool_generation": table["generation"],
+        "pool_ready": table["ready"],
+        "new_compilations_under_load": compile_delta,
+        "cache_hits": counters.get("serve/cache_hit", 0),
+        "wall_s": round(time.time() - t0, 1),
+    }
+    if report["errors"]:
+        result["first_error"] = report.get("first_error")
+    result["ok"] = (
+        report["errors"] == 0
+        and report["requests"] == report["ok"] + report["shed"]
+        and report["latency"]["p99_ms"] <= cfg.SERVE_SLO_MS
+        and result["kill_fired"]
+        and result["replica_dead"] == 1
+        and result["replica_refill"] == 1
+        and result["swapped_step"] == 1
+        and table["generation"] == 1
+        and result["refused_steps"] == [2]
+        and result["swap_under_load"]
+        and refused_state == "firing"
+        and compile_delta == 0
+        and table["ready"] >= replicas)
+    return result
+
+
 SCENARIOS = {
     "kill_resume": scenario_kill_resume,
     "corrupt_checkpoint": scenario_corrupt_checkpoint,
+    "serve_swap_kill": scenario_serve_swap_kill,
 }
 
 
@@ -362,6 +516,12 @@ def main(argv=None) -> int:
             print(f"{name}: not ported: {what}")
         return 0
 
+    if args.scenario == "serve_swap_kill":
+        # the leg serves in this process; the training legs' children
+        # refuse a missing card themselves
+        from code2vec_tpu_torch.tools.loadgen import gpu_missing
+        if gpu_missing(args.backend):
+            return 2
     out = args.out or tempfile.mkdtemp(prefix=f"chaos_{args.scenario}_")
     os.makedirs(out, exist_ok=True)
     result = SCENARIOS[args.scenario](out, backend=args.backend)

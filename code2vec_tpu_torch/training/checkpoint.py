@@ -601,20 +601,27 @@ def load_dims(ckpt_dir: str) -> ModelDims:
 
 
 def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, *,
+                    verify: bool = True, mmap: bool = False,
                     log: Optional[Callable[[str], None]] = None
                     ) -> Dict[str, Any]:
     """The state of step `step` (default: the latest) with CPU tensors.
 
-    The step's files are verified first: an explicitly requested corrupt
-    step raises `CheckpointCorrupt`; a corrupt latest step is
-    quarantined and the load falls back to the step before it."""
+    With `verify` (the default) the step's files are checked first: an
+    explicitly requested corrupt step raises `CheckpointCorrupt`; a
+    corrupt latest step is quarantined and the load falls back to the
+    step before it. `verify=False` is for a caller that has just checked
+    the same files itself (the serving plane's hot reload), so a
+    0.77 GB step is not hashed twice. `mmap` maps the state file instead
+    of reading it: a read holds the interpreter lock while it copies
+    each table, a mapping defers the copy to the caller's `.to(device)`,
+    which releases it (the hot reload reads while replicas serve)."""
     explicit = step is not None
     while True:
         if step is None:
             step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-        if verify_step(ckpt_dir, step) is not False:
+        if not verify or verify_step(ckpt_dir, step) is not False:
             break
         if explicit:
             raise CheckpointCorrupt(
@@ -628,7 +635,8 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, *,
             f"{path} is missing: {ckpt_dir} is not a code2vec_tpu_torch "
             "checkpoint (import one of the JAX package with "
             "tools/import_jax_checkpoint.py)")
-    return _decode(torch.load(path, map_location="cpu", weights_only=True))
+    return _decode(torch.load(path, map_location="cpu", weights_only=True,
+                              mmap=mmap))
 
 
 def load_vocabs(ckpt_dir: str) -> Code2VecVocabs:

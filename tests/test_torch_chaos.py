@@ -54,13 +54,14 @@ def test_chaos_corrupt_checkpoint_quarantine_and_alert(tmp_path):
 
 
 def test_chaos_cli_lists_the_legs_and_the_unported(capsys):
-    """`--list` names both legs and the three waiting for multi-GPU
-    training or the serving fleet. Tolerance: none."""
+    """`--list` names the three legs (the serving fleet's
+    `serve_swap_kill` among them, tests/test_torch_serving_tools.py runs
+    it) and the two waiting for multi-GPU training. Tolerance: none."""
     assert chaos.main(["--list"]) == 0
     out = capsys.readouterr().out
-    for name in ("kill_resume", "corrupt_checkpoint"):
+    for name in ("kill_resume", "corrupt_checkpoint", "serve_swap_kill"):
         assert f"{name}: " in out and f"{name}: not ported" not in out
-    for name in ("kill_resume_2proc", "kill_resize", "serve_swap_kill"):
+    for name in ("kill_resume_2proc", "kill_resize"):
         assert f"{name}: not ported" in out
 
 

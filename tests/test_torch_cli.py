@@ -227,14 +227,14 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,named", [
-    (["--serve_port", "8080"], "--serve_port"),
+    (["--ring_attention"], "--ring_attention"),
     (["--head", "varmisuse"], "--head varmisuse"),
     (["--attack", "untargeted"], "--attack"),
     (["--infeed_chunk", "2"], "--infeed_chunk 2"),
     (["--mesh_data", "2"], "--mesh_data"),
-    (["--serve_autoscale"], "--serve_autoscale"),
+    (["--dist_num_processes", "2"], "--dist_num_processes"),
     (["--adv_rename_prob", "0.3"], "--adv_rename_prob"),
-    (["--serve_replicas", "2"], "--serve_replicas"),
+    (["--max_candidates", "5"], "--max_candidates"),
     (["--backend", "tpu"], "--backend tpu"),
 ])
 def test_unported_flags_exit_2_naming_them(dataset, flags, named, capsys):

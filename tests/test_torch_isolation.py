@@ -60,6 +60,18 @@ def test_scan_covers_the_transformer_modules(module):
     assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
 
 
+@pytest.mark.parametrize("module", [
+    "serving/replicas.py", "serving/reload.py", "serving/autoscale.py",
+    "serving/frontend.py", "serving/server.py", "tools/loadgen.py",
+    "tools/serving_bench.py", "tools/obs_top.py", "tools/chaos.py"])
+def test_scan_covers_the_serving_fleet_modules(module):
+    """The serving fleet's modules and tools are among the scanned
+    sources and import neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_in_port_sources(path):
