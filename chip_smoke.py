@@ -214,7 +214,29 @@ Phases (any failure raises, and the script exits non-zero):
    replica's build time) and one "down" after the hold on an injected
    clock; `/pool`, `/metrics` (the port's promtext) and one `obs_top`
    frame; memory allocated with 2 replicas, after the swap and with 3;
-21. a `{"kernels": [...]}` line, the card line, and last
+21. the VarMisuse head (`--head varmisuse`) at [4]'s token and path
+   width (a stub target vocab, `vm_pointer` [384, 128], K = 8, bf16
+   compute) over a synthetic `.vm.c2v` file (8 Zipf candidates, 20..200
+   Zipf contexts a row): (f) the JAX package's defaults (dense step,
+   Adafactor tables, Adam on the rest, cosine LR) and (g) Adam, constant
+   LR, `--sparse_embeddings`. For each: counted steps (kernel 1 once a
+   step; kernel 5 twice a step in (g), never in (f)); one step with the
+   kernels against one with the plain versions from the same state and
+   draws ((f): loss within 1e-3, the same update bit-identical; (g): the
+   tables and moments as [5] holds them); one step twice from one cloned
+   state (the same bits); the loss falling over 5 steps of a repeated
+   batch; the step time, its split by phase, the busy share and peak
+   memory. Then (f)'s model evaluated over 4096 rows (counted: kernel 1
+   once a batch; methods/s) and held against the plain path batch by
+   batch, and `predict_batch` on 25 rows (counted) giving the plain
+   path's ids. Then the command line: `write_vm_dataset` (1200 / 150 /
+   100 rows, seed 11) through the port's native extractor and `cli.main`
+   with `--head varmisuse` at the JAX test's flags (8 epochs): accuracy
+   at least 0.7, `--load --test` printing the same, `--load --head
+   code2vec` and `--tables_dtype int8` exiting 2, `--auto_resume` from
+   the step before the end bit-identical, and a `--phase_profile on`
+   run ending in the same bits;
+22. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -4698,6 +4720,569 @@ def phase_fleet(torch, np, vocabs, tmp, report, device: str = "cuda"):
     return launches
 
 
+# ---- [21] the VarMisuse head (kernels 1 and 5) ----
+
+# (f) and (g): the candidate slots (the JAX default MAX_CANDIDATES); the
+# command line's dataset (rows of the train, val and test splits, seed)
+# and settings (tests/test_varmisuse.py's vm_config, where the command
+# line has a flag)
+VM_K = 8
+VM_ROWS, VM_SEED = (1200, 150, 100), 11
+VM_CLI_FLAGS = ["--head", "varmisuse", "--max_contexts", "64",
+                "--batch_size", "32", "--epochs", "8", "--lr", "0.02",
+                "--no_bf16", "--max_candidates", "6"]
+# the JAX test's accuracy floor (5 live candidates: chance 0.2)
+VM_MIN_ACC = 0.7
+
+
+def vm_vocabs(vocabs):
+    """[4]'s token and path vocabularies with the VarMisuse head's stub
+    target vocabulary (its targets are the candidates)."""
+    from code2vec_tpu_torch.vocab.vocabularies import (Code2VecVocabs, Vocab,
+                                                       VocabType)
+    return Code2VecVocabs(vocabs.token_vocab, vocabs.path_vocab,
+                          Vocab(VocabType.Target, ["method"]))
+
+
+def write_vm_file(np, path: str, n_rows: int, rng) -> None:
+    """A `.vm.c2v` file of `n_rows` rows: a label in [0, VM_K), VM_K
+    candidate words and 20..C contexts, the words drawn Zipf (s = ZIPF_S)
+    over the synthetic vocab as `write_training_file` draws them."""
+    tok, pth = (zipf_cdf(np, JAVA_LARGE[k]) for k in ("token", "path"))
+    n_ctx = rng.integers(min(20, C), C + 1, n_rows)
+    total = int(n_ctx.sum())
+    src = np.searchsorted(tok, rng.random(total))
+    dst = np.searchsorted(tok, rng.random(total))
+    paths = np.searchsorted(pth, rng.random(total)) * 1000003
+    cands = np.searchsorted(tok, rng.random((n_rows, VM_K)))
+    labels = rng.integers(0, VM_K, n_rows)
+    ctx = [f"tok{a},{p},tok{b}" for a, p, b in
+           zip(src.tolist(), paths.tolist(), dst.tolist())]
+    with open(path, "w") as f:
+        start = 0
+        for i, n in enumerate(n_ctx.tolist()):
+            f.write(f"{labels[i]} " + ",".join(f"tok{c}" for c in cands[i])
+                    + " " + " ".join(ctx[start:start + n]) + "\n")
+            start += n
+
+
+def vm_config(label: str, sparse: bool):
+    """(f): the JAX package's defaults (bf16 tables and compute, Adafactor
+    on the tables, Adam on the rest, cosine LR); (g): Adam, constant LR,
+    --sparse_embeddings. Both at java-large width, B = TRAIN_B."""
+    from code2vec_tpu_torch.config import Config
+    kw = (dict(SPARSE_EMBEDDING_UPDATES=True, EMBEDDING_OPTIMIZER="adam",
+               LR_SCHEDULE="constant") if sparse else {})
+    cfg = Config(MAX_CONTEXTS=C, DEFAULT_EMBEDDINGS_SIZE=E,
+                 TRAIN_BATCH_SIZE=TRAIN_B, TEST_BATCH_SIZE=TRAIN_B,
+                 HEAD="varmisuse", MAX_CANDIDATES=VM_K, SEED=SEED, **kw)
+    check((cfg.TABLES_DTYPE, cfg.USE_BF16) == ("bfloat16", True),
+          f"({label}) not bf16")
+    return cfg
+
+
+def vm_counted(torch, np, model, data_path, label, want_rows):
+    """The main path: `train` for TRAIN_STEPS steps with the counters at
+    0 just before and read just after."""
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import \
+        sparse_row_adam_fused
+    attention_pool_fused.launches = 0
+    sparse_row_adam_fused.launches = 0
+    t = time.perf_counter()
+    losses = model.train(data_path, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    launches = {"attention_pool": attention_pool_fused.launches,
+                "sparse_row_adam": sparse_row_adam_fused.launches}
+    want = {"attention_pool": TRAIN_STEPS,
+            "sparse_row_adam": TRAIN_STEPS * want_rows}
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"({label}) losses {losses}")
+    check(launches == want, f"({label}) launches {launches}, expected {want}")
+    print(f"  ({label}) train: {TRAIN_STEPS} steps in {run_s:.2f} s (host "
+          f"parse included), losses {', '.join(f'{x:.5f}' for x in losses)}; "
+          f"launches {launches}", flush=True)
+    return launches, losses, run_s
+
+
+def vm_fall(torch, np, model, batch, label):
+    """The loss over FALL_STEPS steps of one batch and one set of draws."""
+    fixed = model.draws_for(TRAIN_B, model.step_num)
+    fall = [model.train_step(batch, fixed).item() for _ in range(FALL_STEPS)]
+    check(all(np.isfinite(fall)) and fall[-1] < fall[0],
+          f"({label}) loss over a repeated batch: {fall}")
+    print(f"  ({label}) repeated batch, {FALL_STEPS} steps: "
+          f"{', '.join(f'{x:.5f}' for x in fall)}", flush=True)
+    return fall
+
+
+def vm_step_ms(torch, model, batch):
+    """Median of TIMED_STEPS synchronised steps, host clock."""
+    ms = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms, sorted(ms)[len(ms) // 2]
+
+
+def vm_split(torch, model, stages):
+    """Each of `stages` [(name, fn(draws) -> None)] timed with CUDA events
+    over TIMED_STEPS steps (one step's work, in order) -> median ms."""
+    split = {n: [] for n, _ in stages}
+    for _ in range(TIMED_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(stages) + 2)]
+        ev[0].record()
+        d = model.draws_for(TRAIN_B, model.step_num)
+        ev[1].record()
+        for i, (_n, fn) in enumerate(stages):
+            fn(d)
+            ev[i + 2].record()
+        ev[-1].synchronize()
+        model.step_num += 1
+        split.setdefault("draws", []).append(ev[0].elapsed_time(ev[1]))
+        for i, (n, _fn) in enumerate(stages):
+            split[n].append(ev[i + 1].elapsed_time(ev[i + 2]))
+    return {n: sorted(v)[len(v) // 2] for n, v in split.items()}
+
+
+def phase_vm_dense(torch, np, vocabs, data_path, report):
+    """(f): the dense vm step at java-large width; returns the model (for
+    the evaluation) and the counted run's launches."""
+    from code2vec_tpu_torch.data.vm_reader import VMTextReader
+    from code2vec_tpu_torch.models.vm_model import VarMisuseModel
+    from code2vec_tpu_torch.training.steps import (apply_dense_updates,
+                                                   dense_loss_and_grads)
+    from code2vec_tpu_torch.training.vm_steps import make_vm_loss_fn
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = vm_config("f", sparse=False)
+    model = VarMisuseModel(cfg, vocabs)  # device=None: the card
+    check(model.device.type == "cuda", f"(f) model on {model.device}")
+    dims = model.dims
+    print(f"  (f) tables {tuple(model.params['token_emb'].shape)}, "
+          f"{tuple(model.params['path_emb'].shape)} bf16, target "
+          f"{tuple(model.params['target_emb'].shape)}, vm_pointer "
+          f"{tuple(model.params['vm_pointer'].shape)}; Adafactor + Adam, "
+          f"cosine LR; set up in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, losses, run_s = vm_counted(torch, np, model, data_path, "f", 0)
+
+    # ---- one step: kernel 1 vs its plain version, one state and draws ----
+    reader = VMTextReader(data_path, vocabs, C, VM_K, TRAIN_B)
+    batch = model.device_batch(next(iter(reader)))
+    draws = model.draws_for(TRAIN_B, model.step_num)
+    params, state, opt = model.params, model.opt_state, model.optimizer
+    loss_fn_k = make_vm_loss_fn(dims, compute_dtype=torch.bfloat16,
+                                use_kernel=True)
+    loss_fn_p = make_vm_loss_fn(dims, compute_dtype=torch.bfloat16,
+                                use_kernel=False)
+    loss_k, grads, view = dense_loss_and_grads(params, batch, draws, loss_fn_k)
+    loss_p, grads_p, _ = dense_loss_and_grads(params, batch, draws, loss_fn_p)
+    grad_rel = {k: ((grads[k].float() - grads_p[k].float()).norm()
+                    / grads_p[k].float().norm().clamp_min(1e-30)).item()
+                for k in ("transform", "attention", "vm_pointer")}
+    del grads_p
+    updates = opt.update(grads, state, view)
+    twin = clone_state(torch, params)
+    apply_dense_updates(params, updates, draws.salts, use_kernel=True)
+    apply_dense_updates(twin, updates, draws.salts, use_kernel=False)
+    torch.cuda.synchronize()
+    lk, lp = loss_k.item(), loss_p.item()
+    rel = abs(lk - lp) / abs(lp)
+    check(rel <= LOSS_RTOL, f"(f) loss kernel {lk} plain {lp}")
+    for k in params:
+        check(torch.equal(params[k], twin[k]),
+              f"(f) {k}: kernel step and plain step differ given one update")
+    model.step_num += 1
+    del twin, grads, view, updates
+    torch.cuda.empty_cache()
+    print(f"  (f) kernel step vs plain step: loss {lk:.6f} vs {lp:.6f} (rel "
+          f"{rel:.2e}); gradient l2 rel " + ", ".join(
+              f"{k} {v:.2e}" for k, v in grad_rel.items()) +
+          "; the same update gives bit-identical params", flush=True)
+
+    same_bits_twice(torch, model, batch, "f", report)
+    fall = vm_fall(torch, np, model, batch, "f")
+    torch.cuda.reset_peak_memory_stats()  # the steps' peak, not the twin's
+    step_ms, step_med = vm_step_ms(torch, model, batch)
+    box = {}
+
+    def fwd_bwd(d):
+        box["out"] = dense_loss_and_grads(params, batch, d, loss_fn_k)
+
+    def optimizer(d):
+        box["upd"] = opt.update(box["out"][1], state, box["out"][2])
+
+    def apply(d):
+        apply_dense_updates(params, box.pop("upd"), d.salts)
+        box.clear()
+    med = vm_split(torch, model, [("forward+backward", fwd_bwd),
+                                  ("optimizer", optimizer),
+                                  ("apply", apply)])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (f) step {step_med:.2f} ms (median of {TIMED_STEPS}, host clock, "
+          f"synchronised); by phase (CUDA events, median): " +
+          ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
+          f"; peak device memory of the steps {peak_gb:.2f} GB", flush=True)
+    prof, busy, _ = profile_step(torch, "f", lambda: model.train_step(batch),
+                                 step_med)
+    report["vm_f"] = {
+        "launches": launches, "losses": losses, "run_s": run_s,
+        "loss_kernel": lk, "loss_plain": lp, "loss_rel": rel,
+        "grad_rel": grad_rel, "repeated_batch_losses": fall,
+        "step_ms": step_ms, "step_ms_median": step_med,
+        "phase_ms_median": med, "peak_memory_gb": peak_gb, "profile": prof,
+        "device_busy_share": busy}
+    return model, launches
+
+
+def phase_vm_sparse(torch, np, vocabs, data_path, report):
+    """(g): the sparse-row vm step (kernel 5 on token and path) at
+    java-large width; returns the counted run's launches."""
+    from code2vec_tpu_torch.data.vm_reader import VMTextReader
+    from code2vec_tpu_torch.models.vm_model import VarMisuseModel
+    from code2vec_tpu_torch.training.sparse_steps import apply_dense_updates
+    from code2vec_tpu_torch.training.sparse_update import adam_lr_t, apply_rows
+    from code2vec_tpu_torch.training.steps import dense_loss_and_grads
+    from code2vec_tpu_torch.training.vm_steps import (VM_TABLE_KEYS,
+                                                      apply_vm_row_updates,
+                                                      make_vm_loss_fn,
+                                                      vm_table_ids)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = VarMisuseModel(vm_config("g", sparse=True), vocabs)
+    check(model.device.type == "cuda", f"(g) model on {model.device}")
+    print(f"  (g) bf16 tables, Adam, constant LR, --sparse_embeddings; set up "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches, losses, run_s = vm_counted(torch, np, model, data_path, "g",
+                                         len(VM_TABLE_KEYS))
+
+    # ---- one step: kernel 5 vs its plain version, one state and draws ----
+    reader = VMTextReader(data_path, vocabs, C, VM_K, TRAIN_B)
+    batch = model.device_batch(next(iter(reader)))
+    draws = model.draws_for(TRAIN_B, model.step_num)
+    params, state, opt = model.params, model.opt_state, model.optimizer
+    loss_fn = make_vm_loss_fn(model.dims, compute_dtype=torch.bfloat16)
+    twin_p, twin_s = clone_state(torch, params), clone_state(torch, state)
+    loss, grads, _view = dense_loss_and_grads(params, batch, draws, loss_fn)
+    dense = {k: g for k, g in grads.items() if k not in VM_TABLE_KEYS}
+    apply_dense_updates(params, state, opt, dense)
+    U = apply_vm_row_updates(params, state, grads, batch, opt.learning_rate,
+                             use_kernel=True)
+    apply_dense_updates(twin_p, twin_s, opt, dense)
+    apply_vm_row_updates(twin_p, twin_s, grads, batch, opt.learning_rate,
+                         use_kernel=False)
+    torch.cuda.synchronize()
+    errs, notes = {}, []
+    for k in params:
+        errs[k], note = compare_tables(torch, f"(g) {k}", params[k],
+                                       twin_p[k], U.get(k, 0) * E)
+        notes.append(f"{k} {note}")
+    for k, st in state["rows"].items():
+        errs[f"rows.{k}"] = max(
+            compare_moments(torch, f"(g) {k}.m", st.m, twin_s["rows"][k].m),
+            compare_moments(torch, f"(g) {k}.v", st.v, twin_s["rows"][k].v))
+        notes.append(f"{k} moments " + (
+            "bit-identical" if torch.equal(st.m, twin_s["rows"][k].m)
+            and torch.equal(st.v, twin_s["rows"][k].v)
+            else f"max|d| {errs[f'rows.{k}']:.3g}"))
+    model.step_num += 1
+    del twin_p, twin_s, grads, dense
+    torch.cuda.empty_cache()
+    print(f"  (g) kernel 5 vs plain rows, one step (loss {loss.item():.6f}): "
+          f"{'; '.join(notes)}; U {U}", flush=True)
+
+    same_bits_twice(torch, model, batch, "g", report)
+    fall = vm_fall(torch, np, model, batch, "g")
+    torch.cuda.reset_peak_memory_stats()  # the steps' peak, not the twin's
+    step_ms, step_med = vm_step_ms(torch, model, batch)
+    box = {}
+
+    def backward(d):
+        box["loss"], box["grads"], _ = dense_loss_and_grads(params, batch, d,
+                                                            loss_fn)
+
+    def unique_gather(d):
+        ids = vm_table_ids(batch)
+        box["rows"] = {}
+        for k in VM_TABLE_KEYS:
+            uids = torch.unique(ids[k].to(torch.int32))
+            box["rows"][k] = (uids, torch.index_select(
+                box["grads"][k], 0, uids).to(torch.float32))
+
+    def dense_adam(d):
+        apply_dense_updates(params, state, opt, {
+            k: g for k, g in box["grads"].items() if k not in VM_TABLE_KEYS})
+
+    def row_apply(d):
+        lr_t = adam_lr_t(state["count"], opt.learning_rate, 0.9, 0.999)
+        for k, (uids, seg) in box["rows"].items():
+            apply_rows(params[k], state["rows"][k], uids, seg, lr_t=lr_t,
+                       b1=0.9, b2=0.999, eps=1e-8)
+        box.clear()
+    med = vm_split(torch, model, [("dense backward", backward),
+                                  ("unique+gather", unique_gather),
+                                  ("dense Adam", dense_adam),
+                                  ("row apply", row_apply)])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  (g) step {step_med:.2f} ms (median of {TIMED_STEPS}, host clock, "
+          f"synchronised); by phase (CUDA events, median): " +
+          ", ".join(f"{n} {ms:.3f}" for n, ms in med.items()) +
+          f"; peak device memory of the steps {peak_gb:.2f} GB", flush=True)
+    prof, busy, row_ms = profile_step(torch, "g",
+                                      lambda: model.train_step(batch),
+                                      step_med, name_part="row_adam_kernel")
+    report["vm_g"] = {
+        "launches": launches, "losses": losses, "run_s": run_s,
+        "errors": errs, "unique_rows": U, "repeated_batch_losses": fall,
+        "step_ms": step_ms, "step_ms_median": step_med,
+        "phase_ms_median": med, "peak_memory_gb": peak_gb, "profile": prof,
+        "device_busy_share": busy, "kernel5_ms_per_step": row_ms}
+    del model, params, state, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
+def vm_plain_eval(torch, params, batch):
+    """The vm eval step with the attention pool's plain float32 version
+    where the kernel runs (the code cast to bf16 after, as the kernel path
+    casts it): (loss_sum, pred)."""
+    from code2vec_tpu_torch.models.encoder import gather_contexts, take_rows
+    from code2vec_tpu_torch.models.varmisuse import candidate_ce
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_plain
+    labels, src, pth, dst, mask, cand, cand_mask, weights = batch
+    ctx = gather_contexts(params, src, pth, dst, torch.bfloat16)
+    code, _ = attention_pool_plain(ctx, params["transform"],
+                                   params["attention"], mask)
+    q = code.to(torch.bfloat16).float() @ params["vm_pointer"]
+    scores = torch.einsum("be,bke->bk", q, take_rows(
+        params, "token_emb", cand).float())
+    scores = torch.where(cand_mask > 0, scores, torch.full_like(scores, -1e9))
+    return ((candidate_ce(scores, labels) * weights).sum(),
+            torch.argmax(scores, dim=-1))
+
+
+def phase_vm_eval(torch, np, model, test_path, report):
+    """`evaluate` over the 4096-row file (counted: kernel 1 once a batch),
+    the kernel path against the plain path batch by batch, and
+    `predict_batch` on 25 rows (counted) against the plain path's pred."""
+    from code2vec_tpu_torch.data.vm_reader import VMTextReader, parse_vm_rows
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.training.vm_steps import vm_eval_step
+    # stretched as [9] stretches: tables near 0 tie every candidate
+    for key in ("token_emb", "path_emb"):
+        t = model.params[key]
+        t.mul_(1.0 / t.float().abs().max().item())
+    model.evaluate(test_path)  # warm
+    n_batches = -(-EVAL_METHODS // TRAIN_B)
+    attention_pool_fused.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = model.evaluate(test_path)
+    eval_s = time.perf_counter() - t
+    eval_launches = attention_pool_fused.launches
+    check(eval_launches == n_batches, f"vm eval: attention_pool launched "
+          f"{eval_launches} times for {n_batches} batches")
+    check(np.isfinite(results.loss) and 0 <= results.accuracy <= 1
+          and results.num_examples == EVAL_METHODS, f"vm eval {results}")
+    rate = EVAL_METHODS / eval_s
+    print(f"  evaluate: {EVAL_METHODS} rows in {n_batches} batches of "
+          f"{TRAIN_B}, {eval_s:.3f} s ({rate:.0f} methods/s, host parse "
+          f"included); {results}; kernel 1 launches {eval_launches}",
+          flush=True)
+    loss_k = loss_p = 0.0
+    same = total = 0
+    with torch.inference_mode():
+        for b in VMTextReader(test_path, model.vocabs, C, VM_K, TRAIN_B):
+            batch = model.device_batch(b)
+            lk, _ck, pk = vm_eval_step(model.params, batch,
+                                       compute_dtype=torch.bfloat16)
+            lp, pp = vm_plain_eval(torch, model.params, batch)
+            nv = b.num_valid_examples
+            loss_k += lk.item()
+            loss_p += lp.item()
+            same += int((pk[:nv] == pp[:nv]).sum().item())
+            total += nv
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    share = same / total
+    check(rel <= LOSS_RTOL, f"vm eval loss kernel {loss_k} plain {loss_p}")
+    check(share >= EVAL_TOP1_SHARE, f"vm eval pred equal on {same}/{total}")
+    with open(test_path) as f:
+        rows = [next(f) for _ in range(25)]
+    attention_pool_fused.launches = 0
+    pred = model.predict_batch(rows)
+    predict_launches = attention_pool_fused.launches
+    check(predict_launches == 1, f"predict_batch launched kernel 1 "
+          f"{predict_launches} times")
+    parsed = parse_vm_rows(rows, model.vocabs, C, VM_K)
+    batch = tuple(torch.from_numpy(a).to(model.device) for a in parsed[:8])
+    with torch.inference_mode():
+        _lp, plain_pred = vm_plain_eval(torch, model.params, batch)
+    check(pred.shape == (25,) and np.array_equal(pred, plain_pred.cpu().numpy()),
+          f"predict_batch {pred} vs plain {plain_pred.cpu().numpy()}")
+    print(f"  kernel path vs plain path: loss sum {loss_k:.4f} vs {loss_p:.4f} "
+          f"(rel {rel:.2e}), pred equal on {same}/{total}; predict_batch on 25 "
+          f"rows: the plain path's ids, kernel 1 launched once", flush=True)
+    report["vm_eval"] = {
+        "rows": EVAL_METHODS, "seconds": eval_s, "methods_per_s": rate,
+        "loss": results.loss, "accuracy": results.accuracy,
+        "loss_rel_kernel_plain": rel, "pred_equal_share": share,
+        "launches": eval_launches, "predict_launches": predict_launches}
+    return eval_launches + predict_launches
+
+
+class VMRecorder:
+    """Every `VarMisuseModel` that `from_config` makes while in a `with`."""
+
+    def __enter__(self):
+        from code2vec_tpu_torch.models.vm_model import VarMisuseModel
+        self.cls, self.made = VarMisuseModel, []
+        real_from, made = VarMisuseModel.from_config.__func__, self.made
+
+        def from_config(cls, *a, **k):
+            m = real_from(cls, *a, **k)
+            made.append(m)
+            return m
+        VarMisuseModel.from_config = classmethod(from_config)
+        return self
+
+    def __exit__(self, *exc):
+        del self.cls.from_config  # back to the inherited one
+        return False
+
+
+def phase_vm_cli(torch, np, tmp, report):
+    """The command line: `write_vm_dataset` through the port's native
+    extractor, then `cli.main` with `--head varmisuse` (accuracy, reload,
+    auto-resume, the refused combinations, a profiled run)."""
+    import contextlib
+    import io
+    import shutil
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.data.varmisuse_gen import write_vm_dataset
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    t0 = time.perf_counter()
+    prefix = os.path.join(tmp, "vm_cli")
+    write_vm_dataset(prefix, *VM_ROWS, seed=VM_SEED)
+    gen_s = time.perf_counter() - t0
+    val = prefix + ".val.vm.c2v"
+    save = os.path.join(tmp, "vm_ckpt")
+    argv = [*VM_CLI_FLAGS, "--data", prefix, "--save", save, "--test", val,
+            "--auto_resume"]
+    attention_pool_fused.launches = 0
+    t = time.perf_counter()
+    with VMRecorder() as rec:
+        check(cli.main(argv) == 0, "vm cli: training run failed")
+    train_s = time.perf_counter() - t
+    cli_launches = attention_pool_fused.launches
+    full = rec.made[-1]
+    steps = full.step_num
+    check(cli_launches > steps, f"vm cli: kernel 1 launched {cli_launches} "
+          f"times over {steps} steps and the evaluations")
+    acc = full.evaluate(val)
+    check(acc.accuracy >= VM_MIN_ACC, f"vm cli: accuracy {acc}")
+    out = io.StringIO()
+    with VMRecorder() as rec, contextlib.redirect_stdout(out):
+        # the compute dtype is a flag, not a checkpoint key
+        check(cli.main(["--load", save, "--test", val, "--no_bf16"]) == 0,
+              "vm cli: --load --test failed")
+    check(str(acc) in out.getvalue(), f"vm cli: reload printed "
+          f"{out.getvalue()!r}, the trained model gives {acc}")
+    final = {"p": full.params, "s": full.opt_state}
+    check(state_diff(torch, {"p": rec.made[-1].params},
+                     {"p": full.params})["differ"] == 0,
+          "vm cli: reloaded params differ")
+    errs = io.StringIO()
+    with contextlib.redirect_stderr(errs):
+        rc_head = cli.main(["--load", save, "--head", "code2vec", "--test",
+                            val])
+        rc_int8 = cli.main([*VM_CLI_FLAGS, "--data", prefix,
+                            "--tables_dtype", "int8"])
+    check((rc_head, rc_int8) == (2, 2), f"vm cli: refused combinations exit "
+          f"{rc_head}, {rc_int8}: {errs.getvalue()!r}")
+    # the step before the end set aside: --auto_resume trains the last epoch
+    last = ckpt.latest_step(save)
+    shutil.rmtree(os.path.join(save, f"step_{last}"))
+    before = ckpt.latest_step(save)
+    with VMRecorder() as rec:
+        check(cli.main(argv) == 0, "vm cli: resumed run failed")
+    resumed = rec.made[-1]
+    diff = state_diff(torch, {"p": resumed.params, "s": resumed.opt_state},
+                      final)
+    check(resumed.step_num == steps and diff["differ"] == 0,
+          f"vm cli: --auto_resume from step {before} ends at step "
+          f"{resumed.step_num} with {diff['differ']} of {diff['tensors']} "
+          f"tensors differing")
+    # the same command profiled, into another dir
+    tele = os.path.join(tmp, "vm_tele")
+    with VMRecorder() as rec:
+        check(cli.main([*VM_CLI_FLAGS, "--data", prefix, "--save",
+                        os.path.join(tmp, "vm_prof"), "--test", val,
+                        "--phase_profile", "on", "--phase_sample_every", "16",
+                        "--telemetry_dir", tele]) == 0,
+              "vm cli: profiled run failed")
+    prof = rec.made[-1]
+    pdiff = state_diff(torch, {"p": prof.params, "s": prof.opt_state}, final)
+    (run,) = os.listdir(tele)
+    with open(os.path.join(tele, run, "events.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    phases = [e for e in events if e["kind"] == "phase"]
+    check(pdiff["differ"] == 0 and phases, f"vm cli: the profiled run "
+          f"differs on {pdiff['differ']} tensors, {len(phases)} samples")
+    summary = [e for e in events if e["kind"] == "summary"][-1]
+    phase_ms = {p: summary["timers"][f"train/phase/{p}_ms"]["p50_ms"]
+                for p in ("embed_gather", "forward_pool", "backward",
+                          "table_apply")}
+    print(f"  command line: {sum(VM_ROWS)} rows written in {gen_s:.1f} s; "
+          f"{steps} steps + {VM_CLI_FLAGS[VM_CLI_FLAGS.index('--epochs') + 1]}"
+          f" evaluations in {train_s:.1f} s (kernel 1 {cli_launches} "
+          f"launches); {acc}; --load --test the same; --load --head code2vec "
+          f"and --tables_dtype int8 exit 2; --auto_resume from step {before} "
+          f"bit-identical; --phase_profile on bit-identical, {len(phases)} "
+          f"samples, p50 ms " + ", ".join(f"{k} {v:.3f}"
+                                          for k, v in phase_ms.items()),
+          flush=True)
+    report["vm_cli"] = {"rows": VM_ROWS, "gen_s": gen_s, "train_s": train_s,
+                        "steps": steps, "accuracy": acc.accuracy,
+                        "loss": acc.loss, "launches": cli_launches,
+                        "resumed_from": before, "phase_samples": len(phases),
+                        "phase_p50_ms": phase_ms}
+    return cli_launches
+
+
+def phase_vm(torch, np, vocabs, tmp, report):
+    """[21]: the VarMisuse head on the card: (f), (g), the evaluation and
+    `predict_batch`, the command line. Returns the launches by kernel."""
+    vv = vm_vocabs(vocabs)
+    data_path = os.path.join(tmp, "vm.train.vm.c2v")
+    test_path = os.path.join(tmp, "vm.test.vm.c2v")
+    t0 = time.perf_counter()
+    write_vm_file(np, data_path, (TRAIN_STEPS + 1) * TRAIN_B,
+                  np.random.default_rng(SEED + 2))
+    write_vm_file(np, test_path, EVAL_METHODS, np.random.default_rng(SEED + 3))
+    print(f"  synthetic .vm.c2v: {(TRAIN_STEPS + 1) * TRAIN_B} training and "
+          f"{EVAL_METHODS} test rows, K = {VM_K}, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    model, f_launches = phase_vm_dense(torch, np, vv, data_path, report)
+    eval_launches = phase_vm_eval(torch, np, model, test_path, report)
+    del model
+    torch.cuda.empty_cache()
+    g_launches = phase_vm_sparse(torch, np, vv, data_path, report)
+    cli_launches = phase_vm_cli(torch, np, tmp, report)
+    launches = {"attention_pool": f_launches["attention_pool"]
+                + g_launches["attention_pool"] + eval_launches + cli_launches,
+                "sparse_row_adam": g_launches["sparse_row_adam"]}
+    report["vm_launches"] = {"f": f_launches, "g": g_launches,
+                             "eval_predict": eval_launches,
+                             "cli": cli_launches}
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -4876,7 +5461,14 @@ def main(argv=None) -> int:
         fleet_launches = phase_fleet(torch, np, vocabs, tmp, report)
         lap("[20]")
 
-    # ---- 21. result ----
+        # ---- 21. the VarMisuse head ----
+        print("[21] the VarMisuse head (--head varmisuse) at java-large "
+              "width: (f) dense, (g) sparse-row, evaluation, the command "
+              "line", flush=True)
+        vm_launches = phase_vm(torch, np, vocabs, tmp, report)
+        lap("[21]")
+
+    # ---- 22. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -4888,7 +5480,7 @@ def main(argv=None) -> int:
         + repl_launches["attention_pool"] \
         + observed_launches["attention_pool"] \
         + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
-        + fleet_launches["attention_pool"]
+        + fleet_launches["attention_pool"] + vm_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -4918,7 +5510,8 @@ def main(argv=None) -> int:
                   "code2vec_tpu/ops/pallas_sparse_update.py:110",
                   train_launches["a"]["sparse_row_adam"]
                   + cli_launches["sparse"]["sparse_row_adam"]
-                  + phase_launches["sparse_row_adam"]),
+                  + phase_launches["sparse_row_adam"]
+                  + vm_launches["sparse_row_adam"]),
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
                   train_launches["b"]["sparse_requant_adam"]),
@@ -4963,7 +5556,8 @@ def main(argv=None) -> int:
                           **{f"cli_{k}": v for k, v in cli_launches.items()},
                           "repl": repl_launches, "observed": observed_launches,
                           "live_plane": plane_launches,
-                          "phases": phase_launches, "fleet": fleet_launches}
+                          "phases": phase_launches, "fleet": fleet_launches,
+                          "vm": vm_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -8,6 +8,7 @@ order, for the ported flags (config.Config.arguments_parser):
       [--export_code_vectors] [--save_w2v <p>] [--save_t2v <p>] \\
       [--telemetry_dir <d> [--trace] [--watchdog_stall_s <s>]] \\
       [--profile <d>] [--tensorboard <d>] [--faults <json>] \\
+      [--head code2vec|varmisuse [--max_candidates K]] \\
       [--backend gpu|cpu] [--framework ...]
 
 0. `--faults`: the failpoint registry is armed before anything is built
@@ -15,12 +16,15 @@ order, for the ported flags (config.Config.arguments_parser):
 1. `--auto_resume` with `--save` and `--data`: a checkpoint already in
    `--save` is loaded (before `--load`, a fine-tune's starting point)
    and its run continued;
-2. with `--load`: the checkpoint's `tables_dtype` is adopted (its head
-   must be code2vec), then the configuration is verified a second time;
+2. with `--load`: the checkpoint's `head` and `tables_dtype` are
+   adopted (an explicit `--head` that differs exits 2), then the
+   configuration is verified a second time; `--head varmisuse` builds
+   the VarMisuse model (models/vm_model.py), else the code2vec trainer;
 3. `--release`: an inference-only copy of the loaded checkpoint, and
    nothing else;
 4. `--data`: train (with `--save`, a checkpoint every SAVE_EVERY_EPOCHS
-   epochs; with `--test`, an evaluation after each);
+   epochs; with `--test`, an evaluation after each); the varmisuse head
+   reads `<data>.train.vm.c2v`;
 5. `--save_w2v` / `--save_t2v`: the token / target tables in word2vec
    text format;
 6. `--predict`: the REPL over Input.java in the working directory
@@ -96,11 +100,13 @@ def _run(config: Config) -> int:
         if os.path.exists(mpath):
             with open(mpath) as f:
                 manifest = json.load(f)
+            # the checkpoint knows its head: adopted, or cross-checked
+            # against an explicit --head
             head = manifest.get("head", "code2vec")
-            if head != "code2vec":
+            if config.HEAD_EXPLICIT and head != config.HEAD:
                 return _error(f"checkpoint was trained with --head {head}, "
-                              "which is not ported to code2vec_tpu_torch "
-                              "yet")
+                              f"but --head {config.HEAD} was given")
+            config.HEAD = head
             config.TABLES_DTYPE = manifest.get("tables_dtype",
                                                config.TABLES_DTYPE)
     # verified again now that the checkpoint's values are in
@@ -109,9 +115,14 @@ def _run(config: Config) -> int:
     except ValueError as e:
         return _error(str(e))
 
-    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    if config.HEAD == "varmisuse":
+        from code2vec_tpu_torch.models.vm_model import \
+            VarMisuseModel as model_cls
+    else:
+        from code2vec_tpu_torch.models.torch_model import \
+            Code2VecTrainer as model_cls
     try:
-        model = Code2VecTrainer.from_config(config, device=device)
+        model = model_cls.from_config(config, device=device)
     except ValueError as e:
         return _error(str(e))
     config.log(f"model loaded: framework=pytorch backend={config.BACKEND} "

@@ -5,8 +5,8 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--attack`, `--head varmisuse`, `--infeed_chunk 2`, the mesh
-flags, ...) is an error that names it, never ignored. The seven serving
+have yet (`--attack`, `--adv_rename_prob`, `--infeed_chunk 2`, the
+mesh flags, ...) is an error that names it, never ignored. The seven serving
 fleet flags (`--serve_port`, `--serve_replicas`, ...) are parsed and
 verified as the JAX package's are; as there, the command line opens no
 socket (the fleet runs through tools/serving_bench.py and the chaos
@@ -19,9 +19,13 @@ tables and full softmax. `SPARSE_EMBEDDING_UPDATES=True` selects the
 sparse-row step, which `verify` allows only with `EMBEDDING_OPTIMIZER=
 "adam"`, `LR_SCHEDULE="constant"` and the `bag` encoder, as the JAX
 package's does. `ENCODER_TYPE="transformer"` selects the transformer
-path-encoder (`XF_LAYERS` pre-norm layers of `XF_HEADS` heads). The port
-has one head (`code2vec`) and trains on one device, so it has no head or
-mesh fields, and no `RING_ATTENTION`, which needs a mesh.
+path-encoder (`XF_LAYERS` pre-norm layers of `XF_HEADS` heads).
+`HEAD="varmisuse"` (`--head varmisuse`) selects the VarMisuse pointer
+head (models/vm_model.py) over `.vm.c2v` data with `MAX_CANDIDATES`
+candidate slots; `verify` refuses it with the code2vec head's surfaces,
+int8 tables and the transformer, as the JAX package's does. The port
+trains on one device, so it has no mesh fields, and no
+`RING_ATTENTION`, which needs a mesh.
 """
 
 from __future__ import annotations
@@ -93,6 +97,11 @@ class Config:
     XF_HEADS: int = 3
     # recompute each transformer layer in the backward pass
     XF_REMAT: bool = False
+    # "code2vec" (method names) or "varmisuse" (the pointer head of
+    # models/varmisuse.py over `.vm.c2v` data)
+    HEAD: str = "code2vec"
+    HEAD_EXPLICIT: bool = False  # True when --head was given
+    MAX_CANDIDATES: int = 8      # the varmisuse head's candidate slots
 
     # ---- training ----
     DROPOUT_KEEP_RATE: float = 0.75
@@ -305,6 +314,25 @@ class Config:
                     "TABLES_DTYPE int8 is incompatible with TRUST_RATIO "
                     "(the trust rescale needs ||param|| of the flat table "
                     "the quantized step never materializes).")
+        if self.HEAD not in ("code2vec", "varmisuse"):
+            raise ValueError(f"HEAD must be code2vec or varmisuse (got "
+                             f"{self.HEAD!r}).")
+        if self.HEAD == "varmisuse" and (self.is_predict or self.release
+                                         or self.save_w2v
+                                         or self.save_t2v
+                                         or self.export_code_vectors):
+            raise ValueError(
+                "--predict/--release/--save_w2v/--save_t2v/"
+                "--export_code_vectors apply to the code2vec head only.")
+        if self.TABLES_DTYPE == "int8" and self.HEAD != "code2vec":
+            raise ValueError(
+                "--tables_dtype int8 supports the code2vec head only.")
+        if self.HEAD == "varmisuse" and self.ENCODER_TYPE != "bag":
+            # vm_scores calls the bag encode(); a transformer here would
+            # train another architecture than asked
+            raise ValueError(
+                "--head varmisuse supports the bag encoder only "
+                "(no --encoder transformer / --mesh_context > 1).")
         if self.LR_WARMUP_STEPS < 0:
             raise ValueError("LR_WARMUP_STEPS must be >= 0.")
         if self.LR_WARMUP_STEPS > 0 and self.LR_SCHEDULE != "warmup_cosine":
@@ -463,8 +491,7 @@ class Config:
     @classmethod
     def arguments_parser(cls) -> argparse.ArgumentParser:
         """The JAX package's flags (names and `dest`s) of the ported
-        fields. `--head` and `--infeed_chunk` take only the values the
-        port has (code2vec; 1)."""
+        fields. `--infeed_chunk` takes only the value the port has (1)."""
         p = argparse.ArgumentParser(
             prog="python3 -m code2vec_tpu_torch",
             description="code2vec on PyTorch", allow_abbrev=False)
@@ -524,7 +551,9 @@ class Config:
                        default=None)
         p.add_argument("--xf_remat", dest="xf_remat", action="store_true")
         p.add_argument("--head", dest="head", default=None,
-                       help="code2vec only (not ported: varmisuse)")
+                       choices=["code2vec", "varmisuse"])
+        p.add_argument("--max_candidates", dest="max_candidates",
+                       type=int, default=None)
         p.add_argument("--tables_dtype", dest="tables_dtype", default=None,
                        choices=["float32", "bfloat16", "int8"])
         p.add_argument("--no_bf16", dest="no_bf16", action="store_true")
@@ -680,9 +709,6 @@ class Config:
             raise ValueError(
                 "not ported to code2vec_tpu_torch yet: "
                 + " ".join(flags or unknown))
-        if ns.head not in (None, "code2vec"):
-            raise ValueError(f"--head {ns.head}: not ported to "
-                             "code2vec_tpu_torch yet (only code2vec)")
         if ns.infeed_chunk not in (None, 1):
             raise ValueError(f"--infeed_chunk {ns.infeed_chunk}: the chunked "
                              "infeed is not ported to code2vec_tpu_torch "
@@ -709,7 +735,9 @@ class Config:
                 ("infeed_prefetch", "INFEED_PREFETCH"),
                 ("num_sampled", "NUM_SAMPLED_CLASSES"),
                 ("encoder", "ENCODER_TYPE"), ("xf_layers", "XF_LAYERS"),
-                ("xf_heads", "XF_HEADS"), ("tables_dtype", "TABLES_DTYPE"),
+                ("xf_heads", "XF_HEADS"), ("head", "HEAD"),
+                ("max_candidates", "MAX_CANDIDATES"),
+                ("tables_dtype", "TABLES_DTYPE"),
                 ("embedding_optimizer", "EMBEDDING_OPTIMIZER"),
                 ("seed", "SEED"), ("profile_dir", "PROFILE_DIR"),
                 ("profile_steps", "PROFILE_STEPS"),
@@ -751,6 +779,7 @@ class Config:
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):
                 setattr(cfg, field, value)
+        cfg.HEAD_EXPLICIT = ns.head is not None
         if ns.async_checkpoint is not None:
             cfg.ASYNC_CHECKPOINT = ns.async_checkpoint == "on"
         cfg.verify_command_line()

@@ -15,7 +15,10 @@ transformer path-encoder (models/transformer_encoder.py).
 the same class: it builds the optimizer, its state and the step (the
 dense step by default, the sparse-row step under
 SPARSE_EMBEDDING_UPDATES), with the kernels the kernel-selection flags
-choose. `train()` is the JAX package's training loop with its
+choose. What does not depend on the head is `TrainerBase`, which the
+VarMisuse head's trainer (models/vm_model.py) shares: the optimizer and
+step plumbing, the draws, the saves and `train()`, the JAX package's
+training loop with its
 telemetry, tracing, stall watchdog, live metrics plane, profiler window,
 sampled phase profiler, step-floor gauges and failpoints: the
 auto-resume epoch offset (models/setup.py), the reader of the train
@@ -349,16 +352,21 @@ def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
 
 
 def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
-                   dims: ModelDims) -> None:
+                   dims: ModelDims, head: str = "code2vec") -> None:
     """A loaded checkpoint's dims and optimizer configuration into `cfg`
     (they fix the state's structure, whatever the flags asked), as the
-    JAX package's model adopts them; the schedule and warmup are the
-    checkpoint's, a conflicting request logged. ValueError on what the
-    port does not have."""
-    head = manifest.get("head", "code2vec")
-    if head != "code2vec":
-        raise ValueError(f"checkpoint was trained with --head {head}, which "
-                         "is not ported to code2vec_tpu_torch yet")
+    JAX package's models adopt them; the schedule and warmup are the
+    checkpoint's, a conflicting request logged. ValueError on a
+    checkpoint of another head than `head` and on what the port does not
+    have."""
+    trained = manifest.get("head", "code2vec")
+    if trained != head:
+        raise ValueError(f"checkpoint was trained with --head {trained}, "
+                         f"not --head {head}")
+    cfg.HEAD = head
+    if head == "varmisuse":
+        cfg.MAX_CANDIDATES = manifest.get("max_candidates",
+                                          cfg.MAX_CANDIDATES)
     if dims.ring_attention:
         raise ValueError("checkpoint was trained with --ring_attention, "
                          "which needs a mesh the port does not have")
@@ -412,9 +420,13 @@ class _StepBudget:
             yield b
 
 
-class Code2VecTrainer(Code2VecModelBase):
-    """Trains, evaluates, checkpoints and exports the model (bag or
-    transformer encoder) on one device.
+class TrainerBase:
+    """What the heads' trainers share, on one device: the params, the
+    optimizer and its state, the step, the training loop (`train`), the
+    step-keyed draws and the checkpoint saves. A head (`Code2VecTrainer`
+    here, `VarMisuseModel` in models/vm_model.py) supplies its params'
+    init, its steps, its reader, its evaluation and its manifest keys
+    through the hooks below.
 
     The dense step (the default) or the sparse-row step
     (SPARSE_EMBEDDING_UPDATES) updates tables, dense params and the
@@ -429,6 +441,8 @@ class Code2VecTrainer(Code2VecModelBase):
     it, so the state is built at construction with a horizon of 1, as
     the JAX package builds it for an evaluation-only model)."""
 
+    HEAD: str  # the head's name, as the manifest records it
+
     def __init__(self, config: Config, vocabs: Code2VecVocabs,
                  params: Optional[Params] = None,
                  device: Optional[Union[str, torch.device]] = None,
@@ -436,11 +450,14 @@ class Code2VecTrainer(Code2VecModelBase):
         self.config = config
         self.vocabs = vocabs
         self.device = resolve_device(device)
+        if config.HEAD != self.HEAD:
+            raise ValueError(f"config.HEAD is {config.HEAD!r}; "
+                             f"{type(self).__name__} trains {self.HEAD!r}")
         config.verify()  # the JAX package's rules, ValueError
         self.dims = dims_from_config(config, vocabs) if dims is None else dims
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.SEED)
-            params = init_params(gen, self.dims)
+            params = self._init_params(gen)
         self.params = _move(params, self.device)
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
@@ -459,8 +476,7 @@ class Code2VecTrainer(Code2VecModelBase):
         self.total_steps: Optional[int] = None
         if config.SPARSE_EMBEDDING_UPDATES:
             self.optimizer = AdamF32Moments(config.LEARNING_RATE)
-            self.opt_state = init_sparse_opt_state(
-                self.params, self.optimizer, config.USE_SAMPLED_SOFTMAX)
+            self.opt_state = self._init_sparse_opt_state()
             self._build_step()
         else:
             self._build_dense_optimizer(1)
@@ -482,25 +498,20 @@ class Code2VecTrainer(Code2VecModelBase):
     @classmethod
     def from_config(cls, config: Config,
                     device: Optional[Union[str, torch.device]] = None,
-                    vocabs: Optional[Code2VecVocabs] = None
-                    ) -> "Code2VecTrainer":
+                    vocabs: Optional[Code2VecVocabs] = None):
         """The command line's model. With `load_path`: dims, vocabularies
         (unless given), params, optimizer state and step from the
         checkpoint (params only from a released one), its configuration
-        adopted into `config`; else vocabularies from the `.dict.c2v`
-        histograms of `train_data_path`, capped at MAX_*_VOCAB_SIZE."""
+        adopted into `config` (a checkpoint of another head raises
+        ValueError); else the head's vocabularies from the `--data`
+        prefix (`_vocabs_from_data`)."""
         if not config.is_loading:
             if vocabs is None:
-                if config.word_freq_dict_path is None:
-                    raise ValueError("need --data (for its .dict.c2v) or "
-                                     "--load")
-                vocabs = Code2VecVocabs.load_from_dict_file(
-                    config.word_freq_dict_path, config.MAX_TOKEN_VOCAB_SIZE,
-                    config.MAX_PATH_VOCAB_SIZE, config.MAX_TARGET_VOCAB_SIZE)
+                vocabs = cls._vocabs_from_data(config)
             return cls(config, vocabs, device=device)
         manifest = ckpt.load_manifest(config.load_path)
         dims = ckpt.load_dims(config.load_path)
-        adopt_manifest(config, manifest, dims)
+        adopt_manifest(config, manifest, dims, head=cls.HEAD)
         if vocabs is None:
             vocabs = ckpt.load_vocabs(config.load_path)
         sizes = (vocabs.token_vocab.size, vocabs.path_vocab.size,
@@ -523,6 +534,51 @@ class Code2VecTrainer(Code2VecModelBase):
         config.log(f"loaded {config.load_path} at step {trainer.step_num}")
         return trainer
 
+    # ---- what a head supplies ----
+    @classmethod
+    def _vocabs_from_data(cls, config: Config) -> Code2VecVocabs:
+        """The head's vocabularies for a run from the `--data` prefix."""
+        raise NotImplementedError
+
+    def _init_params(self, generator: torch.Generator) -> Params:
+        """The head's params, drawn from `generator`."""
+        raise NotImplementedError
+
+    def _init_sparse_opt_state(self) -> dict:
+        """The sparse-row step's state for `self.params`."""
+        raise NotImplementedError
+
+    def _build_step(self) -> None:
+        """Sets `_train_step` (over `self.optimizer`) and `step_config`."""
+        raise NotImplementedError
+
+    def _train_data_path(self) -> str:
+        """The `--data` prefix's training file."""
+        raise NotImplementedError
+
+    def _train_reader(self, data_path: str, epoch_offset: int):
+        """The shuffled training reader over `data_path`."""
+        raise NotImplementedError
+
+    def phase_profiler(self, telemetry: Telemetry) -> PhaseProfiler:
+        """The run's sampled phase profiler (or the shared no-op)."""
+        raise NotImplementedError
+
+    def _publish_static_gauges(self, telemetry: Telemetry) -> None:
+        """Set-once gauges of the run, before its first step."""
+
+    def evaluate(self, test_path: Optional[str] = None):
+        raise NotImplementedError
+
+    def _record_eval(self, epoch: int, results, eval_ms: float,
+                     telemetry: Telemetry, scalars: ScalarWriter) -> None:
+        """An epoch-boundary evaluation's log line, scalars and event."""
+        raise NotImplementedError
+
+    def _manifest_extra(self) -> Dict[str, Any]:
+        """The head's keys of the checkpoint manifest."""
+        raise NotImplementedError
+
     def _build_dense_optimizer(self, total_steps: int) -> None:
         cfg = self.config
         self.optimizer = make_optimizer(
@@ -531,26 +587,14 @@ class Code2VecTrainer(Code2VecModelBase):
             cfg.EMBEDDING_OPTIMIZER, cfg.TRUST_RATIO, cfg.TRUST_RATIO_SCOPE)
         self._build_step()
 
-    def _build_step(self) -> None:
-        cfg = self.config
-        self._train_step = make_train_step(
-            self.dims, self.optimizer,
-            use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
-            num_sampled=cfg.NUM_SAMPLED_CLASSES,
-            compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
-            requant_kernel=self.requant_kernel, row_kernel=self.row_kernel,
-            sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
-        self.step_config = self._train_step.cfg
+    def draws_for(self, batch_size: int, step: int) -> StepDraws:
+        """The draws the trainer makes for `step` (seeded from SEED)."""
+        return make_draws(self.dims, self.step_config, self.params,
+                          batch_size, self.config.SEED, step, self.device)
 
     def device_batch(self, b: BatchTensors):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
                      for a in b.host_arrays())
-
-    def predictor(self) -> Code2VecModel:
-        """The predict-side model (the serving path, `--predict`) over
-        this trainer's params, shared, not copied."""
-        return Code2VecModel(self.config, self.dims, self.vocabs,
-                             self.params, device=self.device)
 
     def _put_fns(self, depth: int):
         """(put, ready) of an infeed `depth` ahead: a pinned ring on the
@@ -559,11 +603,6 @@ class Code2VecTrainer(Code2VecModelBase):
             ring = PinnedRingPut(self.device, depth + 1)
             return (lambda b: ring(b.host_arrays())), ring.ready
         return self.device_batch, None
-
-    def draws_for(self, batch_size: int, step: int) -> StepDraws:
-        """The draws the trainer makes for `step` (seeded from SEED)."""
-        return make_draws(self.dims, self.step_config, self.params,
-                          batch_size, self.config.SEED, step, self.device)
 
     def train_step(self, batch, draws: Optional[StepDraws] = None
                    ) -> torch.Tensor:
@@ -600,16 +639,15 @@ class Code2VecTrainer(Code2VecModelBase):
         `--telemetry_dir`) and `--alerts_mode` (the health monitors and
         alert rules; under raise a firing alert is an `AlertError` at
         the next step). The `train/nan_loss` and `train/kill`
-        failpoints act after each step. With SPARSE_EMBEDDING_UPDATES the
-        analytic step floor (training/sparse_update.py's traffic model
-        over HBM_CEILING_GBPS) is published once for the health engine's
-        OptEfficiency; `--phase_profile on` splits every
+        failpoints act after each step. The head's set-once gauges
+        (`_publish_static_gauges`) are published before the first step;
+        `--phase_profile on` splits every
         PHASE_SAMPLE_EVERY-th step into synced probe dispatches
         (`phase_profiler`), whose state update is the fused step."""
         cfg = self.config
         from_cli = data_path is None
         if from_cli:
-            data_path = cfg.data_path("train")
+            data_path = self._train_data_path()
         if epochs is None:
             epochs = cfg.NUM_TRAIN_EPOCHS
 
@@ -628,9 +666,7 @@ class Code2VecTrainer(Code2VecModelBase):
                     f"{self.total_steps} steps")
         completed = resume_epoch_offset(cfg, self.step_num, n_examples,
                                         cfg.log)
-        reader = open_reader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
-                             cfg.TRAIN_BATCH_SIZE, shuffle=True,
-                             seed=cfg.SEED, epoch_offset=completed)
+        reader = self._train_reader(data_path, completed)
         if max_steps is not None:
             reader = _StepBudget(reader, max_steps)
         profiler = StepProfiler(cfg.PROFILE_DIR, cfg.PROFILE_START_STEP,
@@ -685,8 +721,7 @@ class Code2VecTrainer(Code2VecModelBase):
         # a set-once config echo (static: never reads as stale)
         telemetry.gauge("train/max_contexts", cfg.MAX_CONTEXTS, emit=False,
                         static=True)
-        if cfg.SPARSE_EMBEDDING_UPDATES:
-            self._publish_step_floor(telemetry)
+        self._publish_static_gauges(telemetry)
         phases = self.phase_profiler(telemetry)
         # the first deadline also covers the first step's kernel builds
         loop_hb.busy()
@@ -783,58 +818,6 @@ class Code2VecTrainer(Code2VecModelBase):
                     f"loss {values[0]:.5f} -> {values[-1]:.5f}")
         return values
 
-    def _publish_step_floor(self, telemetry: Telemetry) -> None:
-        """The sparse-row step's analytic floor, set once (static: facts,
-        not heartbeats): the health engine's OptEfficiency divides
-        `train/step_floor_ms` by the observed p50 step time every sweep,
-        so a step-time regression shows on /metrics mid-run."""
-        cfg = self.config
-        ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
-        step_bytes = sparse_step_floor_bytes(
-            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
-            num_sampled=ns)
-        upd_bytes = sparse_update_phase_bytes(
-            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
-            num_sampled=ns)
-        ceiling = cfg.HBM_CEILING_GBPS * 1e9
-        telemetry.gauge("train/step_floor_ms", step_bytes / ceiling * 1e3,
-                        emit=False, static=True)
-        telemetry.gauge("train/sparse_update_bytes", upd_bytes, emit=False,
-                        static=True)
-        telemetry.gauge("train/sparse_update_floor_ms",
-                        upd_bytes / ceiling * 1e3, emit=False, static=True)
-
-    def phase_profiler(self, telemetry: Telemetry) -> PhaseProfiler:
-        """The run's sampled phase profiler (obs/phases.py) over this
-        trainer's step and probes (training/phase_probes.py), with the
-        analytic per-phase bytes and the card's ceiling: the shared
-        no-op unless PHASE_PROFILE is on and `telemetry` is live. The
-        probes are built at its first sample."""
-        cfg = self.config
-        if cfg.PHASE_PROFILE != "on" or not telemetry.enabled:
-            return PhaseProfiler.disabled()
-        ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
-        phase_bytes = phase_traffic_bytes(
-            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
-            num_sampled=ns, sparse=cfg.SPARSE_EMBEDDING_UPDATES)
-
-        def probes():
-            return make_code2vec_probes(
-                self.dims, self.optimizer,
-                use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
-                num_sampled=cfg.NUM_SAMPLED_CLASSES,
-                compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
-                sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
-
-        def fused_step(_params, _opt_state, batch, draws):
-            return self.train_step(batch, draws)  # in place, step_num + 1
-
-        return PhaseProfiler.create(
-            telemetry, fused_step=fused_step, probes_factory=probes,
-            enabled=True,
-            sample_every=cfg.PHASE_SAMPLE_EVERY, phase_bytes=phase_bytes,
-            ceiling_gbps=cfg.HBM_CEILING_GBPS, log=cfg.log)
-
     def _epoch_end(self, epoch: int, telemetry: Telemetry,
                    scalars: ScalarWriter) -> bool:
         """The boundary's save (async: the evaluation runs while the
@@ -853,53 +836,10 @@ class Code2VecTrainer(Code2VecModelBase):
             except BaseException:
                 eval_span.cancel()  # a dead evaluation: dropped
                 raise
-            eval_ms = eval_span.stop()
-            cfg.log(f"epoch {epoch} evaluation: {results}")
-            scalars.write(self.step_num, {
-                "eval/loss": results.loss,
-                "eval/top1": results.topk_acc[0],
-                "eval/subtoken_f1": results.subtoken_f1,
-                "eval/subtoken_precision": results.subtoken_precision,
-                "eval/subtoken_recall": results.subtoken_recall})
-            telemetry.event("eval", epoch=epoch, step=self.step_num,
-                            loss=results.loss,
-                            subtoken_f1=results.subtoken_f1,
-                            eval_ms=round(eval_ms, 3))
+            self._record_eval(epoch, results, eval_span.stop(), telemetry,
+                              scalars)
         return cfg.is_saving or cfg.is_testing
 
-    def evaluate(self, test_path: Optional[str] = None) -> EvaluationResults:
-        """Top-k accuracy, subtoken precision / recall / F1 and the mean
-        loss over a `.c2v` file (default: `test_data_path`; its binary
-        shard when binarized), in TEST_BATCH_SIZE batches (no dropout,
-        full softmax)."""
-        cfg = self.config
-        test_path = test_path or cfg.test_data_path
-        if not test_path:
-            raise ValueError("evaluate needs a test file (--test)")
-        top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
-        reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
-                             cfg.TEST_BATCH_SIZE, shuffle=False,
-                             keep_strings=True)
-        acc = MetricAccumulator(top_k)
-        target_vocab = self.vocabs.target_vocab
-        put, ready = self._put_fns(cfg.INFEED_PREFETCH)
-        for dev_batch, b in prefetch_to_device(reader, put,
-                                               cfg.INFEED_PREFETCH, ready):
-            with torch.inference_mode():
-                loss_sum, topk_ids, _probs = eval_step(
-                    self.params, dev_batch, dims=self.dims, top_k=top_k,
-                    compute_dtype=self.compute_dtype,
-                    use_kernel=self.use_kernel)
-            nv = b.num_valid_examples
-            names = (b.target_strings[:nv] if b.target_strings else
-                     [target_vocab.lookup_word(int(i))
-                      for i in b.target_index[:nv]])
-            words = [[target_vocab.lookup_word(int(i)) for i in row]
-                     for row in topk_ids[:nv].cpu().numpy()]
-            acc.update_batch(names, words, loss_sum.item())
-        return acc.results()
-
-    # ---- persistence ----
     def _checkpoint_writer(self) -> ckpt.AsyncCheckpointWriter:
         if self._ckpt_writer is None:
             self._ckpt_writer = ckpt.AsyncCheckpointWriter(
@@ -918,16 +858,7 @@ class Code2VecTrainer(Code2VecModelBase):
         t0 = time.perf_counter()
         state = {"params": self.params, "opt_state": self.opt_state,
                  "step": self.step_num}
-        extra = {"use_sampled_softmax": cfg.USE_SAMPLED_SOFTMAX,
-                 "num_sampled": cfg.NUM_SAMPLED_CLASSES,
-                 "sparse_embedding_updates": cfg.SPARSE_EMBEDDING_UPDATES,
-                 "embedding_optimizer": cfg.EMBEDDING_OPTIMIZER,
-                 "trust_ratio": cfg.TRUST_RATIO,
-                 "trust_ratio_scope": cfg.TRUST_RATIO_SCOPE,
-                 "lr_schedule": cfg.LR_SCHEDULE,
-                 "lr_warmup_steps": cfg.LR_WARMUP_STEPS,
-                 # the JAX package's augmentation, which the port has not
-                 "adv_rename_prob": 0.0, "adv_rename_mode": "uniform"}
+        extra = self._manifest_extra()
         # the epoch of a boundary save, consumed here: a later manual
         # save must not record it
         topology = {"epoch": self._save_epoch}
@@ -987,6 +918,177 @@ class Code2VecTrainer(Code2VecModelBase):
                 f" checkpoint step {self.step_num} -> {path} (loop blocked "
                 f"{self.save_blocked_ms:.1f} ms)")
 
+    def close_session(self) -> None:
+        """The commit barrier of the last save, and the writer's end."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.close()
+
+
+class Code2VecTrainer(TrainerBase, Code2VecModelBase):
+    """Trains, evaluates, checkpoints and exports the code2vec model (bag
+    or transformer encoder) on one device (TrainerBase's loop). The
+    sparse-row step's state is sparse_steps.init_sparse_opt_state's."""
+
+    HEAD = "code2vec"
+
+    @classmethod
+    def _vocabs_from_data(cls, config: Config) -> Code2VecVocabs:
+        """The vocabularies of the `.dict.c2v` histograms of
+        `train_data_path`, capped at MAX_*_VOCAB_SIZE."""
+        if config.word_freq_dict_path is None:
+            raise ValueError("need --data (for its .dict.c2v) or --load")
+        return Code2VecVocabs.load_from_dict_file(
+            config.word_freq_dict_path, config.MAX_TOKEN_VOCAB_SIZE,
+            config.MAX_PATH_VOCAB_SIZE, config.MAX_TARGET_VOCAB_SIZE)
+
+    def _init_params(self, generator: torch.Generator) -> Params:
+        return init_params(generator, self.dims)
+
+    def _init_sparse_opt_state(self) -> dict:
+        return init_sparse_opt_state(self.params, self.optimizer,
+                                     self.config.USE_SAMPLED_SOFTMAX)
+
+    def _build_step(self) -> None:
+        cfg = self.config
+        self._train_step = make_train_step(
+            self.dims, self.optimizer,
+            use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+            num_sampled=cfg.NUM_SAMPLED_CLASSES,
+            compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
+            requant_kernel=self.requant_kernel, row_kernel=self.row_kernel,
+            sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
+        self.step_config = self._train_step.cfg
+
+    def _train_data_path(self) -> str:
+        return self.config.data_path("train")
+
+    def _train_reader(self, data_path: str, epoch_offset: int):
+        cfg = self.config
+        return open_reader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
+                           cfg.TRAIN_BATCH_SIZE, shuffle=True, seed=cfg.SEED,
+                           epoch_offset=epoch_offset)
+
+    def predictor(self) -> Code2VecModel:
+        """The predict-side model (the serving path, `--predict`) over
+        this trainer's params, shared, not copied."""
+        return Code2VecModel(self.config, self.dims, self.vocabs,
+                             self.params, device=self.device)
+
+    def _publish_static_gauges(self, telemetry: Telemetry) -> None:
+        """With SPARSE_EMBEDDING_UPDATES, the sparse-row step's analytic
+        floor (training/sparse_update.py's traffic model over
+        HBM_CEILING_GBPS), set once (static: facts, not heartbeats): the
+        health engine's OptEfficiency divides `train/step_floor_ms` by
+        the observed p50 step time every sweep, so a step-time
+        regression shows on /metrics mid-run."""
+        cfg = self.config
+        if not cfg.SPARSE_EMBEDDING_UPDATES:
+            return
+        ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
+        step_bytes = sparse_step_floor_bytes(
+            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
+            num_sampled=ns)
+        upd_bytes = sparse_update_phase_bytes(
+            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
+            num_sampled=ns)
+        ceiling = cfg.HBM_CEILING_GBPS * 1e9
+        telemetry.gauge("train/step_floor_ms", step_bytes / ceiling * 1e3,
+                        emit=False, static=True)
+        telemetry.gauge("train/sparse_update_bytes", upd_bytes, emit=False,
+                        static=True)
+        telemetry.gauge("train/sparse_update_floor_ms",
+                        upd_bytes / ceiling * 1e3, emit=False, static=True)
+
+    def phase_profiler(self, telemetry: Telemetry) -> PhaseProfiler:
+        """The run's sampled phase profiler (obs/phases.py) over this
+        trainer's step and probes (training/phase_probes.py), with the
+        analytic per-phase bytes and the card's ceiling: the shared
+        no-op unless PHASE_PROFILE is on and `telemetry` is live. The
+        probes are built at its first sample."""
+        cfg = self.config
+        if cfg.PHASE_PROFILE != "on" or not telemetry.enabled:
+            return PhaseProfiler.disabled()
+        ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
+        phase_bytes = phase_traffic_bytes(
+            self.params, cfg.TRAIN_BATCH_SIZE, cfg.MAX_CONTEXTS,
+            num_sampled=ns, sparse=cfg.SPARSE_EMBEDDING_UPDATES)
+
+        def probes():
+            return make_code2vec_probes(
+                self.dims, self.optimizer,
+                use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+                num_sampled=cfg.NUM_SAMPLED_CLASSES,
+                compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
+                sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
+
+        def fused_step(_params, _opt_state, batch, draws):
+            return self.train_step(batch, draws)  # in place, step_num + 1
+
+        return PhaseProfiler.create(
+            telemetry, fused_step=fused_step, probes_factory=probes,
+            enabled=True,
+            sample_every=cfg.PHASE_SAMPLE_EVERY, phase_bytes=phase_bytes,
+            ceiling_gbps=cfg.HBM_CEILING_GBPS, log=cfg.log)
+
+    def evaluate(self, test_path: Optional[str] = None) -> EvaluationResults:
+        """Top-k accuracy, subtoken precision / recall / F1 and the mean
+        loss over a `.c2v` file (default: `test_data_path`; its binary
+        shard when binarized), in TEST_BATCH_SIZE batches (no dropout,
+        full softmax)."""
+        cfg = self.config
+        test_path = test_path or cfg.test_data_path
+        if not test_path:
+            raise ValueError("evaluate needs a test file (--test)")
+        top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+        reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
+                             cfg.TEST_BATCH_SIZE, shuffle=False,
+                             keep_strings=True)
+        acc = MetricAccumulator(top_k)
+        target_vocab = self.vocabs.target_vocab
+        put, ready = self._put_fns(cfg.INFEED_PREFETCH)
+        for dev_batch, b in prefetch_to_device(reader, put,
+                                               cfg.INFEED_PREFETCH, ready):
+            with torch.inference_mode():
+                loss_sum, topk_ids, _probs = eval_step(
+                    self.params, dev_batch, dims=self.dims, top_k=top_k,
+                    compute_dtype=self.compute_dtype,
+                    use_kernel=self.use_kernel)
+            nv = b.num_valid_examples
+            names = (b.target_strings[:nv] if b.target_strings else
+                     [target_vocab.lookup_word(int(i))
+                      for i in b.target_index[:nv]])
+            words = [[target_vocab.lookup_word(int(i)) for i in row]
+                     for row in topk_ids[:nv].cpu().numpy()]
+            acc.update_batch(names, words, loss_sum.item())
+        return acc.results()
+
+    def _record_eval(self, epoch: int, results: EvaluationResults,
+                     eval_ms: float, telemetry: Telemetry,
+                     scalars: ScalarWriter) -> None:
+        self.config.log(f"epoch {epoch} evaluation: {results}")
+        scalars.write(self.step_num, {
+            "eval/loss": results.loss,
+            "eval/top1": results.topk_acc[0],
+            "eval/subtoken_f1": results.subtoken_f1,
+            "eval/subtoken_precision": results.subtoken_precision,
+            "eval/subtoken_recall": results.subtoken_recall})
+        telemetry.event("eval", epoch=epoch, step=self.step_num,
+                        loss=results.loss, subtoken_f1=results.subtoken_f1,
+                        eval_ms=round(eval_ms, 3))
+
+    def _manifest_extra(self) -> Dict[str, Any]:
+        cfg = self.config
+        return {"use_sampled_softmax": cfg.USE_SAMPLED_SOFTMAX,
+                "num_sampled": cfg.NUM_SAMPLED_CLASSES,
+                "sparse_embedding_updates": cfg.SPARSE_EMBEDDING_UPDATES,
+                "embedding_optimizer": cfg.EMBEDDING_OPTIMIZER,
+                "trust_ratio": cfg.TRUST_RATIO,
+                "trust_ratio_scope": cfg.TRUST_RATIO_SCOPE,
+                "lr_schedule": cfg.LR_SCHEDULE,
+                "lr_warmup_steps": cfg.LR_WARMUP_STEPS,
+                # the JAX package's augmentation, which the port has not
+                "adv_rename_prob": 0.0, "adv_rename_mode": "uniform"}
+
     def release(self) -> None:
         """`--release`: the loaded checkpoint's params, without optimizer
         state, to `save_path` (default `<load_path>.release`)."""
@@ -999,12 +1101,6 @@ class Code2VecTrainer(Code2VecModelBase):
         ckpt.release_checkpoint(cfg.load_path, dest, self.params)
         cfg.log(f"released inference checkpoint -> {dest}")
 
-    def close_session(self) -> None:
-        """The commit barrier of the last save, and the writer's end."""
-        if self._ckpt_writer is not None:
-            self._ckpt_writer.close()
-
-    # ---- exports ----
     def get_embedding_table(self, vocab_type: VocabType) -> np.ndarray:
         """A vocab table as float32 [vocab size, dim] on the host (an int8
         table dequantized)."""

@@ -26,8 +26,10 @@ int8 tables: the chain stops at the forward (the {q, s} gradients need
 the fused step's carrier plumbing), so backward + apply report as one
 `backward_apply` remainder.
 
-Not here yet: the JAX package's `make_vm_probes` (the VarMisuse head)
-and `_make_allreduce` (a mesh's gradient reduction).
+`make_vm_probes` is the VarMisuse head's kit (training/vm_steps.py):
+gather, forward, backward, and the apply as the fused remainder. Not
+here: the JAX package's `_make_allreduce` (a mesh's gradient
+reduction; the port trains on one device).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from code2vec_tpu_torch.models.encoder import (ModelDims, apply_dropout,
 from code2vec_tpu_torch.obs.phases import ProbeKit
 from code2vec_tpu_torch.training.checkpoint import map_state
 
-__all__ = ["make_code2vec_probes"]
+__all__ = ["make_code2vec_probes", "make_vm_probes"]
 
 
 def _transformed(contexts: torch.Tensor, transform: torch.Tensor,
@@ -194,3 +196,33 @@ def _sparse_kit(dims, *, use_sampled_softmax, num_sampled, compute_dtype,
                      ("concat_dense", concat_dense),
                      ("forward_pool", forward_pool),
                      ("backward", backward)])
+
+
+def make_vm_probes(dims: ModelDims, *, compute_dtype=torch.float32,
+                   use_kernel: bool = True) -> ProbeKit:
+    """The VarMisuse head's kit (vm_steps.make_vm_train_step's shape):
+    embed_gather (the four gathers: src, pth, dst and the candidates),
+    forward_pool (the vm loss), backward (its gradients), and
+    table_apply as the fused remainder on both the dense and the
+    sparse-row apply (the remainder covers whichever apply the fused
+    step runs, so the kit needs neither the optimizer nor the sparse
+    flag). The vm loss gathers inside the differentiated function, so
+    there is no concat/dense seam to stop at. The head refuses int8
+    tables (config.py), so the chain always reaches backward."""
+    from code2vec_tpu_torch.training.steps import dense_loss_and_grads
+    from code2vec_tpu_torch.training.vm_steps import make_vm_loss_fn
+    loss_fn = make_vm_loss_fn(dims, compute_dtype=compute_dtype,
+                              use_kernel=use_kernel)
+
+    @torch.no_grad()
+    def embed_gather(params, batch, _draws):
+        _l, src, pth, dst, _m, cand, _cm, _w = batch
+        return (take_rows(params, "token_emb", src),
+                take_rows(params, "path_emb", pth),
+                take_rows(params, "token_emb", dst),
+                take_rows(params, "token_emb", cand))
+
+    return ProbeKit([
+        ("embed_gather", embed_gather),
+        ("forward_pool", torch.no_grad()(loss_fn)),
+        ("backward", lambda p, b, d: dense_loss_and_grads(p, b, d, loss_fn))])

@@ -137,6 +137,26 @@ def sparse_requant_adam(qt: QuantTable, state: RowAdamState,
     return int(uids.shape[0])
 
 
+def rows_from_dense(table: torch.Tensor, state: RowAdamState,
+                    dense_grad: torch.Tensor, ids: torch.Tensor, *,
+                    count: torch.Tensor, lr: float, b1: float = 0.9,
+                    b2: float = 0.999, eps: float = 1e-8,
+                    use_kernel: bool = True) -> int:
+    """Live-row Adam fed by a DENSE [V, E] gradient, in place on a
+    float32/bf16 table (the VarMisuse head: its loss gathers inside the
+    differentiated function, so backward already gives the dense
+    scatter-added gradient). The dense rows at the sorted unique `ids`
+    ARE the per-row sums, so they are gathered as float32 and applied
+    with no second segment sum (summing per occurrence again would
+    multiply each row by its count). Returns the number of unique rows
+    U."""
+    uids = torch.unique(ids.reshape(-1).to(torch.int32))
+    seg = torch.index_select(dense_grad, 0, uids).to(torch.float32)
+    apply_rows(table, state, uids, seg, lr_t=adam_lr_t(count, lr, b1, b2),
+               b1=b1, b2=b2, eps=eps, use_kernel=use_kernel)
+    return int(uids.shape[0])
+
+
 # ---- the analytic traffic model (the train loop's floor gauges and the
 # phase profiler's per-phase bytes) ----
 

@@ -228,13 +228,14 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("flags,named", [
     (["--ring_attention"], "--ring_attention"),
-    (["--head", "varmisuse"], "--head varmisuse"),
+    # the head is ported; its bag-only rule still exits 2 naming it
+    (["--head", "varmisuse", "--encoder", "transformer"], "--head varmisuse"),
     (["--attack", "untargeted"], "--attack"),
     (["--infeed_chunk", "2"], "--infeed_chunk 2"),
     (["--mesh_data", "2"], "--mesh_data"),
     (["--dist_num_processes", "2"], "--dist_num_processes"),
     (["--adv_rename_prob", "0.3"], "--adv_rename_prob"),
-    (["--max_candidates", "5"], "--max_candidates"),
+    (["--attack_target", "get"], "--attack_target"),
     (["--backend", "tpu"], "--backend tpu"),
 ])
 def test_unported_flags_exit_2_naming_them(dataset, flags, named, capsys):

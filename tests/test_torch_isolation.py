@@ -72,6 +72,17 @@ def test_scan_covers_the_serving_fleet_modules(module):
     assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
 
 
+@pytest.mark.parametrize("module", [
+    "models/varmisuse.py", "models/vm_model.py", "training/vm_steps.py",
+    "data/vm_reader.py", "data/varmisuse_gen.py"])
+def test_scan_covers_the_varmisuse_modules(module):
+    """The VarMisuse head's modules are among the scanned sources and
+    import neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_in_port_sources(path):

@@ -510,8 +510,13 @@ def test_trainer_refuses_unported_and_invalid_configs(tmp_path, change,
 @pytest.mark.parametrize("field", ["HEAD", "MESH_DATA_AXIS",
                                    "MESH_MODEL_AXIS"])
 def test_config_cannot_ask_for_another_head_or_a_mesh(field):
-    """The port has one head and trains on one device: its Config has
-    no field that would select the varmisuse head or a mesh."""
+    """The port trains on one device: its Config has no field that would
+    select a mesh. HEAD takes the JAX package's two heads (code2vec,
+    varmisuse), and `verify` refuses any other."""
+    if field == "HEAD":
+        with pytest.raises(ValueError, match="HEAD must be"):
+            Config(HEAD="transformer").verify()
+        return
     assert field not in {f.name for f in dataclasses.fields(Config)}
     with pytest.raises(TypeError):
         Config(**{field: 2})

@@ -9,10 +9,11 @@ installed:
   python tools/import_jax_checkpoint.py --jax_checkpoint <dir> \
       --save <out_dir> [--jax_platform cpu]
 
-1. The JAX package's model restores the checkpoint's latest step
-   (`code2vec_tpu.training.checkpoint.load_checkpoint`, verified against
-   its checksums): params, optimizer state and step, or params alone
-   from a released checkpoint.
+1. The JAX package's model of the manifest's `head` (`Code2VecModel`,
+   or `VarMisuseModel` for a `--head varmisuse` checkpoint) restores the
+   checkpoint's latest step (`code2vec_tpu.training.checkpoint.
+   load_checkpoint`, verified against its checksums): params, optimizer
+   state and step, or params alone from a released checkpoint.
 2. `code2vec_tpu_torch/convert.py` carries them across bit for bit
    (`params_from_numpy`, and `dense_opt_state_from_numpy` or
    `sparse_opt_state_from_numpy` by the manifest's
@@ -22,7 +23,8 @@ installed:
    kept), and the source's `manifest.json` and `vocab.pkl` as they are.
 
 Then: `python3 -m code2vec_tpu_torch --load <out_dir> --test <file>`
-(or `--data ... --save <out_dir> --auto_resume` to train on).
+(or `--data ... --save <out_dir> --auto_resume` to train on); the port
+reads the head from the manifest.
 """
 
 from __future__ import annotations
@@ -44,7 +46,6 @@ def import_checkpoint(src: str, dest: str) -> int:
     import numpy as np
 
     from code2vec_tpu.config import Config as JaxConfig
-    from code2vec_tpu.models.jax_model import Code2VecModel
     from code2vec_tpu.training import checkpoint as jax_ckpt
     from code2vec_tpu_torch import convert
     from code2vec_tpu_torch.training import checkpoint as torch_ckpt
@@ -53,7 +54,14 @@ def import_checkpoint(src: str, dest: str) -> int:
     manifest = jax_ckpt.load_manifest(src)
     cfg = JaxConfig()
     cfg.load_path = src
-    model = Code2VecModel(cfg)  # restores params, opt_state and step
+    # restores params, opt_state and step
+    if manifest.get("head", "code2vec") == "varmisuse":
+        from code2vec_tpu.models.vm_model import VarMisuseModel
+        cfg.HEAD = "varmisuse"
+        model = VarMisuseModel(cfg)
+    else:
+        from code2vec_tpu.models.jax_model import Code2VecModel
+        model = Code2VecModel(cfg)
 
     def host(tree):
         return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
