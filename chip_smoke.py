@@ -236,7 +236,37 @@ Phases (any failure raises, and the script exits non-zero):
    code2vec` and `--tables_dtype int8` exiting 2, `--auto_resume` from
    the step before the end bit-identical, and a `--phase_profile on`
    run ending in the same bits;
-22. a `{"kernels": [...]}` line, the card line, and last
+22. the adversarial attacks and the rename defense (attacks/): (h) at
+   [4]'s java-large width and bag model over a token vocab of letter
+   words at [4]'s ids (the synthetic `tok<i>` words have digits, which no
+   rename may use): `attack_method` on 8 methods of [5]'s test file,
+   untargeted and targeted (counted: kernel 1 2 + 2 x iterations times,
+   as the trajectories imply; the split between the synchronised step
+   functions and the host's shortlist, copy and loop); one step of the
+   kernel path against the plain path (the first-order scores, the exact
+   losses, the accepted rename where the best two losses are apart), the
+   score the same bits twice; `attack_batch` at M = 64 against
+   `attack_method` on the same methods (every difference a tie); kernel
+   1 at B = M x K = 2048 bf16 against its plain version; the sweep
+   (`evaluate_robustness` over 256 methods with a `RarityDetector` over a
+   Zipf `.dict.c2v`): its report, methods/s, peak memory, host share;
+   (i) `attack_method` on 4 methods of bench.py's transformer (counted:
+   kernel 2 L times a forward, kernel 3 L times a score) against the
+   plain versions; (j) (c) with `--adv_rename_prob` 0.3 in `batch` mode
+   and (d) in `uniform` mode through the trainer: counted steps (kernel 1
+   once a step, kernel 4 twice a step in (d)), the augmented batch the
+   CPU augment's id for id, one kernel step against one plain step from
+   the same state and draws, one step twice (the same bits), the step
+   time beside [8]'s undefended one; (k) `cli.main` training on a corpus
+   of Input.java's methods and synthetic ones, again with
+   `--adv_rename_prob 0.3` (its manifest records it), then `--attack`
+   untargeted, targeted, dead-code and 3 renames on a copy of Input.java
+   (exit 0, the re-extracted outcome printed, the `.adversarial` file
+   exactly on a verified success), `--attack` with int8 tables or without
+   `--load` exiting 2, and the REPL answering `attack` (counted: kernel
+   1); (l) `attacks.vm_robustness`'s `main` on [21]'s checkpoint and test
+   split (its report line; counted: kernel 1);
+23. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
@@ -538,63 +568,68 @@ def pool_bound(B: int, ctx_bytes: int, peaks, terms: int):
 
 
 def phase_kernels(torch, peaks, report):
-    from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
-                                                         attention_pool_plain,
-                                                         tc_terms)
+    from code2vec_tpu_torch.ops.attention_kernel import tc_terms
     terms = tc_terms()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = []
     both = (torch.bfloat16, torch.float32)
     cases = [(B, dt) for B in BUCKET_SHAPES for dt in both]
     cases.append((TRAIN_B, torch.bfloat16))  # the training step's pool
-    for B, dtype in cases:
-        dname = str(dtype).replace("torch.", "")
-        ctx, tr, at, mask = pool_inputs(torch, B, dtype, gen)
-        code_k, attn_k = attention_pool_fused(ctx, tr, at, mask)
-        code_p, attn_p = attention_pool_plain(ctx, tr, at, mask)
-        code_2, attn_2 = attention_pool_fused(ctx, tr, at, mask)
-        torch.cuda.synchronize()
-        err_c = (code_k - code_p).abs().max().item()
-        err_a = (attn_k - attn_p).abs().max().item()
-        empty = mask.sum(-1) == 0
-        check(torch.isfinite(code_k).all() and torch.isfinite(attn_k).all(),
-              f"non-finite kernel output B={B} {dtype}")
-        check(err_c <= CODE_TOL, f"code max|d| {err_c} > {CODE_TOL} "
-              f"(B={B}, {dtype})")
-        check(err_a <= ATTN_TOL, f"attn max|d| {err_a} > {ATTN_TOL} "
-              f"(B={B}, {dtype})")
-        check(bool((code_k[empty] == 0).all() and (attn_k[empty] == 0).all()),
-              f"all-padding rows not exactly 0 (B={B}, {dtype})")
-        check(torch.equal(code_2, code_k) and torch.equal(attn_2, attn_k),
-              f"kernel 1 gave other bits on a second launch (B={B}, {dtype})")
-        flat = ctx.float().reshape(B * C, D)
-        flat_bf16 = ctx.to(torch.bfloat16).reshape(B * C, D)
-        tr_bf16 = tr.to(torch.bfloat16)
-        k_ms = time_ms(torch, lambda: attention_pool_fused(ctx, tr, at, mask))
-        p_ms = time_ms(torch, lambda: attention_pool_plain(ctx, tr, at, mask))
-        lib_ms = time_ms(torch, lambda: torch.matmul(flat, tr))
-        lib_bf16_ms = time_ms(torch, lambda: torch.matmul(flat_bf16, tr_bf16))
-        dev_ms = kernel_device_ms(
-            torch, lambda: attention_pool_fused(ctx, tr, at, mask),
-            POOL_KERNELS[dname])
-        bound = pool_bound(B, ctx.element_size(), peaks, terms)
-        row = {"B": B, "ctx_dtype": dname, "kernel": "+".join(POOL_KERNELS[dname]),
-               "tc_terms": terms if dtype == torch.bfloat16 else None,
-               "max_abs_err_code": err_c, "max_abs_err_attn": err_a,
-               "ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms,
-               "library_ms": lib_ms, "library_bf16_ms": lib_bf16_ms, **bound}
-        rows.append(row)
-        print(f"  attention_pool B={B:4d} {dname:8s} "
-              f"err code {err_c:.3g} attn {err_a:.3g} (bits equal twice) | "
-              f"kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)})"
-              f" plain {p_ms:.4f} ms matmul f32 {lib_ms:.4f} bf16 "
-              f"{lib_bf16_ms:.4f} ms | bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}; float32 product "
-              f"{bound['bound_ms_float32']:.4f} ms)", flush=True)
-        del ctx, tr, at, mask, flat, flat_bf16
-        torch.cuda.empty_cache()
+    rows = [pool_case(torch, B, dtype, gen, peaks, terms)
+            for B, dtype in cases]
     report["attention_pool"] = rows
     return rows
+
+
+def pool_case(torch, B: int, dtype, gen, peaks, terms: int) -> dict:
+    """Kernel 1 against its plain version at one (B, dtype): the errors,
+    the same bits on a second launch, the times and the bound."""
+    from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
+                                                         attention_pool_plain)
+    dname = str(dtype).replace("torch.", "")
+    ctx, tr, at, mask = pool_inputs(torch, B, dtype, gen)
+    code_k, attn_k = attention_pool_fused(ctx, tr, at, mask)
+    code_p, attn_p = attention_pool_plain(ctx, tr, at, mask)
+    code_2, attn_2 = attention_pool_fused(ctx, tr, at, mask)
+    torch.cuda.synchronize()
+    err_c = (code_k - code_p).abs().max().item()
+    err_a = (attn_k - attn_p).abs().max().item()
+    empty = mask.sum(-1) == 0
+    check(torch.isfinite(code_k).all() and torch.isfinite(attn_k).all(),
+          f"non-finite kernel output B={B} {dtype}")
+    check(err_c <= CODE_TOL, f"code max|d| {err_c} > {CODE_TOL} "
+          f"(B={B}, {dtype})")
+    check(err_a <= ATTN_TOL, f"attn max|d| {err_a} > {ATTN_TOL} "
+          f"(B={B}, {dtype})")
+    check(bool((code_k[empty] == 0).all() and (attn_k[empty] == 0).all()),
+          f"all-padding rows not exactly 0 (B={B}, {dtype})")
+    check(torch.equal(code_2, code_k) and torch.equal(attn_2, attn_k),
+          f"kernel 1 gave other bits on a second launch (B={B}, {dtype})")
+    flat = ctx.float().reshape(B * C, D)
+    flat_bf16 = ctx.to(torch.bfloat16).reshape(B * C, D)
+    tr_bf16 = tr.to(torch.bfloat16)
+    k_ms = time_ms(torch, lambda: attention_pool_fused(ctx, tr, at, mask))
+    p_ms = time_ms(torch, lambda: attention_pool_plain(ctx, tr, at, mask))
+    lib_ms = time_ms(torch, lambda: torch.matmul(flat, tr))
+    lib_bf16_ms = time_ms(torch, lambda: torch.matmul(flat_bf16, tr_bf16))
+    dev_ms = kernel_device_ms(
+        torch, lambda: attention_pool_fused(ctx, tr, at, mask),
+        POOL_KERNELS[dname])
+    bound = pool_bound(B, ctx.element_size(), peaks, terms)
+    row = {"B": B, "ctx_dtype": dname, "kernel": "+".join(POOL_KERNELS[dname]),
+           "tc_terms": terms if dtype == torch.bfloat16 else None,
+           "max_abs_err_code": err_c, "max_abs_err_attn": err_a,
+           "ms": k_ms, "kernel_device_ms": dev_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "library_bf16_ms": lib_bf16_ms, **bound}
+    print(f"  attention_pool B={B:4d} {dname:8s} "
+          f"err code {err_c:.3g} attn {err_a:.3g} (bits equal twice) | "
+          f"kernel {k_ms:.4f} ms (device {fmt_ms(dev_ms)})"
+          f" plain {p_ms:.4f} ms matmul f32 {lib_ms:.4f} bf16 "
+          f"{lib_bf16_ms:.4f} ms | bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; float32 product "
+          f"{bound['bound_ms_float32']:.4f} ms)", flush=True)
+    del ctx, tr, at, mask, flat, flat_bf16
+    torch.cuda.empty_cache()
+    return row
 
 
 def synthetic_vocabs():
@@ -2334,13 +2369,18 @@ LOOP_EPOCHS, LOOP_PAIRS, TEXT_LOOP_EPOCHS, PROFILE_EPOCHS = 11, 3, 3, 6
 # 1e-5 (losses).
 
 
-def write_dict_file(path: str, n_examples: int) -> None:
+def write_dict_file(path: str, n_examples: int, token_word=None,
+                    token_count=None) -> None:
     """`.dict.c2v` histograms of the synthetic vocab: every word counted
     once, so the capped vocabularies keep every word in the order
-    `synthetic_vocabs` gives them (ties keep insertion order)."""
+    `synthetic_vocabs` gives them (ties keep insertion order). The token
+    words and counts may be given as functions of the word's index."""
     import pickle
+    word = token_word or (lambda i: f"tok{i}")
+    count = token_count or (lambda i: 1)
     with open(path, "wb") as f:
-        pickle.dump({f"tok{i}": 1 for i in range(JAVA_LARGE["token"])}, f)
+        pickle.dump({word(i): count(i) for i in range(JAVA_LARGE["token"])},
+                    f)
         pickle.dump({str(1000003 * i): 1 for i in range(JAVA_LARGE["path"])},
                     f)
         pickle.dump({f"m{i % 4099}|n{i}": 1
@@ -5283,6 +5323,707 @@ def phase_vm(torch, np, vocabs, tmp, report):
     return launches
 
 
+# ---- [22] the adversarial attacks and the rename defense ----
+
+# attack_method on this many methods of the test file (each untargeted
+# and targeted); attack_batch's M; the sweep's methods; the transformer's
+ATK_SERIAL, ATK_BATCH_M, ATK_SWEEP, ATK_XF = 8, 64, 256, 4
+# kernel path vs plain path, one attack step of one method: the kernel
+# pools in float32, the plain path in bf16 (the JAX package's XLA pool),
+# so the plain code vector carries bf16 rounding; a single method's cross
+# entropy, unlike (c)'s loss, is no mean over 1024 examples that averages
+# it out: the exact losses within 2^-7 relative to max(1, |loss|) (a CPU
+# rehearsal at a small vocab read 3e-3), and the accepted rename compared
+# where the best two exact losses lie more than that apart. The
+# first-order scores within ATK_SCORE_RTOL of their largest: both sides
+# take the same plain recompute backward, but the two code vectors move
+# the softmax's gradient (p - onehot) by ~1e-2 of itself. The
+# transformer: its bf16 network's end-to-end bound (XF_E2E_PROB_RTOL)
+ATK_LOSS_RTOL, ATK_SCORE_RTOL, ATK_XF_RTOL = 2.0 ** -7, 5e-2, XF_E2E_PROB_RTOL
+# attack_batch vs attack_method: a method whose outcomes differ must be a
+# tie: two exact losses of one decision within 2^-6 (relative to
+# max(1, |loss|)) or a first-order shortlist boundary within
+# ATK_SCORE_RTOL (a batch of 64 and a method alone round the logits'
+# product otherwise)
+ATK_TIE_RTOL = 2.0 ** -6
+# the rename defense on (c) and (d): probability and mode
+ATK_ADV = {"c": (0.3, "batch"), "d": (0.3, "uniform")}
+# Input.java's corpus for the command line: Input.java's methods this many
+# times, beside synthetic methods over these names and identifiers
+ATK_JAVA_REPEAT, ATK_SYNTH, ATK_EPOCHS = 8, 96, 6
+ATK_NAMES = ("get|value", "set|name", "is|empty", "to|string", "add|item",
+             "sum|all", "find|index", "count|items")
+ATK_IDENTS = ("count", "index", "value", "result", "item", "total", "size",
+              "name", "flag", "temp", "offset", "limit", "buffer", "node",
+              "key", "entry", "left", "right", "pivot", "sum")
+
+
+def letter_word(i: int) -> str:
+    """The i-th token word of the attacks' vocab: "zq" and i in base 26
+    letters, an identifier the attack can render (the synthetic vocab's
+    `tok<i>` has digits, which no rename may use)."""
+    s = ""
+    while True:
+        s = chr(97 + i % 26) + s
+        i //= 26
+        if i == 0:
+            return "zq" + s
+
+
+def letter_vocabs(vocabs):
+    """[4]'s vocab with letter token words at the same ids."""
+    from code2vec_tpu_torch.vocab.vocabularies import (Code2VecVocabs, Vocab,
+                                                       VocabType)
+    return Code2VecVocabs(
+        Vocab(VocabType.Token, (letter_word(i)
+                                for i in range(JAVA_LARGE["token"]))),
+        vocabs.path_vocab, vocabs.target_vocab)
+
+
+def to_letters(line: str) -> str:
+    import re
+    return re.sub(r"\btok(\d+)\b", lambda m: letter_word(int(m.group(1))),
+                  line)
+
+
+def atk_model(torch, lv, transformer: bool):
+    """[4]'s bag model (or [11]'s transformer) at java-large width over
+    the letter vocab: seed 0's weights, stretched."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.encoder import init_params
+    from code2vec_tpu_torch.models.torch_model import (Code2VecModel,
+                                                       dims_from_config)
+    config = (xf_config() if transformer else
+              Config(MAX_CONTEXTS=C, USE_BF16=True, TABLES_DTYPE="bfloat16"))
+    dims = dims_from_config(config, lv)
+    params = init_params(torch.Generator(device=DEV).manual_seed(SEED), dims)
+    stretch_tables(params)
+    return Code2VecModel(config, dims, lv, params)  # the card
+
+
+class StepTimer:
+    """Wraps an attack's step functions (and the host shortlist) for the
+    length of a `with`: each call synchronised and timed, and each exact
+    evaluation's decision gap recorded (the untargeted attack loss's
+    best two candidates, and the best against the current id)."""
+
+    def __init__(self, torch, attack, tga):
+        self.torch, self.attack, self.tga = torch, attack, tga
+        self.ms = {"score": 0.0, "eval": 0.0, "predict": 0.0,
+                   "shortlist": 0.0}
+        self.calls = {k: 0 for k in self.ms}
+        self.gaps, self.boundaries = [], []
+
+    def _timed(self, name, fn, after=None):
+        torch = self.torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.ms[name] += (time.perf_counter() - t) * 1e3
+            self.calls[name] += 1
+            if after is not None:
+                after(a, out)
+            return out
+        return run
+
+    def _gap(self, _args, out):
+        import numpy as np
+        att = -out[0].float().cpu().numpy()   # untargeted: maximize CE
+        best = np.sort(att[:-1])[:2]
+        scale = 1.0 + abs(float(best[0]))
+        self.gaps.append(min(best[1] - best[0] if len(best) > 1 else 1.0,
+                             abs(att[-1] - best[0])) / scale)
+
+    def _boundary(self, scores, legal, tried, k):
+        import numpy as np
+        scores[~legal] = np.inf
+        scores[list(tried)] = np.inf
+        finite = scores[np.isfinite(scores)]
+        if len(finite) > k:
+            part = np.partition(finite, (k - 2, k - 1))
+            self.boundaries.append(float(part[k - 1] - part[k - 2])
+                                   / max(float(np.abs(finite).max()), 1e-30))
+
+    def __enter__(self):
+        a = self.attack
+        self.real = (a.score_fn, a.eval_fn, a.predict_fn,
+                     self.tga.build_shortlist)
+        a.score_fn = self._timed("score", a.score_fn)
+        a.eval_fn = self._timed("eval", a.eval_fn, self._gap)
+        a.predict_fn = self._timed("predict", a.predict_fn)
+        real_short = self.tga.build_shortlist
+
+        def shortlist(scores, legal, tried, k, cur):
+            self._boundary(scores.copy(), legal, tried, k)
+            t = time.perf_counter()
+            out = real_short(scores, legal, tried, k, cur)
+            self.ms["shortlist"] += (time.perf_counter() - t) * 1e3
+            self.calls["shortlist"] += 1
+            return out
+        self.tga.build_shortlist = shortlist
+        return self
+
+    def __exit__(self, *exc):
+        a = self.attack
+        a.score_fn, a.eval_fn, a.predict_fn, self.tga.build_shortlist = \
+            self.real
+        return False
+
+
+def atk_kernel_vs_plain(torch, np, model, attack, methods, label,
+                        score_rtol, loss_rtol):
+    """One attack step per method with the kernels and with their plain
+    versions: the first-order scores (relative to their largest), the
+    exact losses of one shortlist, and the accepted rename where the best
+    two exact losses lie more than `loss_rtol` apart; the score the same
+    bits twice. -> (worst score rel, worst loss rel, decided)."""
+    from code2vec_tpu_torch.attacks import gradient_attack as tga
+    score_p, eval_p, _ = tga.make_attack_steps(
+        model.dims, compute_dtype=model.compute_dtype, use_kernel=False)
+    worst_s = worst_l = 0.0
+    decided = 0
+    for m in methods:
+        tok = attack.attackable_tokens(m[0], m[2], m[3])[0][0]
+        occ = attack.tensors((m[0] == tok, m[2] == tok))
+        ids = attack.tensors(m)
+        lab = int(attack.predict_fn(model.params, ids))
+        sk = attack.score_fn(model.params, ids, occ, lab, -1.0)
+        sk2 = attack.score_fn(model.params, ids, occ, lab, -1.0)
+        sp = score_p(model.params, ids, occ, lab, -1.0)
+        check(torch.equal(sk, sk2), f"({label}) the score gave other bits "
+              f"on a second call")
+        rel = ((sk - sp).abs().max() / sp.abs().max()).item()
+        worst_s = max(worst_s, rel)
+        host = sk.cpu().numpy()
+        tried = {tok} | set(np.unique(np.concatenate([m[0], m[2]])).tolist())
+        cand = tga.build_shortlist(host.copy(), attack.legal, tried,
+                                   attack.top_k, tok)
+        lk, _ = attack.eval_fn(model.params, ids, occ, attack.tensor(cand), lab)
+        lp, _ = eval_p(model.params, ids, occ, attack.tensor(cand), lab)
+        lk, lp = lk.float().cpu().numpy(), lp.float().cpu().numpy()
+        lrel = float(np.max(np.abs(lk - lp) / np.maximum(1.0, np.abs(lp))))
+        worst_l = max(worst_l, lrel)
+        top = np.sort(lp[:-1])[::-1][:2]
+        if top[0] - top[1] > loss_rtol * max(1.0, abs(top[0])):
+            decided += 1
+            check(int(np.argmax(lk[:-1])) == int(np.argmax(lp[:-1])),
+                  f"({label}) kernel and plain paths accept different "
+                  f"renames where the best two losses are {top}")
+    check(worst_s <= score_rtol, f"({label}) first-order scores kernel vs "
+          f"plain: {worst_s} of the largest")
+    check(worst_l <= loss_rtol, f"({label}) exact losses kernel vs plain: "
+          f"{worst_l}")
+    return worst_s, worst_l, decided
+
+
+def phase_attack_bag(torch, np, vocabs, lv, tmp, test_path, peaks, report):
+    """(h): the attack at java-large width on [4]'s bag model."""
+    from code2vec_tpu_torch.attacks import gradient_attack as tga
+    from code2vec_tpu_torch.attacks.detect import RarityDetector
+    from code2vec_tpu_torch.attacks.robustness import evaluate_robustness
+    from code2vec_tpu_torch.data.reader import parse_c2v_rows
+    from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
+                                                         tc_terms)
+    out = {}
+    with open(test_path) as f:
+        lines = [to_letters(next(f)) for _ in range(ATK_SWEEP)]
+    sweep_path = os.path.join(tmp, "attack.test.c2v")
+    with open(sweep_path, "w") as f:
+        f.writelines(lines)
+    model = atk_model(torch, lv, transformer=False)
+    _labels, src, pth, dst, mask, _t, _c = parse_c2v_rows(lines, lv, C)
+    methods = [(src[i], pth[i], dst[i], mask[i]) for i in range(len(lines))]
+    t0 = time.perf_counter()
+    attack = tga.GradientRenameAttack(
+        model.dims, lv.token_vocab, lv.target_vocab,
+        compute_dtype=model.compute_dtype)   # device=None: the card
+    out["setup_s"] = time.perf_counter() - t0
+    target = lv.target_vocab.lookup_word(
+        min(2 + 4099, lv.target_vocab.size - 1))
+
+    # ---- serial: the main path, counted (after one warm-up attack on a
+    # method outside the 8, so the per-call times are steady) ----
+    attack.attack_method(model.params, methods[-1])
+    results = []
+    with StepTimer(torch, attack, tga) as timer:
+        attention_pool_fused.launches = 0
+        t = time.perf_counter()
+        for m in methods[:ATK_SERIAL]:
+            results.append(attack.attack_method(model.params, m))
+        for m in methods[:ATK_SERIAL]:
+            results.append(attack.attack_method(
+                model.params, m, targeted=True, target_name=target))
+        torch.cuda.synchronize()
+        serial_s = time.perf_counter() - t
+        launches = attention_pool_fused.launches
+    want = sum(2 + 2 * r.iterations for r in results)
+    check(launches == want, f"(h) kernel 1 launched {launches} times; the "
+          f"trajectories imply {want}")
+    device_ms = timer.ms["score"] + timer.ms["eval"] + timer.ms["predict"]
+    host_share = 1.0 - device_ms / (serial_s * 1e3)
+    n_succ = [sum(r.success for r in results[:ATK_SERIAL]),
+              sum(r.success for r in results[ATK_SERIAL:])]
+    out["serial"] = {
+        "attacks": len(results), "seconds": serial_s, "launches": launches,
+        "iterations": [r.iterations for r in results],
+        "successes_untargeted_targeted": n_succ, "ms": timer.ms,
+        "calls": timer.calls, "host_share": host_share}
+    print(f"  (h) serial: {ATK_SERIAL} methods untargeted ({n_succ[0]} "
+          f"flipped) and targeted at '{target}' ({n_succ[1]} reached) in "
+          f"{serial_s:.2f} s; kernel 1 {launches} launches = 2 + 2 x "
+          f"iterations; per call (synchronised) score "
+          f"{timer.ms['score'] / max(timer.calls['score'], 1):.2f} ms, exact "
+          f"re-score {timer.ms['eval'] / max(timer.calls['eval'], 1):.2f} ms,"
+          f" predict {timer.ms['predict'] / max(timer.calls['predict'], 1):.2f}"
+          f" ms, host argpartition "
+          f"{timer.ms['shortlist'] / max(timer.calls['shortlist'], 1):.2f} "
+          f"ms; host share of the attack (shortlist, the scores' copy, the "
+          f"loop) {host_share:.3f}", flush=True)
+
+    # ---- kernel vs plain, the same bits twice ----
+    worst_s, worst_l, decided = atk_kernel_vs_plain(
+        torch, np, model, attack, methods[:ATK_SERIAL], "h", ATK_SCORE_RTOL,
+        ATK_LOSS_RTOL)
+    out["kernel_vs_plain"] = {"score_rel": worst_s, "loss_rel": worst_l,
+                              "decided": decided, "methods": ATK_SERIAL}
+    print(f"  (h) kernel vs plain, one step of {ATK_SERIAL} methods: scores "
+          f"within {worst_s:.2e} of the largest, exact losses within "
+          f"{worst_l:.2e}; the same rename accepted on the {decided} methods "
+          f"whose best two losses lie over {ATK_LOSS_RTOL} apart; the score "
+          f"the same bits twice", flush=True)
+
+    # ---- lockstep vs serial at M = 64 ----
+    eligible = [m for m in methods
+                if attack.attackable_tokens(m[0], m[2], m[3])][:ATK_BATCH_M]
+    t = time.perf_counter()
+    batch = attack.attack_batch(model.params, eligible)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    equal = tied = 0
+    for i, m in enumerate(eligible):
+        with StepTimer(torch, attack, tga) as one:
+            s = attack.attack_method(model.params, m)
+        b = batch[i]
+        if (s.success, s.renames, s.final_prediction, s.iterations) == \
+                (b.success, b.renames, b.final_prediction, b.iterations):
+            equal += 1
+            continue
+        tie = min(one.gaps) <= ATK_TIE_RTOL or \
+            min(one.boundaries, default=1.0) <= ATK_SCORE_RTOL
+        check(tie, f"(h) attack_batch and attack_method differ on method "
+              f"{i} without a tie: {b} vs {s}")
+        tied += 1
+    out["lockstep"] = {"M": len(eligible), "equal": equal, "tied": tied,
+                       "batch_s": batch_s}
+    print(f"  (h) attack_batch at M = {len(eligible)} ({batch_s:.2f} s, "
+          f"M x K = {len(eligible) * attack.top_k} variants a re-score): "
+          f"{equal} methods equal to attack_method, {tied} differ on a "
+          f"tie", flush=True)
+
+    # ---- kernel 1 at B = M x K, the new shape ----
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    out["pool_2048"] = pool_case(torch, ATK_BATCH_M * attack.top_k,
+                                 torch.bfloat16, gen, peaks, tc_terms())
+
+    # ---- the sweep with the rarity detector ----
+    dict_path = os.path.join(tmp, "attack.dict.c2v")
+    write_dict_file(dict_path, ATK_SWEEP, token_word=letter_word,
+                    token_count=lambda i: max(1, int(1e6 / (i + 1) ** ZIPF_S)))
+    detector = RarityDetector.from_model(model, dict_path)
+    sweep_ms = {"score": 0.0, "eval": 0.0, "predict": 0.0}
+    real_steps = tga.make_batched_attack_steps
+
+    def timed_steps(*a, **k):
+        fns = real_steps(*a, **k)
+
+        def wrap(name, fn):
+            def run(*aa, **kk):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                r = fn(*aa, **kk)
+                torch.cuda.synchronize()
+                sweep_ms[name] += (time.perf_counter() - t1) * 1e3
+                return r
+            return run
+        return tuple(wrap(n, f) for n, f in zip(("score", "eval", "predict"),
+                                                fns))
+    # the attacks' own time (the report's `seconds` is rounded to 0.1 s):
+    # the lockstep passes, synchronised at their ends
+    real_batch = tga.GradientRenameAttack.attack_batch
+    batch_s = [0.0]
+
+    def timed_batch(self, *a, **k):
+        t1 = time.perf_counter()
+        r = real_batch(self, *a, **k)
+        torch.cuda.synchronize()
+        batch_s[0] += time.perf_counter() - t1
+        return r
+    torch.cuda.reset_peak_memory_stats()
+    tga.make_batched_attack_steps = timed_steps
+    tga.GradientRenameAttack.attack_batch = timed_batch
+    try:
+        attention_pool_fused.launches = 0
+        rep = evaluate_robustness(model, sweep_path, n_methods=ATK_SWEEP,
+                                  detector=detector, log=lambda *_: None)
+        sweep_launches = attention_pool_fused.launches
+    finally:
+        tga.make_batched_attack_steps = real_steps
+        tga.GradientRenameAttack.attack_batch = real_batch
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(rep["n_methods"] == ATK_SWEEP and sweep_launches > 0
+          and batch_s[0] > 0,
+          f"(h) sweep: {rep['n_methods']} methods, {sweep_launches} launches")
+    step_s = sum(sweep_ms.values()) / 1e3
+    sweep_host = 1.0 - step_s / batch_s[0]
+    print("  (h) sweep report: " + json.dumps(rep), flush=True)
+    print(f"  (h) sweep: {ATK_SWEEP / batch_s[0]:.1f} methods/s over "
+          f"{ATK_SWEEP} methods ({batch_s[0]:.3f} s in attack_batch), peak "
+          f"device memory {peak_gb:.2f} GB, kernel 1 {sweep_launches} "
+          f"launches; the step functions (synchronised) {step_s:.3f} s "
+          f"(score {sweep_ms['score'] / 1e3:.3f}, re-score "
+          f"{sweep_ms['eval'] / 1e3:.3f}, predict "
+          f"{sweep_ms['predict'] / 1e3:.3f}), host share "
+          f"{sweep_host:.3f}", flush=True)
+    out["sweep"] = {"report": rep, "attack_s": batch_s[0],
+                    "methods_per_s": ATK_SWEEP / batch_s[0],
+                    "peak_memory_gb": peak_gb, "launches": sweep_launches,
+                    "step_ms": sweep_ms, "host_share": sweep_host}
+    report["attack_bag"] = out
+    del model, attack, detector
+    torch.cuda.empty_cache()
+    return launches + sweep_launches
+
+
+def phase_attack_xf(torch, np, lv, tmp, report):
+    """(i): attack_method on bench.py's transformer (L = 2, H = 3): kernel
+    2 L times a forward, kernel 3 L times a score; against the plain
+    versions."""
+    from code2vec_tpu_torch.attacks import gradient_attack as tga
+    from code2vec_tpu_torch.data.reader import parse_c2v_rows
+    model = atk_model(torch, lv, transformer=True)
+    with open(os.path.join(tmp, "attack.test.c2v")) as f:
+        lines = [next(f) for _ in range(ATK_XF)]
+    _l, src, pth, dst, mask, _t, _c = parse_c2v_rows(lines, lv, C)
+    methods = [(src[i], pth[i], dst[i], mask[i]) for i in range(ATK_XF)]
+    attack = tga.GradientRenameAttack(model.dims, lv.token_vocab,
+                                      lv.target_vocab,
+                                      compute_dtype=model.compute_dtype)
+    zero_xf_counts()
+    t = time.perf_counter()
+    results = [attack.attack_method(model.params, m) for m in methods]
+    torch.cuda.synchronize()
+    xf_s = time.perf_counter() - t
+    counts = xf_counts()
+    iters = sum(r.iterations for r in results)
+    want = {"attention_pool": 0,
+            "xf_attention_forward": XF_L * (2 * ATK_XF + 2 * iters),
+            "xf_attention_backward": XF_L * iters}
+    check(counts == want, f"(i) launches {counts}, the trajectories imply "
+          f"{want}")
+    worst_s, worst_l, decided = atk_kernel_vs_plain(
+        torch, np, model, attack, methods, "i", ATK_XF_RTOL, ATK_XF_RTOL)
+    print(f"  (i) transformer: {ATK_XF} methods attacked in {xf_s:.2f} s "
+          f"({iters} iterations; {sum(r.success for r in results)} flipped); "
+          f"launches {counts} (kernel 3 in each score); kernel vs plain: "
+          f"scores within {worst_s:.2e} of the largest, losses "
+          f"{worst_l:.2e}, the same rename on {decided} decided methods; the "
+          f"score the same bits twice", flush=True)
+    report["attack_xf"] = {"seconds": xf_s, "launches": counts,
+                           "iterations": iters, "score_rel": worst_s,
+                           "loss_rel": worst_l, "decided": decided}
+    del model, attack
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_defended(torch, np, vocabs, lv, data_path, report):
+    """(j): (c) and (d) with the rename defense: counted steps, the
+    augmented batch against the CPU augment's, kernel vs plain step, one
+    step twice, the step time beside the undefended one's."""
+    import itertools
+
+    from code2vec_tpu_torch.attacks.defense import (RenameDraws,
+                                                    make_rename_augment)
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+    from code2vec_tpu_torch.training.draws import quantized_keys
+    from code2vec_tpu_torch.training.steps import (apply_dense_updates,
+                                                   dense_loss_and_grads,
+                                                   make_train_loss_fn)
+    total = {"attention_pool": 0, "requantize": 0}
+    for label, tables, sampled in (("c", "bfloat16", False),
+                                   ("d", "int8", True)):
+        prob, mode = ATK_ADV[label]
+        _, cfg = dense_config(label, tables, sampled)
+        cfg.ADV_RENAME_PROB, cfg.ADV_RENAME_MODE = prob, mode
+        tag = f"{label}+defense"
+        trainer = Code2VecTrainer(cfg, lv)  # the card
+        aug = trainer.step_config.augment
+        check(aug is not None and (aug.prob, aug.mode) == (prob, mode),
+              f"({tag}) the step has no augment")
+        qkeys = quantized_keys(trainer.params)
+        reader = C2VTextReader(data_path, vocabs, C, TRAIN_B)
+        batches = [trainer.device_batch(b)
+                   for b in itertools.islice(iter(reader), TRAIN_STEPS)]
+        attention_pool_fused.launches = 0
+        requantize_fused.launches = 0
+        losses = [trainer.train_step(b).item() for b in batches]
+        launches = {"attention_pool": attention_pool_fused.launches,
+                    "requantize": requantize_fused.launches}
+        want = {"attention_pool": TRAIN_STEPS,
+                "requantize": TRAIN_STEPS * len(qkeys)}
+        check(launches == want and all(np.isfinite(losses)),
+              f"({tag}) launches {launches} (want {want}), losses {losses}")
+        for k in total:
+            total[k] += launches[k]
+        batch = batches[0]
+        draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+        got = aug(batch, draws.rename)
+        r = draws.rename
+        cpu = make_rename_augment(aug.legal_mask.cpu().numpy(), prob, mode,
+                                  device="cpu")
+        want_b = cpu(tuple(t.cpu() for t in batch), RenameDraws(
+            gumbel=r.gumbel.cpu(), index=r.index.cpu(),
+            apply_u=r.apply_u.cpu(), shift=r.shift))
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want_b)),
+              f"({tag}) the card's augmented batch differs from the CPU "
+              f"augment's")
+        renamed = int(((got[1] != batch[1]).any(1)
+                       | (got[3] != batch[3]).any(1)).sum().item())
+        check(0 < renamed < TRAIN_B, f"({tag}) {renamed} examples renamed")
+        # one step with the kernels against one with the plain versions
+        kw = dict(use_sampled_softmax=sampled, num_sampled=TRAIN_S,
+                  compute_dtype=trainer.compute_dtype)
+        loss_k, grads, view = dense_loss_and_grads(
+            trainer.params, got, draws, make_train_loss_fn(
+                trainer.dims, use_kernel=True, **kw))
+        loss_p, _, _ = dense_loss_and_grads(
+            trainer.params, got, draws, make_train_loss_fn(
+                trainer.dims, use_kernel=False, **kw))
+        updates = trainer.optimizer.update(grads, trainer.opt_state, view)
+        twin = clone_state(torch, trainer.params)
+        apply_dense_updates(trainer.params, updates, draws.salts,
+                            use_kernel=True)
+        apply_dense_updates(twin, updates, draws.salts, use_kernel=False)
+        lk, lp = loss_k.item(), loss_p.item()
+        check(abs(lk - lp) <= LOSS_RTOL * abs(lp),
+              f"({tag}) loss kernel {lk} plain {lp}")
+        for k in trainer.params:
+            a, b = trainer.params[k], twin[k]
+            pairs = ([(a["q"], b["q"]), (a["s"], b["s"])]
+                     if isinstance(a, dict) else [(a, b)])
+            check(all(torch.equal(x, y) for x, y in pairs),
+                  f"({tag}) {k}: kernel and plain steps differ given the "
+                  f"same update")
+        trainer.step_num += 1
+        del twin, grads, view, updates
+        torch.cuda.empty_cache()
+        same_bits_twice(torch, trainer, batch, tag, report)
+        step_ms = []
+        for _ in range(TIMED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        med = sorted(step_ms)[len(step_ms) // 2]
+        plain = report.get(f"train_{label}", {}).get("step_ms_median")
+        print(f"  ({tag}) --adv_rename_prob {prob} {mode}: {TRAIN_STEPS} "
+              f"steps, launches {launches}; the augmented batch ({renamed} of "
+              f"{TRAIN_B} examples renamed) the CPU augment's id for id; "
+              f"kernel step vs plain: loss {lk:.6f} vs {lp:.6f}, the same "
+              f"update bit-identical; step {med:.2f} ms (median of "
+              f"{TIMED_STEPS}) against {fmt_ms(plain)} undefended in [8]",
+              flush=True)
+        report[f"defended_{label}"] = {
+            "prob": prob, "mode": mode, "launches": launches,
+            "losses": losses, "renamed": renamed, "loss_kernel": lk,
+            "loss_plain": lp, "step_ms": step_ms, "step_ms_median": med,
+            "undefended_step_ms_median": plain}
+        del trainer, batches, batch, got
+        torch.cuda.empty_cache()
+    return total
+
+
+def write_input_corpus(np, path: str, java_lines, rng) -> None:
+    """Input.java's extracted methods ATK_JAVA_REPEAT times and ATK_SYNTH
+    synthetic methods over ATK_NAMES and ATK_IDENTS, in raw extractor
+    format."""
+    lines = list(java_lines) * ATK_JAVA_REPEAT
+    for _ in range(ATK_SYNTH):
+        name = ATK_NAMES[int(rng.integers(len(ATK_NAMES)))]
+        ctx = [f"{ATK_IDENTS[int(rng.integers(len(ATK_IDENTS)))]},"
+               f"{int(rng.integers(1, 400)) * 7919},"
+               f"{ATK_IDENTS[int(rng.integers(len(ATK_IDENTS)))]}"
+               for _ in range(int(rng.integers(8, 40)))]
+        lines.append(name + " " + " ".join(ctx))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def phase_attack_cli(torch, np, tmp, report):
+    """(k): the command line's --attack and --adv_rename_prob and the
+    REPL's `attack`, on a model trained on a corpus with Input.java's
+    methods."""
+    import contextlib
+    import io
+    import shutil
+    import unittest.mock
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.data import preprocess
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.serving.extractor import Extractor
+    from code2vec_tpu_torch.serving.interactive_predict import \
+        InteractivePredictor
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(tmp, "attack_cli")
+    os.makedirs(work)
+    victim = os.path.join(work, "Input.java")
+    shutil.copy(os.path.join(repo, "Input.java"), victim)
+    names, java = Extractor(Config()).extract_paths(victim)
+    raw = os.path.join(work, "raw.txt")
+    write_input_corpus(np, raw, java, np.random.default_rng(SEED + 22))
+    prefix = os.path.join(work, "input")
+    with contextlib.redirect_stdout(io.StringIO()):
+        preprocess.main(["--train_data", raw, "--val_data", raw,
+                         "--test_data", raw, "--output_name", prefix])
+    attention_pool_fused.launches = 0
+    ckpt_plain, ckpt_adv = (os.path.join(work, "model"),
+                            os.path.join(work, "model_adv"))
+    train = ["--data", prefix, "--epochs", str(ATK_EPOCHS), "--batch_size",
+             "16", "--lr", "0.01"]
+    t = time.perf_counter()
+    check(cli.main([*train, "--save", ckpt_plain]) == 0, "(k) training")
+    check(cli.main([*train, "--save", ckpt_adv, "--adv_rename_prob", "0.3"])
+          == 0, "(k) defended training")
+    train_s = time.perf_counter() - t
+    with open(os.path.join(ckpt_adv, "manifest.json")) as f:
+        m = json.load(f)
+    check((m["adv_rename_prob"], m["adv_rename_mode"]) == (0.3, "uniform"),
+          f"(k) the defended run's manifest: {m.get('adv_rename_prob')}, "
+          f"{m.get('adv_rename_mode')}")
+
+    def run(argv):
+        so, se = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(so), contextlib.redirect_stderr(se):
+            rc = cli.main(argv)
+        return rc, so.getvalue(), se.getvalue()
+    other = {"contains": "maxValue", "max|value": "contains"}.get(names[0],
+                                                                 "maxValue")
+    outcomes = {}
+    for tag, extra in (("untargeted", ["--attack", "untargeted"]),
+                       ("targeted", ["--attack", "targeted",
+                                     "--attack_target", other]),
+                       ("deadcode", ["--attack", "untargeted",
+                                     "--attack_deadcode"]),
+                       ("3 renames", ["--attack", "untargeted",
+                                      "--attack_method_index", "1",
+                                      "--attack_max_renames", "3"])):
+        adv = victim + ".adversarial"
+        if os.path.exists(adv):
+            os.remove(adv)
+        rc, so, se = run(["--load", ckpt_plain, "--attack_input", victim,
+                          *extra])
+        check(rc == 0 and ("re-extracted prediction" in so
+                           or "(no rename)" in so),
+              f"(k) --attack {tag}: exit {rc}, {so!r} {se[-500:]!r}")
+        verified = "SUCCESS end-to-end" in so
+        check(os.path.exists(adv) == verified, f"(k) --attack {tag}: "
+              f".adversarial exists {os.path.exists(adv)}, printed {so!r}")
+        outcomes[tag] = so.strip()
+        print(f"  (k) --attack {tag}: " + so.strip().replace("\n", " | "),
+              flush=True)
+    for argv, msg in (
+            (["--load", ckpt_plain, "--attack", "untargeted", "--tables_dtype",
+              "int8", "--attack_input", victim], "--attack needs float/bf16"),
+            (["--data", prefix, "--attack", "untargeted"],
+             "--attack requires --load.")):
+        rc, _so, se = run(argv)
+        check(rc == 2 and msg in se, f"(k) {argv}: exit {rc}, {se!r}")
+    cfg = Config.load_from_args(["--load", ckpt_plain])
+    model = Code2VecTrainer.from_config(cfg).predictor()
+    keys = iter(["attack", f"attack {other}", "q"])
+    so = io.StringIO()
+    with unittest.mock.patch("builtins.input", lambda *a: next(keys)), \
+            contextlib.redirect_stdout(so):
+        InteractivePredictor(cfg, model).predict(victim)
+    repl = so.getvalue().splitlines()
+    answered = [ln for ln in repl if ln.startswith(("[untargeted ",
+                                                     "[targeted ",
+                                                     "Attack error:"))]
+    check(len(answered) == 2 and repl[-1] == "Exiting...",
+          f"(k) the REPL's attack answered {answered}")
+    launches = attention_pool_fused.launches
+    check(launches > 0, "(k) kernel 1 never launched")
+    print(f"  (k) two trainings ({train_s:.1f} s; the defended one's "
+          f"manifest records adv_rename_prob 0.3), --attack int8 and "
+          f"without --load exit 2; the REPL answered: "
+          + " | ".join(answered) + f"; kernel 1 {launches} launches",
+          flush=True)
+    report["attack_cli"] = {"outcomes": outcomes, "repl": answered,
+                            "train_s": train_s, "launches": launches}
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_attack_vm(torch, tmp, report):
+    """(l): `python -m code2vec_tpu_torch.attacks.vm_robustness` (its
+    `main`, in this process) on [21]'s checkpoint and test split."""
+    import contextlib
+    import io
+
+    from code2vec_tpu_torch.attacks import vm_robustness
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    so = io.StringIO()
+    attention_pool_fused.launches = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(so):
+        rc = vm_robustness.main(["--load", os.path.join(tmp, "vm_ckpt"),
+                                 "--test", os.path.join(tmp,
+                                                        "vm_cli.test.vm.c2v")])
+    vm_s = time.perf_counter() - t
+    launches = attention_pool_fused.launches
+    line = so.getvalue().strip().splitlines()[-1]
+    rep = json.loads(line)
+    check(rc == 0 and rep["n_methods"] > 0 and
+          launches >= 2 * rep["n_methods"],
+          f"(l) exit {rc}, {line}, kernel 1 {launches} launches")
+    print(f"  (l) vm_robustness ({vm_s:.1f} s, kernel 1 {launches} "
+          f"launches): {line}", flush=True)
+    report["attack_vm"] = {"report": rep, "launches": launches,
+                           "seconds": vm_s}
+    return launches
+
+
+def phase_attacks(torch, np, vocabs, tmp, data_path, test_path, peaks,
+                  report):
+    """[22]: (h) to (l). Returns the launches by kernel."""
+    t0 = time.perf_counter()
+    lv = letter_vocabs(vocabs)
+    print(f"  letter token vocab built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    bag = phase_attack_bag(torch, np, vocabs, lv, tmp, test_path, peaks,
+                           report)
+    xf = phase_attack_xf(torch, np, lv, tmp, report)
+    defended = phase_defended(torch, np, vocabs, lv, data_path, report)
+    cli_launches = phase_attack_cli(torch, np, tmp, report)
+    vm_launches = phase_attack_vm(torch, tmp, report)
+    return {"attention_pool": bag + defended["attention_pool"]
+            + cli_launches + vm_launches,
+            "xf_attention_forward": xf["xf_attention_forward"],
+            "xf_attention_backward": xf["xf_attention_backward"],
+            "requantize": defended["requantize"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -5468,7 +6209,16 @@ def main(argv=None) -> int:
         vm_launches = phase_vm(torch, np, vocabs, tmp, report)
         lap("[21]")
 
-    # ---- 22. result ----
+        # ---- 22. the attacks and the rename defense ----
+        print("[22] the adversarial attacks and the rename defense: (h) the "
+              "attack at java-large width, (i) on the transformer, (j) the "
+              "defended dense step, (k) --attack and the REPL, (l) the "
+              "VarMisuse sweep", flush=True)
+        attack_launches = phase_attacks(torch, np, vocabs, tmp, data_path,
+                                        test_path, peaks, report)
+        lap("[22]")
+
+    # ---- 23. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -5480,7 +6230,8 @@ def main(argv=None) -> int:
         + repl_launches["attention_pool"] \
         + observed_launches["attention_pool"] \
         + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
-        + fleet_launches["attention_pool"] + vm_launches["attention_pool"]
+        + fleet_launches["attention_pool"] + vm_launches["attention_pool"] \
+        + attack_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -5519,7 +6270,8 @@ def main(argv=None) -> int:
          "source": "code2vec_tpu_torch/csrc/requant.cu",
          "replaces": "code2vec_tpu/ops/pallas_requant.py:85",
          "launches": train_launches["d"]["requantize"]
-         + cli_launches["int8"]["requantize"],
+         + cli_launches["int8"]["requantize"]
+         + attack_launches["requantize"],
          "max_abs_err": max(r["max_abs_err"] for r in requant_rows),
          "ms": main_requant["ms"], "plain_ms": main_requant["plain_ms"],
          "bound_ms": main_requant["bound_ms"],
@@ -5539,7 +6291,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "code2vec_tpu_torch/csrc/xf_attention.cu",
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
-            "launches": sum(v[counter] for v in xf_launches.values()),
+            "launches": sum(v[counter] for v in xf_launches.values())
+            + attack_launches[counter],
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
                                if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -5557,7 +6310,7 @@ def main(argv=None) -> int:
                           "repl": repl_launches, "observed": observed_launches,
                           "live_plane": plane_launches,
                           "phases": phase_launches, "fleet": fleet_launches,
-                          "vm": vm_launches}
+                          "vm": vm_launches, "attacks": attack_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -9,6 +9,9 @@ order, for the ported flags (config.Config.arguments_parser):
       [--telemetry_dir <d> [--trace] [--watchdog_stall_s <s>]] \\
       [--profile <d>] [--tensorboard <d>] [--faults <json>] \\
       [--head code2vec|varmisuse [--max_candidates K]] \\
+      [--attack targeted|untargeted [--attack_target <name>] \\
+       [--attack_input <file>] [--attack_deadcode] ...] \\
+      [--adv_rename_prob <p> [--adv_rename_mode uniform|batch]] \\
       [--backend gpu|cpu] [--framework ...]
 
 0. `--faults`: the failpoint registry is armed before anything is built
@@ -21,7 +24,11 @@ order, for the ported flags (config.Config.arguments_parser):
    configuration is verified a second time; `--head varmisuse` builds
    the VarMisuse model (models/vm_model.py), else the code2vec trainer;
 3. `--release`: an inference-only copy of the loaded checkpoint, and
-   nothing else;
+   nothing else; `--attack`: the source-level rename (or, with
+   `--attack_deadcode`, dead-code) attack on `--attack_input`
+   (attacks/source_attack.py), its outcome printed as the model predicts
+   the rewritten, re-extracted source, `<attack_input>.adversarial`
+   written only on a verified success, and nothing else;
 4. `--data`: train (with `--save`, a checkpoint every SAVE_EVERY_EPOCHS
    epochs; with `--test`, an evaluation after each); the varmisuse head
    reads `<data>.train.vm.c2v`;
@@ -77,6 +84,33 @@ def main(argv: Optional[List[str]] = None) -> int:
         faults.clear()
 
 
+def _attack(config: Config, predictor) -> int:
+    """`--attack`: the printed outcome is the model's prediction on the
+    REWRITTEN source, re-extracted; only a verified success earns the
+    `.adversarial` file (scripts treat its existence as the signal)."""
+    from code2vec_tpu_torch.attacks.source_attack import (
+        SourceAttack, normalize_target_name)
+    attack = SourceAttack(config, predictor,
+                          top_k_candidates=config.ATTACK_TOPK,
+                          max_iters=config.ATTACK_ITERS)
+    try:
+        result = attack.attack_file(
+            config.ATTACK_INPUT, method_index=config.ATTACK_METHOD_INDEX,
+            targeted=config.ATTACK == "targeted",
+            target_name=normalize_target_name(config.ATTACK_TARGET),
+            max_renames=config.ATTACK_MAX_RENAMES,
+            deadcode=config.ATTACK_DEADCODE)
+    except ValueError as e:
+        return _error(str(e))
+    print(str(result))
+    if result.adversarial_source is not None and result.verified_success:
+        dest = config.ATTACK_INPUT + ".adversarial"
+        with open(dest, "w", encoding="utf-8") as f:
+            f.write(result.adversarial_source)
+        config.log(f"adversarial source -> {dest}")
+    return 0
+
+
 def _run(config: Config) -> int:
     if config.BACKEND == "gpu" and not torch.cuda.is_available():
         return _error("--backend gpu (the default) needs a CUDA card and "
@@ -130,6 +164,8 @@ def _run(config: Config) -> int:
     if config.release:
         model.release()
         return 0
+    if config.ATTACK:
+        return _attack(config, model.predictor())
     if config.is_training:
         model.train()
     if config.save_w2v:

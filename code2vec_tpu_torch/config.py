@@ -5,8 +5,10 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--attack`, `--adv_rename_prob`, `--infeed_chunk 2`, the
-mesh flags, ...) is an error that names it, never ignored. The seven serving
+have yet (`--infeed_chunk 2`, the mesh flags, ...) is an error that
+names it, never ignored. The adversarial attack flags (`--attack*`) and
+the rename defense's (`--adv_rename_prob`, `--adv_rename_mode`) are the
+JAX package's, verified by its rules with its messages. The seven serving
 fleet flags (`--serve_port`, `--serve_replicas`, ...) are parsed and
 verified as the JAX package's are; as there, the command line opens no
 socket (the fleet runs through tools/serving_bench.py and the chaos
@@ -199,6 +201,26 @@ class Config:
     # (resilience/faults.py); unset, every site is one None check
     FAULTS: Optional[str] = None
 
+    # ---- adversarial attacks (attacks/): --attack {targeted,
+    # untargeted} runs the gradient-guided rename attack on
+    # --attack_input's source and reports the re-extracted,
+    # re-predicted outcome ----
+    ATTACK: Optional[str] = None          # "targeted" | "untargeted"
+    ATTACK_TARGET: Optional[str] = None   # target method name (targeted)
+    ATTACK_INPUT: str = "Input.java"      # source file to attack
+    ATTACK_METHOD_INDEX: int = 0          # which method in the file
+    ATTACK_MAX_RENAMES: int = 1           # variables to rename (greedy)
+    ATTACK_DEADCODE: bool = False         # insert `int <adv>;` instead
+    ATTACK_TOPK: int = 32                 # exact-rescore shortlist size
+    ATTACK_ITERS: int = 4                 # rename iterations / variable
+    # the rename defense (attacks/defense.py): with this probability each
+    # training example of the dense step has one variable renamed to
+    # another legal token (occurrences replaced consistently); 0 = off
+    ADV_RENAME_PROB: float = 0.0
+    # the defense's replacement: "uniform" (a random legal token) or
+    # "batch" (another example's variable in the batch)
+    ADV_RENAME_MODE: str = "uniform"
+
     # ---- the live metrics plane (obs/exposition.py, health.py,
     # alerts.py) ----
     # --metrics_port: serve /metrics (Prometheus text), /healthz
@@ -314,6 +336,11 @@ class Config:
                     "TABLES_DTYPE int8 is incompatible with TRUST_RATIO "
                     "(the trust rescale needs ||param|| of the flat table "
                     "the quantized step never materializes).")
+            if self.ATTACK:
+                raise ValueError(
+                    "--attack needs float/bf16 tables (the gradient "
+                    "attack's candidate matvec reads the table as one "
+                    "array); rerun with a bf16 checkpoint.")
         if self.HEAD not in ("code2vec", "varmisuse"):
             raise ValueError(f"HEAD must be code2vec or varmisuse (got "
                              f"{self.HEAD!r}).")
@@ -327,6 +354,25 @@ class Config:
         if self.TABLES_DTYPE == "int8" and self.HEAD != "code2vec":
             raise ValueError(
                 "--tables_dtype int8 supports the code2vec head only.")
+        if not 0.0 <= self.ADV_RENAME_PROB <= 1.0:
+            raise ValueError("--adv_rename_prob must be in [0, 1].")
+        if self.ADV_RENAME_PROB > 0 and self.SPARSE_EMBEDDING_UPDATES:
+            raise ValueError(
+                "--adv_rename_prob is not supported with "
+                "SPARSE_EMBEDDING_UPDATES (the sparse step has no "
+                "augmentation hook).")
+        if self.ADV_RENAME_PROB > 0 and self.HEAD == "varmisuse":
+            raise ValueError(
+                "--adv_rename_prob applies to the code2vec head only "
+                "(the varmisuse train step has no augmentation hook).")
+        if self.ATTACK and not self.is_loading:
+            raise ValueError("--attack requires --load.")
+        if self.ATTACK == "targeted" and not self.ATTACK_TARGET:
+            raise ValueError(
+                "--attack targeted requires --attack_target <name>.")
+        if self.ATTACK and self.HEAD == "varmisuse":
+            raise ValueError(
+                "--attack applies to the code2vec head only.")
         if self.HEAD == "varmisuse" and self.ENCODER_TYPE != "bag":
             # vm_scores calls the bag encode(); a transformer here would
             # train another architecture than asked
@@ -692,6 +738,40 @@ class Config:
         p.add_argument("--faults", dest="faults", default=None,
                        help="fault injection: a JSON file (or inline JSON) "
                             "arming named failpoints")
+        p.add_argument("--attack", dest="attack", default=None,
+                       choices=["targeted", "untargeted"],
+                       help="gradient-guided variable-rename attack on "
+                            "--attack_input (needs --load)")
+        p.add_argument("--attack_target", dest="attack_target",
+                       default=None,
+                       help="target method name for --attack targeted "
+                            "(camelCase or subtoken|form)")
+        p.add_argument("--attack_input", dest="attack_input",
+                       default=None, help="source file (default "
+                                          "Input.java)")
+        p.add_argument("--attack_method_index", dest="attack_method_index",
+                       type=int, default=None)
+        p.add_argument("--attack_max_renames", dest="attack_max_renames",
+                       type=int, default=None)
+        p.add_argument("--attack_deadcode", dest="attack_deadcode",
+                       action="store_true",
+                       help="insert a dead `int <adv>;` declaration and "
+                            "adversarially choose its name instead of "
+                            "renaming an existing variable")
+        p.add_argument("--attack_topk", dest="attack_topk", type=int,
+                       default=None)
+        p.add_argument("--attack_iters", dest="attack_iters", type=int,
+                       default=None)
+        p.add_argument("--adv_rename_prob", dest="adv_rename_prob",
+                       type=float, default=None,
+                       help="adversarial-training defense: probability "
+                            "of randomly renaming one variable per "
+                            "training example")
+        p.add_argument("--adv_rename_mode", dest="adv_rename_mode",
+                       default=None, choices=["uniform", "batch"],
+                       help="defense replacement distribution: uniform "
+                            "legal token, or another batch example's "
+                            "variable (wrong-class cue training)")
         p.add_argument("-v", "--verbose", dest="verbose_mode", type=int,
                        default=None)
         return p
@@ -764,7 +844,15 @@ class Config:
                 ("phase_sample_every", "PHASE_SAMPLE_EVERY"),
                 ("requant_pallas", "REQUANT_PALLAS"),
                 ("sparse_update_pallas", "SPARSE_UPDATE_PALLAS"),
-                ("logs_path", "LOG_PATH"),
+                ("logs_path", "LOG_PATH"), ("attack", "ATTACK"),
+                ("attack_target", "ATTACK_TARGET"),
+                ("attack_input", "ATTACK_INPUT"),
+                ("attack_method_index", "ATTACK_METHOD_INDEX"),
+                ("attack_max_renames", "ATTACK_MAX_RENAMES"),
+                ("attack_topk", "ATTACK_TOPK"),
+                ("attack_iters", "ATTACK_ITERS"),
+                ("adv_rename_prob", "ADV_RENAME_PROB"),
+                ("adv_rename_mode", "ADV_RENAME_MODE"),
                 ("verbose_mode", "VERBOSE_MODE")):
             value = getattr(ns, dest)
             if value is not None:
@@ -775,6 +863,7 @@ class Config:
                 ("xf_remat", "XF_REMAT", True),
                 ("no_bf16", "USE_BF16", False), ("trace", "TRACE", True),
                 ("no_pallas", "USE_PALLAS", False),
+                ("attack_deadcode", "ATTACK_DEADCODE", True),
                 ("serve_autoscale", "SERVE_AUTOSCALE", True),
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):

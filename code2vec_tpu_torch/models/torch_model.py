@@ -956,8 +956,25 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
             num_sampled=cfg.NUM_SAMPLED_CLASSES,
             compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
             requant_kernel=self.requant_kernel, row_kernel=self.row_kernel,
-            sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
+            sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES,
+            augment_fn=self._rename_augment())
         self.step_config = self._train_step.cfg
+
+    def _rename_augment(self):
+        """The rename defense's augment under ADV_RENAME_PROB > 0 (built
+        once: the legal mask walks the whole token vocabulary), else
+        None."""
+        cfg = self.config
+        if cfg.ADV_RENAME_PROB <= 0:
+            return None
+        if getattr(self, "_augment", None) is None:
+            from code2vec_tpu_torch.attacks.defense import (
+                legal_token_mask, make_rename_augment)
+            self._augment = make_rename_augment(
+                legal_token_mask(self.vocabs.token_vocab, self.dims),
+                cfg.ADV_RENAME_PROB, mode=cfg.ADV_RENAME_MODE,
+                device=self.device)
+        return self._augment
 
     def _train_data_path(self) -> str:
         return self.config.data_path("train")
@@ -1086,8 +1103,9 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
                 "trust_ratio_scope": cfg.TRUST_RATIO_SCOPE,
                 "lr_schedule": cfg.LR_SCHEDULE,
                 "lr_warmup_steps": cfg.LR_WARMUP_STEPS,
-                # the JAX package's augmentation, which the port has not
-                "adv_rename_prob": 0.0, "adv_rename_mode": "uniform"}
+                # provenance only (no structural effect on restore)
+                "adv_rename_prob": cfg.ADV_RENAME_PROB,
+                "adv_rename_mode": cfg.ADV_RENAME_MODE}
 
     def release(self) -> None:
         """`--release`: the loaded checkpoint's params, without optimizer

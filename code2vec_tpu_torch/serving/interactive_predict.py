@@ -8,14 +8,17 @@ client of `serving/server.py`. Extraction rides the persistent worker
 pool (the port's native extractor, built at first use), prediction goes
 through the micro-batcher (a single-user REPL flushes as a batch of
 one), and repeated extractions of an unchanged file hit the LRU
-prediction cache. The `attack` command is not ported yet: it says so
-and the REPL goes on.
+prediction cache. `attack [targetName]` runs the source-level rename
+attack on the file (attacks/source_attack.py: one `SourceAttack` a
+session, with the `--attack_*` knobs) and prints its verified outcome;
+an extraction or attack error is printed and the REPL goes on.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from typing import Optional
 
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.obs import Telemetry, format_latency_line
@@ -46,6 +49,7 @@ class InteractivePredictor:
         # the server wires model.telemetry to the same registry and owns
         # the batcher / cache / extractor-pool lifecycle
         self.server = PredictionServer(config, model, telemetry=tele)
+        self._source_attack = None  # built at the first `attack`
 
     def predict(self, input_file: str = DEFAULT_INPUT_FILE) -> None:
         print(f"Serving. Modify the file: \"{input_file}\", then press any "
@@ -75,8 +79,8 @@ class InteractivePredictor:
                     continue
                 words = user_input.strip().split()
                 if words and words[0].lower() == "attack":
-                    print("Attack error: the adversarial attacks are not "
-                          "ported to code2vec_tpu_torch yet")
+                    self._attack(input_file,
+                                 words[1] if len(words) > 1 else None)
                     continue
                 t0 = time.perf_counter()
                 try:
@@ -111,3 +115,25 @@ class InteractivePredictor:
         finally:
             self.server.close()
             self.telemetry.close()  # flush the serve run's summary
+
+    def _attack(self, input_file: str, target: Optional[str]) -> None:
+        """`attack [targetName]`: the gradient rename attack on the
+        current file, its verified outcome printed."""
+        from code2vec_tpu_torch.attacks.source_attack import (
+            SourceAttack, normalize_target_name)
+        if self._source_attack is None:
+            # one instance a session, with the command line's knobs
+            self._source_attack = SourceAttack(
+                self.config, self.model,
+                top_k_candidates=self.config.ATTACK_TOPK,
+                max_iters=self.config.ATTACK_ITERS)
+        target = normalize_target_name(target)
+        try:
+            result = self._source_attack.attack_file(
+                input_file, targeted=target is not None,
+                target_name=target,
+                max_renames=self.config.ATTACK_MAX_RENAMES)
+        except (ExtractorError, ValueError) as e:
+            print(f"Attack error: {e}")
+            return
+        print(str(result))

@@ -2,9 +2,11 @@
 sparse-row steps.
 
 The JAX package draws a step's randomness from the step's key inside the
-jitted step: the dropout keep mask, the sampled-softmax candidate ids
-and one uint32 dither salt per int8 table. JAX threefry and torch's
-generators never agree, so the port takes these as a `StepDraws`: tests
+jitted step: the dropout keep mask, the sampled-softmax candidate ids,
+one uint32 dither salt per int8 table and, under the rename defense
+(`--adv_rename_prob`, attacks/defense.py), the augment's draws. JAX
+threefry and torch's generators never agree, so the port takes these
+as a `StepDraws`: tests
 pass draws made on the JAX side exactly as its step makes them, and the
 trainer draws them from generators seeded from (seed, step).
 """
@@ -12,7 +14,7 @@ trainer draws them from generators seeded from (seed, step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -28,6 +30,8 @@ class StepDraws:
     keep: Optional[torch.Tensor]    # bool [B, C, 3E]; None without dropout
     sampled: Optional[torch.Tensor]  # int32 [S]; None under full softmax
     salts: Dict[str, int]           # uint32 dither salt per int8 table
+    # the rename defense's attacks.defense.RenameDraws; None without it
+    rename: Optional[Any] = None
 
 
 def quantized_keys(params) -> list:
@@ -38,10 +42,14 @@ def quantized_keys(params) -> list:
 def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
                step: int, device) -> StepDraws:
     """A step's draws from generators seeded from (seed, step): the keep
-    mask and the sampled ids on `device`, the salts on the host. `cfg` is
-    the step's config (its `use_sampled_softmax` and `num_sampled`)."""
+    mask and the sampled ids on `device`, the salts on the host, and the
+    rename draws of the step's augment on `device` from a generator of
+    their own (the other draws are those of a step without it). `cfg`
+    is the step's config (its `use_sampled_softmax`, `num_sampled` and,
+    for the dense step, `augment`)."""
     ss = np.random.SeedSequence((seed, step))
-    torch_seed, salt_seed = (int(x) for x in ss.generate_state(2, np.uint64))
+    torch_seed, salt_seed, rename_seed = (
+        int(x) for x in ss.generate_state(3, np.uint64))
     gen = torch.Generator(device=device).manual_seed(torch_seed >> 1)
     keep = None
     if dims.dropout_keep_rate < 1.0:
@@ -55,5 +63,11 @@ def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
     qkeys = quantized_keys(params)
     salts = np.random.default_rng(salt_seed).integers(
         0, 2 ** 32, size=len(qkeys), dtype=np.uint64)
+    rename = None
+    augment = getattr(cfg, "augment", None)
+    if augment is not None:
+        rgen = torch.Generator(device=device).manual_seed(rename_seed >> 1)
+        rename = augment.draw(rgen, batch_size, dims.max_contexts)
     return StepDraws(keep=keep, sampled=sampled,
-                     salts={k: int(s) for k, s in zip(qkeys, salts)})
+                     salts={k: int(s) for k, s in zip(qkeys, salts)},
+                     rename=rename)

@@ -28,6 +28,12 @@ transformer path-encoder, as `dims.encoder_type` says.
   table's dither salt;
 - `sparse_updates=True`: the sparse-row step (training/sparse_steps.py).
 
+The dense step takes an `augment_fn(batch, rename_draws) -> batch`, the
+rename defense (attacks/defense.py, `--adv_rename_prob`), applied to the
+batch before the forward with the step's `draws.rename`, as the JAX
+step applies it inside the jit; the sparse-row step has no such hook,
+as in the JAX package.
+
 Unlike the JAX functions, which donate their buffers and return new
 ones, the port's steps update the params and the optimizer state IN
 PLACE and return only the loss, a 0-d device tensor. A step's
@@ -52,7 +58,7 @@ of tensors on the params' device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,6 +84,9 @@ class DenseStepConfig:
     use_sampled_softmax: bool = False
     num_sampled: int = 4096
     compute_dtype: torch.dtype = torch.float32
+    # the rename defense's augment (attacks/defense.RenameAugment), whose
+    # draws training/draws.make_draws makes; None without the defense
+    augment: Optional[Any] = None
 
 
 def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
@@ -165,11 +174,15 @@ def apply_dense_updates(params: Params, updates: Dict[str, torch.Tensor],
 
 def dense_train_step(params: Params, opt_state, batch, draws: StepDraws, *,
                      loss_fn: Callable, optimizer: GradientTransformation,
-                     use_kernel: bool = True) -> torch.Tensor:
+                     use_kernel: bool = True,
+                     augment_fn: Optional[Callable] = None) -> torch.Tensor:
     """One dense training step, in place on `params` and `opt_state`
     (from `optimizer.init(opt_param_view(params))`). `use_kernel` picks
     the requantize of int8 tables (kernel 4 or its plain version); the
-    pool is `loss_fn`'s. Returns the loss."""
+    pool is `loss_fn`'s. `augment_fn` rewrites the batch first, with
+    `draws.rename`. Returns the loss."""
+    if augment_fn is not None:
+        batch = augment_fn(batch, draws.rename)
     loss, grads, view = dense_loss_and_grads(params, batch, draws, loss_fn)
     updates = optimizer.update(grads, opt_state, view)
     apply_dense_updates(params, updates, draws.salts, use_kernel=use_kernel)
@@ -183,7 +196,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
                     use_kernel: bool = True,
                     requant_kernel: Optional[bool] = None,
                     row_kernel: Optional[bool] = None,
-                    sparse_updates: bool = False) -> Callable:
+                    sparse_updates: bool = False,
+                    augment_fn: Optional[Callable] = None) -> Callable:
     """Returns `step(params, opt_state, batch, draws) -> loss`, which
     updates params and opt_state in place.
 
@@ -195,8 +209,14 @@ def make_train_step(dims: ModelDims, optimizer, *,
     `use_kernel=False` runs the plain pool (or MHA) on any device, and
     the plain requantize and row apply too unless `requant_kernel` /
     `row_kernel` (default: `use_kernel`) say otherwise: the command
-    line's --no_pallas, --requant_pallas and --sparse_update_pallas."""
+    line's --no_pallas, --requant_pallas and --sparse_update_pallas.
+    `augment_fn` is the dense step's rename defense (see the module
+    docstring); the sparse-row step refuses one."""
     if sparse_updates:
+        if augment_fn is not None:
+            raise ValueError("the sparse-row step has no augmentation hook "
+                             "(Config.verify refuses --adv_rename_prob "
+                             "with it)")
         if not isinstance(optimizer, AdamF32Moments):
             raise TypeError("the sparse-row step takes AdamF32Moments, got "
                             f"{type(optimizer).__name__}")
@@ -213,7 +233,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
     else:
         cfg = DenseStepConfig(use_sampled_softmax=use_sampled_softmax,
                               num_sampled=num_sampled,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype,
+                              augment=augment_fn)
         loss_fn = make_train_loss_fn(
             dims, use_sampled_softmax=use_sampled_softmax,
             num_sampled=num_sampled, compute_dtype=compute_dtype,
@@ -224,7 +245,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
                                     loss_fn=loss_fn, optimizer=optimizer,
                                     use_kernel=use_kernel
                                     if requant_kernel is None
-                                    else requant_kernel)
+                                    else requant_kernel,
+                                    augment_fn=augment_fn)
 
     step.cfg = cfg
     return step
@@ -232,17 +254,21 @@ def make_train_step(dims: ModelDims, optimizer, *,
 
 def topk_stable(probs: torch.Tensor, k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`jax.lax.top_k` over the last axis of probabilities p >= 0 (no -0):
-    -> (values [..., k], ids [..., k] int64), by descending value and,
-    among equal values, the lowest id first, at the k-th value's boundary
-    too. `torch.topk` runs over one int64 key per element, the float32
-    bits of p (ordered as p is, since p >= 0) above 2^32 - 1 - id, so the
-    keys are distinct and their order is the reference's. The key is a
-    [..., V] int64 tensor: 2.1 GB at [1024, 261,247]."""
+    """`jax.lax.top_k` over the last axis of float32 values (no NaN; the
+    probabilities of the eval and predict steps, the attack's first-order
+    scores with +-inf): -> (values [..., k], ids [..., k] int64), by
+    descending value and, among equal values, the lowest id first, at the
+    k-th value's boundary too. `torch.topk` runs over one int64 key per
+    element, the float32 bits ordered as the values are (a negative
+    value's bits flipped below the sign; -0 below +0) above
+    2^32 - 1 - id, so the keys are distinct and their order is the
+    reference's. The key is a [..., V] int64 tensor: 2.1 GB at
+    [1024, 261,247]."""
     probs = probs.to(torch.float32).contiguous()
     V = probs.shape[-1]
     low = 0xFFFFFFFF - torch.arange(V, dtype=torch.int64, device=probs.device)
-    key = probs.view(torch.int32).to(torch.int64)
+    bits = probs.view(torch.int32)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
     key.bitwise_left_shift_(32).bitwise_or_(low)
     ids = torch.topk(key, k, dim=-1).indices
     return torch.gather(probs, -1, ids), ids

@@ -230,15 +230,20 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
     (["--ring_attention"], "--ring_attention"),
     # the head is ported; its bag-only rule still exits 2 naming it
     (["--head", "varmisuse", "--encoder", "transformer"], "--head varmisuse"),
-    (["--attack", "untargeted"], "--attack"),
+    # the attacks and the defense are ported: the JAX package's rules
+    (["--attack", "untargeted"], "--attack requires --load."),
     (["--infeed_chunk", "2"], "--infeed_chunk 2"),
     (["--mesh_data", "2"], "--mesh_data"),
     (["--dist_num_processes", "2"], "--dist_num_processes"),
-    (["--adv_rename_prob", "0.3"], "--adv_rename_prob"),
-    (["--attack_target", "get"], "--attack_target"),
+    (["--adv_rename_prob", "1.5"], "--adv_rename_prob must be in [0, 1]."),
+    (["--load", "x", "--attack", "targeted"],
+     "--attack targeted requires --attack_target <name>."),
     (["--backend", "tpu"], "--backend tpu"),
 ])
 def test_unported_flags_exit_2_naming_them(dataset, flags, named, capsys):
+    """A flag the port lacks exits 2 naming it; the attack and defense
+    flags, which it has, exit 2 with the JAX package's message where
+    that package's verify refuses them."""
     rc = cli.main(["--data", dataset, "--backend", "cpu", *flags])
     assert rc == 2
     assert named in capsys.readouterr().err

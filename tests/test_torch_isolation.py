@@ -83,6 +83,19 @@ def test_scan_covers_the_varmisuse_modules(module):
     assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
 
 
+@pytest.mark.parametrize("module", [
+    "attacks/__init__.py", "attacks/gradient_attack.py",
+    "attacks/source_attack.py", "attacks/detect.py",
+    "attacks/robustness.py", "attacks/defense.py", "attacks/vm_attack.py",
+    "attacks/vm_robustness.py"])
+def test_scan_covers_the_attack_modules(module):
+    """The attacks' modules are among the scanned sources and import
+    neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_in_port_sources(path):

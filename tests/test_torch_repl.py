@@ -165,22 +165,41 @@ def test_repl_prints_what_the_jax_repl_prints(world, monkeypatch, capsys):
 
 def test_repl_attack_says_not_ported_and_goes_on(world, monkeypatch,
                                                  capsys):
+    """`attack` and `attack <name>` run the source-level attack (its
+    outcome, or `Attack error:` for a target out of the vocabulary), as
+    the JAX REPL prints them, and the loop goes on to a prediction."""
     monkeypatch.setenv("C2V_EXTRACTOR", world["binary"])
     monkeypatch.chdir(world["dir"])
-    keys = iter(["attack", "attack isEmpty", ""])
 
-    def fake_input(*a):
-        try:
-            return next(keys)
-        except StopIteration:
-            raise EOFError from None
-    monkeypatch.setattr("builtins.input", fake_input)
-    trepl.InteractivePredictor(world["tcfg"], world["tmodel"]).predict()
-    out = capsys.readouterr().out.splitlines()
-    assert sum("not ported" in ln for ln in out) == 2
+    def run(predictor_cls, config, model):
+        keys = iter(["attack", "attack noSuchTargetName", ""])
+
+        def fake_input(*a):
+            try:
+                return next(keys)
+            except StopIteration:
+                raise EOFError from None
+        monkeypatch.setattr("builtins.input", fake_input)
+        predictor_cls(config, model).predict()
+        return capsys.readouterr().out.splitlines()
+    want = run(jrepl.InteractivePredictor, world["jcfg"], world["jmodel"])
+    out = run(trepl.InteractivePredictor, world["tcfg"], world["tmodel"])
+    assert sum(ln.startswith("[untargeted ") for ln in out) == 1
+    errors = [ln for ln in out if ln.startswith("Attack error:")]
+    assert errors == ["Attack error: target name 'no|such|target|name' is "
+                      "out of vocabulary"]
+    assert not any("not ported" in ln for ln in out)
     assert sum(ln.startswith("Original name:") for ln in out) \
         == world["n_java"]
     assert out[-1] == "Exiting..."
+    # the attack's lines as the JAX REPL prints them
+    attack = [ln for ln in out if ln.startswith(("[untargeted ",
+                                                 "source rewrites:",
+                                                 "re-extracted ",
+                                                 "Attack error:"))]
+    assert attack == [ln for ln in want if ln.startswith((
+        "[untargeted ", "source rewrites:", "re-extracted ",
+        "Attack error:"))]
 
 
 def test_python_file_through_both_servers(world):

@@ -305,30 +305,28 @@ CODE2VEC_ONLY = ("--predict/--release/--save_w2v/--save_t2v/"
     (["--load", "x", "--test", "t", "--export_code_vectors"], CODE2VEC_ONLY),
     (["--tables_dtype", "int8"],
      "--tables_dtype int8 supports the code2vec head only."),
-    (["--adv_rename_prob", "0.3"], "not ported to code2vec_tpu_torch yet: "
-     "--adv_rename_prob"),
+    (["--adv_rename_prob", "0.3"],
+     "--adv_rename_prob applies to the code2vec head only (the varmisuse "
+     "train step has no augmentation hook)."),
     (["--load", "x", "--attack", "untargeted"],
-     "not ported to code2vec_tpu_torch yet: --attack"),
+     "--attack applies to the code2vec head only."),
     (["--encoder", "transformer"],
      "--head varmisuse supports the bag encoder only"),
 ], ids=["predict", "release", "save_w2v", "save_t2v", "export_code_vectors",
         "int8", "adv_rename_prob", "attack", "transformer"])
 def test_head_rules_refuse_what_the_jax_package_refuses(flags, port_says):
     """Each combination the JAX package's verify refuses with --head
-    varmisuse is refused by the port's command line too: the same
-    message where the port has the flag, "not ported" where it has not
-    (the attacks and the rename augmentation); without --head varmisuse
-    both accept it."""
+    varmisuse is refused by the port's command line too, with the same
+    message; without --head varmisuse both accept it."""
     argv = ["--data", "p", "--head", "varmisuse", "--backend", "cpu", *flags]
     with pytest.raises(ValueError) as jax_err:
         JConfig.load_from_args(argv)
     with pytest.raises(ValueError) as port_err:
         Config.load_from_args(argv)
     assert port_says in str(port_err.value)
-    if "not ported" not in port_says:
-        assert str(port_err.value) == str(jax_err.value)
-        code2vec = [a for a in argv if a not in ("--head", "varmisuse")]
-        Config.load_from_args(code2vec)
+    assert str(port_err.value) == str(jax_err.value)
+    code2vec = [a for a in argv if a not in ("--head", "varmisuse")]
+    Config.load_from_args(code2vec)
 
 
 # ---- the command line ----
