@@ -265,9 +265,37 @@ Phases (any failure raises, and the script exits non-zero):
    exactly on a verified success), `--attack` with int8 tables or without
    `--load` exiting 2, and the REPL answering `attack` (counted: kernel
    1); (l) `attacks.vm_robustness`'s `main` on [21]'s checkpoint and test
-   split (its report line; counted: kernel 1);
-23. a `{"kernels": [...]}` line, the card line, and last
+   split (its report line; counted: kernel 1); (m) the robustness study
+   (`code2vec_tpu_torch.tools.robustness_study`'s `main`) on a tiny
+   corpus: both arms, one epoch, 8 attacks, `--detect` (a JSON row an
+   arm and the table);
+23. data-parallel training across processes: two children of the
+   command line (`cli.main`, as `python3 -m code2vec_tpu_torch` runs it)
+   with `--dist_coordinator 127.0.0.1:<port> --dist_num_processes 2
+   --dist_process_id i --mesh_data 2` on cuda:0 (gloo: the two ranks
+   share the card), (c)'s configuration then (a)'s on [14]'s binary
+   shards, one epoch (2 steps a rank), `--test` and `--save`: both exit
+   0, their final params bit-identical (sha256 a leaf), kernel 1 (and
+   kernel 5 in (a)) launched in each (the children print their counts),
+   the merged evaluation equal to one process's evaluation of the saved
+   checkpoint, rank 0 alone writing it with `topology.json` saying 2.
+   Then, in the same two children, one step of (c) and one of (a) at
+   java-large width against one process over the ranks' batches
+   concatenated with the same draws (the largest differences beside the
+   bounds), the two-rank step twice from one state (the same bits),
+   `mesh_sparse_apply` against the one-process compact apply (the same
+   bits), and the step ms of one rank alone and of two, and the gradient
+   all-reduce's (gloo through the host on one card: not a scaling
+   number). Last, one rank over NCCL through the same flags
+   (`--dist_num_processes 1`): one (c) step and a collective,
+   bit-identical to the plain step;
+24. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
+
+[4], (c) in [8] and (e) in [12] also hold the float32-output logits of
+bf16 operands (`ops/logits.rows_product_f32`: `torch.mm(...,
+out_dtype=float32)` on the card) against their CPU branch on the same
+tensors, and time them beside the product rounded to bf16 first.
 
 Without a CUDA card it exits with code 2 and prints no result. It imports
 nothing of JAX. `--out FILE` also writes every measurement as JSON.
@@ -718,6 +746,8 @@ def phase_serving(torch, np, vocabs, report):
     config = Config(MAX_CONTEXTS=C, SERVE_BATCH_MAX=64, USE_BF16=True,
                     TABLES_DTYPE="bfloat16", SERVE_DEADLINE_MS=30000.0)
     model = Code2VecModel(config, dims, vocabs, params)  # device=None: the card
+    logits_branches(torch, "serving", random_code(torch, 64, SEED + 4),
+                    params["target_emb"], report)
     check(model.device.type == "cuda", f"model on {model.device}")
     table_gb = sum(t.numel() * t.element_size() for k, t in params.items()
                    if k.endswith("_emb")) / 1e9
@@ -1468,6 +1498,9 @@ def phase_dense_config(torch, np, vocabs, data_path, label, cfg, report):
     print(f"  ({label}) tables {cfg.TABLES_DTYPE}, {head}, Adafactor + Adam, "
           f"cosine LR; int8 tables {qkeys}; set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if label == "c":
+        logits_branches(torch, label, random_code(torch, TRAIN_B, SEED + 8),
+                        trainer.params["target_emb"], report)
 
     # ---- the main path: counts at 0 just before, read just after ----
     attention_pool_fused.launches = 0
@@ -2054,6 +2087,9 @@ def phase_xf_train(torch, np, vocabs, data_path, report):
           f"{xf_n} Adam params, tables bf16, sampled softmax S={TRAIN_S}, "
           f"Adafactor + Adam at a constant {cfg.LEARNING_RATE}; set up in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the sampled logits: the code against the step's gathered rows
+    logits_branches(torch, label, random_code(torch, TRAIN_B, SEED + 12),
+                    trainer.params["target_emb"][:TRAIN_S], report)
 
     # ---- the main path: counts at 0 just before, read just after ----
     zero_xf_counts()
@@ -6017,11 +6053,583 @@ def phase_attacks(torch, np, vocabs, tmp, data_path, test_path, peaks,
     defended = phase_defended(torch, np, vocabs, lv, data_path, report)
     cli_launches = phase_attack_cli(torch, np, tmp, report)
     vm_launches = phase_attack_vm(torch, tmp, report)
+    phase_robustness_study(torch, np, tmp, report)
     return {"attention_pool": bag + defended["attention_pool"]
             + cli_launches + vm_launches,
             "xf_attention_forward": xf["xf_attention_forward"],
             "xf_attention_backward": xf["xf_attention_backward"],
             "requantize": defended["requantize"]}
+
+
+# ---- [4], (c), (e): the float32 logits of bf16 operands ----
+
+# the CPU test's bound (tests/test_torch_bf16_logits.py): each logit
+# within 4 float32 ulp of sum_d |a_d * b_d|; the gradients, rounded to
+# bf16 on both branches, within that plus 1 bf16 ulp of their largest
+LOGITS_ULPS = 4
+LOGITS_CPU_ROWS = 32768  # the rows held against the CPU branch
+
+
+def logits_branches(torch, label, code, rows, report):
+    """`ops/logits.rows_product_f32` on the card (`torch.mm(...,
+    out_dtype=float32)`) against its CPU branch (`a.float() @
+    b.float()`) on the same bf16 tensors, forward and both gradients,
+    over the first LOGITS_CPU_ROWS rows; then its time on all the rows
+    beside the product rounded to bf16 before the cast, the cost of the
+    fix."""
+    from code2vec_tpu_torch.ops.logits import rows_product_f32
+    n = min(rows.shape[0], LOGITS_CPU_ROWS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    g = torch.randn((code.shape[0], n), generator=gen, device="cuda")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        a = code.detach().to(dev).requires_grad_(True)
+        r = rows[:n].detach().to(dev).requires_grad_(True)
+        y = rows_product_f32(a, r)
+        ga, gr = torch.autograd.grad(y, [a, r], g.to(dev))
+        outs[dev] = [t.detach().double().cpu() for t in (y, ga, gr)]
+    ulp = LOGITS_ULPS * 2.0 ** -23
+    a64 = code.double().cpu().abs()
+    r64 = rows[:n].to(code.dtype).double().cpu().abs()
+    g64 = g.to(code.dtype).double().cpu().abs()
+    bounds = [ulp * a64 @ r64.T, ulp * g64 @ r64, ulp * g64.T @ a64]
+    worst = []
+    for i, (x, y, b) in enumerate(zip(outs["cuda"], outs["cpu"], bounds)):
+        if i:
+            b = b + 2.0 ** -7 * y.abs().max()
+        d = (x - y).abs()
+        worst.append(d.max().item())
+        check(bool((d <= b).all()), f"({label}) float32 logits: the card's "
+              f"mm.dtype branch vs the CPU branch, output {i}: {d.max()} "
+              f"over the bound")
+    f32_ms = time_ms(torch, lambda: rows_product_f32(code, rows), reps=10)
+    rounded_ms = time_ms(torch, lambda: (code @ rows.to(code.dtype).T)
+                         .to(torch.float32), reps=10)
+    report[f"logits_f32_{label}"] = {
+        "shape": [code.shape[0], rows.shape[0], code.shape[1]],
+        "max_abs_diff_cpu": worst, "f32_out_ms": f32_ms,
+        "bf16_rounded_ms": rounded_ms}
+    print(f"  ({label}) float32 logits [{code.shape[0]}, {rows.shape[0]}] "
+          f"from bf16: the card's mm.dtype branch vs the CPU branch on "
+          f"{n} rows, largest differences (logits, dcode, drows) "
+          f"{', '.join(f'{w:.3g}' for w in worst)} within {LOGITS_ULPS} "
+          f"float32 ulp of sum|a*b| (+1 bf16 ulp for the gradients); "
+          f"{f32_ms:.3f} ms vs {rounded_ms:.3f} ms rounded to bf16 first "
+          f"(CUDA events)", flush=True)
+
+
+def random_code(torch, rows: int, seed: int):
+    """A bf16 [rows, D] code vector block of the spread a pool gives."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.rand((rows, D), generator=gen, device="cuda") * 2 - 1) \
+        .to(torch.bfloat16)
+
+
+# ---- [22]: the robustness study ----
+
+RS_TRAIN, RS_VAL, RS_ATTACKS = 512, 48, 8
+
+
+def write_study_corpus(np, raw_dir: str) -> None:
+    """Raw extractor lines whose target is recoverable from its
+    identifiers (the class picks them; the paths carry it 30% of the
+    time), all-letter identifiers the attack can rename."""
+    rng = np.random.default_rng(SEED + 22)
+    for split, n in (("train", RS_TRAIN), ("val", RS_VAL), ("test", RS_VAL)):
+        with open(os.path.join(raw_dir, f"{split}.txt"), "w") as f:
+            for _ in range(n):
+                k = int(rng.integers(len(ATK_NAMES)))
+                ctxs = []
+                for _ in range(int(rng.integers(3, 12))):
+                    a = ATK_IDENTS[(k + int(rng.integers(2)))
+                                   % len(ATK_IDENTS)]
+                    b = ATK_IDENTS[(3 * k + int(rng.integers(2)))
+                                   % len(ATK_IDENTS)]
+                    p = 1000 + (k if rng.random() < 0.3
+                                else int(rng.integers(50)))
+                    ctxs.append(f"{a},{p},{b}")
+                f.write(ATK_NAMES[k] + " " + " ".join(ctxs) + "\n")
+
+
+def phase_robustness_study(torch, np, tmp, report) -> None:
+    """`python -m code2vec_tpu_torch.tools.robustness_study` on the card
+    (its `main`, in this process): both arms, one epoch, a tiny corpus,
+    `--detect`; one JSON row an arm and the table."""
+    import contextlib
+    import io
+
+    from code2vec_tpu_torch.data import preprocess
+    from code2vec_tpu_torch.tools import robustness_study
+    t0 = time.perf_counter()
+    raw = os.path.join(tmp, "study_raw")
+    os.makedirs(raw, exist_ok=True)
+    write_study_corpus(np, raw)
+    prefix = os.path.join(tmp, "study")
+    sizes = ["--word_vocab_size", "1000", "--path_vocab_size", "1000",
+             "--target_vocab_size", "1000"]
+    preprocess.main(["--train_data", os.path.join(raw, "train.txt"),
+                     "--val_data", os.path.join(raw, "val.txt"),
+                     "--test_data", os.path.join(raw, "test.txt"),
+                     "--max_contexts", "16", *sizes,
+                     "--output_name", prefix])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = robustness_study.main([
+            "--data", prefix, "--epochs", "1", "--batch", "64",
+            "--n_attacks", str(RS_ATTACKS), "--max_contexts", "16",
+            "--detect", *sizes])
+    out = buf.getvalue().splitlines()
+    rows = [json.loads(ln) for ln in out if ln.startswith("{")]
+    check(rc == 0 and [r["arm"] for r in rows] == ["baseline", "defended"],
+          f"(study) rc {rc}, rows {rows}")
+    for r in rows:
+        # the detector scores the successful variants: its keys come
+        # with a success
+        check(0 < r["n_attacks"] <= RS_ATTACKS
+              and 0.0 <= r["attack_success_rate"] <= 1.0
+              and 0.0 <= r["clean_top1"] <= 1.0
+              and ("detection_auc" in r) == (r["attack_success_rate"] > 0),
+              f"(study) row {r}")
+    check(any(ln.startswith("arm ") for ln in out), "(study) no table")
+    study_s = time.perf_counter() - t0
+    report["robustness_study"] = {"rows": rows, "s": study_s}
+    for ln in out:
+        if ln.startswith("{") or ln.split()[:1] in (["arm"], ["baseline"],
+                                                     ["defended"]):
+            print(f"  (study) {ln}", flush=True)
+    print(f"  (study) robustness_study on the card, {RS_TRAIN} methods, "
+          f"1 epoch, both arms, --detect: {study_s:.1f} s", flush=True)
+
+
+# ---- [23]: data-parallel training across processes ----
+
+DP_WORLD = 2
+DP_CHILD_TIMEOUT_S = 420
+DP_REPS = 3  # timed steps of each kind in the harness
+DP_CONFIGS = {
+    "c": [],
+    "a": ["--sparse_embeddings", "--embedding_optimizer", "adam",
+          "--lr_schedule", "constant", "--sampled_softmax", "--num_sampled",
+          str(TRAIN_S)],
+}
+
+
+def dp_flags(port: int, world: int, rank: int):
+    return ["--dist_coordinator", f"127.0.0.1:{port}",
+            "--dist_num_processes", str(world), "--dist_process_id",
+            str(rank), "--mesh_data", str(world)]
+
+
+def leaf_digests(torch, params) -> dict:
+    """{leaf path: sha256 of its bytes} of a params tree."""
+    import hashlib
+    return {p: hashlib.sha256(t.detach().contiguous().view(torch.uint8)
+                              .cpu().numpy().tobytes()).hexdigest()
+            for p, t in named_tensors(params)}
+
+
+def dp_child() -> None:
+    """One rank of [23] (`python3 -c 'import chip_smoke;
+    chip_smoke.dp_child()' <spec.json>`): the command line with the
+    `--dist_*` flags for (c) then (a) (`cli.main`, which `python3 -m
+    code2vec_tpu_torch` runs), then the function-level harness
+    (`dp_harness`). Prints `DP_RESULT <json>` and exits 0 only if all
+    passed."""
+    import torch
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.models.torch_model import TrainerBase
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import \
+        sparse_row_adam_fused
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    rank, world = spec["rank"], spec["world"]
+    out = {"rank": rank}
+    # the identity the training loop stamps on its telemetry, read while
+    # the process group is up (cli.main leaves the group at its end)
+    identities = []
+    real_identity = TrainerBase.identity
+
+    def identity(self):
+        identities.append(real_identity(self))
+        return identities[-1]
+
+    TrainerBase.identity = identity
+    for label, port in zip(DP_CONFIGS, spec["ports"]):
+        argv = spec["base"] + DP_CONFIGS[label] + [
+            "--save", spec["ckpt"][label]] + dp_flags(port, world, rank)
+        attention_pool_fused.launches = 0
+        sparse_row_adam_fused.launches = 0
+        t = time.perf_counter()
+        with Recorder(torch) as rec:
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        check(rc == 0, f"(dp {label}) rank {rank}: cli.main exited {rc}")
+        trainer = rec.made[-1]
+        out[label] = {
+            "run_s": time.perf_counter() - t,
+            "launches": {"attention_pool": attention_pool_fused.launches,
+                         "sparse_row_adam": sparse_row_adam_fused.launches},
+            "losses": rec.loss_values(), "steps": trainer.step_num,
+            "digests": leaf_digests(torch, trainer.params),
+            "evals": [(s, vars(r)) for s, r in rec.evals],
+            "identity": identities[-1]}
+        del rec, trainer
+        torch.cuda.empty_cache()
+    out["harness"] = dp_harness(torch, rank, world, spec["ports"][-1],
+                                spec["train"])
+    print("DP_RESULT " + json.dumps(out), flush=True)
+
+
+def dp_harness(torch, rank: int, world: int, port: int, data_path: str):
+    """One step of (c) and one of (a) at java-large width on `world`
+    ranks (gloo, the card shared) against one process over the ranks'
+    batches concatenated, with the same draws; the two-rank step twice
+    from one state (the same bits); mesh_sparse_apply against the
+    one-process compact apply on the same global parts (the same bits);
+    the step times of one rank alone and of `world` ranks, and the
+    gradient all-reduce's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.parallel.sharding import (batch_rows,
+                                                      check_replicas)
+    from code2vec_tpu_torch.training.checkpoint import (map_state,
+                                                        state_tensors)
+    from code2vec_tpu_torch.training.draws import make_draws
+    from code2vec_tpu_torch.training.sparse_steps import reduce_step_grads
+    from code2vec_tpu_torch.training.steps import dense_loss_and_grads
+    check(distributed.maybe_initialize(f"127.0.0.1:{port}", world, rank,
+                                       device_type="cuda"),
+          "(dp harness) no process group")
+    check(distributed.backend() == "gloo", f"(dp harness) backend "
+          f"{distributed.backend()} for {world} ranks on one card")
+    vocabs = synthetic_vocabs()
+    G = TRAIN_B * world
+    glob_np = next(iter(C2VTextReader(data_path, vocabs, C, G)))
+    out = {}
+    for label, cfg in (dense_config("c", "bfloat16", False),
+                       train_config("a", "bfloat16", True)):
+        trainer = Code2VecTrainer(cfg, vocabs)  # the mesh: world ranks
+        mesh = trainer.mesh
+        check(mesh is not None and mesh.world == world,
+              f"(dp {label}) mesh {mesh}")
+        glob = trainer.device_batch(glob_np)
+        lo, hi = batch_rows(mesh, TRAIN_B)
+        local = tuple(t[lo:hi] for t in glob)
+        step = trainer.step_num
+        draws = trainer.draws_for(TRAIN_B, step)
+        whole = make_draws(trainer.dims, trainer.step_config,
+                           trainer.params, G, cfg.SEED, step, trainer.device)
+        check(torch.equal(draws.keep, whole.keep[lo:hi])
+              and (draws.sampled is None
+                   or torch.equal(draws.sampled, whole.sampled)),
+              f"(dp {label}) the rank's draws are not its rows of the "
+              "global draws")
+        live = {"params": trainer.params, "opt_state": trainer.opt_state}
+        start = map_state(lambda t: t.detach().clone(), live)
+
+        def restore():
+            for dst, src in zip(state_tensors(live), state_tensors(start)):
+                dst.copy_(src)
+
+        runs = []
+        for _ in range(2):
+            restore()
+            loss = trainer._train_step(trainer.params, trainer.opt_state,
+                                       local, draws)
+            runs.append((loss.item(), leaf_digests(torch, trainer.params)))
+        check_replicas(trainer.params, mesh)
+        check(runs[0] == runs[1], f"(dp {label}) the two-rank step twice "
+              "from one state differs")
+        two = map_state(lambda t: t.detach().clone(), trainer.params)
+        # one process over the concatenated batch: the same step without
+        # the mesh, on this rank alone
+        restore()
+        trainer.mesh = None
+        trainer._build_step()
+        one_loss = trainer._train_step(trainer.params, trainer.opt_state,
+                                       glob, whole).item()
+        diffs = {}
+        for (path, a), (_p, b) in zip(named_tensors(two),
+                                      named_tensors(trainer.params)):
+            if a.dtype == torch.int8:
+                diffs[path] = ((a.int() - b.int()).abs().max().item(), 1.0)
+                continue
+            fa, fb = a.float(), b.float()
+            top = fb.abs().max().item()
+            diffs[path] = ((fa - fb).abs().max().item(),
+                           2 * cfg.LEARNING_RATE + 2.0 ** -7 * top)
+        loss_rel = abs(runs[0][0] - one_loss) / abs(one_loss)
+        check(loss_rel <= LOSS_RTOL and all(d <= b for d, b in
+                                            diffs.values()),
+              f"(dp {label}) two ranks vs one process: loss rel "
+              f"{loss_rel:.3g}, {diffs}")
+        # one rank alone at the local batch, then `world` ranks, timed
+        restore()
+        times = {"one_rank_ms": [], "ranks_ms": [], "allreduce_ms": []}
+        dist.barrier()
+        if rank == 0:
+            for _ in range(DP_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer._train_step(trainer.params, trainer.opt_state, local,
+                                    draws)
+                torch.cuda.synchronize()
+                times["one_rank_ms"].append((time.perf_counter() - t) * 1e3)
+        dist.barrier()
+        restore()
+        trainer.mesh = mesh
+        trainer._build_step()
+        for _ in range(DP_REPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer._train_step(trainer.params, trainer.opt_state, local,
+                                draws)
+            torch.cuda.synchronize()
+            times["ranks_ms"].append((time.perf_counter() - t) * 1e3)
+        if label == "c":
+            from code2vec_tpu_torch.training.steps import \
+                make_train_loss_fn
+            loss_fn = make_train_loss_fn(
+                trainer.dims, compute_dtype=trainer.compute_dtype,
+                mesh=mesh)
+            loss, grads, _view = dense_loss_and_grads(
+                trainer.params, local, draws, loss_fn)
+            out["allreduce_bytes"] = sum(g.numel() * g.element_size()
+                                         for g in grads.values())
+            for _ in range(DP_REPS):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                reduce_step_grads(loss, grads, mesh)
+                torch.cuda.synchronize()
+                times["allreduce_ms"].append((time.perf_counter() - t) * 1e3)
+            del grads
+        if label == "a":
+            out["mesh_sparse_apply_exact"] = dp_sparse_apply_check(
+                torch, trainer, mesh)
+        out[label] = {"loss_two": runs[0][0], "loss_one": one_loss,
+                      "loss_rel": loss_rel,
+                      "worst": max(diffs.items(), key=lambda kv: kv[1][0]
+                                   / kv[1][1]),
+                      **{k: sorted(v)[len(v) // 2] if v else None
+                         for k, v in times.items()}}
+        del trainer, live, start, two, glob
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    return out
+
+
+def dp_sparse_apply_check(torch, trainer, mesh) -> bool:
+    """mesh_sparse_apply (kernel 5) over this rank's rows of global
+    parts at the token table's size == the one-process compact apply of
+    the global parts, bit for bit."""
+    from code2vec_tpu_torch.training.sparse_adam import init_row_adam
+    from code2vec_tpu_torch.training.sparse_update import (
+        adam_lr_t, apply_rows, dedup_segment_sum, mesh_sparse_apply)
+    table = trainer.params["token_emb"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    n = TRAIN_B * C * mesh.world
+    ids = torch.randint(0, table.shape[0], (n,), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    grads = torch.randn((n, E), generator=gen, device="cuda") * 1e-3
+    count = torch.full((), 2, dtype=torch.int32, device="cuda")
+    lr_t = adam_lr_t(count, 1e-3, 0.9, 0.999)
+    ref, got = table.clone(), table.clone()
+    ref_s, got_s = init_row_adam(ref), init_row_adam(got)
+    apply_rows(ref, ref_s, *dedup_segment_sum(ids, grads), lr_t=lr_t,
+               b1=0.9, b2=0.999, eps=1e-8)
+    per = n // mesh.world
+    lo = mesh.rank * per
+    mesh_sparse_apply(mesh, got, got_s, [(ids[lo:lo + per],
+                                          grads[lo:lo + per], True)],
+                      lr_t=lr_t)
+    same = (torch.equal(ref, got) and torch.equal(ref_s.m, got_s.m)
+            and torch.equal(ref_s.v, got_s.v))
+    del ref, got, ref_s, got_s
+    return bool(same)
+
+
+def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
+                        report):
+    """[23]: two ranks on the card over gloo through the command line,
+    the function-level harness, one rank over NCCL. Returns the parent's
+    launches (the NCCL step)."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.parallel.compat import free_port
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    from code2vec_tpu_torch.training.checkpoint import (map_state,
+                                                        state_tensors)
+    t0 = time.perf_counter()
+    n_train = count_lines(data_prefix + ".train.c2v")
+    steps = -(-(-(-n_train // DP_WORLD)) // TRAIN_B)
+    base = ["--data", data_prefix, "--test", test_path, "--batch_size",
+            str(TRAIN_B), "--max_contexts", str(C), "--epochs", "1",
+            "--async_checkpoint", "off"]
+    ck = {label: os.path.join(tmp, f"dp_ckpt_{label}")
+          for label in DP_CONFIGS}
+    ports = [free_port() for _ in range(len(DP_CONFIGS) + 1)]
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for rank in range(DP_WORLD):
+        spec_path = os.path.join(tmp, f"dp_spec{rank}.json")
+        with open(spec_path, "w") as f:
+            json.dump({"rank": rank, "world": DP_WORLD, "ports": ports,
+                       "base": base, "ckpt": ck,
+                       "train": data_prefix + ".train.c2v"}, f)
+        env = dict(os.environ, PYTHONPATH=here)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.dp_child()",
+             spec_path], cwd=here, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=DP_CHILD_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for rank, (p, o) in enumerate(zip(procs, outs)):
+        line = next((ln for ln in o.splitlines()
+                     if ln.startswith("DP_RESULT ")), None)
+        if p.returncode != 0 or line is None:
+            print(o[-6000:], flush=True)
+        check(p.returncode == 0 and line is not None,
+              f"(dp) rank {rank} exited {p.returncode}")
+        results.append(json.loads(line[len("DP_RESULT "):]))
+    children_s = time.perf_counter() - t0
+    r0, r1 = results
+    for label in DP_CONFIGS:
+        a, b = r0[label], r1[label]
+        check(a["steps"] == b["steps"] == steps,
+              f"(dp {label}) steps {a['steps']}, {b['steps']} (want {steps})")
+        check(a["digests"] == b["digests"], f"(dp {label}) the ranks' final "
+              "params differ")
+        check(a["evals"] == b["evals"] and len(a["evals"]) == 1,
+              f"(dp {label}) merged evaluations {a['evals']} vs {b['evals']}")
+        check(a["identity"] == {"process_index": 0,
+                                "process_count": DP_WORLD,
+                                "backend": "gloo"}, f"(dp {label}) identity "
+              f"{a['identity']}")
+        for r in (a, b):
+            check(r["launches"]["attention_pool"] > 0,
+                  f"(dp {label}) kernel 1 never launched in a child")
+            if label == "a":
+                check(r["launches"]["sparse_row_adam"] > 0,
+                      f"(dp {label}) kernel 5 never launched in a child")
+        step_dirs = [s for s, _d in ckpt._step_dirs(ck[label])]
+        check(step_dirs == [steps], f"(dp {label}) step dirs {step_dirs}")
+        topo = ckpt.load_step_topology(ck[label], steps)
+        check(topo["num_processes"] == DP_WORLD, f"(dp {label}) topology "
+              f"{topo}")
+        # one process's evaluation of the saved checkpoint
+        cfg = Config.load_from_args(["--load", ck[label], "--test",
+                                     test_path])
+        one = Code2VecTrainer.from_config(cfg, vocabs=vocabs).evaluate()
+        merged = a["evals"][0][1]
+        loss_rel = abs(merged["loss"] - one.loss) / abs(one.loss)
+        check(merged["topk_acc"] == list(one.topk_acc)
+              and merged["subtoken_f1"] == one.subtoken_f1
+              and loss_rel <= 1e-5, f"(dp {label}) merged evaluation "
+              f"{merged} vs one process {one}")
+        print(f"  (dp {label}) two CLI ranks (gloo, cuda:0): {steps} steps "
+              f"each in {a['run_s']:.1f} / {b['run_s']:.1f} s, losses "
+              f"{[round(x, 5) for x in a['losses']]}; final params "
+              f"bit-identical ({len(a['digests'])} leaves, sha256); "
+              f"launches rank 0 {a['launches']}, rank 1 {b['launches']}; "
+              f"merged evaluation top-1 {merged['topk_acc'][0]:.4f} F1 "
+              f"{merged['subtoken_f1']:.4f} = one process's (loss rel "
+              f"{loss_rel:.2e}); rank 0 alone wrote step_{steps}, "
+              f"topology.json num_processes {topo['num_processes']}",
+              flush=True)
+    h0, h1 = r0["harness"], r1["harness"]
+    check(h0["mesh_sparse_apply_exact"] and h1["mesh_sparse_apply_exact"],
+          "(dp) mesh_sparse_apply differs from the compact apply")
+    for label in DP_CONFIGS:
+        h = h0[label]
+        print(f"  (dp harness {label}) two ranks vs one process over the "
+              f"concatenated batch: loss {h['loss_two']:.6f} vs "
+              f"{h['loss_one']:.6f} (rel {h['loss_rel']:.2e}, bound "
+              f"{LOSS_RTOL}); largest param difference {h['worst'][0]}: "
+              f"{h['worst'][1][0]:.3g} (bound {h['worst'][1][1]:.3g}); "
+              f"step twice: the same bits; step ms one rank "
+              f"{fmt_ms(h['one_rank_ms'])}, {DP_WORLD} ranks "
+              f"{fmt_ms(h['ranks_ms'])} / {fmt_ms(h1[label]['ranks_ms'])}",
+              flush=True)
+    print(f"  (dp harness) gradient all-reduce of (c): "
+          f"{h0['allreduce_bytes'] / 1e9:.3f} GB a step in "
+          f"{fmt_ms(h0['c']['allreduce_ms'])} (gloo through the host, "
+          f"{DP_WORLD} ranks sharing one card: not a scaling number); "
+          f"mesh_sparse_apply bit-identical to the compact apply", flush=True)
+
+    # ---- one rank over NCCL, through the same flags ----
+    t1 = time.perf_counter()
+    cfg = Config.load_from_args(
+        ["--data", data_prefix, "--batch_size", str(TRAIN_B),
+         "--max_contexts", str(C)] + dp_flags(free_port(), 1, 0))
+    check(distributed.maybe_initialize(
+        cfg.DIST_COORDINATOR, cfg.DIST_NUM_PROCESSES, cfg.DIST_PROCESS_ID,
+        device_type="cuda"), "(nccl) no process group")
+    try:
+        check(distributed.backend() == "nccl", f"(nccl) backend "
+              f"{distributed.backend()}")
+        trainer = Code2VecTrainer(cfg, vocabs)
+        check(trainer.mesh is not None and trainer.mesh.world == 1,
+              f"(nccl) mesh {trainer.mesh}")
+        from code2vec_tpu_torch.data.reader import C2VTextReader
+        batch = trainer.device_batch(next(iter(C2VTextReader(
+            data_prefix + ".train.c2v", vocabs, C, TRAIN_B))))
+        draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+        live = {"params": trainer.params, "opt_state": trainer.opt_state}
+        start = map_state(lambda t: t.detach().clone(), live)
+        attention_pool_fused.launches = 0
+        loss_mesh = trainer._train_step(trainer.params, trainer.opt_state,
+                                        batch, draws)
+        torch.cuda.synchronize()
+        launches = {"attention_pool": attention_pool_fused.launches}
+        meshed = map_state(lambda t: t.detach().clone(), live)
+        for dst, src in zip(state_tensors(live), state_tensors(start)):
+            dst.copy_(src)
+        trainer.mesh = None
+        trainer._build_step()
+        loss_plain = trainer._train_step(trainer.params, trainer.opt_state,
+                                         batch, draws)
+        diff = state_diff(torch, meshed, live)
+        exact = distributed.allreduce_sum_hosts([2.0 ** 52 + 1.0])
+        check(diff["differ"] == 0 and torch.equal(loss_mesh, loss_plain)
+              and exact.tolist() == [2.0 ** 52 + 1.0],
+              f"(nccl) the world-1 step vs the plain step: {diff}, loss "
+              f"{loss_mesh.item()} vs {loss_plain.item()}")
+        check(launches["attention_pool"] == 1, f"(nccl) launches {launches}")
+        del trainer, live, start, meshed
+    finally:
+        distributed.shutdown()
+    torch.cuda.empty_cache()
+    nccl_s = time.perf_counter() - t1
+    print(f"  (nccl) one rank over NCCL (--dist_num_processes 1): init, a "
+          f"(c) step with its all-reduces and a float64 collective: "
+          f"{diff['tensors']} param and optimizer tensors and the loss "
+          f"bit-identical to the plain step; {nccl_s:.1f} s", flush=True)
+    report["data_parallel"] = {
+        "world": DP_WORLD, "steps": steps, "children_s": children_s,
+        "nccl_s": nccl_s, "cli": {label: {"rank0": r0[label],
+                                          "rank1": {k: v for k, v in
+                                                    r1[label].items()
+                                                    if k != "digests"}}
+                                  for label in DP_CONFIGS},
+        "harness": {"rank0": h0, "rank1": h1}}
+    return launches
 
 
 def main(argv=None) -> int:
@@ -6218,7 +6826,15 @@ def main(argv=None) -> int:
                                         test_path, peaks, report)
         lap("[22]")
 
-    # ---- 23. result ----
+        # ---- 23. data-parallel training across processes ----
+        print("[23] data-parallel training: two ranks on the card (gloo) "
+              "through the command line and the function-level harness, "
+              "one rank over NCCL", flush=True)
+        dp_launches = phase_data_parallel(torch, np, vocabs, tmp,
+                                          data_prefix, test_path, report)
+        lap("[23]")
+
+    # ---- 24. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -6231,7 +6847,7 @@ def main(argv=None) -> int:
         + observed_launches["attention_pool"] \
         + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
         + fleet_launches["attention_pool"] + vm_launches["attention_pool"] \
-        + attack_launches["attention_pool"]
+        + attack_launches["attention_pool"] + dp_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -6310,7 +6926,8 @@ def main(argv=None) -> int:
                           "repl": repl_launches, "observed": observed_launches,
                           "live_plane": plane_launches,
                           "phases": phase_launches, "fleet": fleet_launches,
-                          "vm": vm_launches, "attacks": attack_launches}
+                          "vm": vm_launches, "attacks": attack_launches,
+                          "data_parallel": dp_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -12,10 +12,17 @@ order, for the ported flags (config.Config.arguments_parser):
       [--attack targeted|untargeted [--attack_target <name>] \\
        [--attack_input <file>] [--attack_deadcode] ...] \\
       [--adv_rename_prob <p> [--adv_rename_mode uniform|batch]] \\
+      [--dist_coordinator <host:port> --dist_num_processes <N> \
+       --dist_process_id <i> [--mesh_data <N>]] \
       [--backend gpu|cpu] [--framework ...]
 
 0. `--faults`: the failpoint registry is armed before anything is built
-   (a bad spec exits 2);
+   (a bad spec exits 2); then the process group is joined when the
+   `--dist_*` flags (or the environment) ask for it
+   (parallel/distributed.maybe_initialize, where the JAX package's
+   `code2vec.py` calls it): one process a rank, over the backend rule's
+   nccl or gloo, each rank training on its host shard; only rank 0
+   writes checkpoints and exports;
 1. `--auto_resume` with `--save` and `--data`: a checkpoint already in
    `--save` is loaded (before `--load`, a fine-tune's starting point)
    and its run continued;
@@ -116,7 +123,26 @@ def _run(config: Config) -> int:
         return _error("--backend gpu (the default) needs a CUDA card and "
                       "none is available; pass --backend cpu to run on the "
                       "CPU")
-    device = "cpu" if config.BACKEND == "cpu" else None
+    from code2vec_tpu_torch.parallel import distributed
+    try:
+        joined = distributed.maybe_initialize(
+            config.DIST_COORDINATOR, config.DIST_NUM_PROCESSES,
+            config.DIST_PROCESS_ID, log=config.log,
+            device_type="cpu" if config.BACKEND == "cpu" else "cuda")
+    except ValueError as e:
+        return _error(str(e))
+    try:
+        return _run_joined(config, distributed.rank_device()
+                           if joined else None)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _run_joined(config: Config, rank_device) -> int:
+    device = "cpu" if config.BACKEND == "cpu" else rank_device
+    from code2vec_tpu_torch.parallel.compat import cohort_world
+    writer = cohort_world()[0] == 0  # the rank that writes files
     from code2vec_tpu_torch.training.checkpoint import latest_step
     if config.AUTO_RESUME and config.is_saving and config.is_training:
         step = latest_step(config.save_path)
@@ -162,16 +188,17 @@ def _run(config: Config) -> int:
     config.log(f"model loaded: framework=pytorch backend={config.BACKEND} "
                f"device={model.device}")
     if config.release:
-        model.release()
+        if writer:
+            model.release()
         return 0
     if config.ATTACK:
         return _attack(config, model.predictor())
     if config.is_training:
         model.train()
-    if config.save_w2v:
+    if config.save_w2v and writer:
         model.save_word2vec_format(config.save_w2v, VocabType.Token)
         config.log(f"token embeddings (w2v format) -> {config.save_w2v}")
-    if config.save_t2v:
+    if config.save_t2v and writer:
         model.save_word2vec_format(config.save_t2v, VocabType.Target)
         config.log(f"target embeddings (w2v format) -> {config.save_t2v}")
     if config.is_predict:
@@ -181,7 +208,7 @@ def _run(config: Config) -> int:
     elif config.is_testing and not config.is_training:
         results = model.evaluate()
         print(str(results))
-        if config.export_code_vectors:
+        if config.export_code_vectors and writer:
             dest = config.test_data_path + ".vectors"
             model.export_code_vectors_file(config.test_data_path, dest)
             config.log(f"code vectors -> {dest}")

@@ -5,7 +5,7 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--infeed_chunk 2`, the mesh flags, ...) is an error that
+have yet (`--infeed_chunk 2`, `--mesh_model 2`, ...) is an error that
 names it, never ignored. The adversarial attack flags (`--attack*`) and
 the rename defense's (`--adv_rename_prob`, `--adv_rename_mode`) are the
 JAX package's, verified by its rules with its messages. The seven serving
@@ -26,8 +26,13 @@ path-encoder (`XF_LAYERS` pre-norm layers of `XF_HEADS` heads).
 head (models/vm_model.py) over `.vm.c2v` data with `MAX_CANDIDATES`
 candidate slots; `verify` refuses it with the code2vec head's surfaces,
 int8 tables and the transformer, as the JAX package's does. The port
-trains on one device, so it has no mesh fields, and no
-`RING_ATTENTION`, which needs a mesh.
+runs one process per rank: `--dist_coordinator`, `--dist_num_processes`
+and `--dist_process_id` join a process group (parallel/distributed.py)
+and `--mesh_data` sizes the data axis (parallel/mesh.py). The model,
+context and dcn axes (`--mesh_model`, `--mesh_context`, `--mesh_dcn`)
+and `--ring_attention` are not ported (ROADMAP.md Queue 1 item 5) and
+are refused with a message saying so; serving, `--predict`, the REPL
+and `--attack` run in one process, and refuse a world above 1 (item 4).
 """
 
 from __future__ import annotations
@@ -159,6 +164,15 @@ class Config:
     # or --metrics_port); off, one boolean check a step
     PHASE_PROFILE: str = "off"   # "off" | "on"
     PHASE_SAMPLE_EVERY: int = 64
+
+    # ---- the mesh and the process group (the JAX package's names) ----
+    MESH_DATA_AXIS: int = 0      # 0 -> the whole world on the data axis
+    MESH_MODEL_AXIS: int = 1     # above 1: not ported (Queue 1 item 5)
+    MESH_CONTEXT_AXIS: int = 1   # above 1: not ported (Queue 1 item 5)
+    MESH_DCN_AXIS: int = 1       # above 1: not ported (Queue 1 item 5)
+    DIST_COORDINATOR: Optional[str] = None   # host:port of process 0
+    DIST_NUM_PROCESSES: Optional[int] = None
+    DIST_PROCESS_ID: Optional[int] = None
 
     # ---- the command line (the JAX package's flag names) ----
     BACKEND: str = "gpu"            # --backend: "gpu" (CUDA) | "cpu"
@@ -331,6 +345,11 @@ class Config:
                 raise ValueError(
                     "TABLES_DTYPE int8 supports the bag encoder only "
                     "(the transformer gathers the tables directly).")
+            if self.MESH_MODEL_AXIS > 1 or self.MESH_CONTEXT_AXIS > 1:
+                raise ValueError(
+                    "--tables_dtype int8 supports data-parallel meshes "
+                    "only (model/ctx sharding of {q, s} subtrees is "
+                    "untested; tables replicate under DP).")
             if self.TRUST_RATIO:
                 raise ValueError(
                     "TABLES_DTYPE int8 is incompatible with TRUST_RATIO "
@@ -373,12 +392,27 @@ class Config:
         if self.ATTACK and self.HEAD == "varmisuse":
             raise ValueError(
                 "--attack applies to the code2vec head only.")
-        if self.HEAD == "varmisuse" and self.ENCODER_TYPE != "bag":
+        if self.HEAD == "varmisuse" and (self.ENCODER_TYPE != "bag"
+                                         or self.MESH_CONTEXT_AXIS > 1):
             # vm_scores calls the bag encode(); a transformer here would
             # train another architecture than asked
             raise ValueError(
                 "--head varmisuse supports the bag encoder only "
                 "(no --encoder transformer / --mesh_context > 1).")
+        for flag, size in (("--mesh_model", self.MESH_MODEL_AXIS),
+                           ("--mesh_context", self.MESH_CONTEXT_AXIS),
+                           ("--mesh_dcn", self.MESH_DCN_AXIS)):
+            if size > 1:
+                raise ValueError(
+                    f"{flag} {size}: the context, model and dcn mesh axes "
+                    "are not ported to code2vec_tpu_torch yet (ROADMAP.md "
+                    "Queue 1 item 5)")
+        if (self.DIST_NUM_PROCESSES or 1) > 1 and (self.is_predict
+                                                   or self.ATTACK):
+            raise ValueError(
+                "--predict and --attack run in one process in "
+                "code2vec_tpu_torch (a world above 1 is ROADMAP.md Queue 1 "
+                "item 4)")
         if self.LR_WARMUP_STEPS < 0:
             raise ValueError("LR_WARMUP_STEPS must be >= 0.")
         if self.LR_WARMUP_STEPS > 0 and self.LR_SCHEDULE != "warmup_cosine":
@@ -624,6 +658,16 @@ class Config:
         p.add_argument("--embedding_optimizer", dest="embedding_optimizer",
                        default=None, choices=["adam", "adafactor"])
         p.add_argument("--seed", dest="seed", type=int, default=None)
+        p.add_argument("--mesh_data", dest="mesh_data", type=int,
+                       default=None,
+                       help="data-parallel ranks (0: the whole world)")
+        p.add_argument("--dist_coordinator", dest="dist_coordinator",
+                       default=None,
+                       help="host:port of process 0 for multi-process runs")
+        p.add_argument("--dist_num_processes", dest="dist_num_processes",
+                       type=int, default=None)
+        p.add_argument("--dist_process_id", dest="dist_process_id",
+                       type=int, default=None)
         p.add_argument("--logs-path", dest="logs_path", default=None)
         p.add_argument("--profile", dest="profile_dir", default=None,
                        help="write a torch.profiler Chrome trace of a few "
@@ -785,14 +829,18 @@ class Config:
             args if args is not None else sys.argv[1:])
         flags = sorted({a.split("=", 1)[0] for a in unknown
                         if a.startswith("-")})
+        later = [f for f in flags if f in _MESH_AXIS_FLAGS]
+        if later:
+            raise ValueError(
+                f"{' '.join(later)}: the context, model and dcn mesh axes "
+                "and ring attention are not ported to code2vec_tpu_torch "
+                "yet (ROADMAP.md Queue 1 item 5)")
         if unknown:
             raise ValueError(
                 "not ported to code2vec_tpu_torch yet: "
                 + " ".join(flags or unknown))
-        if ns.infeed_chunk not in (None, 1):
-            raise ValueError(f"--infeed_chunk {ns.infeed_chunk}: the chunked "
-                             "infeed is not ported to code2vec_tpu_torch "
-                             "yet (only 1)")
+        if ns.infeed_chunk is not None:
+            check_infeed_chunk(ns.infeed_chunk)
         cfg = cls()
         cfg.train_data_path = ns.data_path
         cfg.test_data_path = ns.test_path
@@ -868,6 +916,11 @@ class Config:
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):
                 setattr(cfg, field, value)
+        if ns.mesh_data is not None:
+            cfg.MESH_DATA_AXIS = ns.mesh_data
+        cfg.DIST_COORDINATOR = ns.dist_coordinator
+        cfg.DIST_NUM_PROCESSES = ns.dist_num_processes
+        cfg.DIST_PROCESS_ID = ns.dist_process_id
         cfg.HEAD_EXPLICIT = ns.head is not None
         if ns.async_checkpoint is not None:
             cfg.ASYNC_CHECKPOINT = ns.async_checkpoint == "on"
@@ -876,3 +929,13 @@ class Config:
 
 
 _FRAMEWORKS = ("pytorch", "jax", "tensorflow", "keras")
+_MESH_AXIS_FLAGS = ("--mesh_model", "--mesh_context", "--mesh_dcn",
+                    "--ring_attention")
+
+
+def check_infeed_chunk(chunk: int) -> None:
+    """ValueError unless `--infeed_chunk` is 1, the one value the port
+    has (the chunked infeed is not ported)."""
+    if chunk != 1:
+        raise ValueError(f"--infeed_chunk {chunk}: the chunked infeed is "
+                         "not ported to code2vec_tpu_torch yet (only 1)")

@@ -114,6 +114,12 @@ def parse_c2v_rows(lines: List[str], vocabs: Code2VecVocabs,
     return labels, src, pth, dst, mask, target_strings, context_strings
 
 
+def _check_shard(host_shard: int, num_host_shards: int) -> None:
+    if not 0 <= host_shard < num_host_shards:
+        raise ValueError(f"host shard {host_shard} of {num_host_shards}: "
+                         "a shard index is in [0, num_host_shards)")
+
+
 def _pad_batch(arrs, batch_size: int):
     """Pad along axis 0 to `batch_size` with zero / PAD rows."""
     out = []
@@ -140,22 +146,22 @@ def steps_per_epoch(num_examples: int, batch_size: int,
     return _aligned_num_batches(num_examples, num_host_shards, batch_size)
 
 
-def _one_host(host_shard: int, num_host_shards: int) -> None:
-    if (host_shard, num_host_shards) != (0, 1):
-        raise ValueError(
-            f"host shard {host_shard} of {num_host_shards}: the port reads "
-            "on one host (host_shard 0 of 1)")
-
-
 class C2VTextReader:
     """Reader over a `.c2v` text file: byte-offset streaming (the file is
-    never held in memory), a `(seed + epoch)` shuffle, padded batches."""
+    never held in memory), a `(seed + epoch)` shuffle of the global
+    example order, this host's strided shard of it
+    (`order[host_shard::num_host_shards]`), padded batches; with more
+    than one shard, a short shard pads with empty (all-weight-zero)
+    batches to `_aligned_num_batches`, so every rank runs the same
+    number of collective steps."""
 
     def __init__(self, path: str, vocabs: Code2VecVocabs, max_contexts: int,
                  batch_size: int, shuffle: bool = False, seed: int = 0,
                  keep_strings: bool = False, host_shard: int = 0,
                  num_host_shards: int = 1, epoch_offset: int = 0):
-        _one_host(host_shard, num_host_shards)
+        _check_shard(host_shard, num_host_shards)
+        self.host_shard = host_shard
+        self.num_host_shards = num_host_shards
         self.path = path
         self.vocabs = vocabs
         self.max_contexts = max_contexts
@@ -186,14 +192,22 @@ class C2VTextReader:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(order)
             self._epoch += 1
+        mine = order[self.host_shard::self.num_host_shards]
+        emitted = 0
         with open(self.path, "r", encoding="utf-8", errors="replace") as f:
-            for start in range(0, len(order), self.batch_size):
-                idx = order[start:start + self.batch_size]
+            for start in range(0, len(mine), self.batch_size):
+                idx = mine[start:start + self.batch_size]
                 batch_lines = []
                 for off in offsets[idx]:
                     f.seek(off)
                     batch_lines.append(f.readline())
+                emitted += 1
                 yield self._parse_batch(batch_lines)
+        if self.num_host_shards > 1:
+            target = _aligned_num_batches(len(offsets), self.num_host_shards,
+                                          self.batch_size)
+            for _ in range(target - emitted):
+                yield self._empty_batch()
 
     def _parse_batch(self, batch_lines: List[str]) -> BatchTensors:
         labels, src, pth, dst, mask, tstr, cstr = parse_c2v_rows(
@@ -205,18 +219,33 @@ class C2VTextReader:
                             tstr if self.keep_strings else None,
                             cstr if self.keep_strings else None)
 
+    def _empty_batch(self) -> BatchTensors:
+        """An all-padding batch (every weight 0) of an aligned short
+        shard."""
+        B, C = self.batch_size, self.max_contexts
+        return BatchTensors(
+            np.zeros((B,), np.int32),
+            np.full((B, C), self.vocabs.token_vocab.pad_index, np.int32),
+            np.full((B, C), self.vocabs.path_vocab.pad_index, np.int32),
+            np.full((B, C), self.vocabs.token_vocab.pad_index, np.int32),
+            np.zeros((B, C), np.float32), 0,
+            [] if self.keep_strings else None,
+            [] if self.keep_strings else None)
+
 
 class BinaryShardReader:
     """Reader over the pre-tokenized int32 shard data/binarize.py writes:
     a memmapped [N, 1 + 3*C] int32 matrix (label, src*C, path*C, tgt*C)
-    and its JSON manifest."""
+    and its JSON manifest. Host shards as C2VTextReader's."""
 
     def __init__(self, prefix: str, batch_size: int, shuffle: bool = False,
                  seed: int = 0, host_shard: int = 0,
                  num_host_shards: int = 1,
                  expected_max_contexts: Optional[int] = None,
                  keep_strings: bool = False, epoch_offset: int = 0):
-        _one_host(host_shard, num_host_shards)
+        _check_shard(host_shard, num_host_shards)
+        self.host_shard = host_shard
+        self.num_host_shards = num_host_shards
         with open(prefix + ".bin.json", "r") as f:
             self.manifest = json.load(f)
         self.target_strings: Optional[List[str]] = None
@@ -249,6 +278,8 @@ class BinaryShardReader:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(order)
             self._epoch += 1
+        order = order[self.host_shard::self.num_host_shards]
+        emitted = 0
         for start in range(0, len(order), self.batch_size):
             # ascending rows inside a batch: a forward-only read of the
             # memmap; the batch's members are the shuffled ones
@@ -265,9 +296,23 @@ class BinaryShardReader:
                 tstr = [self.target_strings[i] for i in sorted_idx]
             labels, src, pth, dst, mask = _pad_batch(
                 (labels, src, pth, dst, mask), self.batch_size)
+            emitted += 1
             yield BatchTensors(labels, np.ascontiguousarray(src),
                                np.ascontiguousarray(pth),
                                np.ascontiguousarray(dst), mask, nv, tstr)
+        if self.num_host_shards > 1:
+            target = _aligned_num_batches(self.num_examples,
+                                          self.num_host_shards,
+                                          self.batch_size)
+            B = self.batch_size
+            for _ in range(target - emitted):
+                yield BatchTensors(
+                    np.zeros((B,), np.int32),
+                    np.full((B, C), self.pad_index, np.int32),
+                    np.full((B, C), self.pad_index, np.int32),
+                    np.full((B, C), self.pad_index, np.int32),
+                    np.zeros((B, C), np.float32), 0,
+                    [] if self.target_strings is not None else None)
 
 
 def _prefix(path_or_prefix: str) -> str:

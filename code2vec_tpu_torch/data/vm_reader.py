@@ -128,6 +128,23 @@ class VMTextReader(C2VTextReader):
         return VMBatch(labels, src, pth, dst, mask, cand, cand_mask,
                        row_valid, nv, cand_strings)
 
+    def _empty_batch(self) -> VMBatch:
+        """An all-padding batch (no valid row) of an aligned short
+        shard; one live candidate a row keeps its softmax finite."""
+        B, C, K = self.batch_size, self.max_contexts, self.max_candidates
+        tokp = self.vocabs.token_vocab.pad_index
+        pthp = self.vocabs.path_vocab.pad_index
+        cm = np.zeros((B, K), np.float32)
+        cm[:, 0] = 1.0
+        return VMBatch(
+            np.zeros((B,), np.int32),
+            np.full((B, C), tokp, np.int32),
+            np.full((B, C), pthp, np.int32),
+            np.full((B, C), tokp, np.int32),
+            np.zeros((B, C), np.float32),
+            np.full((B, K), tokp, np.int32), cm,
+            np.zeros((B,), np.float32), 0, [])
+
 
 def build_vm_vocabs(train_path: str, max_token_vocab: int,
                     max_path_vocab: int) -> Code2VecVocabs:

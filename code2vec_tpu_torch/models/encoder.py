@@ -29,6 +29,7 @@ import torch
 from code2vec_tpu_torch.ops.attention import attention_pool
 from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
                                                      attention_pool_train)
+from code2vec_tpu_torch.ops.logits import rows_product_f32
 from code2vec_tpu_torch.ops.quant import (QUANTIZED_TABLE_KEYS,
                                           dequantized_rows, quantize_table,
                                           quantized_take)
@@ -219,10 +220,11 @@ def unused_param_keys(dims: ModelDims) -> Tuple[str, ...]:
 def logits_vs_table(table: torch.Tensor, code_vectors: torch.Tensor,
                     true_target_vocab_size: Optional[int] = None
                     ) -> torch.Tensor:
-    """[B, V] float32 logits against a (possibly row-padded) target table.
-    Padding rows are set to -1e9 so they never win top-k."""
-    table = table.to(code_vectors.dtype)
-    logits = (code_vectors @ table.T).to(torch.float32)
+    """[B, V] float32 logits against a (possibly row-padded) target table,
+    the product never rounded to the compute dtype (the jitted JAX
+    function's, ops/logits.py). Padding rows are set to -1e9 so they
+    never win top-k."""
+    logits = rows_product_f32(code_vectors, table)
     if (true_target_vocab_size is not None
             and true_target_vocab_size < table.shape[0]):
         col = torch.arange(table.shape[0], device=logits.device)

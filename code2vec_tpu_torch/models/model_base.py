@@ -47,6 +47,26 @@ class MetricAccumulator:
             top_prediction = legal[0] if legal else ""
             self.subtoken_stats.update(original, top_prediction)
 
+    def merge_across_hosts(self) -> None:
+        """Sum this accumulator's partials with every other rank's (a
+        no-op in one process): a multi-process evaluation shards the eval
+        file per rank, so each accumulator holds one rank's examples."""
+        from code2vec_tpu_torch.parallel.distributed import \
+            allreduce_sum_hosts
+        vec = np.concatenate([
+            [self.num_examples, self.loss_sum,
+             self.subtoken_stats.true_positive,
+             self.subtoken_stats.false_positive,
+             self.subtoken_stats.false_negative],
+            self.topk_correct]).astype(np.float64)
+        total = allreduce_sum_hosts(vec)
+        self.num_examples = int(total[0])
+        self.loss_sum = float(total[1])
+        self.subtoken_stats.true_positive = int(total[2])
+        self.subtoken_stats.false_positive = int(total[3])
+        self.subtoken_stats.false_negative = int(total[4])
+        self.topk_correct = total[5:].astype(np.int64)
+
     def results(self) -> EvaluationResults:
         n = max(self.num_examples, 1)
         return EvaluationResults(

@@ -1,9 +1,11 @@
 """Model-construction helpers of the training loop.
 
-A copy of `resume_epoch_offset` and of the learning-rate horizon of
-`build_optimizer` from `models/setup.py` in the JAX package. The port
-trains on one device in one process, so the mesh and the infeed split
-are not ported, and the horizon and the steps per epoch count one host.
+A copy of `build_mesh`, `infeed_split`, `resume_epoch_offset` and the
+learning-rate horizon of `build_optimizer` from `models/setup.py` in the
+JAX package. The mesh is the port's record of the data axis
+(parallel/mesh.py): one process a rank, each reading its host shard of
+the global per-epoch permutation, so the horizon and the steps per epoch
+count the ranks.
 """
 
 from __future__ import annotations
@@ -12,8 +14,32 @@ from typing import Callable, Optional
 
 from code2vec_tpu_torch.config import Config
 from code2vec_tpu_torch.data.reader import steps_per_epoch
+from code2vec_tpu_torch.parallel.compat import cohort_world
+from code2vec_tpu_torch.parallel.mesh import Mesh, make_mesh
 from code2vec_tpu_torch.training.optimizers import (schedule_total_steps,
                                                     warmup_length)
+
+
+def infeed_split() -> "tuple[int, int]":
+    """(host_shard, num_host_shards) of the train reader: this rank and
+    the world of the live process group, (0, 1) without one."""
+    return cohort_world()
+
+
+def build_mesh(cfg: Config, device=None) -> Optional[Mesh]:
+    """The run's mesh, or None for a plain single-process run: a mesh
+    whenever the process group is up (a world of 1 too, so its step
+    runs the collectives) or an axis asks for more than one process,
+    over the config's axes (parallel/mesh.make_mesh raises for model,
+    ctx or dcn above 1, and for a data axis the world cannot fill)."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()) and max(
+            cfg.MESH_DATA_AXIS, cfg.MESH_MODEL_AXIS, cfg.MESH_CONTEXT_AXIS,
+            cfg.MESH_DCN_AXIS) <= 1:
+        return None
+    return make_mesh(cfg.MESH_DATA_AXIS, cfg.MESH_MODEL_AXIS,
+                     cfg.MESH_CONTEXT_AXIS, dcn=cfg.MESH_DCN_AXIS,
+                     device=device)
 
 
 def lr_horizon(cfg: Config, count_examples_fn: Callable[[], int],
@@ -31,6 +57,7 @@ def lr_horizon(cfg: Config, count_examples_fn: Callable[[], int],
     total = schedule_total_steps(
         count_examples_fn(), cfg.TRAIN_BATCH_SIZE,
         cfg.NUM_TRAIN_EPOCHS if epochs is None else epochs,
+        num_hosts=cohort_world()[1],
         restored_step=0 if cfg.AUTO_RESUME else restored_step)
     if cfg.LR_SCHEDULE == "warmup_cosine":
         cfg.LR_WARMUP_STEPS = warmup_length(total, cfg.LR_WARMUP_STEPS)
@@ -62,10 +89,15 @@ def resume_epoch_offset(cfg: Config, step_num: int,
                 f"{completed} (save-time record); training epochs "
                 f"{completed + 1}..{cfg.NUM_TRAIN_EPOCHS}")
         return completed
-    spe = steps_per_epoch(count_examples_fn(), cfg.TRAIN_BATCH_SIZE)
+    save_procs = (int(topo["num_processes"])
+                  if topo is not None and topo.get("num_processes")
+                  else cohort_world()[1])
+    spe = steps_per_epoch(count_examples_fn(), cfg.TRAIN_BATCH_SIZE,
+                          save_procs)
     completed = min(cfg.NUM_TRAIN_EPOCHS, step_num // spe)
     if completed:
         log(f"auto-resume: restored step {step_num} = {completed} "
-            f"completed epoch(s) x {spe} steps; training epochs "
+            f"completed epoch(s) x {spe} steps (at {save_procs} "
+            f"process(es)); training epochs "
             f"{completed + 1}..{cfg.NUM_TRAIN_EPOCHS}")
     return completed

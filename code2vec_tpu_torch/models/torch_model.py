@@ -62,7 +62,9 @@ from code2vec_tpu_torch.models.encoder import ModelDims, Params, init_params
 from code2vec_tpu_torch.models.model_base import (Code2VecModelBase,
                                                   MetricAccumulator,
                                                   vector_line)
-from code2vec_tpu_torch.models.setup import lr_horizon, resume_epoch_offset
+from code2vec_tpu_torch.models.setup import (build_mesh, infeed_split,
+                                             lr_horizon,
+                                             resume_epoch_offset)
 from code2vec_tpu_torch.obs import (SpanChannel, Telemetry, Tracer,
                                     TrainStepRecorder, Watchdog,
                                     build_live_plane,
@@ -72,6 +74,8 @@ from code2vec_tpu_torch.obs.health import default_train_monitors
 from code2vec_tpu_torch.obs.phases import PhaseProfiler
 from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
                                           kernel_choice, opt_param_view)
+from code2vec_tpu_torch.parallel import distributed
+from code2vec_tpu_torch.parallel.sharding import check_replicas
 from code2vec_tpu_torch.resilience import faults, retry
 from code2vec_tpu_torch.training import checkpoint as ckpt
 from code2vec_tpu_torch.training.draws import StepDraws, make_draws
@@ -423,7 +427,13 @@ class _StepBudget:
 class TrainerBase:
     """What the heads' trainers share, on one device: the params, the
     optimizer and its state, the step, the training loop (`train`), the
-    step-keyed draws and the checkpoint saves. A head (`Code2VecTrainer`
+    step-keyed draws and the checkpoint saves. When the process group is
+    up (parallel/distributed.py) it is one rank of a data-parallel mesh
+    (`self.mesh`): it draws the same params from the seed as every rank
+    (checked), reads its host shard of the data, steps on its rows of
+    the global batch, evaluates its shard and merges the metrics, and
+    only rank 0 writes checkpoints, whose topology.json records the
+    world. A head (`Code2VecTrainer`
     here, `VarMisuseModel` in models/vm_model.py) supplies its params'
     init, its steps, its reader, its evaluation and its manifest keys
     through the hooks below.
@@ -455,6 +465,9 @@ class TrainerBase:
                              f"{type(self).__name__} trains {self.HEAD!r}")
         config.verify()  # the JAX package's rules, ValueError
         self.dims = dims_from_config(config, vocabs) if dims is None else dims
+        # the data-parallel mesh when the process group is up (a world
+        # of 1 too), else None (models/setup.build_mesh)
+        self.mesh = build_mesh(config, self.device)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.SEED)
             params = self._init_params(gen)
@@ -482,6 +495,9 @@ class TrainerBase:
             self._build_dense_optimizer(1)
             self.opt_state = self.optimizer.init(opt_param_view(self.params))
         self.step_num = 0
+        if self.mesh is not None:
+            # every rank drew the same params from the seed
+            check_replicas(self.params, self.mesh)
         # the background checkpoint writer, started at the first async save
         self._ckpt_writer: Optional[ckpt.AsyncCheckpointWriter] = None
         # the epoch an epoch-boundary save records in topology.json
@@ -590,7 +606,18 @@ class TrainerBase:
     def draws_for(self, batch_size: int, step: int) -> StepDraws:
         """The draws the trainer makes for `step` (seeded from SEED)."""
         return make_draws(self.dims, self.step_config, self.params,
-                          batch_size, self.config.SEED, step, self.device)
+                          batch_size, self.config.SEED, step, self.device,
+                          mesh=self.mesh)
+
+    @property
+    def is_writer(self) -> bool:
+        """True on the rank that writes checkpoints (rank 0, or the one
+        process)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def host_shard(self) -> "tuple[int, int]":
+        """(host_shard, num_host_shards) of this rank's readers."""
+        return infeed_split() if self.mesh is not None else (0, 1)
 
     def device_batch(self, b: BatchTensors):
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -707,7 +734,8 @@ class TrainerBase:
             alerts_mode=cfg.ALERTS_MODE, alerts_rules=cfg.ALERTS_RULES,
             health_every_s=cfg.HEALTH_EVERY_S, watchdog=watchdog,
             monitors=default_train_monitors(),
-            default_rules=default_train_rules, log=cfg.log)
+            default_rules=default_train_rules,
+            identity=self.identity(), log=cfg.log)
         alerts = plane.alerts
         infeed_channel = SpanChannel() if tracer.enabled else None
         recorder = TrainStepRecorder(
@@ -818,6 +846,13 @@ class TrainerBase:
                     f"loss {values[0]:.5f} -> {values[-1]:.5f}")
         return values
 
+    def identity(self) -> Dict[str, Any]:
+        """The run's telemetry identity: this rank, the world and the
+        distributed backend (None for a plain single-process run)."""
+        rank, world = infeed_split()
+        return {"process_index": rank, "process_count": world,
+                "backend": distributed.backend()}
+
     def _epoch_end(self, epoch: int, telemetry: Telemetry,
                    scalars: ScalarWriter) -> bool:
         """The boundary's save (async: the evaluation runs while the
@@ -855,13 +890,20 @@ class TrainerBase:
         path = path or cfg.save_path
         if not path:
             raise ValueError("save needs a checkpoint dir (--save)")
+        if self.mesh is not None:
+            # the replicas agree before the one copy is written
+            check_replicas(self.params, self.mesh)
+            if not self.is_writer:
+                self._save_epoch = None
+                return
         t0 = time.perf_counter()
         state = {"params": self.params, "opt_state": self.opt_state,
                  "step": self.step_num}
         extra = self._manifest_extra()
         # the epoch of a boundary save, consumed here: a later manual
         # save must not record it
-        topology = {"epoch": self._save_epoch}
+        topology = {"epoch": self._save_epoch,
+                    "num_processes": infeed_split()[1]}
         self._save_epoch = None
         # trace: the save's blocked window links the step that triggered
         # it, and the writer thread parents its train/save_write span to
@@ -926,8 +968,9 @@ class TrainerBase:
 
 class Code2VecTrainer(TrainerBase, Code2VecModelBase):
     """Trains, evaluates, checkpoints and exports the code2vec model (bag
-    or transformer encoder) on one device (TrainerBase's loop). The
-    sparse-row step's state is sparse_steps.init_sparse_opt_state's."""
+    or transformer encoder) on one device, or on each rank of a
+    data-parallel mesh (TrainerBase's loop). The sparse-row step's state
+    is sparse_steps.init_sparse_opt_state's."""
 
     HEAD = "code2vec"
 
@@ -957,7 +1000,7 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
             compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
             requant_kernel=self.requant_kernel, row_kernel=self.row_kernel,
             sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES,
-            augment_fn=self._rename_augment())
+            augment_fn=self._rename_augment(), mesh=self.mesh)
         self.step_config = self._train_step.cfg
 
     def _rename_augment(self):
@@ -981,9 +1024,11 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
 
     def _train_reader(self, data_path: str, epoch_offset: int):
         cfg = self.config
+        shard, shards = self.host_shard()
         return open_reader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
                            cfg.TRAIN_BATCH_SIZE, shuffle=True, seed=cfg.SEED,
-                           epoch_offset=epoch_offset)
+                           epoch_offset=epoch_offset, host_shard=shard,
+                           num_host_shards=shards)
 
     def predictor(self) -> Code2VecModel:
         """The predict-side model (the serving path, `--predict`) over
@@ -1051,15 +1096,20 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
         """Top-k accuracy, subtoken precision / recall / F1 and the mean
         loss over a `.c2v` file (default: `test_data_path`; its binary
         shard when binarized), in TEST_BATCH_SIZE batches (no dropout,
-        full softmax)."""
+        full softmax). Under a mesh each rank evaluates its host shard of
+        the file and the metric partials are summed over the ranks
+        (`MetricAccumulator.merge_across_hosts`): every rank returns the
+        whole file's results."""
         cfg = self.config
         test_path = test_path or cfg.test_data_path
         if not test_path:
             raise ValueError("evaluate needs a test file (--test)")
         top_k = cfg.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
+        shard, shards = self.host_shard()
         reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
                              cfg.TEST_BATCH_SIZE, shuffle=False,
-                             keep_strings=True)
+                             keep_strings=True, host_shard=shard,
+                             num_host_shards=shards)
         acc = MetricAccumulator(top_k)
         target_vocab = self.vocabs.target_vocab
         put, ready = self._put_fns(cfg.INFEED_PREFETCH)
@@ -1077,6 +1127,8 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
             words = [[target_vocab.lookup_word(int(i)) for i in row]
                      for row in topk_ids[:nv].cpu().numpy()]
             acc.update_batch(names, words, loss_sum.item())
+        if self.mesh is not None:
+            acc.merge_across_hosts()
         return acc.results()
 
     def _record_eval(self, epoch: int, results: EvaluationResults,

@@ -81,10 +81,12 @@ def candidate_ce(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def vm_loss(params: Params, batch, *, keep: Optional[torch.Tensor] = None,
             dropout_keep_rate: float = 1.0, compute_dtype=torch.float32,
-            use_kernel: bool = True) -> torch.Tensor:
+            use_kernel: bool = True,
+            denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted-mean cross entropy over the candidates, differentiable:
-    sum(ce * w) / max(sum(w), 1). `batch` = (labels [B], src, pth, dst
-    [B, C], mask [B, C], cand_ids [B, K], cand_mask [B, K], weights [B]).
+    sum(ce * w) / max(sum(w), 1), or over `denom` (a data-parallel
+    step's global one). `batch` = (labels [B], src, pth, dst [B, C],
+    mask [B, C], cand_ids [B, K], cand_mask [B, K], weights [B]).
     Dropout applies when `keep` is given and the rate is below 1, as the
     JAX loss applies it when given a key."""
     labels, src, pth, dst, mask, cand_ids, cand_mask, weights = batch
@@ -93,4 +95,4 @@ def vm_loss(params: Params, batch, *, keep: Optional[torch.Tensor] = None,
                           train=True, keep=keep,
                           dropout_keep_rate=dropout_keep_rate
                           if keep is not None else 1.0)
-    return weighted_mean(candidate_ce(scores, labels), weights)
+    return weighted_mean(candidate_ce(scores, labels), weights, denom)

@@ -37,6 +37,7 @@ from code2vec_tpu_torch.models.torch_model import TrainerBase
 from code2vec_tpu_torch.models.varmisuse import init_vm_params
 from code2vec_tpu_torch.obs import Telemetry
 from code2vec_tpu_torch.obs.phases import PhaseProfiler
+from code2vec_tpu_torch.parallel.distributed import allreduce_sum_hosts
 from code2vec_tpu_torch.training.phase_probes import make_vm_probes
 from code2vec_tpu_torch.training.scalars import ScalarWriter
 from code2vec_tpu_torch.training.vm_steps import (init_vm_sparse_opt_state,
@@ -63,7 +64,8 @@ def vm_data_path(config: Config, split: str) -> str:
 
 
 class VarMisuseModel(TrainerBase):
-    """Trains, evaluates and checkpoints the VarMisuse head on one device
+    """Trains, evaluates and checkpoints the VarMisuse head on one device,
+    or on each rank of a data-parallel mesh with the dense step
     (TrainerBase's loop). `device=None` runs on the CUDA card and raises
     when there is none; tests pass `device="cpu"`."""
 
@@ -86,7 +88,8 @@ class VarMisuseModel(TrainerBase):
         self._train_step = make_vm_train_step(
             self.dims, self.optimizer, compute_dtype=self.compute_dtype,
             use_kernel=self.use_kernel, row_kernel=self.row_kernel,
-            sparse_updates=self.config.SPARSE_EMBEDDING_UPDATES)
+            sparse_updates=self.config.SPARSE_EMBEDDING_UPDATES,
+            mesh=self.mesh)
         self.step_config = self._train_step.cfg
 
     def _train_data_path(self) -> str:
@@ -94,10 +97,12 @@ class VarMisuseModel(TrainerBase):
 
     def _train_reader(self, data_path: str, epoch_offset: int):
         cfg = self.config
+        shard, shards = self.host_shard()
         return VMTextReader(data_path, self.vocabs, cfg.MAX_CONTEXTS,
                             cfg.MAX_CANDIDATES, cfg.TRAIN_BATCH_SIZE,
                             shuffle=True, seed=cfg.SEED,
-                            epoch_offset=epoch_offset)
+                            epoch_offset=epoch_offset, host_shard=shard,
+                            num_host_shards=shards)
 
     def phase_profiler(self, telemetry: Telemetry) -> PhaseProfiler:
         """The sampled phase profiler over make_vm_probes (no analytic
@@ -122,13 +127,17 @@ class VarMisuseModel(TrainerBase):
     def evaluate(self, test_path: Optional[str] = None) -> VMEvalResults:
         """The weighted mean loss and pointer accuracy over a `.vm.c2v`
         file (default `test_data_path`), in TEST_BATCH_SIZE batches (no
-        dropout); rows whose label was cut count nowhere."""
+        dropout); rows whose label was cut count nowhere. Under a mesh
+        each rank reads its host shard and the sums are merged over the
+        ranks."""
         cfg = self.config
         path = test_path or cfg.test_data_path
         if not path:
             raise ValueError("evaluate needs a test file (--test)")
+        shard, shards = self.host_shard()
         reader = VMTextReader(path, self.vocabs, cfg.MAX_CONTEXTS,
-                              cfg.MAX_CANDIDATES, cfg.TEST_BATCH_SIZE)
+                              cfg.MAX_CANDIDATES, cfg.TEST_BATCH_SIZE,
+                              host_shard=shard, num_host_shards=shards)
         loss_sum = correct = total = 0.0
         put, ready = self._put_fns(cfg.INFEED_PREFETCH)
         for dev_batch, b in prefetch_to_device(reader, put,
@@ -140,6 +149,9 @@ class VarMisuseModel(TrainerBase):
             loss_sum += ls.item()
             correct += cs.item()
             total += b.num_valid_examples
+        if self.mesh is not None:
+            loss_sum, correct, total = allreduce_sum_hosts(
+                [loss_sum, correct, total]).tolist()
         total = max(total, 1.0)
         return VMEvalResults(loss_sum / total, correct / total, int(total))
 

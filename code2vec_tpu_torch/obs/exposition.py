@@ -26,8 +26,9 @@ stdlib HTTP server on a daemon thread, scrapable by Prometheus or curl:
   - `/vars` — the raw JSON snapshot (registry + health monitor table
     + alert table + watchdog components), for humans and tools that
     want structure instead of the Prometheus grammar. It leads with an
-    `identity` block: run_id, process index and count (0 of 1: the
-    port runs one process), the devices (the card's name and count,
+    `identity` block: run_id, process index and count (the trainer's
+    rank and world; 0 of 1 by default), the distributed backend, the
+    devices (the card's name and count,
     obs/telemetry.device_topology) and the server's start
     wall/monotonic pair.
   - `/clock` — the clock handshake: a paired monotonic+wall timestamp
@@ -189,8 +190,8 @@ class MetricsServer:
         self.host = host
         self.bound_port: Optional[int] = None
         # identity block: who this endpoint is, stamped at construction
-        # so the wall/monotonic pair anchors the process start (one
-        # process of one: the port has no multi-process runs)
+        # so the wall/monotonic pair anchors the process start (process
+        # 0 of 1 unless the caller's identity says otherwise)
         self.identity: Dict[str, Any] = {
             "run_id": getattr(telemetry, "run_id", ""),
             "process_index": 0,

@@ -33,6 +33,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Callable, Dict, Optional, Sequence
@@ -198,11 +199,23 @@ def device_topology() -> Dict[str, Any]:
     return {"platform": "cpu", "count": 1}
 
 
+def _process_group():
+    """(rank, world) of the process group joined through
+    parallel/distributed.py, else (0, 1); never imports torch (a process
+    that joined one has it loaded)."""
+    dist_mod = sys.modules.get("code2vec_tpu_torch.parallel.distributed")
+    if dist_mod is None or dist_mod.backend() is None:
+        return 0, 1
+    from code2vec_tpu_torch.parallel.compat import cohort_world
+    return cohort_world()
+
+
 def _build_run_manifest(config, component: str) -> Dict[str, Any]:
     """The run's identity: id, component, time, process index and
-    count, the device topology and the config. One process on one
-    device (the port's runs): process 0 of 1."""
-    process_index, process_count = 0, 1
+    count (the process group's, parallel/distributed.py; 0 of 1
+    without one), the device topology and the config. The backend is in
+    the trainer's live-plane identity (`TrainerBase.identity`)."""
+    process_index, process_count = _process_group()
     devices = device_topology()
     _RUN_SEQ[0] += 1
     run_id = (f"run-{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"

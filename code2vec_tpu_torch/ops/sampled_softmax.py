@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from code2vec_tpu_torch.ops.logits import gathered_logits_f32
 from code2vec_tpu_torch.ops.scatter import take_rows_det
 
 
@@ -91,20 +92,25 @@ def sampled_softmax_from_gathered(
         code_vectors: torch.Tensor, true_w: torch.Tensor,
         samp_w: torch.Tensor, true_corr: torch.Tensor,
         samp_corr: torch.Tensor, accidental: torch.Tensor,
-        example_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        example_weights: Optional[torch.Tensor] = None,
+        denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The loss core over pre-gathered target rows: code [B, D], true_w
     [B, D], samp_w [S, D], corrections [B] / [S], accidental [B, S]
-    collisions, optional [B] example weights -> the scalar mean loss."""
-    dtype = code_vectors.dtype
-    true_logits = (code_vectors * true_w.to(dtype)).sum(dim=-1).to(
-        torch.float32) - true_corr
-    sampled_logits = (code_vectors @ samp_w.to(dtype).T).to(torch.float32) \
-        - samp_corr[None, :]
+    collisions, optional [B] example weights -> the scalar mean loss
+    (over `denom` in place of max(sum(weights), 1) when given: a
+    data-parallel step's global denominator)."""
+    # the jitted JAX step's rounding (ops/logits.py): the true logits
+    # rounded once to the compute dtype, the sampled ones never
+    true_logits, sampled_logits = gathered_logits_f32(code_vectors, true_w,
+                                                      samp_w)
+    true_logits = true_logits - true_corr
+    sampled_logits = sampled_logits - samp_corr[None, :]
     sampled_logits = torch.where(accidental, -1e9, sampled_logits)
     logits = torch.cat([true_logits[:, None], sampled_logits], dim=1)
     per_example = -torch.log_softmax(logits, dim=-1)[:, 0]
     if example_weights is not None:
-        denom = torch.clamp(example_weights.sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp(example_weights.sum(), min=1.0)
         return (per_example * example_weights).sum() / denom
     return per_example.mean()
 
@@ -113,7 +119,9 @@ def sampled_softmax_loss(target_table: torch.Tensor,
                          code_vectors: torch.Tensor, labels: torch.Tensor,
                          sampled: torch.Tensor, num_sampled: int,
                          example_weights: Optional[torch.Tensor] = None,
-                         vocab_size: Optional[int] = None) -> torch.Tensor:
+                         vocab_size: Optional[int] = None,
+                         denom: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """The sampled-softmax loss against a [V_padded, D] target table,
     with the step's sampled ids [S] drawn from [0, vocab_size). The two
     row gathers are differentiable: the table's gradient is the sum of
@@ -128,4 +136,4 @@ def sampled_softmax_loss(target_table: torch.Tensor,
         true_corr=_log_expected_count(labels, num_sampled, vocab_size),
         samp_corr=_log_expected_count(sampled, num_sampled, vocab_size),
         accidental=sampled[None, :] == labels[:, None],
-        example_weights=example_weights)
+        example_weights=example_weights, denom=denom)

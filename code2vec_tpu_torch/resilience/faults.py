@@ -33,9 +33,8 @@ Sites wired through the port:
                    swap (`io_error`: exercises the reload retry policy;
                    exhausted retries refuse the step, the pool keeps
                    serving the weights it has)
-
-(`dist/init` of the JAX package is wired when the multi-process init is
-ported.)
+  dist/init        parallel/distributed.maybe_initialize: a transient
+                   store connect failure (fired inside the retried call)
 
 Disabled path (the default): the module-level registry is None, so
 `fire()` is one None check and `point()` returns a shared null handle

@@ -1,5 +1,5 @@
 """The retry policy of checkpoint IO, the extractor pool's restart and
-the serving plane's hot reload.
+the serving plane's hot reload, and the distributed runtime's.
 
 A copy of `RetryPolicy` from `resilience/retry.py` in the JAX package:
 jittered exponential backoff, a per-call attempt budget (a policy is
@@ -9,7 +9,8 @@ retry cannot fix (ENOSPC). Its telemetry is module-global and optional:
 `resilience/retry_exhausted`, `resilience/retry_giveup`) and `retry`
 events at a registry; without one, `stats()` still answers "did
 anything retry" in-process. A call that succeeds first time records
-nothing. The JAX package's distributed-runtime policy is not ported.
+nothing. `transient_distributed` is the JAX package's policy for the
+distributed runtime's transients, with its numbers.
 Sleep and randomness are injectable, so tests neither sleep nor depend
 on chance.
 """
@@ -17,11 +18,20 @@ on chance.
 from __future__ import annotations
 
 import random
+import subprocess
 import threading
 import time
 from typing import Callable, Dict, Optional, Tuple, Type
 
-__all__ = ["RetryPolicy", "set_telemetry", "stats"]
+__all__ = ["RetryPolicy", "TRANSIENT_DISTRIBUTED_ERRORS", "set_telemetry",
+           "stats", "transient_distributed"]
+
+# the distributed runtime's transient failures: a crashed worker (the
+# spawner's RuntimeError; torch.distributed's errors derive from it), a
+# connect or transport error, or a peer outliving the crash inside a
+# collective until the spawner's wall (TimeoutExpired)
+TRANSIENT_DISTRIBUTED_ERRORS: Tuple[Type[BaseException], ...] = (
+    RuntimeError, OSError, ConnectionError, subprocess.TimeoutExpired)
 
 _TELEMETRY = None
 _STATS: Dict[str, Dict[str, int]] = {}
@@ -129,3 +139,18 @@ class RetryPolicy:
                     f"{d:.2f}s")
                 self._sleep(d)
         raise AssertionError("unreachable")  # the loop returns or raises
+
+
+def transient_distributed(name: str = "distributed", *,
+                          max_attempts: int = 3,
+                          base_delay_s: float = 0.5,
+                          log: Optional[Callable[[str], None]] = None,
+                          **kw) -> RetryPolicy:
+    """The policy of the distributed runtime's transients: a worker
+    crash on the loopback transport, a store connect failure, a peer
+    outliving the crash. `parallel/distributed.maybe_initialize` and the
+    multi-process test fixture use it."""
+    return RetryPolicy(name, max_attempts=max_attempts,
+                       base_delay_s=base_delay_s, max_delay_s=5.0,
+                       retry_on=TRANSIENT_DISTRIBUTED_ERRORS, log=log,
+                       **kw)

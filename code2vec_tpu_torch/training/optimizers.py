@@ -516,13 +516,16 @@ def warmup_length(total_steps: int, warmup_steps: int) -> int:
 
 
 def schedule_total_steps(num_examples: int, batch_size: int,
-                         epochs: int, restored_step: int = 0) -> int:
+                         epochs: int, num_hosts: int = 1,
+                         restored_step: int = 0) -> int:
     """The decay horizon: the steps of `epochs` passes over
-    `num_examples` in batches of `batch_size` (the last one padded),
-    plus a restored optimizer step for a fine-tune (its count already
-    sits there, so without the extension the schedule would start at its
+    `num_examples` split over `num_hosts` ranks, in batches of
+    `batch_size` (the last one padded; the reader's aligned count), plus
+    a restored optimizer step for a fine-tune (its count already sits
+    there, so without the extension the schedule would start at its
     floor)."""
-    return -(-num_examples // batch_size) * epochs + restored_step
+    per_host = -(-num_examples // num_hosts)
+    return -(-per_host // batch_size) * epochs + restored_step
 
 
 def resolve_checkpoint_schedule(requested: str, manifest: dict,

@@ -30,6 +30,14 @@ Randomness is drawn per step into a `StepDraws` (training/draws.py): the
 [B, C, 3E] dropout keep mask, the [S] sampled ids and one uint32 salt
 per int8 table. Tests pass draws made by the JAX side; without them the
 step draws from a `torch.Generator` seeded from (seed, step).
+
+Under a data-parallel `mesh` (parallel/mesh.py) each rank steps on its
+own rows of the global batch: the loss is divided by the global
+`max(sum(weights), 1)` (a scalar all-reduce before the backward), the
+dense gradients and the shared sample's row cotangents are summed over
+the ranks, and each table's per-occurrence cotangents are all-gathered
+in rank order before the one-process dedup (`sparse_update.
+mesh_sparse_apply`'s order). The returned loss is the global one.
 """
 
 from __future__ import annotations
@@ -50,7 +58,8 @@ from code2vec_tpu_torch.training.optimizers import AdamF32Moments
 from code2vec_tpu_torch.training.sparse_adam import init_row_adam
 from code2vec_tpu_torch.training.sparse_update import (adam_lr_t,
                                                        apply_rows,
-                                                       dedup_segment_sum)
+                                                       dedup_segment_sum,
+                                                       gather_parts)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,14 +97,17 @@ def init_sparse_opt_state(params, dense_opt: AdamF32Moments,
 
 def prepare_step_inputs(params, batch, draws: StepDraws, *,
                         use_sampled_softmax: bool, num_sampled: int,
-                        target_vocab: int):
+                        target_vocab: int, mesh=None):
     """The step's non-differentiated preliminaries and gathers ->
     (dense, gathered, ctx): the dense params and the gathered rows as
     autograd leaves (views of / copies from the tables, detached), and
-    what the loss and the apply need."""
+    what the loss and the apply need (under a `mesh`, the global loss
+    denominator too)."""
     labels, src, pth, dst, mask, weights = batch
     ctx = {"keep": draws.keep, "labels": labels, "mask": mask,
-           "weights": weights}
+           "weights": weights, "mesh": mesh,
+           "denom": loss_denominator(weights, mesh)
+           if mesh is not None else None}
     if use_sampled_softmax:
         S, V = num_sampled, target_vocab
         sampled = draws.sampled
@@ -119,11 +131,35 @@ def prepare_step_inputs(params, batch, draws: StepDraws, *,
     return dense, gathered, ctx
 
 
-def weighted_mean(values: torch.Tensor, weights: torch.Tensor
-                  ) -> torch.Tensor:
-    """sum(values * weights) / max(sum(weights), 1)."""
-    denom = torch.clamp(weights.sum(), min=1.0)
+def loss_denominator(weights: torch.Tensor, mesh=None) -> torch.Tensor:
+    """max(sum(weights), 1) over the global batch: under a `mesh` the
+    ranks' weight sums all-reduced (padded rows weigh 0)."""
+    total = weights.sum()
+    if mesh is not None:
+        from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
+        all_reduce_sum_(total)
+    return torch.clamp(total, min=1.0)
+
+
+def weighted_mean(values: torch.Tensor, weights: torch.Tensor,
+                  denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sum(values * weights) / max(sum(weights), 1), or over `denom`
+    (a data-parallel step's global one)."""
+    if denom is None:
+        denom = torch.clamp(weights.sum(), min=1.0)
     return (values * weights).sum() / denom
+
+
+def reduce_step_grads(loss: torch.Tensor, grads, mesh) -> torch.Tensor:
+    """A data-parallel step's collectives after the backward: each
+    gradient (a dict, in place) summed over the ranks in its own dtype,
+    and the rank's loss into the global loss, which is returned."""
+    from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
+    for k, g in grads.items():
+        if not g.is_contiguous():
+            grads[k] = g = g.contiguous()
+        all_reduce_sum_(g)
+    return all_reduce_sum_(loss.clone())
 
 
 def make_gathered_loss(dims: ModelDims, ctx, *, use_sampled_softmax: bool,
@@ -147,11 +183,11 @@ def make_gathered_loss(dims: ModelDims, ctx, *, use_sampled_softmax: bool,
             return sampled_softmax_from_gathered(
                 code, gathered["true_w"], gathered["samp_w"],
                 ctx["true_corr"], ctx["samp_corr"], ctx["accidental"],
-                weights)
+                weights, denom=ctx["denom"])
         logits = logits_vs_table(dense["target_emb"], code, V)
         per_ex = F.cross_entropy(logits, ctx["labels"].to(torch.int64),
                                  reduction="none")
-        return weighted_mean(per_ex, weights)
+        return weighted_mean(per_ex, weights, ctx["denom"])
 
     return loss_fn
 
@@ -177,25 +213,22 @@ def row_segments(dims: ModelDims, batch, ctx, g_rows
                  ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
     """Dedup + segment-sum of each table's row cotangents ->
     {table: (uids [U], seg float32 [U, E])}, with the JAX package's
-    concatenation orders."""
+    concatenation orders; under the step's mesh, over the global
+    occurrence list (`sparse_update.gather_parts`)."""
     labels, src, pth, dst, _mask, _weights = batch
     E = dims.embeddings_size
     parts = {
-        "token_emb": [(src, g_rows["src_e"].reshape(-1, E)),
-                      (dst, g_rows["dst_e"].reshape(-1, E))],
-        "path_emb": [(pth, g_rows["pth_e"].reshape(-1, E))],
+        "token_emb": [(src, g_rows["src_e"].reshape(-1, E), True),
+                      (dst, g_rows["dst_e"].reshape(-1, E), True)],
+        "path_emb": [(pth, g_rows["pth_e"].reshape(-1, E), True)],
     }
     if "true_w" in g_rows:
         D = dims.code_vector_size
-        parts["target_emb"] = [(labels, g_rows["true_w"].reshape(-1, D)),
-                               (ctx["sampled"],
-                                g_rows["samp_w"].reshape(-1, D))]
-    out = {}
-    for key, pairs in parts.items():
-        ids = torch.cat([i.reshape(-1).to(torch.int32) for i, _g in pairs])
-        grads = torch.cat([g for _i, g in pairs])
-        out[key] = dedup_segment_sum(ids, grads)
-    return out
+        parts["target_emb"] = [
+            (labels, g_rows["true_w"].reshape(-1, D), True),
+            (ctx["sampled"], g_rows["samp_w"].reshape(-1, D), False)]
+    return {key: dedup_segment_sum(*gather_parts(p, ctx["mesh"]))
+            for key, p in parts.items()}
 
 
 def apply_dense_updates(params, opt_state, dense_opt: AdamF32Moments,
@@ -223,20 +256,32 @@ def sparse_train_step(params, opt_state, batch, draws: StepDraws, *,
                       dims: ModelDims, cfg: SparseStepConfig,
                       dense_opt: AdamF32Moments,
                       use_kernel: bool = True,
-                      row_kernel: Optional[bool] = None) -> torch.Tensor:
+                      row_kernel: Optional[bool] = None,
+                      mesh=None) -> torch.Tensor:
     """One training step, in place on `params` and `opt_state` (from
     init_sparse_opt_state with the same `dense_opt`). `batch` is the
     tuple (labels [B], src/pth/dst [B, C], mask [B, C], weights [B]) on
     the params' device. `use_kernel=False` runs the plain pool on any
     device, and the plain row apply too unless `row_kernel` (default:
-    `use_kernel`) says otherwise. Returns the loss (0-d float32 on the
-    device)."""
+    `use_kernel`) says otherwise. Under a `mesh`, this rank's share of a
+    data-parallel step (the module docstring). Returns the loss (0-d
+    float32 on the device)."""
     S = min(cfg.num_sampled, dims.target_vocab_size)
     dense, gathered, ctx = prepare_step_inputs(
         params, batch, draws, use_sampled_softmax=cfg.use_sampled_softmax,
-        num_sampled=S, target_vocab=dims.target_vocab_size)
+        num_sampled=S, target_vocab=dims.target_vocab_size, mesh=mesh)
     loss, g_dense, g_rows = loss_and_grads(dims, cfg, dense, gathered, ctx,
                                            use_kernel=use_kernel)
+    if mesh is not None:
+        # the shared sample's row cotangent is this rank's partial sum:
+        # summed over the ranks like the dense gradients
+        summed = dict(g_dense)
+        if "samp_w" in g_rows:
+            summed["samp_w"] = g_rows["samp_w"]
+        loss = reduce_step_grads(loss, summed, mesh)
+        g_dense = {k: summed[k] for k in g_dense}
+        if "samp_w" in g_rows:
+            g_rows["samp_w"] = summed["samp_w"]
     segments = row_segments(dims, batch, ctx, g_rows)
     apply_dense_updates(params, opt_state, dense_opt, g_dense)
     apply_row_updates(params, opt_state, cfg, segments, draws.salts,

@@ -1,6 +1,6 @@
 """Sparse table update: dedup + segment-sum + live-row Adam.
 
-Counterpart of the single-device half of `training/sparse_update.py` in
+Counterpart of `training/sparse_update.py` in
 the JAX package. A step's per-occurrence row cotangents are deduplicated
 and summed into a compact [U, E] float32 gradient (`dedup_segment_sum`),
 and Adam updates only those U rows of the table and its moments, in
@@ -8,7 +8,10 @@ place: row-Adam for float32 / bfloat16 tables (kernel 5), row-Adam with
 a per-row requantize for int8 {q, s} tables (kernel 6). The row math and
 the plain versions of both kernels are in ops/sparse_update.py.
 
-`sparse_row_adam` / `sparse_requant_adam` are the entry points. With
+`sparse_row_adam` / `sparse_requant_adam` are the entry points, and
+`mesh_sparse_apply` under a data-parallel mesh (the JAX package's
+function of that name: an all-gather of the ranks' occurrences, then
+the one-process dedup and apply on every rank). With
 `use_kernel=True` (the default) they go through the wrappers of
 ops/sparse_update_kernel.py, which launch the hand-written CUDA kernels
 for CUDA tensors and run the plain versions for CPU tensors;
@@ -134,6 +137,46 @@ def sparse_requant_adam(qt: QuantTable, state: RowAdamState,
     uids, seg = dedup_segment_sum(ids, grads)
     apply_rows(qt, state, uids, seg, lr_t=adam_lr_t(count, lr, b1, b2),
                b1=b1, b2=b2, eps=eps, salt=salt, use_kernel=use_kernel)
+    return int(uids.shape[0])
+
+
+def gather_parts(parts, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global occurrence list of a table's `parts`, a sequence of
+    `(ids, grads, sharded)`: ids [N] (any shape, flattened to int32) and
+    their [N, E] cotangents. Each sharded part (a per-example gather of
+    this rank's rows) is all-gathered in rank order over the mesh; a
+    replicated part (the step's shared sample, whose cotangent the
+    caller has already summed over the ranks) passes as it is. The
+    parts are concatenated in order: the one-process step's order over
+    the ranks' batches concatenated."""
+    ids_l, grads_l = [], []
+    for ids, grads, sharded in parts:
+        ids = ids.reshape(-1).to(torch.int32)
+        grads = grads.reshape(ids.shape[0], -1)
+        if sharded and mesh is not None:
+            from code2vec_tpu_torch.parallel.distributed import \
+                all_gather_rows
+            ids, grads = all_gather_rows(ids), all_gather_rows(grads)
+        ids_l.append(ids)
+        grads_l.append(grads)
+    return torch.cat(ids_l), torch.cat(grads_l)
+
+
+def mesh_sparse_apply(mesh, table, state: RowAdamState, parts, *,
+                      lr_t: torch.Tensor, b1: float = 0.9,
+                      b2: float = 0.999, eps: float = 1e-8, salt=None,
+                      use_kernel: bool = True) -> int:
+    """The sparse update under a data-parallel mesh, in place: the
+    parts' global occurrence list (`gather_parts`), then the same
+    `dedup_segment_sum` one process runs and kernel 5 (float) or 6
+    (int8) on the whole table, on every rank. The same input order means
+    the same float32 additions in the same order, so the result is
+    bit-identical to the one-process compact apply of the same global
+    parts, and every rank ends with the same table. Returns U."""
+    ids, grads = gather_parts(parts, mesh)
+    uids, seg = dedup_segment_sum(ids, grads)
+    apply_rows(table, state, uids, seg, lr_t=lr_t, b1=b1, b2=b2, eps=eps,
+               salt=salt, use_kernel=use_kernel)
     return int(uids.shape[0])
 
 

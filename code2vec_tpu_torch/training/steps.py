@@ -53,6 +53,16 @@ top-k goes through `topk_stable`, which orders equal probabilities as
 
 `batch` is the JAX step's tuple `(labels, src, pth, dst, mask, weights)`
 of tensors on the params' device.
+
+`make_train_step(..., mesh=...)` builds a data-parallel step
+(parallel/mesh.py): each rank steps on its own rows of the global batch
+with its rows of the global draws (training/draws.py). The loss is
+divided by the global `max(sum(weights), 1)` (a scalar all-reduce before
+the backward; padded rows weigh 0), every gradient is summed over the
+ranks in its own dtype (the int8 carrier's bf16 too) before the
+optimizer, and the optimizer, the adds and kernel 4's requantize (under
+the step's shared salts) then run the same on every rank, which ends
+with the same params. The returned loss is the global one.
 """
 
 from __future__ import annotations
@@ -74,6 +84,8 @@ from code2vec_tpu_torch.training.draws import StepDraws, quantized_keys
 from code2vec_tpu_torch.training.optimizers import (AdamF32Moments,
                                                     GradientTransformation)
 from code2vec_tpu_torch.training.sparse_steps import (SparseStepConfig,
+                                                      loss_denominator,
+                                                      reduce_step_grads,
                                                       sparse_train_step,
                                                       weighted_mean)
 
@@ -91,10 +103,11 @@ class DenseStepConfig:
 
 def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
                        num_sampled: int = 4096, compute_dtype=torch.float32,
-                       use_kernel: bool = True) -> Callable:
+                       use_kernel: bool = True, mesh=None) -> Callable:
     """The training-time loss `loss_fn(params, batch, draws)`: dropout
     with the draws' keep mask, the training pool, sampled softmax over
-    the draws' ids or full softmax, weighted by the example weights.
+    the draws' ids or full softmax, weighted by the example weights
+    (over the global batch's weight sum under a `mesh`).
     `loss_fn.unused_keys` names the top-level params it never reads."""
     V = dims.target_vocab_size
     encode = get_encode_fn(dims)
@@ -106,14 +119,17 @@ def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
                              use_kernel=use_kernel, train=True,
                              keep=draws.keep,
                              dropout_keep_rate=dims.dropout_keep_rate)
+        denom = loss_denominator(weights, mesh) if mesh is not None \
+            else None
         if use_sampled_softmax:
             return sampled_softmax_loss(
                 params["target_emb"], code, labels, draws.sampled,
-                num_sampled, example_weights=weights, vocab_size=V)
+                num_sampled, example_weights=weights, vocab_size=V,
+                denom=denom)
         logits = full_logits(params, code, V)
         ce = F.cross_entropy(logits, labels.to(torch.int64),
                              reduction="none")
-        return weighted_mean(ce, weights)
+        return weighted_mean(ce, weights, denom)
 
     loss_fn.unused_keys = unused_param_keys(dims)
     return loss_fn
@@ -175,15 +191,20 @@ def apply_dense_updates(params: Params, updates: Dict[str, torch.Tensor],
 def dense_train_step(params: Params, opt_state, batch, draws: StepDraws, *,
                      loss_fn: Callable, optimizer: GradientTransformation,
                      use_kernel: bool = True,
-                     augment_fn: Optional[Callable] = None) -> torch.Tensor:
+                     augment_fn: Optional[Callable] = None,
+                     mesh=None) -> torch.Tensor:
     """One dense training step, in place on `params` and `opt_state`
     (from `optimizer.init(opt_param_view(params))`). `use_kernel` picks
     the requantize of int8 tables (kernel 4 or its plain version); the
     pool is `loss_fn`'s. `augment_fn` rewrites the batch first, with
-    `draws.rename`. Returns the loss."""
+    `draws.rename`. Under a `mesh` (with `loss_fn` built over it), the
+    gradients and the loss are summed over the ranks before the
+    optimizer. Returns the loss."""
     if augment_fn is not None:
         batch = augment_fn(batch, draws.rename)
     loss, grads, view = dense_loss_and_grads(params, batch, draws, loss_fn)
+    if mesh is not None:
+        loss = reduce_step_grads(loss, grads, mesh)
     updates = optimizer.update(grads, opt_state, view)
     apply_dense_updates(params, updates, draws.salts, use_kernel=use_kernel)
     return loss
@@ -197,7 +218,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
                     requant_kernel: Optional[bool] = None,
                     row_kernel: Optional[bool] = None,
                     sparse_updates: bool = False,
-                    augment_fn: Optional[Callable] = None) -> Callable:
+                    augment_fn: Optional[Callable] = None,
+                    mesh=None) -> Callable:
     """Returns `step(params, opt_state, batch, draws) -> loss`, which
     updates params and opt_state in place.
 
@@ -211,7 +233,8 @@ def make_train_step(dims: ModelDims, optimizer, *,
     `row_kernel` (default: `use_kernel`) say otherwise: the command
     line's --no_pallas, --requant_pallas and --sparse_update_pallas.
     `augment_fn` is the dense step's rename defense (see the module
-    docstring); the sparse-row step refuses one."""
+    docstring); the sparse-row step refuses one. `mesh` builds this
+    rank's data-parallel step (the module docstring)."""
     if sparse_updates:
         if augment_fn is not None:
             raise ValueError("the sparse-row step has no augmentation hook "
@@ -229,7 +252,7 @@ def make_train_step(dims: ModelDims, optimizer, *,
             return sparse_train_step(params, opt_state, batch, draws,
                                      dims=dims, cfg=cfg, dense_opt=optimizer,
                                      use_kernel=use_kernel,
-                                     row_kernel=row_kernel)
+                                     row_kernel=row_kernel, mesh=mesh)
     else:
         cfg = DenseStepConfig(use_sampled_softmax=use_sampled_softmax,
                               num_sampled=num_sampled,
@@ -238,7 +261,7 @@ def make_train_step(dims: ModelDims, optimizer, *,
         loss_fn = make_train_loss_fn(
             dims, use_sampled_softmax=use_sampled_softmax,
             num_sampled=num_sampled, compute_dtype=compute_dtype,
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, mesh=mesh)
 
         def step(params, opt_state, batch, draws):
             return dense_train_step(params, opt_state, batch, draws,
@@ -246,7 +269,7 @@ def make_train_step(dims: ModelDims, optimizer, *,
                                     use_kernel=use_kernel
                                     if requant_kernel is None
                                     else requant_kernel,
-                                    augment_fn=augment_fn)
+                                    augment_fn=augment_fn, mesh=mesh)
 
     step.cfg = cfg
     return step

@@ -21,8 +21,12 @@ keep mask; the head draws no sampled ids and has no int8 tables).
   gathers inside the differentiated function, so backward still gives
   the dense [V, E] gradients; the rows at the unique ids are their sums.
   The state is `init_vm_sparse_opt_state`'s `{dense, rows, count}`, the
-  code2vec sparse step's layout. The JAX step refuses a mesh here; the
-  port trains on one device.
+  code2vec sparse step's layout. It refuses a mesh, as the JAX step
+  does.
+
+Under a data-parallel `mesh` the dense step is training/steps.py's: the
+loss over the global batch's weight sum, the gradients summed over the
+ranks before the optimizer.
 
 The eval step returns (loss_sum, correct_sum, pred), `pred` the argmax
 over the candidates: `torch.argmax` takes the lowest index among equal
@@ -44,7 +48,8 @@ from code2vec_tpu_torch.models.varmisuse import (candidate_ce, vm_loss,
 from code2vec_tpu_torch.training.draws import StepDraws
 from code2vec_tpu_torch.training.optimizers import AdamF32Moments
 from code2vec_tpu_torch.training.sparse_adam import init_row_adam
-from code2vec_tpu_torch.training.sparse_steps import apply_dense_updates
+from code2vec_tpu_torch.training.sparse_steps import (apply_dense_updates,
+                                                      loss_denominator)
 from code2vec_tpu_torch.training.sparse_update import rows_from_dense
 from code2vec_tpu_torch.training.steps import (DenseStepConfig,
                                                dense_loss_and_grads,
@@ -54,14 +59,17 @@ VM_TABLE_KEYS = ("token_emb", "path_emb")
 
 
 def make_vm_loss_fn(dims: ModelDims, *, compute_dtype=torch.float32,
-                    use_kernel: bool = True) -> Callable:
+                    use_kernel: bool = True, mesh=None) -> Callable:
     """`loss_fn(params, batch, draws)`: the vm loss with the draws' keep
-    mask. `loss_fn.unused_keys` names the param it never reads."""
+    mask (over the global batch's weight sum under a `mesh`).
+    `loss_fn.unused_keys` names the param it never reads."""
 
     def loss_fn(params, batch, draws: StepDraws) -> torch.Tensor:
         return vm_loss(params, batch, keep=draws.keep,
                        dropout_keep_rate=dims.dropout_keep_rate,
-                       compute_dtype=compute_dtype, use_kernel=use_kernel)
+                       compute_dtype=compute_dtype, use_kernel=use_kernel,
+                       denom=loss_denominator(batch[-1], mesh)
+                       if mesh is not None else None)
 
     loss_fn.unused_keys = ("target_emb",)
     return loss_fn
@@ -115,7 +123,8 @@ def vm_sparse_train_step(params, opt_state, batch, draws: StepDraws, *,
 def make_vm_train_step(dims: ModelDims, optimizer, *,
                        compute_dtype=torch.float32, use_kernel: bool = True,
                        row_kernel: Optional[bool] = None,
-                       sparse_updates: bool = False) -> Callable:
+                       sparse_updates: bool = False,
+                       mesh=None) -> Callable:
     """Returns `step(params, opt_state, batch, draws) -> loss`, which
     updates params and opt_state in place; `step.cfg` is a
     DenseStepConfig without sampled softmax (what the draws read). The
@@ -123,10 +132,16 @@ def make_vm_train_step(dims: ModelDims, optimizer, *,
     state `optimizer.init(params)`); `sparse_updates=True` takes an
     `AdamF32Moments` and init_vm_sparse_opt_state's state.
     `use_kernel=False` runs the plain pool on any device; `row_kernel`
-    (default: `use_kernel`) picks kernel 5 or its plain version."""
+    (default: `use_kernel`) picks kernel 5 or its plain version. `mesh`
+    builds this rank's data-parallel dense step; the sparse-row step
+    refuses one, as the JAX package's does."""
     loss_fn = make_vm_loss_fn(dims, compute_dtype=compute_dtype,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, mesh=mesh)
     if sparse_updates:
+        if mesh is not None:
+            raise ValueError(
+                "--sparse_embeddings on the varmisuse head is "
+                "single-device only; drop the flag for mesh runs")
         if not isinstance(optimizer, AdamF32Moments):
             raise TypeError("the sparse-row vm step takes AdamF32Moments, "
                             f"got {type(optimizer).__name__}")
@@ -139,7 +154,8 @@ def make_vm_train_step(dims: ModelDims, optimizer, *,
     else:
         def step(params, opt_state, batch, draws):
             return dense_train_step(params, opt_state, batch, draws,
-                                    loss_fn=loss_fn, optimizer=optimizer)
+                                    loss_fn=loss_fn, optimizer=optimizer,
+                                    mesh=mesh)
 
     step.cfg = DenseStepConfig(compute_dtype=compute_dtype)
     return step

@@ -360,18 +360,22 @@ def test_attack_errors_match_jax(trained):
 
 def test_bf16_compute_attack_agrees_with_jax(trained, tmp_path):
     """The fixture model at bf16 compute: every method's first-order
-    scores within 2^-4 of max |score| of JAX's, the exact losses within
+    scores within 2^-5 of max |score| of JAX's, the exact losses within
     2^-7 relative, and the untargeted attack's outcome JAX's where the
     two largest exact losses over the vocabulary lie more than twice
     that apart (the rename the attack accepts first).
 
-    2^-4, not the random model's 2^-7: the trained model is confident
-    (clean losses ~1e-4), so the gradient's scale is 1 - p of the label,
-    and the port rounds the bf16 logits to bf16 before the softmax
-    (`encoder.logits_vs_table`) where the JAX package's jitted steps
-    keep them in float32 (XLA folds the cast into the product): the
-    scores differ by a common factor of 1.03-1.04 here (ROADMAP.md
-    Queue 3)."""
+    2^-5, not the random model's 2^-7: the trained model is confident
+    (clean losses ~1e-4), so the gradient's scale is 1 - p of the label
+    and every bf16 rounding of the forward shows in it. The logits are
+    float32 products of the bf16 operands, never rounded to bf16, as the
+    JAX package's jitted functions compute them (`encoder.
+    logits_vs_table`, ops/logits.py); logits rounded to bf16 moved the
+    scores by a common factor of 1.03-1.04 and needed 2^-4. What is left
+    (1.4% of max |score| on this fixture) is XLA's excess precision
+    elsewhere in the jitted bf16 forward on the CPU; the port run at
+    float32 compute is further off (1.9%), so it is not one missing
+    rounding (ROADMAP.md Queue 3)."""
     _, jmodel, _, prefix = trained
     jmodel_bf = JaxModel(tiny_config(prefix, USE_BF16=True))
     jmodel_bf.params = jmodel.params
@@ -408,7 +412,7 @@ def test_bf16_compute_attack_agrees_with_jax(trained, tmp_path):
         got = ta.score_fn(tmodel.params, tids, ta.tensors(occ), label,
                           -1.0).numpy()
         np.testing.assert_allclose(got, want, rtol=0,
-                                   atol=2.0 ** -4 * np.abs(want).max())
+                                   atol=2.0 ** -5 * np.abs(want).max())
         cand = np.arange(2, jmodel.vocabs.token_vocab.size, dtype=np.int32)
         jl, _ = ja.eval_fn(jmodel_bf.params, jids, tuple(
             jnp.asarray(o) for o in occ), jnp.asarray(cand),

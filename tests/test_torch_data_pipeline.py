@@ -193,12 +193,19 @@ def test_binary_reader_batches_equal(datasets, seed, epoch_offset, batch,
 
 
 def test_binary_reader_refuses_other_widths_and_hosts(datasets):
+    """Another width is refused; a host shard outside [0, shards) is
+    refused; host shard 1 of 2 reads the JAX reader's batches (the
+    multi-process readers, tests/test_torch_parallel.py)."""
     prefix = datasets["torch"] + ".train"
     with pytest.raises(ValueError, match="max_contexts"):
         torch_reader.BinaryShardReader(prefix, 8, expected_max_contexts=C + 1)
     with pytest.raises(ValueError, match="host"):
-        torch_reader.BinaryShardReader(prefix, 8, host_shard=1,
+        torch_reader.BinaryShardReader(prefix, 8, host_shard=2,
                                        num_host_shards=2)
+    shard = dict(host_shard=1, num_host_shards=2)
+    _assert_same_batches(
+        _batches(jax_reader.BinaryShardReader(prefix, 8, **shard), 1),
+        _batches(torch_reader.BinaryShardReader(prefix, 8, **shard), 1))
 
 
 @pytest.mark.parametrize("case", ["binary", "binary_keep", "no_targets_keep",

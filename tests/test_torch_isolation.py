@@ -96,6 +96,18 @@ def test_scan_covers_the_attack_modules(module):
     assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
 
 
+@pytest.mark.parametrize("module", [
+    "parallel/compat.py", "parallel/mesh.py", "parallel/distributed.py",
+    "parallel/sharding.py", "ops/logits.py", "tools/robustness_study.py"])
+def test_scan_covers_the_data_axis_modules(module):
+    """The data axis's modules (mesh, process group, sharding), the
+    float32 logits and the robustness study are among the scanned
+    sources and import neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_in_port_sources(path):

@@ -510,16 +510,25 @@ def test_trainer_refuses_unported_and_invalid_configs(tmp_path, change,
 @pytest.mark.parametrize("field", ["HEAD", "MESH_DATA_AXIS",
                                    "MESH_MODEL_AXIS"])
 def test_config_cannot_ask_for_another_head_or_a_mesh(field):
-    """The port trains on one device: its Config has no field that would
-    select a mesh. HEAD takes the JAX package's two heads (code2vec,
-    varmisuse), and `verify` refuses any other."""
+    """HEAD takes the JAX package's two heads (code2vec, varmisuse), and
+    `verify` refuses any other. The mesh the port has is the data axis
+    alone: MESH_DATA_AXIS passes `verify` and must equal the world
+    (parallel/mesh.make_mesh refuses a data axis the processes cannot
+    fill), and a model axis above 1 is refused (ROADMAP.md Queue 1
+    item 5)."""
     if field == "HEAD":
         with pytest.raises(ValueError, match="HEAD must be"):
             Config(HEAD="transformer").verify()
         return
-    assert field not in {f.name for f in dataclasses.fields(Config)}
-    with pytest.raises(TypeError):
-        Config(**{field: 2})
+    assert field in {f.name for f in dataclasses.fields(Config)}
+    if field == "MESH_DATA_AXIS":
+        Config(MESH_DATA_AXIS=2).verify()
+        from code2vec_tpu_torch.parallel.mesh import make_mesh
+        with pytest.raises(ValueError, match="the data axis needs 2 processes"):
+            make_mesh(2, rank=0, world=1, device="cpu")
+        return
+    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
+        Config(**{field: 2}).verify()
 
 
 def test_trainer_reads_no_batch_past_its_last_step(tmp_path, monkeypatch):
