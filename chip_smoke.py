@@ -274,11 +274,12 @@ Phases (any failure raises, and the script exits non-zero):
    with `--dist_coordinator 127.0.0.1:<port> --dist_num_processes 2
    --dist_process_id i --mesh_data 2` on cuda:0 (gloo: the two ranks
    share the card), (c)'s configuration then (a)'s on [14]'s binary
-   shards, one epoch (2 steps a rank), `--test` and `--save`: both exit
-   0, their final params bit-identical (sha256 a leaf), kernel 1 (and
-   kernel 5 in (a)) launched in each (the children print their counts),
-   the merged evaluation equal to one process's evaluation of the saved
-   checkpoint, rank 0 alone writing it with `topology.json` saying 2.
+   shards, one epoch of (c) and two of (a) (2 steps a rank an epoch),
+   `--test` and `--save`: both exit 0, their final params bit-identical
+   (sha256 a leaf), kernel 1 (and kernel 5 in (a)) launched in each (the
+   children print their counts), the merged evaluation equal to one
+   process's evaluation of the saved checkpoint, rank 0 alone writing it
+   with `topology.json` saying 2.
    Then, in the same two children, one step of (c) and one of (a) at
    java-large width against one process over the ranks' batches
    concatenated with the same draws (the largest differences beside the
@@ -286,10 +287,31 @@ Phases (any failure raises, and the script exits non-zero):
    `mesh_sparse_apply` against the one-process compact apply (the same
    bits), and the step ms of one rank alone and of two, and the gradient
    all-reduce's (gloo through the host on one card: not a scaling
-   number). Last, one rank over NCCL through the same flags
+   number); two sampled (c) steps through the trainer's phase profiler
+   under the mesh, whose `allreduce` and `allreduce_exposed` phases
+   print beside the measured all-reduce; one (c) step with
+   `--adv_rename_prob 0.5 --adv_rename_mode batch` over [22]'s
+   letter-word vocab: the ranks' augmented rows, gathered, bit-identical
+   to one process's augment of the concatenated batch (the donor roll
+   crosses the ranks), the step against one process's within the
+   harness's bounds. Last, one rank over NCCL through the same flags
    (`--dist_num_processes 1`): one (c) step and a collective,
    bit-identical to the plain step;
-24. a `{"kernels": [...]}` line, the card line, and last
+24. the supervised training cohort: `python3 -m
+   code2vec_tpu_torch.tools.train_supervisor --procs 2` over [23]'s (a)
+   command (members `chip_smoke.cohort_child`, two ranks sharing the
+   card over gloo, each printing its kernel 1 and kernel 5 launches),
+   `train/kill` on process 1 at its step 3 (past epoch 1's save):
+   (i) kill_resume_2proc: the whole cohort relaunched on a fresh port,
+   resumed from step 2, the final params bit-identical (sha256 a leaf)
+   to [23]'s uninterrupted run; (ii) kill_resize under `--resize_policy
+   shrink --min_procs 1`: resizes [[2, 1]], no full relaunch, one
+   restart, the re-formed member without `--dist_*` flags logging the
+   resharding line, its saves' `topology.json` saying 1, the final params
+   bit-identical to one process resumed from a copy of step 2;
+   recovery_steps_lost and recovery_seconds; (iii) `/fleet` during (ii):
+   both members up before the kill, one after the resize;
+25. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -6212,12 +6234,26 @@ DP_CONFIGS = {
           "--lr_schedule", "constant", "--sampled_softmax", "--num_sampled",
           str(TRAIN_S)],
 }
+# epochs of each command-line run: (a)'s two epochs are [24]'s oracle of
+# the supervised cohort killed after epoch 1's save
+DP_EPOCHS = {"c": 1, "a": 2}
+# the harness's sampled (c) steps under the phase profiler (the first
+# also runs the probes once unrecorded), and the rename defense's
+# probability in its batch-mode step
+DP_PHASE_SAMPLES, DP_RENAME_PROB = 2, 0.5
 
 
 def dp_flags(port: int, world: int, rank: int):
     return ["--dist_coordinator", f"127.0.0.1:{port}",
             "--dist_num_processes", str(world), "--dist_process_id",
             str(rank), "--mesh_data", str(world)]
+
+
+def dp_argv(base, label: str):
+    """[23]'s command line of configuration `label` without --save and
+    the --dist_* flags ([24] runs (a)'s under the supervisor)."""
+    return [str(a) for a in base] + DP_CONFIGS[label] + [
+        "--epochs", str(DP_EPOCHS[label])]
 
 
 def leaf_digests(torch, params) -> dict:
@@ -6257,7 +6293,7 @@ def dp_child() -> None:
 
     TrainerBase.identity = identity
     for label, port in zip(DP_CONFIGS, spec["ports"]):
-        argv = spec["base"] + DP_CONFIGS[label] + [
+        argv = dp_argv(spec["base"], label) + [
             "--save", spec["ckpt"][label]] + dp_flags(port, world, rank)
         attention_pool_fused.launches = 0
         sparse_row_adam_fused.launches = 0
@@ -6411,6 +6447,8 @@ def dp_harness(torch, rank: int, world: int, port: int, data_path: str):
                 torch.cuda.synchronize()
                 times["allreduce_ms"].append((time.perf_counter() - t) * 1e3)
             del grads
+            restore()
+            out["phases_c"] = dp_profiled_phases(torch, trainer, local)
         if label == "a":
             out["mesh_sparse_apply_exact"] = dp_sparse_apply_check(
                 torch, trainer, mesh)
@@ -6422,8 +6460,116 @@ def dp_harness(torch, rank: int, world: int, port: int, data_path: str):
                          for k, v in times.items()}}
         del trainer, live, start, two, glob
         torch.cuda.empty_cache()
+    out["rename"] = dp_batch_rename(torch, vocabs, glob_np, world)
     distributed.shutdown()
     return out
+
+
+class ListSink:
+    """A telemetry sink keeping its events in a list."""
+
+    def __init__(self):
+        self.events = []
+
+    def write(self, event) -> None:
+        self.events.append(event)
+
+    def close(self) -> None:
+        pass
+
+
+def dp_profiled_phases(torch, trainer, local) -> dict:
+    """[23]: DP_PHASE_SAMPLES sampled (c) steps at the mesh's ranks
+    through the trainer's own phase profiler (`phase_profiler`, which
+    hands the probes its mesh): the last sample's phase event, the
+    all-reduce pair among its phases."""
+    from code2vec_tpu_torch.obs import Telemetry
+    tele = Telemetry.memory("train")
+    sink = ListSink()
+    tele.sinks = [sink]
+    trainer.config.PHASE_PROFILE = "on"
+    prof = trainer.phase_profiler(tele)
+    check(prof.enabled, "(dp c) the phase profiler is off")
+    for _ in range(DP_PHASE_SAMPLES):
+        prof.run_split(trainer.params, trainer.opt_state, local,
+                       trainer.draws_for(TRAIN_B, trainer.step_num),
+                       step=trainer.step_num)
+    torch.cuda.synchronize()
+    (ev, *_r) = [e for e in reversed(sink.events) if e["kind"] == "phase"]
+    trainer.config.PHASE_PROFILE = "off"
+    check("allreduce_ms" in ev and "allreduce_exposed_ms" in ev
+          and 0.0 <= ev["allreduce_exposed_ms"] <= ev["allreduce_ms"],
+          f"(dp c) the profiled step's phases {ev}")
+    return {k: v for k, v in ev.items() if k.endswith("_ms")}
+
+
+def dp_batch_rename(torch, vocabs, glob_np, world: int) -> dict:
+    """[23]: one (c) step with `--adv_rename_prob DP_RENAME_PROB
+    --adv_rename_mode batch` at `world` ranks over [22]'s letter-word
+    token vocab (a renamed token must render as an identifier): the
+    ranks' augmented rows, gathered in rank order, are the bits of the
+    one-process augment over the concatenated batch with the global
+    draws; the step's loss and params against one process's over that
+    batch within the harness's bounds (the gradients are summed in
+    another order)."""
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.parallel.distributed import all_gather_rows
+    from code2vec_tpu_torch.parallel.sharding import batch_rows
+    from code2vec_tpu_torch.training.checkpoint import (map_state,
+                                                        state_tensors)
+    from code2vec_tpu_torch.training.draws import make_draws
+    t0 = time.perf_counter()
+    _, cfg = dense_config("c", "bfloat16", False)
+    cfg.ADV_RENAME_PROB, cfg.ADV_RENAME_MODE = DP_RENAME_PROB, "batch"
+    trainer = Code2VecTrainer(cfg, letter_vocabs(vocabs))  # the mesh
+    mesh, aug = trainer.mesh, trainer.step_config.augment
+    check(aug is not None and aug.mode == "batch", "(dp rename) no augment")
+    G = TRAIN_B * world
+    glob = trainer.device_batch(glob_np)
+    lo, hi = batch_rows(mesh, TRAIN_B)
+    local = tuple(t[lo:hi] for t in glob)
+    step = trainer.step_num
+    draws = trainer.draws_for(TRAIN_B, step)
+    whole = make_draws(trainer.dims, trainer.step_config, trainer.params, G,
+                       cfg.SEED, step, trainer.device)
+    check(draws.rename.rows == (lo, hi)
+          and draws.rename.shift == whole.rename.shift,
+          f"(dp rename) the rank's rename draws: rows {draws.rename.rows}, "
+          f"shift {draws.rename.shift} vs {whole.rename.shift}")
+    got = aug(local, draws.rename)
+    gathered = [all_gather_rows(got[i]) for i in (1, 3)]
+    want = aug(glob, whole.rename)
+    same = all(torch.equal(g, want[i]) for g, i in zip(gathered, (1, 3)))
+    renamed = int(((want[1] != glob[1]).any(1)
+                   | (want[3] != glob[3]).any(1)).sum().item())
+    check(same and 0 < renamed < G, f"(dp rename) the ranks' augmented "
+          f"rows vs one process's: same bits {same}, {renamed} renamed")
+    live = {"params": trainer.params, "opt_state": trainer.opt_state}
+    start = map_state(lambda t: t.detach().clone(), live)
+    loss_two = trainer._train_step(trainer.params, trainer.opt_state, local,
+                                   draws).item()
+    two = map_state(lambda t: t.detach().clone(), trainer.params)
+    for dst, src in zip(state_tensors(live), state_tensors(start)):
+        dst.copy_(src)
+    trainer.mesh = None
+    trainer._build_step()
+    loss_one = trainer._train_step(trainer.params, trainer.opt_state, glob,
+                                   whole).item()
+    worst = 0.0
+    for (path, a), (_p, b) in zip(named_tensors(two),
+                                  named_tensors(trainer.params)):
+        fa, fb = a.float(), b.float()
+        bound = 2 * cfg.LEARNING_RATE + 2.0 ** -7 * fb.abs().max().item()
+        worst = max(worst, (fa - fb).abs().max().item() / bound)
+    loss_rel = abs(loss_two - loss_one) / abs(loss_one)
+    check(loss_rel <= LOSS_RTOL and worst <= 1.0, f"(dp rename) the "
+          f"defended step at {world} ranks vs one process: loss rel "
+          f"{loss_rel:.3g}, worst param difference {worst:.3g} of its bound")
+    del trainer, live, start, two, glob, local, got, want, gathered
+    torch.cuda.empty_cache()
+    return {"renamed": renamed, "rows": G, "shift": whole.rename.shift,
+            "loss_two": loss_two, "loss_one": loss_one, "loss_rel": loss_rel,
+            "worst_of_bound": worst, "seconds": time.perf_counter() - t0}
 
 
 def dp_sparse_apply_check(torch, trainer, mesh) -> bool:
@@ -6473,7 +6619,7 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     n_train = count_lines(data_prefix + ".train.c2v")
     steps = -(-(-(-n_train // DP_WORLD)) // TRAIN_B)
     base = ["--data", data_prefix, "--test", test_path, "--batch_size",
-            str(TRAIN_B), "--max_contexts", str(C), "--epochs", "1",
+            str(TRAIN_B), "--max_contexts", str(C),
             "--async_checkpoint", "off"]
     ck = {label: os.path.join(tmp, f"dp_ckpt_{label}")
           for label in DP_CONFIGS}
@@ -6512,11 +6658,13 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     r0, r1 = results
     for label in DP_CONFIGS:
         a, b = r0[label], r1[label]
-        check(a["steps"] == b["steps"] == steps,
-              f"(dp {label}) steps {a['steps']}, {b['steps']} (want {steps})")
+        epochs = DP_EPOCHS[label]
+        last = epochs * steps
+        check(a["steps"] == b["steps"] == last,
+              f"(dp {label}) steps {a['steps']}, {b['steps']} (want {last})")
         check(a["digests"] == b["digests"], f"(dp {label}) the ranks' final "
               "params differ")
-        check(a["evals"] == b["evals"] and len(a["evals"]) == 1,
+        check(a["evals"] == b["evals"] and len(a["evals"]) == epochs,
               f"(dp {label}) merged evaluations {a['evals']} vs {b['evals']}")
         check(a["identity"] == {"process_index": 0,
                                 "process_count": DP_WORLD,
@@ -6529,28 +6677,29 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
                 check(r["launches"]["sparse_row_adam"] > 0,
                       f"(dp {label}) kernel 5 never launched in a child")
         step_dirs = [s for s, _d in ckpt._step_dirs(ck[label])]
-        check(step_dirs == [steps], f"(dp {label}) step dirs {step_dirs}")
-        topo = ckpt.load_step_topology(ck[label], steps)
+        check(step_dirs == [steps * (e + 1) for e in range(epochs)],
+              f"(dp {label}) step dirs {step_dirs}")
+        topo = ckpt.load_step_topology(ck[label], last)
         check(topo["num_processes"] == DP_WORLD, f"(dp {label}) topology "
               f"{topo}")
         # one process's evaluation of the saved checkpoint
         cfg = Config.load_from_args(["--load", ck[label], "--test",
                                      test_path])
         one = Code2VecTrainer.from_config(cfg, vocabs=vocabs).evaluate()
-        merged = a["evals"][0][1]
+        merged = a["evals"][-1][1]
         loss_rel = abs(merged["loss"] - one.loss) / abs(one.loss)
         check(merged["topk_acc"] == list(one.topk_acc)
               and merged["subtoken_f1"] == one.subtoken_f1
               and loss_rel <= 1e-5, f"(dp {label}) merged evaluation "
               f"{merged} vs one process {one}")
-        print(f"  (dp {label}) two CLI ranks (gloo, cuda:0): {steps} steps "
+        print(f"  (dp {label}) two CLI ranks (gloo, cuda:0): {last} steps "
               f"each in {a['run_s']:.1f} / {b['run_s']:.1f} s, losses "
               f"{[round(x, 5) for x in a['losses']]}; final params "
               f"bit-identical ({len(a['digests'])} leaves, sha256); "
               f"launches rank 0 {a['launches']}, rank 1 {b['launches']}; "
               f"merged evaluation top-1 {merged['topk_acc'][0]:.4f} F1 "
               f"{merged['subtoken_f1']:.4f} = one process's (loss rel "
-              f"{loss_rel:.2e}); rank 0 alone wrote step_{steps}, "
+              f"{loss_rel:.2e}); rank 0 alone wrote {step_dirs}, "
               f"topology.json num_processes {topo['num_processes']}",
               flush=True)
     h0, h1 = r0["harness"], r1["harness"]
@@ -6572,6 +6721,28 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
           f"{fmt_ms(h0['c']['allreduce_ms'])} (gloo through the host, "
           f"{DP_WORLD} ranks sharing one card: not a scaling number); "
           f"mesh_sparse_apply bit-identical to the compact apply", flush=True)
+    for rank, h in enumerate((h0, h1)):
+        ph = h["phases_c"]
+        print(f"  (dp phases c) rank {rank}, the trainer's phase profiler at "
+              f"{DP_WORLD} ranks (sample {DP_PHASE_SAMPLES}): allreduce "
+              f"{ph['allreduce_ms']:.1f} ms, allreduce_exposed "
+              f"{ph['allreduce_exposed_ms']:.1f} ms (beside the measured "
+              f"all-reduce's {fmt_ms(h['c']['allreduce_ms'])}), fused "
+              f"{ph['fused_ms']:.1f} ms, table_apply "
+              f"{ph['table_apply_ms']:.1f} ms, backward "
+              f"{ph['backward_ms']:.1f} ms, residual {ph['residual_ms']:.1f}"
+              f" ms", flush=True)
+    rn = h0["rename"]
+    check(h1["rename"]["loss_two"] == rn["loss_two"],
+          f"(dp rename) the ranks' losses {rn} vs {h1['rename']}")
+    print(f"  (dp rename) (c) with --adv_rename_prob {DP_RENAME_PROB} "
+          f"--adv_rename_mode batch at {DP_WORLD} ranks: the gathered "
+          f"augmented rows ({rn['renamed']} of {rn['rows']} renamed, donor "
+          f"roll {rn['shift']} across the ranks) bit-identical to one "
+          f"process's augment of the concatenated batch; the step's loss "
+          f"{rn['loss_two']:.6f} vs one process {rn['loss_one']:.6f} (rel "
+          f"{rn['loss_rel']:.2e}), params within {rn['worst_of_bound']:.3f} "
+          f"of the bound; {rn['seconds']:.1f} s", flush=True)
 
     # ---- one rank over NCCL, through the same flags ----
     t1 = time.perf_counter()
@@ -6629,7 +6800,346 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
                                                     if k != "digests"}}
                                   for label in DP_CONFIGS},
         "harness": {"rank0": h0, "rank1": h1}}
-    return launches
+    # (a)'s two-rank run: [24]'s oracle of the supervised cohort
+    kept = {"argv": dp_argv(base, "a"), "digests": r0["a"]["digests"],
+            "steps": DP_EPOCHS["a"] * steps, "steps_per_epoch": steps,
+            "n_train": n_train}
+    return launches, kept
+
+
+# ---- [24]: the supervised training cohort ----
+
+# process 1's train/kill hit: its step 3, the first of epoch 2 at two
+# ranks (2 steps an epoch), past epoch 1's synchronous save (step 2); the
+# fleet's sweep and the /fleet poll; a tool call's and an attempt's
+# limits
+COHORT_KILL_AT, COHORT_FLEET_S, COHORT_POLL_S = 3, 0.5, 0.05
+COHORT_TIMEOUT_S, COHORT_ATTEMPT_S = 300, 240
+COHORT_CHILD = "import chip_smoke; chip_smoke.cohort_child()"
+
+
+def cohort_child() -> None:
+    """One member of [24]'s cohort (`python3 -c 'import chip_smoke;
+    chip_smoke.cohort_child()' <argv>`, the supervisor's child command):
+    `cli.main(argv)`, printing `COHORT_LAUNCHES <json>` (kernel 1's and
+    kernel 5's launches so far) after each epoch's boundary work and at
+    the end, so a member killed in epoch 2 has printed epoch 1's; its
+    log on standard output, as `python3 -m code2vec_tpu_torch` has it;
+    exits with cli.main's code."""
+    import logging
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.models.torch_model import TrainerBase
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import \
+        sparse_row_adam_fused
+
+    def launches() -> None:
+        print("COHORT_LAUNCHES " + json.dumps({
+            "attention_pool": attention_pool_fused.launches,
+            "sparse_row_adam": sparse_row_adam_fused.launches}), flush=True)
+
+    real_end = TrainerBase._epoch_end
+
+    def epoch_end(self, *args, **kwargs):
+        done = real_end(self, *args, **kwargs)
+        launches()
+        return done
+
+    TrainerBase._epoch_end = epoch_end
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    rc = cli.main(sys.argv[1:])
+    launches()
+    sys.exit(rc)
+
+
+def cohort_logs(log_dir: str) -> dict:
+    """{log name: the member's last COHORT_LAUNCHES, or None} of each
+    member's log under a supervisor's --out_dir, and the logs' text."""
+    launches, texts = {}, {}
+    for name in sorted(os.listdir(log_dir)):
+        with open(os.path.join(log_dir, name), errors="replace") as f:
+            texts[name] = f.read()
+        lines = [ln for ln in texts[name].splitlines()
+                 if ln.startswith("COHORT_LAUNCHES ")]
+        launches[name] = (json.loads(lines[-1][len("COHORT_LAUNCHES "):])
+                          if lines else None)
+    return {"launches": launches, "texts": texts}
+
+
+def runs_step_ms(tele_dir: str):
+    """[(first event's ts, [step_ms of each step event])] of each run
+    under a children's telemetry dir, oldest first."""
+    out = []
+    for events in run_events(tele_dir):
+        if events:
+            out.append((events[0]["ts"], [e["step_ms"] for e in events
+                                          if e["kind"] == "step"]))
+    return out
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def phase_cohort(torch, tmp, dp_kept, report):
+    """[24]: the supervised training cohort on the card. (a) at
+    java-large width on [14]'s binary shards, two ranks sharing the card
+    over gloo, driven through `python3 -m
+    code2vec_tpu_torch.tools.train_supervisor --procs 2` with
+    `cohort_child` members: (i) kill_resume_2proc, `train/kill` on
+    process 1 at its step COHORT_KILL_AT: the whole cohort relaunched on
+    a fresh port, the final params bit-identical (sha256 per leaf) to
+    [23]'s uninterrupted two-rank run of the same command; (ii)
+    kill_resize under `--resize_policy shrink --min_procs 1`: resizes
+    [[2, 1]], no full relaunch, one restart, the re-formed member without
+    --dist_* flags logging the resharding line, its saves' topology 1,
+    the final params bit-identical to a one-process run resumed from a
+    copy of the same committed step; (iii) /fleet during (ii): two
+    members before the kill, one after. (ii) runs first and alone (its
+    recovery and step times are the phase's readings), then (i) with
+    (ii)'s oracle running beside it. Every member's kernel 1 and kernel
+    5 launches are printed (outside this process's count)."""
+    import gc
+    import shutil
+
+    from code2vec_tpu_torch.parallel.compat import free_port
+    from code2vec_tpu_torch.tools import chaos
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    argv = dp_kept["argv"]
+    spe = dp_kept["steps_per_epoch"]
+    last = dp_kept["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()  # the members need the card's memory
+    out = {}
+
+    def supervise(label, sup_flags, poll_fleet=None):
+        d = os.path.join(tmp, f"ck24_{label}")
+        sup_tele = os.path.join(tmp, f"sup24_{label}")
+        child_tele = os.path.join(tmp, f"tele24_{label}")
+        logs = os.path.join(tmp, f"logs24_{label}")
+        marker = os.path.join(tmp, f"killed24_{label}.once")
+        faults = {"sites": {"train/kill": {
+            "action": "kill", "at": COHORT_KILL_AT, "process": 1,
+            "marker": marker}}}
+        cmd = [sys.executable, "-m",
+               "code2vec_tpu_torch.tools.train_supervisor", "--procs", "2",
+               "--telemetry_dir", sup_tele, "--backoff_base_s", "0.2",
+               "--attempt_timeout_s", str(COHORT_ATTEMPT_S),
+               "--out_dir", logs, *[str(a) for a in sup_flags], "--",
+               sys.executable, "-c", COHORT_CHILD, *argv, "--save", d,
+               "--faults", json.dumps(faults), "--telemetry_dir", child_tele]
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, env=env,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        try:
+            if poll_fleet is not None:
+                with Poller(poll_fleet, ("/fleet",),
+                            every_s=COHORT_POLL_S) as poll:
+                    stdout, _ = proc.communicate(timeout=COHORT_TIMEOUT_S)
+                scrapes = [json.loads(b) for _p, st, b, _ms in poll.seen
+                           if st == 200]
+            else:
+                stdout, _ = proc.communicate(timeout=COHORT_TIMEOUT_S)
+                scrapes = []
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t
+        (events,) = run_events(sup_tele)
+        attempts = [e for e in events if e["kind"] == "supervisor_attempt"]
+        launches_ev = [e for e in events if e["kind"] == "supervisor_launch"]
+        resizes = [[e["from_procs"], e["to_procs"]] for e in events
+                   if e["kind"] == "cohort_resized"]
+        spawns = [ln.split(": ", 2)[-1] for ln in stdout.splitlines()
+                  if "supervisor: spawn attempt=" in ln]
+        members = cohort_logs(logs)
+        run = {"rc": proc.returncode, "seconds": seconds,
+               "kill_fired": os.path.exists(marker),
+               "kill_ts": chaos._marker_ts(marker),
+               "exit_codes": [a["exit_codes"] for a in attempts],
+               "reasons": [a["reason"] for a in attempts],
+               "resume_steps": [e["resume_step"] for e in launches_ev],
+               "launch_ts": [e["ts"] for e in launches_ev],
+               "restarts": len(attempts) - 1, "resizes": resizes,
+               "full_relaunches": len(attempts) - 1 - len(resizes),
+               "spawns": spawns, "launches": members["launches"],
+               "runs": runs_step_ms(child_tele)}
+        check(proc.returncode == 0 and run["kill_fired"]
+              and all(v is not None and v["attention_pool"] > 0
+                      and v["sparse_row_adam"] > 0
+                      for v in run["launches"].values()),
+              f"({label}) supervisor exit {proc.returncode}, kill fired "
+              f"{run['kill_fired']}, members' launches {run['launches']}: "
+              f"{stdout[-3000:]}")
+        shutil.rmtree(sup_tele)
+        return run, scrapes, members["texts"], stdout
+
+    def final_digests(d):
+        state = ckpt.load_checkpoint(d, mmap=True)
+        digests = leaf_digests(torch, state["params"])
+        step = state["step"]
+        del state
+        return step, digests
+
+    def port_of(spawn: str):
+        toks = spawn.split()
+        return toks[toks.index("--dist_coordinator") + 1] \
+            if "--dist_coordinator" in toks else None
+
+    # ---- (ii) kill_resize under the shrink policy, (iii) /fleet ----
+    # first and alone: its recovery and step times are the phase's
+    # readings
+    fleet_port, member_base = free_port(), free_port()
+    run, scrapes, texts, stdout = supervise(
+        "shrink", ["--max_restarts", 2, "--resize_policy", "shrink",
+                   "--min_procs", 1, "--fleet_port", fleet_port,
+                   "--member_metrics_base", member_base,
+                   "--fleet_interval_s", COHORT_FLEET_S],
+        poll_fleet=fleet_port)
+    d = os.path.join(tmp, "ck24_shrink")
+    S = run["resume_steps"][-1]
+    reformed = run["spawns"][2:]
+    log1 = texts.get("attempt1.proc0.log", "")
+    topo = {s_: ckpt.load_step_topology(d, s_)["num_processes"]
+            for s_, _d in ckpt._step_dirs(d) if s_ > S}
+    check(run["restarts"] == 1 and run["resizes"] == [[2, 1]]
+          and run["full_relaunches"] == 0 and S == spe
+          and len(reformed) == 1 and "--dist_" not in reformed[0]
+          and "initializing torch.distributed" not in log1
+          and "resharding onto the new mesh" in log1
+          and topo and set(topo.values()) == {1},
+          f"(ii) attempts {run['exit_codes']} ({run['reasons']}), resizes "
+          f"{run['resizes']}, resumes {run['resume_steps']}, re-formed "
+          f"spawn {reformed}, topology after the resize {topo}: "
+          f"{stdout[-3000:]}")
+    reshard = next(ln for ln in log1.splitlines()
+                   if "resharding onto the new mesh" in ln)
+    # recovery: the kill (its marker's time) to the first step event of
+    # the re-formed member
+    steps_ev = chaos._step_event_times(os.path.join(tmp, "tele24_shrink"))
+    first_post = next((ts for ts, _s in steps_ev
+                       if ts >= run["launch_ts"][-1]), None)
+    recovery_s = (first_post - run["kill_ts"]
+                  if first_post is not None and run["kill_ts"] else None)
+    lost = COHORT_KILL_AT - S
+    check(recovery_s is not None and recovery_s > 0,
+          f"(ii) no step after the resize: {run['runs']}")
+    one_ms = [median(ms[1:]) for ts, ms in run["runs"]
+              if ts >= run["launch_ts"][-1] and len(ms) > 1]
+    two_ms = [median(ms[1:]) for ts, ms in run["runs"]
+              if ts < run["launch_ts"][-1] and len(ms) > 1]
+    before = [sc for sc in scrapes if sc.get("ts", 0) < run["kill_ts"]
+              and sc.get("cohort", {}).get("hosts_total") == 2
+              and sc["cohort"].get("hosts_up") == 2]
+    after = [sc for sc in scrapes if sc.get("ts", 0) > run["launch_ts"][-1]
+             and sc.get("cohort", {}).get("hosts_total") == 1
+             and sc["cohort"].get("hosts_up") == 1]
+    check(before and after, f"(iii) /fleet: {len(scrapes)} scrapes, "
+          f"{len(before)} with two members up before the kill, {len(after)} "
+          f"with one after the resize; last {scrapes[-1:]}")
+    shrink = run
+    # (ii)'s oracle, run beside (i): one process resumed from a copy of
+    # the committed step the re-formed member restored
+    oracle = os.path.join(tmp, "ck24_oracle")
+    chaos.copy_committed_step(d, oracle, S)
+    oracle_log = os.path.join(tmp, "oracle24.log")
+    with open(oracle_log, "w") as f:
+        oracle_proc = subprocess.Popen(
+            [sys.executable, "-c", COHORT_CHILD, *argv, "--save", oracle,
+             "--auto_resume"], cwd=here, env=env, stdout=f,
+            stderr=subprocess.STDOUT)
+    try:
+        # ---- (i) kill_resume_2proc: the whole cohort relaunched ----
+        run, _s, _t, stdout = supervise("relaunch", ["--max_restarts", 2])
+        oracle_proc.wait(timeout=COHORT_TIMEOUT_S)
+    finally:
+        if oracle_proc.poll() is None:
+            oracle_proc.kill()
+            oracle_proc.wait()
+    step_i, digests = final_digests(os.path.join(tmp, "ck24_relaunch"))
+    ports = [port_of(sp) for sp in run["spawns"]]
+    check(run["restarts"] == 1 and run["resizes"] == []
+          and run["full_relaunches"] == 1
+          and run["resume_steps"] == [-1, spe]
+          and len(run["spawns"]) == 4 and None not in ports
+          and ports[0] == ports[1] != ports[2] == ports[3]
+          and sorted(run["exit_codes"][0])[0] == -9
+          and run["exit_codes"][1] == [0, 0],
+          f"(i) attempts {run['exit_codes']} ({run['reasons']}), resumes "
+          f"{run['resume_steps']}, coordinators {ports}: {stdout[-3000:]}")
+    same = digests == dp_kept["digests"]
+    check(step_i == last and same, f"(i) final step {step_i} (want {last}); "
+          f"params bit-identical to [23]'s uninterrupted run: {same}")
+    print(f"  (i) kill_resume_2proc: supervisor --procs 2, train/kill on "
+          f"process 1 at its step {COHORT_KILL_AT}: exit 0 in "
+          f"{run['seconds']:.1f} s ((ii)'s one-process oracle running "
+          f"beside it), attempts exited {run['exit_codes']} "
+          f"({run['reasons']}), the whole cohort relaunched on a fresh port "
+          f"({ports[0]} -> {ports[2]}), resumed_from_step {spe}; final step "
+          f"{step_i}, params bit-identical to [23]'s uninterrupted two-rank "
+          f"run ({len(digests)} leaves, sha256); members' launches "
+          f"{run['launches']}", flush=True)
+    out["kill_resume_2proc"] = {k: v for k, v in run.items()
+                                if k != "spawns"}
+
+    with open(oracle_log) as f:
+        o_text = f.read()
+    o_lines = [ln for ln in o_text.splitlines()
+               if ln.startswith("COHORT_LAUNCHES ")]
+    check(oracle_proc.returncode == 0 and o_lines, f"(ii) the one-process "
+          f"oracle exited {oracle_proc.returncode}: {o_text[-3000:]}")
+    o_launches = json.loads(o_lines[-1][len("COHORT_LAUNCHES "):])
+    step_c, d_chaos = final_digests(d)
+    step_o, d_oracle = final_digests(oracle)
+    one_spe = -(-dp_kept["n_train"] // TRAIN_B)  # one process's epoch
+    check(step_c == step_o == S + (DP_EPOCHS["a"] - 1) * one_spe
+          and d_chaos == d_oracle and o_launches["attention_pool"] > 0
+          and o_launches["sparse_row_adam"] > 0,
+          f"(ii) final steps {step_c} / {step_o}, params bit-identical "
+          f"{d_chaos == d_oracle}, oracle launches {o_launches}")
+    run = shrink
+    print(f"  (ii) kill_resize: supervisor --procs 2 --resize_policy shrink "
+          f"--min_procs 1, train/kill on process 1 at its step "
+          f"{COHORT_KILL_AT}: exit 0 in {run['seconds']:.1f} s, attempts "
+          f"exited {run['exit_codes']} ({run['reasons']}), resizes "
+          f"{run['resizes']}, full_relaunches {run['full_relaunches']}, "
+          f"restarts {run['restarts']}; the re-formed member has no --dist_* "
+          f"flags, logged \"{reshard.split('INFO ')[-1]}\", saved steps "
+          f"{sorted(topo)} with topology num_processes 1; final params "
+          f"bit-identical to one process resumed from a copy of step {S} "
+          f"({len(d_chaos)} leaves, sha256; the oracle ran beside (i), "
+          f"launches {o_launches}); "
+          f"recovery_steps_lost {lost}, recovery_seconds {recovery_s:.3f}; "
+          f"members' launches {run['launches']}; step ms (median after "
+          f"each member's first) at 2 ranks {[round(x, 1) for x in two_ms]}"
+          f", at 1 after the resize {[round(x, 1) for x in one_ms]}",
+          flush=True)
+    print(f"  (iii) /fleet during (ii): {len(scrapes)} scrapes, "
+          f"{len(before)} with both members up before the kill, "
+          f"{len(after)} with the one member up after the resize", flush=True)
+    out["kill_resize"] = {
+        **{k: v for k, v in run.items() if k != "spawns"},
+        "resumed_from_step": S, "topology_after": topo,
+        "recovery_steps_lost": lost, "recovery_seconds": recovery_s,
+        "oracle_launches": o_launches,
+        "step_ms_two_ranks": two_ms, "step_ms_one_rank": one_ms,
+        "fleet": {"scrapes": len(scrapes), "two_up": len(before),
+                  "one_up": len(after)}}
+    for name in ("ck24_relaunch", "ck24_shrink", "ck24_oracle",
+                 "tele24_relaunch", "tele24_shrink", "logs24_relaunch",
+                 "logs24_shrink", "oracle24.log"):
+        path = os.path.join(tmp, name)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        elif os.path.exists(path):
+            os.remove(path)
+    report["cohort"] = out
 
 
 def main(argv=None) -> int:
@@ -6830,11 +7340,19 @@ def main(argv=None) -> int:
         print("[23] data-parallel training: two ranks on the card (gloo) "
               "through the command line and the function-level harness, "
               "one rank over NCCL", flush=True)
-        dp_launches = phase_data_parallel(torch, np, vocabs, tmp,
-                                          data_prefix, test_path, report)
+        dp_launches, dp_kept = phase_data_parallel(
+            torch, np, vocabs, tmp, data_prefix, test_path, report)
         lap("[23]")
 
-    # ---- 24. result ----
+        # ---- 24. the supervised training cohort ----
+        print("[24] the supervised training cohort: (a) at two ranks on the "
+              "card under the supervisor tool, (i) kill_resume_2proc, (ii) "
+              "kill_resize (shrink to one process), (iii) /fleet",
+              flush=True)
+        phase_cohort(torch, tmp, dp_kept, report)
+        lap("[24]")
+
+    # ---- 25. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows

@@ -17,12 +17,21 @@ the legal ids, the apply uniforms (`bernoulli` is `uniform < p`), and in
 `batch` mode the roll. The trainer draws them from the step's seeded
 generator (`RenameAugment.draw`); tests pass the values JAX's augment
 draws from its keys, and the augmented batch is then JAX's, id for id.
+
+Under a data-parallel mesh each rank augments its rows of the global
+batch with its rows of the global draws (training/draws.py), and in
+`batch` mode the donor roll runs over the GLOBAL batch, as the JAX
+augment's roll runs over the sharded batch: each rank picks its rows'
+slots, the picked tokens are all-gathered in rank order
+(parallel/distributed.all_gather_rows), rolled by the global `shift`,
+and the rank takes its own rows' donors. An R-rank augment is the
+one-process augment over the concatenated batch, bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,7 +61,11 @@ class RenameDraws:
     # or the fallback's where the donor is illegal ("batch")
     index: torch.Tensor
     apply_u: torch.Tensor  # float32 [B]: the rename applies where < p
-    shift: int = 0         # "batch": the donor roll, in [1, B - 1]
+    # "batch": the donor roll, in [1, G - 1] over the global batch of G
+    shift: int = 0
+    # under a mesh, this rank's [start, stop) rows of the global batch
+    # whose donors the roll takes across the ranks; None in one process
+    rows: Optional[Tuple[int, int]] = None
 
 
 class RenameAugment:
@@ -72,7 +85,8 @@ class RenameAugment:
     - "batch": the token another example of the batch selected (a roll
       by `shift`), a fallback uniform legal token where that donor is
       illegal; a batch of one takes the uniform branch (a roll over one
-      example is a self-rename)."""
+      example is a self-rename). With `draws.rows` (a rank of a mesh)
+      the roll is over the global batch (the module docstring)."""
 
     def __init__(self, legal: np.ndarray, prob: float, mode: str,
                  device: Optional[Union[str, torch.device]] = None):
@@ -122,11 +136,18 @@ class RenameAugment:
         j = torch.argmax(slot_logits + draws.gumbel, dim=-1)
         tok = torch.gather(all_tok, 1, j[:, None])[:, 0]
         fallback = self.legal_ids[draws.index]
-        if self.mode == "batch" and B > 1:
+        donor = None
+        if self.mode == "batch" and draws.rows is not None:
+            from code2vec_tpu_torch.parallel.distributed import \
+                all_gather_rows
+            everyone = all_gather_rows(tok)  # [G], rank order
+            if everyone.shape[0] > 1:
+                lo, hi = draws.rows
+                donor = torch.roll(everyone, draws.shift)[lo:hi]
+        elif self.mode == "batch" and B > 1:
             donor = torch.roll(tok, draws.shift)
-            new = torch.where(legal[donor], donor, fallback)
-        else:
-            new = fallback
+        new = fallback if donor is None \
+            else torch.where(legal[donor], donor, fallback)
         keep = (draws.apply_u < self.prob) & legal[tok]
         # a non-id sentinel disables the rename where keep is False
         tok_eff = torch.where(keep, tok, torch.full_like(tok, -1))[:, None]

@@ -411,8 +411,9 @@ class Config:
                                                    or self.ATTACK):
             raise ValueError(
                 "--predict and --attack run in one process in "
-                "code2vec_tpu_torch (a world above 1 is ROADMAP.md Queue 1 "
-                "item 4)")
+                "code2vec_tpu_torch (a world above 1 for them is an open "
+                "part of ROADMAP.md Queue 1 item 4: serving, --predict, "
+                "the REPL and --attack above one rank)")
         if self.LR_WARMUP_STEPS < 0:
             raise ValueError("LR_WARMUP_STEPS must be >= 0.")
         if self.LR_WARMUP_STEPS > 0 and self.LR_SCHEDULE != "warmup_cosine":

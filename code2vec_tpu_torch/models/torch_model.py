@@ -1081,7 +1081,7 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
                 use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
                 num_sampled=cfg.NUM_SAMPLED_CLASSES,
                 compute_dtype=self.compute_dtype, use_kernel=self.use_kernel,
-                sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES)
+                sparse_updates=cfg.SPARSE_EMBEDDING_UPDATES, mesh=self.mesh)
 
         def fused_step(_params, _opt_state, batch, draws):
             return self.train_step(batch, draws)  # in place, step_num + 1

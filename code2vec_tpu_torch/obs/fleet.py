@@ -35,9 +35,9 @@ and its alert rules ride the supervisor's engine), serve live on
 `/fleet` (obs/exposition.py, JSON and Prometheus text), and persist as a
 bounded JSONL ring for postmortems.
 
-The port's trainer runs one process on one card, so a cohort is one
-member today; the collector is the JAX package's, whole, for when
-multi-GPU training makes it more. House rules: the disabled path is a
+The collector is the JAX package's, whole: the supervisor tool
+(`--procs N`, tools/train_supervisor.py) hosts it over the members of
+its current cohort, N ranks on the data axis or one process. House rules: the disabled path is a
 shared no-op singleton (no thread, one check per site); `clock`,
 `wall` and `fetch` are injectable, so every policy test runs without
 sleeps or sockets; stdlib only.

@@ -63,7 +63,7 @@ PHASE_ORDER = ("infeed_wait", "embed_gather", "concat_dense",
 
 # phases summed by the coverage/roofline monitor against the fused
 # dispatch (infeed_wait is host time outside it; the allreduce pair is
-# a mesh's, which the port does not have yet)
+# a mesh's, timed apart from the step)
 DEVICE_PHASES = ("embed_gather", "concat_dense", "forward_pool",
                  "backward", "table_apply", "backward_apply")
 
@@ -78,7 +78,8 @@ class ProbeKit:
     `apply_fn(params, opt_state, batch, draws, chain_out)` is given, the
     last chain fn's output must carry what it needs; it must not write
     the state. `allreduce_fn(chain_out)` times an isolated grads-shaped
-    reduction (a mesh's; none in the port yet).
+    reduction (a mesh of more than one rank's, dense kit:
+    training/phase_probes._make_allreduce).
 
     `derive_remainder` (the default) books the fused step's time not
     covered by the probes as one more phase, `remainder_name`:

@@ -1,5 +1,5 @@
-"""Chaos legs: the single-process recovery contracts of tools/chaos.py of
-the JAX package, end to end over the port's command line and supervisor.
+"""Chaos legs: the recovery contracts of tools/chaos.py of the JAX
+package, end to end over the port's command line and supervisor.
 
 Each leg builds a tiny synthetic dataset, runs REAL `python3 -m
 code2vec_tpu_torch` training processes under the REAL supervisor
@@ -12,6 +12,11 @@ and checks the contract:
                      final checkpoint is BIT-IDENTICAL to an
                      uninterrupted run's (step-keyed draws and the
                      resumed shuffle stream replay the trajectory).
+  kill_resume_2proc  The same contract through a 2-process cohort (gloo):
+                     SIGKILL process 1 mid-epoch; the supervisor reaps
+                     the survivor and relaunches the WHOLE cohort on a
+                     fresh port; the final params are bit-identical to
+                     an uninterrupted 2-process supervised run's.
   corrupt_checkpoint Flip a byte in the largest file of the latest
                      committed step; the supervisor's pre-launch
                      verification QUARANTINES the step dir, one
@@ -26,9 +31,15 @@ and checks the contract:
                      signature under load, the pool back to full
                      strength. It runs in this process, on the tools'
                      tiny synthetic model.
-
-Not ported yet (`--list` names them): `kill_resume_2proc` and
-`kill_resize` need multi-GPU training.
+  kill_resize        SIGKILL process 1 of a 2-process cohort mid-epoch;
+                     the supervisor (resize_policy shrink) RE-FORMS the
+                     cohort at 1 process (no `--dist_*` flags) with zero
+                     full relaunches, the child logs the resharding line
+                     loading a step saved by 2 processes, and the final
+                     params are BIT-IDENTICAL to an uninterrupted
+                     1-process run resumed from a copy of the same
+                     committed step (constant LR). Reports the recovery
+                     cost: recovery_steps_lost, recovery_seconds.
 
 Usage (repo root):
 
@@ -37,11 +48,16 @@ Usage (repo root):
       --out /tmp/chaos
   python3 -m code2vec_tpu_torch.tools.chaos corrupt_checkpoint
   python3 -m code2vec_tpu_torch.tools.chaos serve_swap_kill --backend cpu
+  python3 -m code2vec_tpu_torch.tools.chaos kill_resume_2proc --backend cpu
+  python3 -m code2vec_tpu_torch.tools.chaos kill_resize --backend cpu
 
 `--backend gpu` (the default) trains and serves on the CUDA card (exit 2
-without one), `cpu` on the CPU. Every training process runs under a time limit (`timeout_s`, 600 s by
-default: an uninterrupted run's, and each supervised attempt's). Prints
-a JSON result; exit 0 = the contract held, 1 = it did not.
+without one; the members of a cohort share it over gloo), `cpu` on the
+CPU (gloo). Every training process runs under a time limit (`timeout_s`,
+600 s by default: an uninterrupted run's, and each supervised
+attempt's). Prints a JSON result; exit 0 = the contract held, 1 = it did
+not. The fault markers make every kill a cross-restart once-latch, so a
+leg is a test, not a dice roll.
 """
 
 from __future__ import annotations
@@ -64,14 +80,6 @@ _TOKENS = ["foo", "bar", "baz", "qux", "value", "name", "index", "count"]
 _PATHS = [str(h) for h in (123456, -98765, 424242, 1337, -777, 31415)]
 _TARGETS = ["get|value", "set|value", "get|name", "set|name",
             "add|item", "remove|item", "to|string", "is|empty"]
-
-_NOT_PORTED = {
-    "kill_resume_2proc": "SIGKILL one process of a 2-process cohort "
-                         "(needs multi-GPU training)",
-    "kill_resize": "re-form a cohort at N-1 processes (needs multi-GPU "
-                   "training)",
-}
-
 
 def _raw_lines(n: int, seed: int, max_ctx: int) -> list:
     rng = random.Random(seed)
@@ -133,13 +141,15 @@ def child_env() -> Dict[str, str]:
     return env
 
 
-def _run_plain(cmd: list, *, timeout_s: float) -> None:
+def _run_plain(cmd: list, *, timeout_s: float) -> str:
+    """Run `cmd` to its end; its output (RuntimeError if it failed)."""
     r = subprocess.run(cmd, env=child_env(), stdout=subprocess.PIPE,
                        stderr=subprocess.STDOUT, text=True,
                        timeout=timeout_s)
     if r.returncode != 0:
         raise RuntimeError(f"uninterrupted run failed (rc {r.returncode}):"
                            f"\n{r.stdout[-4000:]}")
+    return r.stdout
 
 
 def latest_state(ckpt_dir: str):
@@ -186,8 +196,9 @@ def _write_faults(path: str, sites: dict) -> str:
 
 
 def _supervised(child_cmd: list, *, out: str, ckpt_dir: str,
-                telemetry_dir: Optional[str] = None,
-                max_restarts: int = 2, attempt_timeout_s: float = 600.0):
+                num_procs: int = 1, telemetry_dir: Optional[str] = None,
+                max_restarts: int = 2, attempt_timeout_s: float = 600.0,
+                **sup_kwargs):
     from code2vec_tpu_torch.obs import Telemetry
     from code2vec_tpu_torch.resilience.retry import RetryPolicy
     from code2vec_tpu_torch.training.supervisor import (Supervisor,
@@ -198,14 +209,16 @@ def _supervised(child_cmd: list, *, out: str, ckpt_dir: str,
 
     telemetry = Telemetry.create(telemetry_dir, component="supervisor",
                                  log=log) if telemetry_dir else None
-    spawn = build_cli_spawn(child_cmd, out_dir=os.path.join(out, "logs"),
+    spawn = build_cli_spawn(child_cmd, num_procs=num_procs,
+                            out_dir=os.path.join(out, "logs"),
                             env=child_env(), log=log)
     sup = Supervisor(
-        spawn, max_restarts=max_restarts, ckpt_dir=ckpt_dir,
-        telemetry=telemetry, log=log, peer_grace_s=10.0,
+        spawn, num_procs=num_procs, max_restarts=max_restarts,
+        ckpt_dir=ckpt_dir, telemetry=telemetry, log=log, peer_grace_s=10.0,
         attempt_timeout_s=attempt_timeout_s,
         backoff=RetryPolicy("supervisor-restart", max_attempts=1,
-                            base_delay_s=0.2, max_delay_s=1.0, seed=0))
+                            base_delay_s=0.2, max_delay_s=1.0, seed=0),
+        **sup_kwargs)
     try:
         rc = sup.run()
     finally:
@@ -265,6 +278,256 @@ def scenario_kill_resume(out: str, *, backend: str = "gpu",
     result["ok"] = (result["kill_fired"] and rc == 0
                     and sup.restarts == 1 and o_step == c_step
                     and not diffs)
+    return result
+
+
+def scenario_kill_resume_2proc(out: str, *, backend: str = "gpu",
+                               epochs: int = 3, kill_at_step: int = 4,
+                               timeout_s: float = 600.0) -> dict:
+    """The same parity contract through a real 2-process gloo cohort:
+    process 1 is SIGKILLed mid-epoch; the supervisor reaps the surviving
+    peer and relaunches the cohort coherently on a fresh port."""
+    prefix = build_dataset(os.path.join(out, "data"))
+    oracle_dir = os.path.join(out, "ckpt_oracle")
+    chaos_dir = os.path.join(out, "ckpt_chaos")
+    t0 = time.time()
+    # the oracle is ALSO a 2-process supervised run: the same topology,
+    # the only difference is the injected fault. A transient loopback
+    # failure may restart the oracle too (its child has --auto_resume
+    # like any supervised run): fine precisely BECAUSE resume is
+    # bit-exact, which is the property under test; oracle restarts are
+    # recorded, not rejected
+    rc_o, sup_o, _ = _supervised(
+        train_cmd(prefix, oracle_dir, epochs=epochs, backend=backend)
+        + ["--auto_resume"], out=os.path.join(out, "oracle"), num_procs=2,
+        ckpt_dir=oracle_dir, attempt_timeout_s=timeout_s)
+    if rc_o != 0:
+        return {"scenario": "kill_resume_2proc", "backend": backend,
+                "ok": False, "error": f"oracle cohort failed (rc {rc_o}, "
+                                      f"restarts {sup_o.restarts})"}
+
+    marker = os.path.join(out, "killed.once")
+    faults = _write_faults(os.path.join(out, "faults.json"), {
+        "train/kill": {"action": "kill", "at": kill_at_step,
+                       "process": 1, "marker": marker}})
+    cmd = train_cmd(prefix, chaos_dir, epochs=epochs, backend=backend) \
+        + ["--auto_resume", "--faults", faults]
+    rc, sup, run_dir = _supervised(
+        cmd, out=os.path.join(out, "chaos"), num_procs=2,
+        ckpt_dir=chaos_dir, telemetry_dir=os.path.join(out, "tele"),
+        attempt_timeout_s=timeout_s)
+
+    o_step, o_state = latest_state(oracle_dir)
+    c_step, c_state = latest_state(chaos_dir)
+    diffs = states_differ(o_state, c_state)
+    result = {
+        "scenario": "kill_resume_2proc",
+        "backend": backend,
+        "kill_fired": os.path.exists(marker),
+        "supervisor_rc": rc,
+        "oracle_restarts": sup_o.restarts,
+        "restarts": sup.restarts,
+        "resumed_from_step": sup.resumed_from_step,
+        "oracle_step": o_step, "chaos_step": c_step,
+        "param_diffs": diffs,
+        "wall_s": round(time.time() - t0, 1),
+        "telemetry_run_dir": run_dir,
+    }
+    result["ok"] = (result["kill_fired"] and rc == 0
+                    and sup.restarts >= 1 and o_step == c_step
+                    and not diffs)
+    return result
+
+
+def _step_event_times(tele_root: str) -> list:
+    """(ts, step) for every per-step telemetry event under any run dir
+    of `tele_root`. The event log is flushed per event, so even a
+    SIGKILLed attempt's steps are on disk up to the kill."""
+    import glob as glob_mod
+    out = []
+    for path in glob_mod.glob(os.path.join(tele_root, "*",
+                                           "events.jsonl")):
+        with open(path, encoding="utf-8") as f:
+            for ln in f:
+                if not ln.strip():
+                    continue
+                ev = json.loads(ln)
+                if ev.get("kind") == "step":
+                    out.append((float(ev["ts"]), int(ev["step"])))
+    return sorted(out)
+
+
+def _marker_ts(marker: str) -> Optional[float]:
+    """The firing wall-clock the fault site wrote into its once-latch
+    marker (`... ts=<float>`)."""
+    import re as re_mod
+    try:
+        with open(marker, encoding="utf-8") as f:
+            m = re_mod.search(r"ts=([0-9.]+)", f.read())
+        return float(m.group(1)) if m else None
+    except OSError:
+        return None
+
+
+def run_kill_resize(out: str, *, backend: str = "gpu", epochs: int = 3,
+                    kill_at_step: int = 4, procs: int = 2,
+                    timeout_s: float = 600.0, tries: int = 3) -> dict:
+    """The run half of the kill_resize leg: train a `procs`-process
+    cohort under the shrink-policy supervisor, SIGKILL process 1 at
+    `kill_at_step`, let the cohort RE-FORM at procs-1, and measure the
+    recovery cost: steps lost (the kill's step minus the committed step
+    the re-formed cohort resumed from) and seconds from the kill to the
+    first training step after the resize (the relaunched children's
+    per-step telemetry events against the kill's time the fault marker
+    recorded).
+
+    A loopback transport failure can abort a cohort at start-up BEFORE
+    the injected kill arms: the supervisor handles it by its policy (a
+    lone early death resizes, a whole-cohort crash relaunches at full
+    size), but as a measurement such a try is transient infrastructure,
+    not the contract: it is retried in a fresh subdirectory until the
+    kill fired after a committed checkpoint existed."""
+    last = None
+    for i in range(max(1, tries)):
+        sub = os.path.join(out, f"try{i}")
+        os.makedirs(sub, exist_ok=True)
+        last = _run_kill_resize_once(
+            sub, backend=backend, epochs=epochs, kill_at_step=kill_at_step,
+            procs=procs, timeout_s=timeout_s)
+        if (last["kill_fired"] and last["supervisor_rc"] == 0
+                and last["resumed_from_step"] is not None):
+            return last
+        print(f"[chaos] kill_resize try {i} hit transient infra "
+              f"(kill_fired={last['kill_fired']}, resumed="
+              f"{last['resumed_from_step']}); retrying in a fresh dir",
+              flush=True)
+    return last
+
+
+def _run_kill_resize_once(out: str, *, backend: str, epochs: int,
+                          kill_at_step: int, procs: int,
+                          timeout_s: float) -> dict:
+    prefix = build_dataset(os.path.join(out, "data"))
+    chaos_dir = os.path.join(out, "ckpt_chaos")
+    child_tele = os.path.join(out, "child_tele")
+    marker = os.path.join(out, "killed.once")
+    faults = _write_faults(os.path.join(out, "faults.json"), {
+        "train/kill": {"action": "kill", "at": kill_at_step,
+                       "process": 1, "marker": marker}})
+    # synchronous checkpointing: the contract under test is TOPOLOGY
+    # recovery from a committed step, so the committed step must be
+    # deterministic (an async commit could lose the race to a mid-epoch
+    # kill). kill_resume keeps the default async saves
+    cmd = train_cmd(prefix, chaos_dir, epochs=epochs, backend=backend) \
+        + ["--async_checkpoint", "off", "--auto_resume", "--faults", faults,
+           "--telemetry_dir", child_tele]
+    rc, sup, run_dir = _supervised(
+        cmd, out=out, num_procs=procs, ckpt_dir=chaos_dir,
+        telemetry_dir=os.path.join(out, "tele"),
+        attempt_timeout_s=timeout_s, resize_policy="shrink", min_procs=1)
+
+    kill_ts = _marker_ts(marker)
+    resumed = sup.resumed_from_step
+    steps = _step_event_times(child_tele)
+    first_post = next((ts for ts, _s in steps
+                       if sup.last_launch_ts is not None
+                       and ts >= sup.last_launch_ts), None)
+    recovery_seconds = (round(first_post - kill_ts, 3)
+                        if first_post is not None
+                        and kill_ts is not None else None)
+    recovery_steps_lost = (kill_at_step - resumed
+                           if resumed is not None else kill_at_step)
+    # the re-formed member's own log: whether it joined a process group
+    # (a cohort of one must not) and logged the resharding line
+    final_log = os.path.join(out, "logs",
+                             f"attempt{sup.restarts}.proc0.log")
+    try:
+        with open(final_log, encoding="utf-8", errors="replace") as f:
+            text = f.read()
+    except OSError:
+        text = ""
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    topo_after = {s: (ckpt.load_step_topology(chaos_dir, s) or {}).get(
+        "num_processes") for s, _d in ckpt._step_dirs(chaos_dir)
+        if resumed is not None and s > resumed} \
+        if os.path.isdir(chaos_dir) else {}
+    return {
+        "kill_fired": os.path.exists(marker),
+        "supervisor_rc": rc,
+        "restarts": sup.restarts,
+        "resizes": [list(r) for r in sup.resizes],
+        "full_relaunches": sup.full_relaunches,
+        "cohort_size_final": sup.cur_procs,
+        "resumed_from_step": resumed,
+        "kill_at_step": kill_at_step,
+        "recovery_steps_lost": recovery_steps_lost,
+        "recovery_seconds": recovery_seconds,
+        "reformed_joined_group": "initializing torch.distributed" in text,
+        "resharding_logged": "resharding onto the new mesh" in text,
+        "topology_after_resize": topo_after,
+        "data_prefix": prefix,
+        "ckpt_dir": chaos_dir,
+        "telemetry_run_dir": run_dir,
+    }
+
+
+def copy_committed_step(src_dir: str, dest_dir: str, step: int) -> None:
+    """`dest_dir` holding a copy of `src_dir`'s committed step `step`
+    and its sidecars: what a run resumed from that step alone sees
+    (committed step dirs are immutable, so the copy is the exact bytes
+    the re-formed cohort restored)."""
+    import shutil
+    os.makedirs(dest_dir)
+    shutil.copytree(os.path.join(src_dir, f"step_{step}"),
+                    os.path.join(dest_dir, f"step_{step}"))
+    for sidecar in ("manifest.json", "vocab.pkl"):
+        shutil.copy(os.path.join(src_dir, sidecar),
+                    os.path.join(dest_dir, sidecar))
+
+
+def scenario_kill_resize(out: str, *, backend: str = "gpu",
+                         epochs: int = 3, kill_at_step: int = 4,
+                         timeout_s: float = 600.0) -> dict:
+    """SIGKILL one peer of a 2-process cohort mid-epoch; the supervisor
+    re-forms the cohort at 1 process (a resize, ZERO full-cohort
+    relaunches), the survivor loads the step saved by 2 processes, and
+    the final params are bit-identical to an uninterrupted 1-process run
+    resumed from a copy of the same committed step (constant LR): the
+    elastic resume parity bar."""
+    t0 = time.time()
+    run = run_kill_resize(out, backend=backend, epochs=epochs,
+                          kill_at_step=kill_at_step, timeout_s=timeout_s)
+    result = dict(run, scenario="kill_resize", backend=backend,
+                  wall_s=None, param_diffs=["<not compared>"])
+    chaos_dir = run["ckpt_dir"]
+    S = run["resumed_from_step"]
+    if run["supervisor_rc"] != 0 or S is None:
+        result["ok"] = False
+        result["wall_s"] = round(time.time() - t0, 1)
+        return result
+
+    # the oracle: an UNINTERRUPTED 1-process run resumed from the SAME
+    # committed step the re-formed cohort restored, with the re-formed
+    # child's checkpoint mode (sync saves), so the two runs differ in
+    # nothing but history
+    oracle_dir = os.path.join(out, "ckpt_oracle")
+    copy_committed_step(chaos_dir, oracle_dir, S)
+    _run_plain(train_cmd(run["data_prefix"], oracle_dir, epochs=epochs,
+                         backend=backend)
+               + ["--async_checkpoint", "off", "--auto_resume"],
+               timeout_s=timeout_s)
+
+    o_step, o_state = latest_state(oracle_dir)
+    c_step, c_state = latest_state(chaos_dir)
+    diffs = states_differ(o_state, c_state)
+    result.update(
+        oracle_step=o_step, chaos_step=c_step, param_diffs=diffs,
+        wall_s=round(time.time() - t0, 1))
+    result["ok"] = (run["kill_fired"] and run["supervisor_rc"] == 0
+                    and run["restarts"] == 1
+                    and run["resizes"] == [[2, 1]]
+                    and run["full_relaunches"] == 0
+                    and o_step == c_step and not diffs)
     return result
 
 
@@ -489,8 +752,10 @@ def scenario_serve_swap_kill(out: str, *, backend: str = "gpu",
 
 SCENARIOS = {
     "kill_resume": scenario_kill_resume,
+    "kill_resume_2proc": scenario_kill_resume_2proc,
     "corrupt_checkpoint": scenario_corrupt_checkpoint,
     "serve_swap_kill": scenario_serve_swap_kill,
+    "kill_resize": scenario_kill_resize,
 }
 
 
@@ -512,8 +777,6 @@ def main(argv=None) -> int:
     if args.list or not args.scenario:
         for name, fn in sorted(SCENARIOS.items()):
             print(f"{name}: {' '.join((fn.__doc__ or '').split())}")
-        for name, what in sorted(_NOT_PORTED.items()):
-            print(f"{name}: not ported: {what}")
         return 0
 
     if args.scenario == "serve_swap_kill":

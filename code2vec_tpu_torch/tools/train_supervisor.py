@@ -9,6 +9,13 @@ Usage (repo root):
       -- python3 -m code2vec_tpu_torch --data d/ds --save ckpt \
       --lr_schedule constant
 
+  # a cohort of 2 ranks (the --dist_* flags appended per member, a fresh
+  # port per attempt); a dead peer re-forms the cohort at 1 process
+  python3 -m code2vec_tpu_torch.tools.train_supervisor --procs 2 \
+      --resize_policy shrink --min_procs 1 \
+      -- python3 -m code2vec_tpu_torch --data d/ds --save ckpt \
+      --lr_schedule constant --backend cpu
+
 Everything after `--` is the child command. The supervisor:
 
   - appends `--auto_resume` when the child has `--save` but not the flag
@@ -19,17 +26,20 @@ Everything after `--` is the child command. The supervisor:
     child resumes from the last VERIFIED committed step;
   - escalates through the alert engine (`--telemetry_dir` makes the
     `alert` / `supervisor_*` events durable JSONL);
-  - hosts the fleet plane behind `--fleet_port`: the member gets a fixed
-    `--metrics_port` (`--member_metrics_base` + its process index), the
-    supervisor's collector scrapes it, runs the clock handshake (the
-    member commits the measured offset into its run manifest), publishes
-    cohort throughput, straggler and divergence gauges, and serves the
+  - runs `--procs` N members, each with `--dist_coordinator
+    127.0.0.1:<port> --dist_num_processes <n> --dist_process_id <i>`
+    appended (none for a cohort of one). On a death, `--resize_policy
+    relaunch` relaunches the whole cohort on a fresh port; `shrink`
+    re-forms it at N-1 processes (floor `--min_procs`) and training
+    goes on from the last verified committed step;
+  - hosts the fleet plane behind `--fleet_port`: member i gets a fixed
+    `--metrics_port` (`--member_metrics_base` + i), the supervisor's
+    collector scrapes the members of the current attempt (a resize
+    shrinks the set), runs the clock handshake (each member commits the
+    measured offset into its run manifest), publishes cohort
+    throughput, straggler and divergence gauges, and serves the
     aggregate on `http://localhost:<fleet_port>/fleet` (JSON;
     `?format=prom` for Prometheus text).
-
-The child trains on one card: `--procs` above 1 and `--resize_policy
-shrink` exit 2, since a cohort of several processes needs multi-GPU
-training, which the port does not have yet.
 
 Exit codes: 0 = the supervised run completed; 3 = restart budget
 exhausted; 2 = usage error.
@@ -59,13 +69,14 @@ def main(argv=None) -> int:
                     help="relaunches before giving up (page alert + "
                          "exit 3)")
     ap.add_argument("--procs", type=int, default=1,
-                    help="cohort size; only 1 (multi-GPU training is "
-                         "not ported)")
+                    help="cohort size; >1 appends --dist_* flags per "
+                         "member on a fresh port per attempt")
     ap.add_argument("--resize_policy", choices=("relaunch", "shrink"),
                     default="relaunch",
-                    help="on a death: 'relaunch' (the only policy a "
-                         "one-process cohort has); 'shrink' needs "
-                         "multi-GPU training")
+                    help="on peer death: 'relaunch' the whole cohort "
+                         "at full size or 'shrink': re-form it at N-1 "
+                         "processes (floor --min_procs) and keep "
+                         "training")
     ap.add_argument("--min_procs", type=int, default=1,
                     help="smallest cohort 'shrink' may re-form at")
     ap.add_argument("--peer_grace_s", type=float, default=15.0,
@@ -89,8 +100,8 @@ def main(argv=None) -> int:
                          "stdio")
     ap.add_argument("--fleet_port", type=int, default=None,
                     help="host the fleet collector and serve /fleet on "
-                         "this port (0 = any free port); the member "
-                         "gets a fixed --metrics_port")
+                         "this port (0 = any free port); members get "
+                         "fixed --metrics_port flags")
     ap.add_argument("--member_metrics_base", type=int, default=9200,
                     help="member i serves /metrics on base+i (the "
                          "fleet collector's scrape set)")
@@ -105,10 +116,6 @@ def main(argv=None) -> int:
         child = child[1:]
     if not child:
         ap.error("no child command given (put it after `--`)")
-    if args.procs != 1 or args.resize_policy == "shrink":
-        ap.error("--procs above 1 and --resize_policy shrink need "
-                 "multi-GPU training (ROADMAP Queue 1 item 8), which "
-                 "code2vec_tpu_torch does not have yet")
 
     from code2vec_tpu_torch.obs import (FleetCollector, MetricsServer,
                                         Telemetry, Watchdog)

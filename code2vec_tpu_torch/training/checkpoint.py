@@ -6,7 +6,8 @@ written by `torch.save` where the JAX package writes an orbax tree:
   <ckpt_dir>/
     step_<N>/state/state.pt  params (+ opt_state + step unless released)
     step_<N>/checksums.json  sha256 and size of every file under state/
-    step_<N>/topology.json   {step, num_processes: 1, epoch}
+    step_<N>/topology.json   {step, num_processes, epoch}: the saver's
+                             world (1 for one process)
     vocab.pkl                Code2VecVocabs sidecar (loads need no dataset)
     manifest.json            ModelDims and the optimizer's configuration
 
@@ -17,7 +18,13 @@ written by `torch.save` where the JAX package writes an orbax tree:
   load verifies the files first (`verify_step`): a corrupt latest step
   is moved under `<ckpt_dir>/quarantine/` and the load falls back to
   the step before it; an explicitly requested corrupt step raises
-  `CheckpointCorrupt`. A step without checksums loads unverified.
+  `CheckpointCorrupt`, and so does a corrupt latest step above one
+  process (every rank of a cohort loads: the supervisor quarantines
+  before it relaunches, no rank moves the dir on its own). A step
+  without checksums loads unverified.
+- A step saved by another number of processes than the loader's world
+  logs the resharding line and loads: the params are replicated on
+  every rank, so the load itself does not change.
 - The sidecars are written once a dir (the manifest's `step` is
   advisory; `load_manifest` corrects it from the committed dirs).
 - MAX_TO_KEEP pruning keeps the newest steps.
@@ -86,7 +93,8 @@ _TAG = "__namedtuple__"
 
 
 class CheckpointCorrupt(RuntimeError):
-    """An explicitly requested step failed its checksum verification."""
+    """An explicitly requested step, or above one process the latest,
+    failed its checksum verification."""
 
 
 def _step_dirs(ckpt_dir: str) -> List[Tuple[int, str]]:
@@ -305,9 +313,10 @@ def write_step_checksums(ckpt_dir: str, step: int) -> str:
 
 def write_step_topology(ckpt_dir: str, step: int,
                         extra: Optional[Dict[str, Any]] = None) -> str:
-    """Write `step_<N>/topology.json`: {step, num_processes: 1} and the
-    caller's fields (the train loop records the completed `epoch`, which
-    a resume reads back)."""
+    """Write `step_<N>/topology.json`: {step, num_processes} and the
+    caller's fields. `num_processes` is 1 unless the caller says
+    otherwise: the trainer writes its world, and the completed `epoch`,
+    which a resume reads back."""
     payload: Dict[str, Any] = {"step": step, "num_processes": 1}
     if extra:
         payload.update({k: v for k, v in extra.items() if v is not None})
@@ -614,7 +623,16 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, *,
     0.77 GB step is not hashed twice. `mmap` maps the state file instead
     of reading it: a read holds the interpreter lock while it copies
     each table, a mapping defers the copy to the caller's `.to(device)`,
-    which releases it (the hot reload reads while replicas serve)."""
+    which releases it (the hot reload reads while replicas serve).
+
+    Above one process (`torch.distributed` up, world > 1) a corrupt
+    latest step raises `CheckpointCorrupt` too: every rank loads the
+    same dir, so the supervisor quarantines it before the relaunch. A
+    step whose `topology.json` names another number of processes than
+    the world logs the resharding line (with `log`) and loads as it
+    is."""
+    from code2vec_tpu_torch.parallel.compat import cohort_world
+    world = cohort_world()[1]
     explicit = step is not None
     while True:
         if step is None:
@@ -623,12 +641,22 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, *,
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
         if not verify or verify_step(ckpt_dir, step) is not False:
             break
-        if explicit:
+        if explicit or world > 1:
             raise CheckpointCorrupt(
                 f"checkpoint step {step} under {ckpt_dir} failed checksum "
-                f"verification")
+                f"verification"
+                + ("" if explicit else
+                   " (multi-process load: quarantine via the "
+                   "supervisor, not unilaterally)"))
         quarantine_step(ckpt_dir, step, log)
         step = None  # fall back to the step before
+    saved = load_step_topology(ckpt_dir, step)
+    if (log is not None and saved
+            and saved.get("num_processes") is not None
+            and int(saved["num_processes"]) != world):
+        log(f"checkpoint step {step}: saved by "
+            f"{saved['num_processes']} process(es), restoring onto "
+            f"{world} — resharding onto the new mesh")
     path = os.path.join(ckpt_dir, f"step_{step}", "state", STATE_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(

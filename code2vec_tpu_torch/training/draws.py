@@ -13,9 +13,11 @@ trainer draws them from generators seeded from (seed, step).
 Under a data-parallel mesh of R ranks with local batch B, every rank
 draws at the global batch R * B from the same generators and keeps its
 own rows (parallel/sharding.batch_rows) of the keep mask and of the
-rename draws; the sampled ids and the salts are the same on every rank.
-So an R-rank step sees the draws of the one-process step over the
-ranks' batches concatenated, dropout included.
+rename draws; the sampled ids, the salts and the rename's donor roll
+are the same on every rank. So an R-rank step sees the draws of the
+one-process step over the ranks' batches concatenated, dropout and the
+rename defense included (`--adv_rename_mode batch` rolls its donors
+over the global batch: attacks/defense.py).
 """
 
 from __future__ import annotations
@@ -84,15 +86,11 @@ def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
         rgen = torch.Generator(device=device).manual_seed(rename_seed >> 1)
         rename = augment.draw(rgen, batch_size, dims.max_contexts)
         if rows is not None:
-            if rename.shift and mesh.batch_shards > 1:
-                raise ValueError(
-                    "--adv_rename_mode batch draws its donors across the "
-                    "global batch: it runs in one process (ROADMAP.md "
-                    "Queue 1 item 4)")
             rename = dataclasses.replace(
                 rename, gumbel=rename.gumbel[rows].contiguous(),
                 index=rename.index[rows].contiguous(),
-                apply_u=rename.apply_u[rows].contiguous())
+                apply_u=rename.apply_u[rows].contiguous(),
+                rows=(rows.start, rows.stop))
     return StepDraws(keep=keep, sampled=sampled,
                      salts={k: int(s) for k, s in zip(qkeys, salts)},
                      rename=rename)

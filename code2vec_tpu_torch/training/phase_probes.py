@@ -27,9 +27,16 @@ the fused step's carrier plumbing), so backward + apply report as one
 `backward_apply` remainder.
 
 `make_vm_probes` is the VarMisuse head's kit (training/vm_steps.py):
-gather, forward, backward, and the apply as the fused remainder. Not
-here: the JAX package's `_make_allreduce` (a mesh's gradient
-reduction; the port trains on one device).
+gather, forward, backward, and the apply as the fused remainder.
+
+Under a data-parallel mesh of more than one rank the dense kit (float
+tables) also times the gradient all-reduce alone (`_make_allreduce`: a
+sum over the world of clones of the backward probe's gradients,
+through parallel/distributed.all_reduce_sum_) with the isolated apply
+beside it, so obs/phases.py derives `allreduce_exposed`; the forward's
+loss denominator is the global one, as in the step. At a world of one
+there is nothing to reduce and the kit is the one-device kit, as the
+JAX package's is at a mesh without batch sharding.
 """
 
 from __future__ import annotations
@@ -70,24 +77,48 @@ def _make_dense_apply(optimizer):
     return apply_fn
 
 
+def _make_allreduce(mesh):
+    """The gradient all-reduce timed alone: the backward probe's
+    gradients cloned (the probe's outputs stay as they were) and each
+    summed over the ranks in its own dtype, the step's collective
+    (training/sparse_steps.reduce_step_grads) on a grads-shaped tree.
+    The sums, world x grads where the ranks' gradients agree, are
+    discarded; only the communication is being timed. None when the
+    mesh has one batch shard (nothing to reduce)."""
+    if mesh is None or mesh.batch_shards <= 1:
+        return None
+    from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
+
+    @torch.no_grad()
+    def allreduce_fn(chain_out):
+        _loss, grads, _view = chain_out
+        return {k: all_reduce_sum_(g.clone(
+            memory_format=torch.contiguous_format))
+            for k, g in grads.items()}
+
+    return allreduce_fn
+
+
 def make_code2vec_probes(dims: ModelDims, optimizer, *,
                          use_sampled_softmax: bool = False,
                          num_sampled: int = 4096,
                          compute_dtype=torch.float32,
                          use_kernel: bool = True,
                          sparse_updates: bool = False,
-                         isolated_apply: bool = False) -> ProbeKit:
+                         isolated_apply: bool = False,
+                         mesh=None) -> ProbeKit:
     """The code2vec head's probe kit, mirroring `make_train_step`'s
     choice: the sparse chain when `sparse_updates` (gathered-row
     granularity: its backward emits no dense carrier, as in the step),
     the dense chain otherwise. `use_kernel` is the step's pool choice.
 
     The train loop's kit times the apply as the remainder of the fused
-    step, as the JAX package's single-device kit does. `isolated_apply`
-    (dense float tables) adds the optimizer apply probe instead and
-    publishes the real residual (the JAX mesh kit's shape, less the
-    all-reduce), for a reading of how well the remainder stands for the
-    apply."""
+    step, as the JAX package's single-device kit does. Under a `mesh`
+    of more than one rank the dense kit (float tables) adds the
+    all-reduce and the optimizer apply probes and publishes the real
+    residual instead (the JAX mesh kit's shape). `isolated_apply`
+    (dense float tables) adds the apply probe on one rank too, for a
+    reading of how well the remainder stands for the apply."""
     if sparse_updates:
         return _sparse_kit(dims, use_sampled_softmax=use_sampled_softmax,
                            num_sampled=num_sampled,
@@ -96,17 +127,19 @@ def make_code2vec_probes(dims: ModelDims, optimizer, *,
     return _dense_kit(dims, optimizer,
                       use_sampled_softmax=use_sampled_softmax,
                       num_sampled=num_sampled, compute_dtype=compute_dtype,
-                      use_kernel=use_kernel, isolated_apply=isolated_apply)
+                      use_kernel=use_kernel, isolated_apply=isolated_apply,
+                      mesh=mesh)
 
 
 def _dense_kit(dims, optimizer, *, use_sampled_softmax, num_sampled,
-               compute_dtype, use_kernel, isolated_apply) -> ProbeKit:
+               compute_dtype, use_kernel, isolated_apply,
+               mesh=None) -> ProbeKit:
     from code2vec_tpu_torch.training.steps import (dense_loss_and_grads,
                                                    make_train_loss_fn)
     loss_fn = make_train_loss_fn(
         dims, use_sampled_softmax=use_sampled_softmax,
         num_sampled=num_sampled, compute_dtype=compute_dtype,
-        use_kernel=use_kernel)
+        use_kernel=use_kernel, mesh=mesh)
 
     @torch.no_grad()
     def embed_gather(params, batch, _draws):
@@ -137,13 +170,19 @@ def _dense_kit(dims, optimizer, *, use_sampled_softmax, num_sampled,
 
     chain.append(("backward", lambda p, b, d: dense_loss_and_grads(
         p, b, d, loss_fn)))
-    if not isolated_apply:
+    allreduce_fn = _make_allreduce(mesh)
+    if allreduce_fn is None and not isolated_apply:
         # table_apply is the fused remainder: exact on one device (fused
         # = chain + apply, nothing else runs), and the sample costs the
         # chain alone
         return ProbeKit(chain)
+    # the isolated apply is what lets the exposed-comm derivation
+    # separate the all-reduce from the apply (obs/phases.py): every
+    # phase is measured, table_apply stays the MEASURED apply, and the
+    # residual (the in-step communication the split cannot see) is
+    # published instead of folded into table_apply
     return ProbeKit(chain, apply_fn=_make_dense_apply(optimizer),
-                    derive_remainder=False)
+                    allreduce_fn=allreduce_fn, derive_remainder=False)
 
 
 def _sparse_kit(dims, *, use_sampled_softmax, num_sampled, compute_dtype,

@@ -26,11 +26,12 @@ The spawn function is injectable, so the policy logic tests without real
 training runs; `code2vec_tpu_torch/the supervisor tool` is the
 command line and `code2vec_tpu_torch/tools/chaos.py` drives the
 acceptance legs (SIGKILL parity, corrupt-checkpoint fallback) end to
-end. The class is the JAX package's, shrink and grow included; the
-port's child trains on one card, so `build_cli_spawn` launches one
-process (a cohort of more needs multi-GPU training). `cohort_topology()`
-exposes the live process set and target size; pass a `watchdog=` and
-the supervisor attaches it to stall dumps and beats its supervise loop.
+end. The class is the JAX package's, shrink and grow included, and
+`build_cli_spawn` launches a cohort of N processes with the `--dist_*`
+flags of the port's data axis (parallel/distributed.py), a fresh
+coordinator port per attempt. `cohort_topology()` exposes the live
+process set and target size; pass a `watchdog=` and the supervisor
+attaches it to stall dumps and beats its supervise loop.
 """
 
 from __future__ import annotations
@@ -425,26 +426,29 @@ def build_cli_spawn(child_cmd: Sequence[str], *, num_procs: int = 1,
                                   "subprocess.Popen"]:
     """Spawn function over a command-line child (the supervisor tool and
     the chaos legs use it): `python3 -m code2vec_tpu_torch ...` or any
-    other command. `metrics_ports` gives member i a fixed
+    other command. A cohort of more than one process gets the explicit
+    `--dist_coordinator 127.0.0.1:<port> --dist_num_processes <n>
+    --dist_process_id <i>` flags appended per member, with the fresh
+    port of the attempt and `n` the size of THIS attempt's cohort: a
+    cohort re-formed at N-1 gets N-1, so the children rebuild the mesh
+    and the readers' host shards from the surviving process set, and a
+    cohort re-formed at ONE process gets no flags at all and runs as a
+    plain single process. `metrics_ports` gives member i a fixed
     `--metrics_port` (the fleet collector's scrape set must be known
     BEFORE launch, so members can't pick ephemeral ports); `env` is the
     children's environment (default: this process's). Child output
     streams to `attempt<k>.proc<i>.log` under `out_dir` (or inherits the
-    supervisor's stdio). The port's child trains on one card, so a
-    cohort of more than one process is refused (ValueError): it needs
-    multi-GPU training, which the port does not have yet."""
-    if num_procs != 1:
-        raise ValueError(f"a cohort of {num_procs} processes needs "
-                         "multi-GPU training, which code2vec_tpu_torch "
-                         "does not have yet")
+    supervisor's stdio)."""
     child_cmd = list(child_cmd)
 
     def spawn(attempt: int, proc_id: int, port: int,
               cohort_size: Optional[int] = None) -> "subprocess.Popen":
-        if (cohort_size or 1) != 1:
-            raise ValueError(f"a cohort of {cohort_size} processes needs "
-                             "multi-GPU training")
+        n = num_procs if cohort_size is None else cohort_size
         cmd = list(child_cmd)
+        if n > 1:
+            cmd += ["--dist_coordinator", f"127.0.0.1:{port}",
+                    "--dist_num_processes", str(n),
+                    "--dist_process_id", str(proc_id)]
         if metrics_ports is not None and proc_id < len(metrics_ports):
             cmd += ["--metrics_port", str(metrics_ports[proc_id])]
         stdout = None

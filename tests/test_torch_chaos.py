@@ -54,15 +54,18 @@ def test_chaos_corrupt_checkpoint_quarantine_and_alert(tmp_path):
 
 
 def test_chaos_cli_lists_the_legs_and_the_unported(capsys):
-    """`--list` names the three legs (the serving fleet's
-    `serve_swap_kill` among them, tests/test_torch_serving_tools.py runs
-    it) and the two waiting for multi-GPU training. Tolerance: none."""
+    """`--list` names all five legs of the JAX package as ported (the
+    serving fleet's `serve_swap_kill` among them, tests/
+    test_torch_serving_tools.py runs it; the two cohort legs,
+    tests/test_torch_cohort_chaos.py), and none as not ported.
+    Tolerance: none."""
     assert chaos.main(["--list"]) == 0
     out = capsys.readouterr().out
-    for name in ("kill_resume", "corrupt_checkpoint", "serve_swap_kill"):
-        assert f"{name}: " in out and f"{name}: not ported" not in out
-    for name in ("kill_resume_2proc", "kill_resize"):
-        assert f"{name}: not ported" in out
+    for name in ("kill_resume", "kill_resume_2proc", "corrupt_checkpoint",
+                 "serve_swap_kill", "kill_resize"):
+        assert f"\n{name}: " in "\n" + out
+    assert "not ported" not in out
+    assert len(out.strip().splitlines()) == 5
 
 
 def test_chaos_states_differ_names_the_tensor():

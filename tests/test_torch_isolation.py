@@ -108,6 +108,22 @@ def test_scan_covers_the_data_axis_modules(module):
     assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
 
 
+@pytest.mark.parametrize("module", [
+    "training/supervisor.py", "tools/train_supervisor.py", "tools/chaos.py",
+    "training/checkpoint.py", "training/phase_probes.py",
+    "attacks/defense.py", "training/draws.py", "resilience/faults.py",
+    "obs/fleet.py"])
+def test_scan_covers_the_cohort_modules(module):
+    """The supervised cohort's modules (the spawn with its --dist_* flags,
+    the tool, the chaos legs, the cohort's checkpoint load, the
+    all-reduce probe, the batch rename across ranks, the failpoints and
+    the fleet collector) are among the scanned sources and import
+    neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_import_in_port_sources(path):

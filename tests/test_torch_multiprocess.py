@@ -256,6 +256,19 @@ def worker(rank: int, world: int, port: str, out_dir: str,
             device_type=device_type))
     deadline = compat.PhaseDeadline(timeout_s=60.0, log=log)
     out = {}
+    if ":" in mode:
+        # another test file's checks, `<module>:<function>`, run by this
+        # worker after the bring-up: fn(rank, world, out_dir, deadline)
+        # -> this rank's result (pickled for the parent)
+        import importlib
+        mod, fn = mode.split(":")
+        out = getattr(importlib.import_module(mod), fn)(rank, world,
+                                                         out_dir, deadline)
+        deadline.close()
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+        distributed.shutdown()
+        return
     if mode == "cuda":
         deadline.beat("collectives")
         out = check_collectives_on_the_card(rank, world)
@@ -317,6 +330,11 @@ if __name__ == "__main__":
 # ---- the parent side ----
 
 def _spawn(world, out_dir, mode):
+    """`world` workers of this file joined over gloo, each running
+    `mode` ("full", "apply", "cuda", or another test file's
+    `<module>:<function>`), under the fresh-port retry and a 150 s
+    `communicate` timeout -> each rank's pickled result, in rank
+    order."""
     from code2vec_tpu_torch.parallel.compat import free_port
     from code2vec_tpu_torch.resilience import retry
 

@@ -316,13 +316,14 @@ def test_rename_draws_are_sliced_and_the_batch_mode_refused(mode):
     params = {"token_emb": torch.zeros(1), "path_emb": torch.zeros(1)}
     whole = make_draws(dims, Cfg, params, 6, 1, 2, CPU).rename
     mesh = make_mesh(rank=1, world=2, device="cpu")
-    if mode == "batch":
-        with pytest.raises(ValueError, match="Queue 1 item 4"):
-            make_draws(dims, Cfg, params, 3, 1, 2, CPU, mesh=mesh)
-        return
+    # the batch mode is no longer refused above one rank: its donor roll
+    # is the global draw's, and the rank's rows ride along for the
+    # all-gathered roll (attacks/defense.py)
     part = make_draws(dims, Cfg, params, 3, 1, 2, CPU, mesh=mesh).rename
     for f in ("gumbel", "index", "apply_u"):
         assert torch.equal(getattr(part, f), getattr(whole, f)[3:6]), f
+    assert part.shift == whole.shift and part.rows == (3, 6)
+    assert (whole.shift > 0) == (mode == "batch") and whole.rows is None
 
 
 # ---- digests, deadlines, the horizon ----

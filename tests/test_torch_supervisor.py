@@ -11,12 +11,12 @@ resizes, full relaunches, the cohort size of every spawn, the gauges and
 the alert states) are held equal, and to the JAX tests' expectations.
 The fake processes are in-memory (`poll`/`kill`/`wait`), so the cases
 start no subprocess. Then the port alone: the quarantine before launch
-on a checkpoint of its own, the watchdog's cohort topology, and the
-tool's exit codes (2 for `--procs 2` and `--resize_policy shrink`, 0
-with `--auto_resume` appended to a `--save` child, 3 on an exhausted
-budget; each child is a `python -c` under the tool's
-`--attempt_timeout_s` of 60 s). Tolerance: none (decisions and
-counts).
+on a checkpoint of its own, the watchdog's cohort topology, the
+`--dist_*` flags a cohort's spawn appends, and the tool's exit codes (0
+for a `--procs 2` cohort and under `--resize_policy shrink`, 0 with
+`--auto_resume` appended to a `--save` child, 3 on an exhausted budget;
+each child is a `python -c` under the tool's `--attempt_timeout_s` of
+60 s). Tolerance: none (decisions and counts).
 """
 
 import json
@@ -275,21 +275,45 @@ def test_cohort_topology_joins_the_watchdog(tmp_path):
     assert "live_pids" in bundle["cohort"]
 
 
-def test_build_cli_spawn_refuses_a_cohort():
-    with pytest.raises(ValueError, match="multi-GPU"):
-        tsup.build_cli_spawn(["true"], num_procs=2)
-    spawn = tsup.build_cli_spawn(["true"])
-    with pytest.raises(ValueError, match="multi-GPU"):
-        spawn(0, 0, 0, 2)
+def test_build_cli_spawn_refuses_a_cohort(monkeypatch):
+    """A cohort is no longer refused: member i of a cohort of n gets
+    `--dist_coordinator 127.0.0.1:<port> --dist_num_processes n
+    --dist_process_id i`, a cohort of one gets none (the argv held
+    against the JAX package's is in tests/test_torch_cohort.py)."""
+    seen = []
+    monkeypatch.setattr(tsup.subprocess, "Popen",
+                        lambda cmd, **_kw: seen.append(cmd))
+    spawn = tsup.build_cli_spawn(["true"], num_procs=2)
+    spawn(0, 1, 4242, 2)
+    spawn(1, 0, 4243, 1)
+    tsup.build_cli_spawn(["true"])(0, 0, 0)
+    assert seen == [["true", "--dist_coordinator", "127.0.0.1:4242",
+                     "--dist_num_processes", "2", "--dist_process_id", "1"],
+                    ["true"], ["true"]]
 
 
 @pytest.mark.parametrize("flags", [["--procs", "2"],
                                    ["--resize_policy", "shrink"]])
-def test_tool_refuses_a_cohort_with_exit_2(flags, capsys):
-    with pytest.raises(SystemExit) as e:
-        tool.main(flags + ["--", sys.executable, "-c", "pass"])
-    assert e.value.code == 2
-    assert "multi-GPU" in capsys.readouterr().err
+def test_tool_refuses_a_cohort_with_exit_2(flags, tmp_path):
+    """`--procs 2` and `--resize_policy shrink` are accepted now: the
+    tool runs the cohort (each member sees its own `--dist_*` flags, a
+    cohort of one none) and exits 0, not 2."""
+    n = 2 if "--procs" in flags else 1
+    script = ("import sys; a = sys.argv; "
+              "i = a.index('--dist_process_id') if "
+              "'--dist_process_id' in a else None; "
+              f"ok = (a[a.index('--dist_num_processes') + 1] == '{n}') "
+              f"if i else {n} == 1; "
+              "open(sys.argv[1] + '.' + (a[i + 1] if i else 'solo'), "
+              "'w').close(); sys.exit(0 if ok else 5)")
+    marker = str(tmp_path / "ran")
+    rc = tool.main(flags + [
+        "--max_restarts", "0", "--backoff_base_s", "0.01",
+        "--attempt_timeout_s", "60", "--out_dir", str(tmp_path / "logs"),
+        "--", sys.executable, "-c", script, marker])
+    assert rc == 0
+    want = ["ran.0", "ran.1"] if n == 2 else ["ran.solo"]
+    assert sorted(p.name for p in tmp_path.glob("ran.*")) == want
 
 
 def test_tool_appends_auto_resume_and_exits_0(tmp_path, capsys):
