@@ -116,9 +116,11 @@ Phases (any failure raises, and the script exits non-zero):
    run (bit-identical too) and a resume whose reader replays the first
    epoch's order (the control, which must differ); a flipped
    byte in the latest state quarantined and the load fallen back to the
-   step before; `--release`, then `--load <released> --test` with the
-   w2v, t2v and code-vector exports (the evaluation equal to the one
-   before the release; rows, widths, finite values); one-epoch save and
+   step before; `--release`, then `--load <released> --test` (the
+   evaluation equal to the one before the release) and, in a process of
+   its own that runs beside [15]-[18] and is checked at [18]'s end, the
+   same command with the w2v, t2v and code-vector exports (rows, widths,
+   finite values); one-epoch save and
    `--load` round trips with `--sparse_embeddings` (kernel 5) and
    `--tables_dtype int8` (kernel 4), bit-identical; then the loop's
    steps/s and methods/s past its first epoch (binary shards or text,
@@ -311,7 +313,26 @@ Phases (any failure raises, and the script exits non-zero):
    bit-identical to one process resumed from a copy of step 2;
    recovery_steps_lost and recovery_seconds; (iii) `/fleet` during (ii):
    both members up before the kill, one after the resize;
-25. a `{"kernels": [...]}` line, the card line, and last
+25. the context axis, in [23]'s two children after their harness (ctx =
+   2, data = 1: each rank holds 100 of every row's 200 contexts; gloo
+   through the host): ring attention at (B, H, C, hd) = (1024, 3, 200,
+   128) bf16 against the one-rank `plain_mha` (output and dq, dk, dv)
+   and kernel 2 (output), and the all-gathered q, k, v through kernels 2
+   and 3, with each path's peak memory a rank and the ring's bytes a
+   step; the transformer's dense step (e) with `--ring_attention` and
+   without it (q, k, v all-gathered into kernels 2 and 3), and (c)'s
+   bag step (the contexts all-gathered into kernel 1), each at
+   java-large width against one rank's step over the same global batch
+   (the loss and every leaf's raw gradient), one step timed, its peak
+   memory; the counters at 0 before the counted steps (kernel 1 once a
+   step in (c), kernels 2 and 3 L times a step without the ring, none
+   with it); then `cli.main --encoder transformer --mesh_context 2
+   --ring_attention --dist_*` on both ranks over [14]'s binary shards
+   (an epoch, an evaluation of 4096 methods counted once, rank 0's
+   save, `topology.json` with 2 processes and 1 batch shard), and in
+   this process a one-process `--load` of that checkpoint evaluating
+   the test file;
+26. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -327,6 +348,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
 import json
 import os
 import subprocess
@@ -682,8 +704,10 @@ def pool_case(torch, B: int, dtype, gen, peaks, terms: int) -> dict:
     return row
 
 
+@functools.lru_cache(maxsize=1)
 def synthetic_vocabs():
-    """A java-large-sized vocab with words generated by rule."""
+    """A java-large-sized vocab with words generated by rule (built once
+    a process; its users only read it)."""
     from code2vec_tpu_torch.vocab.vocabularies import (Code2VecVocabs, Vocab,
                                                        VocabType)
     return Code2VecVocabs(
@@ -2410,8 +2434,9 @@ def phase_xf_eval(torch, np, vocabs, test_path, report):
 CLI_EPOCHS, CLI_ROUNDTRIP_EPOCHS = 2, 1
 # the loop's throughput: runs of LOOP_EPOCHS epochs timed past the first,
 # infeed 2 and 0 in LOOP_PAIRS alternating pairs (text: one pair of
-# TEXT_LOOP_EPOCHS, its parse ten times the step); the profiled run
-LOOP_EPOCHS, LOOP_PAIRS, TEXT_LOOP_EPOCHS, PROFILE_EPOCHS = 11, 3, 3, 6
+# TEXT_LOOP_EPOCHS, its parse ten times the step); the profiled run (cut
+# from 11, 3 and 6 to make room for [25]: one pair, the order 2 then 0)
+LOOP_EPOCHS, LOOP_PAIRS, TEXT_LOOP_EPOCHS, PROFILE_EPOCHS = 6, 1, 3, 2
 # the resumed run against the uninterrupted one on the card: every op
 # of the steps adds in a fixed order (the gathers' backward and the
 # segment sum through ops/scatter.py, with no atomics;
@@ -2609,6 +2634,59 @@ def loop_window(torch, trainer, path: str, epochs: int, steps: int,
     check(calls[0] == epochs * steps and t0 and t1,
           f"(loop) {calls[0]} steps")
     return (epochs - 1) * steps / (t1[0] - t0[0])
+
+
+EXPORT_CHILD = ("import sys, time; from code2vec_tpu_torch import cli; "
+                "t = time.perf_counter(); rc = cli.main(sys.argv[1:]); "
+                "print(f'EXPORT_S {time.perf_counter() - t}', flush=True); "
+                "sys.exit(rc)")
+EXPORT_TIMEOUT_S = 600
+
+
+def start_exports(tmp, rel, test_path) -> dict:
+    """[14]'s exports of the released model: `cli.main --load <rel> --test
+    --export_code_vectors --save_w2v --save_t2v` in a process of its own
+    (its output in a file), killed at exit if still running."""
+    import atexit
+    here = os.path.dirname(os.path.abspath(__file__))
+    ex = {"w2v": os.path.join(tmp, "tok.w2v"),
+          "t2v": os.path.join(tmp, "tgt.w2v"),
+          "vectors": test_path + ".vectors",
+          "log": os.path.join(tmp, "exports.log")}
+    with open(ex["log"], "w") as log:
+        ex["proc"] = subprocess.Popen(
+            [sys.executable, "-c", EXPORT_CHILD, "--load", rel, "--test",
+             test_path, "--export_code_vectors", "--save_w2v", ex["w2v"],
+             "--save_t2v", ex["t2v"]], cwd=here,
+            env=dict(os.environ, PYTHONPATH=here), stdout=log,
+            stderr=subprocess.STDOUT)
+    atexit.register(lambda p=ex["proc"]: p.poll() is None and p.kill())
+    return ex
+
+
+def finish_exports(np, vocabs, kept, report) -> None:
+    """[14]'s exports, waited for: exit 0, then the rows, widths and
+    finite values of the w2v, t2v and code-vector files."""
+    ex = kept["exports"]
+    t = time.perf_counter()
+    rc = ex["proc"].wait(timeout=EXPORT_TIMEOUT_S)
+    waited = time.perf_counter() - t
+    with open(ex["log"]) as f:
+        log = f.read()
+    line = next((ln for ln in log.splitlines()
+                 if ln.startswith("EXPORT_S ")), None)
+    check(rc == 0 and line is not None, f"(exports) exit {rc}: {log[-3000:]}")
+    check_vectors_file(np, ex["w2v"], vocabs.token_vocab.size + 1, E, "w2v")
+    check_vectors_file(np, ex["t2v"], vocabs.target_vocab.size + 1, D, "t2v")
+    check_vectors_file(np, ex["vectors"], kept["n_test"], D, "vectors")
+    export_s = float(line.split()[1])
+    print(f"  (exports, [14]'s released model) w2v {vocabs.token_vocab.size}"
+          f" x {E}, t2v {vocabs.target_vocab.size} x {D}, {kept['n_test']} "
+          f"code vectors x {D}, finite; the command line took {export_s:.1f}"
+          f" s beside [15]-[18] (waited {waited:.1f} s for it)", flush=True)
+    report["cli"].update(export_s=export_s, export_waited_s=waited)
+    for key in ("w2v", "t2v", "vectors"):
+        os.remove(ex[key])
 
 
 def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
@@ -2809,11 +2887,13 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
     release_s = cli_run("release", "--load", ck, "--release", "--save", rel)
     check(ckpt.load_manifest(rel)["released"] is True and
           ckpt.latest_step(rel) == last - steps, "(release) manifest / step")
-    w2v, t2v = os.path.join(tmp, "tok.w2v"), os.path.join(tmp, "tgt.w2v")
+    # the exports' %.6f text of the java-large tables takes about two
+    # minutes of one host core: the command line writes them in a
+    # process of its own while [15]-[18] run, and `finish_exports` waits
+    # for it and checks the files
+    exports = start_exports(tmp, rel, test_path)
     with Recorder(torch) as rec:
-        export_s = cli_run("export", "--load", rel, "--test", test_path,
-                           "--export_code_vectors", "--save_w2v", w2v,
-                           "--save_t2v", t2v)
+        eval_s = cli_run("released", "--load", rel, "--test", test_path)
     pre = evals[last - steps]
     post = rec.evals[-1][1]
     check((post.topk_acc, post.subtoken_precision, post.subtoken_recall,
@@ -2821,17 +2901,11 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
           (pre.topk_acc, pre.subtoken_precision, pre.subtoken_recall,
            pre.subtoken_f1, pre.loss),
           f"(release) evaluation {post} vs before the release {pre}")
-    check_vectors_file(np, w2v, vocabs.token_vocab.size + 1, E, "w2v")
-    check_vectors_file(np, t2v, vocabs.target_vocab.size + 1, D, "t2v")
-    check_vectors_file(np, test_path + ".vectors", n_test, D, "vectors")
     print(f"  (release) in {release_s:.1f} s; --load <released> --test: "
-          f"the same evaluation as before the release ({post}); w2v "
-          f"{vocabs.token_vocab.size} x {E}, t2v {vocabs.target_vocab.size} x "
-          f"{D}, {n_test} code vectors x {D}, finite; {export_s:.1f} s",
+          f"the same evaluation as before the release ({post}) in "
+          f"{eval_s:.1f} s; the exports run beside the next phases",
           flush=True)
     del rec
-    for p in (w2v, t2v, test_path + ".vectors"):
-        os.remove(p)
 
     # ---- 7. one-epoch round trips: --sparse_embeddings, --tables_dtype int8
     trips = {}
@@ -2968,14 +3042,16 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
                 "state_bytes": state_bytes, "load_s": load_s,
                 "resume_s": resume_s, "resume": resume,
                 "quarantine_s": quarantine_s, "release_s": release_s,
-                "export_s": export_s, "round_trips": trips, "loop": loop,
+                "released_eval_s": eval_s, "round_trips": trips,
+                "loop": loop,
                 "device_busy_share": busy, "pool_launches_profiled": pool_prof,
                 "saves": saves})
     report["cli"] = out
     # the released model for [15]; the uninterrupted run's final state
     # and losses for [16]
     kept = {"released": rel, "uninterrupted": aside,
-            "losses": first_losses, "steps": steps, "base": base}
+            "losses": first_losses, "steps": steps, "base": base,
+            "exports": exports, "n_test": n_test}
     return {"train": launches,
             **{k: v["launches"] for k, v in trips.items()}}, kept
 
@@ -2988,9 +3064,10 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
 REPL_ENTERS, REPL_PROB_TOL = 3, 1e-4
 # [16]: the loop timed with the telemetry, the trace and the watchdog on
 # against all off, runs of TELE_LOOP_EPOCHS epochs timed past the first, in
-# TELE_LOOP_PAIRS alternating pairs (ten: a 5 % difference is within one
-# call's spread of (a)'s host-bound loop); the watchdog's deadline
-TELE_LOOP_EPOCHS, TELE_LOOP_PAIRS, WATCHDOG_S = 6, 10, 120
+# TELE_LOOP_PAIRS alternating pairs (two; ten until [25] needed the
+# time, as a 5 % difference is within one call's spread of (a)'s
+# host-bound loop); the watchdog's deadline
+TELE_LOOP_EPOCHS, TELE_LOOP_PAIRS, WATCHDOG_S = 6, 2, 120
 
 
 def repl_blocks(lines):
@@ -3474,10 +3551,10 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
 # monitor's 8-sample warmup: a default 1 s cadence saw none in one run of
 # three); the stall leg's deadline and the injected producer sleep beyond
 # it; the NaN's first step; the plane's cost in alternating pairs of loop
-# runs
+# runs (two; three until [25] needed the time)
 SCRAPE_HEALTH_S, PLANE_HEALTH_S = 0.4, 0.05
 STALL_DEADLINE_S, STALL_SLEEP_MS = 1.0, 3000
-NAN_AT, PLANE_LOOP_PAIRS = 3, 3
+NAN_AT, PLANE_LOOP_PAIRS = 3, 2
 
 
 def http_get(port: int, path: str, timeout: float = 5.0):
@@ -6227,7 +6304,7 @@ def phase_robustness_study(torch, np, tmp, report) -> None:
 
 DP_WORLD = 2
 DP_CHILD_TIMEOUT_S = 420
-DP_REPS = 3  # timed steps of each kind in the harness
+DP_REPS = 2  # timed steps of each kind in the harness (3 before [25])
 DP_CONFIGS = {
     "c": [],
     "a": ["--sparse_embeddings", "--embedding_optimizer", "adam",
@@ -6269,8 +6346,8 @@ def dp_child() -> None:
     chip_smoke.dp_child()' <spec.json>`): the command line with the
     `--dist_*` flags for (c) then (a) (`cli.main`, which `python3 -m
     code2vec_tpu_torch` runs), then the function-level harness
-    (`dp_harness`). Prints `DP_RESULT <json>` and exits 0 only if all
-    passed."""
+    (`dp_harness`), then [25]'s context axis (`ctx_harness`, `ctx_cli`).
+    Prints `DP_RESULT <json>` and exits 0 only if all passed."""
     import torch
 
     from code2vec_tpu_torch import cli
@@ -6313,8 +6390,14 @@ def dp_child() -> None:
             "identity": identities[-1]}
         del rec, trainer
         torch.cuda.empty_cache()
-    out["harness"] = dp_harness(torch, rank, world, spec["ports"][-1],
-                                spec["train"])
+    out["harness"] = dp_harness(torch, rank, world,
+                                spec["ports"][len(DP_CONFIGS)], spec["train"])
+    # [25]: the context axis in the same two processes (no new start-up)
+    out["ctx"] = ctx_harness(torch, rank, world,
+                             spec["ports"][len(DP_CONFIGS) + 1],
+                             spec["train"])
+    out["ctx_cli"] = ctx_cli(torch, rank, world,
+                             spec["ports"][len(DP_CONFIGS) + 2], spec)
     print("DP_RESULT " + json.dumps(out), flush=True)
 
 
@@ -6602,6 +6685,279 @@ def dp_sparse_apply_check(torch, trainer, mesh) -> bool:
     return bool(same)
 
 
+# ---- [25]: the context axis (run inside [23]'s two children) ----
+
+# the ctx axis of [25]: two ranks on the card split C = 200 into 2 x 100
+CTX = 2
+# the ring against the one-rank plain_mha and kernel 2 at the main shape,
+# over the largest |reference| value: the output is rounded to bf16 once on
+# each side (one bf16 step, 2^-7 of the largest); dq, dk, dv come back
+# through the ring's bf16 tensors, each hop's share rounded to bf16 and
+# the shares summed in bf16, against one float32 sum rounded once: two
+# steps (2^-6)
+RING_OUT_TOL, RING_GRAD_TOL = 2.0 ** -7, 2.0 ** -6
+# a ctx step against one rank's step over the same global batch, each
+# leaf's raw gradient over its largest value: the bag's pool sees the same
+# gathered contexts, and a table's gradient is the bf16 sum of the two
+# ranks' shares against one float32 sum rounded once (one bf16 step of the
+# largest, 2^-7); the transformer's attention rounds to bf16 in other
+# places (the ring's shares, the gathered q, k, v products of shapes cuBLAS
+# tiles otherwise), a one-step difference that travels through the layer's
+# weight products as in XF_GRAD_RTOL's readings (5.2e-3, 5.6e-3): 2^-6
+CTX_GRAD_RTOL = 2.0 ** -6
+# the ctx command line's evaluation (the ring, bf16) against a one-process
+# --load of its checkpoint (kernel 2): a code vector a few bf16 steps apart
+# moves a logit by up to ~0.1 (XF_E2E_PROB_RTOL's reasoning); the mean loss
+# over 4096 methods within 1 %, the top-1 accuracy within 1 % of the methods
+CTX_EVAL_LOSS_RTOL, CTX_EVAL_TOP1 = 1e-2, 1.0 - EVAL_TOP1_SHARE
+# ring attention on the card: (B, H, C, hd) of the main shape
+RING_SHAPE = (TRAIN_B, XF_H, C, D // XF_H)
+
+
+def ring_bytes(L: int, s: int) -> dict:
+    """Bytes a rank sends around the ring in one training step of L layers
+    at RING_SHAPE (bf16): each of the s - 1 forward hops of each layer
+    moves its k and v blocks and its float32 key mask; each backward hop
+    moves the k and v cotangents (bf16)."""
+    B, H, Cf, hd = RING_SHAPE
+    kv = 2 * B * H * (Cf // s) * hd * 2
+    mask = B * (Cf // s) * 4
+    fwd = L * (s - 1) * (kv + mask)
+    return {"forward": fwd, "backward": L * (s - 1) * kv,
+            "step": fwd + L * (s - 1) * kv}
+
+
+def ctx_ring_check(torch, mesh) -> dict:
+    """The ring at RING_SHAPE over the rank's block (its contexts of every
+    row; data = 1) against the one-rank plain_mha (output and dq, dk, dv)
+    and kernel 2 (output) on the whole inputs, the same on each rank from
+    one seed; each path's peak memory a rank: the ring against the
+    all-gathered q, k, v through kernels 2 and 3."""
+    from code2vec_tpu_torch.ops.ring_attention import ring_attention
+    from code2vec_tpu_torch.ops.xf_attention import (fused_mha,
+                                                     mha_forward_fused,
+                                                     plain_mha)
+    from code2vec_tpu_torch.parallel.collectives import all_gather
+    from code2vec_tpu_torch.parallel.sharding import context_cols
+    B, H, Cf, hd = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    live = torch.randint(20, Cf + 1, (B, 1), generator=gen, device="cuda")
+    mask = (torch.arange(Cf, device="cuda")[None, :] < live).float()
+    log_mask = torch.log(torch.clamp(mask, min=1e-30))
+    lo, hi = context_cols(mesh, Cf)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    ref = plain_mha(*leaves, log_mask)
+    ref_grads = torch.autograd.grad(ref, leaves, do)
+    kern = mha_forward_fused(q.detach(), k.detach(), v.detach(), log_mask)
+    blocks = [t.detach()[:, :, lo:hi].contiguous().requires_grad_(True)
+              for t in (q, k, v)]
+    m_local = log_mask[:, lo:hi].contiguous()
+    do_local = do[:, :, lo:hi].contiguous()
+
+    def peak(fn):
+        """fn's result, its peak memory above what was allocated, its
+        ms (host clock, synchronised)."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, torch.cuda.max_memory_allocated() - base,
+                (time.perf_counter() - t) * 1e3)
+
+    def ring_pass():
+        out = ring_attention(*blocks, m_local, mesh)
+        return out.detach(), torch.autograd.grad(out, blocks, do_local)
+
+    def gathered_pass():
+        full = [all_gather(t, 2, mesh) for t in blocks]
+        out = fused_mha(*full, log_mask).narrow(2, lo, hi - lo)
+        return out.detach(), torch.autograd.grad(out, blocks, do_local)
+
+    (ring, ring_grads), ring_peak, ring_ms = peak(ring_pass)
+    (gath, _g), gathered_peak, gathered_ms = peak(gathered_pass)
+    rel = {}
+    for name, got, want, tol in (
+            ("out_vs_plain", ring, ref[:, :, lo:hi], RING_OUT_TOL),
+            ("out_vs_kernel2", ring, kern[:, :, lo:hi], RING_OUT_TOL),
+            ("dq", ring_grads[0], ref_grads[0][:, :, lo:hi], RING_GRAD_TOL),
+            ("dk", ring_grads[1], ref_grads[1][:, :, lo:hi], RING_GRAD_TOL),
+            ("dv", ring_grads[2], ref_grads[2][:, :, lo:hi], RING_GRAD_TOL),
+            ("gathered_out_vs_kernel2", gath, kern[:, :, lo:hi],
+             RING_OUT_TOL)):
+        w = want.detach().float()
+        rel[name] = ((got.float() - w).abs().max().item()
+                     / w.abs().max().item(), tol)
+    check(all(r <= t for r, t in rel.values()) and ring.dtype ==
+          torch.bfloat16, f"(ctx ring) rank {mesh.rank}: {rel}")
+    del q, k, v, do, leaves, ref, ref_grads, kern, blocks, ring, ring_grads
+    torch.cuda.empty_cache()
+    return {"rel": rel, "ring_peak_bytes": ring_peak,
+            "gathered_peak_bytes": gathered_peak,
+            "ring_fwd_bwd_ms": ring_ms, "gathered_fwd_bwd_ms": gathered_ms,
+            "ring_bytes_a_layer": ring_bytes(1, CTX)}
+
+
+def ctx_step_check(torch, trainer, glob, label: str) -> dict:
+    """[25]: one ctx step of `trainer` (its mesh's ctx group) against one
+    rank's step over the same global batch (`glob`, data = 1: every rank
+    holds all its rows): the loss and every leaf's raw gradient, the
+    ctx step's world sum against one rank's. The ctx step is the counted
+    one, `steps.dense_train_step`'s phases run apart so that its raw
+    gradients can be read (forward + backward + the world's sum, then
+    the optimizer and the adds), timed without the comparison between
+    them; its peak memory."""
+    from code2vec_tpu_torch.parallel.sharding import (context_cols,
+                                                      local_contexts)
+    from code2vec_tpu_torch.training.draws import make_draws
+    from code2vec_tpu_torch.training.sparse_steps import reduce_step_grads
+    from code2vec_tpu_torch.training.steps import (apply_dense_updates,
+                                                   dense_loss_and_grads,
+                                                   make_train_loss_fn)
+    mesh, cfg = trainer.mesh, trainer.config
+    lo, hi = context_cols(mesh, C)
+    local = tuple(t.contiguous() for t in local_contexts(mesh, glob))
+    step = trainer.step_num
+    draws = trainer.draws_for(TRAIN_B, step)
+    whole = make_draws(trainer.dims, trainer.step_config, trainer.params,
+                       TRAIN_B, cfg.SEED, step, trainer.device)
+    check(torch.equal(draws.keep, whole.keep[:, lo:hi])
+          and (draws.sampled is None
+               or torch.equal(draws.sampled, whole.sampled)),
+          f"(ctx {label}) the rank's draws are not its contexts of the "
+          "global draws")
+    kw = dict(use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+              num_sampled=cfg.NUM_SAMPLED_CLASSES,
+              compute_dtype=trainer.compute_dtype, use_kernel=True)
+    loss_one, grads_one, _v = dense_loss_and_grads(
+        trainer.params, glob, whole,
+        make_train_loss_fn(trainer.dims, **kw))  # one rank: not counted
+    loss_fn = make_train_loss_fn(trainer.dims, mesh=mesh, **kw)
+    zero_xf_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, grads, view = dense_loss_and_grads(trainer.params, local, draws,
+                                             loss_fn)
+    loss = reduce_step_grads(loss, grads, mesh)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    loss, loss_one = loss.item(), loss_one.item()
+    worst, at = 0.0, None
+    for path, g1 in grads_one.items():
+        g1 = g1.float()
+        rel = ((grads[path].float() - g1).abs().max().item()
+               / max(g1.abs().max().item(), 1e-30))
+        if rel >= worst:
+            worst, at = rel, path
+    loss_rel = abs(loss - loss_one) / abs(loss_one)
+    check(loss_rel <= LOSS_RTOL and worst <= CTX_GRAD_RTOL,
+          f"(ctx {label}) rank {mesh.rank}: loss {loss} vs one rank "
+          f"{loss_one} (rel {loss_rel:.3g}), the worst raw gradient {at} "
+          f"{worst:.3g} of its largest (bound {CTX_GRAD_RTOL:.3g})")
+    del grads_one
+    t = time.perf_counter()
+    updates = trainer.optimizer.update(grads, trainer.opt_state, view)
+    apply_dense_updates(trainer.params, updates, draws.salts,
+                        use_kernel=trainer.requant_kernel)
+    torch.cuda.synchronize()
+    step_ms += (time.perf_counter() - t) * 1e3
+    del grads, updates
+    return {"loss": loss, "loss_one": loss_one, "loss_rel": loss_rel,
+            "worst_grad": (at, worst), "step_ms": step_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": xf_counts()}
+
+
+def ctx_harness(torch, rank: int, world: int, port: int, data_path: str):
+    """[25] in one of [23]'s children: the ring at the main shape, then
+    the transformer's ctx step with the ring and with q, k, v all-gathered
+    into kernels 2 and 3, and the bag's (c) ctx step into kernel 1, each
+    against one rank; `world` ranks on the card over gloo, ctx = world."""
+    import dataclasses
+
+    import numpy as np
+
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    check(distributed.maybe_initialize(f"127.0.0.1:{port}", world, rank,
+                                       device_type="cuda"),
+          "(ctx harness) no process group")
+    vocabs = synthetic_vocabs()
+    glob_np = next(iter(C2VTextReader(data_path, vocabs, C, TRAIN_B)))
+    out = {}
+    xf = Code2VecTrainer(xf_config(MESH_CONTEXT_AXIS=world), vocabs)
+    mesh = xf.mesh
+    check(mesh is not None and (mesh.ctx, mesh.batch_shards) == (world, 1),
+          f"(ctx harness) mesh {mesh}")
+    out["ring"] = ctx_ring_check(torch, mesh)
+    # the global batch, all C contexts (the trainer's device_batch would
+    # cut them to the rank's)
+    glob = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in glob_np.host_arrays())
+    for label, ring in (("e_ring", True), ("e_gathered", False)):
+        xf.dims = dataclasses.replace(xf.dims, ring_attention=ring)
+        xf._build_step()
+        out[label] = ctx_step_check(torch, xf, glob, label)
+    del xf
+    torch.cuda.empty_cache()
+    _, cfg = dense_config("c", "bfloat16", False)
+    cfg.MESH_CONTEXT_AXIS = world
+    bag = Code2VecTrainer(cfg, vocabs)
+    out["c"] = ctx_step_check(torch, bag, glob, "c")
+    del bag, glob
+    torch.cuda.empty_cache()
+    distributed.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def ctx_cli(torch, rank: int, world: int, port: int, spec) -> dict:
+    """[25]'s command line in one of [23]'s children: `cli.main` with
+    `--encoder transformer --mesh_context 2 --ring_attention` and the
+    `--dist_*` flags over [14]'s binary shards, one epoch, `--test`,
+    `--save`; kernels 2 and 3 counted (the ring takes their place)."""
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.models import model_base
+    counted = []
+    real = model_base.MetricAccumulator.results
+
+    def results(self):
+        counted.append(self.num_examples)
+        return real(self)
+
+    model_base.MetricAccumulator.results = results
+    argv = [str(a) for a in spec["base"]] + [
+        "--encoder", "transformer", "--xf_layers", XF_L, "--xf_heads", XF_H,
+        "--mesh_context", world, "--ring_attention", "--epochs", 1,
+        "--save", spec["ctx_ckpt"], "--dist_coordinator",
+        f"127.0.0.1:{port}", "--dist_num_processes", world,
+        "--dist_process_id", rank]
+    zero_xf_counts()
+    t = time.perf_counter()
+    try:
+        with Recorder(torch) as rec:
+            rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+    finally:
+        model_base.MetricAccumulator.results = real
+    check(rc == 0, f"(ctx cli) rank {rank}: cli.main exited {rc}")
+    trainer = rec.made[-1]
+    res = {"run_s": time.perf_counter() - t, "launches": xf_counts(),
+           "losses": rec.loss_values(), "steps": trainer.step_num,
+           "digests": leaf_digests(torch, trainer.params),
+           "evals": [(s, vars(r)) for s, r in rec.evals],
+           "num_examples": counted}
+    del rec, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
                         report):
     """[23]: two ranks on the card over gloo through the command line,
@@ -6623,7 +6979,8 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
             "--async_checkpoint", "off"]
     ck = {label: os.path.join(tmp, f"dp_ckpt_{label}")
           for label in DP_CONFIGS}
-    ports = [free_port() for _ in range(len(DP_CONFIGS) + 1)]
+    # the CLI runs', the harness's and [25]'s harness and CLI run
+    ports = [free_port() for _ in range(len(DP_CONFIGS) + 3)]
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     procs = []
@@ -6632,6 +6989,7 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
         with open(spec_path, "w") as f:
             json.dump({"rank": rank, "world": DP_WORLD, "ports": ports,
                        "base": base, "ckpt": ck,
+                       "ctx_ckpt": os.path.join(tmp, "ctx_ckpt"),
                        "train": data_prefix + ".train.c2v"}, f)
         env = dict(os.environ, PYTHONPATH=here)
         procs.append(subprocess.Popen(
@@ -6804,7 +7162,119 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     kept = {"argv": dp_argv(base, "a"), "digests": r0["a"]["digests"],
             "steps": DP_EPOCHS["a"] * steps, "steps_per_epoch": steps,
             "n_train": n_train}
-    return launches, kept
+    # [25]'s results from the same children
+    ctx_runs = [{k: r[k] for k in ("ctx", "ctx_cli")} for r in results]
+    return launches, kept, ctx_runs
+
+
+def phase_context(torch, vocabs, test_path, runs, ckpt_dir, n_train,
+                  report):
+    """[25]: the context axis from [23]'s two children (`ctx_harness`,
+    `ctx_cli`): the ring against one rank's attention, the ctx steps
+    against one rank's, their launches; the ctx command line's run on both
+    ranks, then a one-process `--load` of its checkpoint that evaluates
+    it. Returns rank 0's launches of the counted ctx steps."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models import model_base
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    t0 = time.perf_counter()
+    steps = -(-n_train // TRAIN_B)  # one batch shard: every rank all rows
+    # what each counted ctx step launches: the ring none of kernels 1-3,
+    # the gathered q, k, v kernels 2 and 3 L times, the bag kernel 1 once
+    want = {"e_ring": {"attention_pool": 0, "xf_attention_forward": 0,
+                       "xf_attention_backward": 0},
+            "e_gathered": {"attention_pool": 0,
+                           "xf_attention_forward": XF_L,
+                           "xf_attention_backward": XF_L},
+            "c": {"attention_pool": 1, "xf_attention_forward": 0,
+                  "xf_attention_backward": 0}}
+    for rank, r in enumerate(runs):
+        h = r["ctx"]
+        ring = h["ring"]
+        print(f"  (ctx ring) rank {rank}, (B, H, C, hd) = {RING_SHAPE} bf16 "
+              f"at ctx {CTX}: max |ring - ref| / max |ref| "
+              + ", ".join(f"{k} {v[0]:.3g} (bound {v[1]:.3g})"
+                          for k, v in ring["rel"].items())
+              + f"; peak memory a rank, one layer's attention forward + "
+              f"backward: ring {ring['ring_peak_bytes'] / 1e9:.3f} GB, "
+              f"all-gathered q, k, v into kernels 2 and 3 "
+              f"{ring['gathered_peak_bytes'] / 1e9:.3f} GB; "
+              f"{ring['ring_fwd_bwd_ms']:.1f} vs "
+              f"{ring['gathered_fwd_bwd_ms']:.1f} ms; the ring sends "
+              f"{ring['ring_bytes_a_layer']['step'] / 1e6:.1f} MB a layer a "
+              f"step", flush=True)
+        for label in want:
+            s = h[label]
+            check(s["launches"] == want[label],
+                  f"(ctx {label}) rank {rank}: launches {s['launches']}, "
+                  f"want {want[label]}")
+            print(f"  (ctx {label}) rank {rank}: loss {s['loss']:.6f} vs one "
+                  f"rank {s['loss_one']:.6f} (rel {s['loss_rel']:.2e}); the "
+                  f"worst raw gradient {s['worst_grad'][0]} "
+                  f"{s['worst_grad'][1]:.3g} of its largest (bound "
+                  f"{CTX_GRAD_RTOL:.3g}); a step {s['step_ms']:.1f} ms, peak "
+                  f"{s['peak_bytes'] / 1e9:.2f} GB; launches {s['launches']}"
+                  f" (gloo through the host, two ranks on one card: not a "
+                  f"scaling number)", flush=True)
+    a, b = runs[0]["ctx_cli"], runs[1]["ctx_cli"]
+    for rank, c in enumerate((a, b)):
+        check(c["steps"] == steps and c["num_examples"] == [EVAL_METHODS]
+              and all(v == 0 for v in c["launches"].values()),
+              f"(ctx cli) rank {rank}: steps {c['steps']} (want {steps}), "
+              f"evaluated {c['num_examples']} (want [{EVAL_METHODS}]), "
+              f"launches {c['launches']} (the ring: none of kernels 1-3)")
+    check(a["digests"] == b["digests"] and a["evals"] == b["evals"],
+          "(ctx cli) the ranks' final params or evaluations differ")
+    topo = ckpt.load_step_topology(ckpt_dir, steps)
+    check(topo is not None and topo["num_processes"] == DP_WORLD
+          and topo.get("batch_shards") == 1, f"(ctx cli) topology {topo}")
+    counted = []
+    real = model_base.MetricAccumulator.results
+
+    def results(self):
+        counted.append(self.num_examples)
+        return real(self)
+
+    model_base.MetricAccumulator.results = results
+    try:
+        cfg = Config.load_from_args(["--load", ckpt_dir, "--test",
+                                     test_path])
+        trainer = Code2VecTrainer.from_config(cfg, vocabs=vocabs)
+        check(trainer.mesh is None and trainer.dims.ring_attention,
+              "(ctx load) not a one-process ring checkpoint")
+        one = trainer.evaluate()
+    finally:
+        model_base.MetricAccumulator.results = real
+    merged = a["evals"][-1][1]
+    loss_rel_ = abs(merged["loss"] - one.loss) / abs(one.loss)
+    top1 = abs(merged["topk_acc"][0] - one.topk_acc[0])
+    check(counted == [EVAL_METHODS] and loss_rel_ <= CTX_EVAL_LOSS_RTOL
+          and top1 <= CTX_EVAL_TOP1, f"(ctx load) the ctx run's merged "
+          f"evaluation {merged} vs one process's {one} over {counted}")
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"  (ctx cli) cli.main --encoder transformer --mesh_context "
+          f"{CTX} --ring_attention --dist_* on two ranks (gloo, cuda:0): "
+          f"{steps} steps in {a['run_s']:.1f} / {b['run_s']:.1f} s, losses "
+          f"{[round(x, 5) for x in a['losses']]}, final params bit-identical "
+          f"({len(a['digests'])} leaves), kernels 1-3 launched 0 times; "
+          f"merged evaluation of {EVAL_METHODS} methods (each counted once) "
+          f"top-1 {merged['topk_acc'][0]:.4f} loss {merged['loss']:.5f}; "
+          f"one-process --load of rank 0's checkpoint (topology "
+          f"{topo}): top-1 {one.topk_acc[0]:.4f} loss {one.loss:.5f} (loss "
+          f"rel {loss_rel_:.2e}, bound {CTX_EVAL_LOSS_RTOL}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    report["context"] = {"ranks": [r["ctx"] for r in runs],
+                         "cli": {"rank0": a, "rank1": {
+                             k: v for k, v in b.items() if k != "digests"}},
+                         "one_process": vars(one), "loss_rel": loss_rel_}
+    h0 = runs[0]["ctx"]
+    return {"attention_pool": h0["c"]["launches"]["attention_pool"],
+            "xf_attention_forward":
+                h0["e_gathered"]["launches"]["xf_attention_forward"],
+            "xf_attention_backward":
+                h0["e_gathered"]["launches"]["xf_attention_backward"]}
 
 
 # ---- [24]: the supervised training cohort ----
@@ -7304,6 +7774,7 @@ def main(argv=None) -> int:
               "(a), the card's streaming ceiling", flush=True)
         phase_launches = phase_profiler_phase(  # graftlint: disable=nondeterminism
             torch, np, vocabs, tmp, data_prefix, kept, report)
+        finish_exports(np, vocabs, kept, report)
         lap("[18]")
 
         # ---- 19. the restart supervisor ----
@@ -7340,7 +7811,7 @@ def main(argv=None) -> int:
         print("[23] data-parallel training: two ranks on the card (gloo) "
               "through the command line and the function-level harness, "
               "one rank over NCCL", flush=True)
-        dp_launches, dp_kept = phase_data_parallel(
+        dp_launches, dp_kept, ctx_runs = phase_data_parallel(
             torch, np, vocabs, tmp, data_prefix, test_path, report)
         lap("[23]")
 
@@ -7352,7 +7823,17 @@ def main(argv=None) -> int:
         phase_cohort(torch, tmp, dp_kept, report)
         lap("[24]")
 
-    # ---- 25. result ----
+        # ---- 25. the context axis (run in [23]'s children) ----
+        print("[25] the context axis: the ring and the ctx steps ((e) with "
+              "the ring and with kernels 2, 3; (c) with kernel 1) against "
+              "one rank, the ctx command line, a one-process --load",
+              flush=True)
+        ctx_launches = phase_context(
+            torch, vocabs, test_path, ctx_runs,
+            os.path.join(tmp, "ctx_ckpt"), dp_kept["n_train"], report)
+        lap("[25]")
+
+    # ---- 26. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -7365,7 +7846,8 @@ def main(argv=None) -> int:
         + observed_launches["attention_pool"] \
         + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
         + fleet_launches["attention_pool"] + vm_launches["attention_pool"] \
-        + attack_launches["attention_pool"] + dp_launches["attention_pool"]
+        + attack_launches["attention_pool"] + dp_launches["attention_pool"] \
+        + ctx_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -7426,7 +7908,7 @@ def main(argv=None) -> int:
             "source": "code2vec_tpu_torch/csrc/xf_attention.cu",
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
             "launches": sum(v[counter] for v in xf_launches.values())
-            + attack_launches[counter],
+            + attack_launches[counter] + ctx_launches[counter],
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
                                if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -7445,7 +7927,8 @@ def main(argv=None) -> int:
                           "live_plane": plane_launches,
                           "phases": phase_launches, "fleet": fleet_launches,
                           "vm": vm_launches, "attacks": attack_launches,
-                          "data_parallel": dp_launches}
+                          "data_parallel": dp_launches,
+                          "context": ctx_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -25,7 +25,10 @@ augment's roll runs over the sharded batch: each rank picks its rows'
 slots, the picked tokens are all-gathered in rank order
 (parallel/distributed.all_gather_rows), rolled by the global `shift`,
 and the rank takes its own rows' donors. An R-rank augment is the
-one-process augment over the concatenated batch, bit for bit.
+one-process augment over the concatenated batch, bit for bit. Under a
+ctx axis the ranks of a group hold the same rows and their draws, and
+the augment runs on the rows' whole contexts (training/steps.py gathers
+them), so each rank of the group renames alike.
 """
 
 from __future__ import annotations
@@ -66,6 +69,8 @@ class RenameDraws:
     # under a mesh, this rank's [start, stop) rows of the global batch
     # whose donors the roll takes across the ranks; None in one process
     rows: Optional[Tuple[int, int]] = None
+    # the mesh's ctx axis: the ranks of a ctx group hold the same rows
+    ctx: int = 1
 
 
 class RenameAugment:
@@ -140,7 +145,9 @@ class RenameAugment:
         if self.mode == "batch" and draws.rows is not None:
             from code2vec_tpu_torch.parallel.distributed import \
                 all_gather_rows
-            everyone = all_gather_rows(tok)  # [G], rank order
+            everyone = all_gather_rows(tok)  # [G * ctx], rank order
+            # one copy of each batch shard's rows (rank = shard * ctx + c)
+            everyone = everyone.reshape(-1, draws.ctx, B)[:, 0].reshape(-1)
             if everyone.shape[0] > 1:
                 lo, hi = draws.rows
                 donor = torch.roll(everyone, draws.shift)[lo:hi]

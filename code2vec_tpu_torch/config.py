@@ -5,8 +5,8 @@ config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
 `python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--infeed_chunk 2`, `--mesh_model 2`, ...) is an error that
-names it, never ignored. The adversarial attack flags (`--attack*`) and
+have yet (`--infeed_chunk 2`, ...) is an error that names it, never
+ignored. The adversarial attack flags (`--attack*`) and
 the rename defense's (`--adv_rename_prob`, `--adv_rename_mode`) are the
 JAX package's, verified by its rules with its messages. The seven serving
 fleet flags (`--serve_port`, `--serve_replicas`, ...) are parsed and
@@ -27,12 +27,16 @@ head (models/vm_model.py) over `.vm.c2v` data with `MAX_CANDIDATES`
 candidate slots; `verify` refuses it with the code2vec head's surfaces,
 int8 tables and the transformer, as the JAX package's does. The port
 runs one process per rank: `--dist_coordinator`, `--dist_num_processes`
-and `--dist_process_id` join a process group (parallel/distributed.py)
-and `--mesh_data` sizes the data axis (parallel/mesh.py). The model,
-context and dcn axes (`--mesh_model`, `--mesh_context`, `--mesh_dcn`)
-and `--ring_attention` are not ported (ROADMAP.md Queue 1 item 5) and
-are refused with a message saying so; serving, `--predict`, the REPL
-and `--attack` run in one process, and refuse a world above 1 (item 4).
+and `--dist_process_id` join a process group (parallel/distributed.py);
+`--mesh_data`, `--mesh_context` and `--mesh_dcn` size the data, context
+and dcn axes (parallel/mesh.py), and `--ring_attention` runs the
+transformer's attention as a ring over the context axis
+(ops/ring_attention.py), with the JAX package's rules (int8 tables and
+the VarMisuse head refuse a context axis) and one of the port's:
+`--mesh_context` must divide MAX_CONTEXTS. `--mesh_model` above 1 (the
+row-sharded tables) is refused with a message naming ROADMAP.md Queue 1
+item 5b; serving, `--predict`, the REPL and `--attack` run in one
+process, and refuse a world above 1 (item 4).
 """
 
 from __future__ import annotations
@@ -104,6 +108,9 @@ class Config:
     XF_HEADS: int = 3
     # recompute each transformer layer in the backward pass
     XF_REMAT: bool = False
+    # the transformer's attention as a ring over the ctx mesh axis
+    # (ops/ring_attention.py); only with --mesh_context > 1
+    RING_ATTENTION: bool = False
     # "code2vec" (method names) or "varmisuse" (the pointer head of
     # models/varmisuse.py over `.vm.c2v` data)
     HEAD: str = "code2vec"
@@ -167,9 +174,9 @@ class Config:
 
     # ---- the mesh and the process group (the JAX package's names) ----
     MESH_DATA_AXIS: int = 0      # 0 -> the whole world on the data axis
-    MESH_MODEL_AXIS: int = 1     # above 1: not ported (Queue 1 item 5)
-    MESH_CONTEXT_AXIS: int = 1   # above 1: not ported (Queue 1 item 5)
-    MESH_DCN_AXIS: int = 1       # above 1: not ported (Queue 1 item 5)
+    MESH_MODEL_AXIS: int = 1     # above 1: not ported (Queue 1 item 5b)
+    MESH_CONTEXT_AXIS: int = 1   # context-parallel degree (C over 'ctx')
+    MESH_DCN_AXIS: int = 1       # the batch shards over ('dcn', 'data')
     DIST_COORDINATOR: Optional[str] = None   # host:port of process 0
     DIST_NUM_PROCESSES: Optional[int] = None
     DIST_PROCESS_ID: Optional[int] = None
@@ -399,14 +406,18 @@ class Config:
             raise ValueError(
                 "--head varmisuse supports the bag encoder only "
                 "(no --encoder transformer / --mesh_context > 1).")
-        for flag, size in (("--mesh_model", self.MESH_MODEL_AXIS),
-                           ("--mesh_context", self.MESH_CONTEXT_AXIS),
-                           ("--mesh_dcn", self.MESH_DCN_AXIS)):
-            if size > 1:
-                raise ValueError(
-                    f"{flag} {size}: the context, model and dcn mesh axes "
-                    "are not ported to code2vec_tpu_torch yet (ROADMAP.md "
-                    "Queue 1 item 5)")
+        if self.MESH_MODEL_AXIS > 1:
+            raise ValueError(
+                f"--mesh_model {self.MESH_MODEL_AXIS}: the model mesh axis "
+                "(row-sharded tables) is not ported to code2vec_tpu_torch "
+                "yet (ROADMAP.md Queue 1 item 5b)")
+        if self.MESH_CONTEXT_AXIS > 1 and (
+                self.MAX_CONTEXTS % self.MESH_CONTEXT_AXIS):
+            raise ValueError(
+                f"--mesh_context {self.MESH_CONTEXT_AXIS} does not divide "
+                f"MAX_CONTEXTS ({self.MAX_CONTEXTS}, --max_contexts): each "
+                "rank of a ctx group holds MAX_CONTEXTS / --mesh_context "
+                "contexts")
         if (self.DIST_NUM_PROCESSES or 1) > 1 and (self.is_predict
                                                    or self.ATTACK):
             raise ValueError(
@@ -631,6 +642,8 @@ class Config:
         p.add_argument("--xf_heads", dest="xf_heads", type=int,
                        default=None)
         p.add_argument("--xf_remat", dest="xf_remat", action="store_true")
+        p.add_argument("--ring_attention", dest="ring_attention",
+                       action="store_true")
         p.add_argument("--head", dest="head", default=None,
                        choices=["code2vec", "varmisuse"])
         p.add_argument("--max_candidates", dest="max_candidates",
@@ -661,7 +674,16 @@ class Config:
         p.add_argument("--seed", dest="seed", type=int, default=None)
         p.add_argument("--mesh_data", dest="mesh_data", type=int,
                        default=None,
-                       help="data-parallel ranks (0: the whole world)")
+                       help="data-parallel ranks (0: the world over the "
+                            "other axes)")
+        p.add_argument("--mesh_model", dest="mesh_model", type=int,
+                       default=None)
+        p.add_argument("--mesh_context", dest="mesh_context", type=int,
+                       default=None,
+                       help="ranks the context dim is split over")
+        p.add_argument("--mesh_dcn", dest="mesh_dcn", type=int,
+                       default=None,
+                       help="a second factor of the batch shards")
         p.add_argument("--dist_coordinator", dest="dist_coordinator",
                        default=None,
                        help="host:port of process 0 for multi-process runs")
@@ -830,12 +852,6 @@ class Config:
             args if args is not None else sys.argv[1:])
         flags = sorted({a.split("=", 1)[0] for a in unknown
                         if a.startswith("-")})
-        later = [f for f in flags if f in _MESH_AXIS_FLAGS]
-        if later:
-            raise ValueError(
-                f"{' '.join(later)}: the context, model and dcn mesh axes "
-                "and ring attention are not ported to code2vec_tpu_torch "
-                "yet (ROADMAP.md Queue 1 item 5)")
         if unknown:
             raise ValueError(
                 "not ported to code2vec_tpu_torch yet: "
@@ -910,6 +926,7 @@ class Config:
                 ("trust_ratio", "TRUST_RATIO", True),
                 ("sampled_softmax", "USE_SAMPLED_SOFTMAX", True),
                 ("xf_remat", "XF_REMAT", True),
+                ("ring_attention", "RING_ATTENTION", True),
                 ("no_bf16", "USE_BF16", False), ("trace", "TRACE", True),
                 ("no_pallas", "USE_PALLAS", False),
                 ("attack_deadcode", "ATTACK_DEADCODE", True),
@@ -917,8 +934,12 @@ class Config:
                 ("sparse_embeddings", "SPARSE_EMBEDDING_UPDATES", True)):
             if getattr(ns, dest):
                 setattr(cfg, field, value)
-        if ns.mesh_data is not None:
-            cfg.MESH_DATA_AXIS = ns.mesh_data
+        for dest, field in (("mesh_data", "MESH_DATA_AXIS"),
+                            ("mesh_model", "MESH_MODEL_AXIS"),
+                            ("mesh_context", "MESH_CONTEXT_AXIS"),
+                            ("mesh_dcn", "MESH_DCN_AXIS")):
+            if getattr(ns, dest) is not None:
+                setattr(cfg, field, getattr(ns, dest))
         cfg.DIST_COORDINATOR = ns.dist_coordinator
         cfg.DIST_NUM_PROCESSES = ns.dist_num_processes
         cfg.DIST_PROCESS_ID = ns.dist_process_id
@@ -930,8 +951,6 @@ class Config:
 
 
 _FRAMEWORKS = ("pytorch", "jax", "tensorflow", "keras")
-_MESH_AXIS_FLAGS = ("--mesh_model", "--mesh_context", "--mesh_dcn",
-                    "--ring_attention")
 
 
 def check_infeed_chunk(chunk: int) -> None:

@@ -11,6 +11,13 @@ training forward: dropout with a keep mask drawn by the caller
 (training/draws.py) and the differentiable pool (kernel forward,
 plain-recompute backward on the card).
 
+Under a `mesh` whose ctx axis s is above 1 (parallel/mesh.py) each rank
+gathers the rows of its C/s contexts, and `encode` all-gathers the
+[B, C/s, D] shards over the ctx group (parallel/collectives.all_gather,
+whose backward gives each rank its shard's gradient) before the pool,
+so kernel 1 runs on the whole bag, as one device runs it; the returned
+attention is the rank's slice.
+
 `ModelDims.encoder_type` picks the encoder: "bag" (`encode`) or
 "transformer" (models/transformer_encoder.py, whose params sit under
 `params["xf"]` beside the tables); `get_encode_fn` returns the one to
@@ -34,6 +41,7 @@ from code2vec_tpu_torch.ops.quant import (QUANTIZED_TABLE_KEYS,
                                           dequantized_rows, quantize_table,
                                           quantized_take)
 from code2vec_tpu_torch.ops.scatter import take_rows_det
+from code2vec_tpu_torch.parallel import collectives
 
 Table = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Params = Dict[str, Table]
@@ -64,7 +72,8 @@ class ModelDims:
     xf_mlp_ratio: int = 4
     # recompute each transformer layer in the backward pass
     xf_remat: bool = False
-    # needs a mesh with a context axis, which the port has not: ignored
+    # the transformer's attention as a ring over a mesh's ctx axis
+    # (ops/ring_attention.py); ignored without one
     ring_attention: bool = False
 
     @property
@@ -165,7 +174,7 @@ def encode(params: Params, source_ids: torch.Tensor, path_ids: torch.Tensor,
            target_ids: torch.Tensor, mask: torch.Tensor, *,
            compute_dtype=torch.float32, use_kernel: bool = True,
            train: bool = False, keep: Optional[torch.Tensor] = None,
-           dropout_keep_rate: float = 1.0
+           dropout_keep_rate: float = 1.0, mesh=None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward to the code vector.
 
@@ -177,22 +186,32 @@ def encode(params: Params, source_ids: torch.Tensor, path_ids: torch.Tensor,
     contexts where the bool mask `keep` [B, C, D] is False (when
     `dropout_keep_rate` < 1) and pools with the differentiable training
     pool (`attention_pool_train`: the kernel forward on the card, the
-    plain pool on the CPU).
+    plain pool on the CPU). Under a ctx `mesh` the [B, C] inputs, `keep`
+    and the returned attention are the rank's contexts (the module
+    docstring).
     """
     contexts = gather_contexts(params, source_ids, path_ids, target_ids,
                                compute_dtype)
+    if train and dropout_keep_rate < 1.0:
+        contexts = apply_dropout(contexts, keep, dropout_keep_rate)
+    local = None
+    if mesh is not None and mesh.ctx > 1:
+        Cl = mask.shape[1]
+        local = (mesh.ctx_index * Cl, Cl)
+        contexts = collectives.all_gather(contexts, 1, mesh)
+        mask = collectives.gather_along(mask, 1, mesh)
     if train:
-        if dropout_keep_rate < 1.0:
-            contexts = apply_dropout(contexts, keep, dropout_keep_rate)
-        return attention_pool_train(contexts, params["transform"],
-                                    params["attention"], mask,
-                                    use_kernel=use_kernel)
-    if use_kernel:
+        code, attn = attention_pool_train(contexts, params["transform"],
+                                          params["attention"], mask,
+                                          use_kernel=use_kernel)
+    elif use_kernel:
         code, attn = attention_pool_fused(
             contexts, params["transform"], params["attention"], mask)
-        return code.to(compute_dtype), attn
-    return attention_pool(contexts, params["transform"],
-                          params["attention"], mask)
+        code = code.to(compute_dtype)
+    else:
+        code, attn = attention_pool(contexts, params["transform"],
+                                    params["attention"], mask)
+    return code, attn if local is None else attn.narrow(1, *local)
 
 
 def get_encode_fn(dims: ModelDims) -> Callable:

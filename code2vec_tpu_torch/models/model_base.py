@@ -3,8 +3,8 @@
 Counterpart of models/model_base.py in the JAX package:
 `MetricAccumulator` (exact-match top-k accuracy over the legal
 predictions, and subtoken TP/FP/FN of the first legal prediction against
-the true name; the port evaluates on one device, so it has no cross-host
-merge) and `Code2VecModelBase.save_word2vec_format` (a `<V> <dim>`
+the true name; `merge_across_hosts` sums a multi-process evaluation's
+partials, one rank of each ctx group counted) and `Code2VecModelBase.save_word2vec_format` (a `<V> <dim>`
 header, then one `word v1 ... vdim` line per index, each value as
 `%.6f`).
 """
@@ -47,10 +47,12 @@ class MetricAccumulator:
             top_prediction = legal[0] if legal else ""
             self.subtoken_stats.update(original, top_prediction)
 
-    def merge_across_hosts(self) -> None:
+    def merge_across_hosts(self, counted: bool = True) -> None:
         """Sum this accumulator's partials with every other rank's (a
         no-op in one process): a multi-process evaluation shards the eval
-        file per rank, so each accumulator holds one rank's examples."""
+        file per batch shard, so each accumulator holds one shard's
+        examples. `counted=False` adds zeros for this rank: the ranks of a
+        ctx group hold the same examples, and one of them counts."""
         from code2vec_tpu_torch.parallel.distributed import \
             allreduce_sum_hosts
         vec = np.concatenate([
@@ -59,7 +61,7 @@ class MetricAccumulator:
              self.subtoken_stats.false_positive,
              self.subtoken_stats.false_negative],
             self.topk_correct]).astype(np.float64)
-        total = allreduce_sum_hosts(vec)
+        total = allreduce_sum_hosts(vec if counted else vec * 0.0)
         self.num_examples = int(total[0])
         self.loss_sum = float(total[1])
         self.subtoken_stats.true_positive = int(total[2])

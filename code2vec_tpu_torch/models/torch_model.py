@@ -75,7 +75,9 @@ from code2vec_tpu_torch.obs.phases import PhaseProfiler
 from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
                                           kernel_choice, opt_param_view)
 from code2vec_tpu_torch.parallel import distributed
-from code2vec_tpu_torch.parallel.sharding import check_replicas
+from code2vec_tpu_torch.parallel.compat import cohort_world
+from code2vec_tpu_torch.parallel.sharding import (check_replicas,
+                                                  local_contexts)
 from code2vec_tpu_torch.resilience import faults, retry
 from code2vec_tpu_torch.training import checkpoint as ckpt
 from code2vec_tpu_torch.training.draws import StepDraws, make_draws
@@ -352,7 +354,8 @@ def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
         encoder_type=config.ENCODER_TYPE,
         xf_layers=config.XF_LAYERS,
         xf_heads=config.XF_HEADS,
-        xf_remat=config.XF_REMAT)
+        xf_remat=config.XF_REMAT,
+        ring_attention=config.RING_ATTENTION)
 
 
 def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
@@ -371,9 +374,6 @@ def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
     if head == "varmisuse":
         cfg.MAX_CANDIDATES = manifest.get("max_candidates",
                                           cfg.MAX_CANDIDATES)
-    if dims.ring_attention:
-        raise ValueError("checkpoint was trained with --ring_attention, "
-                         "which needs a mesh the port does not have")
     cfg.MAX_CONTEXTS = dims.max_contexts
     cfg.DEFAULT_EMBEDDINGS_SIZE = dims.embeddings_size
     cfg.DROPOUT_KEEP_RATE = dims.dropout_keep_rate
@@ -382,6 +382,9 @@ def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
     cfg.XF_LAYERS = dims.xf_layers
     cfg.XF_HEADS = dims.xf_heads
     cfg.XF_REMAT = dims.xf_remat
+    # a ring-attention checkpoint loads anywhere: without a ctx axis the
+    # flag is ignored, as in the JAX package
+    cfg.RING_ATTENTION = dims.ring_attention
     cfg.USE_SAMPLED_SOFTMAX = manifest.get("use_sampled_softmax",
                                            cfg.USE_SAMPLED_SOFTMAX)
     cfg.NUM_SAMPLED_CLASSES = manifest.get("num_sampled",
@@ -616,20 +619,32 @@ class TrainerBase:
         return self.mesh is None or self.mesh.rank == 0
 
     def host_shard(self) -> "tuple[int, int]":
-        """(host_shard, num_host_shards) of this rank's readers."""
-        return infeed_split() if self.mesh is not None else (0, 1)
+        """(host_shard, num_host_shards) of this rank's readers: its batch
+        shard (models/setup.infeed_split)."""
+        return infeed_split(self.mesh)
 
-    def device_batch(self, b: BatchTensors):
+    def host_arrays(self, b: BatchTensors):
+        """A reader batch's step tuple, cut to this rank's contexts under
+        a ctx axis (parallel/sharding.local_contexts)."""
+        return local_contexts(self.mesh, b.host_arrays())
+
+    def device_batch(self, b: BatchTensors, whole: bool = False):
+        """A reader batch on the device, cut to this rank's contexts
+        unless `whole` (a path one rank runs alone, such as the export,
+        encodes every context without the ctx collectives)."""
+        arrays = b.host_arrays() if whole else self.host_arrays(b)
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in b.host_arrays())
+                     for a in arrays)
 
-    def _put_fns(self, depth: int):
+    def _put_fns(self, depth: int, whole: bool = False):
         """(put, ready) of an infeed `depth` ahead: a pinned ring on the
-        card (`ready` on the consumer's thread), else `device_batch`."""
+        card (`ready` on the consumer's thread), else `device_batch`
+        (`whole` as there)."""
         if self.device.type == "cuda" and depth > 0:
             ring = PinnedRingPut(self.device, depth + 1)
-            return (lambda b: ring(b.host_arrays())), ring.ready
-        return self.device_batch, None
+            arrays = (lambda b: b.host_arrays()) if whole else self.host_arrays
+            return (lambda b: ring(arrays(b))), ring.ready
+        return (lambda b: self.device_batch(b, whole)), None
 
     def train_step(self, batch, draws: Optional[StepDraws] = None
                    ) -> torch.Tensor:
@@ -687,12 +702,12 @@ class TrainerBase:
                 and cfg.LR_SCHEDULE != "constant"):
             self.total_steps = lr_horizon(cfg, n_examples,
                                           restored_step=self.step_num,
-                                          epochs=epochs)
+                                          epochs=epochs, mesh=self.mesh)
             self._build_dense_optimizer(self.total_steps)
             cfg.log(f"lr schedule {cfg.LR_SCHEDULE} over "
                     f"{self.total_steps} steps")
         completed = resume_epoch_offset(cfg, self.step_num, n_examples,
-                                        cfg.log)
+                                        cfg.log, mesh=self.mesh)
         reader = self._train_reader(data_path, completed)
         if max_steps is not None:
             reader = _StepBudget(reader, max_steps)
@@ -849,7 +864,7 @@ class TrainerBase:
     def identity(self) -> Dict[str, Any]:
         """The run's telemetry identity: this rank, the world and the
         distributed backend (None for a plain single-process run)."""
-        rank, world = infeed_split()
+        rank, world = cohort_world()
         return {"process_index": rank, "process_count": world,
                 "backend": distributed.backend()}
 
@@ -902,8 +917,11 @@ class TrainerBase:
         extra = self._manifest_extra()
         # the epoch of a boundary save, consumed here: a later manual
         # save must not record it
-        topology = {"epoch": self._save_epoch,
-                    "num_processes": infeed_split()[1]}
+        # the batch shards when a ctx axis makes them fewer than the
+        # processes (a resume's steps per epoch count them)
+        world, shards = cohort_world()[1], self.host_shard()[1]
+        topology = {"epoch": self._save_epoch, "num_processes": world,
+                    "batch_shards": shards if shards != world else None}
         self._save_epoch = None
         # trace: the save's blocked window links the step that triggered
         # it, and the writer thread parents its train/save_write span to
@@ -1096,8 +1114,10 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
         """Top-k accuracy, subtoken precision / recall / F1 and the mean
         loss over a `.c2v` file (default: `test_data_path`; its binary
         shard when binarized), in TEST_BATCH_SIZE batches (no dropout,
-        full softmax). Under a mesh each rank evaluates its host shard of
-        the file and the metric partials are summed over the ranks
+        full softmax). Under a mesh each batch shard evaluates its host
+        shard of the file (the ranks of a ctx group together, each
+        encoding its contexts) and the metric partials are summed over
+        the ranks, one rank of each ctx group counted
         (`MetricAccumulator.merge_across_hosts`): every rank returns the
         whole file's results."""
         cfg = self.config
@@ -1119,7 +1139,7 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
                 loss_sum, topk_ids, _probs = eval_step(
                     self.params, dev_batch, dims=self.dims, top_k=top_k,
                     compute_dtype=self.compute_dtype,
-                    use_kernel=self.use_kernel)
+                    use_kernel=self.use_kernel, mesh=self.mesh)
             nv = b.num_valid_examples
             names = (b.target_strings[:nv] if b.target_strings else
                      [target_vocab.lookup_word(int(i))
@@ -1128,7 +1148,7 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
                      for row in topk_ids[:nv].cpu().numpy()]
             acc.update_batch(names, words, loss_sum.item())
         if self.mesh is not None:
-            acc.merge_across_hosts()
+            acc.merge_across_hosts(counted=self.mesh.ctx_index == 0)
         return acc.results()
 
     def _record_eval(self, epoch: int, results: EvaluationResults,
@@ -1185,12 +1205,13 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
     def export_code_vectors_file(self, test_path: str,
                                  dest_path: str) -> None:
         """`--export_code_vectors`: one code vector a test example, in the
-        file's order, each value as %.6f."""
+        file's order, each value as %.6f. The writing rank runs it alone,
+        so under a ctx axis it encodes every context without the mesh."""
         cfg = self.config
         reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
                              cfg.TEST_BATCH_SIZE, shuffle=False,
                              keep_strings=True)
-        put, ready = self._put_fns(cfg.INFEED_PREFETCH)
+        put, ready = self._put_fns(cfg.INFEED_PREFETCH, whole=True)
         with open(dest_path, "w", encoding="utf-8") as f:
             for dev_batch, b in prefetch_to_device(
                     reader, put, cfg.INFEED_PREFETCH, ready):

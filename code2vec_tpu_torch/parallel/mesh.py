@@ -4,18 +4,32 @@ in the JAX package.
 The JAX package runs one SPMD program over a ('dcn', 'data', 'ctx',
 'model') device mesh. The port runs one process per card with
 `torch.distributed` (parallel/distributed.py), so its mesh is a record:
-the four axis sizes, this process's rank, the world and its device. The
-batch rides ('dcn', 'data'), as in the JAX package; every rank holds
-whole tables (parallel/sharding.py).
+the four axis sizes, this process's rank, the world, its device, its
+coordinates on the axes and the process group of its ctx peers.
 
-Only the data axis is ported: `model`, `ctx` or `dcn` above 1 raises
-`ValueError` (ROADMAP.md Queue 1 item 5).
+A rank's coordinates are its rank unravelled row-major over (dcn, data,
+ctx, model), as the JAX mesh lays out `jax.devices()` by a reshape. The
+batch rides ('dcn', 'data') jointly: a rank's batch shard is
+`dcn_index * data + data_index`, and the ranks of one ctx group (the
+same dcn, data and model index) read the same rows, each keeping its
+`C / ctx` contexts (parallel/sharding.py). Every rank holds whole
+tables.
+
+The JAX package builds a dcn axis with
+`mesh_utils.create_hybrid_device_mesh` so each slice's devices sit
+together on the axis, and falls back to a plain reshape where devices
+carry no slice topology. The port needs neither: one card a process, so
+the dcn axis is a second factor of the batch shards and adds no
+collective of its own (the gradient sum runs over the whole world).
+
+The model axis (row-sharded tables) is not ported: `model` above 1
+raises `ValueError` (ROADMAP.md Queue 1 item 5b).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -36,15 +50,62 @@ class Mesh:
     rank: int
     world: int
     device: torch.device
+    # the process group of this rank's ctx peers (None at ctx = 1, or
+    # when no process group is up: a ctx collective then raises)
+    ctx_group: Any = dataclasses.field(default=None, compare=False,
+                                       repr=False)
 
     @property
     def shape(self) -> dict:
         return dict(zip(AXES, (self.dcn, self.data, self.ctx, self.model)))
 
     @property
+    def coords(self) -> Tuple[int, int, int, int]:
+        """(dcn, data, ctx, model) index of this rank: its rank
+        unravelled row-major over the axes."""
+        r = self.rank
+        model_i, r = r % self.model, r // self.model
+        ctx_i, r = r % self.ctx, r // self.ctx
+        data_i, dcn_i = r % self.data, r // self.data
+        return dcn_i, data_i, ctx_i, model_i
+
+    @property
+    def ctx_index(self) -> int:
+        return self.coords[2]
+
+    @property
     def batch_shards(self) -> int:
-        """Ranks the batch is split over: ('dcn', 'data')."""
+        """Shards the batch is split over: ('dcn', 'data')."""
         return self.dcn * self.data
+
+    @property
+    def batch_shard(self) -> int:
+        """This rank's shard of the batch: dcn_index * data + data_index
+        (the same for every rank of a ctx group)."""
+        dcn_i, data_i, _c, _m = self.coords
+        return dcn_i * self.data + data_i
+
+    def ctx_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of this rank's ctx group, in ctx order."""
+        base = self.batch_shard * self.ctx * self.model + self.coords[3]
+        return tuple(base + c * self.model for c in range(self.ctx))
+
+
+def _ctx_groups(dcn: int, data: int, ctx: int, model: int, rank: int):
+    """This rank's ctx process group: every group is built on every rank
+    in the same order (`dist.new_group` is collective over the world);
+    None at ctx = 1 or without a process group."""
+    import torch.distributed as dist
+    if ctx <= 1 or not (dist.is_available() and dist.is_initialized()):
+        return None
+    mine = None
+    for shard in range(dcn * data):
+        for m in range(model):
+            ranks = [(shard * ctx + c) * model + m for c in range(ctx)]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = group
+    return mine
 
 
 def make_mesh(data: int = 0, model: int = 1, context: int = 1,
@@ -53,25 +114,34 @@ def make_mesh(data: int = 0, model: int = 1, context: int = 1,
               device: Union[str, torch.device, None] = None) -> Mesh:
     """The ('dcn', 'data', 'ctx', 'model') mesh of this process. `rank`
     and `world` default to the process group's (parallel/compat.
-    cohort_world); `data=0` means the whole world. The data axis must
-    span the world: one rank a data shard, each with its own device
-    (`device`, default the card)."""
+    cohort_world); `data=0` means `world // (dcn * model * ctx)`, as the
+    JAX package's does with its devices. The mesh must span the world:
+    one rank a device (`device`, default the card). Under a process
+    group with ctx above 1 the ctx groups are built here, on every rank
+    in the same order."""
     from code2vec_tpu_torch.device import resolve_device
     from code2vec_tpu_torch.parallel.compat import cohort_world
 
     if rank is None or world is None:
         rank, world = cohort_world()
     model, context, dcn = max(1, model), max(1, context), max(1, dcn)
-    for name, size in (("model", model), ("ctx", context), ("dcn", dcn)):
-        if size > 1:
-            raise ValueError(
-                f"mesh axis {name!r} = {size}: code2vec_tpu_torch ports "
-                "the data axis only; the context, model and dcn axes "
-                "are ROADMAP.md Queue 1 item 5")
+    if model > 1:
+        raise ValueError(
+            f"mesh axis 'model' = {model}: code2vec_tpu_torch does not "
+            "shard the tables over a model axis yet (ROADMAP.md Queue 1 "
+            "item 5b)")
     if data <= 0:
-        data = world
-    if data != world:
-        raise ValueError(f"--mesh_data {data}: the data axis needs {data} "
-                         f"processes (one rank a data shard), have {world}")
-    return Mesh(dcn=1, data=data, ctx=1, model=1, rank=rank, world=world,
-                device=resolve_device(device))
+        if world % (dcn * model * context) != 0:
+            raise ValueError(
+                f"{world} devices not divisible by dcn*model*ctx="
+                f"{dcn * model * context}")
+        data = world // (dcn * model * context)
+    need = dcn * data * model * context
+    if need != world:
+        raise ValueError(
+            f"--mesh_data {data}: the data axis needs {need} processes "
+            f"(mesh {dcn}x{data}x{context}x{model} needs {need} devices, "
+            f"one rank a device), have {world}")
+    return Mesh(dcn=dcn, data=data, ctx=context, model=model, rank=rank,
+                world=world, device=resolve_device(device),
+                ctx_group=_ctx_groups(dcn, data, context, model, rank))

@@ -1,15 +1,19 @@
 """What "the batch over ('dcn', 'data')" means for one rank: the
 counterpart of `parallel/sharding.py` in the JAX package.
 
-- `param_pspecs`: which leaves replicate. Under the data axis alone
-  (the one the port has) every leaf does: each rank holds whole tables
-  on its device. The JAX package's row-sharded tables over 'model' are
-  ROADMAP.md Queue 1 item 5.
+- `param_pspecs`: which leaves replicate. Under the data, ctx and dcn
+  axes (the ones the port has) every leaf does: each rank holds whole
+  tables on its device. The JAX package's row-sharded tables over
+  'model' are ROADMAP.md Queue 1 item 5b.
 - `batch_rows`: this rank's row window in the global batch, the
-  counterpart of `shard_batch(process_local=True)`: each rank feeds a
-  disjoint local batch of B rows, and the global batch of the step is
-  the ranks' batches concatenated in rank order (rank r's rows are
-  [r * B, (r + 1) * B)).
+  counterpart of `shard_batch(process_local=True)`: each batch shard
+  feeds a disjoint local batch of B rows, and the global batch of the
+  step is the shards' batches concatenated in shard order (shard s's
+  rows are [s * B, (s + 1) * B)). The ranks of one ctx group share a
+  shard, so they read the same rows.
+- `context_cols` / `local_contexts`: this rank's window of the context
+  dim, the counterpart of `context_batch_pspec` (contexts
+  [c * C/s, (c + 1) * C/s) for ctx index c of s).
 - `replica_digests` / `check_replicas`: a per-leaf digest of the params,
   all-reduced as a max and a min; equal on every rank iff every rank
   holds the same bits (with the odds of a 64-bit digest collision).
@@ -36,9 +40,33 @@ def param_pspecs() -> Dict[str, object]:
 
 
 def batch_rows(mesh: Mesh, local_batch: int) -> Tuple[int, int]:
-    """[start, stop) of this rank's rows in the global batch."""
-    start = mesh.rank * local_batch
+    """[start, stop) of this rank's rows in the global batch (its batch
+    shard's)."""
+    start = mesh.batch_shard * local_batch
     return start, start + local_batch
+
+
+def context_cols(mesh: Mesh, max_contexts: int) -> Tuple[int, int]:
+    """[start, stop) of this rank's contexts: [c * C/s, (c + 1) * C/s)
+    for ctx index c of s (the whole C at ctx = 1)."""
+    if max_contexts % mesh.ctx:
+        raise ValueError(f"MAX_CONTEXTS {max_contexts} is not divisible by "
+                         f"--mesh_context {mesh.ctx}")
+    width = max_contexts // mesh.ctx
+    start = mesh.ctx_index * width
+    return start, start + width
+
+
+def local_contexts(mesh: Mesh, batch):
+    """A batch tuple (labels, src, pth, dst, mask, weights) with its four
+    [B, C] members cut to this rank's contexts (the same tuple at ctx =
+    1); numpy arrays or tensors, views."""
+    if mesh is None or mesh.ctx == 1:
+        return batch
+    C = batch[1].shape[1]
+    lo, hi = context_cols(mesh, C)
+    return tuple(a[:, lo:hi] if i in (1, 2, 3, 4) else a
+                 for i, a in enumerate(batch))
 
 
 def _leaf_digest(t: torch.Tensor) -> torch.Tensor:

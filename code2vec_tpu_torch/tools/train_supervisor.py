@@ -31,7 +31,10 @@ Everything after `--` is the child command. The supervisor:
     appended (none for a cohort of one). On a death, `--resize_policy
     relaunch` relaunches the whole cohort on a fresh port; `shrink`
     re-forms it at N-1 processes (floor `--min_procs`) and training
-    goes on from the last verified committed step;
+    goes on from the last verified committed step. A child with
+    `--mesh_context` or `--mesh_dcn` above 1 cannot shrink (N-1
+    processes do not fill its mesh): `shrink` then exits 2 naming
+    ROADMAP.md Queue 1 item 5a;
   - hosts the fleet plane behind `--fleet_port`: member i gets a fixed
     `--metrics_port` (`--member_metrics_base` + i), the supervisor's
     collector scrapes the members of the current attempt (a resize
@@ -59,6 +62,16 @@ def _child_save_dir(child_cmd) -> Optional[str]:
         if tok.startswith("--save="):
             return tok.split("=", 1)[1]
     return None
+
+
+def _child_axis(child_cmd, flag: str) -> int:
+    """The child's `flag <n>` (1 when absent)."""
+    for i, tok in enumerate(child_cmd):
+        if tok == flag and i + 1 < len(child_cmd):
+            return int(child_cmd[i + 1])
+        if tok.startswith(flag + "="):
+            return int(tok.split("=", 1)[1])
+    return 1
 
 
 def main(argv=None) -> int:
@@ -116,6 +129,15 @@ def main(argv=None) -> int:
         child = child[1:]
     if not child:
         ap.error("no child command given (put it after `--`)")
+    fixed = [f"{flag} {_child_axis(child, flag)}"
+             for flag in ("--mesh_context", "--mesh_dcn")
+             if _child_axis(child, flag) > 1]
+    if args.resize_policy == "shrink" and fixed:
+        ap.error(f"--resize_policy shrink with a child of {', '.join(fixed)}:"
+                 " a cohort of fewer processes cannot hold its mesh; the "
+                 "elastic shrink of a context or dcn mesh is not ported "
+                 "(ROADMAP.md Queue 1 item 5a); use --resize_policy "
+                 "relaunch")
 
     from code2vec_tpu_torch.obs import (FleetCollector, MetricsServer,
                                         Telemetry, Watchdog)

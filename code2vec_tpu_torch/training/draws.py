@@ -10,14 +10,16 @@ as a `StepDraws`: tests
 pass draws made on the JAX side exactly as its step makes them, and the
 trainer draws them from generators seeded from (seed, step).
 
-Under a data-parallel mesh of R ranks with local batch B, every rank
-draws at the global batch R * B from the same generators and keeps its
-own rows (parallel/sharding.batch_rows) of the keep mask and of the
-rename draws; the sampled ids, the salts and the rename's donor roll
-are the same on every rank. So an R-rank step sees the draws of the
-one-process step over the ranks' batches concatenated, dropout and the
-rename defense included (`--adv_rename_mode batch` rolls its donors
-over the global batch: attacks/defense.py).
+Under a mesh of R batch shards with local batch B, every rank draws at
+the global batch R * B from the same generators and keeps its own rows
+(parallel/sharding.batch_rows) of the keep mask and of the rename
+draws, and under a ctx axis its own contexts of the keep mask
+(parallel/sharding.context_cols); the rename draws are per row, so the
+ranks of a ctx group share them. The sampled ids, the salts and the
+rename's donor roll are the same on every rank. So a mesh step sees the
+draws of the one-process step over the shards' batches concatenated,
+dropout and the rename defense included (`--adv_rename_mode batch`
+rolls its donors over the global batch: attacks/defense.py).
 """
 
 from __future__ import annotations
@@ -57,10 +59,12 @@ def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
     is the step's config (its `use_sampled_softmax`, `num_sampled` and,
     for the dense step, `augment`). Under a `mesh`, the rows of this
     rank of the global batch's draws (see the module docstring)."""
-    rows = None
+    rows = cols = None
     if mesh is not None:
-        from code2vec_tpu_torch.parallel.sharding import batch_rows
+        from code2vec_tpu_torch.parallel.sharding import (batch_rows,
+                                                          context_cols)
         rows = slice(*batch_rows(mesh, batch_size))
+        cols = slice(*context_cols(mesh, dims.max_contexts))
         batch_size = batch_size * mesh.batch_shards
     ss = np.random.SeedSequence((seed, step))
     torch_seed, salt_seed, rename_seed = (
@@ -72,7 +76,7 @@ def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
         keep = torch.rand(shape, generator=gen, device=device) \
             < dims.dropout_keep_rate
         if rows is not None:
-            keep = keep[rows].contiguous()
+            keep = keep[rows, cols].contiguous()
     sampled = None
     if cfg.use_sampled_softmax:
         S = min(cfg.num_sampled, dims.target_vocab_size)
@@ -90,7 +94,7 @@ def make_draws(dims: ModelDims, cfg, params, batch_size: int, seed: int,
                 rename, gumbel=rename.gumbel[rows].contiguous(),
                 index=rename.index[rows].contiguous(),
                 apply_u=rename.apply_u[rows].contiguous(),
-                rows=(rows.start, rows.stop))
+                rows=(rows.start, rows.stop), ctx=mesh.ctx)
     return StepDraws(keep=keep, sampled=sampled,
                      salts={k: int(s) for k, s in zip(qkeys, salts)},
                      rename=rename)

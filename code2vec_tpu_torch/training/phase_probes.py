@@ -29,8 +29,8 @@ the fused step's carrier plumbing), so backward + apply report as one
 `make_vm_probes` is the VarMisuse head's kit (training/vm_steps.py):
 gather, forward, backward, and the apply as the fused remainder.
 
-Under a data-parallel mesh of more than one rank the dense kit (float
-tables) also times the gradient all-reduce alone (`_make_allreduce`: a
+Under a mesh of more than one rank (data, ctx or dcn) the dense kit
+(float tables) also times the gradient all-reduce alone (`_make_allreduce`: a
 sum over the world of clones of the backward probe's gradients,
 through parallel/distributed.all_reduce_sum_) with the isolated apply
 beside it, so obs/phases.py derives `allreduce_exposed`; the forward's
@@ -83,9 +83,10 @@ def _make_allreduce(mesh):
     summed over the ranks in its own dtype, the step's collective
     (training/sparse_steps.reduce_step_grads) on a grads-shaped tree.
     The sums, world x grads where the ranks' gradients agree, are
-    discarded; only the communication is being timed. None when the
-    mesh has one batch shard (nothing to reduce)."""
-    if mesh is None or mesh.batch_shards <= 1:
+    discarded; only the communication is being timed. None at a world
+    of one (nothing to reduce); a ctx axis reduces over the world too,
+    whatever its batch shards."""
+    if mesh is None or mesh.world <= 1:
         return None
     from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
 

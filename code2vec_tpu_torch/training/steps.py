@@ -63,6 +63,20 @@ ranks in its own dtype (the int8 carrier's bf16 too) before the
 optimizer, and the optimizer, the adds and kernel 4's requantize (under
 the step's shared salts) then run the same on every rank, which ends
 with the same params. The returned loss is the global one.
+
+Under a ctx axis of s (parallel/mesh.py) the ranks of a ctx group hold
+the same rows, each its C/s contexts, and encode them through the ctx
+collectives (models/encoder.py, transformer_encoder.py). The same two
+sums over the whole world then give one device's loss and gradients:
+the weight sum counts each row s times, so each rank's loss is 1/s of
+its shard's loss and the world's loss sum is the global loss; a value
+replicated over the group gets 1/s of its cotangent on each rank, each
+ctx collective's backward (parallel/collectives.py) sums those shares
+into the cotangent of the rank that owns the value, and the world's
+gradient sum adds each rank's share of every param's gradient once (at
+a power-of-two s the 1/s shares are exact). The rename
+defense runs on the rows' whole contexts, gathered over the group, and
+each rank keeps its own.
 """
 
 from __future__ import annotations
@@ -80,6 +94,8 @@ from code2vec_tpu_torch.models.encoder import (ModelDims, Params, full_logits,
 from code2vec_tpu_torch.ops.quant import (is_quantized, opt_param_view,
                                           requantize)
 from code2vec_tpu_torch.ops.sampled_softmax import sampled_softmax_loss
+from code2vec_tpu_torch.parallel.collectives import gather_along
+from code2vec_tpu_torch.parallel.sharding import local_contexts
 from code2vec_tpu_torch.training.draws import StepDraws, quantized_keys
 from code2vec_tpu_torch.training.optimizers import (AdamF32Moments,
                                                     GradientTransformation)
@@ -118,7 +134,8 @@ def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
                              compute_dtype=compute_dtype,
                              use_kernel=use_kernel, train=True,
                              keep=draws.keep,
-                             dropout_keep_rate=dims.dropout_keep_rate)
+                             dropout_keep_rate=dims.dropout_keep_rate,
+                             mesh=mesh)
         denom = loss_denominator(weights, mesh) if mesh is not None \
             else None
         if use_sampled_softmax:
@@ -170,6 +187,17 @@ def dense_loss_and_grads(params: Params, batch, draws: StepDraws,
     return loss.detach(), out, view
 
 
+def augmented(augment_fn: Callable, batch, rename, mesh=None):
+    """`augment_fn(batch, rename)`; under a ctx axis on the rows' whole
+    contexts (the batch's [B, C/s] members all-gathered over the ctx
+    group), cut back to this rank's."""
+    if mesh is None or mesh.ctx == 1:
+        return augment_fn(batch, rename)
+    whole = tuple(gather_along(t, 1, mesh) if i in (1, 2, 3, 4) else t
+                  for i, t in enumerate(batch))
+    return local_contexts(mesh, augment_fn(whole, rename))
+
+
 @torch.no_grad()
 def apply_dense_updates(params: Params, updates: Dict[str, torch.Tensor],
                         salts: Dict[str, int], *,
@@ -201,7 +229,7 @@ def dense_train_step(params: Params, opt_state, batch, draws: StepDraws, *,
     gradients and the loss are summed over the ranks before the
     optimizer. Returns the loss."""
     if augment_fn is not None:
-        batch = augment_fn(batch, draws.rename)
+        batch = augmented(augment_fn, batch, draws.rename, mesh)
     loss, grads, view = dense_loss_and_grads(params, batch, draws, loss_fn)
     if mesh is not None:
         loss = reduce_step_grads(loss, grads, mesh)
@@ -236,6 +264,10 @@ def make_train_step(dims: ModelDims, optimizer, *,
     docstring); the sparse-row step refuses one. `mesh` builds this
     rank's data-parallel step (the module docstring)."""
     if sparse_updates:
+        if mesh is not None and mesh.ctx != 1:
+            raise ValueError(
+                "mesh sparse updates require ctx=1 (the bag encoder's "
+                f"batch never shards over 'ctx'; got mesh {mesh.shape})")
         if augment_fn is not None:
             raise ValueError("the sparse-row step has no augmentation hook "
                              "(Config.verify refuses --adv_rename_prob "
@@ -298,16 +330,18 @@ def topk_stable(probs: torch.Tensor, k: int
 
 
 def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
-              compute_dtype=torch.float32, use_kernel: bool = True
+              compute_dtype=torch.float32, use_kernel: bool = True,
+              mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (loss_sum 0-d, topk_ids [B, k], topk_probs [B, k]): no dropout,
     full softmax; the per-example cross entropy is clamped at 0 (a
     logsumexp minus a logit can round a hair below it) and weighted by
-    the example weights."""
+    the example weights. Under a ctx `mesh` the batch holds the rank's
+    contexts, and every rank of a ctx group returns the same values."""
     labels, src, pth, dst, mask, weights = batch
     code, _attn = get_encode_fn(dims)(params, src, pth, dst, mask,
                                       compute_dtype=compute_dtype,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel, mesh=mesh)
     logits = full_logits(params, code, dims.target_vocab_size)
     ce = torch.clamp(F.cross_entropy(logits, labels.to(torch.int64),
                                      reduction="none"), min=0.0)

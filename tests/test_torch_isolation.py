@@ -73,6 +73,18 @@ def test_scan_covers_the_serving_fleet_modules(module):
 
 
 @pytest.mark.parametrize("module", [
+    "parallel/collectives.py", "ops/ring_attention.py", "parallel/mesh.py",
+    "parallel/sharding.py", "tools/train_supervisor.py"])
+def test_scan_covers_the_context_axis_modules(module):
+    """The context and dcn axes' modules (the ctx collectives, the ring,
+    the mesh and its sharding, the supervisor's refusal) are among the
+    scanned sources and import neither JAX nor the JAX package."""
+    path = os.path.join(PORT, module)
+    assert path in _port_sources()
+    assert not [m for m in _imported_modules(path) if _FORBIDDEN.match(m)]
+
+
+@pytest.mark.parametrize("module", [
     "models/varmisuse.py", "models/vm_model.py", "training/vm_steps.py",
     "data/vm_reader.py", "data/varmisuse_gen.py"])
 def test_scan_covers_the_varmisuse_modules(module):

@@ -52,8 +52,36 @@ def test_mesh_spans_the_world_on_the_data_axis():
 
 @pytest.mark.parametrize("kw", [dict(model=2), dict(context=2), dict(dcn=2)])
 def test_mesh_refuses_the_axes_not_ported(kw):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
-        make_mesh(rank=0, world=2, device="cpu", **kw)
+    """The model axis is refused, naming ROADMAP item 5b. The context and
+    dcn axes are ported: at a world of 4 the mesh takes data = 4 / 2 and
+    lays the ranks out row-major over (dcn, data, ctx, model), as the
+    JAX mesh reshapes its devices; a world the axes do not divide is
+    refused in the JAX package's words."""
+    if "model" in kw:
+        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5b"):
+            make_mesh(rank=0, world=2, device="cpu", **kw)
+        return
+    meshes = [make_mesh(rank=r, world=4, device="cpu", **kw)
+              for r in range(4)]
+    assert all(m.data == 2 and m.shape == dict(
+        zip(AXES, (kw.get("dcn", 1), 2, kw.get("context", 1), 1)))
+        for m in meshes)
+    if "context" in kw:
+        assert [(m.batch_shard, m.ctx_index) for m in meshes] == [
+            (0, 0), (0, 1), (1, 0), (1, 1)]
+        assert meshes[3].ctx_ranks() == (2, 3)
+        assert [sharding.batch_rows(m, 8) for m in meshes] == [
+            (0, 8), (0, 8), (8, 16), (8, 16)]
+        assert [sharding.context_cols(m, 16) for m in meshes] == [
+            (0, 8), (8, 16), (0, 8), (8, 16)]
+    else:
+        assert [(m.batch_shard, m.batch_shards) for m in meshes] == [
+            (0, 4), (1, 4), (2, 4), (3, 4)]
+        assert [m.coords[:2] for m in meshes] == [(0, 0), (0, 1), (1, 0),
+                                                   (1, 1)]
+    with pytest.raises(ValueError, match="3 devices not divisible by "
+                                         "dcn\\*model\\*ctx=2"):
+        make_mesh(rank=0, world=3, device="cpu", **kw)
 
 
 def test_mesh_data_axis_must_be_the_world():
@@ -83,8 +111,20 @@ def test_dist_and_mesh_data_flags_parse():
                                   ["--mesh_context", "2"],
                                   ["--mesh_dcn", "2"], ["--ring_attention"]])
 def test_later_mesh_flags_are_refused_with_the_roadmap_item(flag):
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
-        Config.load_from_args(["--data", "x", "--backend", "cpu", *flag])
+    """`--mesh_model 2` is refused naming ROADMAP item 5b; the context
+    and dcn axes and the ring are ported: their flags set the JAX
+    package's fields, as its parser does."""
+    argv = ["--data", "x", "--backend", "cpu", *flag]
+    if flag[0] == "--mesh_model":
+        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5b"):
+            Config.load_from_args(argv)
+        return
+    cfg = Config.load_from_args(argv)
+    j = JConfig.load_from_args(["--data", "x", *flag])
+    for field in ("MESH_CONTEXT_AXIS", "MESH_DCN_AXIS", "RING_ATTENTION"):
+        assert getattr(cfg, field) == getattr(j, field), field
+    assert (cfg.MESH_CONTEXT_AXIS, cfg.MESH_DCN_AXIS,
+            cfg.RING_ATTENTION) != (1, 1, False)
 
 
 @pytest.mark.parametrize("kw", [
