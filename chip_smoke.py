@@ -332,7 +332,26 @@ Phases (any failure raises, and the script exits non-zero):
    save, `topology.json` with 2 processes and 1 batch shard), and in
    this process a one-process `--load` of that checkpoint evaluating
    the test file;
-26. a `{"kernels": [...]}` line, the card line, and last
+26. the model axis, in [23]'s two children after [25] (data = 1, model =
+   2: each rank holds half the rows of every java-large table; gloo
+   through the host): (c)'s dense step and (e)'s (L = 2, H = 3), each
+   against one rank's step over the same global batch on the whole
+   tables (the gathered contexts the same bits, the loss, every leaf's
+   raw gradient, a table's over the rank's window), one step timed, the
+   forward + backward's peak memory a rank beside one rank's, the bytes
+   of the model pair's all-sums; (a)'s sparse-row step with kernel 5 on
+   each window, the plain rows' bits from the same state; an evaluation
+   of the 4096 test methods through the merged top-k against one rank's
+   (the top-1 equal wherever the first two probabilities are more than
+   1e-6 of the first apart, on tables stretched as [4]'s), the merge's
+   bytes; the counters at 0 before the counted
+   steps (kernel 1 once a step in (c) and (a), kernels 2 and 3 L times in
+   (e), kernel 5 three times in (a)); then `cli.main --mesh_model 2
+   --dist_*` on both ranks over [14]'s binary shards (an epoch, an
+   evaluation counted once, rank 0's save of whole tables, `topology.json`
+   with 2 processes), and in this process a one-process `--load` of that
+   checkpoint evaluating the test file to the same top-1 and loss;
+27. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -6303,7 +6322,7 @@ def phase_robustness_study(torch, np, tmp, report) -> None:
 # ---- [23]: data-parallel training across processes ----
 
 DP_WORLD = 2
-DP_CHILD_TIMEOUT_S = 420
+DP_CHILD_TIMEOUT_S = 560
 DP_REPS = 2  # timed steps of each kind in the harness (3 before [25])
 DP_CONFIGS = {
     "c": [],
@@ -6346,8 +6365,9 @@ def dp_child() -> None:
     chip_smoke.dp_child()' <spec.json>`): the command line with the
     `--dist_*` flags for (c) then (a) (`cli.main`, which `python3 -m
     code2vec_tpu_torch` runs), then the function-level harness
-    (`dp_harness`), then [25]'s context axis (`ctx_harness`, `ctx_cli`).
-    Prints `DP_RESULT <json>` and exits 0 only if all passed."""
+    (`dp_harness`), then [25]'s context axis (`ctx_harness`, `ctx_cli`)
+    and [26]'s model axis (`model_harness`, `model_cli`). Prints
+    `DP_RESULT <json>` and exits 0 only if all passed."""
     import torch
 
     from code2vec_tpu_torch import cli
@@ -6398,6 +6418,11 @@ def dp_child() -> None:
                              spec["train"])
     out["ctx_cli"] = ctx_cli(torch, rank, world,
                              spec["ports"][len(DP_CONFIGS) + 2], spec)
+    # [26]: the model axis in the same two processes
+    out["model"] = model_harness(torch, rank, world,
+                                 spec["ports"][len(DP_CONFIGS) + 3], spec)
+    out["model_cli"] = model_cli(torch, rank, world,
+                                 spec["ports"][len(DP_CONFIGS) + 4], spec)
     print("DP_RESULT " + json.dumps(out), flush=True)
 
 
@@ -6979,8 +7004,8 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
             "--async_checkpoint", "off"]
     ck = {label: os.path.join(tmp, f"dp_ckpt_{label}")
           for label in DP_CONFIGS}
-    # the CLI runs', the harness's and [25]'s harness and CLI run
-    ports = [free_port() for _ in range(len(DP_CONFIGS) + 3)]
+    # the CLI runs', the harness's, [25]'s and [26]'s harness and CLI run
+    ports = [free_port() for _ in range(len(DP_CONFIGS) + 5)]
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     procs = []
@@ -6990,7 +7015,9 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
             json.dump({"rank": rank, "world": DP_WORLD, "ports": ports,
                        "base": base, "ckpt": ck,
                        "ctx_ckpt": os.path.join(tmp, "ctx_ckpt"),
-                       "train": data_prefix + ".train.c2v"}, f)
+                       "model_ckpt": os.path.join(tmp, "model_ckpt"),
+                       "train": data_prefix + ".train.c2v",
+                       "test": test_path}, f)
         env = dict(os.environ, PYTHONPATH=here)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", "import chip_smoke; chip_smoke.dp_child()",
@@ -7162,8 +7189,9 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     kept = {"argv": dp_argv(base, "a"), "digests": r0["a"]["digests"],
             "steps": DP_EPOCHS["a"] * steps, "steps_per_epoch": steps,
             "n_train": n_train}
-    # [25]'s results from the same children
-    ctx_runs = [{k: r[k] for k in ("ctx", "ctx_cli")} for r in results]
+    # [25]'s and [26]'s results from the same children
+    ctx_runs = [{k: r[k] for k in ("ctx", "ctx_cli", "model", "model_cli")}
+                for r in results]
     return launches, kept, ctx_runs
 
 
@@ -7275,6 +7303,439 @@ def phase_context(torch, vocabs, test_path, runs, ckpt_dir, n_train,
                 h0["e_gathered"]["launches"]["xf_attention_forward"],
             "xf_attention_backward":
                 h0["e_gathered"]["launches"]["xf_attention_backward"]}
+
+
+# ---- [26]: the model axis (run inside [23]'s two children) ----
+
+# the model axis of [26]: two ranks on the card, each holding half the
+# rows of every table (java-large padded to a multiple of 2)
+MODEL = 2
+# a model step against one rank's step over the same global batch, each
+# leaf's raw gradient over its largest value: the gathered contexts are
+# one rank's bits and a table window's gradient is one rank's rows of the
+# same scatter, but the logits of the full softmax are a [B, V/2] product
+# a rank, which cuBLAS may tile otherwise than the [B, V] one, and a
+# one-step bf16 difference travels on through the backward: [25]'s card
+# bound for a raw gradient, 2^-6
+MODEL_GRAD_RTOL = CTX_GRAD_RTOL
+# the merged evaluation's top-1 against one rank's, held where the one
+# rank's first two probabilities are more than this share of the first
+# apart: the [B, V/2] logits of a rank and the one rank's [B, V] are
+# products cuBLAS may tile otherwise (a few float32 ulp of a logit, ~1e-7
+# of a probability); an absolute 1e-6 holds nothing here, where even the
+# stretched tables give every probability under ~1e-5
+MODEL_TOP1_GAP = 1e-6
+
+
+def model_counts():
+    from code2vec_tpu_torch.ops.sparse_update_kernel import \
+        sparse_row_adam_fused
+    return dict(xf_counts(), sparse_row_adam=sparse_row_adam_fused.launches)
+
+
+def zero_model_counts():
+    from code2vec_tpu_torch.ops.sparse_update_kernel import \
+        sparse_row_adam_fused
+    zero_xf_counts()
+    sparse_row_adam_fused.launches = 0
+
+
+def tensor_bytes(tree) -> int:
+    from code2vec_tpu_torch.training.checkpoint import state_tensors
+    return sum(t.numel() * t.element_size() for t in state_tensors(tree))
+
+
+def model_step_check(torch, trainer, glob, label: str) -> dict:
+    """[26]: one dense step of a model-2 `trainer` (data = 1: every rank
+    holds all the rows) against one rank's step over the same batch on
+    the whole tables (gathered from the windows): the gathered contexts
+    (the same bits), the loss and every leaf's raw gradient (a table's
+    over the rank's window). The model step is the counted one,
+    `steps.dense_train_step`'s phases run apart so that its raw gradients
+    can be read (forward + backward + the shard-replica sum, then the
+    optimizer and the adds), timed without the comparison between them;
+    the forward + backward's peak memory a rank beside one rank's (each
+    its tables plus its peak above what was allocated), the step's peak,
+    and the bytes of the model group's collectives."""
+    from code2vec_tpu_torch.models.encoder import gather_contexts
+    from code2vec_tpu_torch.parallel import collectives
+    from code2vec_tpu_torch.parallel.sharding import (TABLE_KEYS, row_window,
+                                                      unshard_params)
+    from code2vec_tpu_torch.training.sparse_steps import reduce_step_grads
+    from code2vec_tpu_torch.training.steps import (apply_dense_updates,
+                                                   dense_loss_and_grads,
+                                                   make_train_loss_fn)
+    mesh, cfg = trainer.mesh, trainer.config
+    draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+    kw = dict(use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+              num_sampled=cfg.NUM_SAMPLED_CLASSES,
+              compute_dtype=trainer.compute_dtype, use_kernel=True)
+    whole = unshard_params(trainer.params, mesh)
+    _l, src, pth, dst, _m, _w = glob
+    same = torch.equal(
+        gather_contexts(trainer.params, src, pth, dst, trainer.compute_dtype,
+                        mesh),
+        gather_contexts(whole, src, pth, dst, trainer.compute_dtype))
+    check(same, f"(model {label}) rank {mesh.rank}: the gathered contexts "
+          "are not one rank's")
+    tables = {k: tensor_bytes(trainer.params[k]) for k in TABLE_KEYS}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss_one, grads_one, _v = dense_loss_and_grads(
+        whole, glob, draws, make_train_loss_fn(trainer.dims, **kw))
+    torch.cuda.synchronize()  # one rank: not counted
+    one_peak = (torch.cuda.max_memory_allocated() - base
+                + MODEL * sum(tables.values()))
+    for k in TABLE_KEYS:
+        grads_one[k] = grads_one[k][slice(*row_window(
+            mesh, whole[k].shape[0]))].clone()
+    loss_one = loss_one.item()
+    del whole
+    torch.cuda.empty_cache()
+    loss_fn = make_train_loss_fn(trainer.dims, mesh=mesh, **kw)
+    zero_model_counts()
+    collectives.traffic.update(sum=0, max=0, gather=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    loss, grads, view = dense_loss_and_grads(trainer.params, glob, draws,
+                                             loss_fn)
+    loss = reduce_step_grads(loss, grads, mesh)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    fwd_bwd_peak = (torch.cuda.max_memory_allocated() - base
+                    + sum(tables.values()))
+    traffic = dict(collectives.traffic)
+    loss = loss.item()
+    worst, at = 0.0, None
+    for path, g1 in grads_one.items():
+        g1 = g1.float()
+        rel = ((grads[path].float() - g1).abs().max().item()
+               / max(g1.abs().max().item(), 1e-30))
+        if rel >= worst:
+            worst, at = rel, path
+    loss_rel_ = abs(loss - loss_one) / abs(loss_one)
+    check(loss_rel_ <= LOSS_RTOL and worst <= MODEL_GRAD_RTOL,
+          f"(model {label}) rank {mesh.rank}: loss {loss} vs one rank "
+          f"{loss_one} (rel {loss_rel_:.3g}), the worst raw gradient {at} "
+          f"{worst:.3g} of its largest (bound {MODEL_GRAD_RTOL:.3g})")
+    del grads_one
+    t = time.perf_counter()
+    updates = trainer.optimizer.update(grads, trainer.opt_state, view)
+    apply_dense_updates(trainer.params, updates, draws.salts,
+                        use_kernel=trainer.requant_kernel)
+    torch.cuda.synchronize()
+    step_ms += (time.perf_counter() - t) * 1e3
+    del grads, updates
+    return {"loss": loss, "loss_one": loss_one, "loss_rel": loss_rel_,
+            "worst_grad": (at, worst), "step_ms": step_ms,
+            "fwd_bwd_peak_bytes": fwd_bwd_peak,
+            "one_rank_fwd_bwd_peak_bytes": one_peak,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "table_bytes": tables, "traffic": traffic,
+            "launches": model_counts(), "contexts_equal": same}
+
+
+def model_sparse_check(torch, trainer, glob) -> dict:
+    """[26] (a): one sparse-row step of a model-2 `trainer` (counted),
+    then the same step from the same state with the plain rows in place
+    of kernel 5 on each window: the tables and every moment the same
+    bits, the loss too."""
+    from code2vec_tpu_torch.parallel import collectives
+    from code2vec_tpu_torch.training.checkpoint import (map_state,
+                                                        state_tensors)
+    from code2vec_tpu_torch.training.steps import \
+        make_train_step as port_train_step
+    mesh, cfg = trainer.mesh, trainer.config
+    draws = trainer.draws_for(TRAIN_B, trainer.step_num)
+    live = {"params": trainer.params, "opt_state": trainer.opt_state}
+    start = map_state(lambda t: t.detach().clone(), live)
+    zero_model_counts()
+    collectives.traffic.update(sum=0, max=0, gather=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss = trainer._train_step(trainer.params, trainer.opt_state, glob,
+                               draws)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    launches, traffic = model_counts(), dict(collectives.traffic)
+    kernel = map_state(lambda t: t.detach().clone(), live)
+    for dst, src in zip(state_tensors(live), state_tensors(start)):
+        dst.copy_(src)
+    plain = port_train_step(
+        trainer.dims, trainer.optimizer,
+        use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+        num_sampled=cfg.NUM_SAMPLED_CLASSES,
+        compute_dtype=trainer.compute_dtype, use_kernel=True,
+        row_kernel=False, sparse_updates=True, mesh=mesh)
+    loss_plain = plain(trainer.params, trainer.opt_state, glob, draws)
+    diff = state_diff(torch, kernel, live)
+    check(diff["differ"] == 0 and torch.equal(loss, loss_plain),
+          f"(model a) rank {mesh.rank}: kernel 5 on the window vs the plain "
+          f"rows: {diff}, loss {loss.item()} vs {loss_plain.item()}")
+    del start, kernel
+    return {"loss": loss.item(), "step_ms": step_ms, "launches": launches,
+            "tensors_equal": diff["tensors"], "traffic": traffic,
+            "rows": {k: tuple(v.shape) for k, v in trainer.params.items()
+                     if k.endswith("_emb")}}
+
+
+def model_eval_check(torch, trainer, test_path: str, vocabs) -> dict:
+    """[26]: the test file's methods through the model-2 evaluation step
+    (the softmax over both ranks' columns, the top-k merged) against one
+    rank's on the whole tables, after `stretch_tables`' stretch of the
+    windows by the whole tables' largest values (at the init every logit
+    is ~0 and the probabilities tie): the top-1 equal wherever one rank's
+    first two probabilities are more than MODEL_TOP1_GAP of the first
+    apart; the bytes of the merge and of the all-sums."""
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.parallel import collectives
+    from code2vec_tpu_torch.parallel.sharding import unshard_params
+    from code2vec_tpu_torch.training.steps import eval_step
+    mesh = trainer.mesh
+    with torch.no_grad():
+        for key, reach in (("token_emb", 1.0), ("path_emb", 1.0),
+                           ("target_emb", 0.3)):
+            t = trainer.params[key]
+            top = collectives.model_max(t.float().abs().max().reshape(1),
+                                        mesh)
+            t.mul_((reach / top).to(t.dtype))
+    whole = unshard_params(trainer.params, mesh)
+    methods = held = agree = 0
+    model_ms = 0.0
+    collectives.traffic.update(sum=0, max=0, gather=0)
+    for b in C2VTextReader(test_path, vocabs, C, TRAIN_B):
+        batch = trainer.device_batch(b)
+        kw = dict(dims=trainer.dims, top_k=TOP_K,
+                  compute_dtype=trainer.compute_dtype, use_kernel=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.inference_mode():
+            _ls, ids, _p = eval_step(trainer.params, batch, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        model_ms += (time.perf_counter() - t) * 1e3
+        with torch.inference_mode():
+            _ls1, ids1, probs1 = eval_step(whole, batch, **kw)
+        nv = b.num_valid_examples
+        clear = ((probs1[:nv, 0] - probs1[:nv, 1])
+                 > MODEL_TOP1_GAP * probs1[:nv, 0])
+        methods += nv
+        held += int(clear.sum())
+        agree += int((ids[:nv, 0] == ids1[:nv, 0])[clear].sum())
+    del whole
+    torch.cuda.empty_cache()
+    check(methods == EVAL_METHODS and agree == held and held > 0,
+          f"(model eval) rank {mesh.rank}: top-1 equal on {agree} of "
+          f"{held} clear methods of {methods}")
+    return {"methods": methods, "held": held, "agree": agree,
+            "ms": model_ms, "traffic": dict(collectives.traffic)}
+
+
+def model_harness(torch, rank: int, world: int, port: int, spec) -> dict:
+    """[26] in one of [23]'s children: `world` ranks on the card over
+    gloo at (data 1, model world): (c)'s dense step and (e)'s against one
+    rank, (a)'s sparse-row step with kernel 5 on each window against the
+    plain rows, and the merged evaluation of the test file."""
+    import numpy as np
+
+    from code2vec_tpu_torch.data.reader import C2VTextReader
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.parallel import distributed
+    t0 = time.perf_counter()
+    check(distributed.maybe_initialize(f"127.0.0.1:{port}", world, rank,
+                                       device_type="cuda"),
+          "(model harness) no process group")
+    vocabs = synthetic_vocabs()
+    glob_np = next(iter(C2VTextReader(spec["train"], vocabs, C, TRAIN_B)))
+    glob = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in glob_np.host_arrays())
+    out = {}
+    _, cfg = dense_config("c", "bfloat16", False)
+    cfg.MESH_MODEL_AXIS = world
+    for label, cfg in (("c", cfg), ("e", xf_config(MESH_MODEL_AXIS=world))):
+        trainer = Code2VecTrainer(cfg, vocabs)
+        mesh = trainer.mesh
+        check(mesh is not None and (mesh.model, mesh.batch_shards) ==
+              (world, 1), f"(model {label}) mesh {mesh}")
+        out[label] = model_step_check(torch, trainer, glob, label)
+        if label == "c":
+            out["eval"] = model_eval_check(torch, trainer, spec["test"],
+                                           vocabs)
+        del trainer
+        torch.cuda.empty_cache()
+    _, cfg = train_config("a", "bfloat16", True)
+    cfg.MESH_MODEL_AXIS = world
+    trainer = Code2VecTrainer(cfg, vocabs)
+    out["a"] = model_sparse_check(torch, trainer, glob)
+    del trainer, glob
+    torch.cuda.empty_cache()
+    distributed.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def model_cli(torch, rank: int, world: int, port: int, spec) -> dict:
+    """[26]'s command line in one of [23]'s children: `cli.main` with
+    `--mesh_model 2` and the `--dist_*` flags over [14]'s binary shards,
+    (c)'s defaults, one epoch, `--test`, `--save` (rank 0 writes whole
+    tables); kernel 1 counted."""
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.models import model_base
+    counted = []
+    real = model_base.MetricAccumulator.results
+
+    def results(self):
+        counted.append(self.num_examples)
+        return real(self)
+
+    model_base.MetricAccumulator.results = results
+    argv = [str(a) for a in spec["base"]] + [
+        "--mesh_model", world, "--epochs", 1, "--save", spec["model_ckpt"],
+        "--dist_coordinator", f"127.0.0.1:{port}", "--dist_num_processes",
+        world, "--dist_process_id", rank]
+    zero_model_counts()
+    t = time.perf_counter()
+    try:
+        with Recorder(torch) as rec:
+            rc = cli.main([str(a) for a in argv])
+        torch.cuda.synchronize()
+    finally:
+        model_base.MetricAccumulator.results = real
+    check(rc == 0, f"(model cli) rank {rank}: cli.main exited {rc}")
+    trainer = rec.made[-1]
+    res = {"run_s": time.perf_counter() - t, "launches": model_counts(),
+           "losses": rec.loss_values(), "steps": trainer.step_num,
+           "digests": leaf_digests(torch, trainer.params),
+           "rows": {k: tuple(v.shape) for k, v in trainer.params.items()
+                    if k.endswith("_emb")},
+           "evals": [(s, vars(r)) for s, r in rec.evals],
+           "num_examples": counted}
+    del rec, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_model(torch, vocabs, test_path, runs, ckpt_dir, n_train, report):
+    """[26]: the model axis from [23]'s two children (`model_harness`,
+    `model_cli`): the model steps against one rank's, kernel 5 on the
+    windows against the plain rows, the merged evaluation, their
+    launches and collective bytes; the model command line's run on both
+    ranks, then a one-process `--load` of its whole-table checkpoint that
+    evaluates it. Returns rank 0's launches of the counted steps."""
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models import model_base
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    t0 = time.perf_counter()
+    steps = -(-n_train // TRAIN_B)  # one batch shard: every rank all rows
+    want = {"c": {"attention_pool": 1, "xf_attention_forward": 0,
+                  "xf_attention_backward": 0, "sparse_row_adam": 0},
+            "e": {"attention_pool": 0, "xf_attention_forward": XF_L,
+                  "xf_attention_backward": XF_L, "sparse_row_adam": 0},
+            "a": {"attention_pool": 1, "xf_attention_forward": 0,
+                  "xf_attention_backward": 0, "sparse_row_adam": 3}}
+    for rank, r in enumerate(runs):
+        h = r["model"]
+        for label in want:
+            s = h[label]
+            check(s["launches"] == want[label],
+                  f"(model {label}) rank {rank}: launches {s['launches']}, "
+                  f"want {want[label]}")
+        for label in ("c", "e"):
+            s = h[label]
+            print(f"  (model {label}) rank {rank} at model {MODEL}: gathered"
+                  f" contexts one rank's bits; loss {s['loss']:.6f} vs one "
+                  f"rank {s['loss_one']:.6f} (rel {s['loss_rel']:.2e}); the "
+                  f"worst raw gradient {s['worst_grad'][0]} "
+                  f"{s['worst_grad'][1]:.3g} of its largest (bound "
+                  f"{MODEL_GRAD_RTOL:.3g}); a step {s['step_ms']:.1f} ms; "
+                  f"forward + backward peak a rank "
+                  f"{s['fwd_bwd_peak_bytes'] / 1e9:.3f} GB against one "
+                  f"rank's {s['one_rank_fwd_bwd_peak_bytes'] / 1e9:.3f} GB "
+                  f"(each with its tables: a rank's "
+                  f"{sum(s['table_bytes'].values()) / 1e9:.3f} GB), the "
+                  f"step's peak {s['peak_bytes'] / 1e9:.2f} GB; the model "
+                  f"pair's all-sums {s['traffic']['sum'] / 1e6:.1f} MB and "
+                  f"maxes {s['traffic']['max'] / 1e6:.3f} MB a rank a step; "
+                  f"launches {s['launches']} (gloo through the host, two "
+                  f"ranks on one card: not a scaling number)", flush=True)
+        a = h["a"]
+        print(f"  (model a) rank {rank}: a sparse-row step {a['step_ms']:.1f}"
+              f" ms, kernel 5 on each window ({a['rows']}) the plain rows' "
+              f"bits ({a['tensors_equal']} tensors and the loss); the model "
+              f"pair's all-sums {a['traffic']['sum'] / 1e6:.1f} MB a step; "
+              f"launches {a['launches']}", flush=True)
+        e = h["eval"]
+        print(f"  (model eval) rank {rank}: {e['methods']} methods, the "
+              f"merged top-1 one rank's on {e['agree']} of the {e['held']} "
+              f"whose first two probabilities are > {MODEL_TOP1_GAP} of the "
+              f"first apart; "
+              f"the top-k merge gathered {e['traffic']['gather'] / 1e6:.3f} "
+              f"MB a rank, the all-sums (the contexts' parts, the softmax's "
+              f"and the label's sums) {e['traffic']['sum'] / 1e6:.3f} MB; "
+              f"{e['ms']:.0f} ms; [26]'s harness {h['seconds']:.1f} s",
+              flush=True)
+    a, b = runs[0]["model_cli"], runs[1]["model_cli"]
+    for rank, c in enumerate((a, b)):
+        check(c["steps"] == steps and c["num_examples"] == [EVAL_METHODS]
+              and c["launches"]["attention_pool"] >= steps,
+              f"(model cli) rank {rank}: steps {c['steps']} (want {steps}), "
+              f"evaluated {c['num_examples']} (want [{EVAL_METHODS}]), "
+              f"launches {c['launches']}")
+    check(a["evals"] == b["evals"], "(model cli) the ranks' evaluations "
+          "differ")
+    topo = ckpt.load_step_topology(ckpt_dir, steps)
+    check(topo is not None and topo["num_processes"] == DP_WORLD
+          and topo.get("batch_shards") == 1, f"(model cli) topology {topo}")
+    counted = []
+    real = model_base.MetricAccumulator.results
+
+    def results(self):
+        counted.append(self.num_examples)
+        return real(self)
+
+    model_base.MetricAccumulator.results = results
+    try:
+        cfg = Config.load_from_args(["--load", ckpt_dir, "--test",
+                                     test_path])
+        trainer = Code2VecTrainer.from_config(cfg, vocabs=vocabs)
+        rows = {k: tuple(v.shape) for k, v in trainer.params.items()
+                if k.endswith("_emb")}
+        check(trainer.mesh is None and trainer.dims.vocab_pad_multiple ==
+              MODEL and all(rows[k][0] == MODEL * a["rows"][k][0]
+                            for k in rows),
+              f"(model load) not a one-process whole-table checkpoint: "
+              f"{rows} vs a rank's {a['rows']}")
+        one = trainer.evaluate()
+    finally:
+        model_base.MetricAccumulator.results = real
+    merged = a["evals"][-1][1]
+    loss_rel_ = abs(merged["loss"] - one.loss) / abs(one.loss)
+    check(counted == [EVAL_METHODS] and loss_rel_ <= 1e-5
+          and merged["topk_acc"][0] == one.topk_acc[0],
+          f"(model load) the model run's merged evaluation {merged} vs one "
+          f"process's {one} over {counted}")
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"  (model cli) cli.main --mesh_model {MODEL} --dist_* on two "
+          f"ranks (gloo, cuda:0): {steps} steps in {a['run_s']:.1f} / "
+          f"{b['run_s']:.1f} s, losses {[round(x, 5) for x in a['losses']]}"
+          f", a rank's tables {a['rows']}, launches {a['launches']}; merged "
+          f"evaluation of {EVAL_METHODS} methods (each counted once) top-1 "
+          f"{merged['topk_acc'][0]:.4f} loss {merged['loss']:.5f}; "
+          f"one-process --load of rank 0's whole-table checkpoint "
+          f"({rows}, topology {topo}): top-1 {one.topk_acc[0]:.4f} loss "
+          f"{one.loss:.5f} (loss rel {loss_rel_:.2e}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    report["model"] = {"ranks": [r["model"] for r in runs],
+                       "cli": {"rank0": a, "rank1": {
+                           k: v for k, v in b.items() if k != "digests"}},
+                       "one_process": vars(one), "loss_rel": loss_rel_}
+    h0 = runs[0]["model"]
+    return {k: sum(h0[label]["launches"][k] for label in want)
+            for k in want["c"]}
 
 
 # ---- [24]: the supervised training cohort ----
@@ -7833,7 +8294,16 @@ def main(argv=None) -> int:
             os.path.join(tmp, "ctx_ckpt"), dp_kept["n_train"], report)
         lap("[25]")
 
-    # ---- 26. result ----
+        # ---- 26. the model axis (run in [23]'s children) ----
+        print("[26] the model axis: (c) and (e) against one rank, (a) with "
+              "kernel 5 on each window, the merged evaluation, the model "
+              "command line, a one-process --load", flush=True)
+        model_launches = phase_model(
+            torch, vocabs, test_path, ctx_runs,
+            os.path.join(tmp, "model_ckpt"), dp_kept["n_train"], report)
+        lap("[26]")
+
+    # ---- 27. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -7847,7 +8317,7 @@ def main(argv=None) -> int:
         + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
         + fleet_launches["attention_pool"] + vm_launches["attention_pool"] \
         + attack_launches["attention_pool"] + dp_launches["attention_pool"] \
-        + ctx_launches["attention_pool"]
+        + ctx_launches["attention_pool"] + model_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -7878,7 +8348,8 @@ def main(argv=None) -> int:
                   train_launches["a"]["sparse_row_adam"]
                   + cli_launches["sparse"]["sparse_row_adam"]
                   + phase_launches["sparse_row_adam"]
-                  + vm_launches["sparse_row_adam"]),
+                  + vm_launches["sparse_row_adam"]
+                  + model_launches["sparse_row_adam"]),
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
                   train_launches["b"]["sparse_requant_adam"]),
@@ -7908,7 +8379,8 @@ def main(argv=None) -> int:
             "source": "code2vec_tpu_torch/csrc/xf_attention.cu",
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
             "launches": sum(v[counter] for v in xf_launches.values())
-            + attack_launches[counter] + ctx_launches[counter],
+            + attack_launches[counter] + ctx_launches[counter]
+            + model_launches[counter],
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
                                if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -7928,7 +8400,7 @@ def main(argv=None) -> int:
                           "phases": phase_launches, "fleet": fleet_launches,
                           "vm": vm_launches, "attacks": attack_launches,
                           "data_parallel": dp_launches,
-                          "context": ctx_launches}
+                          "context": ctx_launches, "model": model_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -13,7 +13,8 @@ order, for the ported flags (config.Config.arguments_parser):
        [--attack_input <file>] [--attack_deadcode] ...] \\
       [--adv_rename_prob <p> [--adv_rename_mode uniform|batch]] \\
       [--dist_coordinator <host:port> --dist_num_processes <N> \
-       --dist_process_id <i> [--mesh_data <N>]] \
+       --dist_process_id <i> [--mesh_data <N>] [--mesh_context <s>] \
+       [--mesh_dcn <d>] [--mesh_model <m>] [--ring_attention]] \
       [--backend gpu|cpu] [--framework ...]
 
 0. `--faults`: the failpoint registry is armed before anything is built
@@ -21,8 +22,9 @@ order, for the ported flags (config.Config.arguments_parser):
    `--dist_*` flags (or the environment) ask for it
    (parallel/distributed.maybe_initialize, where the JAX package's
    `code2vec.py` calls it): one process a rank, over the backend rule's
-   nccl or gloo, each rank training on its host shard; only rank 0
-   writes checkpoints and exports;
+   nccl or gloo, each rank training on its host shard (under
+   `--mesh_model` each rank holding a window of rows of every table);
+   only rank 0 writes checkpoints (whole tables) and exports;
 1. `--auto_resume` with `--save` and `--data`: a checkpoint already in
    `--save` is loaded (before `--load`, a fine-tune's starting point)
    and its run continued;

@@ -28,15 +28,18 @@ candidate slots; `verify` refuses it with the code2vec head's surfaces,
 int8 tables and the transformer, as the JAX package's does. The port
 runs one process per rank: `--dist_coordinator`, `--dist_num_processes`
 and `--dist_process_id` join a process group (parallel/distributed.py);
-`--mesh_data`, `--mesh_context` and `--mesh_dcn` size the data, context
-and dcn axes (parallel/mesh.py), and `--ring_attention` runs the
-transformer's attention as a ring over the context axis
-(ops/ring_attention.py), with the JAX package's rules (int8 tables and
-the VarMisuse head refuse a context axis) and one of the port's:
-`--mesh_context` must divide MAX_CONTEXTS. `--mesh_model` above 1 (the
-row-sharded tables) is refused with a message naming ROADMAP.md Queue 1
-item 5b; serving, `--predict`, the REPL and `--attack` run in one
-process, and refuse a world above 1 (item 4).
+`--mesh_data`, `--mesh_context`, `--mesh_dcn` and `--mesh_model` size
+the data, context, dcn and model axes (parallel/mesh.py; the model axis
+row-shards the vocab tables, parallel/sharding.py), and
+`--ring_attention` runs the transformer's attention as a ring over the
+context axis (ops/ring_attention.py), with the JAX package's rules (int8
+tables refuse a context or model axis, the VarMisuse head a context
+axis) and the port's: `--mesh_context` must divide MAX_CONTEXTS; the
+VarMisuse head and the writing rank's exports of the tables and vectors
+(`--save_w2v`, `--save_t2v`, `--export_code_vectors`, `--release`)
+refuse `--mesh_model` above 1, naming ROADMAP.md Queue 1 item 5c;
+serving, `--predict`, the REPL and `--attack` run in one process, and
+refuse a world above 1 (item 4).
 """
 
 from __future__ import annotations
@@ -174,7 +177,7 @@ class Config:
 
     # ---- the mesh and the process group (the JAX package's names) ----
     MESH_DATA_AXIS: int = 0      # 0 -> the whole world on the data axis
-    MESH_MODEL_AXIS: int = 1     # above 1: not ported (Queue 1 item 5b)
+    MESH_MODEL_AXIS: int = 1     # model-parallel degree (tables' rows)
     MESH_CONTEXT_AXIS: int = 1   # context-parallel degree (C over 'ctx')
     MESH_DCN_AXIS: int = 1       # the batch shards over ('dcn', 'data')
     DIST_COORDINATOR: Optional[str] = None   # host:port of process 0
@@ -406,11 +409,21 @@ class Config:
             raise ValueError(
                 "--head varmisuse supports the bag encoder only "
                 "(no --encoder transformer / --mesh_context > 1).")
-        if self.MESH_MODEL_AXIS > 1:
+        if self.MESH_MODEL_AXIS > 1 and self.HEAD == "varmisuse":
             raise ValueError(
-                f"--mesh_model {self.MESH_MODEL_AXIS}: the model mesh axis "
-                "(row-sharded tables) is not ported to code2vec_tpu_torch "
-                "yet (ROADMAP.md Queue 1 item 5b)")
+                f"--head varmisuse with --mesh_model {self.MESH_MODEL_AXIS}"
+                ": the VarMisuse head over row-sharded tables is not "
+                "ported to code2vec_tpu_torch yet (ROADMAP.md Queue 1 "
+                "item 5c)")
+        if self.MESH_MODEL_AXIS > 1 and (self.release or self.save_w2v
+                                         or self.save_t2v
+                                         or self.export_code_vectors):
+            raise ValueError(
+                f"--save_w2v/--save_t2v/--export_code_vectors/--release "
+                f"with --mesh_model {self.MESH_MODEL_AXIS}: the writing "
+                "rank runs them alone over whole tables, and a rank holds "
+                "a window of rows (ROADMAP.md Queue 1 item 5c); --load "
+                "the checkpoint, whose tables are whole, in one process")
         if self.MESH_CONTEXT_AXIS > 1 and (
                 self.MAX_CONTEXTS % self.MESH_CONTEXT_AXIS):
             raise ValueError(
@@ -677,7 +690,8 @@ class Config:
                        help="data-parallel ranks (0: the world over the "
                             "other axes)")
         p.add_argument("--mesh_model", dest="mesh_model", type=int,
-                       default=None)
+                       default=None,
+                       help="ranks the vocab tables' rows are split over")
         p.add_argument("--mesh_context", dest="mesh_context", type=int,
                        default=None,
                        help="ranks the context dim is split over")

@@ -18,6 +18,16 @@ whose backward gives each rank its shard's gradient) before the pool,
 so kernel 1 runs on the whole bag, as one device runs it; the returned
 attention is the rank's slice.
 
+Under a `mesh` whose model axis m is above 1 each rank holds a window of
+rows of every table (parallel/sharding.py): `take_rows` and
+`gather_contexts` gather the window's rows, zero the rest and sum the
+model group's parts (parallel/collectives.reduce_from_model), so the
+gathered contexts are one device's bits on every rank; `logits_vs_table`
+gives the rank's [B, V/m] columns behind `copy_to_model` on the code
+vector, the -1e9 of a padding row placed at its global column; and
+`cross_entropy` / `softmax` reduce over the sharded columns (the global
+max, the summed exps, the label's logit from the shard that owns it).
+
 `ModelDims.encoder_type` picks the encoder: "bag" (`encode`) or
 "transformer" (models/transformer_encoder.py, whose params sit under
 `params["xf"]` beside the tables); `get_encode_fn` returns the one to
@@ -32,6 +42,7 @@ import math
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from code2vec_tpu_torch.ops.attention import attention_pool
 from code2vec_tpu_torch.ops.attention_kernel import (attention_pool_fused,
@@ -42,6 +53,8 @@ from code2vec_tpu_torch.ops.quant import (QUANTIZED_TABLE_KEYS,
                                           quantized_take)
 from code2vec_tpu_torch.ops.scatter import take_rows_det
 from code2vec_tpu_torch.parallel import collectives
+from code2vec_tpu_torch.parallel.mesh import row_sharded
+from code2vec_tpu_torch.parallel.sharding import take_window, window_rows
 
 Table = Union[torch.Tensor, Dict[str, torch.Tensor]]
 Params = Dict[str, Table]
@@ -135,26 +148,39 @@ def init_params(generator: torch.Generator, dims: ModelDims,
     return params
 
 
-def take_rows(params: Params, name: str, ids: torch.Tensor) -> torch.Tensor:
+def take_rows(params: Params, name: str, ids: torch.Tensor,
+              mesh=None) -> torch.Tensor:
     """Embedding-row gather that understands the three table storages: a
     float table (differentiable: its gradient is a dense scatter-add in
     a fixed order, ops/scatter.py), an
     int8 {"q", "s"} table (a no-grad dequantizing gather, bf16 output:
     int8 rows carry at most 8 significant bits), and an int8 table with a
     gradient carrier "g" attached by the quantized training step (the
-    straight-through gather of ops/quant.py)."""
+    straight-through gather of ops/quant.py). Under a row-sharded `mesh`
+    the float table is the rank's window and `ids` are global
+    (parallel/sharding.take_window)."""
     t = params[name]
     if isinstance(t, dict):
         if "g" in t:
             return quantized_take(t["g"], t, ids)
         return dequantized_rows(t, ids)
+    if row_sharded(mesh):
+        return take_window(t, ids, mesh)
     return take_rows_det(t, ids)
 
 
 def gather_contexts(params: Params, source_ids: torch.Tensor,
                     path_ids: torch.Tensor, target_ids: torch.Tensor,
-                    compute_dtype=torch.float32) -> torch.Tensor:
-    """[B, C] ids -> [B, C, D] context vectors in the compute dtype."""
+                    compute_dtype=torch.float32, mesh=None) -> torch.Tensor:
+    """[B, C] ids -> [B, C, D] context vectors in the compute dtype. Under
+    a row-sharded `mesh` the three window gathers are concatenated and
+    summed over the model group in one collective."""
+    if row_sharded(mesh):
+        parts = torch.cat([
+            window_rows(params["token_emb"], source_ids, mesh),
+            window_rows(params["path_emb"], path_ids, mesh),
+            window_rows(params["token_emb"], target_ids, mesh)], dim=-1)
+        return collectives.reduce_from_model(parts, mesh).to(compute_dtype)
     src = take_rows(params, "token_emb", source_ids)
     pth = take_rows(params, "path_emb", path_ids)
     dst = take_rows(params, "token_emb", target_ids)
@@ -187,11 +213,11 @@ def encode(params: Params, source_ids: torch.Tensor, path_ids: torch.Tensor,
     `dropout_keep_rate` < 1) and pools with the differentiable training
     pool (`attention_pool_train`: the kernel forward on the card, the
     plain pool on the CPU). Under a ctx `mesh` the [B, C] inputs, `keep`
-    and the returned attention are the rank's contexts (the module
-    docstring).
+    and the returned attention are the rank's contexts; under a model
+    `mesh` the tables are the rank's windows (the module docstring).
     """
     contexts = gather_contexts(params, source_ids, path_ids, target_ids,
-                               compute_dtype)
+                               compute_dtype, mesh)
     if train and dropout_keep_rate < 1.0:
         contexts = apply_dropout(contexts, keep, dropout_keep_rate)
     local = None
@@ -237,22 +263,62 @@ def unused_param_keys(dims: ModelDims) -> Tuple[str, ...]:
 
 
 def logits_vs_table(table: torch.Tensor, code_vectors: torch.Tensor,
-                    true_target_vocab_size: Optional[int] = None
-                    ) -> torch.Tensor:
+                    true_target_vocab_size: Optional[int] = None,
+                    mesh=None) -> torch.Tensor:
     """[B, V] float32 logits against a (possibly row-padded) target table,
     the product never rounded to the compute dtype (the jitted JAX
     function's, ops/logits.py). Padding rows are set to -1e9 so they
-    never win top-k."""
+    never win top-k. Under a row-sharded `mesh` the table is the rank's
+    window and the logits its [B, V/m] columns, the code vector entering
+    through `copy_to_model` (its gradient the sum of the columns')."""
+    lo = 0
+    if row_sharded(mesh):
+        code_vectors = collectives.copy_to_model(code_vectors, mesh)
+        lo = mesh.model_index * table.shape[0]
     logits = rows_product_f32(code_vectors, table)
     if (true_target_vocab_size is not None
-            and true_target_vocab_size < table.shape[0]):
-        col = torch.arange(table.shape[0], device=logits.device)
+            and true_target_vocab_size < lo + table.shape[0]):
+        col = torch.arange(lo, lo + table.shape[0], device=logits.device)
         logits = torch.where(col[None, :] < true_target_vocab_size, logits,
                              -1e9)
     return logits
 
 
 def full_logits(params: Params, code_vectors: torch.Tensor,
-                true_target_vocab_size: Optional[int] = None) -> torch.Tensor:
+                true_target_vocab_size: Optional[int] = None,
+                mesh=None) -> torch.Tensor:
     return logits_vs_table(params["target_emb"], code_vectors,
-                           true_target_vocab_size)
+                           true_target_vocab_size, mesh)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mesh=None) -> torch.Tensor:
+    """Per-example softmax cross entropy [B] of float32 logits against
+    int labels (`F.cross_entropy(reduction="none")`). Under a row-sharded
+    `mesh` the logits are the rank's columns: the global max, the model
+    group's sum of exps (`reduce_from_model`) and the label's logit from
+    the shard that owns it, the same value on every rank."""
+    if not row_sharded(mesh):
+        return F.cross_entropy(logits, labels.to(torch.int64),
+                               reduction="none")
+    R = logits.shape[1]
+    top = collectives.model_max(logits.detach().amax(dim=1), mesh)
+    shifted = logits - top[:, None]
+    sum_exp = collectives.reduce_from_model(torch.exp(shifted).sum(dim=1),
+                                            mesh)
+    local = labels.to(torch.int64) - mesh.model_index * R
+    owned = (local >= 0) & (local < R)
+    picked = shifted.gather(1, torch.where(owned, local, 0)[:, None])[:, 0]
+    label_logit = collectives.reduce_from_model(
+        torch.where(owned, picked, torch.zeros_like(picked)), mesh)
+    return torch.log(sum_exp) - label_logit
+
+
+def softmax(logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    """`torch.softmax(logits, -1)` of float32 logits; under a row-sharded
+    `mesh` the rank's columns of the softmax over every shard's."""
+    if not row_sharded(mesh):
+        return torch.softmax(logits, dim=-1)
+    top = collectives.model_max(logits.amax(dim=1), mesh)
+    e = torch.exp(logits - top[:, None])
+    return e / collectives.reduce_from_model(e.sum(dim=1), mesh)[:, None]

@@ -2,11 +2,11 @@
 
 A copy of `build_mesh`, `infeed_split`, `resume_epoch_offset` and the
 learning-rate horizon of `build_optimizer` from `models/setup.py` in the
-JAX package. The mesh is the port's record of the ('dcn', 'data', 'ctx')
-axes (parallel/mesh.py): one process a rank, each reading the host
-shard of its batch shard of the global per-epoch permutation (the ranks
-of a ctx group read the same rows), so the horizon and the steps per
-epoch count the batch shards.
+JAX package. The mesh is the port's record of the ('dcn', 'data', 'ctx',
+'model') axes (parallel/mesh.py): one process a rank, each reading the
+host shard of its batch shard of the global per-epoch permutation (the
+ranks of a ctx or model group read the same rows), so the horizon and
+the steps per epoch count the batch shards.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from code2vec_tpu_torch.training.optimizers import (schedule_total_steps,
 
 def infeed_split(mesh: Optional[Mesh] = None) -> "tuple[int, int]":
     """(host_shard, num_host_shards) of the readers: this rank's batch
-    shard and the mesh's batch shards, (0, 1) without a mesh."""
+    shard and the mesh's batch shards (the model and ctx indices do not
+    enter), (0, 1) without a mesh."""
     if mesh is None:
         return 0, 1
     return mesh.batch_shard, mesh.batch_shards
@@ -32,8 +33,8 @@ def build_mesh(cfg: Config, device=None) -> Optional[Mesh]:
     """The run's mesh, or None for a plain single-process run: a mesh
     whenever the process group is up (a world of 1 too, so its step
     runs the collectives) or an axis asks for more than one process,
-    over the config's axes (parallel/mesh.make_mesh raises for a model
-    axis above 1, and for axes the world cannot fill)."""
+    over the config's axes (parallel/mesh.make_mesh raises for axes the
+    world cannot fill)."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()) and max(
             cfg.MESH_DATA_AXIS, cfg.MESH_MODEL_AXIS, cfg.MESH_CONTEXT_AXIS,

@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import math
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
@@ -76,16 +77,22 @@ from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
                                           kernel_choice, opt_param_view)
 from code2vec_tpu_torch.parallel import distributed
 from code2vec_tpu_torch.parallel.compat import cohort_world
+from code2vec_tpu_torch.parallel.mesh import row_sharded
 from code2vec_tpu_torch.parallel.sharding import (check_replicas,
-                                                  local_contexts)
+                                                  local_contexts,
+                                                  map_row_slots,
+                                                  shard_params, shard_state,
+                                                  table_shapes,
+                                                  unshard_params,
+                                                  unshard_state)
 from code2vec_tpu_torch.resilience import faults, retry
 from code2vec_tpu_torch.training import checkpoint as ckpt
 from code2vec_tpu_torch.training.draws import StepDraws, make_draws
 from code2vec_tpu_torch.training.profiler import StepProfiler
 from code2vec_tpu_torch.training.scalars import ScalarWriter
 from code2vec_tpu_torch.training.optimizers import (
-    AdamF32Moments, make_lr, make_optimizer, resolve_checkpoint_schedule,
-    resolve_checkpoint_warmup)
+    AdamF32Moments, RowShards, make_lr, make_optimizer,
+    resolve_checkpoint_schedule, resolve_checkpoint_warmup)
 from code2vec_tpu_torch.training.phase_probes import make_code2vec_probes
 from code2vec_tpu_torch.training.sparse_steps import init_sparse_opt_state
 from code2vec_tpu_torch.training.sparse_update import (
@@ -350,6 +357,8 @@ def dims_from_config(config: Config, vocabs: Code2VecVocabs) -> ModelDims:
         embeddings_size=config.DEFAULT_EMBEDDINGS_SIZE,
         max_contexts=config.MAX_CONTEXTS,
         dropout_keep_rate=config.DROPOUT_KEEP_RATE,
+        # the tables' rows padded to the model axis, as the JAX model does
+        vocab_pad_multiple=max(1, config.MESH_MODEL_AXIS),
         tables_dtype=config.TABLES_DTYPE,
         encoder_type=config.ENCODER_TYPE,
         xf_layers=config.XF_LAYERS,
@@ -401,6 +410,23 @@ def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
         cfg.LR_SCHEDULE, cfg.LR_WARMUP_STEPS, manifest, cfg.log)
 
 
+def repad_rows(state, rows: Dict[str, int]):
+    """A whole state tree (params and optimizer state) with each table
+    and each slot that leads with its vocab dim padded with zero rows to
+    `rows[table]`: a checkpoint whose tables' rows do not divide a model
+    axis, onto that axis (the padding rows are never gathered, their
+    logits are -1e9, and their gradients and so their updates are 0)."""
+    shapes = table_shapes(state["params"])
+
+    def pad(t, k):
+        extra = rows[k] - t.shape[0]
+        if extra <= 0:
+            return t
+        return torch.cat([t, t.new_zeros((extra,) + tuple(t.shape[1:]))])
+
+    return map_row_slots(state, pad, shapes)
+
+
 def _like(loaded, template, what: str, device: torch.device):
     """`loaded` (a restored state tree) on `device`, after checking that
     it has the structure, shapes and dtypes of `template`."""
@@ -436,10 +462,15 @@ class TrainerBase:
     (checked), reads its host shard of the data, steps on its rows of
     the global batch, evaluates its shard and merges the metrics, and
     only rank 0 writes checkpoints, whose topology.json records the
-    world. A head (`Code2VecTrainer`
-    here, `VarMisuseModel` in models/vm_model.py) supplies its params'
-    init, its steps, its reader, its evaluation and its manifest keys
-    through the hooks below.
+    world. Under a model axis it draws the whole params from the seed
+    and keeps its window of every table (parallel/sharding.shard_params:
+    the same rows of a one-process init, bit for bit) and builds its
+    optimizer state over the windows; a save gathers the whole tables
+    and slots over the model group and rank 0 writes the one-process
+    format, and a load keeps the window of the whole checkpoint. A head
+    (`Code2VecTrainer` here, `VarMisuseModel` in models/vm_model.py)
+    supplies its params' init, its steps, its reader, its evaluation and
+    its manifest keys through the hooks below.
 
     The dense step (the default) or the sparse-row step
     (SPARSE_EMBEDDING_UPDATES) updates tables, dense params and the
@@ -474,7 +505,8 @@ class TrainerBase:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(config.SEED)
             params = self._init_params(gen)
-        self.params = _move(params, self.device)
+        # whole params -> this rank's windows under a model axis
+        self.params = shard_params(_move(params, self.device), self.mesh)
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
         # the kernel-selection flags, fixed for the trainer's life: the
@@ -531,6 +563,14 @@ class TrainerBase:
         manifest = ckpt.load_manifest(config.load_path)
         dims = ckpt.load_dims(config.load_path)
         adopt_manifest(config, manifest, dims, head=cls.HEAD)
+        m = max(1, config.MESH_MODEL_AXIS)
+        repad = dims.vocab_pad_multiple % m != 0
+        if repad:
+            # a checkpoint padded for another model axis (one process's,
+            # unpadded): its rows padded to this one's
+            dims = dataclasses.replace(
+                dims, vocab_pad_multiple=math.lcm(dims.vocab_pad_multiple,
+                                                  m))
         if vocabs is None:
             vocabs = ckpt.load_vocabs(config.load_path)
         sizes = (vocabs.token_vocab.size, vocabs.path_vocab.size,
@@ -541,6 +581,14 @@ class TrainerBase:
                              f"checkpoint's dims {dims}")
         trainer = cls(config, vocabs, device=device, dims=dims)
         state = ckpt.load_checkpoint(config.load_path, log=config.log)
+        if repad:
+            state = repad_rows(state, {
+                k: dims.padded(getattr(dims, k.replace("_emb", "")
+                                       + "_vocab_size"))
+                for k in table_shapes(state["params"])})
+        # the whole tables and slots -> this rank's windows
+        state = shard_state(state, trainer.mesh,
+                            table_shapes(state["params"]))
         trainer.params = _like(state["params"], trainer.params, "params",
                                trainer.device)
         if manifest.get("released"):
@@ -598,12 +646,39 @@ class TrainerBase:
         """The head's keys of the checkpoint manifest."""
         raise NotImplementedError
 
+    def whole_table_shapes(self) -> Dict[str, tuple]:
+        """{table: (rows, width)} of the whole (padded) float tables."""
+        m = self.mesh.model if row_sharded(self.mesh) else 1
+        return {k: (v[0] * m, v[1])
+                for k, v in table_shapes(self.params).items()}
+
+    def row_shards(self) -> Optional[RowShards]:
+        """The optimizer's view of the row-sharded tables (None without a
+        model axis)."""
+        if not row_sharded(self.mesh):
+            return None
+        return RowShards(self.whole_table_shapes(), self.mesh)
+
+    def whole_state(self) -> Dict[str, Any]:
+        """{"params", "opt_state", "step"}: the live state, or under a
+        model axis its whole-table copy gathered over the model group
+        (collective: every rank calls it)."""
+        state = {"params": self.params, "opt_state": self.opt_state,
+                 "step": self.step_num}
+        if not row_sharded(self.mesh):
+            return state
+        return {"params": unshard_params(self.params, self.mesh),
+                "opt_state": unshard_state(self.opt_state, self.mesh,
+                                           self.whole_table_shapes()),
+                "step": self.step_num}
+
     def _build_dense_optimizer(self, total_steps: int) -> None:
         cfg = self.config
         self.optimizer = make_optimizer(
             make_lr(cfg.LEARNING_RATE, cfg.LR_SCHEDULE, total_steps,
                     cfg.LR_WARMUP_STEPS),
-            cfg.EMBEDDING_OPTIMIZER, cfg.TRUST_RATIO, cfg.TRUST_RATIO_SCOPE)
+            cfg.EMBEDDING_OPTIMIZER, cfg.TRUST_RATIO, cfg.TRUST_RATIO_SCOPE,
+            shards=self.row_shards())
         self._build_step()
 
     def draws_for(self, batch_size: int, step: int) -> StepDraws:
@@ -908,12 +983,12 @@ class TrainerBase:
         if self.mesh is not None:
             # the replicas agree before the one copy is written
             check_replicas(self.params, self.mesh)
-            if not self.is_writer:
-                self._save_epoch = None
-                return
+        # whole tables (under a model axis gathered by every rank)
+        state = self.whole_state()
+        if not self.is_writer:
+            self._save_epoch = None
+            return
         t0 = time.perf_counter()
-        state = {"params": self.params, "opt_state": self.opt_state,
-                 "step": self.step_num}
         extra = self._manifest_extra()
         # the epoch of a boundary save, consumed here: a later manual
         # save must not record it
@@ -1050,7 +1125,12 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
 
     def predictor(self) -> Code2VecModel:
         """The predict-side model (the serving path, `--predict`) over
-        this trainer's params, shared, not copied."""
+        this trainer's params, shared, not copied; one process's (a
+        rank of a model axis holds windows of the tables)."""
+        if row_sharded(self.mesh):
+            raise ValueError("the predict-side model needs whole tables: "
+                             "--load the checkpoint in one process "
+                             "(ROADMAP.md Queue 1 item 5c)")
         return Code2VecModel(self.config, self.dims, self.vocabs,
                              self.params, device=self.device)
 
@@ -1062,7 +1142,9 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
         the observed p50 step time every sweep, so a step-time
         regression shows on /metrics mid-run."""
         cfg = self.config
-        if not cfg.SPARSE_EMBEDDING_UPDATES:
+        # the traffic model is the whole tables' (the JAX model publishes
+        # it at model 1 only)
+        if not cfg.SPARSE_EMBEDDING_UPDATES or row_sharded(self.mesh):
             return
         ns = cfg.NUM_SAMPLED_CLASSES if cfg.USE_SAMPLED_SOFTMAX else 0
         step_bytes = sparse_step_floor_bytes(
@@ -1148,7 +1230,10 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
                      for row in topk_ids[:nv].cpu().numpy()]
             acc.update_batch(names, words, loss_sum.item())
         if self.mesh is not None:
-            acc.merge_across_hosts(counted=self.mesh.ctx_index == 0)
+            # one rank of each ctx and model group counts its batch
+            # shard: its peers hold the same rows
+            acc.merge_across_hosts(counted=self.mesh.ctx_index == 0
+                                   and self.mesh.model_index == 0)
         return acc.results()
 
     def _record_eval(self, epoch: int, results: EvaluationResults,

@@ -37,7 +37,9 @@ computes over the whole C, as the JAX package's does on its mesh:
 - a method with no live context is judged on its whole mask (all-
   gathered), so a rank whose shard is all padding behaves as one device.
 The returned attention is the rank's [B, C/s] slice. Without a ctx axis
-`dims.ring_attention` is ignored, as in the JAX package.
+`dims.ring_attention` is ignored, as in the JAX package. Under a model
+axis every table read is `gather_contexts` over the rank's windows, and
+the "xf" leaves stay replicated (the JAX package's `P()`).
 """
 
 from __future__ import annotations
@@ -151,11 +153,13 @@ def encode_transformer(params: Params, source_ids: torch.Tensor,
     keys live, so its softmaxes stay finite. Under a `mesh` with a ctx
     axis above 1 the [B, C] inputs, `keep` and the returned attention are
     the rank's contexts (the module docstring)."""
+    xf = params["xf"]
+    # the tables' windows under a model axis (the rank's rows summed over
+    # the model group, models/encoder.py); "xf" is replicated
+    emb = gather_contexts(params, source_ids, path_ids, target_ids,
+                          compute_dtype, mesh)              # [B, C, D]
     if mesh is not None and mesh.ctx == 1:
         mesh = None
-    xf = params["xf"]
-    emb = gather_contexts(params, source_ids, path_ids, target_ids,
-                          compute_dtype)                    # [B, C, D]
     if train and dropout_keep_rate < 1.0:
         emb = apply_dropout(emb, keep, dropout_keep_rate)
     full_mask = mask if mesh is None else gather_along(mask, 1, mesh)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from code2vec_tpu_torch.ops.logits import gathered_logits_f32
-from code2vec_tpu_torch.ops.scatter import take_rows_det
+from code2vec_tpu_torch.parallel.sharding import take_window
 
 
 def _log_uniform_log_probs(vocab_size: int, device=None) -> torch.Tensor:
@@ -120,19 +120,23 @@ def sampled_softmax_loss(target_table: torch.Tensor,
                          sampled: torch.Tensor, num_sampled: int,
                          example_weights: Optional[torch.Tensor] = None,
                          vocab_size: Optional[int] = None,
-                         denom: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         denom: Optional[torch.Tensor] = None,
+                         mesh=None) -> torch.Tensor:
     """The sampled-softmax loss against a [V_padded, D] target table,
     with the step's sampled ids [S] drawn from [0, vocab_size). The two
     row gathers are differentiable: the table's gradient is the sum of
-    their dense scatter-adds, each in a fixed order (ops/scatter.py)."""
+    their dense scatter-adds, each in a fixed order (ops/scatter.py).
+    Under a row-sharded `mesh` the table is the rank's window and the
+    true and sampled rows come through `sharding.take_window` (the
+    window's rows summed over the model group); the sampled ids are the
+    same on every rank."""
     if vocab_size is None:
         vocab_size = target_table.shape[0]
     num_sampled = min(num_sampled, vocab_size)
     return sampled_softmax_from_gathered(
         code_vectors,
-        true_w=take_rows_det(target_table, labels),
-        samp_w=take_rows_det(target_table, sampled),
+        true_w=take_window(target_table, labels, mesh),
+        samp_w=take_window(target_table, sampled, mesh),
         true_corr=_log_expected_count(labels, num_sampled, vocab_size),
         samp_corr=_log_expected_count(sampled, num_sampled, vocab_size),
         accidental=sampled[None, :] == labels[:, None],

@@ -60,8 +60,13 @@ def apply_rows_plain(table: torch.Tensor, state: RowAdamState,
                      uids: torch.Tensor, seg: torch.Tensor,
                      lr_t: torch.Tensor, b1: float, b2: float,
                      eps: float) -> None:
-    """Kernel 5's plain version: gather, row math, scatter, in place."""
+    """Kernel 5's plain version: gather, row math, scatter, in place. An
+    id outside [0, V) is dropped, as the kernel drops it (a model-axis
+    window's sentinel)."""
     idx = uids.to(torch.int64)
+    live = (idx >= 0) & (idx < table.shape[0])
+    if not bool(live.all()):
+        idx, seg = idx[live], seg[live]
     p = table.index_select(0, idx).to(torch.float32)
     m = state.m.index_select(0, idx)
     v = state.v.index_select(0, idx)

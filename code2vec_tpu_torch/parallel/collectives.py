@@ -1,6 +1,8 @@
-"""The collectives of the context axis, differentiable: the counterparts
-of `jax.lax.ppermute`, `all_gather` and `psum` over a mesh's ctx group
-(parallel/mesh.Mesh.ctx_group).
+"""The collectives of the context and model axes, differentiable: the
+counterparts of `jax.lax.ppermute`, `all_gather` and `psum` over a
+mesh's ctx group (parallel/mesh.Mesh.ctx_group), and the pair of the
+model group (Mesh.model_group) that XLA's SPMD partitioner inserts
+around the JAX package's row-sharded tables.
 
 Each is a `torch.autograd.Function` whose backward is its transpose, the
 rule the JAX package's autodiff follows:
@@ -22,12 +24,35 @@ and each transpose above sums those shares back into the one cotangent
 of the shard that owns the value. The world's gradient sum
 (training/sparse_steps.reduce_step_grads) then adds the shards.
 
+The model group follows another convention. Its m ranks read the same
+rows and contexts and hold different rows of each table, so every
+value downstream of a gathered row is replicated over the group and its
+loss is the same loss, not a share of it. Its pair is Megatron's:
+- `copy_to_model(x, mesh)`: the identity forward (x replicated enters a
+  sharded computation: the code vector before the logits of the rank's
+  columns) and an all-sum backward (each rank's cotangent is the part
+  of its columns);
+- `reduce_from_model(x, mesh)`: an all-sum forward (each rank's part of
+  a gathered row or of a softmax's sum) and the identity backward (the
+  replicated cotangent goes to each rank's part as it is).
+`all_sum` is not used over the model group: its backward sums again,
+which would count a replicated cotangent m times. `model_sum`,
+`model_max` and `model_gather` (no autograd) take the optimizer's sums
+across a table's rows, the softmax's global max and the top-k merge's
+candidates in model order. Every gradient is then summed over
+the shard-replica group only (`replica_group`: the ranks of one model
+index, which read other rows or other contexts), the world at model 1:
+each gradient of a replicated leaf is computed once in each model
+group, and each table shard's is its window's. `traffic` counts the
+bytes each model collective moves (a rank's tensor), which
+`chip_smoke.py` reads a step.
+
 A two-rank ring sends to and receives from the same peer, so the sends
 and receives of `ppermute` are posted together (`batch_isend_irecv`).
 Under gloo a CUDA tensor is staged through the host (`_staged`), as the
 other collectives of parallel/ do; under nccl it stays on the card. A
-mesh with ctx above 1 but no group raises: no ctx step falls back to
-the one-process step.
+mesh with ctx or model above 1 but no group raises: no step falls back
+to the one-process step.
 """
 
 from __future__ import annotations
@@ -42,6 +67,33 @@ def _group(mesh):
             "(parallel/mesh.make_mesh builds it when torch.distributed is "
             "initialized)")
     return mesh.ctx_group
+
+
+def _model_group(mesh):
+    if mesh.model_group is None:
+        raise RuntimeError(
+            f"mesh model = {mesh.model} has no process group of model peers "
+            "(parallel/mesh.make_mesh builds it when torch.distributed is "
+            "initialized)")
+    return mesh.model_group
+
+
+def replica_group(mesh):
+    """The group every gradient and the loss's weight sum are summed
+    over: the shard-replica group at model above 1 (raises without it),
+    None (the world) at model 1."""
+    if mesh.model == 1:
+        return None
+    if mesh.replica_group is None:
+        raise RuntimeError(
+            f"mesh model = {mesh.model} has no process group of shard "
+            "replicas (parallel/mesh.make_mesh builds it when "
+            "torch.distributed is initialized)")
+    return mesh.replica_group
+
+
+# bytes a rank's tensors of the model collectives (reset by the caller)
+traffic = {"sum": 0, "max": 0, "gather": 0}
 
 
 def _staged(t: torch.Tensor) -> torch.Tensor:
@@ -140,3 +192,73 @@ def all_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     """`jax.lax.psum(x, 'ctx')` (differentiable: the backward sums the
     cotangents)."""
     return _AllSum.apply(x, mesh)
+
+
+def _model_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """x summed (or maxed) over the model group (no autograd)."""
+    import torch.distributed as dist
+    group = _model_group(mesh)
+    xs = _staged(x)
+    if xs.data_ptr() == x.data_ptr():
+        xs = xs.clone()
+    traffic[op] += xs.numel() * xs.element_size()
+    dist.all_reduce(xs, op=dist.ReduceOp.SUM if op == "sum"
+                    else dist.ReduceOp.MAX, group=group)
+    return xs.to(x.device)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, mesh):
+        fctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _model_reduce(g, fctx.mesh), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, mesh):
+        return _model_reduce(x, mesh)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """A replicated value entering the rank's part of a model-sharded
+    computation: the identity (differentiable: the backward sums the
+    parts' cotangents over the model group)."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of the model group's parts (differentiable: the backward
+    is the identity, the replicated cotangent going to each part)."""
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x summed over the model group (no autograd): the optimizer's
+    reductions across a table's rows."""
+    return _model_reduce(x.detach(), mesh)
+
+
+def model_max(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The elementwise max of x over the model group (no autograd)."""
+    return _model_reduce(x.detach(), mesh, "max")
+
+
+def model_gather(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The model group's x concatenated along `dim` in model order (no
+    autograd): the top-k merge's candidates and the whole-table save."""
+    import torch.distributed as dist
+    group = _model_group(mesh)
+    xs = _staged(x)
+    traffic["gather"] += xs.numel() * xs.element_size()
+    parts = [torch.empty_like(xs) for _ in range(mesh.model)]
+    dist.all_gather(parts, xs, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)

@@ -199,20 +199,31 @@ def allreduce_sum_hosts(vec: Sequence[float]) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """In-place sum of `t` over the ranks, in its own dtype; every rank
-    ends with the same bits."""
+def _alone(group) -> bool:
+    """True for a group of one rank (a model axis's shard-replica group at
+    data 1), whose sum and gather are the identity: no collective."""
     import torch.distributed as dist
-    dist.all_reduce(t)
+    return group is not None and dist.get_world_size(group=group) == 1
+
+
+def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place sum of `t` over the ranks of `group` (default the world),
+    in its own dtype; every rank ends with the same bits."""
+    import torch.distributed as dist
+    if not _alone(group):
+        dist.all_reduce(t, group=group)
     return t
 
 
-def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """Every rank's `t` (equal shapes) concatenated along dim 0 in rank
-    order, on every rank."""
+def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's `t` (equal shapes) of `group` (default the world)
+    concatenated along dim 0 in rank order, on every rank."""
     import torch.distributed as dist
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t.contiguous())
+    if _alone(group):
+        return t
+    out = [torch.empty_like(t)
+           for _ in range(dist.get_world_size(group=group))]
+    dist.all_gather(out, t.contiguous(), group=group)
     return torch.cat(out, dim=0)
 
 

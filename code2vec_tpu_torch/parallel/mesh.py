@@ -5,25 +5,36 @@ The JAX package runs one SPMD program over a ('dcn', 'data', 'ctx',
 'model') device mesh. The port runs one process per card with
 `torch.distributed` (parallel/distributed.py), so its mesh is a record:
 the four axis sizes, this process's rank, the world, its device, its
-coordinates on the axes and the process group of its ctx peers.
+coordinates on the axes and the process groups of its ctx peers, its
+model peers and its shard replicas.
 
 A rank's coordinates are its rank unravelled row-major over (dcn, data,
 ctx, model), as the JAX mesh lays out `jax.devices()` by a reshape. The
 batch rides ('dcn', 'data') jointly: a rank's batch shard is
 `dcn_index * data + data_index`, and the ranks of one ctx group (the
 same dcn, data and model index) read the same rows, each keeping its
-`C / ctx` contexts (parallel/sharding.py). Every rank holds whole
-tables.
+`C / ctx` contexts (parallel/sharding.py).
+
+The model axis row-shards the three vocab tables: model index i of m
+holds rows [i * V/m, (i + 1) * V/m) of every table (V padded to a
+multiple of m, `ModelDims.vocab_pad_multiple`). Two more groups of
+ranks matter then:
+- the model group: the m ranks of the same (dcn, data, ctx)
+  coordinates, adjacent ranks; they read the same rows and contexts and
+  assemble each gathered row and each softmax over their windows
+  (parallel/collectives.py's model pair);
+- the shard-replica group: the ranks of the same model index, which
+  hold the same window (their data, dcn and ctx peers); every gradient
+  sums over it, never over the world (a model peer's gradient of a
+  replicated leaf is the same gradient, not a share of it).
 
 The JAX package builds a dcn axis with
 `mesh_utils.create_hybrid_device_mesh` so each slice's devices sit
 together on the axis, and falls back to a plain reshape where devices
 carry no slice topology. The port needs neither: one card a process, so
 the dcn axis is a second factor of the batch shards and adds no
-collective of its own (the gradient sum runs over the whole world).
-
-The model axis (row-sharded tables) is not ported: `model` above 1
-raises `ValueError` (ROADMAP.md Queue 1 item 5b).
+collective of its own (the gradient sum runs over the shard-replica
+group, the whole world at model 1).
 """
 
 from __future__ import annotations
@@ -54,6 +65,13 @@ class Mesh:
     # when no process group is up: a ctx collective then raises)
     ctx_group: Any = dataclasses.field(default=None, compare=False,
                                        repr=False)
+    # at model above 1, the groups of this rank's model peers and of its
+    # shard replicas (None otherwise, or without a process group: a
+    # model collective then raises)
+    model_group: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
+    replica_group: Any = dataclasses.field(default=None, compare=False,
+                                           repr=False)
 
     @property
     def shape(self) -> dict:
@@ -74,6 +92,11 @@ class Mesh:
         return self.coords[2]
 
     @property
+    def model_index(self) -> int:
+        return self.coords[3]
+
+
+    @property
     def batch_shards(self) -> int:
         """Shards the batch is split over: ('dcn', 'data')."""
         return self.dcn * self.data
@@ -90,21 +113,46 @@ class Mesh:
         base = self.batch_shard * self.ctx * self.model + self.coords[3]
         return tuple(base + c * self.model for c in range(self.ctx))
 
+    def model_ranks(self) -> Tuple[int, ...]:
+        """The global ranks of this rank's model group, in model order
+        (adjacent ranks)."""
+        base = self.rank - self.model_index
+        return tuple(range(base, base + self.model))
 
-def _ctx_groups(dcn: int, data: int, ctx: int, model: int, rank: int):
-    """This rank's ctx process group: every group is built on every rank
-    in the same order (`dist.new_group` is collective over the world);
-    None at ctx = 1 or without a process group."""
+
+def row_sharded(mesh: Optional["Mesh"]) -> bool:
+    """True under a mesh whose model axis row-shards the tables (model
+    above 1); False without a mesh."""
+    return mesh is not None and mesh.model > 1
+
+
+def _groups(dcn: int, data: int, ctx: int, model: int, rank: int) -> dict:
+    """This rank's process groups {"ctx_group", "model_group",
+    "replica_group"}: every group is built on every rank in the same
+    order (`dist.new_group` is collective over the world); a group is
+    None where its axis is 1 or without a process group."""
     import torch.distributed as dist
-    if ctx <= 1 or not (dist.is_available() and dist.is_initialized()):
-        return None
-    mine = None
-    for shard in range(dcn * data):
-        for m in range(model):
-            ranks = [(shard * ctx + c) * model + m for c in range(ctx)]
+    mine = {"ctx_group": None, "model_group": None, "replica_group": None}
+    if not (dist.is_available() and dist.is_initialized()):
+        return mine
+
+    def build(key, rank_lists):
+        for ranks in rank_lists:
             group = dist.new_group(ranks)
             if rank in ranks:
-                mine = group
+                mine[key] = group
+
+    if ctx > 1:
+        build("ctx_group", [[(shard * ctx + c) * model + m
+                             for c in range(ctx)]
+                            for shard in range(dcn * data)
+                            for m in range(model)])
+    if model > 1:
+        cells = dcn * data * ctx
+        build("model_group", [[cell * model + m for m in range(model)]
+                              for cell in range(cells)])
+        build("replica_group", [[cell * model + m for cell in range(cells)]
+                                for m in range(model)])
     return mine
 
 
@@ -117,19 +165,14 @@ def make_mesh(data: int = 0, model: int = 1, context: int = 1,
     cohort_world); `data=0` means `world // (dcn * model * ctx)`, as the
     JAX package's does with its devices. The mesh must span the world:
     one rank a device (`device`, default the card). Under a process
-    group with ctx above 1 the ctx groups are built here, on every rank
-    in the same order."""
+    group with ctx or model above 1 their groups are built here, on
+    every rank in the same order."""
     from code2vec_tpu_torch.device import resolve_device
     from code2vec_tpu_torch.parallel.compat import cohort_world
 
     if rank is None or world is None:
         rank, world = cohort_world()
     model, context, dcn = max(1, model), max(1, context), max(1, dcn)
-    if model > 1:
-        raise ValueError(
-            f"mesh axis 'model' = {model}: code2vec_tpu_torch does not "
-            "shard the tables over a model axis yet (ROADMAP.md Queue 1 "
-            "item 5b)")
     if data <= 0:
         if world % (dcn * model * context) != 0:
             raise ValueError(
@@ -144,4 +187,4 @@ def make_mesh(data: int = 0, model: int = 1, context: int = 1,
             f"one rank a device), have {world}")
     return Mesh(dcn=dcn, data=data, ctx=context, model=model, rank=rank,
                 world=world, device=resolve_device(device),
-                ctx_group=_ctx_groups(dcn, data, context, model, rank))
+                **_groups(dcn, data, context, model, rank))

@@ -1,10 +1,24 @@
 """What "the batch over ('dcn', 'data')" means for one rank: the
 counterpart of `parallel/sharding.py` in the JAX package.
 
-- `param_pspecs`: which leaves replicate. Under the data, ctx and dcn
-  axes (the ones the port has) every leaf does: each rank holds whole
-  tables on its device. The JAX package's row-sharded tables over
-  'model' are ROADMAP.md Queue 1 item 5b.
+- `param_pspecs`: each leaf's layout. The three vocab tables are
+  row-sharded over 'model' (`P(MODEL_AXIS, None)` in the JAX package):
+  model index i of m holds rows `row_window(mesh, V)` = [i * V/m,
+  (i + 1) * V/m) of each; every other leaf replicates (TRANSFORM,
+  ATTENTION, the VarMisuse pointer and the transformer's "xf" subtree,
+  tiny beside the tables). At model 1 each rank holds whole tables.
+- `shard_params` / `shard_state`: a whole params or optimizer-state tree
+  (every rank draws the whole init from the seed, as the JAX
+  `init_params` does before `device_put` shards it; a checkpoint holds
+  whole tables) cut to this rank's windows: each table and each slot
+  that leads with a table's vocab dim (Adafactor's per-row statistic
+  and its unfactored second moment, Adam's and row-Adam's moments);
+  `unshard_params` / `unshard_state` all-gather them back to whole
+  leaves in model order (the whole-table checkpoint).
+- `take_window`: the rows of a row-sharded table at global ids, each
+  rank's window gathered and the rest zeroed, then summed over the
+  model group (`collectives.reduce_from_model`): one rank contributes
+  the nonzero of each element, so the result is the rows' bits.
 - `batch_rows`: this rank's row window in the global batch, the
   counterpart of `shard_batch(process_local=True)`: each batch shard
   feeds a disjoint local batch of B rows, and the global batch of the
@@ -16,27 +30,159 @@ counterpart of `parallel/sharding.py` in the JAX package.
   [c * C/s, (c + 1) * C/s) for ctx index c of s).
 - `replica_digests` / `check_replicas`: a per-leaf digest of the params,
   all-reduced as a max and a min; equal on every rank iff every rank
-  holds the same bits (with the odds of a 64-bit digest collision).
+  holds the same bits (with the odds of a 64-bit digest collision); a
+  table shard over its shard-replica group, the other leaves over the
+  world.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from code2vec_tpu_torch import tree
 from code2vec_tpu_torch.ops.quant import is_quantized
-from code2vec_tpu_torch.parallel.mesh import Mesh
+from code2vec_tpu_torch.ops.scatter import take_rows_det
+from code2vec_tpu_torch.parallel.collectives import (model_gather,
+                                                     reduce_from_model,
+                                                     replica_group)
+from code2vec_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, row_sharded
 
 REPLICATED = None  # a leaf's spec: every rank holds the whole leaf
+ROW_SHARDED = MODEL_AXIS  # rows over 'model', the rest of the leaf whole
+TABLE_KEYS = ("token_emb", "path_emb", "target_emb")
 
 
 def param_pspecs() -> Dict[str, object]:
-    """Each top-level param's layout over the mesh: all replicated."""
-    return {k: REPLICATED for k in (
-        "token_emb", "path_emb", "target_emb", "transform", "attention",
-        "vm_pointer", "xf")}
+    """Each top-level param's layout over the mesh: the vocab tables
+    row-sharded over 'model', the rest replicated."""
+    specs = {k: REPLICATED for k in (
+        "transform", "attention", "vm_pointer", "xf")}
+    specs.update({k: ROW_SHARDED for k in TABLE_KEYS})
+    return specs
+
+
+def row_window(mesh: Mesh, rows: int) -> Tuple[int, int]:
+    """[start, stop) of this rank's rows of a table of `rows` (padded)
+    rows; the whole table at model 1."""
+    m = mesh.model
+    if rows % m:
+        raise ValueError(f"table rows {rows} not divisible by model axis "
+                         f"{m} (ModelDims.vocab_pad_multiple)")
+    width = rows // m
+    start = mesh.model_index * width
+    return start, start + width
+
+
+def window_rows(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh
+                ) -> torch.Tensor:
+    """This rank's part of the rows of a row-sharded `table` (its window)
+    at global `ids`: the window's rows, zeros elsewhere (differentiable:
+    the gradient scatter-adds into the window only)."""
+    n = table.shape[0]
+    lo = mesh.model_index * n
+    local = ids.to(torch.int64) - lo
+    live = (local >= 0) & (local < n)
+    rows = take_rows_det(table, torch.where(live, local,
+                                            torch.zeros_like(local)))
+    return torch.where(live.unsqueeze(-1), rows, torch.zeros_like(rows))
+
+
+def take_window(table: torch.Tensor, ids: torch.Tensor, mesh: Mesh
+                ) -> torch.Tensor:
+    """The rows of `table` at global `ids`: a plain gather without a
+    row-sharded mesh, else the model group's `window_rows` summed
+    (`collectives.reduce_from_model`)."""
+    if not row_sharded(mesh):
+        return take_rows_det(table, ids)
+    return reduce_from_model(window_rows(table, ids, mesh), mesh)
+
+
+def map_row_slots(state, fn: Callable,
+                  shapes: Dict[str, Tuple[int, int]],
+                  key: Optional[str] = None):
+    """`state` with `fn(t, key)` in place of every tensor that leads with
+    the vocab dim of a table in `shapes` ({key: its whole (rows, width)}):
+    the table itself in a params tree; in an optimizer state the slots
+    keyed by the table (Adam's mu and nu, row-Adam's m and v) except
+    Adafactor's, which lead with the vocab dim only where its factored
+    choice over the whole shape keeps that axis."""
+    from code2vec_tpu_torch.training.optimizers import (FactoredState,
+                                                        _factored_dims)
+    if isinstance(state, torch.Tensor):
+        return state if key is None else fn(state, key)
+    if isinstance(state, FactoredState):
+        fields = {}
+        for name in ("v_row", "v_col", "v"):
+            out = {}
+            for k, t in getattr(state, name).items():
+                if k in shapes:
+                    if tuple(state.v[k].shape) == (1,):   # factored
+                        d1, d0 = _factored_dims(shapes[k], True, 0)
+                        rows = {"v_row": d0, "v_col": d1}.get(name) == 1
+                    else:
+                        rows = name == "v"
+                    t = fn(t, k) if rows else t
+                out[k] = t
+            fields[name] = out
+        return FactoredState(state.count, **fields)
+    if isinstance(state, dict):
+        return {k: map_row_slots(v, fn, shapes, k if k in shapes else key)
+                for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(map_row_slots(v, fn, shapes, key)
+                             for v in state))
+    if isinstance(state, (list, tuple)):
+        return type(state)(map_row_slots(v, fn, shapes, None) for v in state)
+    return state
+
+
+def table_shapes(params) -> Dict[str, Tuple[int, int]]:
+    """{table: (rows, width)} of a whole params tree's float tables."""
+    return {k: tuple(params[k].shape) for k in TABLE_KEYS
+            if k in params and isinstance(params[k], torch.Tensor)}
+
+
+def shard_state(state, mesh: Optional[Mesh],
+                shapes: Dict[str, Tuple[int, int]]):
+    """A whole params or optimizer-state tree with every row-sharded
+    tensor cut to this rank's window (a copy, so the whole tensor can be
+    freed); the tree as it is without a row-sharded mesh."""
+    if not row_sharded(mesh):
+        return state
+
+    def keep(t, _k):
+        lo, hi = row_window(mesh, t.shape[0])
+        return t[lo:hi].clone()
+
+    return map_row_slots(state, keep, shapes)
+
+
+def unshard_state(state, mesh: Optional[Mesh],
+                  shapes: Dict[str, Tuple[int, int]]):
+    """The inverse of `shard_state`: every row-sharded tensor all-gathered
+    over the model group in model order (collective: every rank calls
+    it); the tree as it is without a row-sharded mesh."""
+    if not row_sharded(mesh):
+        return state
+    return map_row_slots(state, lambda t, _k: model_gather(t, 0, mesh),
+                         shapes)
+
+
+def shard_params(params, mesh: Optional[Mesh]):
+    """Whole params -> this rank's: each table's window, the rest as it
+    is."""
+    return shard_state(params, mesh, table_shapes(params))
+
+
+def unshard_params(params, mesh: Optional[Mesh]):
+    """This rank's params -> whole params (collective)."""
+    if not row_sharded(mesh):
+        return params
+    shapes = {k: (params[k].shape[0] * mesh.model, params[k].shape[1])
+              for k in table_shapes(params)}
+    return unshard_state(params, mesh, shapes)
 
 
 def batch_rows(mesh: Mesh, local_batch: int) -> Tuple[int, int]:
@@ -100,20 +246,28 @@ def replica_digests(params) -> Dict[str, torch.Tensor]:
 
 def check_replicas(params, mesh: Mesh) -> None:
     """RuntimeError naming the leaves whose bits differ across the ranks
-    (a max and a min all-reduce of each leaf's digest)."""
+    that should hold them (a max and a min all-reduce of each leaf's
+    digest): a table shard over its shard-replica group, every other
+    leaf over the world."""
     import torch.distributed as dist
     from code2vec_tpu_torch.parallel.distributed import rank_device
 
     digests = replica_digests(params)
-    keys = sorted(digests)
     dev = rank_device() if dist.get_backend() == "nccl" \
         else torch.device("cpu")
-    local = torch.stack([digests[k] for k in keys]).to(dev)
-    hi, lo = local.clone(), local.clone()
-    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
-    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
-    bad = [k for k, h, l in zip(keys, hi.cpu(), lo.cpu())
-           if not torch.equal(h, l)]
+    sharded = set(table_shapes(params)) if row_sharded(mesh) else set()
+    bad = []
+    for group, keys in ((None, sorted(k for k in digests
+                                      if k not in sharded)),
+                        (replica_group(mesh), sorted(sharded))):
+        if not keys:
+            continue
+        local = torch.stack([digests[k] for k in keys]).to(dev)
+        hi, lo = local.clone(), local.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+        bad += [k for k, h, l in zip(keys, hi.cpu(), lo.cpu())
+                if not torch.equal(h, l)]
     if bad:
         raise RuntimeError(f"replicas disagree on rank {mesh.rank}: the "
                            f"params {bad} differ across the ranks")

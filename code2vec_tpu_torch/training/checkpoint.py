@@ -23,8 +23,12 @@ written by `torch.save` where the JAX package writes an orbax tree:
   before it relaunches, no rank moves the dir on its own). A step
   without checksums loads unverified.
 - A step saved by another number of processes than the loader's world
-  logs the resharding line and loads: the params are replicated on
-  every rank, so the load itself does not change.
+  logs the resharding line and loads: a checkpoint always holds whole
+  tables (under a model axis the trainer gathers the windows before
+  rank 0 writes, parallel/sharding.unshard_state, and a loading rank
+  keeps its window of the whole state, sharding.shard_state; the
+  manifest's `vocab_pad_multiple` records the rows' padding), so the
+  load itself does not change.
 - The sidecars are written once a dir (the manifest's `step` is
   advisory; `load_manifest` corrects it from the committed dirs).
 - MAX_TO_KEEP pruning keeps the newest steps.

@@ -15,11 +15,14 @@ the global batch R * B from the same generators and keeps its own rows
 (parallel/sharding.batch_rows) of the keep mask and of the rename
 draws, and under a ctx axis its own contexts of the keep mask
 (parallel/sharding.context_cols); the rename draws are per row, so the
-ranks of a ctx group share them. The sampled ids, the salts and the
-rename's donor roll are the same on every rank. So a mesh step sees the
-draws of the one-process step over the shards' batches concatenated,
-dropout and the rename defense included (`--adv_rename_mode batch`
-rolls its donors over the global batch: attacks/defense.py).
+ranks of a ctx group share them. The ranks of a model group hold the
+same rows and contexts, so they draw the same keep mask and rename
+draws (their batch shard's and ctx window's). The sampled ids, the
+salts and the rename's donor roll are the same on every rank. So a mesh
+step sees the draws of the one-process step over the shards' batches
+concatenated, dropout and the rename defense included
+(`--adv_rename_mode batch` rolls its donors over the global batch:
+attacks/defense.py).
 """
 
 from __future__ import annotations

@@ -40,6 +40,17 @@ to bf16 first, as JAX does with weak types.
 `AdamF32Moments` is the sparse-row step's dense optimizer (Adam with
 float32 moments at a constant learning rate, state {"count", "mu",
 "nu"}), with `scale_by_adam_f32_moments`'s arithmetic.
+
+Under a model axis each rank holds a window of rows of every table
+(parallel/sharding.py), and a transform that reduces across a table's
+rows must see all of them, as XLA's partitioner makes the JAX package's
+optax do. `RowShards` names the row-sharded leaves and their whole
+shapes: `_factored_dims` chooses from the whole shape (a shard narrower
+than its width would flip the choice); Adafactor's mean over the rows,
+its `row_col_mean` where that runs over the rows, the block-rms clip's
+mean and the trust ratio's norms are float32 sums over the model group
+divided by the whole (padded) count; a statistic per row stays local.
+Every other reduction and every elementwise step is the rank's own.
 """
 
 from __future__ import annotations
@@ -92,12 +103,48 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
-def _mean(x: torch.Tensor, dim=None, keepdim: bool = False) -> torch.Tensor:
-    """jnp.mean: a float32 sum divided in float32, cast back to x's dtype."""
+class RowShards:
+    """The row-sharded leaves of a model mesh: `shapes` {key: the whole
+    leaf's (rows, width)}, and `mesh`, whose model group sums a
+    reduction's float32 partial sums (parallel/collectives)."""
+
+    def __init__(self, shapes: Dict[str, Tuple[int, int]], mesh):
+        self.shapes, self.mesh = dict(shapes), mesh
+
+    def whole_shape(self, key: str, shape) -> tuple:
+        return tuple(self.shapes.get(key, shape))
+
+    def sum(self, x32: torch.Tensor) -> torch.Tensor:
+        from code2vec_tpu_torch.parallel.collectives import model_sum
+        return model_sum(x32, self.mesh)
+
+
+def _rows_of(shards: Optional[RowShards], key: str
+             ) -> Optional[Tuple[RowShards, int]]:
+    """(shards, the whole leaf's rows) of a row-sharded `key`, else None:
+    the `rows` argument of `_mean` and `_norm`."""
+    if shards is None or key not in shards.shapes:
+        return None
+    return shards, shards.shapes[key][0]
+
+
+def _mean(x: torch.Tensor, dim=None, keepdim: bool = False,
+          rows: Optional[Tuple[RowShards, int]] = None) -> torch.Tensor:
+    """jnp.mean: a float32 sum divided in float32, cast back to x's dtype.
+    `rows` (`_rows_of`) when x's axis 0 is a shard of a table's rows and
+    the mean runs over it (`dim` None or 0): the sum over the model
+    group, divided by the whole count."""
     x32 = x.to(torch.float32)
+    crosses = rows is not None and (dim is None or dim == 0)
     if dim is None:
-        return (x32.sum() / x.numel()).to(x.dtype)
-    return (x32.sum(dim=dim, keepdim=keepdim) / x.shape[dim]).to(x.dtype)
+        total = x32.sum()
+        n = x.numel() // x.shape[0] * rows[1] if crosses else x.numel()
+    else:
+        total = x32.sum(dim=dim, keepdim=keepdim)
+        n = rows[1] if crosses else x.shape[dim]
+    if crosses:
+        total = rows[0].sum(total)
+    return (total / n).to(x.dtype)
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -156,13 +203,18 @@ class scale_by_factored_rms(GradientTransformation):
 
     def __init__(self, factored: bool = True, decay_rate: float = 0.8,
                  step_offset: int = 0, min_dim_size_to_factor: int = 128,
-                 epsilon: float = 1e-30):
+                 epsilon: float = 1e-30,
+                 shards: Optional[RowShards] = None):
         self.factored, self.decay_rate = factored, decay_rate
         self.step_offset = step_offset
         self.min_dim_size_to_factor = min_dim_size_to_factor
         self.epsilon = epsilon
+        self.shards = shards
 
-    def _dims(self, shape):
+    def _dims(self, key, shape):
+        """The factored axes, chosen from the whole leaf's shape."""
+        if self.shards is not None:
+            shape = self.shards.whole_shape(key, shape)
         return _factored_dims(tuple(shape), self.factored,
                               self.min_dim_size_to_factor)
 
@@ -172,7 +224,7 @@ class scale_by_factored_rms(GradientTransformation):
             def zeros(shape):
                 return torch.zeros(tuple(shape), dtype=p.dtype,
                                    device=p.device)
-            dims = self._dims(p.shape)
+            dims = self._dims(k, p.shape)
             if dims is not None:
                 d1, d0 = dims
                 v_row[k] = zeros(np.delete(p.shape, d0))
@@ -192,21 +244,27 @@ class scale_by_factored_rms(GradientTransformation):
         for k, g in updates.items():
             dtype = params[k].dtype
             grad_sqr = g * g + _scalar(self.epsilon, g)
-            dims = self._dims(params[k].shape)
+            dims = self._dims(k, params[k].shape)
+            # a mean over a row-sharded leaf's rows (original axis 0)
+            # runs over the model group
+            rows = _rows_of(self.shards, k)
             if dims is not None:
                 d1, d0 = dims
                 # decay_t is float32, so the mix runs in float32 and is
                 # cast to the param's dtype at the end
                 new_v_row = (decay_t * state.v_row[k].to(torch.float32)
                              + (1.0 - decay_t)
-                             * _mean(grad_sqr, d0).to(torch.float32)
-                             ).to(dtype)
+                             * _mean(grad_sqr, d0, rows=rows
+                                     ).to(torch.float32)).to(dtype)
                 new_v_col = (decay_t * state.v_col[k].to(torch.float32)
                              + (1.0 - decay_t)
-                             * _mean(grad_sqr, d1).to(torch.float32)
-                             ).to(dtype)
+                             * _mean(grad_sqr, d1, rows=rows
+                                     ).to(torch.float32)).to(dtype)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = _mean(new_v_row, reduced_d1, keepdim=True)
+                # new_v_row keeps the rows' axis, as its axis 0, only
+                # when d1 is that axis
+                row_col_mean = _mean(new_v_row, reduced_d1, keepdim=True,
+                                     rows=rows if d1 == 0 else None)
                 row_factor = _rsqrt(new_v_row / row_col_mean)
                 col_factor = _rsqrt(new_v_col)
                 out[k] = (g * row_factor.unsqueeze(d0)
@@ -226,8 +284,10 @@ class scale_by_factored_rms(GradientTransformation):
 class clip_by_block_rms(GradientTransformation):
     """Each update divided by max(1, rms(update) / threshold)."""
 
-    def __init__(self, threshold: float):
+    def __init__(self, threshold: float,
+                 shards: Optional[RowShards] = None):
         self.threshold = threshold
+        self.shards = shards
 
     def init(self, params: Tensors) -> EmptyState:
         return EmptyState()
@@ -236,7 +296,7 @@ class clip_by_block_rms(GradientTransformation):
     def update(self, updates: Tensors, state, params=None) -> Tensors:
         out = {}
         for k, u in updates.items():
-            rms = torch.sqrt(_mean(u * u))
+            rms = torch.sqrt(_mean(u * u, rows=_rows_of(self.shards, k)))
             clip_denom = torch.clamp(rms / _scalar(self.threshold, u),
                                      min=1.0)
             out[k] = u / clip_denom
@@ -352,16 +412,24 @@ class scale_by_adam_f32_moments(scale_by_adam):
                 for k, g in updates.items()}
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
+def _norm(x: torch.Tensor,
+          rows: Optional[Tuple[RowShards, int]] = None) -> torch.Tensor:
     """jnp.linalg.norm over all elements: squares in x's dtype, a float32
-    sum cast back, then the square root."""
-    return torch.sqrt((x * x).to(torch.float32).sum().to(x.dtype))
+    sum cast back, then the square root; the sum over the model group
+    for a row shard (`rows`, `_rows_of`)."""
+    total = (x * x).to(torch.float32).sum()
+    if rows is not None:
+        total = rows[0].sum(total)
+    return torch.sqrt(total.to(x.dtype))
 
 
 class scale_by_trust_ratio(GradientTransformation):
     """LAMB's per-array rescale: update * ||param|| / ||update||, or 1
     when either norm is 0 (optax defaults: no min norm, coefficient 1,
-    eps 0)."""
+    eps 0); a row-sharded leaf's norms over all its rows."""
+
+    def __init__(self, shards: Optional[RowShards] = None):
+        self.shards = shards
 
     def init(self, params: Tensors) -> EmptyState:
         return EmptyState()
@@ -371,7 +439,8 @@ class scale_by_trust_ratio(GradientTransformation):
         out = {}
         for k, u in updates.items():
             param = params[k]
-            param_norm, update_norm = _norm(param), _norm(u)
+            rows = _rows_of(self.shards, k)
+            param_norm, update_norm = _norm(param, rows), _norm(u, rows)
             ratio = param_norm / update_norm
             zero_norm = (param_norm == 0) | (update_norm == 0)
             out[k] = u * torch.where(zero_norm, _scalar(1.0, param), ratio)
@@ -424,12 +493,14 @@ class multi_transform(GradientTransformation):
 
 def adafactor(learning_rate, min_dim_size_to_factor: int = 128,
               decay_rate: float = 0.8, eps: float = 1e-30,
-              clipping_threshold: float = 1.0) -> chain:
+              clipping_threshold: float = 1.0,
+              shards: Optional[RowShards] = None) -> chain:
     """`optax.adafactor(lr, multiply_by_parameter_scale=False,
-    momentum=None)`: factored rms, block-rms clip, learning rate, -1."""
+    momentum=None)`: factored rms, block-rms clip, learning rate, -1
+    (`shards`: the row-sharded leaves of a model mesh)."""
     return chain(scale_by_factored_rms(True, decay_rate, 0,
-                                       min_dim_size_to_factor, eps),
-                 clip_by_block_rms(clipping_threshold),
+                                       min_dim_size_to_factor, eps, shards),
+                 clip_by_block_rms(clipping_threshold, shards),
                  scale_by_learning_rate(learning_rate, flip_sign=False),
                  scale(-1))
 
@@ -560,7 +631,9 @@ def resolve_checkpoint_warmup(schedule: str, requested: int,
 
 def make_optimizer(learning_rate, embedding_optimizer: str = "adafactor",
                    trust_ratio: bool = False,
-                   trust_ratio_scope: str = "all") -> GradientTransformation:
+                   trust_ratio_scope: str = "all",
+                   shards: Optional[RowShards] = None
+                   ) -> GradientTransformation:
     """The dense step's optimizer, every branch of the JAX package's
     `make_optimizer`. `learning_rate` is a float or a schedule (make_lr).
 
@@ -570,7 +643,9 @@ def make_optimizer(learning_rate, embedding_optimizer: str = "adafactor",
     - "adam": Adam with float32 moments on every param;
     - `trust_ratio`: LAMB's rescale between the preconditioner and the
       learning rate, on every branch ("all") or on the dense params only
-      ("dense", adafactor only)."""
+      ("dense", adafactor only).
+    `shards` names the row-sharded tables of a model mesh (`RowShards`),
+    whose cross-row reductions run over the model group."""
     if trust_ratio_scope not in ("all", "dense"):
         raise ValueError(f"trust_ratio_scope must be 'all' or 'dense', got "
                          f"{trust_ratio_scope!r}")
@@ -583,7 +658,8 @@ def make_optimizer(learning_rate, embedding_optimizer: str = "adafactor",
         if not trust_ratio:
             return chain(scale_by_adam_f32_moments(),
                          scale_by_learning_rate(learning_rate))
-        return chain(scale_by_adam_f32_moments(), scale_by_trust_ratio(),
+        return chain(scale_by_adam_f32_moments(),
+                     scale_by_trust_ratio(shards),
                      scale_by_learning_rate(learning_rate))
     if embedding_optimizer == "adafactor":
         def labels(params):
@@ -591,16 +667,17 @@ def make_optimizer(learning_rate, embedding_optimizer: str = "adafactor",
                     for k in params}
 
         if not trust_ratio:
-            table_tx = adafactor(learning_rate)
+            table_tx = adafactor(learning_rate, shards=shards)
             small_tx = adam(learning_rate)
         elif trust_ratio_scope == "dense":
-            table_tx = adafactor(learning_rate)
+            table_tx = adafactor(learning_rate, shards=shards)
             small_tx = chain(scale_by_adam(), scale_by_trust_ratio(),
                              scale_by_learning_rate(learning_rate))
         else:
             # the trust ratio between the clip and the learning rate
-            table_tx = chain(scale_by_factored_rms(), clip_by_block_rms(1.0),
-                             scale_by_trust_ratio(),
+            table_tx = chain(scale_by_factored_rms(shards=shards),
+                             clip_by_block_rms(1.0, shards),
+                             scale_by_trust_ratio(shards),
                              scale_by_learning_rate(learning_rate))
             small_tx = chain(scale_by_adam(), scale_by_trust_ratio(),
                              scale_by_learning_rate(learning_rate))

@@ -36,7 +36,10 @@ through parallel/distributed.all_reduce_sum_) with the isolated apply
 beside it, so obs/phases.py derives `allreduce_exposed`; the forward's
 loss denominator is the global one, as in the step. At a world of one
 there is nothing to reduce and the kit is the one-device kit, as the
-JAX package's is at a mesh without batch sharding.
+JAX package's is at a mesh without batch sharding. Under a model axis
+the gathers read the rank's windows (models/encoder.take_rows), the
+sparse kit's preliminaries take the mesh, and the all-reduce runs over
+the shard-replica group, as the step's does.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ import torch
 from code2vec_tpu_torch.models.encoder import (ModelDims, apply_dropout,
                                                gather_contexts, take_rows)
 from code2vec_tpu_torch.obs.phases import ProbeKit
+from code2vec_tpu_torch.parallel.mesh import row_sharded
 from code2vec_tpu_torch.training.checkpoint import map_state
 
 __all__ = ["make_code2vec_probes", "make_vm_probes"]
@@ -88,13 +92,15 @@ def _make_allreduce(mesh):
     whatever its batch shards."""
     if mesh is None or mesh.world <= 1:
         return None
+    from code2vec_tpu_torch.parallel.collectives import replica_group
     from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
+    group = replica_group(mesh)
 
     @torch.no_grad()
     def allreduce_fn(chain_out):
         _loss, grads, _view = chain_out
         return {k: all_reduce_sum_(g.clone(
-            memory_format=torch.contiguous_format))
+            memory_format=torch.contiguous_format), group)
             for k, g in grads.items()}
 
     return allreduce_fn
@@ -124,7 +130,8 @@ def make_code2vec_probes(dims: ModelDims, optimizer, *,
         return _sparse_kit(dims, use_sampled_softmax=use_sampled_softmax,
                            num_sampled=num_sampled,
                            compute_dtype=compute_dtype,
-                           use_kernel=use_kernel)
+                           use_kernel=use_kernel,
+                           mesh=mesh if row_sharded(mesh) else None)
     return _dense_kit(dims, optimizer,
                       use_sampled_softmax=use_sampled_softmax,
                       num_sampled=num_sampled, compute_dtype=compute_dtype,
@@ -145,9 +152,9 @@ def _dense_kit(dims, optimizer, *, use_sampled_softmax, num_sampled,
     @torch.no_grad()
     def embed_gather(params, batch, _draws):
         _l, src, pth, dst, _m, _w = batch
-        return (take_rows(params, "token_emb", src),
-                take_rows(params, "path_emb", pth),
-                take_rows(params, "token_emb", dst))
+        return (take_rows(params, "token_emb", src, mesh),
+                take_rows(params, "path_emb", pth, mesh),
+                take_rows(params, "token_emb", dst, mesh))
 
     chain = [("embed_gather", embed_gather)]
 
@@ -155,7 +162,8 @@ def _dense_kit(dims, optimizer, *, use_sampled_softmax, num_sampled,
         @torch.no_grad()
         def concat_dense(params, batch, draws):
             _l, src, pth, dst, _m, _w = batch
-            contexts = gather_contexts(params, src, pth, dst, compute_dtype)
+            contexts = gather_contexts(params, src, pth, dst, compute_dtype,
+                                       mesh)
             return _transformed(contexts, params["transform"], draws.keep,
                                 dims.dropout_keep_rate)
 
@@ -187,7 +195,7 @@ def _dense_kit(dims, optimizer, *, use_sampled_softmax, num_sampled,
 
 
 def _sparse_kit(dims, *, use_sampled_softmax, num_sampled, compute_dtype,
-                use_kernel) -> ProbeKit:
+                use_kernel, mesh=None) -> ProbeKit:
     """The sparse (--sparse_embeddings) chain over sparse_steps' own
     helpers. No apply probe: the dedup / segment-sum / live-row apply
     reports as the fused remainder (`table_apply = fused - chain`)."""
@@ -203,7 +211,7 @@ def _sparse_kit(dims, *, use_sampled_softmax, num_sampled, compute_dtype,
     def prep(params, batch, draws):
         return prepare_step_inputs(
             params, batch, draws, use_sampled_softmax=use_sampled_softmax,
-            num_sampled=S, target_vocab=dims.target_vocab_size)
+            num_sampled=S, target_vocab=dims.target_vocab_size, mesh=mesh)
 
     @torch.no_grad()
     def embed_gather(params, batch, draws):

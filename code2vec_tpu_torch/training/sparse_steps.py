@@ -38,6 +38,17 @@ dense gradients and the shared sample's row cotangents are summed over
 the ranks, and each table's per-occurrence cotangents are all-gathered
 in rank order before the one-process dedup (`sparse_update.
 mesh_sparse_apply`'s order). The returned loss is the global one.
+
+Under a model axis (row-sharded tables) those sums and gathers run over
+the shard-replica group, the ranks of this model index
+(parallel/collectives.replica_group), never over the world: the model
+peers compute the same loss on the same rows, so a sum over them would
+count each gradient m times. The gathered rows come whole through the
+model group (models/encoder.take_rows), the full softmax runs over the
+rank's columns (encoder.cross_entropy), and each table's live rows are
+applied to the rank's window: the global unique ids translated into it,
+the others sent to the window's sentinel row count, which kernel 5 and
+its plain version drop (`sparse_update.window_ids`).
 """
 
 from __future__ import annotations
@@ -46,9 +57,9 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from code2vec_tpu_torch.models.encoder import (ModelDims, apply_dropout,
+                                               cross_entropy,
                                                logits_vs_table, take_rows)
 from code2vec_tpu_torch.ops.attention_kernel import attention_pool_train
 from code2vec_tpu_torch.ops.sampled_softmax import (
@@ -59,7 +70,8 @@ from code2vec_tpu_torch.training.sparse_adam import init_row_adam
 from code2vec_tpu_torch.training.sparse_update import (adam_lr_t,
                                                        apply_rows,
                                                        dedup_segment_sum,
-                                                       gather_parts)
+                                                       gather_parts,
+                                                       window_ids)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,13 +129,14 @@ def prepare_step_inputs(params, batch, draws: StepDraws, *,
         ctx["accidental"] = sampled[None, :] == labels[:, None]    # [B, S]
 
     with torch.no_grad():
-        gathered = {"src_e": take_rows(params, "token_emb", src),
-                    "pth_e": take_rows(params, "path_emb", pth),
-                    "dst_e": take_rows(params, "token_emb", dst)}
+        gathered = {"src_e": take_rows(params, "token_emb", src, mesh),
+                    "pth_e": take_rows(params, "path_emb", pth, mesh),
+                    "dst_e": take_rows(params, "token_emb", dst, mesh)}
         if use_sampled_softmax:
-            gathered["true_w"] = take_rows(params, "target_emb", labels)
+            gathered["true_w"] = take_rows(params, "target_emb", labels,
+                                           mesh)
             gathered["samp_w"] = take_rows(params, "target_emb",
-                                           ctx["sampled"])
+                                           ctx["sampled"], mesh)
     for t in gathered.values():
         t.requires_grad_(True)
     dense = {k: params[k].detach().requires_grad_(True)
@@ -133,11 +146,13 @@ def prepare_step_inputs(params, batch, draws: StepDraws, *,
 
 def loss_denominator(weights: torch.Tensor, mesh=None) -> torch.Tensor:
     """max(sum(weights), 1) over the global batch: under a `mesh` the
-    ranks' weight sums all-reduced (padded rows weigh 0)."""
+    ranks' weight sums all-reduced over the shard-replica group, so each
+    batch shard counts once a model group (padded rows weigh 0)."""
     total = weights.sum()
     if mesh is not None:
+        from code2vec_tpu_torch.parallel.collectives import replica_group
         from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
-        all_reduce_sum_(total)
+        all_reduce_sum_(total, replica_group(mesh))
     return torch.clamp(total, min=1.0)
 
 
@@ -152,14 +167,17 @@ def weighted_mean(values: torch.Tensor, weights: torch.Tensor,
 
 def reduce_step_grads(loss: torch.Tensor, grads, mesh) -> torch.Tensor:
     """A data-parallel step's collectives after the backward: each
-    gradient (a dict, in place) summed over the ranks in its own dtype,
-    and the rank's loss into the global loss, which is returned."""
+    gradient (a dict, in place) summed in its own dtype over the
+    shard-replica group (the world at model 1), and the rank's loss into
+    the global loss, which is returned."""
+    from code2vec_tpu_torch.parallel.collectives import replica_group
     from code2vec_tpu_torch.parallel.distributed import all_reduce_sum_
+    group = replica_group(mesh)
     for k, g in grads.items():
         if not g.is_contiguous():
             grads[k] = g = g.contiguous()
-        all_reduce_sum_(g)
-    return all_reduce_sum_(loss.clone())
+        all_reduce_sum_(g, group)
+    return all_reduce_sum_(loss.clone(), group)
 
 
 def make_gathered_loss(dims: ModelDims, ctx, *, use_sampled_softmax: bool,
@@ -184,9 +202,8 @@ def make_gathered_loss(dims: ModelDims, ctx, *, use_sampled_softmax: bool,
                 code, gathered["true_w"], gathered["samp_w"],
                 ctx["true_corr"], ctx["samp_corr"], ctx["accidental"],
                 weights, denom=ctx["denom"])
-        logits = logits_vs_table(dense["target_emb"], code, V)
-        per_ex = F.cross_entropy(logits, ctx["labels"].to(torch.int64),
-                                 reduction="none")
+        logits = logits_vs_table(dense["target_emb"], code, V, ctx["mesh"])
+        per_ex = cross_entropy(logits, ctx["labels"], ctx["mesh"])
         return weighted_mean(per_ex, weights, ctx["denom"])
 
     return loss_fn
@@ -241,12 +258,14 @@ def apply_dense_updates(params, opt_state, dense_opt: AdamF32Moments,
 
 
 def apply_row_updates(params, opt_state, cfg: SparseStepConfig, segments,
-                      salts: Dict[str, int], *, use_kernel: bool = True
-                      ) -> None:
+                      salts: Dict[str, int], *, use_kernel: bool = True,
+                      mesh=None) -> None:
     """Live-row Adam on each table at the (already advanced) step count,
-    in place: kernel 5 on float tables, kernel 6 on int8 tables."""
+    in place: kernel 5 on float tables, kernel 6 on int8 tables; under a
+    row-sharded `mesh` on the rank's window of each."""
     lr_t = adam_lr_t(opt_state["count"], cfg.learning_rate, cfg.b1, cfg.b2)
     for key, (uids, seg) in segments.items():
+        uids = window_ids(uids, mesh, params[key])
         apply_rows(params[key], opt_state["rows"][key], uids, seg, lr_t=lr_t,
                    b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, salt=salts.get(key),
                    use_kernel=use_kernel)
@@ -286,5 +305,5 @@ def sparse_train_step(params, opt_state, batch, draws: StepDraws, *,
     apply_dense_updates(params, opt_state, dense_opt, g_dense)
     apply_row_updates(params, opt_state, cfg, segments, draws.salts,
                       use_kernel=use_kernel if row_kernel is None
-                      else row_kernel)
+                      else row_kernel, mesh=mesh)
     return loss

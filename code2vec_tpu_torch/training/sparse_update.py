@@ -11,7 +11,12 @@ the plain versions of both kernels are in ops/sparse_update.py.
 `sparse_row_adam` / `sparse_requant_adam` are the entry points, and
 `mesh_sparse_apply` under a data-parallel mesh (the JAX package's
 function of that name: an all-gather of the ranks' occurrences, then
-the one-process dedup and apply on every rank). With
+the one-process dedup and apply on every rank). Under a model axis the
+occurrences are gathered over the batch shards only (the shard-replica
+group), and each rank applies the global unique ids that fall in its
+window of rows, translated into it (`window_ids`, the JAX function's
+`luids`): the others become the window's row count, a sentinel that
+kernels 5 and 6 and their plain versions drop. With
 `use_kernel=True` (the default) they go through the wrappers of
 ops/sparse_update_kernel.py, which launch the hand-written CUDA kernels
 for CUDA tensors and run the plain versions for CPU tensors;
@@ -58,6 +63,7 @@ from code2vec_tpu_torch.ops.sparse_update import (RowAdamState,
                                                   apply_rows_plain)
 from code2vec_tpu_torch.ops.sparse_update_kernel import (
     sparse_requant_adam_fused, sparse_row_adam_fused)
+from code2vec_tpu_torch.parallel.mesh import row_sharded
 
 # the JAX kernel's unique-row slots per program; the traffic model's
 # segment buffer is sized in whole blocks of it
@@ -148,18 +154,37 @@ def gather_parts(parts, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     replicated part (the step's shared sample, whose cotangent the
     caller has already summed over the ranks) passes as it is. The
     parts are concatenated in order: the one-process step's order over
-    the ranks' batches concatenated."""
+    the ranks' batches concatenated. Under a model axis the gather runs
+    over the shard-replica group (one rank a batch shard, in shard
+    order): the model peers hold the same occurrences."""
     ids_l, grads_l = [], []
     for ids, grads, sharded in parts:
         ids = ids.reshape(-1).to(torch.int32)
         grads = grads.reshape(ids.shape[0], -1)
         if sharded and mesh is not None:
+            from code2vec_tpu_torch.parallel.collectives import \
+                replica_group
             from code2vec_tpu_torch.parallel.distributed import \
                 all_gather_rows
-            ids, grads = all_gather_rows(ids), all_gather_rows(grads)
+            group = replica_group(mesh)
+            ids = all_gather_rows(ids, group)
+            grads = all_gather_rows(grads, group)
         ids_l.append(ids)
         grads_l.append(grads)
     return torch.cat(ids_l), torch.cat(grads_l)
+
+
+def window_ids(uids: torch.Tensor, mesh, table) -> torch.Tensor:
+    """Global unique ids -> ids into this rank's window of `table` (its
+    rows under a row-sharded `mesh`): an id in the window moves to its
+    local row, any other to the window's row count, the sentinel the
+    row apply drops. The ids as they are without a row-sharded mesh."""
+    if not row_sharded(mesh):
+        return uids
+    rows = (table["q"] if is_quantized(table) else table).shape[0]
+    lo = mesh.model_index * rows
+    live = (uids >= lo) & (uids < lo + rows)
+    return torch.where(live, uids - lo, rows).to(uids.dtype)
 
 
 def mesh_sparse_apply(mesh, table, state: RowAdamState, parts, *,
@@ -172,11 +197,13 @@ def mesh_sparse_apply(mesh, table, state: RowAdamState, parts, *,
     (int8) on the whole table, on every rank. The same input order means
     the same float32 additions in the same order, so the result is
     bit-identical to the one-process compact apply of the same global
-    parts, and every rank ends with the same table. Returns U."""
+    parts, and every rank ends with the same table. Under a row-sharded
+    `mesh` `table` and `state` are the rank's window, which takes the
+    live rows in it (`window_ids`). Returns U."""
     ids, grads = gather_parts(parts, mesh)
     uids, seg = dedup_segment_sum(ids, grads)
-    apply_rows(table, state, uids, seg, lr_t=lr_t, b1=b1, b2=b2, eps=eps,
-               salt=salt, use_kernel=use_kernel)
+    apply_rows(table, state, window_ids(uids, mesh, table), seg, lr_t=lr_t,
+               b1=b1, b2=b2, eps=eps, salt=salt, use_kernel=use_kernel)
     return int(uids.shape[0])
 
 

@@ -77,6 +77,20 @@ gradient sum adds each rank's share of every param's gradient once (at
 a power-of-two s the 1/s shares are exact). The rename
 defense runs on the rows' whole contexts, gathered over the group, and
 each rank keeps its own.
+
+Under a model axis of m (row-sharded tables, parallel/sharding.py) the m
+ranks of a model group read the same rows and contexts and compute the
+same loss: a gathered row is summed from the ranks' windows, the full
+softmax's cross entropy runs over the rank's [B, V/m] columns (the
+global max, the summed exps and the label's logit from its owning
+shard: models/encoder.cross_entropy), and every gradient, and the
+weight sum of the loss's denominator, is summed over the shard-replica
+group only (the ranks of one model index), which gives each table shard
+its window of one device's gradient and every replicated leaf its
+gradient once. The optimizer's reductions across a table's rows run
+over the model group (training/optimizers.RowShards). The evaluation's
+probabilities are the rank's columns of the global softmax; its top-k
+merges each rank's top-k (`topk_merged`).
 """
 
 from __future__ import annotations
@@ -85,16 +99,18 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from code2vec_tpu_torch import tree
-from code2vec_tpu_torch.models.encoder import (ModelDims, Params, full_logits,
-                                               get_encode_fn,
+from code2vec_tpu_torch.models.encoder import (ModelDims, Params,
+                                               cross_entropy, full_logits,
+                                               get_encode_fn, softmax,
                                                unused_param_keys)
 from code2vec_tpu_torch.ops.quant import (is_quantized, opt_param_view,
                                           requantize)
 from code2vec_tpu_torch.ops.sampled_softmax import sampled_softmax_loss
-from code2vec_tpu_torch.parallel.collectives import gather_along
+from code2vec_tpu_torch.parallel.collectives import (gather_along,
+                                                     model_gather)
+from code2vec_tpu_torch.parallel.mesh import row_sharded
 from code2vec_tpu_torch.parallel.sharding import local_contexts
 from code2vec_tpu_torch.training.draws import StepDraws, quantized_keys
 from code2vec_tpu_torch.training.optimizers import (AdamF32Moments,
@@ -142,11 +158,10 @@ def make_train_loss_fn(dims: ModelDims, *, use_sampled_softmax: bool = False,
             return sampled_softmax_loss(
                 params["target_emb"], code, labels, draws.sampled,
                 num_sampled, example_weights=weights, vocab_size=V,
-                denom=denom)
-        logits = full_logits(params, code, V)
-        ce = F.cross_entropy(logits, labels.to(torch.int64),
-                             reduction="none")
-        return weighted_mean(ce, weights, denom)
+                denom=denom, mesh=mesh)
+        logits = full_logits(params, code, V, mesh)
+        return weighted_mean(cross_entropy(logits, labels, mesh), weights,
+                             denom)
 
     loss_fn.unused_keys = unused_param_keys(dims)
     return loss_fn
@@ -329,6 +344,26 @@ def topk_stable(probs: torch.Tensor, k: int
     return torch.gather(probs, -1, ids), ids
 
 
+def topk_merged(probs: torch.Tensor, k: int, mesh=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`topk_stable` over the whole vocab -> (values [B, k], global ids
+    [B, k]). Under a row-sharded `mesh` `probs` is the rank's [B, V/m]
+    columns: each rank's local top-k, its ids made global, all-gathered
+    over the model group in model order, then `topk_stable` over the
+    m * k candidates. The shards concatenate in id order and each keeps
+    its equal values lowest id first, so the merge keeps the reference's
+    order, ties at the k-th value included."""
+    if not row_sharded(mesh):
+        return topk_stable(probs, k)
+    R = probs.shape[-1]
+    vals, ids = topk_stable(probs, min(k, R))
+    ids = ids + mesh.model_index * R
+    all_vals = model_gather(vals, 1, mesh)                   # [B, m k']
+    all_ids = model_gather(ids, 1, mesh)
+    top_vals, at = topk_stable(all_vals, k)
+    return top_vals, torch.gather(all_ids, -1, at)
+
+
 def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
               compute_dtype=torch.float32, use_kernel: bool = True,
               mesh=None
@@ -337,16 +372,17 @@ def eval_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
     full softmax; the per-example cross entropy is clamped at 0 (a
     logsumexp minus a logit can round a hair below it) and weighted by
     the example weights. Under a ctx `mesh` the batch holds the rank's
-    contexts, and every rank of a ctx group returns the same values."""
+    contexts, under a model `mesh` the tables are the rank's windows
+    (the softmax over every shard's columns, the top-k merged), and
+    every rank of a ctx or model group returns the same values."""
     labels, src, pth, dst, mask, weights = batch
     code, _attn = get_encode_fn(dims)(params, src, pth, dst, mask,
                                       compute_dtype=compute_dtype,
                                       use_kernel=use_kernel, mesh=mesh)
-    logits = full_logits(params, code, dims.target_vocab_size)
-    ce = torch.clamp(F.cross_entropy(logits, labels.to(torch.int64),
-                                     reduction="none"), min=0.0)
+    logits = full_logits(params, code, dims.target_vocab_size, mesh)
+    ce = torch.clamp(cross_entropy(logits, labels, mesh), min=0.0)
     loss_sum = (ce * weights).sum()
-    topk_probs, topk_ids = topk_stable(torch.softmax(logits, dim=-1), top_k)
+    topk_probs, topk_ids = topk_merged(softmax(logits, mesh), top_k, mesh)
     return loss_sum, topk_ids, topk_probs
 
 
@@ -362,11 +398,13 @@ def encode_step(params: Params, batch, *, dims: ModelDims,
 
 
 def predict_head(params: Params, code: torch.Tensor, dims: ModelDims,
-                 top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                 top_k: int, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Code vectors (compute dtype) -> (topk_ids [B, k], topk_probs [B, k])
-    under a full softmax over the target vocab (`topk_stable`'s order)."""
-    logits = full_logits(params, code, dims.target_vocab_size)
-    topk_probs, topk_ids = topk_stable(torch.softmax(logits, dim=-1), top_k)
+    under a full softmax over the target vocab (`topk_stable`'s order);
+    under a row-sharded `mesh` over every shard's columns, the top-k
+    merged (`topk_merged`)."""
+    logits = full_logits(params, code, dims.target_vocab_size, mesh)
+    topk_probs, topk_ids = topk_merged(softmax(logits, mesh), top_k, mesh)
     return topk_ids, topk_probs
 
 

@@ -227,8 +227,10 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,named", [
-    # the model axis is not ported: exits 2 naming its ROADMAP item
-    (["--mesh_model", "2"], "ROADMAP.md Queue 1 item 5b"),
+    # the model axis is ported; the VarMisuse head under it is not:
+    # exits 2 naming its ROADMAP item
+    (["--mesh_model", "2", "--head", "varmisuse"],
+     "ROADMAP.md Queue 1 item 5c"),
     # the head is ported; its bag-only rule still exits 2 naming it
     (["--head", "varmisuse", "--encoder", "transformer"], "--head varmisuse"),
     # the attacks and the defense are ported: the JAX package's rules

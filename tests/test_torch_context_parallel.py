@@ -580,9 +580,19 @@ def test_mesh_context_must_divide_max_contexts():
 
 
 def test_mesh_model_is_refused_naming_item_5b():
+    """The model axis is ported (the name stays from when it was
+    refused); int8 tables under it are refused in the JAX package's
+    words."""
+    from code2vec_tpu.config import Config as JaxConfig
     from code2vec_tpu_torch.config import Config
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5b"):
-        Config(MESH_MODEL_AXIS=2).verify()
+    Config(MESH_MODEL_AXIS=2).verify()
+    argv = ["--data", "x", "--tables_dtype", "int8", "--mesh_model", "2"]
+    with pytest.raises(ValueError) as want:
+        JaxConfig.load_from_args(argv)
+    with pytest.raises(ValueError) as got:
+        Config.load_from_args(argv)
+    assert "int8" in str(want.value)
+    assert str(got.value) == str(want.value)
 
 
 def test_sparse_step_refuses_a_ctx_mesh_in_the_jax_words():

@@ -52,21 +52,27 @@ def test_mesh_spans_the_world_on_the_data_axis():
 
 @pytest.mark.parametrize("kw", [dict(model=2), dict(context=2), dict(dcn=2)])
 def test_mesh_refuses_the_axes_not_ported(kw):
-    """The model axis is refused, naming ROADMAP item 5b. The context and
-    dcn axes are ported: at a world of 4 the mesh takes data = 4 / 2 and
-    lays the ranks out row-major over (dcn, data, ctx, model), as the
-    JAX mesh reshapes its devices; a world the axes do not divide is
-    refused in the JAX package's words."""
-    if "model" in kw:
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5b"):
-            make_mesh(rank=0, world=2, device="cpu", **kw)
-        return
+    """The model, context and dcn axes are ported (the name stays from
+    when the model axis was refused): at a world of 4 the mesh takes
+    data = 4 / 2 and lays the ranks out row-major over (dcn, data, ctx,
+    model), as the JAX mesh reshapes its devices, so model peers are
+    adjacent ranks; a world the axes do not divide is refused in the JAX
+    package's words."""
     meshes = [make_mesh(rank=r, world=4, device="cpu", **kw)
               for r in range(4)]
     assert all(m.data == 2 and m.shape == dict(
-        zip(AXES, (kw.get("dcn", 1), 2, kw.get("context", 1), 1)))
+        zip(AXES, (kw.get("dcn", 1), 2, kw.get("context", 1),
+                   kw.get("model", 1))))
         for m in meshes)
-    if "context" in kw:
+    if "model" in kw:
+        assert [(m.batch_shard, m.model_index) for m in meshes] == [
+            (0, 0), (0, 1), (1, 0), (1, 1)]
+        assert meshes[3].model_ranks() == (2, 3)
+        assert [sharding.batch_rows(m, 8) for m in meshes] == [
+            (0, 8), (0, 8), (8, 16), (8, 16)]
+        assert [sharding.row_window(m, 6) for m in meshes] == [
+            (0, 3), (3, 6), (0, 3), (3, 6)]
+    elif "context" in kw:
         assert [(m.batch_shard, m.ctx_index) for m in meshes] == [
             (0, 0), (0, 1), (1, 0), (1, 1)]
         assert meshes[3].ctx_ranks() == (2, 3)
@@ -90,7 +96,14 @@ def test_mesh_data_axis_must_be_the_world():
 
 
 def test_every_leaf_replicates():
-    assert set(sharding.param_pspecs().values()) == {sharding.REPLICATED}
+    """Every leaf replicates but the three vocab tables, whose rows shard
+    over 'model' (the JAX package's `P(MODEL_AXIS, None)`; the name stays
+    from when every leaf replicated)."""
+    specs = sharding.param_pspecs()
+    assert {k for k, v in specs.items() if v == sharding.ROW_SHARDED} == {
+        "token_emb", "path_emb", "target_emb"}
+    assert {v for k, v in specs.items() if not k.endswith("_emb")} == {
+        sharding.REPLICATED}
 
 
 # ---- the flags and the verify rules ----
@@ -111,20 +124,17 @@ def test_dist_and_mesh_data_flags_parse():
                                   ["--mesh_context", "2"],
                                   ["--mesh_dcn", "2"], ["--ring_attention"]])
 def test_later_mesh_flags_are_refused_with_the_roadmap_item(flag):
-    """`--mesh_model 2` is refused naming ROADMAP item 5b; the context
-    and dcn axes and the ring are ported: their flags set the JAX
-    package's fields, as its parser does."""
+    """The model, context and dcn axes and the ring are ported: their
+    flags set the JAX package's fields, as its parser does (the name
+    stays from when `--mesh_model` was refused)."""
     argv = ["--data", "x", "--backend", "cpu", *flag]
-    if flag[0] == "--mesh_model":
-        with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5b"):
-            Config.load_from_args(argv)
-        return
     cfg = Config.load_from_args(argv)
     j = JConfig.load_from_args(["--data", "x", *flag])
-    for field in ("MESH_CONTEXT_AXIS", "MESH_DCN_AXIS", "RING_ATTENTION"):
+    fields = ("MESH_MODEL_AXIS", "MESH_CONTEXT_AXIS", "MESH_DCN_AXIS",
+              "RING_ATTENTION")
+    for field in fields:
         assert getattr(cfg, field) == getattr(j, field), field
-    assert (cfg.MESH_CONTEXT_AXIS, cfg.MESH_DCN_AXIS,
-            cfg.RING_ATTENTION) != (1, 1, False)
+    assert tuple(getattr(cfg, f) for f in fields) != (1, 1, 1, False)
 
 
 @pytest.mark.parametrize("kw", [

@@ -511,11 +511,10 @@ def test_trainer_refuses_unported_and_invalid_configs(tmp_path, change,
                                    "MESH_MODEL_AXIS"])
 def test_config_cannot_ask_for_another_head_or_a_mesh(field):
     """HEAD takes the JAX package's two heads (code2vec, varmisuse), and
-    `verify` refuses any other. The mesh the port has is the data axis
-    alone: MESH_DATA_AXIS passes `verify` and must equal the world
-    (parallel/mesh.make_mesh refuses a data axis the processes cannot
-    fill), and a model axis above 1 is refused (ROADMAP.md Queue 1
-    item 5)."""
+    `verify` refuses any other. MESH_DATA_AXIS and MESH_MODEL_AXIS pass
+    `verify`, and parallel/mesh.make_mesh refuses an axis the processes
+    cannot fill: a data axis of 2, or a model axis of 2, in one
+    process."""
     if field == "HEAD":
         with pytest.raises(ValueError, match="HEAD must be"):
             Config(HEAD="transformer").verify()
@@ -527,8 +526,11 @@ def test_config_cannot_ask_for_another_head_or_a_mesh(field):
         with pytest.raises(ValueError, match="the data axis needs 2 processes"):
             make_mesh(2, rank=0, world=1, device="cpu")
         return
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5"):
-        Config(**{field: 2}).verify()
+    Config(MESH_MODEL_AXIS=2).verify()
+    from code2vec_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(ValueError, match="1 devices not divisible by "
+                                         "dcn\\*model\\*ctx=2"):
+        make_mesh(model=2, rank=0, world=1, device="cpu")
 
 
 def test_trainer_reads_no_batch_past_its_last_step(tmp_path, monkeypatch):
