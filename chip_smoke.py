@@ -128,7 +128,11 @@ Phases (any failure raises, and the script exits non-zero):
    busy share and kernel 1's launches by name in a profiled run, an
    async save's blocked time against a synchronous
    one's, the writer's time, the state's bytes, the sha256 time and the
-   load-and-verify time;
+   load-and-verify time; then (c) for 2 epochs (8 steps) through the
+   trainer's loop at `--infeed_chunk 4` (the pinned chunk ring, one
+   host-to-device copy a field a chunk, counted) against
+   `--infeed_chunk 1`: the same param digests, the steps/s of each
+   (counted: kernel 1 once a step);
 15. the `--predict` REPL: the native extractor built from the port's
    C++ sources (both targets together) and checked against
    `tests/golden/*.expected`; `python3 -m code2vec_tpu_torch --load
@@ -151,10 +155,10 @@ Phases (any failure raises, and the script exits non-zero):
    no stall, a Chrome trace naming kernel 1); `ckpt/write` EIO retried
    and committed, with `train/nan_loss` at step 3 recorded; `ckpt/write`
    ENOSPC with the torn marker (the run gives up, `state.tmp/` stays, a
-   load falls back); `train/kill` at step 6 in a subprocess, then
-   `--auto_resume`, bit-identical to [14]'s uninterrupted run;
-   the telemetry's cost on the loop's steps/s for (c) and (a), on and
-   off in alternating pairs;
+   load falls back); the telemetry's cost on the loop's steps/s for (c)
+   and (a), on and off in alternating pairs; its `train/kill` leg (at
+   step 6 in a subprocess, then `--auto_resume`, bit-identical to [14]'s
+   uninterrupted run) runs beside [19];
 17. the live metrics plane on (c)'s configuration and [14]'s data:
    `cli.main` with `--telemetry_dir --metrics_port --alerts_mode raise
    --watchdog_stall_s` scraped by a thread while it runs (`/metrics`
@@ -192,6 +196,8 @@ Phases (any failure raises, and the script exits non-zero):
    quarantined before the relaunch, resumed from the step before and
    finished (bit-identical again), one `checkpoint_quarantined` firing;
    a child that always fails under `--max_restarts 1`: exit 3, one page;
+   [16]'s `train/kill` leg runs beside it, on a thread, and is checked
+   at its end;
 20. the serving fleet at [4]'s java-large width on the card, over HTTP:
    a `ReplicaPool` of 2 bag replicas (each built by a factory that seeds a
    fresh generator) behind a `ServingFrontend`, a `ReloadManager` polling
@@ -351,7 +357,25 @@ Phases (any failure raises, and the script exits non-zero):
    evaluation counted once, rank 0's save of whole tables, `topology.json`
    with 2 processes), and in this process a one-process `--load` of that
    checkpoint evaluating the test file to the same top-1 and loss;
-27. a `{"kernels": [...]}` line, the card line, and last
+27. the VarMisuse head and the writer's exports under the model axis:
+   in [23]'s two children after [26] (model = 2), (f) at [21]'s
+   java-large token and path width, its dense step against one rank's
+   over the same batch on the whole tables (the gathered contexts the
+   same bits, the loss within LOSS_RTOL, every leaf's raw gradient within
+   MODEL_GRAD_RTOL of its largest; counted: kernel 1 once), the forward
+   + backward's peak a rank beside one rank's and the all-sums' bytes;
+   the merged VarMisuse evaluation of [21]'s 4096 test rows (counted:
+   kernel 1 once a batch) against one rank's over the whole tables (the
+   same count, the file's rows, accuracy and loss); a model-2 trainer
+   loaded from [26]'s checkpoint, each table gathered by
+   `get_embedding_table` bit-identical to the checkpoint's rows (no
+   text at this width). Beside [24], two processes run `cli.main
+   --mesh_model 2 --dist_*` on [14]'s released model: `--test
+   --export_code_vectors --save_w2v --save_t2v`, then `--release`; the
+   three files byte-identical (sha256, each taken by the process that
+   wrote it) to [14]'s one-process exports of the same model, the
+   release's tensors bit-identical to it;
+28. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -723,6 +747,7 @@ def pool_case(torch, B: int, dtype, gen, peaks, terms: int) -> dict:
     return row
 
 
+@functools.lru_cache(maxsize=1)
 @functools.lru_cache(maxsize=1)
 def synthetic_vocabs():
     """A java-large-sized vocab with words generated by rule (built once
@@ -2655,11 +2680,109 @@ def loop_window(torch, trainer, path: str, epochs: int, steps: int,
     return (epochs - 1) * steps / (t1[0] - t0[0])
 
 
-EXPORT_CHILD = ("import sys, time; from code2vec_tpu_torch import cli; "
-                "t = time.perf_counter(); rc = cli.main(sys.argv[1:]); "
-                "print(f'EXPORT_S {time.perf_counter() - t}', flush=True); "
-                "sys.exit(rc)")
+# [14]'s chunked infeed: (c)'s epochs through the trainer's loop and
+# the chunk (`--infeed_chunk`)
+CHUNK_EPOCHS, CHUNK_G = 2, 4
+
+
+def chunked_infeed_check(torch, vocabs, data_prefix, report) -> dict:
+    """[14]: (c) through the trainer's loop for CHUNK_EPOCHS epochs of
+    [14]'s binary shards (8 steps) at `--infeed_chunk` CHUNK_G (the
+    pinned chunk ring, `PinnedChunkPut`) and at 1, each from the seed:
+    the same param digests; the steps/s past the first epoch of each; the
+    host-to-device copies counted (one a field a chunk). Returns the
+    chunked run's kernel-1 launches (counted: once a step)."""
+    from code2vec_tpu_torch.models.torch_model import (Code2VecTrainer,
+                                                       TrainerBase)
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    path = data_prefix + ".train.c2v"
+    spe = -(-count_lines(path) // TRAIN_B)
+    puts, real = [], TrainerBase._chunk_put
+
+    def chunk_put(self):
+        puts.append(real(self))
+        return puts[-1]
+
+    runs = {}
+    TrainerBase._chunk_put = chunk_put
+    try:
+        for g in (CHUNK_G, 1):
+            _, cfg = dense_config("c", "bfloat16", False)
+            cfg.INFEED_CHUNK = g
+            trainer = Code2VecTrainer(cfg, vocabs)
+            attention_pool_fused.launches = 0
+            rate = loop_window(torch, trainer, path, CHUNK_EPOCHS, spe)
+            runs[g] = {"steps_per_s": rate, "steps": trainer.step_num,
+                       "launches": attention_pool_fused.launches,
+                       "digests": leaf_digests(torch, trainer.params)}
+            del trainer
+            torch.cuda.empty_cache()
+    finally:
+        TrainerBase._chunk_put = real
+    chunked, plain = runs[CHUNK_G], runs[1]
+    copies = puts[0].copies if puts and puts[0] is not None else None
+    want_copies = 6 * CHUNK_EPOCHS * -(-spe // CHUNK_G)
+    check(chunked["digests"] == plain["digests"]
+          and chunked["steps"] == plain["steps"] == CHUNK_EPOCHS * spe
+          and chunked["launches"] == CHUNK_EPOCHS * spe
+          and copies == want_copies and puts[1:] == [None],
+          f"(chunked) --infeed_chunk {CHUNK_G} vs 1: digests equal "
+          f"{chunked['digests'] == plain['digests']}, steps "
+          f"{chunked['steps']} / {plain['steps']}, launches "
+          f"{chunked['launches']}, copies {copies} (want {want_copies})")
+    print(f"  (chunked) (c) {CHUNK_EPOCHS * spe} steps through the loop at "
+          f"--infeed_chunk {CHUNK_G} (the pinned chunk ring): final params "
+          f"bit-identical to --infeed_chunk 1 ({len(plain['digests'])} "
+          f"leaves, sha256); {copies} host-to-device copies (6 fields x "
+          f"{copies // 6} chunks; {6 * CHUNK_EPOCHS * spe} at 1); steps/s "
+          f"past the first epoch {chunked['steps_per_s']:.2f} chunked vs "
+          f"{plain['steps_per_s']:.2f} per batch; kernel 1 "
+          f"{chunked['launches']} launches", flush=True)
+    report["cli"]["chunked"] = {
+        "chunk": CHUNK_G, "copies": copies,
+        **{f"g{g}": {k: v for k, v in r.items() if k != "digests"}
+           for g, r in runs.items()}}
+    return {"attention_pool": chunked["launches"]}
+
+
+EXPORT_CHILD = "import chip_smoke; chip_smoke.export_child()"
 EXPORT_TIMEOUT_S = 600
+
+
+def file_digest(path: str) -> str:
+    """sha256 of a file's bytes, read in 8 MB blocks."""
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while block := f.read(8 << 20):
+            h.update(block)
+    return h.hexdigest()
+
+
+def export_paths(argv) -> dict:
+    """{"w2v", "t2v", "vectors"}: the files an exports command line
+    writes (`--save_w2v`, `--save_t2v`, `<--test>.vectors`)."""
+    argv = [str(a) for a in argv]
+    return {"w2v": argv[argv.index("--save_w2v") + 1],
+            "t2v": argv[argv.index("--save_t2v") + 1],
+            "vectors": argv[argv.index("--test") + 1] + ".vectors"}
+
+
+def export_child() -> None:
+    """[14]'s exports (`python3 -c 'import chip_smoke;
+    chip_smoke.export_child()' <cli argv>`): `cli.main(argv)`, then the
+    sha256 of each file it wrote, so that [27] can hold its model-2
+    exports to these bytes after the files are gone. Prints `EXPORT_S`
+    and `EXPORT_DIGESTS <json>`; exits with cli.main's code."""
+    from code2vec_tpu_torch import cli
+    t = time.perf_counter()
+    rc = cli.main(sys.argv[1:])
+    print(f"EXPORT_S {time.perf_counter() - t}", flush=True)
+    if rc == 0:
+        print("EXPORT_DIGESTS " + json.dumps(
+            {k: file_digest(v) for k, v in export_paths(sys.argv[1:]).items()}),
+            flush=True)
+    sys.exit(rc)
 
 
 def start_exports(tmp, rel, test_path) -> dict:
@@ -2685,7 +2808,8 @@ def start_exports(tmp, rel, test_path) -> dict:
 
 def finish_exports(np, vocabs, kept, report) -> None:
     """[14]'s exports, waited for: exit 0, then the rows, widths and
-    finite values of the w2v, t2v and code-vector files."""
+    finite values of the w2v, t2v and code-vector files, whose sha256s
+    (the child's) [27]'s model-2 exports are held to."""
     ex = kept["exports"]
     t = time.perf_counter()
     rc = ex["proc"].wait(timeout=EXPORT_TIMEOUT_S)
@@ -2694,7 +2818,11 @@ def finish_exports(np, vocabs, kept, report) -> None:
         log = f.read()
     line = next((ln for ln in log.splitlines()
                  if ln.startswith("EXPORT_S ")), None)
-    check(rc == 0 and line is not None, f"(exports) exit {rc}: {log[-3000:]}")
+    digests = next((ln for ln in log.splitlines()
+                    if ln.startswith("EXPORT_DIGESTS ")), None)
+    check(rc == 0 and line is not None and digests is not None,
+          f"(exports) exit {rc}: {log[-3000:]}")
+    ex["digests"] = json.loads(digests[len("EXPORT_DIGESTS "):])
     check_vectors_file(np, ex["w2v"], vocabs.token_vocab.size + 1, E, "w2v")
     check_vectors_file(np, ex["t2v"], vocabs.target_vocab.size + 1, D, "t2v")
     check_vectors_file(np, ex["vectors"], kept["n_test"], D, "vectors")
@@ -3070,7 +3198,7 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
     # and losses for [16]
     kept = {"released": rel, "uninterrupted": aside,
             "losses": first_losses, "steps": steps, "base": base,
-            "exports": exports, "n_test": n_test}
+            "exports": exports, "n_test": n_test, "test_path": test_path}
     return {"train": launches,
             **{k: v["launches"] for k, v in trips.items()}}, kept
 
@@ -3317,11 +3445,11 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
                    report):
     """[16]: the command line with the telemetry, the trace, the
     watchdog and the profiler window on (c)'s configuration and [14]'s
-    data; the `ckpt/write`, `train/nan_loss` and `train/kill` failpoints;
-    then the telemetry's cost on the loop of (c) and (a)."""
+    data; the `ckpt/write` and `train/nan_loss` failpoints; then the
+    telemetry's cost on the loop of (c) and (a). Its `train/kill` leg
+    runs beside [19] (`start_kill_resume`)."""
     import errno
     import shutil
-    import signal
 
     from code2vec_tpu_torch import cli
     from code2vec_tpu_torch.config import Config
@@ -3473,54 +3601,6 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
     shutil.rmtree(d)
     torch.cuda.empty_cache()
 
-    # ---- 4. train/kill at step 6, then --auto_resume ----
-    d, tele3 = os.path.join(tmp, "ck_kill"), os.path.join(tmp, "tele_kill")
-    kill_at = steps + 2
-    cmd = [sys.executable, "-m", "code2vec_tpu_torch", *base, "--save", d,
-           # synchronous saves: the epoch-1 step is committed before the kill
-           "--async_checkpoint", "off", "--telemetry_dir", tele3]
-    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
-        __file__)))
-    t = time.perf_counter()
-    r = subprocess.run(cmd + ["--faults", json.dumps({"sites": {
-        "train/kill": {"action": "kill", "at": kill_at}}})],
-        capture_output=True, text=True, timeout=600, env=env)
-    kill_s = time.perf_counter() - t
-    check(r.returncode == -signal.SIGKILL and ckpt.latest_step(d) == steps,
-          f"(kill) exit {r.returncode}, latest step {ckpt.latest_step(d)}: "
-          f"{r.stderr[-2000:]}")
-    t = time.perf_counter()
-    r = subprocess.run(cmd + ["--auto_resume"], capture_output=True,
-                       text=True, timeout=600, env=env)
-    resume_s = time.perf_counter() - t
-    check(r.returncode == 0, f"(kill) --auto_resume exited {r.returncode}: "
-          f"{r.stderr[-2000:]}")
-    killed, resumed = run_events(tele3)
-    killed_steps = [e["step"] for e in killed if e["kind"] == "step"]
-    resumed_losses = [e["loss"] for e in resumed if e["kind"] == "step"]
-    # the kill lands after step `kill_at` and before its step event
-    check(killed_steps == list(range(1, kill_at))
-          and [e["step"] for e in resumed if e["kind"] == "step"]
-          == list(range(steps + 1, CLI_EPOCHS * steps + 1)),
-          f"(kill) steps {killed_steps} then {resumed}")
-    a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
-    # the step events carry the loss to 6 decimals
-    diff = {**state_diff(torch, a, b),
-            "losses_equal": resumed_losses == [
-                round(x, 6) for x in kept["losses"][-steps:]]}
-    del a, b
-    check(diff["differ"] == 0 and diff["losses_equal"],
-          f"(kill) the resume is not bit-identical to the uninterrupted "
-          f"run: {diff}")
-    print(f"  (kill) train/kill at step {kill_at}: SIGKILL after "
-          f"{kill_s:.1f} s (latest step {steps}); --auto_resume in "
-          f"{resume_s:.1f} s trained steps {steps + 1}..{CLI_EPOCHS * steps}; "
-          f"final state bit-identical to the uninterrupted run's "
-          f"({diff['tensors']} tensors), its losses equal", flush=True)
-    shutil.rmtree(d)
-    shutil.rmtree(tele3)
-    # the uninterrupted run's last step stays for [19]
-
     # ---- 5. the telemetry's cost on the loop: all on vs all off ----
     cfg_c = Config(MAX_CONTEXTS=C, TRAIN_BATCH_SIZE=TRAIN_B, SEED=SEED,
                    NUM_TRAIN_EPOCHS=1)
@@ -3558,10 +3638,89 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
     out.update({"observed_s": run_s, "launches": launches,
                 "memory_gauges": mem, "profile_named": named,
                 "eio_retries": retried, "nan_steps": nan_steps,
-                "enospc": gave_up, "kill_s": kill_s, "resume_s": resume_s,
-                "resume": diff, "telemetry_cost_steps_per_s": cost})
+                "enospc": gave_up, "telemetry_cost_steps_per_s": cost})
     report["observed"] = out
     return launches
+
+
+def start_kill_resume(tmp, kept) -> dict:
+    """[16]'s `train/kill` leg, started beside [19] (whose children wait
+    on a slow infeed, so the card is mostly idle): `python3 -m
+    code2vec_tpu_torch` on [14]'s command with `train/kill` at the
+    second epoch's second step (synchronous saves, so the first epoch's
+    step is committed), then the same command with `--auto_resume`, in
+    turn on a thread of this process."""
+    steps, base = kept["steps"], [str(a) for a in kept["base"]]
+    d, tele = os.path.join(tmp, "ck_kill"), os.path.join(tmp, "tele_kill")
+    cmd = [sys.executable, "-m", "code2vec_tpu_torch", *base, "--save", d,
+           "--async_checkpoint", "off", "--telemetry_dir", tele]
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+        __file__)))
+    chain = {"dir": d, "tele": tele, "kill_at": steps + 2, "runs": []}
+
+    def run() -> None:
+        for extra in (["--faults", json.dumps({"sites": {"train/kill": {
+                "action": "kill", "at": chain["kill_at"]}}})],
+                      ["--auto_resume"]):
+            t = time.perf_counter()
+            r = subprocess.run(cmd + extra, capture_output=True, text=True,
+                               timeout=600, env=env)
+            chain["runs"].append((r, time.perf_counter() - t))
+
+    chain["thread"] = threading.Thread(target=run, daemon=True,
+                                       name="kill-resume")
+    chain["thread"].start()
+    return chain
+
+
+def finish_kill_resume(torch, chain, kept, report) -> None:
+    """[16]'s `train/kill` leg, waited for: the kill's SIGKILL with epoch
+    1's step the latest, the resume's exit 0, the steps of each run's
+    events, and the resumed run's final state and losses bit-identical
+    to [14]'s uninterrupted run; then [14]'s run is removed."""
+    import shutil
+    import signal
+
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    steps, d, kill_at = kept["steps"], chain["dir"], chain["kill_at"]
+    t = time.perf_counter()
+    chain["thread"].join(timeout=1200)
+    waited = time.perf_counter() - t
+    check(not chain["thread"].is_alive() and len(chain["runs"]) == 2,
+          f"(kill) the leg did not finish: {len(chain['runs'])} runs")
+    (killed_r, kill_s), (resumed_r, resume_s) = chain["runs"]
+    check(killed_r.returncode == -signal.SIGKILL,
+          f"(kill) exit {killed_r.returncode}: {killed_r.stderr[-2000:]}")
+    check(resumed_r.returncode == 0, f"(kill) --auto_resume exited "
+          f"{resumed_r.returncode}: {resumed_r.stderr[-2000:]}")
+    killed, resumed = run_events(chain["tele"])
+    killed_steps = [e["step"] for e in killed if e["kind"] == "step"]
+    resumed_losses = [e["loss"] for e in resumed if e["kind"] == "step"]
+    # the kill lands after step `kill_at` and before its step event
+    check(killed_steps == list(range(1, kill_at))
+          and [e["step"] for e in resumed if e["kind"] == "step"]
+          == list(range(steps + 1, CLI_EPOCHS * steps + 1)),
+          f"(kill) steps {killed_steps} then {resumed}")
+    a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
+    # the step events carry the loss to 6 decimals
+    diff = {**state_diff(torch, a, b),
+            "losses_equal": resumed_losses == [
+                round(x, 6) for x in kept["losses"][-steps:]]}
+    del a, b
+    check(diff["differ"] == 0 and diff["losses_equal"],
+          f"(kill) the resume is not bit-identical to the uninterrupted "
+          f"run: {diff}")
+    print(f"  (kill, [16]'s leg beside [19]) train/kill at step {kill_at}: "
+          f"SIGKILL after {kill_s:.1f} s (latest step {steps}); "
+          f"--auto_resume in {resume_s:.1f} s trained steps {steps + 1}.."
+          f"{CLI_EPOCHS * steps}; final state bit-identical to the "
+          f"uninterrupted run's ({diff['tensors']} tensors), its losses "
+          f"equal; waited {waited:.1f} s after [19]", flush=True)
+    shutil.rmtree(d)
+    shutil.rmtree(chain["tele"])
+    shutil.rmtree(kept["uninterrupted"])
+    report["observed"].update(kill_s=kill_s, resume_s=resume_s, resume=diff,
+                              kill_waited_s=waited)
 
 
 # [17]: the plane's cadence in the scraped and the NaN runs (no flag: a
@@ -4333,7 +4492,6 @@ def phase_supervised(torch, np, tmp, data_prefix, kept, report):
     out["budget"] = {"seconds": fail_s}
     for name in ("kill", "corrupt", "fail"):
         shutil.rmtree(os.path.join(tmp, f"logs19_{name}"), ignore_errors=True)
-    shutil.rmtree(kept["uninterrupted"])
     report["supervised"] = out
 
 
@@ -6365,8 +6523,9 @@ def dp_child() -> None:
     chip_smoke.dp_child()' <spec.json>`): the command line with the
     `--dist_*` flags for (c) then (a) (`cli.main`, which `python3 -m
     code2vec_tpu_torch` runs), then the function-level harness
-    (`dp_harness`), then [25]'s context axis (`ctx_harness`, `ctx_cli`)
-    and [26]'s model axis (`model_harness`, `model_cli`). Prints
+    (`dp_harness`), then [25]'s context axis (`ctx_harness`, `ctx_cli`),
+    [26]'s model axis (`model_harness`, `model_cli`) and [27]'s VarMisuse
+    head and gathered tables under it (`vm_model_harness`). Prints
     `DP_RESULT <json>` and exits 0 only if all passed."""
     import torch
 
@@ -6423,6 +6582,10 @@ def dp_child() -> None:
                                  spec["ports"][len(DP_CONFIGS) + 3], spec)
     out["model_cli"] = model_cli(torch, rank, world,
                                  spec["ports"][len(DP_CONFIGS) + 4], spec)
+    # [27]: the VarMisuse head and the gathered tables under the model axis
+    out["vm_model"] = vm_model_harness(torch, rank, world,
+                                       spec["ports"][len(DP_CONFIGS) + 5],
+                                       spec, synthetic_vocabs())
     print("DP_RESULT " + json.dumps(out), flush=True)
 
 
@@ -7004,8 +7167,9 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
             "--async_checkpoint", "off"]
     ck = {label: os.path.join(tmp, f"dp_ckpt_{label}")
           for label in DP_CONFIGS}
-    # the CLI runs', the harness's, [25]'s and [26]'s harness and CLI run
-    ports = [free_port() for _ in range(len(DP_CONFIGS) + 5)]
+    # the CLI runs', the harness's, [25]'s and [26]'s harness and CLI run,
+    # [27]'s harness
+    ports = [free_port() for _ in range(len(DP_CONFIGS) + 6)]
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     procs = []
@@ -7017,7 +7181,9 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
                        "ctx_ckpt": os.path.join(tmp, "ctx_ckpt"),
                        "model_ckpt": os.path.join(tmp, "model_ckpt"),
                        "train": data_prefix + ".train.c2v",
-                       "test": test_path}, f)
+                       "test": test_path,
+                       "vm_train": os.path.join(tmp, "vm.train.vm.c2v"),
+                       "vm_test": os.path.join(tmp, "vm.test.vm.c2v")}, f)
         env = dict(os.environ, PYTHONPATH=here)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", "import chip_smoke; chip_smoke.dp_child()",
@@ -7189,9 +7355,9 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     kept = {"argv": dp_argv(base, "a"), "digests": r0["a"]["digests"],
             "steps": DP_EPOCHS["a"] * steps, "steps_per_epoch": steps,
             "n_train": n_train}
-    # [25]'s and [26]'s results from the same children
-    ctx_runs = [{k: r[k] for k in ("ctx", "ctx_cli", "model", "model_cli")}
-                for r in results]
+    # [25]'s, [26]'s and [27]'s results from the same children
+    ctx_runs = [{k: r[k] for k in ("ctx", "ctx_cli", "model", "model_cli",
+                                   "vm_model")} for r in results]
     return launches, kept, ctx_runs
 
 
@@ -7345,7 +7511,8 @@ def tensor_bytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in state_tensors(tree))
 
 
-def model_step_check(torch, trainer, glob, label: str) -> dict:
+def model_step_check(torch, trainer, glob, label: str,
+                     make_loss=None) -> dict:
     """[26]: one dense step of a model-2 `trainer` (data = 1: every rank
     holds all the rows) against one rank's step over the same batch on
     the whole tables (gathered from the windows): the gathered contexts
@@ -7356,7 +7523,9 @@ def model_step_check(torch, trainer, glob, label: str) -> dict:
     optimizer and the adds), timed without the comparison between them;
     the forward + backward's peak memory a rank beside one rank's (each
     its tables plus its peak above what was allocated), the step's peak,
-    and the bytes of the model group's collectives."""
+    and the bytes of the model group's collectives. `make_loss(mesh)`
+    gives the step's loss function (default: the code2vec head's; [27]
+    passes the VarMisuse head's)."""
     from code2vec_tpu_torch.models.encoder import gather_contexts
     from code2vec_tpu_torch.parallel import collectives
     from code2vec_tpu_torch.parallel.sharding import (TABLE_KEYS, row_window,
@@ -7367,11 +7536,15 @@ def model_step_check(torch, trainer, glob, label: str) -> dict:
                                                    make_train_loss_fn)
     mesh, cfg = trainer.mesh, trainer.config
     draws = trainer.draws_for(TRAIN_B, trainer.step_num)
-    kw = dict(use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
-              num_sampled=cfg.NUM_SAMPLED_CLASSES,
-              compute_dtype=trainer.compute_dtype, use_kernel=True)
+    if make_loss is None:
+        kw = dict(use_sampled_softmax=cfg.USE_SAMPLED_SOFTMAX,
+                  num_sampled=cfg.NUM_SAMPLED_CLASSES,
+                  compute_dtype=trainer.compute_dtype, use_kernel=True)
+
+        def make_loss(at):
+            return make_train_loss_fn(trainer.dims, mesh=at, **kw)
     whole = unshard_params(trainer.params, mesh)
-    _l, src, pth, dst, _m, _w = glob
+    src, pth, dst = glob[1], glob[2], glob[3]
     same = torch.equal(
         gather_contexts(trainer.params, src, pth, dst, trainer.compute_dtype,
                         mesh),
@@ -7382,8 +7555,8 @@ def model_step_check(torch, trainer, glob, label: str) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    loss_one, grads_one, _v = dense_loss_and_grads(
-        whole, glob, draws, make_train_loss_fn(trainer.dims, **kw))
+    loss_one, grads_one, _v = dense_loss_and_grads(whole, glob, draws,
+                                                   make_loss(None))
     torch.cuda.synchronize()  # one rank: not counted
     one_peak = (torch.cuda.max_memory_allocated() - base
                 + MODEL * sum(tables.values()))
@@ -7393,7 +7566,7 @@ def model_step_check(torch, trainer, glob, label: str) -> dict:
     loss_one = loss_one.item()
     del whole
     torch.cuda.empty_cache()
-    loss_fn = make_train_loss_fn(trainer.dims, mesh=mesh, **kw)
+    loss_fn = make_loss(mesh)
     zero_model_counts()
     collectives.traffic.update(sum=0, max=0, gather=0)
     torch.cuda.synchronize()
@@ -7736,6 +7909,336 @@ def phase_model(torch, vocabs, test_path, runs, ckpt_dir, n_train, report):
     h0 = runs[0]["model"]
     return {k: sum(h0[label]["launches"][k] for label in want)
             for k in want["c"]}
+
+
+# ---- [27]: the VarMisuse head and the writer's exports under the model
+# axis (run inside [23]'s two children, and a pair of export processes
+# beside [24]) ----
+
+# [27]'s exports: the model-2 command line's w2v, t2v and code vectors of
+# [14]'s released model and its release, in two processes of their own
+# (`model_export_child`) beside [24]; the limit of the wait after [24]
+MODEL_EXPORT_CHILD = "import chip_smoke; chip_smoke.model_export_child()"
+MODEL_EXPORT_TIMEOUT_S = 600
+
+
+def vm_model_eval_check(torch, trainer, test_path: str, vv) -> dict:
+    """[27]: the VarMisuse evaluation of [21]'s test file at model 2 (the
+    merged sums, one rank of the model group counted; counted: kernel 1
+    once a batch) against one rank's `vm_eval_step` over the whole tables
+    gathered from the windows, batch by batch: the same count (the
+    file's rows), accuracy and loss."""
+    from code2vec_tpu_torch.data.vm_reader import VMTextReader
+    from code2vec_tpu_torch.parallel import collectives
+    from code2vec_tpu_torch.parallel.sharding import unshard_params
+    from code2vec_tpu_torch.training.vm_steps import vm_eval_step
+    zero_model_counts()
+    collectives.traffic.update(sum=0, max=0, gather=0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = trainer.evaluate(test_path)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches, traffic = model_counts(), dict(collectives.traffic)
+    whole = unshard_params(trainer.params, trainer.mesh)
+    loss_sum = correct = total = 0.0
+    for b in VMTextReader(test_path, vv, C, VM_K, TRAIN_B):
+        batch = trainer.device_batch(b)
+        with torch.inference_mode():
+            ls, cs, _pred = vm_eval_step(whole, batch,
+                                         compute_dtype=trainer.compute_dtype,
+                                         use_kernel=True)
+        loss_sum += ls.item()
+        correct += cs.item()
+        total += b.num_valid_examples
+    del whole
+    torch.cuda.empty_cache()
+    one = (loss_sum / total, correct / total, int(total))
+    rows = count_lines(test_path)
+    loss_rel_ = abs(res.loss - one[0]) / abs(one[0])
+    check(res.num_examples == one[2] == rows and res.accuracy == one[1]
+          and loss_rel_ <= 1e-5,
+          f"(vm model eval) rank {trainer.mesh.rank}: {res} vs one rank's "
+          f"{one} over a file of {rows} rows")
+    return {"loss": res.loss, "accuracy": res.accuracy,
+            "num_examples": res.num_examples, "one_rank": one,
+            "loss_rel": loss_rel_, "ms": ms, "launches": launches,
+            "traffic": traffic}
+
+
+def gathered_tables_check(torch, vocabs, ckpt_dir: str, world: int) -> dict:
+    """[27]: a model-`world` trainer loaded from [26]'s whole-table
+    checkpoint; `get_embedding_table` of each table (gathered over the
+    model group, the padding rows cut) against the checkpoint's rows,
+    bit for bit (no text written at this width)."""
+    import numpy as np
+
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    from code2vec_tpu_torch.vocab.vocabularies import VocabType
+    cfg = Config.load_from_args(["--load", ckpt_dir, "--mesh_model",
+                                 str(world)])
+    trainer = Code2VecTrainer.from_config(cfg, vocabs=vocabs)
+    state = ckpt.load_checkpoint(ckpt_dir, mmap=True)
+    out = {}
+    for vt, key in ((VocabType.Token, "token_emb"),
+                    (VocabType.Path, "path_emb"),
+                    (VocabType.Target, "target_emb")):
+        t = time.perf_counter()
+        table = trainer.get_embedding_table(vt)
+        gather_s = time.perf_counter() - t
+        size = vocabs.get(vt).size
+        saved = state["params"][key]
+        same = table.shape == (size, saved.shape[1]) and np.array_equal(
+            table, saved[:size].float().numpy())
+        check(same, f"(vm model tables) rank {trainer.mesh.rank}: {key} "
+              f"gathered {table.shape} is not the checkpoint's {size} rows "
+              f"of {tuple(saved.shape)}")
+        out[key] = {"rows": size, "saved_rows": int(saved.shape[0]),
+                    "window_rows": int(trainer.params[key].shape[0]),
+                    "gather_s": gather_s}
+        del table
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def vm_model_harness(torch, rank: int, world: int, port: int, spec,
+                     vocabs) -> dict:
+    """[27] in one of [23]'s children: `world` ranks on the card over gloo
+    at (data 1, model world): (f), the VarMisuse dense step, at [21]'s
+    java-large token and path width against one rank's (loss, raw
+    gradients; counted: kernel 1 once), the merged VarMisuse evaluation
+    of [21]'s test file against one rank's, then the tables gathered by
+    `get_embedding_table` from [26]'s checkpoint."""
+    import numpy as np
+
+    from code2vec_tpu_torch.data.vm_reader import VMTextReader
+    from code2vec_tpu_torch.models.vm_model import VarMisuseModel
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.training.vm_steps import make_vm_loss_fn
+    t0 = time.perf_counter()
+    check(distributed.maybe_initialize(f"127.0.0.1:{port}", world, rank,
+                                       device_type="cuda"),
+          "(vm model harness) no process group")
+    vv = vm_vocabs(vocabs)
+    cfg = vm_config("f", False)
+    cfg.MESH_MODEL_AXIS = world
+    trainer = VarMisuseModel(cfg, vv)
+    mesh = trainer.mesh
+    check(mesh is not None and (mesh.model, mesh.batch_shards) == (world, 1),
+          f"(vm model f) mesh {mesh}")
+    b = next(iter(VMTextReader(spec["vm_train"], vv, C, VM_K, TRAIN_B)))
+    glob = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                 for a in b.host_arrays())
+
+    def make_loss(at):
+        return make_vm_loss_fn(trainer.dims,
+                               compute_dtype=trainer.compute_dtype,
+                               use_kernel=True, mesh=at)
+
+    out = {"f": model_step_check(torch, trainer, glob, "vm f", make_loss)}
+    del glob
+    out["eval"] = vm_model_eval_check(torch, trainer, spec["vm_test"], vv)
+    del trainer
+    torch.cuda.empty_cache()
+    out["tables"] = gathered_tables_check(torch, vocabs, spec["model_ckpt"],
+                                          world)
+    distributed.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def model_export_child() -> None:
+    """One rank of [27]'s exports (`python3 -c 'import chip_smoke;
+    chip_smoke.model_export_child()' <spec.json>`): `cli.main` with
+    `--mesh_model 2` and the `--dist_*` flags on [14]'s released model,
+    first `--test --export_code_vectors --save_w2v --save_t2v` (the
+    model group gathers the tables, rank 0 writes), then `--release`, each
+    joining the group on a port of its own; rank 0 hashes the files it
+    wrote and removes them. Prints `MODEL_EXPORT_RESULT <json>` (the
+    seconds and kernel 1's launches of each, rank 0's sha256s and sizes)
+    and exits 0 only if both exited 0."""
+    import logging
+
+    import torch
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    logging.basicConfig(level=logging.INFO, stream=sys.stdout,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    with open(sys.argv[1]) as f:
+        spec = json.load(f)
+    rank, world = spec["rank"], spec["world"]
+    out = {}
+    for label, port in zip(("exports", "release"), spec["ports"]):
+        attention_pool_fused.launches = 0
+        t = time.perf_counter()
+        rc = cli.main([str(a) for a in spec[label] + [
+            "--mesh_model", world, "--dist_coordinator",
+            f"127.0.0.1:{port}", "--dist_num_processes", world,
+            "--dist_process_id", rank]])
+        torch.cuda.synchronize()
+        check(rc == 0, f"(model exports) rank {rank}: {label} exited {rc}")
+        out[label] = {"seconds": time.perf_counter() - t,
+                      "launches": attention_pool_fused.launches}
+        if label == "exports" and rank == 0:
+            # the bytes' digests, then the files go (2.5 GB at this width)
+            paths = export_paths(spec[label])
+            out["digests"] = {k: file_digest(v) for k, v in paths.items()}
+            out["bytes"] = {k: os.path.getsize(v) for k, v in paths.items()}
+            for v in paths.values():
+                os.remove(v)
+    print("MODEL_EXPORT_RESULT " + json.dumps(out), flush=True)
+
+
+def start_model_exports(tmp, kept) -> dict:
+    """[27]'s export ranks, started beside [24]: two `model_export_child`
+    processes on [14]'s released model, the code vectors beside a copy of
+    the test file in a directory of their own (rank 0 hashes and removes
+    the files it wrote); their output in files, killed at exit if still
+    running."""
+    import atexit
+    import shutil
+
+    from code2vec_tpu_torch.parallel.compat import free_port
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(tmp, "m2x")
+    os.makedirs(d, exist_ok=True)
+    test_copy = os.path.join(d, "java.test.c2v")
+    shutil.copy(kept["test_path"], test_copy)
+    mx = {"w2v": os.path.join(d, "tok.w2v"), "t2v": os.path.join(d, "tgt.w2v"),
+          "vectors": test_copy + ".vectors",
+          "released": os.path.join(d, "released"), "procs": [], "logs": [],
+          "t0": time.perf_counter()}
+    ports = [free_port(), free_port()]
+    for rank in range(DP_WORLD):
+        spec_path = os.path.join(d, f"spec{rank}.json")
+        with open(spec_path, "w") as f:
+            json.dump({"rank": rank, "world": DP_WORLD, "ports": ports,
+                       "exports": ["--load", kept["released"], "--test",
+                                   test_copy, "--export_code_vectors",
+                                   "--save_w2v", mx["w2v"], "--save_t2v",
+                                   mx["t2v"]],
+                       "release": ["--load", kept["released"], "--release",
+                                   "--save", mx["released"]]}, f)
+        log = os.path.join(d, f"rank{rank}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", MODEL_EXPORT_CHILD, spec_path],
+                cwd=here, env=dict(os.environ, PYTHONPATH=here), stdout=f,
+                stderr=subprocess.STDOUT)
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        mx["procs"].append(proc)
+        mx["logs"].append(log)
+    return mx
+
+
+def finish_model_exports(torch, kept, mx, report) -> dict:
+    """[27]'s exports, waited for: both ranks exit 0; the w2v, t2v and
+    code-vector files byte-identical (sha256) to [14]'s one-process
+    exports of the same released model; the model-2 release's tensors
+    bit-identical to the released model's. Returns rank 0's results
+    (its kernel-1 launches are outside this process's count) and removes
+    the directory."""
+    import shutil
+
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    t = time.perf_counter()
+    results = []
+    for rank, (proc, log) in enumerate(zip(mx["procs"], mx["logs"])):
+        try:
+            rc = proc.wait(timeout=MODEL_EXPORT_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        with open(log) as f:
+            text = f.read()
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith("MODEL_EXPORT_RESULT ")), None)
+        check(rc == 0 and line is not None,
+              f"(model exports) rank {rank} exited {rc}: {text[-3000:]}")
+        results.append(json.loads(line[len("MODEL_EXPORT_RESULT "):]))
+    waited = time.perf_counter() - t
+    r0 = results[0]
+    same = {k: r0["digests"][k] == kept["exports"]["digests"][k]
+            for k in ("w2v", "t2v", "vectors")}
+    check(all(same.values()), f"(model exports) the model-2 files vs [14]'s "
+          f"one-process exports (sha256): {same}")
+    got = ckpt.load_checkpoint(mx["released"], mmap=True)["params"]
+    want = ckpt.load_checkpoint(kept["released"], mmap=True)["params"]
+    released = got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        for k in want)
+    check(released, "(model exports) the model-2 release's tensors are not "
+          "the released model's")
+    sizes = r0["bytes"]
+    mb = ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in sizes.items())
+    print(f"  (model exports) cli.main --mesh_model {DP_WORLD} --dist_* on "
+          f"[14]'s released model, two ranks beside [24]: w2v, t2v and "
+          f"code vectors ({mb}) byte-identical (sha256) to [14]'s "
+          f"one-process exports; --release's {len(want)} tensors bit-identical to the released model's; "
+          f"rank 0 exports {r0['exports']['seconds']:.1f} s (kernel 1 "
+          f"{r0['exports']['launches']} launches), release "
+          f"{r0['release']['seconds']:.1f} s; waited {waited:.1f} s after "
+          f"[24]", flush=True)
+    shutil.rmtree(os.path.dirname(mx["w2v"]))
+    report["model_exports"] = {"ranks": results, "waited_s": waited,
+                               "bytes": sizes,
+                               "started_to_checked_s":
+                                   time.perf_counter() - mx["t0"]}
+    return r0
+
+
+def phase_vm_model(torch, runs, export_r0, report) -> dict:
+    """[27]: the VarMisuse head and the writer's exports under the model
+    axis, from [23]'s two children (`vm_model_harness`): (f) at model 2
+    against one rank's, the merged VarMisuse evaluation, the gathered
+    tables; the exports' results come from `finish_model_exports`.
+    Returns rank 0's launches of the counted (f) step and evaluation."""
+    want = {"attention_pool": 1, "xf_attention_forward": 0,
+            "xf_attention_backward": 0, "sparse_row_adam": 0}
+    for rank, r in enumerate(runs):
+        h = r["vm_model"]
+        s, e = h["f"], h["eval"]
+        check(s["launches"] == want, f"(vm model f) rank {rank}: launches "
+              f"{s['launches']}, want {want}")
+        n_batches = -(-e["num_examples"] // TRAIN_B)
+        check(e["launches"]["attention_pool"] == n_batches,
+              f"(vm model eval) rank {rank}: kernel 1 launched "
+              f"{e['launches']} for {n_batches} batches")
+        print(f"  (vm model f) rank {rank} at model {MODEL}: gathered "
+              f"contexts one rank's bits; loss {s['loss']:.6f} vs one rank "
+              f"{s['loss_one']:.6f} (rel {s['loss_rel']:.2e}, bound "
+              f"{LOSS_RTOL}); the worst raw gradient {s['worst_grad'][0]} "
+              f"{s['worst_grad'][1]:.3g} of its largest (bound "
+              f"{MODEL_GRAD_RTOL:.3g}); a step {s['step_ms']:.1f} ms; "
+              f"forward + backward peak a rank "
+              f"{s['fwd_bwd_peak_bytes'] / 1e9:.3f} GB against one rank's "
+              f"{s['one_rank_fwd_bwd_peak_bytes'] / 1e9:.3f} GB; the model "
+              f"pair's all-sums {s['traffic']['sum'] / 1e6:.1f} MB a step; "
+              f"launches {s['launches']}", flush=True)
+        print(f"  (vm model eval) rank {rank}: {e['num_examples']} rows "
+              f"(the file's), accuracy {e['accuracy']:.5f}, loss "
+              f"{e['loss']:.5f} = one rank's ({e['one_rank'][1]:.5f}, loss "
+              f"rel {e['loss_rel']:.2e}); {e['ms']:.0f} ms, all-sums "
+              f"{e['traffic']['sum'] / 1e6:.1f} MB; kernel 1 "
+              f"{e['launches']['attention_pool']} launches", flush=True)
+        tb = h["tables"]
+        print(f"  (vm model tables) rank {rank}: get_embedding_table at "
+              f"model {MODEL} from [26]'s checkpoint, "
+              + ", ".join(f"{k} {v['rows']} rows (a window {v['window_rows']}"
+                          f", saved {v['saved_rows']}; {v['gather_s']:.2f} s)"
+                          for k, v in tb.items())
+              + f", bit-identical to the checkpoint's; [27]'s harness "
+              f"{h['seconds']:.1f} s", flush=True)
+    report["vm_model"] = {"ranks": [r["vm_model"] for r in runs],
+                          "exports_rank0": export_r0}
+    h0 = runs[0]["vm_model"]
+    return {"attention_pool": h0["f"]["launches"]["attention_pool"]
+            + h0["eval"]["launches"]["attention_pool"]}
 
 
 # ---- [24]: the supervised training cohort ----
@@ -8205,6 +8708,8 @@ def main(argv=None) -> int:
         lap("[13]")
         cli_launches, kept = phase_cli(torch, np, vocabs, tmp, data_prefix,
                                        test_path, report)
+        chunk_launches = chunked_infeed_check(torch, vocabs, data_prefix,
+                                              report)
         lap("[14]")
 
         # ---- 15. the REPL ----
@@ -8240,9 +8745,14 @@ def main(argv=None) -> int:
 
         # ---- 19. the restart supervisor ----
         print("[19] the restart supervisor (train/kill, a corrupt step, an "
-              "exhausted budget) with the fleet plane", flush=True)
+              "exhausted budget) with the fleet plane; [16]'s train/kill leg "
+              "beside it", flush=True)
+        kill_chain = start_kill_resume(tmp, kept)
         phase_supervised(  # graftlint: disable=nondeterminism
             torch, np, tmp, data_prefix, kept, report)
+        # `kept` holds [14]'s paths, step count and losses, no clock value
+        finish_kill_resume(  # graftlint: disable=nondeterminism
+            torch, kill_chain, kept, report)
         lap("[19]")
 
         # ---- 20. the serving fleet ----
@@ -8274,6 +8784,8 @@ def main(argv=None) -> int:
               "one rank over NCCL", flush=True)
         dp_launches, dp_kept, ctx_runs = phase_data_parallel(
             torch, np, vocabs, tmp, data_prefix, test_path, report)
+        # [27]'s model-2 exports, beside [24]
+        model_exports = start_model_exports(tmp, kept)
         lap("[23]")
 
         # ---- 24. the supervised training cohort ----
@@ -8303,7 +8815,16 @@ def main(argv=None) -> int:
             os.path.join(tmp, "model_ckpt"), dp_kept["n_train"], report)
         lap("[26]")
 
-    # ---- 27. result ----
+        # ---- 27. the VarMisuse head and the exports under the model axis
+        print("[27] the model axis under the VarMisuse head and the writer: "
+              "(f) and the evaluation against one rank, the gathered tables, "
+              "the model-2 exports and release", flush=True)
+        export_r0 = finish_model_exports(  # graftlint: disable=nondeterminism
+            torch, kept, model_exports, report)
+        vm_model_launches = phase_vm_model(torch, ctx_runs, export_r0, report)
+        lap("[27]")
+
+    # ---- 28. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -8317,7 +8838,9 @@ def main(argv=None) -> int:
         + plane_launches["attention_pool"] + phase_launches["attention_pool"] \
         + fleet_launches["attention_pool"] + vm_launches["attention_pool"] \
         + attack_launches["attention_pool"] + dp_launches["attention_pool"] \
-        + ctx_launches["attention_pool"] + model_launches["attention_pool"]
+        + ctx_launches["attention_pool"] + model_launches["attention_pool"] \
+        + chunk_launches["attention_pool"] \
+        + vm_model_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -8400,7 +8923,9 @@ def main(argv=None) -> int:
                           "phases": phase_launches, "fleet": fleet_launches,
                           "vm": vm_launches, "attacks": attack_launches,
                           "data_parallel": dp_launches,
-                          "context": ctx_launches, "model": model_launches}
+                          "context": ctx_launches, "model": model_launches,
+                          "chunked": chunk_launches,
+                          "vm_model": vm_model_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

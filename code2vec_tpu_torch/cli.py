@@ -24,7 +24,9 @@ order, for the ported flags (config.Config.arguments_parser):
    `code2vec.py` calls it): one process a rank, over the backend rule's
    nccl or gloo, each rank training on its host shard (under
    `--mesh_model` each rank holding a window of rows of every table);
-   only rank 0 writes checkpoints (whole tables) and exports;
+   only rank 0 writes checkpoints (whole tables) and exports, which
+   under `--mesh_model` the ranks of its model group join to gather the
+   whole tables (the other ranks skip them);
 1. `--auto_resume` with `--save` and `--data`: a checkpoint already in
    `--save` is loaded (before `--load`, a fine-tune's starting point)
    and its run continued;
@@ -143,8 +145,6 @@ def _run(config: Config) -> int:
 
 def _run_joined(config: Config, rank_device) -> int:
     device = "cpu" if config.BACKEND == "cpu" else rank_device
-    from code2vec_tpu_torch.parallel.compat import cohort_world
-    writer = cohort_world()[0] == 0  # the rank that writes files
     from code2vec_tpu_torch.training.checkpoint import latest_step
     if config.AUTO_RESUME and config.is_saving and config.is_training:
         step = latest_step(config.save_path)
@@ -189,20 +189,24 @@ def _run_joined(config: Config, rank_device) -> int:
         return _error(str(e))
     config.log(f"model loaded: framework=pytorch backend={config.BACKEND} "
                f"device={model.device}")
+    # the ranks of the writer's exports: rank 0 writes the files, and
+    # under a model axis its model peers gather the whole tables with it
+    exporter = model.in_writer_group
     if config.release:
-        if writer:
+        if exporter:
             model.release()
         return 0
     if config.ATTACK:
         return _attack(config, model.predictor())
     if config.is_training:
         model.train()
-    if config.save_w2v and writer:
-        model.save_word2vec_format(config.save_w2v, VocabType.Token)
-        config.log(f"token embeddings (w2v format) -> {config.save_w2v}")
-    if config.save_t2v and writer:
-        model.save_word2vec_format(config.save_t2v, VocabType.Target)
-        config.log(f"target embeddings (w2v format) -> {config.save_t2v}")
+    for path, vocab_type, what in ((config.save_w2v, VocabType.Token,
+                                    "token"),
+                                   (config.save_t2v, VocabType.Target,
+                                    "target")):
+        if path and exporter:
+            model.save_word2vec_format(path, vocab_type)
+            config.log(f"{what} embeddings (w2v format) -> {path}")
     if config.is_predict:
         from code2vec_tpu_torch.serving.interactive_predict import (
             InteractivePredictor)
@@ -210,7 +214,7 @@ def _run_joined(config: Config, rank_device) -> int:
     elif config.is_testing and not config.is_training:
         results = model.evaluate()
         print(str(results))
-        if config.export_code_vectors and writer:
+        if config.export_code_vectors and exporter:
             dest = config.test_data_path + ".vectors"
             model.export_code_vectors_file(config.test_data_path, dest)
             config.log(f"code vectors -> {dest}")

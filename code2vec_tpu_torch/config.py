@@ -4,10 +4,10 @@ The fields under the names and defaults of `Config` in the JAX package's
 config.py, so a setting means the same in both, and the JAX package's
 flag spelling for each (`arguments_parser`, `load_from_args`): a JAX
 command line of the ported flags runs unchanged through
-`python3 -m code2vec_tpu_torch` (cli.py). A JAX flag the port does not
-have yet (`--infeed_chunk 2`, ...) is an error that names it, never
-ignored. The adversarial attack flags (`--attack*`) and
-the rename defense's (`--adv_rename_prob`, `--adv_rename_mode`) are the
+`python3 -m code2vec_tpu_torch` (cli.py). Every flag of the JAX parser
+is ported; a flag neither parser knows is an error that names it, never
+ignored. The adversarial attack flags (`--attack*`) and the rename
+defense's (`--adv_rename_prob`, `--adv_rename_mode`) are the
 JAX package's, verified by its rules with its messages. The seven serving
 fleet flags (`--serve_port`, `--serve_replicas`, ...) are parsed and
 verified as the JAX package's are; as there, the command line opens no
@@ -34,12 +34,15 @@ row-shards the vocab tables, parallel/sharding.py), and
 `--ring_attention` runs the transformer's attention as a ring over the
 context axis (ops/ring_attention.py), with the JAX package's rules (int8
 tables refuse a context or model axis, the VarMisuse head a context
-axis) and the port's: `--mesh_context` must divide MAX_CONTEXTS; the
-VarMisuse head and the writing rank's exports of the tables and vectors
-(`--save_w2v`, `--save_t2v`, `--export_code_vectors`, `--release`)
-refuse `--mesh_model` above 1, naming ROADMAP.md Queue 1 item 5c;
-serving, `--predict`, the REPL and `--attack` run in one process, and
-refuse a world above 1 (item 4).
+axis) and the port's: `--mesh_context` must divide MAX_CONTEXTS. Under
+`--mesh_model` the VarMisuse head trains on row-sharded tables, and the
+writing rank's exports (`--save_w2v`, `--save_t2v`,
+`--export_code_vectors`, `--release`) read whole tables gathered over its
+model group (cli.py); serving, `--predict`, the REPL and `--attack` run
+in one process, and refuse a world above 1 (ROADMAP.md Queue 1 item 4).
+`--infeed_chunk G` groups G batches into one host-to-device copy a field
+(data/prefetch.ChunkedDevicePrefetcher), with the JAX package's rules:
+G >= 1, and G > 1 needs `--infeed_prefetch` >= 1.
 """
 
 from __future__ import annotations
@@ -158,6 +161,10 @@ class Config:
     # batches the infeed thread prepares ahead of the step
     # (data/prefetch.py); 0 copies each batch in the loop
     INFEED_PREFETCH: int = 2
+    # --infeed_chunk: host batches grouped into one host-to-device copy
+    # a field (data/prefetch.ChunkedDevicePrefetcher); 1 = per batch.
+    # One process without a mesh only (a mesh falls back, logged)
+    INFEED_CHUNK: int = 1
     # the card's streaming ceiling in GB/s (ops/membench.py: a read +
     # write copy over 1 GiB of float32), measured by chip_smoke.py [18]
     # on an NVIDIA H100 80GB HBM3 at 700.00 W (nvidia-smi's name and
@@ -409,21 +416,6 @@ class Config:
             raise ValueError(
                 "--head varmisuse supports the bag encoder only "
                 "(no --encoder transformer / --mesh_context > 1).")
-        if self.MESH_MODEL_AXIS > 1 and self.HEAD == "varmisuse":
-            raise ValueError(
-                f"--head varmisuse with --mesh_model {self.MESH_MODEL_AXIS}"
-                ": the VarMisuse head over row-sharded tables is not "
-                "ported to code2vec_tpu_torch yet (ROADMAP.md Queue 1 "
-                "item 5c)")
-        if self.MESH_MODEL_AXIS > 1 and (self.release or self.save_w2v
-                                         or self.save_t2v
-                                         or self.export_code_vectors):
-            raise ValueError(
-                f"--save_w2v/--save_t2v/--export_code_vectors/--release "
-                f"with --mesh_model {self.MESH_MODEL_AXIS}: the writing "
-                "rank runs them alone over whole tables, and a rank holds "
-                "a window of rows (ROADMAP.md Queue 1 item 5c); --load "
-                "the checkpoint, whose tables are whole, in one process")
         if self.MESH_CONTEXT_AXIS > 1 and (
                 self.MAX_CONTEXTS % self.MESH_CONTEXT_AXIS):
             raise ValueError(
@@ -435,9 +427,8 @@ class Config:
                                                    or self.ATTACK):
             raise ValueError(
                 "--predict and --attack run in one process in "
-                "code2vec_tpu_torch (a world above 1 for them is an open "
-                "part of ROADMAP.md Queue 1 item 4: serving, --predict, "
-                "the REPL and --attack above one rank)")
+                "code2vec_tpu_torch (ROADMAP.md Queue 1 item 4: serving, "
+                "--predict, the REPL and --attack above one rank)")
         if self.LR_WARMUP_STEPS < 0:
             raise ValueError("LR_WARMUP_STEPS must be >= 0.")
         if self.LR_WARMUP_STEPS > 0 and self.LR_SCHEDULE != "warmup_cosine":
@@ -565,6 +556,7 @@ class Config:
             raise ValueError("--profile_steps must be >= 1.")
         if self.INFEED_PREFETCH < 0:
             raise ValueError("--infeed_prefetch must be >= 0.")
+        check_infeed_chunk(self.INFEED_CHUNK, self.INFEED_PREFETCH)
         if self.SAVE_EVERY_EPOCHS < 1:
             raise ValueError("SAVE_EVERY_EPOCHS must be >= 1.")
         if self.MAX_TO_KEEP < 1:
@@ -596,7 +588,7 @@ class Config:
     @classmethod
     def arguments_parser(cls) -> argparse.ArgumentParser:
         """The JAX package's flags (names and `dest`s) of the ported
-        fields. `--infeed_chunk` takes only the value the port has (1)."""
+        fields."""
         p = argparse.ArgumentParser(
             prog="python3 -m code2vec_tpu_torch",
             description="code2vec on PyTorch", allow_abbrev=False)
@@ -641,7 +633,9 @@ class Config:
                        help="batches the infeed prepares ahead of the "
                             "step (0 = synchronous)")
         p.add_argument("--infeed_chunk", dest="infeed_chunk", type=int,
-                       default=None, help="1 only (not ported)")
+                       default=None,
+                       help="host batches a host-to-device copy (1 = "
+                            "per batch; > 1 needs --infeed_prefetch >= 1)")
         p.add_argument("--async_checkpoint", dest="async_checkpoint",
                        default=None, choices=["on", "off"])
         p.add_argument("--sampled_softmax", dest="sampled_softmax",
@@ -870,8 +864,6 @@ class Config:
             raise ValueError(
                 "not ported to code2vec_tpu_torch yet: "
                 + " ".join(flags or unknown))
-        if ns.infeed_chunk is not None:
-            check_infeed_chunk(ns.infeed_chunk)
         cfg = cls()
         cfg.train_data_path = ns.data_path
         cfg.test_data_path = ns.test_path
@@ -892,6 +884,7 @@ class Config:
                 ("warmup_steps", "LR_WARMUP_STEPS"),
                 ("trust_ratio_scope", "TRUST_RATIO_SCOPE"),
                 ("infeed_prefetch", "INFEED_PREFETCH"),
+                ("infeed_chunk", "INFEED_CHUNK"),
                 ("num_sampled", "NUM_SAMPLED_CLASSES"),
                 ("encoder", "ENCODER_TYPE"), ("xf_layers", "XF_LAYERS"),
                 ("xf_heads", "XF_HEADS"), ("head", "HEAD"),
@@ -967,9 +960,14 @@ class Config:
 _FRAMEWORKS = ("pytorch", "jax", "tensorflow", "keras")
 
 
-def check_infeed_chunk(chunk: int) -> None:
-    """ValueError unless `--infeed_chunk` is 1, the one value the port
-    has (the chunked infeed is not ported)."""
-    if chunk != 1:
-        raise ValueError(f"--infeed_chunk {chunk}: the chunked infeed is "
-                         "not ported to code2vec_tpu_torch yet (only 1)")
+def check_infeed_chunk(chunk: int, prefetch: int) -> None:
+    """The JAX package's rules of `--infeed_chunk` (its `Config.verify`,
+    in its words): ValueError unless chunk >= 1, and a chunk above 1 with
+    `--infeed_prefetch 0` (the chunked infeed always runs the producer
+    thread, which would confound the synchronous control)."""
+    if chunk < 1:
+        raise ValueError("--infeed_chunk must be >= 1.")
+    if chunk > 1 and prefetch == 0:
+        raise ValueError(
+            "--infeed_chunk > 1 requires --infeed_prefetch >= 1 "
+            "(chunked infeed always uses the producer thread).")

@@ -7,17 +7,26 @@ host-to-device copy) while the card runs the current step;
 `persistent_epochs` keeps that one thread running across epoch
 boundaries, so the next epoch's first batches are ready while the
 boundary's save and evaluation run. `--infeed_prefetch 0` is the
-synchronous control (`_SyncInfeed`). The chunked infeed
-(`--infeed_chunk > 1`) is not ported.
+synchronous control (`_SyncInfeed`). `--infeed_chunk G` (G > 1) is
+`ChunkedDevicePrefetcher`: the producer groups G host batches, makes one
+host-to-device copy a field of the chunk's stacked arrays, and the
+consumer takes the chunk's batches one by one as views of the stacked
+tensors (the last chunk of a pass may be partial). The JAX package's
+docstring says what it is for: a link where each copy pays a long fixed
+latency; on local PCIe the depth infeed is the tool. It runs in one
+process without a mesh: under any mesh `build_train_infeed` falls back
+to the depth infeed and logs the JAX package's line.
 
 `build_train_infeed` is the train loop's infeed: it adds the
 `infeed/produce` failpoint (resilience/faults.py; an injected raise on
 the producer thread surfaces in the consumer at its position, the path
 a real read or copy failure takes), the `instrument` hook (the trace's
-`infeed/produce` span a batch, obs/loop.py) and the producer's watchdog
-heartbeat, which beats on every queue-put attempt (a put blocked on a
-full queue beats too: then the consumer is the slow one) and goes idle
-when the producer is done. None of them synchronises with the card.
+`infeed/produce` span a batch, obs/loop.py), both around the per-batch
+host function on the chunked path, so each still fires once a batch, and
+the producer's watchdog heartbeat, which beats on every queue-put
+attempt (a put blocked on a full queue beats too: then the consumer is
+the slow one) and goes idle when the producer is done. None of them
+synchronises with the card.
 
 On the card the put function is `PinnedRingPut`: each field of a batch
 is written into one of `depth + 1` page-locked host buffers, copied with
@@ -29,7 +38,11 @@ the slot again (the copy out of it has finished). The consumer
 current stream wait on the batch's event and marks the device tensors
 as used on that stream (`record_stream`), so the caching allocator does
 not hand their memory to the side stream while a step may still read
-them.
+them. The chunked infeed's `PinnedChunkPut` is the same ring with a
+chunk a slot: each field of the chunk is stacked straight into the
+slot's page-locked buffer, copied once, and the consumer waits on the
+chunk's event and marks the stacked tensor once, before the first of
+its batches (every batch is a view of it).
 """
 
 from __future__ import annotations
@@ -138,18 +151,69 @@ class DevicePrefetcher:
                 return False
         return True
 
-    def _emit(self, item) -> Tuple:
+    def _emit(self, item) -> Iterator[Tuple]:
+        """The consumer's (device batch, host batch) pairs of one queue
+        item."""
         dev, host = item
-        return (dev if self._ready_fn is None else self._ready_fn(dev)), host
+        yield (dev if self._ready_fn is None else self._ready_fn(dev)), host
 
     def __iter__(self) -> Iterator[Tuple]:
         producer = _Producer(self._produce, self._depth,
                              heartbeat=self._heartbeat)
         try:
             while (item := producer.get()) is not None:
-                yield self._emit(item)
+                yield from self._emit(item)
         finally:
             producer.close()
+
+
+def _host_tensors(fields) -> Tuple[torch.Tensor, ...]:
+    """Stacked numpy fields as tensors over the same memory (the CPU's
+    "copy")."""
+    return tuple(torch.from_numpy(f) for f in fields)
+
+
+class ChunkedDevicePrefetcher(DevicePrefetcher):
+    """The counterpart of the JAX package's `ChunkedDevicePrefetcher`:
+    `chunk` host batches grouped on the producer thread and moved as ONE
+    stacked tensor a field, then yielded one batch at a time as
+    `(views of the stacked tensors, host batch)`; the last chunk of a
+    pass may be partial. `to_arrays(batch)` gives a host batch's fields
+    (numpy); `transfer(rows)` takes the chunk's list of field tuples and
+    returns what the queue carries: by default the fields stacked with
+    numpy as CPU tensors; on the card `PinnedChunkPut`, with its `ready`
+    as `ready_fn`, run once a chunk on the consumer's thread before the
+    chunk's first batch. Always threaded (`depth` >= 1 chunks ahead)."""
+
+    def __init__(self, batches: Iterable, to_arrays: Callable, chunk: int,
+                 depth: int = 2, transfer: Optional[Callable] = None,
+                 ready_fn: Optional[Callable] = None, heartbeat=None):
+        if chunk < 1:
+            raise ValueError(f"infeed chunk {chunk} < 1")
+        super().__init__(batches, to_arrays, depth, ready_fn, heartbeat)
+        self._chunk = chunk
+        self._transfer = transfer or (lambda rows: _host_tensors(
+            np.stack([r[f] for r in rows]) for f in range(len(rows[0]))))
+
+    def _produce(self, put: Callable) -> bool:
+        hosts, rows = [], []
+        for b in self._batches:
+            hosts.append(b)
+            rows.append(self._put_fn(b))
+            if len(rows) == self._chunk:
+                if not put((self._transfer(rows), hosts)):
+                    return False
+                hosts, rows = [], []
+        if rows:  # the partial tail chunk
+            return put((self._transfer(rows), hosts))
+        return True
+
+    def _emit(self, item) -> Iterator[Tuple]:
+        stacked, hosts = item
+        if self._ready_fn is not None:
+            stacked = self._ready_fn(stacked)
+        for i, host in enumerate(hosts):
+            yield tuple(a[i] for a in stacked), host
 
 
 class _SyncInfeed:
@@ -178,23 +242,40 @@ def prefetch_to_device(batches: Iterable, put_fn: Callable, depth: int = 2,
 def build_train_infeed(batches: Iterable, put_fn: Callable, depth: int,
                        ready_fn: Optional[Callable] = None,
                        instrument: Optional[Callable] = None,
-                       heartbeat=None) -> Iterable[Tuple]:
-    """The train loop's infeed: `prefetch_to_device` with the
-    `infeed/produce` failpoint around `put_fn` (only when armed: one
-    hit a batch), `instrument(put_fn)` (the trace hook, run on the
-    producer thread once a batch) and the producer's `heartbeat`. All
-    three default to off and then cost nothing."""
+                       heartbeat=None, *, chunk: int = 1, mesh=None,
+                       host_arrays_fn: Optional[Callable] = None,
+                       chunk_put=None,
+                       log: Optional[Callable] = None) -> Iterable[Tuple]:
+    """The train loop's infeed: `ChunkedDevicePrefetcher` over
+    `host_arrays_fn` when `chunk` > 1 and there is no `mesh` (its copy
+    `chunk_put`, a `PinnedChunkPut` on the card, None on the CPU), else
+    `prefetch_to_device` over `put_fn` (a chunk under a mesh is logged
+    and ignored, as the JAX package does). The `infeed/produce`
+    failpoint (only when armed) and `instrument(fn)` (the trace hook)
+    wrap the per-batch function the chosen infeed calls on its producer
+    thread, so each acts once a batch; `heartbeat` is the producer's.
+    The three default to off and then cost nothing."""
+    use_chunked = chunk > 1 and mesh is None
+    fn = host_arrays_fn if use_chunked else put_fn
     from code2vec_tpu_torch.resilience import faults
     fp = faults.point("infeed/produce")
     if fp.armed:
-        inner = put_fn
+        inner = fn
 
-        def put_fn(b):
+        def fn(b):
             fp.fire()
             return inner(b)
     if instrument is not None:
-        put_fn = instrument(put_fn)
-    return prefetch_to_device(batches, put_fn, depth, ready_fn, heartbeat)
+        fn = instrument(fn)
+    if use_chunked:
+        return ChunkedDevicePrefetcher(
+            batches, fn, chunk, depth=max(1, depth), transfer=chunk_put,
+            ready_fn=chunk_put.ready if chunk_put is not None else None,
+            heartbeat=heartbeat)
+    if chunk > 1 and log is not None:
+        log("--infeed_chunk ignored: chunked infeed is single-device "
+            "only (mesh active); using depth prefetch")
+    return prefetch_to_device(batches, fn, depth, ready_fn, heartbeat)
 
 
 def persistent_epochs(infeed, num_epochs: int, first_epoch: int = 1
@@ -227,7 +308,7 @@ def persistent_epochs(infeed, num_epochs: int, first_epoch: int = 1
     def epoch_iter() -> Iterator[Tuple]:
         while (item := producer.get()) is not None \
                 and item[0] is not _EPOCH_END:
-            yield infeed._emit(item)
+            yield from infeed._emit(item)
 
     try:
         for epoch in epochs:
@@ -245,7 +326,7 @@ class PinnedRingPut:
     device tensors through a ring of `slots` page-locked buffers per
     field and asynchronous copies on a side stream (see the module
     docstring). Called on the producer thread; `ready` on the
-    consumer's."""
+    consumer's. `copies` counts the host-to-device copies it made."""
 
     def __init__(self, device: torch.device, slots: int):
         self.device = device
@@ -253,36 +334,47 @@ class PinnedRingPut:
         self._slots: List[Optional[Tuple[List[torch.Tensor],
                                          torch.cuda.Event]]] = [None] * slots
         self._next = 0
+        self.copies = 0
 
-    def _buffers(self, slot: int, arrays) -> List[torch.Tensor]:
+    def _buffers(self, slot: int, specs) -> List[torch.Tensor]:
+        """The slot's pinned buffers for `specs` [(shape, torch dtype)],
+        once the copies out of them have finished."""
         held = self._slots[slot]
         if held is not None:
-            # the copies out of this slot's buffers have finished
             held[1].synchronize()
             bufs = held[0]
-            if all(b.shape == a.shape and b.dtype == _dtype(a)
-                   for b, a in zip(bufs, arrays)):
+            if [(tuple(b.shape), b.dtype) for b in bufs] == specs:
                 return bufs
-        return [torch.empty(a.shape, dtype=_dtype(a), pin_memory=True)
-                for a in arrays]
+        return [torch.empty(shape, dtype=dtype, pin_memory=True)
+                for shape, dtype in specs]
 
-    def __call__(self, arrays) -> Tuple[Tuple[torch.Tensor, ...],
-                                        torch.cuda.Event]:
+    def _copy(self, specs, fill: Callable
+              ) -> Tuple[Tuple[torch.Tensor, ...], torch.cuda.Event]:
+        """The next slot's buffers filled by `fill(i, host numpy view)`
+        and copied to the card on the side stream behind one event."""
         slot = self._next
         self._next = (slot + 1) % len(self._slots)
-        bufs = self._buffers(slot, arrays)
+        bufs = self._buffers(slot, specs)
         out = []
         with torch.cuda.stream(self.stream):
-            for buf, a in zip(bufs, arrays):
-                buf.numpy()[...] = a
+            for i, buf in enumerate(bufs):
+                fill(i, buf.numpy())
                 d = torch.empty(buf.shape, dtype=buf.dtype,
                                 device=self.device)
                 d.copy_(buf, non_blocking=True)
                 out.append(d)
+            self.copies += len(bufs)
             event = torch.cuda.Event()
             event.record(self.stream)
         self._slots[slot] = (bufs, event)
         return tuple(out), event
+
+    def __call__(self, arrays) -> Tuple[Tuple[torch.Tensor, ...],
+                                        torch.cuda.Event]:
+        def fill(i, buf):
+            buf[...] = arrays[i]
+        return self._copy([(tuple(a.shape), _dtype(a)) for a in arrays],
+                          fill)
 
     def ready(self, item) -> Tuple[torch.Tensor, ...]:
         tensors, event = item
@@ -292,3 +384,18 @@ class PinnedRingPut:
             t.record_stream(stream)
         return tensors
 
+
+class PinnedChunkPut(PinnedRingPut):
+    """The chunked infeed's copy on the card (`ChunkedDevicePrefetcher`'s
+    `transfer`): a chunk's field tuples stacked straight into a slot's
+    page-locked buffer a field ([G, ...]; a partial chunk has its own
+    buffers), one copy a field, one event a chunk; `ready` makes the
+    consumer's stream wait on it and marks the stacked tensors used
+    there, so the views yielded from them are safe."""
+
+    def __call__(self, rows) -> Tuple[Tuple[torch.Tensor, ...],
+                                      torch.cuda.Event]:
+        def fill(i, buf):
+            np.stack([r[i] for r in rows], out=buf)
+        return self._copy([((len(rows),) + tuple(a.shape), _dtype(a))
+                           for a in rows[0]], fill)

@@ -91,6 +91,9 @@ class Code2VecModelBase:
     table (`get_embedding_table` gives it as float32 [V, dim])."""
 
     vocabs: Code2VecVocabs
+    # the process that writes the export (under a model axis the writer's
+    # model peers gather the table with it, and write nothing)
+    is_writer = True
 
     def get_embedding_table(self, vocab_type: VocabType) -> np.ndarray:
         raise NotImplementedError
@@ -99,6 +102,8 @@ class Code2VecModelBase:
                              vocab_type: VocabType) -> None:
         vocab = self.vocabs.get(vocab_type)
         table = self.get_embedding_table(vocab_type)
+        if not self.is_writer:
+            return
         n, dim = vocab.size, table.shape[1]
         with open(dest_path, "w", encoding="utf-8") as f:
             f.write(f"{n} {dim}\n")

@@ -30,8 +30,10 @@ every SAVE_EVERY_EPOCHS epoch boundary an async checkpoint save
 vocabularies from the `.dict.c2v` histograms, or with `--load` dims,
 vocabularies, params, optimizer state and step from a checkpoint.
 `release`, `save_word2vec_format` and `export_code_vectors_file` are the
-command line's exports; `predictor()` is the predict-side model over the
-trainer's params, which `--predict` serves.
+command line's exports: under a model axis every rank of the writer's
+model group gathers the whole tables (`whole_params`) and the writer
+alone writes. `predictor()` is the predict-side model over the trainer's
+params, which `--predict` serves.
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from code2vec_tpu_torch.common import (EvaluationResults,
                                        MethodPredictionResults,
                                        SpecialVocabWords)
 from code2vec_tpu_torch.config import Config
-from code2vec_tpu_torch.data.prefetch import (PinnedRingPut,
+from code2vec_tpu_torch.data.prefetch import (PinnedChunkPut, PinnedRingPut,
                                               build_train_infeed,
                                               persistent_epochs,
                                               prefetch_to_device)
@@ -410,6 +412,12 @@ def adopt_manifest(cfg: Config, manifest: Dict[str, Any],
         cfg.LR_SCHEDULE, cfg.LR_WARMUP_STEPS, manifest, cfg.log)
 
 
+def table_rows(dims: ModelDims, keys: Iterable[str]) -> Dict[str, int]:
+    """{table: its rows at `dims`' padding} for the table keys `keys`."""
+    return {k: dims.padded(getattr(dims, k.replace("_emb", "")
+                                   + "_vocab_size")) for k in keys}
+
+
 def repad_rows(state, rows: Dict[str, int]):
     """A whole state tree (params and optimizer state) with each table
     and each slot that leads with its vocab dim padded with zero rows to
@@ -582,10 +590,8 @@ class TrainerBase:
         trainer = cls(config, vocabs, device=device, dims=dims)
         state = ckpt.load_checkpoint(config.load_path, log=config.log)
         if repad:
-            state = repad_rows(state, {
-                k: dims.padded(getattr(dims, k.replace("_emb", "")
-                                       + "_vocab_size"))
-                for k in table_shapes(state["params"])})
+            state = repad_rows(state, table_rows(
+                dims, table_shapes(state["params"])))
         # the whole tables and slots -> this rank's windows
         state = shard_state(state, trainer.mesh,
                             table_shapes(state["params"]))
@@ -672,6 +678,21 @@ class TrainerBase:
                                            self.whole_table_shapes()),
                 "step": self.step_num}
 
+    def whole_params(self) -> Params:
+        """The params with whole tables: the live params, or under a
+        model axis the tables gathered over the model group (collective:
+        every rank of the group calls it)."""
+        return unshard_params(self.params, self.mesh)
+
+    @property
+    def in_writer_group(self) -> bool:
+        """True on the ranks that take part in the writer's exports: the
+        writer, and under a model axis its model peers (the ranks of its
+        model group, which gather the whole tables with it)."""
+        if not row_sharded(self.mesh):
+            return self.is_writer
+        return self.mesh.rank - self.mesh.model_index == 0
+
     def _build_dense_optimizer(self, total_steps: int) -> None:
         cfg = self.config
         self.optimizer = make_optimizer(
@@ -720,6 +741,15 @@ class TrainerBase:
             arrays = (lambda b: b.host_arrays()) if whole else self.host_arrays
             return (lambda b: ring(arrays(b))), ring.ready
         return (lambda b: self.device_batch(b, whole)), None
+
+    def _chunk_put(self):
+        """The chunked infeed's copy of a chunk's stacked fields: a
+        pinned ring of chunk slots on the card (data/prefetch.
+        PinnedChunkPut), else None (tensors over the stacked arrays)."""
+        cfg = self.config
+        if self.device.type != "cuda" or cfg.INFEED_CHUNK <= 1:
+            return None
+        return PinnedChunkPut(self.device, max(1, cfg.INFEED_PREFETCH) + 1)
 
     def train_step(self, batch, draws: Optional[StepDraws] = None
                    ) -> torch.Tensor:
@@ -848,7 +878,10 @@ class TrainerBase:
         infeed = build_train_infeed(
             reader, put, cfg.INFEED_PREFETCH, ready,
             instrument=infeed_produce_instrument(tracer, infeed_channel),
-            heartbeat=infeed_hb if watchdog.enabled else None)
+            heartbeat=infeed_hb if watchdog.enabled else None,
+            chunk=cfg.INFEED_CHUNK, mesh=self.mesh,
+            host_arrays_fn=self.host_arrays, chunk_put=self._chunk_put(),
+            log=cfg.log)
         if telemetry.enabled:
             retry.set_telemetry(telemetry)
         # disarmed (no --faults), each is one attribute read a step
@@ -1130,7 +1163,7 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
         if row_sharded(self.mesh):
             raise ValueError("the predict-side model needs whole tables: "
                              "--load the checkpoint in one process "
-                             "(ROADMAP.md Queue 1 item 5c)")
+                             "(ROADMAP.md Queue 1 item 4)")
         return Code2VecModel(self.config, self.dims, self.vocabs,
                              self.params, device=self.device)
 
@@ -1266,22 +1299,36 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
 
     def release(self) -> None:
         """`--release`: the loaded checkpoint's params, without optimizer
-        state, to `save_path` (default `<load_path>.release`)."""
+        state, to `save_path` (default `<load_path>.release`), in the
+        checkpoint's own layout (its tables' rows as its manifest pads
+        them). Under a model axis every rank of the writer's model group
+        calls it (the tables are gathered whole) and the writer writes."""
         cfg = self.config
         if not cfg.load_path:
             raise ValueError("--release requires --load")
         if self._ckpt_writer is not None:
             self._ckpt_writer.wait()
+        params = self.whole_params()
+        if not self.is_writer:
+            return
+        # the rows a model axis's padding added on load are zeros: cut
+        rows = table_rows(ckpt.load_dims(cfg.load_path), table_shapes(params))
+        params = {k: v[:rows[k]] if k in rows else v
+                  for k, v in params.items()}
         dest = cfg.save_path or (cfg.load_path.rstrip("/") + ".release")
-        ckpt.release_checkpoint(cfg.load_path, dest, self.params)
+        ckpt.release_checkpoint(cfg.load_path, dest, params)
         cfg.log(f"released inference checkpoint -> {dest}")
 
     def get_embedding_table(self, vocab_type: VocabType) -> np.ndarray:
         """A vocab table as float32 [vocab size, dim] on the host (an int8
-        table dequantized)."""
+        table dequantized), without the rows that pad it to the model
+        axis. Under a model axis the table is gathered whole over the
+        model group (collective: every rank of the group calls it)."""
         key = {VocabType.Token: "token_emb", VocabType.Path: "path_emb",
                VocabType.Target: "target_emb"}[vocab_type]
         table = self.params[key]
+        if row_sharded(self.mesh):
+            table = unshard_params({key: table}, self.mesh)[key]
         if is_quantized(table):
             table = dequantize_table(table)
         table = table.to(torch.float32).cpu().numpy()
@@ -1290,9 +1337,14 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
     def export_code_vectors_file(self, test_path: str,
                                  dest_path: str) -> None:
         """`--export_code_vectors`: one code vector a test example, in the
-        file's order, each value as %.6f. The writing rank runs it alone,
-        so under a ctx axis it encodes every context without the mesh."""
+        file's order, each value as %.6f. The writer encodes alone over
+        whole params, every context without the mesh's collectives; under
+        a model axis its model peers call it too, to gather the tables
+        onto it once (`whole_params`), and return."""
         cfg = self.config
+        params = self.whole_params()
+        if not self.is_writer:
+            return
         reader = open_reader(test_path, self.vocabs, cfg.MAX_CONTEXTS,
                              cfg.TEST_BATCH_SIZE, shuffle=False,
                              keep_strings=True)
@@ -1301,7 +1353,7 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
             for dev_batch, b in prefetch_to_device(
                     reader, put, cfg.INFEED_PREFETCH, ready):
                 with torch.inference_mode():
-                    code = encode_step(self.params, dev_batch,
+                    code = encode_step(params, dev_batch,
                                        dims=self.dims,
                                        compute_dtype=self.compute_dtype,
                                        use_kernel=self.use_kernel)

@@ -19,6 +19,15 @@ the CPU. The candidate rows go through `take_rows` (ops/scatter.py's
 fixed-order backward), so their gradient lands in `token_emb`'s dense
 gradient beside the source and target rows'. Dropout takes the step's
 keep mask (training/draws.StepDraws), as the code2vec head's does.
+
+Under a `mesh` whose model axis is above 1 each rank holds a window of
+rows of the tables (parallel/sharding.py): `encode` gathers the contexts
+from the windows, and the candidate rows go through `take_rows(...,
+mesh)` (`sharding.take_window`: each rank's window rows summed over the
+model group, with an identity backward), so every model peer scores the
+same candidates and the gradient of a candidate row lands in the window
+that owns it. `vm_pointer` replicates like `transform`: its gradient is
+summed over the shard-replica group only (training/steps.py).
 """
 
 from __future__ import annotations
@@ -53,17 +62,18 @@ def vm_scores(params: Params, source_ids: torch.Tensor,
               cand_mask: torch.Tensor, *, compute_dtype=torch.float32,
               use_kernel: bool = True, train: bool = False,
               keep: Optional[torch.Tensor] = None,
-              dropout_keep_rate: float = 1.0
+              dropout_keep_rate: float = 1.0, mesh=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Candidate scores -> (scores [B, K] float32, -1e9 on padded
     candidates; attention [B, C] float32). `train=True` is the
     differentiable forward (the training pool, dropout with `keep` when
-    `dropout_keep_rate` < 1)."""
+    `dropout_keep_rate` < 1). Under a row-sharded `mesh` the tables are
+    the rank's windows (the module docstring)."""
     code, attn = encode(params, source_ids, path_ids, target_ids, mask,
                         compute_dtype=compute_dtype, use_kernel=use_kernel,
                         train=train, keep=keep,
-                        dropout_keep_rate=dropout_keep_rate)
-    cand = take_rows(params, "token_emb", cand_ids)          # [B, K, E]
+                        dropout_keep_rate=dropout_keep_rate, mesh=mesh)
+    cand = take_rows(params, "token_emb", cand_ids, mesh)    # [B, K, E]
     q = code.to(torch.float32) @ params["vm_pointer"]        # [B, E]
     scores = torch.einsum("be,bke->bk", q, cand.to(torch.float32))
     scores = torch.where(cand_mask > 0, scores,
@@ -82,10 +92,11 @@ def candidate_ce(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def vm_loss(params: Params, batch, *, keep: Optional[torch.Tensor] = None,
             dropout_keep_rate: float = 1.0, compute_dtype=torch.float32,
             use_kernel: bool = True,
-            denom: Optional[torch.Tensor] = None) -> torch.Tensor:
+            denom: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Weighted-mean cross entropy over the candidates, differentiable:
     sum(ce * w) / max(sum(w), 1), or over `denom` (a data-parallel
-    step's global one). `batch` = (labels [B], src, pth, dst [B, C],
+    step's global one), the tables the rank's windows under a
+    row-sharded `mesh`. `batch` = (labels [B], src, pth, dst [B, C],
     mask [B, C], cand_ids [B, K], cand_mask [B, K], weights [B]).
     Dropout applies when `keep` is given and the rate is below 1, as the
     JAX loss applies it when given a key."""
@@ -94,5 +105,5 @@ def vm_loss(params: Params, batch, *, keep: Optional[torch.Tensor] = None,
                           compute_dtype=compute_dtype, use_kernel=use_kernel,
                           train=True, keep=keep,
                           dropout_keep_rate=dropout_keep_rate
-                          if keep is not None else 1.0)
+                          if keep is not None else 1.0, mesh=mesh)
     return weighted_mean(candidate_ce(scores, labels), weights, denom)

@@ -11,6 +11,10 @@ profiler window and `--phase_profile` (over training/phase_probes.
 make_vm_probes, with no analytic bytes: the vm head's id counts are not
 the traffic model's, so the roofline gauges stay absent rather than
 wrong), and async checkpoints whose manifest carries the head's keys.
+Under a mesh each rank trains the dense step on its batch shard; under a
+model axis it holds a window of rows of every table (the saves gather
+whole tables, so a checkpoint loads in one process or on another model
+axis), and the evaluation counts one rank of each model group.
 
 The steps are training/vm_steps.py's: the dense step (Adafactor on the
 tables, Adam on the rest, `vm_pointer` included) or, with
@@ -65,7 +69,7 @@ def vm_data_path(config: Config, split: str) -> str:
 
 class VarMisuseModel(TrainerBase):
     """Trains, evaluates and checkpoints the VarMisuse head on one device,
-    or on each rank of a data-parallel mesh with the dense step
+    or on each rank of a mesh (data and model axes) with the dense step
     (TrainerBase's loop). `device=None` runs on the CUDA card and raises
     when there is none; tests pass `device="cpu"`."""
 
@@ -113,9 +117,11 @@ class VarMisuseModel(TrainerBase):
             return PhaseProfiler.disabled()
 
         def probes():
-            return make_vm_probes(self.dims,
-                                  compute_dtype=self.compute_dtype,
-                                  use_kernel=self.use_kernel)
+            return make_vm_probes(
+                self.dims, compute_dtype=self.compute_dtype,
+                use_kernel=self.use_kernel,
+                optimizer=None if cfg.SPARSE_EMBEDDING_UPDATES
+                else self.optimizer, mesh=self.mesh)
 
         def fused_step(_params, _opt_state, batch, draws):
             return self.train_step(batch, draws)  # in place, step_num + 1
@@ -128,8 +134,10 @@ class VarMisuseModel(TrainerBase):
         """The weighted mean loss and pointer accuracy over a `.vm.c2v`
         file (default `test_data_path`), in TEST_BATCH_SIZE batches (no
         dropout); rows whose label was cut count nowhere. Under a mesh
-        each rank reads its host shard and the sums are merged over the
-        ranks."""
+        each batch shard reads its host shard (the ranks of a model group
+        together, each scoring from its windows) and the sums are merged
+        over the ranks, one rank of each model group counted: every rank
+        returns the whole file's results."""
         cfg = self.config
         path = test_path or cfg.test_data_path
         if not path:
@@ -145,13 +153,17 @@ class VarMisuseModel(TrainerBase):
             with torch.inference_mode():
                 ls, cs, _pred = vm_eval_step(
                     self.params, dev_batch, compute_dtype=self.compute_dtype,
-                    use_kernel=self.use_kernel)
+                    use_kernel=self.use_kernel, mesh=self.mesh)
             loss_sum += ls.item()
             correct += cs.item()
             total += b.num_valid_examples
         if self.mesh is not None:
+            # one rank of each model group counts its batch shard: its
+            # peers hold the same rows
+            counted = float(self.mesh.model_index == 0)
             loss_sum, correct, total = allreduce_sum_hosts(
-                [loss_sum, correct, total]).tolist()
+                [loss_sum * counted, correct * counted,
+                 total * counted]).tolist()
         total = max(total, 1.0)
         return VMEvalResults(loss_sum / total, correct / total, int(total))
 
@@ -167,7 +179,8 @@ class VarMisuseModel(TrainerBase):
 
     def predict_batch(self, rows: Iterable[str]) -> np.ndarray:
         """Pointer predictions (candidate indices, int64 [N]) for
-        `.vm.c2v` rows, in one device batch."""
+        `.vm.c2v` rows, in one device batch. Under a model axis every rank
+        of the model group calls it with the same rows (collective)."""
         cfg = self.config
         (labels, src, pth, dst, mask, cand, cand_mask, row_valid,
          _strings) = parse_vm_rows(list(rows), self.vocabs,
@@ -178,7 +191,8 @@ class VarMisuseModel(TrainerBase):
         with torch.inference_mode():
             _ls, _cs, pred = vm_eval_step(self.params, batch,
                                           compute_dtype=self.compute_dtype,
-                                          use_kernel=self.use_kernel)
+                                          use_kernel=self.use_kernel,
+                                          mesh=self.mesh)
         return pred.cpu().numpy()
 
     def _manifest_extra(self) -> Dict[str, Any]:

@@ -24,12 +24,17 @@ for the alert engine (obs/alerts.py) to threshold on:
   - `CounterRatio` — windowed numerator/denominator counter deltas
     (serving cache-hit rate, shed rate).
   - `OptEfficiency` — analytic-floor attainment of the train step:
-    a static `train/step_floor_ms` gauge over observed p50 step time.
-    The port publishes no floor gauge yet (the JAX package's sparse
-    traffic model is not ported), so it reports no data.
+    the static `train/step_floor_ms` gauge over observed p50 step time.
+    The code2vec trainer publishes the floor for the sparse-row step in
+    one process or under a data axis (training/sparse_update.py's
+    traffic model over `Config.HBM_CEILING_GBPS`); elsewhere there is no
+    floor gauge and it reports no data.
   - `PhaseRoofline` — per-phase roofline gauges and the split's
-    coverage of the fused step, from the phase profiler's timers. The
-    port has no phase profiler yet, so it reports no data too.
+    coverage of the fused step, from the phase profiler's
+    `train/phase/<p>_ms` timers (obs/phases.py, under `--phase_profile
+    on`) and the `train/phase_bytes/<p>` gauges of the code2vec head's
+    traffic model; the VarMisuse head publishes no bytes, so it reports
+    the coverage alone.
 
 Monitors only READ the registry (snapshot-don't-lock: dict reads of
 float values are atomic under the GIL; a torn multi-metric view skews

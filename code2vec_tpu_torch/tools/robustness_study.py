@@ -15,8 +15,9 @@ Usage (the dataset is any preprocessed prefix with .train/.val .c2v):
       --epochs 6 --n_attacks 300 --adv_prob 0.3
 Prints one JSON line per arm and a summary table. `--backend gpu` (the
 default) runs on the CUDA card and exits 2 without one; `cpu` runs on
-the CPU. `--infeed_chunk` takes only 1 (the chunked infeed is not
-ported): any other value exits 2.
+the CPU. `--infeed_chunk G` groups G host batches into one copy to the
+device (data/prefetch.ChunkedDevicePrefetcher); a value the JAX rules
+refuse (G < 1) exits 2 with their message.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def run_arm(name: str, data: str, epochs: int, batch: int,
             word_vocab_size: int = 150_000,
             path_vocab_size: int = 150_000,
             target_vocab_size: int = 60_000,
-            device=None) -> dict:
+            infeed_chunk: int = 1, device=None) -> dict:
     from code2vec_tpu_torch.attacks.robustness import evaluate_robustness
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
@@ -46,6 +47,7 @@ def run_arm(name: str, data: str, epochs: int, batch: int,
         MAX_TOKEN_VOCAB_SIZE=word_vocab_size,
         MAX_PATH_VOCAB_SIZE=path_vocab_size,
         MAX_TARGET_VOCAB_SIZE=target_vocab_size,
+        INFEED_CHUNK=infeed_chunk,
         TRAIN_BATCH_SIZE=batch,
         TEST_BATCH_SIZE=batch,
         NUM_TRAIN_EPOCHS=epochs,
@@ -123,7 +125,8 @@ def main(argv=None) -> int:
     ap.add_argument("--path_vocab_size", type=int, default=150_000)
     ap.add_argument("--target_vocab_size", type=int, default=60_000)
     ap.add_argument("--infeed_chunk", type=int, default=1,
-                    help="1 only (the chunked infeed is not ported)")
+                    help="host batches grouped into one copy to the "
+                         "device (data/prefetch.py)")
     ap.add_argument("--tag", default="",
                     help="free-form row label (e.g. the corpus's cue "
                          "redundancy k in the defense grid)")
@@ -134,10 +137,10 @@ def main(argv=None) -> int:
                          "one; cpu")
     a = ap.parse_args(argv)
 
-    from code2vec_tpu_torch.config import check_infeed_chunk
+    from code2vec_tpu_torch.config import Config, check_infeed_chunk
     from code2vec_tpu_torch.tools import loadgen
     try:
-        check_infeed_chunk(a.infeed_chunk)
+        check_infeed_chunk(a.infeed_chunk, Config.INFEED_PREFETCH)
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -158,7 +161,7 @@ def main(argv=None) -> int:
                       word_vocab_size=a.word_vocab_size,
                       path_vocab_size=a.path_vocab_size,
                       target_vocab_size=a.target_vocab_size,
-                      device=device)
+                      infeed_chunk=a.infeed_chunk, device=device)
         rows.append(row)
         if a.out:
             with open(a.out, "a") as f:

@@ -34,8 +34,8 @@ Everything after `--` is the child command. The supervisor:
     goes on from the last verified committed step. A child with
     `--mesh_context`, `--mesh_dcn` or `--mesh_model` above 1 cannot
     shrink (N-1 processes do not fill its mesh): `shrink` then exits 2
-    naming ROADMAP.md Queue 1 item 5a (the context and dcn axes) or 5b
-    (the model axis);
+    naming ROADMAP.md Queue 1 item 7 (the elastic shrink of a sharded
+    cohort);
   - hosts the fleet plane behind `--fleet_port`: member i gets a fixed
     `--metrics_port` (`--member_metrics_base` + i), the supervisor's
     collector scrapes the members of the current attempt (a resize
@@ -130,16 +130,15 @@ def main(argv=None) -> int:
         child = child[1:]
     if not child:
         ap.error("no child command given (put it after `--`)")
-    axes = {"--mesh_context": "5a", "--mesh_dcn": "5a", "--mesh_model": "5b"}
+    axes = ("--mesh_context", "--mesh_dcn", "--mesh_model")
     fixed = [flag for flag in axes if _child_axis(child, flag) > 1]
     if args.resize_policy == "shrink" and fixed:
-        items = sorted({axes[f] for f in fixed})
         ap.error(f"--resize_policy shrink with a child of "
                  f"{', '.join(f'{f} {_child_axis(child, f)}' for f in fixed)}"
                  ": a cohort of fewer processes cannot hold its mesh; the "
                  "elastic shrink of a context, dcn or model mesh is not "
-                 f"ported (ROADMAP.md Queue 1 item{'s' * (len(items) > 1)} "
-                 f"{', '.join(items)}); use --resize_policy relaunch")
+                 "ported (ROADMAP.md Queue 1 item 7); use --resize_policy "
+                 "relaunch")
 
     from code2vec_tpu_torch.obs import (FleetCollector, MetricsServer,
                                         Telemetry, Watchdog)

@@ -27,7 +27,9 @@ the fused step's carrier plumbing), so backward + apply report as one
 `backward_apply` remainder.
 
 `make_vm_probes` is the VarMisuse head's kit (training/vm_steps.py):
-gather, forward, backward, and the apply as the fused remainder.
+gather, forward, backward, and the apply as the fused remainder; under a
+mesh of more than one rank the dense kit's all-reduce and isolated apply
+probes too, its gathers over the rank's windows under a model axis.
 
 Under a mesh of more than one rank (data, ctx or dcn) the dense kit
 (float tables) also times the gradient all-reduce alone (`_make_allreduce`: a
@@ -247,30 +249,41 @@ def _sparse_kit(dims, *, use_sampled_softmax, num_sampled, compute_dtype,
 
 
 def make_vm_probes(dims: ModelDims, *, compute_dtype=torch.float32,
-                   use_kernel: bool = True) -> ProbeKit:
+                   use_kernel: bool = True, optimizer=None,
+                   mesh=None) -> ProbeKit:
     """The VarMisuse head's kit (vm_steps.make_vm_train_step's shape):
     embed_gather (the four gathers: src, pth, dst and the candidates),
     forward_pool (the vm loss), backward (its gradients), and
     table_apply as the fused remainder on both the dense and the
     sparse-row apply (the remainder covers whichever apply the fused
-    step runs, so the kit needs neither the optimizer nor the sparse
-    flag). The vm loss gathers inside the differentiated function, so
-    there is no concat/dense seam to stop at. The head refuses int8
-    tables (config.py), so the chain always reaches backward."""
+    step runs, so the one-rank kit needs neither the optimizer nor the
+    sparse flag). The vm loss gathers inside the differentiated
+    function, so there is no concat/dense seam to stop at. The head
+    refuses int8 tables (config.py), so the chain always reaches
+    backward. Under a `mesh` (the dense step: the sparse-row step
+    refuses one) the loss is the step's, over the global weight sum and
+    the rank's windows; above one rank, with the dense `optimizer`, the
+    kit adds the all-reduce and the isolated apply, as the code2vec
+    dense kit does."""
     from code2vec_tpu_torch.training.steps import dense_loss_and_grads
     from code2vec_tpu_torch.training.vm_steps import make_vm_loss_fn
     loss_fn = make_vm_loss_fn(dims, compute_dtype=compute_dtype,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, mesh=mesh)
 
     @torch.no_grad()
     def embed_gather(params, batch, _draws):
         _l, src, pth, dst, _m, cand, _cm, _w = batch
-        return (take_rows(params, "token_emb", src),
-                take_rows(params, "path_emb", pth),
-                take_rows(params, "token_emb", dst),
-                take_rows(params, "token_emb", cand))
+        return (take_rows(params, "token_emb", src, mesh),
+                take_rows(params, "path_emb", pth, mesh),
+                take_rows(params, "token_emb", dst, mesh),
+                take_rows(params, "token_emb", cand, mesh))
 
-    return ProbeKit([
+    chain = [
         ("embed_gather", embed_gather),
         ("forward_pool", torch.no_grad()(loss_fn)),
-        ("backward", lambda p, b, d: dense_loss_and_grads(p, b, d, loss_fn))])
+        ("backward", lambda p, b, d: dense_loss_and_grads(p, b, d, loss_fn))]
+    allreduce_fn = _make_allreduce(mesh)
+    if allreduce_fn is None or optimizer is None:
+        return ProbeKit(chain)
+    return ProbeKit(chain, apply_fn=_make_dense_apply(optimizer),
+                    allreduce_fn=allreduce_fn, derive_remainder=False)

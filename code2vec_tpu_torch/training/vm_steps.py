@@ -24,9 +24,11 @@ keep mask; the head draws no sampled ids and has no int8 tables).
   code2vec sparse step's layout. It refuses a mesh, as the JAX step
   does.
 
-Under a data-parallel `mesh` the dense step is training/steps.py's: the
-loss over the global batch's weight sum, the gradients summed over the
-ranks before the optimizer.
+Under a `mesh` the dense step is training/steps.py's: the loss over the
+global batch's weight sum, the gradients summed over the shard-replica
+group before the optimizer. Under a model axis the tables are the rank's
+windows (models/varmisuse.py), the optimizer's row statistics run over
+the model group (optimizers.RowShards), and `vm_pointer` replicates.
 
 The eval step returns (loss_sum, correct_sum, pred), `pred` the argmax
 over the candidates: `torch.argmax` takes the lowest index among equal
@@ -69,7 +71,7 @@ def make_vm_loss_fn(dims: ModelDims, *, compute_dtype=torch.float32,
                        dropout_keep_rate=dims.dropout_keep_rate,
                        compute_dtype=compute_dtype, use_kernel=use_kernel,
                        denom=loss_denominator(batch[-1], mesh)
-                       if mesh is not None else None)
+                       if mesh is not None else None, mesh=mesh)
 
     loss_fn.unused_keys = ("target_emb",)
     return loss_fn
@@ -162,13 +164,16 @@ def make_vm_train_step(dims: ModelDims, optimizer, *,
 
 
 def vm_eval_step(params, batch, *, compute_dtype=torch.float32,
-                 use_kernel: bool = True
+                 use_kernel: bool = True, mesh=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """-> (loss_sum 0-d, correct_sum 0-d, pred [B] int64): no dropout;
-    the cross entropy and the hits weighted by the row weights."""
+    the cross entropy and the hits weighted by the row weights. Under a
+    row-sharded `mesh` every model peer takes the same batch (the scores
+    gather from its windows: collective over the model group)."""
     labels, src, pth, dst, mask, cand_ids, cand_mask, weights = batch
     scores, _ = vm_scores(params, src, pth, dst, mask, cand_ids, cand_mask,
-                          compute_dtype=compute_dtype, use_kernel=use_kernel)
+                          compute_dtype=compute_dtype, use_kernel=use_kernel,
+                          mesh=mesh)
     pred = torch.argmax(scores, dim=-1)
     correct = (pred == labels.to(torch.int64)).to(torch.float32)
     return ((candidate_ce(scores, labels) * weights).sum(),

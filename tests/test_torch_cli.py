@@ -227,15 +227,17 @@ def test_backend_gpu_without_cuda_exits_2(dataset, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("flags,named", [
-    # the model axis is ported; the VarMisuse head under it is not:
-    # exits 2 naming its ROADMAP item
-    (["--mesh_model", "2", "--head", "varmisuse"],
-     "ROADMAP.md Queue 1 item 5c"),
+    # the model axis is ported, the VarMisuse head under it too; int8
+    # tables under it exit 2 in the JAX package's words
+    (["--mesh_model", "2", "--head", "varmisuse", "--tables_dtype",
+      "int8"], "--tables_dtype int8 supports data-parallel meshes only"),
     # the head is ported; its bag-only rule still exits 2 naming it
     (["--head", "varmisuse", "--encoder", "transformer"], "--head varmisuse"),
     # the attacks and the defense are ported: the JAX package's rules
     (["--attack", "untargeted"], "--attack requires --load."),
-    (["--infeed_chunk", "2"], "--infeed_chunk 2"),
+    # the chunked infeed is ported: the JAX package's rule
+    (["--infeed_chunk", "2", "--infeed_prefetch", "0"],
+     "--infeed_chunk > 1 requires --infeed_prefetch >= 1"),
     (["--mesh_data", "2"], "--mesh_data"),
     (["--dist_num_processes", "2"], "--dist_num_processes"),
     (["--adv_rename_prob", "1.5"], "--adv_rename_prob must be in [0, 1]."),

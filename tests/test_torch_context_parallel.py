@@ -642,4 +642,4 @@ def test_supervisor_refuses_to_shrink_a_ctx_cohort(capsys):
                                "--", "python3", "-m", "code2vec_tpu_torch",
                                "--mesh_context", "2"])
     assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 5a" in capsys.readouterr().err
+    assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err

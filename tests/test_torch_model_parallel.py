@@ -39,11 +39,12 @@ its step draws them), and run the port's steps under the mesh:
   evaluates to the same results; a one-process checkpoint resumed on a
   model-2 mesh, its windows the checkpoint's rows bit for bit.
 
-The refusals run here in the parent: the VarMisuse head and the exports
-naming ROADMAP.md Queue 1 item 5c, int8 tables in the JAX package's
-words, the supervisor's shrink of a model cohort, a model collective
-without its group, and a checkpoint's rows padded onto a model axis
-they do not divide.
+The rules run here in the parent: the VarMisuse head and the exports
+accepted under the model axis (tests/test_torch_vm_model_axis.py and
+tests/test_torch_model_exports.py run them), int8 tables refused in the
+JAX package's words, the supervisor's shrink of a model cohort, a model
+collective without its group, and a checkpoint's rows padded onto a
+model axis they do not divide.
 """
 
 from __future__ import annotations
@@ -805,21 +806,22 @@ def test_repad_rows_pads_a_checkpoint_onto_a_model_axis():
 def test_model_mesh_config_rules():
     """`Config(MESH_MODEL_AXIS=2)` passes `verify`, the command line sets
     it as the JAX parser does, and the trainer's dims pad the tables to
-    it; the VarMisuse head and the writing rank's exports are refused
-    naming ROADMAP.md Queue 1 item 5c."""
+    it; the VarMisuse head and the writing rank's exports pass under it,
+    as in the JAX package, and int8 tables stay refused in its words."""
     from code2vec_tpu.config import Config as JaxConfig
     from code2vec_tpu_torch.config import Config
     Config(MESH_MODEL_AXIS=2).verify()
     argv = ["--data", "x", "--mesh_model", "2"]
     assert Config.load_from_args(argv).MESH_MODEL_AXIS == \
         JaxConfig.load_from_args(argv).MESH_MODEL_AXIS == 2
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 1 item 5c"):
-        Config(MESH_MODEL_AXIS=2, HEAD="varmisuse").verify()
+    Config(MESH_MODEL_AXIS=2, HEAD="varmisuse").verify()
     for flags in (["--save_w2v", "y"], ["--save_t2v", "y"], ["--release"],
                   ["--test", "t", "--export_code_vectors"]):
-        with pytest.raises(ValueError, match="item 5c"):
-            Config.load_from_args(["--load", "x", *flags, "--mesh_model",
-                                   "2"])
+        argv = ["--load", "x", *flags, "--mesh_model", "2"]
+        assert Config.load_from_args(argv).MESH_MODEL_AXIS == \
+            JaxConfig.load_from_args(argv).MESH_MODEL_AXIS == 2
+    with pytest.raises(ValueError, match="int8 supports data-parallel"):
+        Config(MESH_MODEL_AXIS=2, TABLES_DTYPE="int8").verify()
 
 
 def test_a_model_collective_without_its_group_raises():
@@ -849,4 +851,4 @@ def test_supervisor_refuses_to_shrink_a_model_cohort(capsys):
                                "--", "python3", "-m", "code2vec_tpu_torch",
                                "--mesh_model", "2"])
     assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 5b" in capsys.readouterr().err
+    assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err
