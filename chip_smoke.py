@@ -192,10 +192,10 @@ Phases (any failure raises, and the script exits non-zero):
    one restart, the final state bit-identical to [14]'s uninterrupted
    run, `/fleet` scraped during it (one member, a measured clock offset
    committed into the relaunched child's manifest, cohort throughput
-   above 0, no straggler); a flipped byte in the latest step,
-   quarantined before the relaunch, resumed from the step before and
-   finished (bit-identical again), one `checkpoint_quarantined` firing;
-   a child that always fails under `--max_restarts 1`: exit 3, one page;
+   above 0, no straggler); beside it, a child that always fails under
+   `--max_restarts 1`: exit 3, one page (the corrupt-step leg is not
+   run, for the clock: [14] holds the quarantine on the card, the CPU
+   tests the supervisor's);
    [16]'s `train/kill` leg runs beside it, on a thread, and is checked
    at its end;
 20. the serving fleet at [4]'s java-large width on the card, over HTTP:
@@ -375,7 +375,27 @@ Phases (any failure raises, and the script exits non-zero):
    three files byte-identical (sha256, each taken by the process that
    wrote it) to [14]'s one-process exports of the same model, the
    release's tensors bit-identical to it;
-28. a `{"kernels": [...]}` line, the card line, and last
+28. `--predict`, the REPL and `--attack` above one rank: in [23]'s two
+   children after [27] (model = 2), the predict-side model over the
+   windows (`Code2VecModel(mesh=...)`) on [4]'s request lines in
+   batches of 1, 7 and 64 (counted: kernel 1 once a batch) and [11]'s
+   transformer on a batch of 64 (counted: kernel 2 L times), each
+   against one rank's whole-table predictor on the same params: the
+   attention and code vectors the same bits, the probabilities within
+   COHORT_PROB_RTOL, the top-k ids equal wherever two adjacent
+   probabilities lie more than MODEL_TOP1_GAP of the first apart; one
+   serial `attack_method` on a [22] method over the windows (counted:
+   kernel 1 2 + 2 x iterations) against one rank's whole-table attack:
+   the first-order scores within COHORT_SCORE_RTOL of their largest, the
+   same shortlist wherever its boundary lies apart, the same renames and
+   prediction. Beside [24]'s (i), two `cli.main --mesh_model 2 --dist_*`
+   pairs: `--predict` on [14]'s released model (rank 0's stdin three
+   Enters, `attack`, `q`; its output [15]'s one-process output, latency
+   lines aside; rank 1 prints no answer) and `--attack untargeted` on
+   [22](k)'s checkpoint (rank 0's outcome and `.adversarial` bytes
+   (k)'s, unless one rank's closest decision lies within ATK_TIE_RTOL;
+   rank 1 writes no file); all four exit 0;
+29. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -3296,7 +3316,8 @@ def phase_repl(torch, np, tmp, kept, report):
     t = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "code2vec_tpu_torch", "--load", rel,
-         "--predict"], cwd=work, input="\n" * REPL_ENTERS + "q\n",
+         "--predict"], cwd=work,
+        input="\n" * REPL_ENTERS + "attack\nq\n",
         capture_output=True, text=True, timeout=600,
         env=dict(os.environ, PYTHONPATH=repo))
     out["subprocess_s"] = time.perf_counter() - t
@@ -3317,6 +3338,10 @@ def phase_repl(torch, np, tmp, kept, report):
               f"(repl) {name}: {n_attn} attention lines")
         check(latency is not None, f"(repl) {name}: no latency line")
     check(r.stdout.rstrip().endswith("Exiting..."), "(repl) no exit line")
+    check(any(ln.startswith(("[untargeted ", "Attack error:"))
+              for ln in r.stdout.splitlines()), "(repl) no attack answer")
+    # [28]'s --predict pair is held against this output
+    kept["repl_stdout"] = r.stdout
     req_ms = [request_ms(blocks[i * n_methods][3])
               for i in range(REPL_ENTERS)]
     out.update({"requests_ms": req_ms, "first_ms": req_ms[0],
@@ -3441,6 +3466,40 @@ def run_events(tele_dir: str):
     return runs
 
 
+def report_tools_check(tele: str, n_spans: int) -> None:
+    """[16]'s run record through the port's report tools
+    (`tools/telemetry_report.py`, `tools/trace_report.py`): the headline
+    table's step row, the critical-path tables, and the Chrome trace
+    (its complete events one a span); their event counts printed."""
+    import contextlib
+    import io
+
+    from code2vec_tpu_torch.tools import telemetry_report, trace_report
+    t = time.perf_counter()
+    runs = telemetry_report.find_runs(tele)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = telemetry_report.main([tele])
+    text = buf.getvalue()
+    path = os.path.join(tele, "trace.json")
+    n_events = trace_report.write_chrome_trace(runs, path)
+    with open(path) as f:
+        chrome = json.load(f)["traceEvents"]
+    complete = sum(e.get("ph") == "X" for e in chrome)
+    table = trace_report.render(trace_report.load_spans(runs))
+    check(rc == 0 and "| Config |" in text and "vs V100" not in text
+          and n_events == len(chrome) and complete == n_spans
+          and "infeed_wait" in table,
+          f"(observed) the report tools: exit {rc}, {n_events} Chrome "
+          f"events, {complete} complete of {n_spans} spans")
+    print(f"  (observed) the run record through the port's report tools in "
+          f"{time.perf_counter() - t:.2f} s: telemetry_report "
+          f"{len(text.splitlines())} lines, trace_report's Chrome trace "
+          f"{n_events} events ({complete} spans, "
+          f"{sum(e.get('ph') in ('s', 'f') for e in chrome)} flow ends), "
+          f"{len(table.splitlines())} lines of critical paths", flush=True)
+
+
 def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
                    report):
     """[16]: the command line with the telemetry, the trace, the
@@ -3542,6 +3601,7 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
           + f"; {len(linked)} train/step spans linked to infeed/produce; no "
           f"stall; the chrome trace ({os.path.getsize(os.path.join(prof_dir, traces[0])) / 1e6:.1f}"
           f" MB) names kernel 1 ({named}); launches {launches}", flush=True)
+    report_tools_check(tele, len(spans))
     shutil.rmtree(tele)
     shutil.rmtree(os.path.join(tmp, "ck16"))
 
@@ -4319,16 +4379,18 @@ def phase_supervised(torch, np, tmp, data_prefix, kept, report):
     """[19]: `python3 -m code2vec_tpu_torch.tools.train_supervisor` over
     (c) on [14]'s data as a subprocess: (i) `train/kill` at step 5 (a
     once-latch marker), one restart, the final state bit-identical to
-    [14]'s uninterrupted run, `/fleet` scraped during it; (ii) a flipped
-    byte in the latest step: quarantined, resumed from the step before,
-    finished (and bit-identical again), one `checkpoint_quarantined`
-    firing; (iii) a child that always fails under `--max_restarts 1`:
-    exit 3 and one page."""
+    [14]'s uninterrupted run, `/fleet` scraped during it; (iii) beside
+    it, a child that always fails under `--max_restarts 1`: exit 3 and
+    one page. (ii), a flipped byte in the latest step quarantined by the
+    supervisor, is not run here, for the clock: [14] holds the
+    quarantine and the fall-back load on the card, (i) and [14] the
+    resume bit-identical, tests/test_torch_supervisor.py and
+    tests/test_torch_chaos.py the supervisor's quarantine and its
+    alert."""
     import gc
     import shutil
 
     from code2vec_tpu_torch.parallel.compat import free_port
-    from code2vec_tpu_torch.tools.chaos import flip_byte_in_largest_file
     from code2vec_tpu_torch.training import checkpoint as ckpt
 
     steps, base = kept["steps"], [str(a) for a in kept["base"]]
@@ -4373,6 +4435,14 @@ def phase_supervised(torch, np, tmp, data_prefix, kept, report):
                 and e["transition"] == "firing"
                 and (rule is None or e["rule"] == rule)
                 and (severity is None or e["severity"] == severity)]
+
+    # ---- (iii) a child that always fails: the budget runs out ----
+    # beside (i): it needs neither the card nor (i)'s files
+    budget_box = []
+    budget = threading.Thread(target=lambda: budget_box.append(supervise(
+        "fail", ["--max_restarts", 1],
+        [sys.executable, "-c", "import sys; sys.exit(1)"])), daemon=True)
+    budget.start()
 
     # ---- (i) train/kill at step 5 under the supervisor, /fleet live ----
     d, tele_child = os.path.join(tmp, "ck19"), os.path.join(tmp, "tele19")
@@ -4449,39 +4519,12 @@ def phase_supervised(torch, np, tmp, data_prefix, kept, report):
                    "sweeps_polled": len(trail),
                    "sweeps_moving": len({s["ts"] for s in moving})}
     shutil.rmtree(tele_child)
-
-    # ---- (ii) a flipped byte in the latest step, then relaunch ----
-    last = ckpt.latest_step(d)
-    flipped = flip_byte_in_largest_file(os.path.join(d, f"step_{last}"))
-    rc, corrupt_s, events, _s, stdout = supervise(
-        "corrupt", ["--max_restarts", 0], child)
-    quarantine = [e for e in events if e["kind"] == "ckpt_quarantine"]
-    launches_ev = [e for e in events if e["kind"] == "supervisor_launch"]
-    check(rc == 0 and os.path.isdir(os.path.join(d, "quarantine",
-                                                 f"step_{last}"))
-          and [e["resume_step"] for e in launches_ev] == [last - steps]
-          and len(firings(events, "checkpoint_quarantined")) == 1
-          and len(quarantine) == 1 and ckpt.latest_step(d) == last,
-          f"(corrupt) exit {rc}, launches {launches_ev}, quarantine "
-          f"{quarantine}: {stdout[-3000:]}")
-    a, b = ckpt.load_checkpoint(d), ckpt.load_checkpoint(kept["uninterrupted"])
-    diff2 = state_diff(torch, a, b)
-    del a, b
-    check(diff2["differ"] == 0, f"(corrupt) the resumed run's final state "
-          f"is not [14]'s: {diff2}")
-    print(f"  (corrupt) one byte of {os.path.relpath(flipped, tmp)} flipped: "
-          f"quarantined before launch, one checkpoint_quarantined ticket, "
-          f"resumed from step {last - steps} and finished at step {last} in "
-          f"{corrupt_s:.1f} s, bit-identical to [14]'s uninterrupted run",
-          flush=True)
-    out["corrupt"] = {"seconds": corrupt_s, "tensors": diff2["tensors"]}
     shutil.rmtree(d)
-    shutil.rmtree(os.path.join(tmp, "tele19"), ignore_errors=True)
 
-    # ---- (iii) a child that always fails: the budget runs out ----
-    rc, fail_s, events, _s, stdout = supervise(
-        "fail", ["--max_restarts", 1],
-        [sys.executable, "-c", "import sys; sys.exit(1)"])
+    # ---- (iii) the budget: its result from beside (i) ----
+    budget.join(timeout=SUP_TIMEOUT_S)
+    check(budget_box, "(budget) the supervisor left no result")
+    rc, fail_s, events, _s, stdout = budget_box[0]
     pages = firings(events, severity="page")
     check(rc == 3 and [p["rule"] for p in pages]
           == ["restart_budget_exhausted"],
@@ -4490,7 +4533,7 @@ def phase_supervised(torch, np, tmp, data_prefix, kept, report):
           f"in {fail_s:.1f} s, one page (restart_budget_exhausted)",
           flush=True)
     out["budget"] = {"seconds": fail_s}
-    for name in ("kill", "corrupt", "fail"):
+    for name in ("kill", "fail"):
         shutil.rmtree(os.path.join(tmp, f"logs19_{name}"), ignore_errors=True)
     report["supervised"] = out
 
@@ -6251,6 +6294,9 @@ def phase_attack_cli(torch, np, tmp, report):
         check(os.path.exists(adv) == verified, f"(k) --attack {tag}: "
               f".adversarial exists {os.path.exists(adv)}, printed {so!r}")
         outcomes[tag] = so.strip()
+        if tag == "untargeted":
+            # [28]'s --attack pair is held against this run
+            adv_digest = file_digest(adv) if verified else None
         print(f"  (k) --attack {tag}: " + so.strip().replace("\n", " | "),
               flush=True)
     for argv, msg in (
@@ -6281,7 +6327,9 @@ def phase_attack_cli(torch, np, tmp, report):
           + " | ".join(answered) + f"; kernel 1 {launches} launches",
           flush=True)
     report["attack_cli"] = {"outcomes": outcomes, "repl": answered,
-                            "train_s": train_s, "launches": launches}
+                            "train_s": train_s, "launches": launches,
+                            "ckpt": ckpt_plain, "victim": victim,
+                            "untargeted_adversarial": adv_digest}
     del model
     torch.cuda.empty_cache()
     return launches
@@ -6525,8 +6573,9 @@ def dp_child() -> None:
     code2vec_tpu_torch` runs), then the function-level harness
     (`dp_harness`), then [25]'s context axis (`ctx_harness`, `ctx_cli`),
     [26]'s model axis (`model_harness`, `model_cli`) and [27]'s VarMisuse
-    head and gathered tables under it (`vm_model_harness`). Prints
-    `DP_RESULT <json>` and exits 0 only if all passed."""
+    head and gathered tables under it (`vm_model_harness`), then [28]'s
+    predict-side model and attack over the windows (`cohort_harness`).
+    Prints `DP_RESULT <json>` and exits 0 only if all passed."""
     import torch
 
     from code2vec_tpu_torch import cli
@@ -6586,6 +6635,9 @@ def dp_child() -> None:
     out["vm_model"] = vm_model_harness(torch, rank, world,
                                        spec["ports"][len(DP_CONFIGS) + 5],
                                        spec, synthetic_vocabs())
+    # [28]: the predict-side model and the attack over the windows
+    out["cohort"] = cohort_harness(torch, rank, world,
+                                   spec["ports"][len(DP_CONFIGS) + 6], spec)
     print("DP_RESULT " + json.dumps(out), flush=True)
 
 
@@ -7168,8 +7220,8 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     ck = {label: os.path.join(tmp, f"dp_ckpt_{label}")
           for label in DP_CONFIGS}
     # the CLI runs', the harness's, [25]'s and [26]'s harness and CLI run,
-    # [27]'s harness
-    ports = [free_port() for _ in range(len(DP_CONFIGS) + 6)]
+    # [27]'s and [28]'s harnesses
+    ports = [free_port() for _ in range(len(DP_CONFIGS) + 7)]
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     procs = []
@@ -7355,9 +7407,9 @@ def phase_data_parallel(torch, np, vocabs, tmp, data_prefix, test_path,
     kept = {"argv": dp_argv(base, "a"), "digests": r0["a"]["digests"],
             "steps": DP_EPOCHS["a"] * steps, "steps_per_epoch": steps,
             "n_train": n_train}
-    # [25]'s, [26]'s and [27]'s results from the same children
+    # [25]'s to [28]'s results from the same children
     ctx_runs = [{k: r[k] for k in ("ctx", "ctx_cli", "model", "model_cli",
-                                   "vm_model")} for r in results]
+                                   "vm_model", "cohort")} for r in results]
     return launches, kept, ctx_runs
 
 
@@ -8241,6 +8293,508 @@ def phase_vm_model(torch, runs, export_r0, report) -> dict:
             + h0["eval"]["launches"]["attention_pool"]}
 
 
+# ---- [28]: --predict, the REPL and --attack above one rank ----
+
+# [28]'s serving buckets (the kernel check's), and its bounds against one
+# rank's whole-table predictor: the gathered contexts and so the code
+# vector and the attention are one rank's bits; the logits are a rank's
+# [B, V/2] product against one rank's [B, V], which cuBLAS may tile
+# otherwise (a few float32 ulp of a logit, ~1e-7 of a probability), so
+# each probability within 1e-5 of itself and the ids held where two
+# adjacent probabilities lie more than MODEL_TOP1_GAP of the first apart
+# ([26]'s merged top-1 rule). The attack's first-order scores are linear
+# in the gradient at the occurrence slots, whose path back from the
+# logits crosses the model pair: the bf16 code vector's cotangent is a
+# rank's [B, V/2] product rounded to bf16, then summed over the model
+# group, where one rank rounds its [B, V] product once; a one-step bf16
+# difference (2^-8 of a value) travels on through the pool's backward,
+# so the scores take [26]'s card bound for a raw gradient through the
+# model pair, 2^-6 of their largest (the CPU tests hold the float32
+# attack to 1e-5)
+COHORT_BUCKETS = (1, 7, 64)
+COHORT_PROB_RTOL, COHORT_SCORE_RTOL = 1e-5, MODEL_GRAD_RTOL
+COHORT_PAIR_CHILD = "import chip_smoke; chip_smoke.cohort_pair_child()"
+COHORT_PAIR_TIMEOUT_S = 420
+
+
+def sync(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def topk_held(np, ids, probs, w_ids, w_probs):
+    """(held, agree): the top-k positions whose one-rank probability lies
+    more than MODEL_TOP1_GAP of itself from both neighbours, and those
+    whose ids are equal."""
+    held = agree = 0
+    for i in range(w_ids.shape[0]):
+        for j in range(w_ids.shape[1]):
+            p = w_probs[i, j]
+            near = [abs(p - w_probs[i, k]) for k in (j - 1, j + 1)
+                    if 0 <= k < w_ids.shape[1]]
+            if min(near, default=np.inf) > MODEL_TOP1_GAP * p:
+                held += 1
+                agree += int(ids[i, j] == w_ids[i, j])
+    return held, agree
+
+
+def cohort_predict_check(torch, np, whole, sharded, lines, label) -> dict:
+    """[28]: `predict_device` of the model-2 predictor on `lines` (counted
+    and timed after one warm call) against one rank's whole-table
+    predictor on the same rows: the attention and code vectors the same
+    bits, the probabilities within COHORT_PROB_RTOL, the ids where held;
+    the bytes the model group's sums and gathers moved and the outputs'
+    gather over the ranks."""
+    from code2vec_tpu_torch.parallel import collectives
+    prepared = sharded.prepare_predict_rows(lines)
+    sharded.predict_device(prepared)
+    whole.predict_device(prepared)
+    zero_xf_counts()
+    collectives.traffic.update(sum=0, max=0, gather=0)
+    sync(torch)
+    t = time.perf_counter()
+    got = sharded.predict_device(prepared)
+    sync(torch)
+    ms = (time.perf_counter() - t) * 1e3
+    launches, traffic = xf_counts(), dict(collectives.traffic)
+    t = time.perf_counter()
+    want = whole.predict_device(prepared)
+    sync(torch)
+    one_ms = (time.perf_counter() - t) * 1e3
+    ids, probs, attn, code = got
+    w_ids, w_probs, w_attn, w_code = want
+    n = prepared.n
+    check(np.array_equal(attn, w_attn) and np.array_equal(code, w_code),
+          f"({label}) B = {n}: the model-2 attention / code vectors are not "
+          "one rank's bits")
+    rel = float(np.max(np.abs(probs - w_probs) / w_probs))
+    check(rel <= COHORT_PROB_RTOL, f"({label}) B = {n}: probabilities "
+          f"{rel:.3g} of themselves from one rank's")
+    held, agree = topk_held(np, ids, probs, w_ids, w_probs)
+    check(agree == held, f"({label}) B = {n}: top-k ids equal on {agree} "
+          f"of {held} held positions")
+    padded = sharded.predict_bucket_size(n)
+    fetch = sum(a.nbytes // n for a in got) * padded * sharded.mesh.world
+    return {"B": n, "ms": ms, "one_rank_ms": one_ms, "prob_rel": rel,
+            "held": held, "positions": int(ids.size), "launches": launches,
+            "traffic": traffic, "fetch_bytes": fetch}
+
+
+def cohort_attack_check(torch, np, whole, sharded, lv, test_path) -> dict:
+    """[28]: one serial untargeted `attack_method` over the windows of a
+    [22] method (letter words at [4]'s ids; counted: kernel 1 2 + 2 x
+    iterations) against one rank's whole-table attack: the clean
+    prediction, the first-order scores within COHORT_SCORE_RTOL of their
+    largest, the shortlist where its boundary lies more than that apart,
+    and the renames and final prediction (or, where they differ, a tie
+    of one rank's exact losses within ATK_TIE_RTOL)."""
+    from code2vec_tpu_torch.attacks import gradient_attack as tga
+    from code2vec_tpu_torch.data.reader import parse_c2v_rows
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.parallel import collectives
+    with open(test_path) as f:
+        lines = [to_letters(next(f)) for _ in range(ATK_SERIAL)]
+    _l, src, pth, dst, mask, _t, _c = parse_c2v_rows(lines, lv, C)
+    kw = dict(compute_dtype=whole.compute_dtype, device=whole.device)
+    one = tga.GradientRenameAttack(whole.dims, lv.token_vocab,
+                                   lv.target_vocab, **kw)
+    two = tga.GradientRenameAttack(sharded.dims, lv.token_vocab,
+                                   lv.target_vocab, mesh=sharded.mesh, **kw)
+    m = next((src[i], pth[i], dst[i], mask[i]) for i in range(len(lines))
+             if one.attackable_tokens(src[i], dst[i], mask[i]))
+    tok = one.attackable_tokens(m[0], m[2], m[3])[0][0]
+    ids, occ = one.tensors(m), one.tensors((m[0] == tok, m[2] == tok))
+    label = int(one.predict_fn(whole.params, ids))
+    check(int(two.predict_fn(sharded.params, ids)) == label,
+          "(cohort attack) the clean prediction differs from one rank's")
+    s1 = one.score_fn(whole.params, ids, occ, label, -1.0).cpu().numpy()
+    s2 = two.score_fn(sharded.params, ids, occ, label, -1.0).cpu().numpy()
+    top = float(np.max(np.abs(s1)))
+    score_rel = float(np.max(np.abs(s1 - s2))) / top
+    check(score_rel <= COHORT_SCORE_RTOL, f"(cohort attack) first-order "
+          f"scores {score_rel:.3g} of their largest from one rank's")
+    tried = {tok} | set(np.unique(np.concatenate([m[0], m[2]])).tolist())
+    c1 = tga.build_shortlist(s1.copy(), one.legal, tried, one.top_k, tok)
+    c2 = tga.build_shortlist(s2.copy(), two.legal, tried, two.top_k, tok)
+    free = s1.copy()
+    free[~one.legal] = np.inf
+    free[list(tried)] = np.inf
+    part = np.partition(free, (one.top_k - 2, one.top_k - 1))
+    boundary = float(part[one.top_k - 1] - part[one.top_k - 2]) / top
+    same_list = set(c1.tolist()) == set(c2.tolist())
+    check(same_list or boundary <= COHORT_SCORE_RTOL, f"(cohort attack) "
+          f"shortlists differ with their boundary {boundary:.3g} apart")
+    attention_pool_fused.launches = 0
+    collectives.traffic.update(sum=0, max=0, gather=0)
+    sync(torch)
+    t = time.perf_counter()
+    r2 = two.attack_method(sharded.params, m)
+    sync(torch)
+    ms = (time.perf_counter() - t) * 1e3
+    launches = attention_pool_fused.launches
+    traffic = dict(collectives.traffic)
+    check(launches == 2 + 2 * r2.iterations, f"(cohort attack) kernel 1 "
+          f"launched {launches} times for {r2.iterations} iterations")
+    with StepTimer(torch, one, tga) as timer:
+        t = time.perf_counter()
+        r1 = one.attack_method(whole.params, m)
+        sync(torch)
+        one_ms = (time.perf_counter() - t) * 1e3
+    same = (r1.success, r1.renames, r1.final_prediction) == \
+        (r2.success, r2.renames, r2.final_prediction)
+    tie = min(timer.gaps, default=1.0)
+    check(same or tie <= ATK_TIE_RTOL, f"(cohort attack) {r2} vs one "
+          f"rank's {r1} with the closest decision {tie:.3g} apart")
+    return {"score_rel": score_rel, "boundary": boundary,
+            "same_shortlist": same_list, "same_result": same,
+            "result": str(r2), "iterations": r2.iterations, "ms": ms,
+            "one_rank_ms": one_ms, "launches": launches, "traffic": traffic}
+
+
+def cohort_harness(torch, rank: int, world: int, port: int, spec) -> dict:
+    """[28] in one of [23]'s children: `world` ranks over gloo at (data 1,
+    model world), [4]'s bag weights (seed 0, stretched; the tables padded
+    to the model axis) as one rank's whole-table predictor and as the
+    predict-side model over this rank's windows: the serving buckets,
+    one serial attack on a [22] method; then [11]'s transformer on a
+    batch of 64."""
+    import dataclasses
+
+    import numpy as np
+
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.encoder import init_params
+    from code2vec_tpu_torch.models.torch_model import (Code2VecModel,
+                                                       dims_from_config)
+    from code2vec_tpu_torch.parallel import distributed
+    from code2vec_tpu_torch.parallel.mesh import make_mesh
+    from code2vec_tpu_torch.parallel.sharding import shard_params
+    t0 = time.perf_counter()
+    check(distributed.maybe_initialize(
+        f"127.0.0.1:{port}", world, rank,
+        device_type="cuda" if DEV == "cuda" else "cpu"),
+        "(cohort harness) no process group")
+    mesh = make_mesh(1, world, 1, device=DEV)
+    vocabs = synthetic_vocabs()
+    lines = [ln for req in make_requests(np, np.random.default_rng(SEED))
+             for ln in req]
+    out = {}
+    for label, config in (("bag", Config(MAX_CONTEXTS=C, USE_BF16=True,
+                                         TABLES_DTYPE="bfloat16")),
+                          ("xf", xf_config())):
+        dims = dataclasses.replace(dims_from_config(config, vocabs),
+                                   vocab_pad_multiple=world)
+        params = init_params(torch.Generator(device=DEV).manual_seed(SEED),
+                             dims)
+        stretch_tables(params)
+        whole = Code2VecModel(config, dims, vocabs, params, device=DEV)
+        sharded = Code2VecModel(config, dims, vocabs,
+                                shard_params(params, mesh), device=DEV,
+                                mesh=mesh)
+        buckets = COHORT_BUCKETS if label == "bag" else (COHORT_BUCKETS[-1],)
+        out[label] = [cohort_predict_check(torch, np, whole, sharded,
+                                           lines[:b], f"cohort {label}")
+                      for b in buckets]
+        if label == "bag":
+            out["attack"] = cohort_attack_check(
+                torch, np, whole, sharded, letter_vocabs(vocabs),
+                spec["test"])
+        del whole, sharded, params
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    distributed.shutdown()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def cohort_pair_child() -> None:
+    """One rank of [28]'s pairs (`python3 -c 'import chip_smoke;
+    chip_smoke.cohort_pair_child()' <argv json>`): `cli.main(argv)` with
+    this process's stdin, its log on standard error; prints
+    `COHORT_PAIR_RESULT <json>` (the exit code, kernel 1's launches, the
+    seconds) last."""
+    import logging
+
+    import torch
+
+    from code2vec_tpu_torch import cli
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                        format="%(asctime)s %(levelname)s %(message)s")
+    argv = json.loads(sys.argv[1])
+    attention_pool_fused.launches = 0
+    t = time.perf_counter()
+    rc = cli.main(argv)
+    sync(torch)
+    print("COHORT_PAIR_RESULT " + json.dumps({
+        "rc": rc, "launches": attention_pool_fused.launches,
+        "seconds": time.perf_counter() - t}), flush=True)
+
+
+def start_cohort_pairs(tmp, kept, report) -> dict:
+    """[28]'s two `cli.main --mesh_model 2 --dist_*` pairs, one after the
+    other in a thread started beside [24]'s (i): `--predict` on [14]'s
+    released model (rank 0 in a directory with Input.java, its stdin
+    three Enters, `attack`, `q`), then `--attack untargeted` on
+    [22](k)'s checkpoint (a copy of (k)'s Input.java). Each rank's stdout and stderr go to files;
+    a rank still running at its timeout is killed."""
+    import shutil
+
+    from code2vec_tpu_torch.parallel.compat import free_port
+    here = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(tmp, "cohort_pairs")
+    k = report["attack_cli"]
+    work = {"predict": os.path.join(d, "predict"),
+            "attack": os.path.join(d, "attack"),
+            "follower": os.path.join(d, "follower")}
+    for w in work.values():
+        os.makedirs(w)
+    shutil.copy(os.path.join(here, "Input.java"), work["predict"])
+    shutil.copy(k["victim"], work["attack"])
+    victim = os.path.join(work["attack"], "Input.java")
+    argv = {"predict": ["--load", kept["released"], "--predict"],
+            "attack": ["--load", k["ckpt"], "--attack", "untargeted",
+                       "--attack_input", victim]}
+    stdin = {"predict": "\n" * REPL_ENTERS + "attack\nq\n", "attack": ""}
+    pairs = {"dir": d, "victim": victim, "runs": {}, "t0": time.perf_counter()}
+
+    def run_pair(label):
+        port = free_port()
+        procs, logs = [], []
+        for rank in range(DP_WORLD):
+            full = argv[label] + [
+                "--mesh_model", str(DP_WORLD), "--dist_coordinator",
+                f"127.0.0.1:{port}", "--dist_num_processes", str(DP_WORLD),
+                "--dist_process_id", str(rank)]
+            log = {s: os.path.join(d, f"{label}{rank}.{s}")
+                   for s in ("out", "err")}
+            with open(log["out"], "w") as fo, open(log["err"], "w") as fe:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", COHORT_PAIR_CHILD,
+                     json.dumps(full)],
+                    cwd=work[label] if rank == 0 else work["follower"],
+                    env=dict(os.environ, PYTHONPATH=here),
+                    stdin=subprocess.PIPE if rank == 0 else
+                    subprocess.DEVNULL, stdout=fo, stderr=fe, text=True))
+            logs.append(log)
+        procs[0].stdin.write(stdin[label])
+        procs[0].stdin.close()
+        t = time.perf_counter()
+        try:
+            rcs = [p.wait(timeout=COHORT_PAIR_TIMEOUT_S) for p in procs]
+        except subprocess.TimeoutExpired:
+            rcs = None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        pairs["runs"][label] = {"rcs": rcs, "logs": logs,
+                                "seconds": time.perf_counter() - t}
+
+    def run_all():
+        for label in ("predict", "attack"):
+            run_pair(label)
+    pairs["thread"] = threading.Thread(target=run_all, daemon=True)
+    pairs["thread"].start()
+    return pairs
+
+
+def pair_output(log) -> "tuple[str, dict]":
+    """A pair rank's stdout without its result line, and the result."""
+    with open(log["out"]) as f:
+        lines = f.read().splitlines()
+    result = next((json.loads(ln[len("COHORT_PAIR_RESULT "):])
+                   for ln in lines if ln.startswith("COHORT_PAIR_RESULT ")),
+                  None)
+    text = "\n".join(ln for ln in lines
+                     if not ln.startswith("COHORT_PAIR_RESULT "))
+    return text, result
+
+
+def same_repl_output(got: str, want: str, tol: float = 1e-6 + 1e-9) -> str:
+    """'' when rank 0's REPL output is one process's, latency lines and
+    log lines (`python3 -m code2vec_tpu_torch` logs to standard output)
+    aside: the same lines, each printed number within one unit of its
+    last digit (%.6f), a method's predicted names in the same order
+    except between names whose probabilities lie within that of each
+    other; else the first difference."""
+    import re
+    num = re.compile(r"-?\d+\.\d+")
+    logged = re.compile(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d+ [A-Z]+ ")
+
+    def split(out):
+        return [(num.sub("#", ln), [float(x) for x in num.findall(ln)])
+                for ln in out.splitlines()
+                if not ln.startswith("latency:") and not logged.match(ln)]
+    g, w = split(got), split(want)
+    if len(g) != len(w):
+        return f"{len(g)} lines against {len(w)}"
+    i = 0
+    while i < len(w):
+        if w[i][0].startswith("\t(#) predicted:"):
+            j = i
+            while j < len(w) and w[j][0].startswith("\t(#) predicted:"):
+                j += 1
+            for (gt, gn), (wt, wn) in zip(g[i:j], w[i:j]):
+                if abs(gn[0] - wn[0]) > tol:
+                    return f"probability {gn[0]} against {wn[0]}"
+                if gt != wt and gt not in {t for t, n in w[i:j]
+                                           if abs(n[0] - wn[0]) <= tol}:
+                    return f"{gt!r} against {wt!r}"
+            i = j
+            continue
+        if g[i][0] != w[i][0] or len(g[i][1]) != len(w[i][1]) or any(
+                abs(a - b) > tol for a, b in zip(g[i][1], w[i][1])):
+            return f"{g[i]} against {w[i]}"
+        i += 1
+    return ""
+
+
+def finish_cohort_pairs(torch, kept, pairs, report) -> dict:
+    """[28]'s pairs, waited for and checked: all four ranks exit 0; the
+    `--predict` rank 0's output [15]'s (`same_repl_output`), rank 1's
+    stdout empty; the `--attack` rank 0's outcome (k)'s one-process
+    outcome and its `.adversarial` bytes (k)'s (sha256; none where (k)
+    wrote none) unless one rank's closest decision lies within
+    ATK_TIE_RTOL (`attack_cli_tie`), rank 1's stdout empty and no file
+    beside it. Returns the ranks' results (their launches are outside
+    this process's count)."""
+    import shutil
+    t = time.perf_counter()
+    pairs["thread"].join(timeout=2 * COHORT_PAIR_TIMEOUT_S)
+    check(not pairs["thread"].is_alive(), "(cohort pairs) still running")
+    waited = time.perf_counter() - t
+    out, rank0 = {}, {}
+    for label, run in pairs["runs"].items():
+        texts, results = zip(*(pair_output(log) for log in run["logs"]))
+        if run["rcs"] != [0, 0] or None in results:
+            for log in run["logs"]:
+                with open(log["err"]) as f:
+                    print(f.read()[-3000:], flush=True)
+        check(run["rcs"] == [0, 0] and None not in results,
+              f"(cohort {label}) exit codes {run['rcs']}")
+        check(texts[1].strip() == "", f"(cohort {label}) rank 1 printed "
+              f"{texts[1][:500]!r}")
+        out[label] = {"seconds": run["seconds"], "ranks": list(results)}
+        rank0[label] = texts[0]
+    diff = same_repl_output(rank0["predict"], kept["repl_stdout"])
+    check(diff == "", f"(cohort predict) rank 0's REPL output differs from "
+          f"[15]'s one-process output: {diff}")
+    k = report["attack_cli"]
+    got = rank0["attack"].strip()
+    adv = pairs["victim"] + ".adversarial"
+    digest = file_digest(adv) if os.path.exists(adv) else None
+    same = (got, digest) == (k["outcomes"]["untargeted"],
+                             k["untargeted_adversarial"])
+    tie = 1.0 if same else attack_cli_tie(torch, k)
+    check(same or tie <= ATK_TIE_RTOL, f"(cohort attack) rank 0 printed "
+          f"{got!r} and wrote .adversarial {digest}; one process "
+          f"{k['outcomes']['untargeted']!r} and "
+          f"{k['untargeted_adversarial']}, with one rank's closest decision "
+          f"{tie:.3g} apart")
+    check(os.listdir(os.path.join(pairs["dir"], "follower")) == [],
+          "(cohort pairs) a follower wrote a file")
+    out["waited_s"] = waited
+    out["attack_outcome"] = got
+    out["adversarial"] = digest
+    out["attack_tie"] = None if same else tie
+    shutil.rmtree(pairs["dir"])
+    return out
+
+
+def attack_cli_tie(torch, k) -> float:
+    """The closest decision (`StepTimer`'s gaps) of (k)'s untargeted
+    `--attack`, run again in this process on one rank over a copy of its
+    input: the tie rule of [28]'s `--attack` pair, asked only when rank
+    0's outcome differs from (k)'s."""
+    import shutil
+
+    from code2vec_tpu_torch.attacks import gradient_attack as tga
+    from code2vec_tpu_torch.attacks.source_attack import SourceAttack
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
+    d = os.path.dirname(k["victim"]) + "_tie"
+    os.makedirs(d)
+    victim = os.path.join(d, "Input.java")
+    shutil.copy(k["victim"], victim)
+    cfg = Config.load_from_args(["--load", k["ckpt"], "--attack",
+                                 "untargeted", "--attack_input", victim])
+    model = Code2VecTrainer.from_config(cfg).predictor()
+    attack = SourceAttack(cfg, model, top_k_candidates=cfg.ATTACK_TOPK,
+                          max_iters=cfg.ATTACK_ITERS)
+    with StepTimer(torch, attack.attack, tga) as timer:
+        attack.attack_file(victim, method_index=cfg.ATTACK_METHOD_INDEX,
+                           max_renames=cfg.ATTACK_MAX_RENAMES)
+    del model, attack
+    torch.cuda.empty_cache()
+    shutil.rmtree(d)
+    return min(timer.gaps, default=1.0)
+
+
+def phase_cohort_serving(torch, runs, pair_out, report) -> dict:
+    """[28]: the model-2 predictor and attack from [23]'s two children
+    (`cohort_harness`) and the two pairs (`finish_cohort_pairs`). Returns
+    rank 0's launches of the counted predictions and attack."""
+    pool = fwd = 0
+    for rank, r in enumerate(runs):
+        h = r["cohort"]
+        for label in ("bag", "xf"):
+            for c in h[label]:
+                want = ({"attention_pool": 1, "xf_attention_forward": 0}
+                        if label == "bag" else
+                        {"attention_pool": 0, "xf_attention_forward": XF_L})
+                got = {k: c["launches"][k] for k in want}
+                check(got == want, f"(cohort {label}) rank {rank} B = "
+                      f"{c['B']}: launches {got}, want {want}")
+                if rank == 0:
+                    pool += got["attention_pool"]
+                    fwd += got["xf_attention_forward"]
+                print(f"  (cohort {label}) rank {rank} at model {MODEL}, B = "
+                      f"{c['B']}: attention and code vectors one rank's "
+                      f"bits, probabilities within {c['prob_rel']:.2e} of "
+                      f"themselves, ids equal on {c['held']} held of "
+                      f"{c['positions']}; {c['ms']:.1f} ms against one "
+                      f"rank's {c['one_rank_ms']:.1f}; all-sums "
+                      f"{c['traffic']['sum'] / 1e6:.2f} MB, maxes "
+                      f"{c['traffic']['max'] / 1e3:.1f} kB, the top-k "
+                      f"gather {c['traffic']['gather'] / 1e3:.1f} kB, the "
+                      f"outputs' gather {c['fetch_bytes'] / 1e3:.1f} kB; "
+                      f"launches {got}", flush=True)
+        a = h["attack"]
+        if rank == 0:
+            pool += a["launches"]
+        print(f"  (cohort attack) rank {rank}: first-order scores within "
+              f"{a['score_rel']:.2e} of their largest, shortlist "
+              f"{'the same' if a['same_shortlist'] else 'differs'} "
+              f"(boundary {a['boundary']:.2e}), result "
+              f"{'equal to' if a['same_result'] else 'tied with'} one "
+              f"rank's: {a['result']}; {a['ms']:.1f} ms against "
+              f"{a['one_rank_ms']:.1f} ({a['iterations']} iterations), "
+              f"all-sums {a['traffic']['sum'] / 1e6:.2f} MB, gathers "
+              f"{a['traffic']['gather'] / 1e6:.2f} MB; kernel 1 "
+              f"{a['launches']} launches; [28]'s harness "
+              f"{h['seconds']:.1f} s", flush=True)
+    for label in ("predict", "attack"):
+        p = pair_out[label]
+        print(f"  (cohort {label} pair) cli.main --mesh_model {DP_WORLD} "
+              f"--dist_*: both exit 0, rank 1 printed nothing; "
+              f"{p['seconds']:.1f} s; kernel 1 "
+              f"{[r['launches'] for r in p['ranks']]} launches a rank",
+              flush=True)
+    print(f"  (cohort pairs) rank 0's REPL output [15]'s (latency lines "
+          f"aside); the attack's outcome and .adversarial "
+          f"({pair_out['adversarial'] or 'none'}) "
+          + ("(k)'s: " if pair_out["attack_tie"] is None else
+             f"tied with (k)'s (one rank's closest decision "
+             f"{pair_out['attack_tie']:.3g} apart): ")
+          + pair_out["attack_outcome"].replace("\n", " | ")
+          + f"; waited {pair_out['waited_s']:.1f} s after [27]", flush=True)
+    report["cohort_serving"] = {"ranks": [r["cohort"] for r in runs],
+                                "pairs": pair_out}
+    return {"attention_pool": pool, "xf_attention_forward": fwd}
+
+
 # ---- [24]: the supervised training cohort ----
 
 # process 1's train/kill hit: its step 3, the first of epoch 2 at two
@@ -8317,7 +8871,7 @@ def median(xs):
     return sorted(xs)[len(xs) // 2] if xs else None
 
 
-def phase_cohort(torch, tmp, dp_kept, report):
+def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     """[24]: the supervised training cohort on the card. (a) at
     java-large width on [14]'s binary shards, two ranks sharing the card
     over gloo, driven through `python3 -m
@@ -8331,10 +8885,12 @@ def phase_cohort(torch, tmp, dp_kept, report):
     --dist_* flags logging the resharding line, its saves' topology 1,
     the final params bit-identical to a one-process run resumed from a
     copy of the same committed step; (iii) /fleet during (ii): two
-    members before the kill, one after. (ii) runs first and alone (its
-    recovery and step times are the phase's readings), then (i) with
-    (ii)'s oracle running beside it. Every member's kernel 1 and kernel
-    5 launches are printed (outside this process's count)."""
+    members before the kill, one after. (ii) runs first, with only
+    [27]'s export ranks beside it (its recovery and step times are the
+    phase's readings), then `beside_i()` starts what is to run beside
+    (i) ([28]'s pairs), then (i) with (ii)'s oracle running beside it.
+    Every member's kernel 1 and kernel 5 launches are printed (outside
+    this process's count). Returns what `beside_i` returned."""
     import gc
     import shutil
 
@@ -8478,6 +9034,8 @@ def phase_cohort(torch, tmp, dp_kept, report):
           f"{len(before)} with two members up before the kill, {len(after)} "
           f"with one after the resize; last {scrapes[-1:]}")
     shrink = run
+    # started only now, so (ii)'s readings are taken without it
+    started = beside_i()
     # (ii)'s oracle, run beside (i): one process resumed from a copy of
     # the committed step the re-formed member restored
     oracle = os.path.join(tmp, "ck24_oracle")
@@ -8574,6 +9132,7 @@ def phase_cohort(torch, tmp, dp_kept, report):
         elif os.path.exists(path):
             os.remove(path)
     report["cohort"] = out
+    return started
 
 
 def main(argv=None) -> int:
@@ -8744,9 +9303,9 @@ def main(argv=None) -> int:
         lap("[18]")
 
         # ---- 19. the restart supervisor ----
-        print("[19] the restart supervisor (train/kill, a corrupt step, an "
-              "exhausted budget) with the fleet plane; [16]'s train/kill leg "
-              "beside it", flush=True)
+        print("[19] the restart supervisor (train/kill, an exhausted "
+              "budget) with the fleet plane; [16]'s train/kill leg beside "
+              "it", flush=True)
         kill_chain = start_kill_resume(tmp, kept)
         phase_supervised(  # graftlint: disable=nondeterminism
             torch, np, tmp, data_prefix, kept, report)
@@ -8793,7 +9352,10 @@ def main(argv=None) -> int:
               "card under the supervisor tool, (i) kill_resume_2proc, (ii) "
               "kill_resize (shrink to one process), (iii) /fleet",
               flush=True)
-        phase_cohort(torch, tmp, dp_kept, report)
+        # [28]'s two pairs, beside [24]'s (i) and (ii)'s oracle
+        cohort_pairs = phase_cohort(
+            torch, tmp, dp_kept, report,
+            beside_i=lambda: start_cohort_pairs(tmp, kept, report))
         lap("[24]")
 
         # ---- 25. the context axis (run in [23]'s children) ----
@@ -8824,7 +9386,18 @@ def main(argv=None) -> int:
         vm_model_launches = phase_vm_model(torch, ctx_runs, export_r0, report)
         lap("[27]")
 
-    # ---- 28. result ----
+        # ---- 28. --predict, the REPL and --attack above one rank ----
+        print("[28] --predict, the REPL and --attack above one rank: the "
+              "predict-side model and the attack over the model axis's "
+              "windows against one rank, the --predict and --attack pairs "
+              "against [15] and (k)", flush=True)
+        pair_out = finish_cohort_pairs(  # graftlint: disable=nondeterminism
+            torch, kept, cohort_pairs, report)
+        cohort_launches = phase_cohort_serving(torch, ctx_runs, pair_out,
+                                               report)
+        lap("[28]")
+
+    # ---- 29. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -8840,7 +9413,8 @@ def main(argv=None) -> int:
         + attack_launches["attention_pool"] + dp_launches["attention_pool"] \
         + ctx_launches["attention_pool"] + model_launches["attention_pool"] \
         + chunk_launches["attention_pool"] \
-        + vm_model_launches["attention_pool"]
+        + vm_model_launches["attention_pool"] \
+        + cohort_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -8903,7 +9477,7 @@ def main(argv=None) -> int:
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
             "launches": sum(v[counter] for v in xf_launches.values())
             + attack_launches[counter] + ctx_launches[counter]
-            + model_launches[counter],
+            + model_launches[counter] + cohort_launches.get(counter, 0),
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
                                if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -8925,7 +9499,8 @@ def main(argv=None) -> int:
                           "data_parallel": dp_launches,
                           "context": ctx_launches, "model": model_launches,
                           "chunked": chunk_launches,
-                          "vm_model": vm_model_launches}
+                          "vm_model": vm_model_launches,
+                          "cohort": cohort_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -39,6 +39,24 @@ on the device is `topk_stable` (training/steps.py), whose order among
 equal scores is `jax.lax.top_k`'s; the serial path's shortlist stays
 `np.argpartition` on the host, as in the JAX package.
 
+Under a `mesh` whose model axis row-shards the tables (the JAX attack
+on model-sharded params, tests/test_attacks.py:158) the steps read the
+rank's windows: the rows a forward reads (the method's token and path
+ids, a re-score's candidates, e's current row) are gathered whole from
+the windows into the local tables (`parallel/sharding.take_window`, the
+model group's sum), so the encode is one device's on every rank of the
+model group; the logits are the rank's columns, the cross entropy the
+sharded softmax's and the top-1 the merged top-k's (models/encoder.py,
+training/steps.topk_merged); the first-order score is the rank's
+window's product, gathered over the model group into the whole [M, V]
+vector on every rank, so every rank's host code picks the same
+shortlist. `candidate_mask` and `spare_row` index the whole vocab. Under
+a mesh without a model axis (data, dcn, ctx) the params are whole on
+every rank and the steps run without the mesh, as the JAX attack's
+mesh-free `get_encode_fn(dims)`. The attack built over a model that
+leads a cohort (`GradientRenameAttack.over`, serving/cohort.py) hands
+each collective step's inputs to the followers first.
+
 The outer loop (iterations x variables) stays on the host. Every entry
 point runs on the card unless the caller passes `device="cpu"`.
 """
@@ -51,13 +69,15 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from code2vec_tpu_torch.common import SpecialVocabWords
 from code2vec_tpu_torch.device import resolve_device
-from code2vec_tpu_torch.models.encoder import (ModelDims, full_logits,
-                                               get_encode_fn)
-from code2vec_tpu_torch.training.steps import topk_stable
+from code2vec_tpu_torch.models.encoder import (ModelDims, cross_entropy,
+                                               full_logits, get_encode_fn)
+from code2vec_tpu_torch.parallel.collectives import model_gather
+from code2vec_tpu_torch.parallel.mesh import row_sharded
+from code2vec_tpu_torch.parallel.sharding import take_window
+from code2vec_tpu_torch.training.steps import topk_merged, topk_stable
 from code2vec_tpu_torch.vocab.vocabularies import Vocab
 
 _LETTERS_RE = re.compile(r"^[a-z]+$")
@@ -110,6 +130,11 @@ def spare_row(padded_rows: int, *arrays: np.ndarray) -> int:
         if cand not in used:
             return cand
     raise ValueError("no spare vocab row (vocab smaller than the ids?)")
+
+
+# the names a cohort's leader gives the three step calls of
+# `make_batched_attack_steps` (serving/cohort.py)
+ATTACK_OPS = ("attack/score", "attack/eval", "attack/predict")
 
 
 def attack_succeeded(targeted: bool, pred: int, label: int,
@@ -202,9 +227,34 @@ class AttackResult:
         return line
 
 
+def rows_at(table: torch.Tensor, ids: torch.Tensor, mesh=None
+            ) -> torch.Tensor:
+    """The rows of a token or path table at global `ids` (no gradient):
+    an index_select, or under a row-sharded `mesh` the model group's
+    window rows summed (`take_window`), the same bits on every rank."""
+    with torch.no_grad():
+        if row_sharded(mesh):
+            return take_window(table, ids, mesh)
+        return table.index_select(0, ids)
+
+
+def local_table(table: torch.Tensor, ids: Sequence[torch.Tensor],
+                mesh=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The rows of `table` at the distinct ids of the id tensors `ids`
+    (any shapes) in a local table (`rows_at`), and the ids remapped into
+    it."""
+    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in ids])
+    uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
+    out, at = [], 0
+    for t in ids:
+        out.append(inv[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return rows_at(table, uniq, mesh), out
+
+
 def occurrence_table(table: torch.Tensor, ids: Sequence[torch.Tensor],
-                      occ: Sequence[torch.Tensor], e: torch.Tensor
-                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                      occ: Sequence[torch.Tensor], e: torch.Tensor,
+                      mesh=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """The local token table of M methods with e in their occurrence
     slots. `ids` are [M, n] id tensors read from the token table (source
     and target ids; the VarMisuse head adds its candidates), `occ` the
@@ -212,20 +262,18 @@ def occurrence_table(table: torch.Tensor, ids: Sequence[torch.Tensor],
     leaf. Returns (local table [U + M, E] in the table's dtype: the rows
     of the U distinct ids, then e cast to the table's dtype, as the JAX
     package casts it; the ids remapped into it, method m's occurrence
-    slots at row U + m)."""
-    M = ids[0].shape[0]
-    widths = [t.shape[1] for t in ids]
-    flat = torch.cat([t.to(torch.int64) for t in ids], dim=1)
-    uniq, inv = torch.unique(flat, sorted=True, return_inverse=True)
-    U = uniq.shape[0]
-    local = torch.cat([table.index_select(0, uniq), e.to(table.dtype)])
-    row_of_e = U + torch.arange(M, device=flat.device)[:, None]
-    inv = torch.where(torch.cat(list(occ), dim=1), row_of_e, inv)
-    return local, list(inv.split(widths, dim=1))
+    slots at row U + m). Under a row-sharded `mesh` `table` is the
+    rank's window and the rows are gathered from the windows
+    (`rows_at`)."""
+    rows, remapped = local_table(table, ids, mesh)
+    row_of_e = rows.shape[0] + torch.arange(
+        ids[0].shape[0], device=rows.device)[:, None]
+    return (torch.cat([rows, e.to(table.dtype)]),
+            [torch.where(o, row_of_e, r) for o, r in zip(occ, remapped)])
 
 
 def make_attack_steps(dims: ModelDims, *, compute_dtype=torch.float32,
-                      use_kernel: bool = True
+                      use_kernel: bool = True, mesh=None
                       ) -> Tuple[Callable, Callable, Callable]:
     """The three step functions of the attack, on the params' device.
 
@@ -242,10 +290,15 @@ def make_attack_steps(dims: ModelDims, *, compute_dtype=torch.float32,
     method; `occ` is (occ_src [C], occ_dst [C]) bool occurrence slots;
     `label` an int; `sign` is +1.0 to minimize CE(label) (targeted) or
     -1.0 to maximize it (untargeted). Each is the batched step at one
-    method (`make_batched_attack_steps`)."""
-    score_b, eval_b, predict_b = make_batched_attack_steps(
-        dims, compute_dtype=compute_dtype, use_kernel=use_kernel)
+    method (`make_batched_attack_steps`, whose `mesh` it takes)."""
+    return serial_steps(*make_batched_attack_steps(
+        dims, compute_dtype=compute_dtype, use_kernel=use_kernel, mesh=mesh))
 
+
+def serial_steps(score_b: Callable, eval_b: Callable, predict_b: Callable
+                 ) -> Tuple[Callable, Callable, Callable]:
+    """`make_attack_steps`'s three functions over the batched steps
+    `score_b`, `eval_b` and `predict_b`, each called at one method."""
     def one(t):
         return t[None]
 
@@ -270,7 +323,7 @@ def make_attack_steps(dims: ModelDims, *, compute_dtype=torch.float32,
 
 def make_batched_attack_steps(dims: ModelDims, *,
                               compute_dtype=torch.float32,
-                              use_kernel: bool = True
+                              use_kernel: bool = True, mesh=None
                               ) -> Tuple[Callable, Callable, Callable]:
     """The steps over M methods at once: every array argument has a
     leading method dim [M, ...]; `sign` is one float.
@@ -280,15 +333,36 @@ def make_batched_attack_steps(dims: ModelDims, *,
         occurrence embeddings, then one [Vt, E] x [E, M] product);
       eval_b(params, ids, occ, cand_ids [M, K], labels [M]) ->
         (loss [M, K], top1 [M, K]): the M x K variants in one forward;
-      predict_b(params, ids) -> top1 [M]."""
+      predict_b(params, ids) -> top1 [M].
+
+    Under a row-sharded `mesh` the params hold the rank's windows and
+    every rank of the model group calls each step with the same
+    arguments (the module docstring); any other mesh is ignored."""
     encode = get_encode_fn(dims)
     V = dims.target_vocab_size
+    if not row_sharded(mesh):
+        mesh = None
 
-    def logits_of(params, src, pth, dst, mask, train=False):
+    def logits_of(params, src, pth, dst, mask, train=False,
+                  local_tokens=False):
+        # under the model axis: the rows the forward reads gathered whole
+        # into local tables (the score's token table is local already)
+        if mesh is not None and not local_tokens:
+            tok, (src, dst) = local_table(params["token_emb"], (src, dst),
+                                          mesh)
+            params = dict(params, token_emb=tok)
+        if mesh is not None:
+            path, (pth,) = local_table(params["path_emb"], (pth,), mesh)
+            params = dict(params, path_emb=path)
         code, _ = encode(params, src, pth, dst, mask,
                          compute_dtype=compute_dtype, use_kernel=use_kernel,
                          train=train)
-        return full_logits(params, code, V)
+        return full_logits(params, code, V, mesh)
+
+    def top1(logits):
+        if mesh is None:
+            return torch.argmax(logits, dim=-1)
+        return topk_merged(logits, 1, mesh)[1][:, 0]
 
     def score_b(params, ids, occ, labels, sign):
         src, pth, dst, mask = ids
@@ -296,23 +370,27 @@ def make_batched_attack_steps(dims: ModelDims, *,
         # occurrences all carry the same id (the attacked variable)
         cur_id = torch.amax(torch.where(occ[0], src, torch.where(
             occ[1], dst, torch.full_like(src, -1))), dim=1)
-        e_var = table.index_select(0, cur_id.to(torch.int64)).to(
+        e_var = rows_at(table, cur_id.to(torch.int64), mesh).to(
             torch.float32)
         e = e_var.clone().requires_grad_(True)
         with torch.enable_grad():
             local, (src2, dst2) = occurrence_table(table, (src, dst), occ,
-                                                    e)
+                                                    e, mesh)
             logits = logits_of(dict(params, token_emb=local), src2, pth,
-                               dst2, mask, train=True)
-            ce = F.cross_entropy(logits, labels.to(torch.int64),
-                                 reduction="none")
+                               dst2, mask, train=True, local_tokens=True)
+            ce = cross_entropy(logits, labels, mesh)
             (g,) = torch.autograd.grad((sign * ce).sum(), [e])
         # First-order delta of moving the shared embedding to row v:
         # (table[v] - e_var) @ g; the -e_var @ g term is constant and
         # kept only so the scores are true deltas (sign-interpretable).
+        # Under a model axis each rank scores its window's rows and the
+        # model group's columns are gathered in model order.
         with torch.no_grad():
             scores = torch.matmul(table.to(torch.float32), g.T).T
-            return scores - (e_var * g).sum(dim=1, keepdim=True)
+            scores = scores - (e_var * g).sum(dim=1, keepdim=True)
+            if mesh is not None:
+                scores = model_gather(scores, 1, mesh)
+            return scores
 
     @torch.no_grad()
     def eval_b(params, ids, occ, cand_ids, labels):
@@ -331,12 +409,12 @@ def make_batched_attack_steps(dims: ModelDims, *,
         logits = logits_of(params, variants(src, occ[0]), tile(pth),
                            variants(dst, occ[1]), tile(mask))
         lab = labels.to(torch.int64)[:, None].expand(M, K).reshape(M * K)
-        loss = F.cross_entropy(logits, lab, reduction="none")
-        return loss.reshape(M, K), torch.argmax(logits, dim=-1).reshape(M, K)
+        loss = cross_entropy(logits, lab, mesh)
+        return loss.reshape(M, K), top1(logits).reshape(M, K)
 
     @torch.no_grad()
     def predict_b(params, ids):
-        return torch.argmax(logits_of(params, *ids), dim=-1)
+        return top1(logits_of(params, *ids))
 
     return score_b, eval_b, predict_b
 
@@ -358,13 +436,17 @@ class GradientRenameAttack:
     methods against a code2vec params dict (bag or transformer
     encoder, float32 or bf16 tables). Construct once per model, reuse
     across methods. `device=None` is the card (it raises without one);
-    the params must lie there."""
+    the params must lie there. Under a row-sharded `mesh` the params are
+    the rank's windows and every rank of the model group runs the same
+    attack (the module docstring); built by `over` a model that leads a
+    cohort (serving/cohort.py), only the leader runs it, and each step's
+    inputs go to the followers, which join its collectives."""
 
     def __init__(self, dims: ModelDims, token_vocab: Vocab,
                  target_vocab: Vocab, *, top_k_candidates: int = 32,
                  max_iters: int = 4, compute_dtype=torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
-                 use_kernel: bool = True):
+                 use_kernel: bool = True, mesh=None):
         self.dims = dims
         self.token_vocab = token_vocab
         self.target_vocab = target_vocab
@@ -375,14 +457,37 @@ class GradientRenameAttack:
                                dims.padded(dims.token_vocab_size))
         self.top_k = top_k_candidates
         self.max_iters = max_iters
-        self.score_fn, self.eval_fn, self.predict_fn = make_attack_steps(
-            dims, compute_dtype=compute_dtype, use_kernel=use_kernel)
-        self._score_b, self._eval_b, self._predict_b = \
-            make_batched_attack_steps(dims, compute_dtype=compute_dtype,
-                                      use_kernel=use_kernel)
+        self.mesh = mesh if row_sharded(mesh) else None
+        self._use_steps(*make_batched_attack_steps(
+            dims, compute_dtype=compute_dtype, use_kernel=use_kernel,
+            mesh=self.mesh))
         self.legal = candidate_mask(token_vocab,
                                     dims.padded(dims.token_vocab_size))
         self._legal_dev: Optional[torch.Tensor] = None
+
+    @classmethod
+    def over(cls, model, **kwargs) -> "GradientRenameAttack":
+        """The attack over a predict-side model (models/torch_model.
+        Code2VecModel): its dims, vocabs, dtype, device, kernel choice and
+        mesh. Under a row-sharded mesh each step goes through
+        `model.led`, so a model that leads a cohort announces it to the
+        followers (serving/cohort.py)."""
+        attack = cls(model.dims, model.vocabs.token_vocab,
+                     model.vocabs.target_vocab,
+                     compute_dtype=model.compute_dtype, device=model.device,
+                     use_kernel=model.use_kernel, mesh=model.mesh, **kwargs)
+        if attack.mesh is not None:
+            attack._use_steps(*(model.led(op, fn) for op, fn in zip(
+                ATTACK_OPS, (attack._score_b, attack._eval_b,
+                             attack._predict_b))))
+        return attack
+
+    def _use_steps(self, score_b, eval_b, predict_b) -> None:
+        """The batched steps, and the serial ones over them."""
+        self._score_b, self._eval_b, self._predict_b = \
+            score_b, eval_b, predict_b
+        self.score_fn, self.eval_fn, self.predict_fn = serial_steps(
+            score_b, eval_b, predict_b)
 
     def tensor(self, a) -> torch.Tensor:
         """A host array on the attack's device."""

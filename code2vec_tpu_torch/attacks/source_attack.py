@@ -33,7 +33,9 @@ The extraction is the port's (serving/extractor.Extractor: the native
 extractor built from the port's C++ sources, or the Python frontend),
 the tensorization its data/reader.parse_c2v_rows, and the model a
 predict-side `Code2VecModel` (`Code2VecTrainer.predictor()`): the attack
-runs on the model's device with its kernel choice.
+runs on the model's device with its kernel choice, and on its mesh's
+windows of the tables under a model axis, its cohort's followers
+joining each step (attacks/gradient_attack.py, serving/cohort.py).
 """
 
 from __future__ import annotations
@@ -370,12 +372,8 @@ class SourceAttack:
         self.model = model
         self.extractor = Extractor(config)  # re-created per attack_file
         #                                     to match the source language
-        self.attack = GradientRenameAttack(
-            model.dims, model.vocabs.token_vocab,
-            model.vocabs.target_vocab,
-            top_k_candidates=top_k_candidates, max_iters=max_iters,
-            compute_dtype=model.compute_dtype, device=model.device,
-            use_kernel=model.use_kernel)
+        self.attack = GradientRenameAttack.over(
+            model, top_k_candidates=top_k_candidates, max_iters=max_iters)
 
     def _tensorize(self, line: str):
         labels, src, pth, dst, mask, _, _ = parse_c2v_rows(

@@ -39,7 +39,8 @@ order, for the ported flags (config.Config.arguments_parser):
    `--attack_deadcode`, dead-code) attack on `--attack_input`
    (attacks/source_attack.py), its outcome printed as the model predicts
    the rewritten, re-extracted source, `<attack_input>.adversarial`
-   written only on a verified success, and nothing else;
+   written only on a verified success, and nothing else; above one rank
+   rank 0 leads and the other ranks follow (serving/cohort.py);
 4. `--data`: train (with `--save`, a checkpoint every SAVE_EVERY_EPOCHS
    epochs; with `--test`, an evaluation after each); the varmisuse head
    reads `<data>.train.vm.c2v`;
@@ -47,7 +48,9 @@ order, for the ported flags (config.Config.arguments_parser):
    text format;
 6. `--predict`: the REPL over Input.java in the working directory
    (serving/interactive_predict.py), through the extractor pool and the
-   prediction server;
+   prediction server; above one rank rank 0 alone reads stdin and
+   prints, and the other ranks join its device calls until it stops,
+   then exit with its code (serving/cohort.py);
 7. else `--test` without `--data`: evaluate and print the results; with
    `--export_code_vectors`, also `<test>.vectors`.
 
@@ -145,6 +148,7 @@ def _run(config: Config) -> int:
 
 def _run_joined(config: Config, rank_device) -> int:
     device = "cpu" if config.BACKEND == "cpu" else rank_device
+    from code2vec_tpu_torch.serving import cohort
     from code2vec_tpu_torch.training.checkpoint import latest_step
     if config.AUTO_RESUME and config.is_saving and config.is_training:
         step = latest_step(config.save_path)
@@ -197,7 +201,8 @@ def _run_joined(config: Config, rank_device) -> int:
             model.release()
         return 0
     if config.ATTACK:
-        return _attack(config, model.predictor())
+        predictor = model.predictor()
+        return cohort.run(predictor, lambda: _attack(config, predictor))
     if config.is_training:
         model.train()
     for path, vocab_type, what in ((config.save_w2v, VocabType.Token,
@@ -210,7 +215,14 @@ def _run_joined(config: Config, rank_device) -> int:
     if config.is_predict:
         from code2vec_tpu_torch.serving.interactive_predict import (
             InteractivePredictor)
-        InteractivePredictor(config, model.predictor()).predict()
+        predictor = model.predictor()
+
+        def repl() -> int:
+            InteractivePredictor(config, predictor).predict()
+            return 0
+        code = cohort.run(predictor, repl)
+        if code:
+            return code
     elif config.is_testing and not config.is_training:
         results = model.evaluate()
         print(str(results))

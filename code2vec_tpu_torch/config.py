@@ -38,8 +38,8 @@ axis) and the port's: `--mesh_context` must divide MAX_CONTEXTS. Under
 `--mesh_model` the VarMisuse head trains on row-sharded tables, and the
 writing rank's exports (`--save_w2v`, `--save_t2v`,
 `--export_code_vectors`, `--release`) read whole tables gathered over its
-model group (cli.py); serving, `--predict`, the REPL and `--attack` run
-in one process, and refuse a world above 1 (ROADMAP.md Queue 1 item 4).
+model group (cli.py); `--predict`, the REPL and `--attack` run on a
+cohort of any world, rank 0 leading (serving/cohort.py).
 `--infeed_chunk G` groups G batches into one host-to-device copy a field
 (data/prefetch.ChunkedDevicePrefetcher), with the JAX package's rules:
 G >= 1, and G > 1 needs `--infeed_prefetch` >= 1.
@@ -423,12 +423,6 @@ class Config:
                 f"MAX_CONTEXTS ({self.MAX_CONTEXTS}, --max_contexts): each "
                 "rank of a ctx group holds MAX_CONTEXTS / --mesh_context "
                 "contexts")
-        if (self.DIST_NUM_PROCESSES or 1) > 1 and (self.is_predict
-                                                   or self.ATTACK):
-            raise ValueError(
-                "--predict and --attack run in one process in "
-                "code2vec_tpu_torch (ROADMAP.md Queue 1 item 4: serving, "
-                "--predict, the REPL and --attack above one rank)")
         if self.LR_WARMUP_STEPS < 0:
             raise ValueError("LR_WARMUP_STEPS must be >= 0.")
         if self.LR_WARMUP_STEPS > 0 and self.LR_SCHEDULE != "warmup_cosine":

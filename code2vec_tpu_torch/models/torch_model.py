@@ -43,7 +43,8 @@ import dataclasses
 import itertools
 import math
 import time
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
+from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -80,7 +81,9 @@ from code2vec_tpu_torch.ops.quant import (dequantize_table, is_quantized,
 from code2vec_tpu_torch.parallel import distributed
 from code2vec_tpu_torch.parallel.compat import cohort_world
 from code2vec_tpu_torch.parallel.mesh import row_sharded
-from code2vec_tpu_torch.parallel.sharding import (check_replicas,
+from code2vec_tpu_torch.parallel.sharding import (batch_rows,
+                                                  check_replicas,
+                                                  fetch_batch_shards,
                                                   local_contexts,
                                                   map_row_slots,
                                                   shard_params, shard_state,
@@ -171,16 +174,32 @@ class Code2VecModel:
     """Predict-side model over a params dict (see models/encoder.py).
 
     `device=None` runs on the CUDA card and raises when there is none;
-    tests pass `device="cpu"`."""
+    tests pass `device="cpu"`.
+
+    Under a `mesh` (a rank of a cohort; the params then hold the rank's
+    windows of the tables under a model axis) the device phase is
+    collective, as the JAX package's `predict_device` over its mesh: the
+    bucket is padded to divide the batch shards, each rank runs the
+    predict step on its shard's rows (and its contexts under a ctx
+    axis) and the outputs are gathered in shard order onto every rank
+    (`predict_padded`). Every rank calls it with the same rows, or the
+    leader alone with `cohort` set (serving/cohort.py), which hands each
+    call's rows, and each attack step that goes through `led`, to the
+    followers first."""
 
     def __init__(self, config: Config, dims: ModelDims,
                  vocabs: Code2VecVocabs, params: Params,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         self.config = config
         self.dims = dims
         self.vocabs = vocabs
         self.device = resolve_device(device)
         self.params = _move(params, self.device)
+        self.mesh = mesh
+        # the leader's channel to its followers (serving/cohort.py), set
+        # while it leads a cohort; None otherwise
+        self.cohort = None
         self.compute_dtype = (torch.bfloat16 if config.USE_BF16
                               else torch.float32)
         self.top_k = config.TOP_K_WORDS_CONSIDERED_DURING_PREDICTION
@@ -217,8 +236,13 @@ class Code2VecModel:
 
     def predict_bucket_size(self, n: int) -> int:
         """Padded leading dim for an `n`-method batch: the next power of
-        two, so the device sees O(log n) distinct shapes."""
-        return max(1, 1 << (n - 1).bit_length())
+        two, so the device sees O(log n) distinct shapes, rounded up to a
+        multiple of the batch shards under a mesh."""
+        padded_n = max(1, 1 << (n - 1).bit_length())
+        if self.mesh is not None:
+            shards = self.mesh.batch_shards
+            padded_n = -(-padded_n // shards) * shards
+        return padded_n
 
     def device_batch(self, labels, src, pth, dst, mask, weights):
         dev = self.device
@@ -233,7 +257,47 @@ class Code2VecModel:
             return predict_step(self.params, batch, dims=self.dims,
                                 top_k=self.top_k,
                                 compute_dtype=self.compute_dtype,
-                                use_kernel=self.use_kernel)
+                                use_kernel=self.use_kernel, mesh=self.mesh)
+
+    def device_inputs(self, arrays) -> tuple:
+        """A padded batch's host arrays `(labels, src, pth, dst, mask,
+        weights)` on the device: under a mesh this rank's shard of the
+        rows (and of the contexts under a ctx axis)."""
+        mesh = self.mesh
+        if mesh is not None:
+            lo, hi = batch_rows(mesh, arrays[0].shape[0] // mesh.batch_shards)
+            arrays = local_contexts(mesh, tuple(a[lo:hi] for a in arrays))
+        return self.device_batch(*arrays)
+
+    def predict_padded(self, arrays, batch=None) -> tuple:
+        """The device call of a padded batch (its host arrays, and
+        `device_inputs` of them when already made) -> host arrays
+        `(topk_ids, topk_probs, attention, code)` of every row. Under a
+        mesh it is collective: the outputs of every shard, gathered in
+        shard order (parallel/sharding.fetch_batch_shards)."""
+        out = self._run_step(self.device_inputs(arrays) if batch is None
+                             else batch)
+        if self.mesh is None:
+            return tuple(t.cpu().numpy() for t in out)
+        return tuple(fetch_batch_shards(t, self.mesh) for t in out)
+
+    def _device_call(self, arrays, batch=None) -> tuple:
+        """`predict_padded`, announced to the followers first when this
+        model leads a cohort."""
+        if self.cohort is None:
+            return self.predict_padded(arrays, batch)
+        return self.cohort.call("predict", arrays,
+                                lambda: self.predict_padded(arrays, batch))
+
+    def led(self, op: str, fn: Callable) -> Callable:
+        """`fn(params, *args)`, announced to the followers as `op` with
+        `args` first when this model leads a cohort at the call (the
+        followers call their own `fn` over their own params)."""
+        def run(params, *args):
+            if self.cohort is None:
+                return fn(params, *args)
+            return self.cohort.call(op, args, lambda: fn(params, *args))
+        return run
 
     def warmup_predict(self, max_batch: int) -> List[int]:
         """Run each shape bucket up to `max_batch`'s once (kernel build,
@@ -245,12 +309,11 @@ class Code2VecModel:
                           + [max(1, max_batch)]})
         C = self.dims.max_contexts
         for b in buckets:
-            batch = self.device_batch(
+            # the host copies wait for the device
+            self._device_call((
                 np.zeros((b,), np.int32), np.zeros((b, C), np.int32),
                 np.zeros((b, C), np.int32), np.zeros((b, C), np.int32),
-                np.zeros((b, C), np.float32), np.zeros((b,), np.float32))
-            out = self._run_step(batch)
-            out[0].cpu()  # waits for the device
+                np.zeros((b, C), np.float32), np.zeros((b,), np.float32)))
         return buckets
 
     def predict_compile_count(self) -> int:
@@ -278,10 +341,10 @@ class Code2VecModel:
             padded_n = self.predict_bucket_size(n)
             weights = np.zeros((padded_n,), dtype=np.float32)
             weights[:n] = 1.0
-            labels, src, pth, dst, mask = _pad_batch(
+            arrays = tuple(_pad_batch(
                 (prepared.labels, prepared.src, prepared.pth, prepared.dst,
-                 prepared.mask), padded_n)
-            batch = self.device_batch(labels, src, pth, dst, mask, weights)
+                 prepared.mask), padded_n)) + (weights,)
+            batch = self.device_inputs(arrays)
         except BaseException:
             encode_span.cancel()
             raise
@@ -296,9 +359,7 @@ class Code2VecModel:
                                           padded_n=padded_n) \
             if tracing else None
         try:
-            topk_ids, topk_probs, attn, code = self._run_step(batch)
-            out = (topk_ids[:n].cpu().numpy(), topk_probs[:n].cpu().numpy(),
-                   attn[:n].cpu().numpy(), code[:n].cpu().numpy())
+            out = tuple(a[:n] for a in self._device_call(arrays, batch))
         except BaseException:
             predict_span.cancel()
             raise
@@ -1158,14 +1219,11 @@ class Code2VecTrainer(TrainerBase, Code2VecModelBase):
 
     def predictor(self) -> Code2VecModel:
         """The predict-side model (the serving path, `--predict`) over
-        this trainer's params, shared, not copied; one process's (a
-        rank of a model axis holds windows of the tables)."""
-        if row_sharded(self.mesh):
-            raise ValueError("the predict-side model needs whole tables: "
-                             "--load the checkpoint in one process "
-                             "(ROADMAP.md Queue 1 item 4)")
+        this trainer's params, shared, not copied, on the trainer's mesh
+        (under a model axis the rank's windows of the tables)."""
         return Code2VecModel(self.config, self.dims, self.vocabs,
-                             self.params, device=self.device)
+                             self.params, device=self.device,
+                             mesh=self.mesh)
 
     def _publish_static_gauges(self, telemetry: Telemetry) -> None:
         """With SPARSE_EMBEDDING_UPDATES, the sparse-row step's analytic

@@ -41,7 +41,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 __all__ = ["Telemetry", "TimerStat", "device_sync"]
 
 # percentiles every summary reports; the serving latency line and
-# the JAX package's tools/telemetry_report.py render exactly these
+# the port's tools/telemetry_report.py render exactly these
 SUMMARY_PERCENTILES = (50, 95, 99)
 
 

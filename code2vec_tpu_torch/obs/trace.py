@@ -28,7 +28,7 @@ infeed_wait / step / save_blocked). Model (the Dapper shape):
 
 Spans are recorded AT END as one `kind="span"` JSONL event each — no
 in-memory trace tree to drain, and a crashed run keeps every span that
-finished. The JAX package's `tools/trace_report.py` renders the log as Chrome
+finished. The port's `tools/trace_report.py` renders the log as Chrome
 trace-event JSON (Perfetto / chrome://tracing, with flow events
 stitching requests through batcher flushes) and computes the
 critical-path breakdowns.

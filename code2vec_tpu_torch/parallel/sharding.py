@@ -25,6 +25,9 @@ counterpart of `parallel/sharding.py` in the JAX package.
   step is the shards' batches concatenated in shard order (shard s's
   rows are [s * B, (s + 1) * B)). The ranks of one ctx group share a
   shard, so they read the same rows.
+- `fetch_batch_shards`: a per-shard output gathered back to the global
+  batch on every rank (the predict step's, `fetch_global(...)[:n]` of
+  the JAX model's `predict_device`).
 - `context_cols` / `local_contexts`: this rank's window of the context
   dim, the counterpart of `context_batch_pspec` (contexts
   [c * C/s, (c + 1) * C/s) for ctx index c of s).
@@ -190,6 +193,18 @@ def batch_rows(mesh: Mesh, local_batch: int) -> Tuple[int, int]:
     shard's)."""
     start = mesh.batch_shard * local_batch
     return start, start + local_batch
+
+
+def fetch_batch_shards(x: torch.Tensor, mesh: Mesh):
+    """The global batch of a per-shard output, as numpy on every rank:
+    each rank's `x` (its batch shard's rows) all-gathered over the world
+    in rank order, one rank of each shard kept (the ranks of a ctx or
+    model group hold the same rows), in shard order."""
+    from code2vec_tpu_torch.parallel.distributed import fetch_global
+    every = fetch_global(x)
+    per_rank = every.reshape((mesh.world, -1) + every.shape[1:])
+    return per_rank[::mesh.ctx * mesh.model].reshape(
+        (-1,) + every.shape[1:])
 
 
 def context_cols(mesh: Mesh, max_contexts: int) -> Tuple[int, int]:

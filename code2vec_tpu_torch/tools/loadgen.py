@@ -31,8 +31,10 @@ model is built in a temp dir (latency is shape-, not value-dependent).
 `--backend gpu` (the default) serves on the CUDA card and exits 2
 without one; `cpu` serves on the CPU. Reports go to stdout as JSON; with
 `--telemetry_dir` the run also lands as a JSONL event log (`kind:
-loadgen`), and with `--trace` each request's span tree is in that log
-(the JAX package's tools/trace_report.py renders it as a Chrome trace).
+loadgen`), and with `--trace` each request's span tree is in that log,
+exported after the run as a Chrome trace (`--trace_out`, default
+`<run_dir>/trace.json`; tools/trace_report.py prints its critical-path
+breakdown from the same run dir).
 """
 
 from __future__ import annotations
@@ -411,8 +413,12 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", action="store_true",
                     help="request-scoped tracing: queue -> batch -> "
                          "device -> decode span trees per request in "
-                         "the run's event log (defaults --telemetry_dir "
+                         "the run's event log, exported after the run as "
+                         "Chrome trace JSON (defaults --telemetry_dir "
                          "to a temp dir when unset)")
+    ap.add_argument("--trace_out", default=None,
+                    help="Chrome trace JSON path (default: "
+                         "<run_dir>/trace.json)")
     ap.add_argument("--watchdog_stall_s", type=float, default=0.0,
                     help="stall watchdog deadline for the batcher "
                          "consumer (0 = off)")
@@ -504,6 +510,13 @@ def main(argv=None) -> int:
         tele.event("loadgen", **rep)
     tele.close()
     if args.trace and tele.run_dir:
+        # the run's spans as Chrome trace-event JSON (Perfetto /
+        # chrome://tracing)
+        from code2vec_tpu_torch.tools.trace_report import write_chrome_trace
+        trace_out = args.trace_out or os.path.join(tele.run_dir,
+                                                   "trace.json")
+        out["trace_json"] = trace_out
+        out["trace_events"] = write_chrome_trace([tele.run_dir], trace_out)
         out["trace_run_dir"] = tele.run_dir
     text = json.dumps(out, indent=2)
     print(text)

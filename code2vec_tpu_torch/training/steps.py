@@ -409,14 +409,24 @@ def predict_head(params: Params, code: torch.Tensor, dims: ModelDims,
 
 
 def predict_step(params: Params, batch, *, dims: ModelDims, top_k: int = 10,
-                 compute_dtype=torch.float32, use_kernel: bool = True):
+                 compute_dtype=torch.float32, use_kernel: bool = True,
+                 mesh=None):
     """-> (topk_ids [B, k], topk_probs [B, k], attention [B, C] float32,
     code_vectors [B, D] float32). `use_kernel=False` runs the kernels'
     plain versions: the bag's pool in the compute dtype (the JAX step's
-    `use_pallas=False`), the transformer's attention as `plain_mha`."""
+    `use_pallas=False`), the transformer's attention as `plain_mha`.
+    Under a `mesh` (the JAX `make_predict_step(mesh=...)`) the batch is
+    this rank's rows and, under a ctx axis, its contexts: the encode is
+    the mesh's (the tables' windows summed over the model group, the
+    contexts gathered over the ctx group), the logits the rank's columns
+    under the sharded softmax and the merged top-k, and the attention is
+    gathered back to the whole [B, C] over the ctx group; every rank of
+    a ctx or model group returns the same values."""
     _labels, src, pth, dst, mask, _weights = batch
     code, attn = get_encode_fn(dims)(params, src, pth, dst, mask,
                                      compute_dtype=compute_dtype,
-                                     use_kernel=use_kernel)
-    topk_ids, topk_probs = predict_head(params, code, dims, top_k)
+                                     use_kernel=use_kernel, mesh=mesh)
+    topk_ids, topk_probs = predict_head(params, code, dims, top_k, mesh)
+    if mesh is not None and mesh.ctx > 1:
+        attn = gather_along(attn, 1, mesh)
     return topk_ids, topk_probs, attn, code.to(torch.float32)

@@ -152,14 +152,15 @@ def test_verify_rules_speak_the_jax_packages_words(kw):
 
 
 def test_one_process_surfaces_refuse_a_world_above_one():
-    cfg = Config(DIST_NUM_PROCESSES=2)
-    cfg.is_predict = True
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        cfg.verify()
-    cfg = Config(DIST_NUM_PROCESSES=2, ATTACK="untargeted")
-    cfg.load_path = "x"
-    with pytest.raises(ValueError, match="Queue 1 item 4"):
-        cfg.verify()
+    """`--predict` and `--attack` at DIST_NUM_PROCESSES=2: the port's
+    `Config.verify` passes both, as the JAX one does (the cohort runs
+    them, rank 0 leading: serving/cohort.py)."""
+    for cls in (Config, JConfig):
+        for kw in (dict(), dict(ATTACK="untargeted")):
+            cfg = cls(DIST_NUM_PROCESSES=2, **kw)
+            cfg.is_predict = not kw
+            cfg.load_path = "x"
+            cfg.verify()
     Config(HEAD="varmisuse", DIST_NUM_PROCESSES=2).verify()
 
 

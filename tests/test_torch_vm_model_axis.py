@@ -541,7 +541,8 @@ def test_vm_model_axis_rules_kept_and_lifted():
     words: int8 tables under a model axis, the head under a ctx axis or
     the transformer, the head's exports and `--predict`, and the
     sparse-row VarMisuse step under a mesh; `--predict` above one
-    process names ROADMAP.md Queue 1 item 4 alone."""
+    process on a code2vec checkpoint passes both, as the cohort runs
+    it."""
     from code2vec_tpu.config import Config as JaxConfig
     from code2vec_tpu_torch.config import Config
     from code2vec_tpu_torch.models import encoder as tenc
@@ -581,10 +582,7 @@ def test_vm_model_axis_rules_kept_and_lifted():
                        "varmisuse head is single-device only"):
         make_vm_train_step(_dims(tenc, 2), AdamF32Moments(LR),
                            sparse_updates=True, mesh=mesh)
-    with pytest.raises(ValueError) as e:
-        Config.load_from_args(["--load", "x", "--predict",
-                               "--dist_coordinator", "h:1",
-                               "--dist_num_processes", "2",
-                               "--dist_process_id", "0"])
-    assert "ROADMAP.md Queue 1 item 4:" in str(e.value)
-    assert "5c" not in str(e.value)
+    argv = ["--load", "x", "--predict", "--dist_coordinator", "h:1",
+            "--dist_num_processes", "2", "--dist_process_id", "0"]
+    assert Config.load_from_args(argv).DIST_NUM_PROCESSES == \
+        JaxConfig.load_from_args(argv).DIST_NUM_PROCESSES == 2
