@@ -316,9 +316,21 @@ Phases (any failure raises, and the script exits non-zero):
    shrink --min_procs 1`: resizes [[2, 1]], no full relaunch, one
    restart, the re-formed member without `--dist_*` flags logging the
    resharding line, its saves' `topology.json` saying 1, the final params
-   bit-identical to one process resumed from a copy of step 2;
+   (printed by the member, and in its last save) bit-identical to one
+   process resumed from a copy of step 2;
    recovery_steps_lost and recovery_seconds; (iii) `/fleet` during (ii):
-   both members up before the kill, one after the resize;
+   both members up before the kill, one after the resize; (iv) beside
+   (i), the elastic shrink of a sharded cohort: `--procs 4
+   --resize_policy shrink --min_procs 1` over (a) with `--mesh_model 2`
+   (data 2, model 2), `train/kill` on process 3 at its step 3: resizes
+   [[4, 2]] (a shrink drops one group of dcn * model * ctx = 2
+   processes), no full relaunch, both re-formed members (data 1, model
+   2) logging the resharding line, step 2's `topology.json` saying 4
+   processes at 2 batch shards and the later saves 2 processes, the
+   final params bit-identical to two ranks at model 2 resumed from a
+   copy of step 2 under the tool (started once the re-formed cohort
+   has stepped);
+   recovery_steps_lost and recovery_seconds;
 25. the context axis, in [23]'s two children after their harness (ctx =
    2, data = 1: each rank holds 100 of every row's 200 contexts; gloo
    through the host): ring attention at (B, H, C, hd) = (1024, 3, 200,
@@ -395,7 +407,17 @@ Phases (any failure raises, and the script exits non-zero):
    [22](k)'s checkpoint (rank 0's outcome and `.adversarial` bytes
    (k)'s, unless one rank's closest decision lies within ATK_TIE_RTOL;
    rank 1 writes no file); all four exit 0;
-29. a `{"kernels": [...]}` line, the card line, and last
+29. the studies, in a process of their own started beside [23] and
+   waited for here, each through its tool's `main` on the card:
+   `gen_java_corpus --names 500 --methods 2000 --seed 7`, the port's
+   `c2v_extract --dir` on each split, `extractor_coverage` over the
+   corpus (coverage at least 0.999), `data.preprocess` at 200 contexts,
+   `quality_study` over its six variants one epoch each (one row a
+   variant with the JAX study's keys, `steps` the reader's batches,
+   F1 and top-1 in [0, 1]), `sampled_decay_study` for one probe (ten
+   finite deciles); its launches of kernels 1, 2, 3 and 4, counted from
+   0 in that process, join the `kernels` line;
+30. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -3624,8 +3646,8 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
           f"(eio) retries {retried}, events {retry_ev}")
     check(ckpt.latest_step(d) == steps and ckpt.verify_step(d, steps) is True,
           f"(eio) latest step {ckpt.latest_step(d)}")
-    # the alert that acts on a non-finite loss comes with the live metrics
-    # plane (health monitors, alert rules), not ported yet
+    # the alert that acts on a non-finite loss is the live metrics plane's
+    # (health monitors, alert rules): [17] holds it on the card
     check(nan_steps == [3], f"(nan) non-finite losses at steps {nan_steps}")
     print(f"  (eio) ckpt/write EIO once: retried {retried} time "
           f"({retry_ev[0]['error'][:60]}), step {steps} committed and its "
@@ -8804,6 +8826,11 @@ def phase_cohort_serving(torch, runs, pair_out, report) -> dict:
 COHORT_KILL_AT, COHORT_FLEET_S, COHORT_POLL_S = 3, 0.5, 0.05
 COHORT_TIMEOUT_S, COHORT_ATTEMPT_S = 300, 240
 COHORT_CHILD = "import chip_smoke; chip_smoke.cohort_child()"
+# an oracle member's token (taken out before cli.main): no epoch-boundary
+# saves or evaluations, its params held by the digests it prints: each
+# java-large (a) save writes a 3.8 GB state, and the script's disk writes
+# (deleted files' too) must stay under its machine's cap of ~45 GiB
+COHORT_ORACLE = "--cohort_oracle"
 
 
 def cohort_child() -> None:
@@ -8811,13 +8838,20 @@ def cohort_child() -> None:
     chip_smoke.cohort_child()' <argv>`, the supervisor's child command):
     `cli.main(argv)`, printing `COHORT_LAUNCHES <json>` (kernel 1's and
     kernel 5's launches so far) after each epoch's boundary work and at
-    the end, so a member killed in epoch 2 has printed epoch 1's; its
-    log on standard output, as `python3 -m code2vec_tpu_torch` has it;
-    exits with cli.main's code."""
+    the end, so a member killed in epoch 2 has printed epoch 1's, and at
+    the end `COHORT_DIGESTS <json>`: its trainer's step and the sha256 of
+    each of its params (the rank's windows under a model axis). With
+    COHORT_ORACLE in `argv` it makes no epoch-boundary save or
+    evaluation. Its log on standard output, as `python3 -m
+    code2vec_tpu_torch` has it; exits with cli.main's code."""
     import logging
 
+    import torch
+
     from code2vec_tpu_torch import cli
-    from code2vec_tpu_torch.models.torch_model import TrainerBase
+    from code2vec_tpu_torch.config import Config
+    from code2vec_tpu_torch.models.torch_model import (Code2VecTrainer,
+                                                       TrainerBase)
     from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
     from code2vec_tpu_torch.ops.sparse_update_kernel import \
         sparse_row_adam_fused
@@ -8835,25 +8869,53 @@ def cohort_child() -> None:
         return done
 
     TrainerBase._epoch_end = epoch_end
+    made = []
+    real_from = Code2VecTrainer.from_config.__func__
+
+    def from_config(cls, *a, **k):
+        made.append(real_from(cls, *a, **k))
+        return made[-1]
+
+    Code2VecTrainer.from_config = classmethod(from_config)
+    argv = sys.argv[1:]
+    if COHORT_ORACLE in argv:
+        argv.remove(COHORT_ORACLE)
+        real_load = Config.load_from_args.__func__
+
+        def load(cls, args=None):
+            cfg = real_load(cls, args)
+            cfg.SAVE_EVERY_EPOCHS = cfg.NUM_TRAIN_EPOCHS + 1
+            return cfg
+        Config.load_from_args = classmethod(load)
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="%(asctime)s %(levelname)s %(message)s")
-    rc = cli.main(sys.argv[1:])
+    rc = cli.main(argv)
     launches()
+    if rc == 0 and made:
+        print("COHORT_DIGESTS " + json.dumps({
+            "step": made[-1].step_num,
+            "digests": leaf_digests(torch, made[-1].params)}), flush=True)
     sys.exit(rc)
+
+
+def last_json_line(text: str, tag: str):
+    """The JSON after `tag` on the last line of `text` that starts with
+    it, or None."""
+    lines = [ln for ln in text.splitlines() if ln.startswith(tag + " ")]
+    return json.loads(lines[-1][len(tag) + 1:]) if lines else None
 
 
 def cohort_logs(log_dir: str) -> dict:
     """{log name: the member's last COHORT_LAUNCHES, or None} of each
-    member's log under a supervisor's --out_dir, and the logs' text."""
-    launches, texts = {}, {}
+    member's log under a supervisor's --out_dir, {log name: its
+    COHORT_DIGESTS, or None}, and the logs' text."""
+    launches, digests, texts = {}, {}, {}
     for name in sorted(os.listdir(log_dir)):
         with open(os.path.join(log_dir, name), errors="replace") as f:
             texts[name] = f.read()
-        lines = [ln for ln in texts[name].splitlines()
-                 if ln.startswith("COHORT_LAUNCHES ")]
-        launches[name] = (json.loads(lines[-1][len("COHORT_LAUNCHES "):])
-                          if lines else None)
-    return {"launches": launches, "texts": texts}
+        launches[name] = last_json_line(texts[name], "COHORT_LAUNCHES")
+        digests[name] = last_json_line(texts[name], "COHORT_DIGESTS")
+    return {"launches": launches, "digests": digests, "texts": texts}
 
 
 def runs_step_ms(tele_dir: str):
@@ -8871,6 +8933,248 @@ def median(xs):
     return sorted(xs)[len(xs) // 2] if xs else None
 
 
+def start_supervised(tmp, label: str, argv, sup_flags, procs: int = 2,
+                     kill_process=1) -> dict:
+    """[24]'s supervisor tool over `procs` `cohort_child` members of
+    `argv` (`--save` ck24_<label> under `tmp`, each member's log under
+    logs24_<label>), `train/kill` on member `kill_process` at its step
+    COHORT_KILL_AT (None: no fault, the members oracles,
+    COHORT_ORACLE), started, not waited for (`finish_supervised`)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    s = {"label": label, "kill": kill_process,
+         "d": os.path.join(tmp, f"ck24_{label}"),
+         "sup_tele": os.path.join(tmp, f"sup24_{label}"),
+         "child_tele": os.path.join(tmp, f"tele24_{label}"),
+         "logs": os.path.join(tmp, f"logs24_{label}"),
+         "marker": os.path.join(tmp, f"killed24_{label}.once")}
+    faults = [COHORT_ORACLE] if kill_process is None else [
+        "--faults", json.dumps(
+            {"sites": {"train/kill": {"action": "kill", "at": COHORT_KILL_AT,
+                                      "process": kill_process,
+                                      "marker": s["marker"]}}})]
+    cmd = [sys.executable, "-m", "code2vec_tpu_torch.tools.train_supervisor",
+           "--procs", str(procs), "--telemetry_dir", s["sup_tele"],
+           "--backoff_base_s", "0.2", "--attempt_timeout_s",
+           str(COHORT_ATTEMPT_S), "--out_dir", s["logs"],
+           *[str(a) for a in sup_flags], "--", sys.executable, "-c",
+           COHORT_CHILD, *argv, "--save", s["d"], *faults, "--telemetry_dir",
+           s["child_tele"]]
+    s["t"] = time.perf_counter()
+    s["proc"] = subprocess.Popen(cmd, cwd=here,
+                                 env=dict(os.environ, PYTHONPATH=here),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+    return s
+
+
+def finish_supervised(s: dict, poll_fleet=None):
+    """Waits for `start_supervised`'s run (polling /fleet on
+    `poll_fleet` meanwhile) and reads its supervisor's events and its
+    members' logs: (run, /fleet scrapes, logs' texts, the tool's
+    output). Checks exit 0, the kill fired and every member launched
+    kernels 1 and 5."""
+    import shutil
+
+    from code2vec_tpu_torch.tools import chaos
+    label, proc = s["label"], s["proc"]
+    try:
+        if poll_fleet is not None:
+            with Poller(poll_fleet, ("/fleet",),
+                        every_s=COHORT_POLL_S) as poll:
+                stdout, _ = proc.communicate(timeout=COHORT_TIMEOUT_S)
+            scrapes = [json.loads(b) for _p, st, b, _ms in poll.seen
+                       if st == 200]
+        else:
+            stdout, _ = proc.communicate(timeout=COHORT_TIMEOUT_S)
+            scrapes = []
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    seconds = time.perf_counter() - s["t"]
+    (events,) = run_events(s["sup_tele"])
+    attempts = [e for e in events if e["kind"] == "supervisor_attempt"]
+    launches_ev = [e for e in events if e["kind"] == "supervisor_launch"]
+    resizes = [[e["from_procs"], e["to_procs"]] for e in events
+               if e["kind"] == "cohort_resized"]
+    spawns = [ln.split(": ", 2)[-1] for ln in stdout.splitlines()
+              if "supervisor: spawn attempt=" in ln]
+    members = cohort_logs(s["logs"])
+    run = {"rc": proc.returncode, "seconds": seconds,
+           "kill_fired": os.path.exists(s["marker"]),
+           "kill_ts": chaos._marker_ts(s["marker"]),
+           "exit_codes": [a["exit_codes"] for a in attempts],
+           "reasons": [a["reason"] for a in attempts],
+           "resume_steps": [e["resume_step"] for e in launches_ev],
+           "launch_ts": [e["ts"] for e in launches_ev],
+           "restarts": len(attempts) - 1, "resizes": resizes,
+           "full_relaunches": len(attempts) - 1 - len(resizes),
+           "spawns": spawns, "launches": members["launches"],
+           "digests": members["digests"],
+           "runs": runs_step_ms(s["child_tele"])}
+    check(proc.returncode == 0
+          and (s["kill"] is None or run["kill_fired"])
+          and all(v is not None and v["attention_pool"] > 0
+                  and v["sparse_row_adam"] > 0
+                  for v in run["launches"].values()),
+          f"({label}) supervisor exit {proc.returncode}, kill fired "
+          f"{run['kill_fired']}, members' launches {run['launches']}: "
+          f"{stdout[-3000:]}")
+    shutil.rmtree(s["sup_tele"])
+    return run, scrapes, members["texts"], stdout
+
+
+def ckpt_digests(torch, d: str):
+    """(step, {leaf: sha256}) of the params of `d`'s latest step."""
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    state = ckpt.load_checkpoint(d, mmap=True)
+    digests = leaf_digests(torch, state["params"])
+    step = state["step"]
+    del state
+    return step, digests
+
+
+def reformed_stepped(s: dict) -> bool:
+    """Whether the cohort `start_supervised` launched a second time has
+    logged a step (read while its files are written: one missing or a
+    line half written reads as not yet)."""
+    from code2vec_tpu_torch.tools import chaos
+    try:
+        launch_ts = [e["ts"] for events in run_events(s["sup_tele"])
+                     for e in events if e["kind"] == "supervisor_launch"]
+        steps = chaos._step_event_times(s["child_tele"])
+    except (OSError, ValueError):
+        return False
+    return len(launch_ts) > 1 and any(ts >= launch_ts[1] for ts, _ in steps)
+
+
+def start_model_shrink(tmp, dp_kept) -> dict:
+    """[24] (iv), started: four `cohort_child` members run (a) with
+    `--mesh_model MODEL` on the card, a (data 2, model 2) mesh, under
+    `--resize_policy shrink --min_procs 1`, `train/kill` on process 3 at
+    its step COHORT_KILL_AT; a thread copies, once the kill has fired,
+    the committed step the re-formed cohort restores (the first epoch's,
+    COHORT_KILL_AT falling in the second), and starts the oracle once the
+    re-formed cohort has logged a step (its recovery is read without the
+    oracle's start-up beside it): two members at model MODEL under the
+    tool (no fault) resumed from that copy."""
+    from code2vec_tpu_torch.tools import chaos
+    argv = [*dp_kept["argv"], "--mesh_model", str(MODEL)]
+    ms = {"argv": argv, "S": dp_kept["steps_per_epoch"],
+          "run": start_supervised(
+              tmp, "model", argv, ["--max_restarts", 2, "--resize_policy",
+                                   "shrink", "--min_procs", 1],
+              procs=2 * MODEL, kill_process=2 * MODEL - 1)}
+
+    def oracle_when_killed():
+        run = ms["run"]
+        deadline = time.monotonic() + COHORT_TIMEOUT_S
+        while not os.path.exists(run["marker"]) \
+                and run["proc"].poll() is None \
+                and time.monotonic() < deadline:
+            time.sleep(0.2)
+        if os.path.exists(run["marker"]):
+            # the kill's step follows the first epoch's synchronous save:
+            # that step is committed and never changes
+            chaos.copy_committed_step(run["d"], os.path.join(
+                tmp, "ck24_model_oracle"), ms["S"])
+            # the oracle's start-up kept off the recovery it would slow
+            while not reformed_stepped(run) and run["proc"].poll() is None \
+                    and time.monotonic() < deadline:
+                time.sleep(0.2)
+            ms["oracle"] = start_supervised(
+                tmp, "model_oracle", argv, ["--max_restarts", 2],
+                procs=MODEL, kill_process=None)
+
+    ms["thread"] = threading.Thread(target=oracle_when_killed, daemon=True)
+    ms["thread"].start()
+    return ms
+
+
+def finish_model_shrink(torch, ms, dp_kept) -> dict:
+    """[24] (iv), waited for and checked: resizes [[4, 2]], one restart,
+    no full relaunch, the re-formed members logging the resharding line
+    (the step saved by 4 processes at 2 batch shards), their saves
+    recording 2 processes, the final params bit-identical (sha256 per
+    leaf) to the oracle's; the recovery seconds and steps lost."""
+    from code2vec_tpu_torch.tools import chaos
+    from code2vec_tpu_torch.training import checkpoint as ckpt
+    run, _s, texts, stdout = finish_supervised(ms["run"])
+    ms["thread"].join(timeout=COHORT_TIMEOUT_S)
+    check("oracle" in ms, f"(iv) the oracle never started: {stdout[-3000:]}")
+    o_run, _s, o_texts, o_stdout = finish_supervised(ms["oracle"])
+    d, S = ms["run"]["d"], ms["S"]
+    reformed = run["spawns"][2 * MODEL:]
+    logs = [texts.get(f"attempt1.proc{i}.log", "") for i in range(MODEL)]
+    saved = ckpt.load_step_topology(d, S) or {}
+    topo = {s_: ckpt.load_step_topology(d, s_)["num_processes"]
+            for s_, _d in ckpt._step_dirs(d) if s_ > S}
+    check(run["restarts"] == 1 and run["resizes"] == [[2 * MODEL, MODEL]]
+          and run["full_relaunches"] == 0 and run["resume_steps"][-1] == S
+          and len(reformed) == MODEL
+          and all(f"--dist_num_processes {MODEL}" in sp for sp in reformed)
+          and all("resharding onto the new mesh" in t for t in logs)
+          and saved.get("num_processes") == 2 * MODEL
+          and saved.get("batch_shards") == 2
+          and topo and set(topo.values()) == {MODEL}
+          and o_run["restarts"] == 0 and o_run["resume_steps"] == [S],
+          f"(iv) attempts {run['exit_codes']} ({run['reasons']}), resizes "
+          f"{run['resizes']}, resumes {run['resume_steps']}, re-formed "
+          f"spawns {reformed}, step {S}'s topology {saved}, after the "
+          f"resize {topo}; the oracle's attempts {o_run['exit_codes']}, "
+          f"resumes {o_run['resume_steps']}: {stdout[-3000:]}")
+    # each re-formed rank's windows against the oracle rank's of the same
+    # model index
+    chaos_d = [run["digests"].get(f"attempt1.proc{i}.log")
+               for i in range(MODEL)]
+    oracle_d = [o_run["digests"].get(f"attempt0.proc{i}.log")
+                for i in range(MODEL)]
+    one_spe = -(-dp_kept["n_train"] // TRAIN_B)  # one batch shard's epoch
+    want = S + (DP_EPOCHS["a"] - 1) * one_spe
+    check(None not in chaos_d + oracle_d and ckpt.latest_step(d) == want
+          and all(c["step"] == o["step"] == want
+                  and c["digests"] == o["digests"]
+                  for c, o in zip(chaos_d, oracle_d)),
+          f"(iv) final steps {[x and x['step'] for x in chaos_d]} / "
+          f"{[x and x['step'] for x in oracle_d]} (want {want}), each rank's "
+          f"params bit-identical "
+          f"{[c and o and c['digests'] == o['digests']
+              for c, o in zip(chaos_d, oracle_d)]}")
+    d_chaos = chaos_d[0]["digests"]
+    reshard = next(ln for ln in logs[0].splitlines()
+                   if "resharding onto the new mesh" in ln)
+    steps_ev = chaos._step_event_times(ms["run"]["child_tele"])
+    first_post = next((ts for ts, _s in steps_ev
+                       if ts >= run["launch_ts"][-1]), None)
+    recovery_s = (first_post - run["kill_ts"]
+                  if first_post is not None and run["kill_ts"] else None)
+    check(recovery_s is not None and recovery_s > 0,
+          f"(iv) no step after the resize: {run['runs']}")
+    lost = COHORT_KILL_AT - S
+    print(f"  (iv) kill_resize at (data 2, model {MODEL}): supervisor "
+          f"--procs {2 * MODEL} --resize_policy shrink --min_procs 1, child "
+          f"--mesh_model {MODEL}, train/kill on process {2 * MODEL - 1} at "
+          f"its step {COHORT_KILL_AT}: exit 0 in {run['seconds']:.1f} s, "
+          f"attempts exited {run['exit_codes']} "
+          f"({run['reasons']}), resizes {run['resizes']}, full_relaunches "
+          f"{run['full_relaunches']}, restarts {run['restarts']}; step {S} "
+          f"saved by {saved['num_processes']} processes at "
+          f"{saved['batch_shards']} batch shards, both re-formed members "
+          f"logged \"{reshard.split('INFO ')[-1]}\", saved steps "
+          f"{sorted(topo)} with topology num_processes {MODEL}; each rank's "
+          f"final params bit-identical to the rank of {MODEL} at model "
+          f"{MODEL} resumed from a copy of step {S} ({len(d_chaos)} leaves a "
+          f"rank, sha256; the oracle, without epoch saves, "
+          f"{o_run['seconds']:.1f} s, launches {o_run['launches']}); "
+          f"recovery_steps_lost {lost}, recovery_seconds {recovery_s:.3f}; "
+          f"members' launches {run['launches']}", flush=True)
+    return {**{k: v for k, v in run.items() if k != "spawns"},
+            "resumed_from_step": S, "topology_saved": saved,
+            "topology_after": topo, "recovery_steps_lost": lost,
+            "recovery_seconds": recovery_s, "oracle_s": o_run["seconds"],
+            "oracle_launches": o_run["launches"]}
+
+
 def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     """[24]: the supervised training cohort on the card. (a) at
     java-large width on [14]'s binary shards, two ranks sharing the card
@@ -8885,12 +9189,14 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     --dist_* flags logging the resharding line, its saves' topology 1,
     the final params bit-identical to a one-process run resumed from a
     copy of the same committed step; (iii) /fleet during (ii): two
-    members before the kill, one after. (ii) runs first, with only
-    [27]'s export ranks beside it (its recovery and step times are the
-    phase's readings), then `beside_i()` starts what is to run beside
-    (i) ([28]'s pairs), then (i) with (ii)'s oracle running beside it.
-    Every member's kernel 1 and kernel 5 launches are printed (outside
-    this process's count). Returns what `beside_i` returned."""
+    members before the kill, one after; (iv) the shrink of a (data 2,
+    model 2) cohort to (data 1, model 2) (`start_model_shrink`,
+    `finish_model_shrink`). (ii) runs first, with only [27]'s export
+    ranks beside it (its recovery and step times are the phase's
+    readings), then `beside_i()` starts what is to run beside (i)
+    ([28]'s pairs), then (i) with (ii)'s oracle and (iv) running beside
+    it. Every member's kernel 1 and kernel 5 launches are printed
+    (outside this process's count). Returns what `beside_i` returned."""
     import gc
     import shutil
 
@@ -8907,75 +9213,9 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     out = {}
 
     def supervise(label, sup_flags, poll_fleet=None):
-        d = os.path.join(tmp, f"ck24_{label}")
-        sup_tele = os.path.join(tmp, f"sup24_{label}")
-        child_tele = os.path.join(tmp, f"tele24_{label}")
-        logs = os.path.join(tmp, f"logs24_{label}")
-        marker = os.path.join(tmp, f"killed24_{label}.once")
-        faults = {"sites": {"train/kill": {
-            "action": "kill", "at": COHORT_KILL_AT, "process": 1,
-            "marker": marker}}}
-        cmd = [sys.executable, "-m",
-               "code2vec_tpu_torch.tools.train_supervisor", "--procs", "2",
-               "--telemetry_dir", sup_tele, "--backoff_base_s", "0.2",
-               "--attempt_timeout_s", str(COHORT_ATTEMPT_S),
-               "--out_dir", logs, *[str(a) for a in sup_flags], "--",
-               sys.executable, "-c", COHORT_CHILD, *argv, "--save", d,
-               "--faults", json.dumps(faults), "--telemetry_dir", child_tele]
-        t = time.perf_counter()
-        proc = subprocess.Popen(cmd, cwd=here, env=env,
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        try:
-            if poll_fleet is not None:
-                with Poller(poll_fleet, ("/fleet",),
-                            every_s=COHORT_POLL_S) as poll:
-                    stdout, _ = proc.communicate(timeout=COHORT_TIMEOUT_S)
-                scrapes = [json.loads(b) for _p, st, b, _ms in poll.seen
-                           if st == 200]
-            else:
-                stdout, _ = proc.communicate(timeout=COHORT_TIMEOUT_S)
-                scrapes = []
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        seconds = time.perf_counter() - t
-        (events,) = run_events(sup_tele)
-        attempts = [e for e in events if e["kind"] == "supervisor_attempt"]
-        launches_ev = [e for e in events if e["kind"] == "supervisor_launch"]
-        resizes = [[e["from_procs"], e["to_procs"]] for e in events
-                   if e["kind"] == "cohort_resized"]
-        spawns = [ln.split(": ", 2)[-1] for ln in stdout.splitlines()
-                  if "supervisor: spawn attempt=" in ln]
-        members = cohort_logs(logs)
-        run = {"rc": proc.returncode, "seconds": seconds,
-               "kill_fired": os.path.exists(marker),
-               "kill_ts": chaos._marker_ts(marker),
-               "exit_codes": [a["exit_codes"] for a in attempts],
-               "reasons": [a["reason"] for a in attempts],
-               "resume_steps": [e["resume_step"] for e in launches_ev],
-               "launch_ts": [e["ts"] for e in launches_ev],
-               "restarts": len(attempts) - 1, "resizes": resizes,
-               "full_relaunches": len(attempts) - 1 - len(resizes),
-               "spawns": spawns, "launches": members["launches"],
-               "runs": runs_step_ms(child_tele)}
-        check(proc.returncode == 0 and run["kill_fired"]
-              and all(v is not None and v["attention_pool"] > 0
-                      and v["sparse_row_adam"] > 0
-                      for v in run["launches"].values()),
-              f"({label}) supervisor exit {proc.returncode}, kill fired "
-              f"{run['kill_fired']}, members' launches {run['launches']}: "
-              f"{stdout[-3000:]}")
-        shutil.rmtree(sup_tele)
-        return run, scrapes, members["texts"], stdout
-
-    def final_digests(d):
-        state = ckpt.load_checkpoint(d, mmap=True)
-        digests = leaf_digests(torch, state["params"])
-        step = state["step"]
-        del state
-        return step, digests
+        return finish_supervised(start_supervised(tmp, label, argv,
+                                                  sup_flags),
+                                 poll_fleet=poll_fleet)
 
     def port_of(spawn: str):
         toks = spawn.split()
@@ -9044,8 +9284,10 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     with open(oracle_log, "w") as f:
         oracle_proc = subprocess.Popen(
             [sys.executable, "-c", COHORT_CHILD, *argv, "--save", oracle,
-             "--auto_resume"], cwd=here, env=env, stdout=f,
+             "--auto_resume", COHORT_ORACLE], cwd=here, env=env, stdout=f,
             stderr=subprocess.STDOUT)
+    # (iv) the shrink of a (data 2, model 2) cohort, beside (i)
+    model_shrink = start_model_shrink(tmp, dp_kept)
     try:
         # ---- (i) kill_resume_2proc: the whole cohort relaunched ----
         run, _s, _t, stdout = supervise("relaunch", ["--max_restarts", 2])
@@ -9054,7 +9296,7 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
         if oracle_proc.poll() is None:
             oracle_proc.kill()
             oracle_proc.wait()
-    step_i, digests = final_digests(os.path.join(tmp, "ck24_relaunch"))
+    step_i, digests = ckpt_digests(torch, os.path.join(tmp, "ck24_relaunch"))
     ports = [port_of(sp) for sp in run["spawns"]]
     check(run["restarts"] == 1 and run["resizes"] == []
           and run["full_relaunches"] == 1
@@ -9082,19 +9324,26 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
 
     with open(oracle_log) as f:
         o_text = f.read()
-    o_lines = [ln for ln in o_text.splitlines()
-               if ln.startswith("COHORT_LAUNCHES ")]
-    check(oracle_proc.returncode == 0 and o_lines, f"(ii) the one-process "
-          f"oracle exited {oracle_proc.returncode}: {o_text[-3000:]}")
-    o_launches = json.loads(o_lines[-1][len("COHORT_LAUNCHES "):])
-    step_c, d_chaos = final_digests(d)
-    step_o, d_oracle = final_digests(oracle)
+    o_launches = last_json_line(o_text, "COHORT_LAUNCHES")
+    o_final = last_json_line(o_text, "COHORT_DIGESTS")
+    check(oracle_proc.returncode == 0 and o_launches and o_final,
+          f"(ii) the one-process oracle exited {oracle_proc.returncode}: "
+          f"{o_text[-3000:]}")
+    # the re-formed member's params, as it printed them at its end and as
+    # its one-process save holds them (the whole params), against the
+    # oracle's printed ones (it saves no checkpoint)
+    c_final = shrink["digests"].get("attempt1.proc0.log") or {}
+    step_c, d_chaos = c_final.get("step"), c_final.get("digests")
+    step_o, d_oracle = o_final["step"], o_final["digests"]
+    step_s, d_saved = ckpt_digests(torch, d)
     one_spe = -(-dp_kept["n_train"] // TRAIN_B)  # one process's epoch
-    check(step_c == step_o == S + (DP_EPOCHS["a"] - 1) * one_spe
-          and d_chaos == d_oracle and o_launches["attention_pool"] > 0
+    check(step_c == step_o == step_s == S + (DP_EPOCHS["a"] - 1) * one_spe
+          and d_chaos == d_oracle == d_saved
+          and o_launches["attention_pool"] > 0
           and o_launches["sparse_row_adam"] > 0,
-          f"(ii) final steps {step_c} / {step_o}, params bit-identical "
-          f"{d_chaos == d_oracle}, oracle launches {o_launches}")
+          f"(ii) final steps {step_c} / {step_o} / saved {step_s}, params "
+          f"bit-identical {d_chaos == d_oracle}, the save's "
+          f"{d_saved == d_oracle}, oracle launches {o_launches}")
     run = shrink
     print(f"  (ii) kill_resize: supervisor --procs 2 --resize_policy shrink "
           f"--min_procs 1, train/kill on process 1 at its step "
@@ -9103,10 +9352,11 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
           f"{run['resizes']}, full_relaunches {run['full_relaunches']}, "
           f"restarts {run['restarts']}; the re-formed member has no --dist_* "
           f"flags, logged \"{reshard.split('INFO ')[-1]}\", saved steps "
-          f"{sorted(topo)} with topology num_processes 1; final params "
-          f"bit-identical to one process resumed from a copy of step {S} "
-          f"({len(d_chaos)} leaves, sha256; the oracle ran beside (i), "
-          f"launches {o_launches}); "
+          f"{sorted(topo)} with topology num_processes 1; final params, "
+          f"as printed and as its last save holds them, bit-identical to "
+          f"one process resumed from a copy of step {S} "
+          f"({len(d_chaos)} leaves, sha256; the oracle, without epoch "
+          f"saves, ran beside (i), launches {o_launches}); "
           f"recovery_steps_lost {lost}, recovery_seconds {recovery_s:.3f}; "
           f"members' launches {run['launches']}; step ms (median after "
           f"each member's first) at 2 ranks {[round(x, 1) for x in two_ms]}"
@@ -9115,6 +9365,8 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     print(f"  (iii) /fleet during (ii): {len(scrapes)} scrapes, "
           f"{len(before)} with both members up before the kill, "
           f"{len(after)} with the one member up after the resize", flush=True)
+    out["kill_resize_model"] = finish_model_shrink(torch, model_shrink,
+                                                   dp_kept)
     out["kill_resize"] = {
         **{k: v for k, v in run.items() if k != "spawns"},
         "resumed_from_step": S, "topology_after": topo,
@@ -9124,8 +9376,10 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
         "fleet": {"scrapes": len(scrapes), "two_up": len(before),
                   "one_up": len(after)}}
     for name in ("ck24_relaunch", "ck24_shrink", "ck24_oracle",
-                 "tele24_relaunch", "tele24_shrink", "logs24_relaunch",
-                 "logs24_shrink", "oracle24.log"):
+                 "ck24_model", "ck24_model_oracle", "tele24_relaunch",
+                 "tele24_shrink", "tele24_model", "tele24_model_oracle",
+                 "logs24_relaunch", "logs24_shrink", "logs24_model",
+                 "logs24_model_oracle", "oracle24.log"):
         path = os.path.join(tmp, name)
         if os.path.isdir(path):
             shutil.rmtree(path)
@@ -9133,6 +9387,182 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
             os.remove(path)
     report["cohort"] = out
     return started
+
+
+# ---- [29]: the quality, coverage and decay studies ----
+
+STUDY_CHILD = "import chip_smoke; chip_smoke.study_child()"
+STUDY_NAMES, STUDY_METHODS, STUDY_SEED = 500, 2000, 7
+STUDY_TIMEOUT_S, QS_BATCH = 600, 1024
+# the JAX quality study's row (tools/quality_study.py run_variant), key
+# for key
+QS_ROW_KEYS = ["variant", "use_sampled_softmax", "tables_dtype",
+               "embedding_optimizer", "encoder", "epochs", "batch", "lr",
+               "lr_schedule", "warmup_steps", "trust_ratio",
+               "trust_ratio_scope", "max_contexts", "steps", "train_seconds",
+               "val_loss", "val_top1", "val_top5", "val_precision",
+               "val_recall", "val_f1", "target_vocab_size"]
+
+
+def study_child() -> None:
+    """[29]'s studies in a process of their own (`python3 -c 'import
+    chip_smoke; chip_smoke.study_child()' <dir>`), through the tools'
+    `main`s on the card: `gen_java_corpus` (STUDY_NAMES names,
+    STUDY_METHODS methods), the port's `c2v_extract --dir` on each split
+    (the training split shuffled from STUDY_SEED), `extractor_coverage`
+    on the corpus, `data.preprocess` at 200 contexts, `quality_study`
+    over its six variants (one epoch each), `sampled_decay_study` for
+    one probe. Prints `STUDY_RESULT <json>`: each tool's exit code and
+    output, the training methods, the seconds of each, and the launches
+    of kernels 1, 2, 3 and 4 (counted from 0 in this process)."""
+    import contextlib
+    import io
+    import random
+
+    import torch
+
+    from code2vec_tpu_torch.data import preprocess
+    from code2vec_tpu_torch.extractor import native
+    from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+    from code2vec_tpu_torch.tools import (extractor_coverage, gen_java_corpus,
+                                          quality_study, sampled_decay_study)
+    tmp = sys.argv[1]
+    raw = os.path.join(tmp, "raw")
+    out, secs = {}, {}
+
+    def run(name, fn, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        rc = 0 if rc is None else rc  # data.preprocess returns None
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        out[name] = {"rc": rc, "stdout": buf.getvalue()}
+
+    run("corpus", gen_java_corpus.main,
+        ["--out", raw, "--names", str(STUDY_NAMES), "--methods",
+         str(STUDY_METHODS), "--seed", str(STUDY_SEED)])
+    t = time.perf_counter()
+    binary = native.binary_path()
+    files = {}
+    for split in ("train", "val", "test"):
+        lines = subprocess.run(
+            [binary, "--dir", os.path.join(raw, split), "--max_path_length",
+             "8", "--max_path_width", "2", "--num_threads", "4"],
+            check=True, capture_output=True, text=True).stdout.splitlines()
+        if split == "train":
+            random.Random(STUDY_SEED).shuffle(lines)
+        files[split] = os.path.join(tmp, f"qs.{split}.raw.txt")
+        with open(files[split], "w") as f:
+            f.write("".join(ln + "\n" for ln in lines if ln.strip()))
+    secs["extract"] = time.perf_counter() - t
+    total = int(out["corpus"]["stdout"].split("total: ")[1].split()[0])
+    run("coverage", extractor_coverage.main,
+        ["--dir", raw, "--expected", str(total)])
+    prefix = os.path.join(tmp, "qs")
+    run("preprocess", preprocess.main,
+        ["--train_data", files["train"], "--val_data", files["val"],
+         "--test_data", files["test"], "--max_contexts", "200",
+         "--word_vocab_size", "1301136", "--path_vocab_size", "911417",
+         "--target_vocab_size", "261245", "--output_name", prefix])
+    out["n_train"] = count_lines(prefix + ".train.c2v")
+    run("quality", quality_study.main,
+        ["--data", prefix, "--epochs", "1", "--batch", str(QS_BATCH),
+         "--max_contexts", "200"])
+    run("decay", sampled_decay_study.main,
+        ["--data", prefix, "--epochs", "1", "--probe_epochs", "1",
+         "--batch", str(QS_BATCH)])
+    out["seconds"] = secs
+    out["launches"] = {**xf_counts(), "requantize": requantize_fused.launches}
+    print("STUDY_RESULT " + json.dumps(out), flush=True)
+
+
+def start_studies(tmp) -> dict:
+    """[29]'s studies (`study_child`), started in a process of their own
+    (its output in a file), killed at exit if still running."""
+    import atexit
+    here = os.path.dirname(os.path.abspath(__file__))
+    st = {"dir": os.path.join(tmp, "studies"),
+          "log": os.path.join(tmp, "studies.log"),
+          "t": time.perf_counter()}
+    os.makedirs(st["dir"])
+    with open(st["log"], "w") as log:
+        st["proc"] = subprocess.Popen(
+            [sys.executable, "-c", STUDY_CHILD, st["dir"]], cwd=here,
+            env=dict(os.environ, PYTHONPATH=here), stdout=log,
+            stderr=subprocess.STDOUT)
+    atexit.register(lambda p=st["proc"]: p.poll() is None and p.kill())
+    return st
+
+
+def finish_studies(np, st, report) -> dict:
+    """[29]: the studies, waited for and checked: every tool exits 0;
+    coverage at least 0.999; one quality row a variant, with the JAX
+    row's keys, `steps` the reader's batches of the training split, F1
+    and top-1 in [0, 1]; the decay probe's ten deciles, finite. Returns
+    the child's kernel launches."""
+    import shutil
+    t = time.perf_counter()
+    rc = st["proc"].wait(timeout=STUDY_TIMEOUT_S)
+    waited = time.perf_counter() - t
+    with open(st["log"]) as f:
+        log = f.read()
+    res = last_json_line(log, "STUDY_RESULT")
+    check(rc == 0 and res is not None, f"(studies) exit {rc}: {log[-4000:]}")
+    tools = ("corpus", "coverage", "preprocess", "quality", "decay")
+    check(all(res[k]["rc"] == 0 for k in tools),
+          f"(studies) exit codes { {k: res[k]['rc'] for k in tools} }")
+    cov = json.loads(res["coverage"]["stdout"])
+    check(cov["methods_expected"] == STUDY_METHODS
+          and cov["coverage"] >= 0.999, f"(coverage) {cov}")
+    rows = [json.loads(ln) for ln in res["quality"]["stdout"].splitlines()
+            if ln.startswith("{")]
+    from code2vec_tpu_torch.tools.quality_study import VARIANTS
+    steps = -(-res["n_train"] // QS_BATCH)  # the reader's batches, an epoch
+    check([r["variant"] for r in rows] == list(VARIANTS)
+          and all(list(r) == QS_ROW_KEYS and r["steps"] == steps
+                  and 0.0 <= r["val_f1"] <= 1.0 and 0.0 <= r["val_top1"] <= 1.0
+                  for r in rows),
+          f"(quality) {steps} steps wanted; rows {rows}")
+    (probe,) = [json.loads(ln) for ln in res["decay"]["stdout"].splitlines()
+                if ln.startswith("{")]
+    check(all(len(probe[k]) == 10 and np.all(np.isfinite(probe[k]))
+              for k in ("top1_by_decile", "row_norm_by_decile", "nu_by_decile",
+                        "lr_x_update_by_decile"))
+          and all(0.0 <= x <= 1.0 for x in probe["top1_by_decile"]),
+          f"(decay) probe {probe}")
+    launches = res["launches"]
+    check(all(launches[k] > 0 for k in launches),
+          f"(studies) kernel launches {launches}")
+    secs = res["seconds"]
+    print(f"  (corpus) gen_java_corpus --names {STUDY_NAMES} --methods "
+          f"{STUDY_METHODS} --seed {STUDY_SEED}: "
+          + res["corpus"]["stdout"].strip().replace("\n", "; ")
+          + f" in {secs['corpus']:.1f} s; the port's c2v_extract on the "
+          f"three splits {secs['extract']:.1f} s; {res['n_train']} training "
+          f"methods preprocessed in {secs['preprocess']:.1f} s", flush=True)
+    print(f"  (coverage) {json.dumps(cov)}", flush=True)
+    for r in rows:
+        print(f"  (quality) {r['variant']}: {r['steps']} steps, "
+              f"train_seconds {r['train_seconds']}, val F1 {r['val_f1']}, "
+              f"top-1 {r['val_top1']}, loss {r['val_loss']}, target vocab "
+              f"{r['target_vocab_size']}", flush=True)
+    print(f"  (decay) one probe after 1 epoch: top-1 by decile "
+          f"{probe['top1_by_decile']}, row norms {probe['row_norm_by_decile']}"
+          f", lr x update "
+          f"{[f'{x:.3g}' for x in probe['lr_x_update_by_decile']]}",
+          flush=True)
+    print(f"  (studies) in a process of their own beside [23]-[28]: "
+          f"{time.perf_counter() - st['t']:.1f} s from its start, waited "
+          f"{waited:.1f} s; quality_study {secs['quality']:.1f} s, "
+          f"sampled_decay_study {secs['decay']:.1f} s; kernel launches "
+          f"{launches}", flush=True)
+    report["studies"] = {"coverage": cov, "quality": rows, "decay": probe,
+                         "seconds": secs, "waited_s": waited,
+                         "launches": launches}
+    shutil.rmtree(st["dir"])
+    return launches
 
 
 def main(argv=None) -> int:
@@ -9341,6 +9771,8 @@ def main(argv=None) -> int:
         print("[23] data-parallel training: two ranks on the card (gloo) "
               "through the command line and the function-level harness, "
               "one rank over NCCL", flush=True)
+        # [29]'s studies, in a process of their own beside [23]-[28]
+        studies = start_studies(tmp)
         dp_launches, dp_kept, ctx_runs = phase_data_parallel(
             torch, np, vocabs, tmp, data_prefix, test_path, report)
         # [27]'s model-2 exports, beside [24]
@@ -9350,10 +9782,12 @@ def main(argv=None) -> int:
         # ---- 24. the supervised training cohort ----
         print("[24] the supervised training cohort: (a) at two ranks on the "
               "card under the supervisor tool, (i) kill_resume_2proc, (ii) "
-              "kill_resize (shrink to one process), (iii) /fleet",
+              "kill_resize (shrink to one process), (iii) /fleet, (iv) "
+              "kill_resize at (data 2, model 2) (shrink to model 2)",
               flush=True)
-        # [28]'s two pairs, beside [24]'s (i) and (ii)'s oracle
-        cohort_pairs = phase_cohort(
+        # [28]'s two pairs, beside [24]'s (i) and (ii)'s oracle; `kept`
+        # holds [14]'s paths, step count and losses, no clock value
+        cohort_pairs = phase_cohort(  # graftlint: disable=nondeterminism
             torch, tmp, dp_kept, report,
             beside_i=lambda: start_cohort_pairs(tmp, kept, report))
         lap("[24]")
@@ -9397,7 +9831,14 @@ def main(argv=None) -> int:
                                                report)
         lap("[28]")
 
-    # ---- 29. result ----
+        # ---- 29. the studies ----
+        print("[29] the studies on the card: gen_java_corpus, the port's "
+              "extractor and extractor_coverage, quality_study's six "
+              "variants, sampled_decay_study's probe", flush=True)
+        study_launches = finish_studies(np, studies, report)
+        lap("[29]")
+
+    # ---- 30. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -9414,7 +9855,7 @@ def main(argv=None) -> int:
         + ctx_launches["attention_pool"] + model_launches["attention_pool"] \
         + chunk_launches["attention_pool"] \
         + vm_model_launches["attention_pool"] \
-        + cohort_launches["attention_pool"]
+        + cohort_launches["attention_pool"] + study_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -9455,7 +9896,7 @@ def main(argv=None) -> int:
          "replaces": "code2vec_tpu/ops/pallas_requant.py:85",
          "launches": train_launches["d"]["requantize"]
          + cli_launches["int8"]["requantize"]
-         + attack_launches["requantize"],
+         + attack_launches["requantize"] + study_launches["requantize"],
          "max_abs_err": max(r["max_abs_err"] for r in requant_rows),
          "ms": main_requant["ms"], "plain_ms": main_requant["plain_ms"],
          "bound_ms": main_requant["bound_ms"],
@@ -9477,7 +9918,8 @@ def main(argv=None) -> int:
             "replaces": f"code2vec_tpu/ops/xf_attention.py:{line}",
             "launches": sum(v[counter] for v in xf_launches.values())
             + attack_launches[counter] + ctx_launches[counter]
-            + model_launches[counter] + cohort_launches.get(counter, 0),
+            + model_launches[counter] + cohort_launches.get(counter, 0)
+            + study_launches[counter],
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
                                if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -9500,7 +9942,7 @@ def main(argv=None) -> int:
                           "context": ctx_launches, "model": model_launches,
                           "chunked": chunk_launches,
                           "vm_model": vm_model_launches,
-                          "cohort": cohort_launches}
+                          "cohort": cohort_launches, "studies": study_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -39,7 +39,14 @@ and checks the contract:
                      params are BIT-IDENTICAL to an uninterrupted
                      1-process run resumed from a copy of the same
                      committed step (constant LR). Reports the recovery
-                     cost: recovery_steps_lost, recovery_seconds.
+                     cost: recovery_steps_lost, recovery_seconds. Its
+                     functions also take the child's mesh flags and the
+                     cohort size (`mesh`, `procs`): a cohort of 4 with
+                     `--mesh_model 2` (data 2, model 2) loses its last
+                     process, re-forms at 2 (data 1, model 2; the shrink
+                     steps by dcn * model * ctx), and is held to an
+                     uninterrupted 2-rank cohort resumed from a copy of
+                     the same committed step.
 
 Usage (repo root):
 
@@ -71,6 +78,8 @@ import sys
 import tempfile
 import time
 from typing import Dict, List, Optional
+
+from code2vec_tpu_torch.tools.train_supervisor import mesh_group
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -371,12 +380,15 @@ def _marker_ts(marker: str) -> Optional[float]:
 
 def run_kill_resize(out: str, *, backend: str = "gpu", epochs: int = 3,
                     kill_at_step: int = 4, procs: int = 2,
+                    mesh: Optional[List[str]] = None,
                     timeout_s: float = 600.0, tries: int = 3) -> dict:
     """The run half of the kill_resize leg: train a `procs`-process
-    cohort under the shrink-policy supervisor, SIGKILL process 1 at
-    `kill_at_step`, let the cohort RE-FORM at procs-1, and measure the
-    recovery cost: steps lost (the kill's step minus the committed step
-    the re-formed cohort resumed from) and seconds from the kill to the
+    cohort (the child's mesh flags `mesh`, e.g. ["--mesh_model", "2"])
+    under the shrink-policy supervisor, SIGKILL its last process at
+    `kill_at_step`, let the cohort RE-FORM at procs-k (k = dcn * model *
+    ctx of `mesh`), and measure the recovery cost: steps lost (the
+    kill's step minus the committed step the re-formed cohort resumed
+    from) and seconds from the kill to the
     first training step after the resize (the relaunched children's
     per-step telemetry events against the kill's time the fault marker
     recorded).
@@ -393,7 +405,7 @@ def run_kill_resize(out: str, *, backend: str = "gpu", epochs: int = 3,
         os.makedirs(sub, exist_ok=True)
         last = _run_kill_resize_once(
             sub, backend=backend, epochs=epochs, kill_at_step=kill_at_step,
-            procs=procs, timeout_s=timeout_s)
+            procs=procs, mesh=list(mesh or []), timeout_s=timeout_s)
         if (last["kill_fired"] and last["supervisor_rc"] == 0
                 and last["resumed_from_step"] is not None):
             return last
@@ -405,7 +417,7 @@ def run_kill_resize(out: str, *, backend: str = "gpu", epochs: int = 3,
 
 
 def _run_kill_resize_once(out: str, *, backend: str, epochs: int,
-                          kill_at_step: int, procs: int,
+                          kill_at_step: int, procs: int, mesh: List[str],
                           timeout_s: float) -> dict:
     prefix = build_dataset(os.path.join(out, "data"))
     chaos_dir = os.path.join(out, "ckpt_chaos")
@@ -413,18 +425,19 @@ def _run_kill_resize_once(out: str, *, backend: str, epochs: int,
     marker = os.path.join(out, "killed.once")
     faults = _write_faults(os.path.join(out, "faults.json"), {
         "train/kill": {"action": "kill", "at": kill_at_step,
-                       "process": 1, "marker": marker}})
+                       "process": procs - 1, "marker": marker}})
     # synchronous checkpointing: the contract under test is TOPOLOGY
     # recovery from a committed step, so the committed step must be
     # deterministic (an async commit could lose the race to a mid-epoch
     # kill). kill_resume keeps the default async saves
     cmd = train_cmd(prefix, chaos_dir, epochs=epochs, backend=backend) \
-        + ["--async_checkpoint", "off", "--auto_resume", "--faults", faults,
-           "--telemetry_dir", child_tele]
+        + mesh + ["--async_checkpoint", "off", "--auto_resume",
+                  "--faults", faults, "--telemetry_dir", child_tele]
     rc, sup, run_dir = _supervised(
         cmd, out=out, num_procs=procs, ckpt_dir=chaos_dir,
         telemetry_dir=os.path.join(out, "tele"),
-        attempt_timeout_s=timeout_s, resize_policy="shrink", min_procs=1)
+        attempt_timeout_s=timeout_s, resize_policy="shrink", min_procs=1,
+        group=mesh_group(mesh))
 
     kill_ts = _marker_ts(marker)
     resumed = sup.resumed_from_step
@@ -451,6 +464,10 @@ def _run_kill_resize_once(out: str, *, backend: str, epochs: int,
         "num_processes") for s, _d in ckpt._step_dirs(chaos_dir)
         if resumed is not None and s > resumed} \
         if os.path.isdir(chaos_dir) else {}
+    # the record of the step the re-formed cohort restored: the saving
+    # cohort's processes and (where fewer) batch shards
+    topo_resumed = (ckpt.load_step_topology(chaos_dir, resumed) or {}) \
+        if resumed is not None else {}
     return {
         "kill_fired": os.path.exists(marker),
         "supervisor_rc": rc,
@@ -465,6 +482,8 @@ def _run_kill_resize_once(out: str, *, backend: str, epochs: int,
         "reformed_joined_group": "initializing torch.distributed" in text,
         "resharding_logged": "resharding onto the new mesh" in text,
         "topology_after_resize": topo_after,
+        "topology_resumed": topo_resumed,
+        "mesh": mesh,
         "data_prefix": prefix,
         "ckpt_dir": chaos_dir,
         "telemetry_run_dir": run_dir,
@@ -472,31 +491,40 @@ def _run_kill_resize_once(out: str, *, backend: str, epochs: int,
 
 
 def copy_committed_step(src_dir: str, dest_dir: str, step: int) -> None:
-    """`dest_dir` holding a copy of `src_dir`'s committed step `step`
-    and its sidecars: what a run resumed from that step alone sees
-    (committed step dirs are immutable, so the copy is the exact bytes
-    the re-formed cohort restored)."""
+    """`dest_dir` holding `src_dir`'s committed step `step` and its
+    sidecars: what a run resumed from that step alone sees. The step
+    dir's files are hard-linked: they are written by tmp + os.replace
+    and never rewritten in place, so the links are the exact bytes the
+    re-formed cohort restored, and no data is written. vocab.pkl and
+    manifest.json are copied: a save rewrites them in place."""
     import shutil
     os.makedirs(dest_dir)
     shutil.copytree(os.path.join(src_dir, f"step_{step}"),
-                    os.path.join(dest_dir, f"step_{step}"))
+                    os.path.join(dest_dir, f"step_{step}"),
+                    copy_function=os.link)
     for sidecar in ("manifest.json", "vocab.pkl"):
-        shutil.copy(os.path.join(src_dir, sidecar),
-                    os.path.join(dest_dir, sidecar))
+        shutil.copy2(os.path.join(src_dir, sidecar),
+                     os.path.join(dest_dir, sidecar))
 
 
 def scenario_kill_resize(out: str, *, backend: str = "gpu",
                          epochs: int = 3, kill_at_step: int = 4,
+                         procs: int = 2, mesh: Optional[List[str]] = None,
                          timeout_s: float = 600.0) -> dict:
     """SIGKILL one peer of a 2-process cohort mid-epoch; the supervisor
     re-forms the cohort at 1 process (a resize, ZERO full-cohort
     relaunches), the survivor loads the step saved by 2 processes, and
     the final params are bit-identical to an uninterrupted 1-process run
     resumed from a copy of the same committed step (constant LR): the
-    elastic resume parity bar."""
+    elastic resume parity bar. With `procs` and the child's mesh flags
+    `mesh` the cohort re-forms at procs-k (k = dcn * model * ctx) and
+    the oracle is an uninterrupted cohort of procs-k."""
     t0 = time.time()
+    mesh = list(mesh or [])
+    reformed = procs - mesh_group(mesh)
     run = run_kill_resize(out, backend=backend, epochs=epochs,
-                          kill_at_step=kill_at_step, timeout_s=timeout_s)
+                          kill_at_step=kill_at_step, procs=procs, mesh=mesh,
+                          timeout_s=timeout_s)
     result = dict(run, scenario="kill_resize", backend=backend,
                   wall_s=None, param_diffs=["<not compared>"])
     chaos_dir = run["ckpt_dir"]
@@ -506,16 +534,26 @@ def scenario_kill_resize(out: str, *, backend: str = "gpu",
         result["wall_s"] = round(time.time() - t0, 1)
         return result
 
-    # the oracle: an UNINTERRUPTED 1-process run resumed from the SAME
-    # committed step the re-formed cohort restored, with the re-formed
-    # child's checkpoint mode (sync saves), so the two runs differ in
-    # nothing but history
+    # the oracle: an UNINTERRUPTED run of the re-formed cohort's size
+    # resumed from the SAME committed step the re-formed cohort
+    # restored, with the re-formed child's checkpoint mode (sync saves),
+    # so the two runs differ in nothing but history
     oracle_dir = os.path.join(out, "ckpt_oracle")
     copy_committed_step(chaos_dir, oracle_dir, S)
-    _run_plain(train_cmd(run["data_prefix"], oracle_dir, epochs=epochs,
-                         backend=backend)
-               + ["--async_checkpoint", "off", "--auto_resume"],
-               timeout_s=timeout_s)
+    oracle_cmd = train_cmd(run["data_prefix"], oracle_dir, epochs=epochs,
+                           backend=backend) \
+        + mesh + ["--async_checkpoint", "off", "--auto_resume"]
+    if reformed == 1:
+        _run_plain(oracle_cmd, timeout_s=timeout_s)
+    else:
+        rc_o, sup_o, _ = _supervised(
+            oracle_cmd, out=os.path.join(out, "oracle"), num_procs=reformed,
+            ckpt_dir=oracle_dir, attempt_timeout_s=timeout_s)
+        result["oracle_restarts"] = sup_o.restarts
+        if rc_o != 0:
+            result.update(ok=False, error=f"oracle cohort failed (rc {rc_o})",
+                          wall_s=round(time.time() - t0, 1))
+            return result
 
     o_step, o_state = latest_state(oracle_dir)
     c_step, c_state = latest_state(chaos_dir)
@@ -525,7 +563,7 @@ def scenario_kill_resize(out: str, *, backend: str = "gpu",
         wall_s=round(time.time() - t0, 1))
     result["ok"] = (run["kill_fired"] and run["supervisor_rc"] == 0
                     and run["restarts"] == 1
-                    and run["resizes"] == [[2, 1]]
+                    and run["resizes"] == [[procs, reformed]]
                     and run["full_relaunches"] == 0
                     and o_step == c_step and not diffs)
     return result

@@ -30,12 +30,18 @@ Everything after `--` is the child command. The supervisor:
     127.0.0.1:<port> --dist_num_processes <n> --dist_process_id <i>`
     appended (none for a cohort of one). On a death, `--resize_policy
     relaunch` relaunches the whole cohort on a fresh port; `shrink`
-    re-forms it at N-1 processes (floor `--min_procs`) and training
-    goes on from the last verified committed step. A child with
-    `--mesh_context`, `--mesh_dcn` or `--mesh_model` above 1 cannot
-    shrink (N-1 processes do not fill its mesh): `shrink` then exits 2
-    naming ROADMAP.md Queue 1 item 7 (the elastic shrink of a sharded
-    cohort);
+    re-forms it at N-k processes, k = dcn * model * ctx of the child's
+    `--mesh_dcn`, `--mesh_model` and `--mesh_context` (1 when absent),
+    and training goes on from the last verified committed step; where
+    N-k is below `--min_procs` the cohort relaunches at N. The JAX tool
+    shrinks by one process, a host of several devices; a port process
+    holds one card, so its smallest loss that still fills the child's
+    mesh is a group of k processes, and k-1 healthy ones go with the
+    dead one (training/supervisor.py). The start-up log names the sizes
+    a shrink can re-form at. A child that fixes `--mesh_data` above 0
+    exits 2 under `shrink` before the first launch: no smaller world
+    holds its mesh (the JAX children would fail building the mesh after
+    the first death and spend the restart budget);
   - hosts the fleet plane behind `--fleet_port`: member i gets a fixed
     `--metrics_port` (`--member_metrics_base` + i), the supervisor's
     collector scrapes the members of the current attempt (a resize
@@ -65,14 +71,24 @@ def _child_save_dir(child_cmd) -> Optional[str]:
     return None
 
 
-def _child_axis(child_cmd, flag: str) -> int:
-    """The child's `flag <n>` (1 when absent)."""
+def _child_axis(child_cmd, flag: str, absent: int = 1) -> int:
+    """The child's `flag <n>` (`absent` when it has none)."""
     for i, tok in enumerate(child_cmd):
         if tok == flag and i + 1 < len(child_cmd):
             return int(child_cmd[i + 1])
         if tok.startswith(flag + "="):
             return int(tok.split("=", 1)[1])
-    return 1
+    return absent
+
+
+def mesh_group(child_cmd) -> int:
+    """dcn * model * ctx of the child's `--mesh_dcn`, `--mesh_model` and
+    `--mesh_context` (1 each when absent): the processes a data index of
+    its mesh spans, one step of a shrink."""
+    group = 1
+    for flag in ("--mesh_dcn", "--mesh_model", "--mesh_context"):
+        group *= max(1, _child_axis(child_cmd, flag))
+    return group
 
 
 def main(argv=None) -> int:
@@ -88,8 +104,9 @@ def main(argv=None) -> int:
     ap.add_argument("--resize_policy", choices=("relaunch", "shrink"),
                     default="relaunch",
                     help="on peer death: 'relaunch' the whole cohort "
-                         "at full size or 'shrink': re-form it at N-1 "
-                         "processes (floor --min_procs) and keep "
+                         "at full size or 'shrink': re-form it at N-k "
+                         "processes, k = the child's dcn * model * ctx "
+                         "(where N-k < --min_procs: relaunch at N), and keep "
                          "training")
     ap.add_argument("--min_procs", type=int, default=1,
                     help="smallest cohort 'shrink' may re-form at")
@@ -130,15 +147,17 @@ def main(argv=None) -> int:
         child = child[1:]
     if not child:
         ap.error("no child command given (put it after `--`)")
-    axes = ("--mesh_context", "--mesh_dcn", "--mesh_model")
-    fixed = [flag for flag in axes if _child_axis(child, flag) > 1]
-    if args.resize_policy == "shrink" and fixed:
-        ap.error(f"--resize_policy shrink with a child of "
-                 f"{', '.join(f'{f} {_child_axis(child, f)}' for f in fixed)}"
-                 ": a cohort of fewer processes cannot hold its mesh; the "
-                 "elastic shrink of a context, dcn or model mesh is not "
-                 "ported (ROADMAP.md Queue 1 item 7); use --resize_policy "
+    group = mesh_group(child)
+    data = _child_axis(child, "--mesh_data", absent=0)
+    if args.resize_policy == "shrink" and data > 0:
+        ap.error(f"--resize_policy shrink with a child of --mesh_data "
+                 f"{data}: a cohort of fewer processes cannot hold its "
+                 "mesh; drop the child's --mesh_data (the data axis then "
+                 "takes the processes left) or use --resize_policy "
                  "relaunch")
+    if args.resize_policy == "shrink" and args.procs % group:
+        ap.error(f"--procs {args.procs} is not a multiple of the child's "
+                 f"dcn * model * ctx = {group}")
 
     from code2vec_tpu_torch.obs import (FleetCollector, MetricsServer,
                                         Telemetry, Watchdog)
@@ -175,12 +194,21 @@ def main(argv=None) -> int:
                         metrics_ports=member_ports, log=log),
         num_procs=args.procs, max_restarts=args.max_restarts,
         resize_policy=args.resize_policy, min_procs=args.min_procs,
-        ckpt_dir=save_dir, telemetry=telemetry, watchdog=watchdog,
+        group=group, ckpt_dir=save_dir, telemetry=telemetry, watchdog=watchdog,
         log=log, peer_grace_s=args.peer_grace_s,
         attempt_timeout_s=args.attempt_timeout_s,
         backoff=RetryPolicy("supervisor-restart", max_attempts=1,
                             base_delay_s=args.backoff_base_s,
                             max_delay_s=60.0))
+    if args.resize_policy == "shrink":
+        sizes = sup.shrink_sizes()
+        log(f"shrink in steps of {group} process(es) (the child's "
+            f"dcn * model * ctx), floor {args.min_procs}: "
+            + (f"a dead member re-forms the cohort at "
+               f"{', then '.join(str(n) for n in sizes)} process(es)"
+               if sizes else
+               f"no smaller cohort than {args.procs} holds the child's "
+               "mesh, so a death relaunches the whole cohort"))
     fleet_server = None
     if member_ports is not None:
         # the collector's thread and the server's handler threads share

@@ -11,9 +11,10 @@ JAX package. It closes the detect -> decide -> recover loop:
     members get a grace window to die on their own, then are SIGKILLed,
     and the cohort relaunches COHERENTLY;
   - `resize_policy="shrink"` makes peer loss a RESIZE: the next launch
-    re-forms the cohort at N-1 processes (floor `min_procs`) and grows
-    back toward the target when a replacement is available
-    (`replacement_fn`). Hangs (attempt timeouts) and a whole cohort
+    re-forms the cohort at N-k processes (k = `group`, below) and grows
+    back toward the target in steps of k when a replacement is
+    available (`replacement_fn`); where N-k is below `min_procs` the
+    cohort relaunches at N. Hangs (attempt timeouts) and a whole cohort
     failing together relaunch at the same size;
   - a child that finishes (all exit 0) ends the supervised run;
   - the restart budget is bounded, the pacing is the shared
@@ -32,6 +33,18 @@ flags of the port's data axis (parallel/distributed.py), a fresh
 coordinator port per attempt. `cohort_topology()` exposes the live
 process set and target size; pass a `watchdog=` and the supervisor
 attaches it to stall dumps and beats its supervise loop.
+
+The shrink's step k (`group`) departs from the JAX supervisor's "minus
+one". A JAX process is a host holding several devices, and its mesh
+sizes the data axis from the devices left (`make_mesh` with data=0), so
+N-1 hosts still fill the ctx, dcn and model axes whenever one host's
+devices do. A port process holds one card, so the port's "host" is one
+group of k = dcn * model * ctx processes, the least a mesh of the
+child's axes can lose: a peer's death re-forms the cohort at N-k and
+drops k-1 healthy processes with the dead one, the price of one card a
+process. On hosts of k devices this is the JAX decision on N/k hosts
+with ceil(min_procs / k) hosts as the floor; at k = 1 it is the JAX
+decision.
 """
 
 from __future__ import annotations
@@ -103,7 +116,7 @@ class Supervisor:
                                           "subprocess.Popen"], *,
                  num_procs: int = 1, max_restarts: int = 3,
                  resize_policy: str = "relaunch",
-                 min_procs: int = 1,
+                 min_procs: int = 1, group: int = 1,
                  replacement_fn: Optional[Callable[[], bool]] = None,
                  ckpt_dir: Optional[str] = None,
                  telemetry=None, watchdog=None,
@@ -115,11 +128,15 @@ class Supervisor:
         assert num_procs >= 1 and max_restarts >= 0
         assert resize_policy in ("relaunch", "shrink"), resize_policy
         assert 1 <= min_procs <= num_procs, (min_procs, num_procs)
+        assert group >= 1, group
         self._spawn_fn = spawn_fn
         self.num_procs = num_procs      # configured TARGET cohort size
         self.cur_procs = num_procs      # this attempt's cohort size
         self.resize_policy = resize_policy
         self.min_procs = min_procs
+        # the processes one shrink or grow moves: the child mesh's
+        # dcn * model * ctx (the module docstring)
+        self.group = group
         self.replacement_fn = replacement_fn
         self.max_restarts = max_restarts
         self.ckpt_dir = ckpt_dir
@@ -303,18 +320,32 @@ class Supervisor:
             self._kill_all(procs)  # no orphan survives any exit path
 
     def _next_cohort_size(self, reason: str) -> int:
-        """The resize decision: shrink by one on peer death (floor
-        `min_procs`), then grow back toward the configured target for
-        as many replacements as are available — a replacement arriving
+        """The resize decision: shrink by one group of `group` processes
+        on peer death, unless that leaves fewer than `min_procs` (then
+        the cohort relaunches at its size, as the JAX supervisor does
+        at its floor), then grow back toward the configured target a
+        group for each replacement available — a replacement arriving
         in the same window the peer died re-fills its slot, so the
-        cohort re-forms at N, not N−1."""
+        cohort re-forms at N, not N−k."""
         size = self.cur_procs
-        if self.resize_policy == "shrink" and reason == "peer_death":
-            size = max(self.min_procs, size - 1)
+        if (self.resize_policy == "shrink" and reason == "peer_death"
+                and size - self.group >= self.min_procs):
+            size -= self.group
         while (self.replacement_fn is not None
                and size < self.num_procs and self.replacement_fn()):
-            size += 1
+            size += self.group
         return size
+
+    def shrink_sizes(self) -> List[int]:
+        """The cohort sizes successive shrinks re-form at, largest first
+        (empty: a death relaunches the whole cohort)."""
+        sizes: List[int] = []
+        size = self.num_procs
+        while (self.resize_policy == "shrink"
+               and size - self.group >= self.min_procs):
+            size -= self.group
+            sizes.append(size)
+        return sizes
 
     # ---- the supervised run ----
     def run(self) -> int:
@@ -430,7 +461,7 @@ def build_cli_spawn(child_cmd: Sequence[str], *, num_procs: int = 1,
     `--dist_coordinator 127.0.0.1:<port> --dist_num_processes <n>
     --dist_process_id <i>` flags appended per member, with the fresh
     port of the attempt and `n` the size of THIS attempt's cohort: a
-    cohort re-formed at N-1 gets N-1, so the children rebuild the mesh
+    cohort re-formed at N-k gets N-k, so the children rebuild the mesh
     and the readers' host shards from the surviving process set, and a
     cohort re-formed at ONE process gets no flags at all and runs as a
     plain single process. `metrics_ports` gives member i a fixed

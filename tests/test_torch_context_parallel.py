@@ -38,7 +38,7 @@ step under the mesh:
   of its checkpoint.
 
 The config rules, the sparse step's refusal in the JAX package's words
-and the supervisor's refusal to shrink a context cohort run here in the
+and the supervisor's shrink of a context cohort by its mesh run here in the
 parent.
 """
 
@@ -635,11 +635,24 @@ def test_a_ctx_collective_without_its_group_raises():
                     mesh=mesh)
 
 
-def test_supervisor_refuses_to_shrink_a_ctx_cohort(capsys):
-    from code2vec_tpu_torch.tools import train_supervisor
-    with pytest.raises(SystemExit) as e:
-        train_supervisor.main(["--procs", "2", "--resize_policy", "shrink",
-                               "--", "python3", "-m", "code2vec_tpu_torch",
-                               "--mesh_context", "2"])
-    assert e.value.code == 2
-    assert "ROADMAP.md Queue 1 item 7" in capsys.readouterr().err
+def test_supervisor_shrinks_a_ctx_cohort_by_its_mesh(capsys,
+                                                     monkeypatch):
+    """`--resize_policy shrink` over a `--mesh_context 2` child: the tool steps
+    by the child's dcn * model * ctx = 2 processes, so a cohort of 2 has
+    no smaller size (a death relaunches it whole, as the start-up line
+    says) and a cohort of 4 re-forms at 2."""
+    from torch_helpers import supervisor_tool_plan
+    child = ["--", "python3", "-m", "code2vec_tpu_torch", "--mesh_context", "2"]
+    rc, sup, out = supervisor_tool_plan(
+        monkeypatch, capsys,
+        ["--procs", "2", "--resize_policy", "shrink", *child])
+    assert rc == 0 and sup.group == 2 and sup.shrink_sizes() == []
+    assert sup._next_cohort_size("peer_death") == 2
+    assert ("shrink in steps of 2 process(es) (the child's dcn * model * "
+            "ctx), floor 1: no smaller cohort than 2 holds the child's "
+            "mesh, so a death relaunches the whole cohort") in out
+    rc, sup, out = supervisor_tool_plan(
+        monkeypatch, capsys,
+        ["--procs", "4", "--resize_policy", "shrink", *child])
+    assert rc == 0 and sup._next_cohort_size("peer_death") == 2
+    assert "a dead member re-forms the cohort at 2 process(es)" in out

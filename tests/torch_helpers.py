@@ -53,3 +53,21 @@ def assert_close_f32_ulp(a, b, n: int) -> None:
     if b.size:
         tol = n * float(np.spacing(np.max(np.abs(b))))
         np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+
+
+def supervisor_tool_plan(monkeypatch, capsys, argv):
+    """Run the port's supervisor tool on `argv` with its supervise loop
+    stubbed out (no child starts): (exit code, the `Supervisor` it
+    built, its standard output)."""
+    from code2vec_tpu_torch.tools import train_supervisor
+    from code2vec_tpu_torch.training import supervisor
+    built = []
+
+    def run(self):
+        built.append(self)
+        return 0
+
+    monkeypatch.setattr(supervisor.Supervisor, "run", run)
+    rc = train_supervisor.main(argv)
+    (sup,) = built
+    return rc, sup, capsys.readouterr().out
