@@ -9,8 +9,9 @@ Phases (any failure raises, and the script exits non-zero):
 1. the card (`nvidia-smi` name and power limit), torch and CUDA versions;
    TF32 is switched off for float32 products and convolutions;
 2. build every kernel of the ported paths from `code2vec_tpu_torch/csrc`,
-   one `nvcc` per source, all started together; print each entry
-   point's registers and spills;
+   one `nvcc` per source, all started together, and beside them [15]'s
+   native extractor with the host's c++; print each entry point's
+   registers and spills;
 3. the attention-pool kernel (kernel 1; bf16 contexts on the tensor
    cores: `pool_split_kernel`, `attention_pool_tc_kernel`,
    `pool_combine_kernel`; float32 on the CUDA cores:
@@ -134,7 +135,7 @@ Phases (any failure raises, and the script exits non-zero):
    `--infeed_chunk 1`: the same param digests, the steps/s of each
    (counted: kernel 1 once a step);
 15. the `--predict` REPL: the native extractor built from the port's
-   C++ sources (both targets together) and checked against
+   C++ sources (both targets, in [2] beside the kernels) and checked against
    `tests/golden/*.expected`; `python3 -m code2vec_tpu_torch --load
    <[14]'s released model> --predict` as a subprocess in a directory
    holding a copy of Input.java, fed three Enters then `q` (exit 0; for
@@ -156,8 +157,9 @@ Phases (any failure raises, and the script exits non-zero):
    and committed, with `train/nan_loss` at step 3 recorded; `ckpt/write`
    ENOSPC with the torn marker (the run gives up, `state.tmp/` stays, a
    load falls back); the telemetry's cost on the loop's steps/s for (c)
-   and (a), on and off in alternating pairs; its `train/kill` leg (at
-   step 6 in a subprocess, then `--auto_resume`, bit-identical to [14]'s
+   and (a), on and off in one pair each (the arm run first alternates
+   by label and by a coin per call); its `train/kill` leg (at step 6 in
+   a subprocess, then `--auto_resume`, bit-identical to [14]'s
    uninterrupted run) runs beside [19];
 17. the live metrics plane on (c)'s configuration and [14]'s data:
    `cli.main` with `--telemetry_dir --metrics_port --alerts_mode raise
@@ -171,7 +173,7 @@ Phases (any failure raises, and the script exits non-zero):
    `alert` event; `--no_pallas` launches kernel 1 zero times with losses
    within LOSS_RTOL of the default run's; the plane's cost on the loop
    (on against off with the telemetry and trace on in both; the metrics
-   port alone against nothing), in alternating pairs;
+   port alone against nothing), ordered as [16]'s;
 18. the sampled phase profiler on (c) and (a) through `cli.main` over
    [14]'s binary data: each run twice over the same steps, with
    `--phase_profile on --phase_sample_every 2 --telemetry_dir
@@ -197,7 +199,8 @@ Phases (any failure raises, and the script exits non-zero):
    run, for the clock: [14] holds the quarantine on the card, the CPU
    tests the supervisor's);
    [16]'s `train/kill` leg runs beside it, on a thread, and is checked
-   at its end;
+   at its end; the two run on a thread of their own beside [23] (whose
+   parent only waits on its children: no profiler, no time check);
 20. the serving fleet at [4]'s java-large width on the card, over HTTP:
    a `ReplicaPool` of 2 bag replicas (each built by a factory that seeds a
    fresh generator) behind a `ServingFrontend`, a `ReloadManager` polling
@@ -319,8 +322,9 @@ Phases (any failure raises, and the script exits non-zero):
    (printed by the member, and in its last save) bit-identical to one
    process resumed from a copy of step 2;
    recovery_steps_lost and recovery_seconds; (iii) `/fleet` during (ii):
-   both members up before the kill, one after the resize; (iv) beside
-   (i), the elastic shrink of a sharded cohort: `--procs 4
+   both members up before the kill, one after the resize; (iv), started
+   first and running beside (ii) and (i), the elastic shrink of a
+   sharded cohort: `--procs 4
    --resize_policy shrink --min_procs 1` over (a) with `--mesh_model 2`
    (data 2, model 2), `train/kill` on process 3 at its step 3: resizes
    [[4, 2]] (a shrink drops one group of dcn * model * ctx = 2
@@ -417,7 +421,22 @@ Phases (any failure raises, and the script exits non-zero):
    F1 and top-1 in [0, 1]), `sampled_decay_study` for one probe (ten
    finite deciles); its launches of kernels 1, 2, 3 and 4, counted from
    0 in that process, join the `kernels` line;
-30. a `{"kernels": [...]}` line, the card line, and last
+30. the profilers, in a process of their own started after [24] and
+   told to go once no other process uses the card (their slopes
+   difference two calls), each through its tool's `main` on the card at
+   java-large width with `--steps 2`: `profile_step` (the
+   streaming ceiling, forward, forward + backward, the Adam and
+   Adafactor steps; kernel 1; its `--telemetry_dir` events),
+   `xf_profile` (the matmul peak, the phases, the plain and kernel
+   variants; kernels 2 and 3), `requant_sweep` (one cell, V =
+   1,048,576; kernel 4) and `sparse_update_sweep` (V = 1,048,576,
+   409,600 ids, bf16, float32 and int8; kernels 5 and 6): every key of
+   the JAX tools' output, every time finite and above 0; kernel 4's q
+   and s and kernels 5 and 6's rows and moments the plain versions'
+   bits on the cells' inputs; its launches of kernels 1-6, counted from
+   0 in that process just before the tools run and read before those
+   comparisons, join the `kernels` line;
+31. a `{"kernels": [...]}` line, the card line, and last
    `{"ok": true, "device": {...}}`.
 
 [4], (c) in [8] and (e) in [12] also hold the float32-output logits of
@@ -435,6 +454,7 @@ import argparse
 import concurrent.futures
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -630,7 +650,12 @@ def kernel_device_ms(torch, fn, name_parts, n: int = 10):
     total = 0.0
     for part in ((name_parts,) if isinstance(name_parts, str) else name_parts):
         hits = [ms for k, ms in prof["kernel_ms"].items() if part in k]
-        check(len(hits) == 1, f"profiler kernels matching {part}: {hits}")
+        check(len(hits) == 1, f"profiler kernels matching {part}: {hits}; "
+              f"the trace's {len(prof['kernel_ms'])} kernels by device ms: "
+              + ", ".join(f"{k[:60]} {ms:.4f} x{prof['kernel_launches'][k]}"
+                          for k, ms in list(prof["kernel_ms"].items())[:8])
+              + f"; busy {prof['busy_ms']:.4f} ms, wall "
+              f"{prof['wall_ms']:.4f} ms a call")
         total += hits[0]
     return total
 
@@ -1059,17 +1084,28 @@ def ptxas_report(log: str):
 
 
 def phase_build(report):
-    """One `nvcc` per source, all started together."""
+    """One `nvcc` per source, all started together; beside them the
+    native extractor's two targets ([15]'s) with the host's c++."""
+    from code2vec_tpu_torch.extractor import native
     from code2vec_tpu_torch.ops import _build
     from code2vec_tpu_torch.ops.attention_kernel import KERNEL as POOL
     from code2vec_tpu_torch.ops.requant_kernel import KERNEL as REQUANT
     from code2vec_tpu_torch.ops.sparse_update_kernel import KERNEL as ROWS
     from code2vec_tpu_torch.ops.xf_attention_kernel import KERNEL as XF
     names = (POOL, ROWS, REQUANT, XF)
+
+    def timed(build):
+        t = time.perf_counter()
+        build()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 2) as ex:
         futures = {name: ex.submit(_build.build, name) for name in names}
+        host = {"c2v_extract": ex.submit(timed, native.binary_path),
+                "libc2v.so": ex.submit(timed, native.library_path)}
         nvcc_s = {name: f.result() for name, f in futures.items()}
+        report["extractor_build_s"] = {k: f.result() for k, f in host.items()}
     report["build_s"] = time.perf_counter() - t0
     report["nvcc_s"] = nvcc_s
     report["ptxas"] = {}
@@ -1080,6 +1116,9 @@ def phase_build(report):
         for fn, regs, st, ld in entries:
             print(f"      {fn}: {regs} registers, spill stores {st} B, "
                   f"spill loads {ld} B", flush=True)
+    print("[2] built the native extractor beside them: " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in report["extractor_build_s"].items()),
+        flush=True)
     print(f"    build phase {report['build_s']:.2f} s", flush=True)
 
 
@@ -3253,10 +3292,15 @@ def phase_cli(torch, np, vocabs, tmp, data_prefix, test_path, report):
 REPL_ENTERS, REPL_PROB_TOL = 3, 1e-4
 # [16]: the loop timed with the telemetry, the trace and the watchdog on
 # against all off, runs of TELE_LOOP_EPOCHS epochs timed past the first, in
-# TELE_LOOP_PAIRS alternating pairs (two; ten until [25] needed the
-# time, as a 5 % difference is within one call's spread of (a)'s
-# host-bound loop); the watchdog's deadline
-TELE_LOOP_EPOCHS, TELE_LOOP_PAIRS, WATCHDOG_S = 6, 2, 120
+# TELE_LOOP_PAIRS pairs (one since [30] needed the time; ten until [25], as
+# a 5 % difference is within one call's spread of (a)'s host-bound loop),
+# the order within a pair alternating by pair, by label and by call
+# (ORDER_FLIP); the watchdog's deadline
+TELE_LOOP_EPOCHS, TELE_LOOP_PAIRS, WATCHDOG_S = 6, 1, 120
+# one coin for the call: with one pair a label, which arm of [16]'s and
+# [17]'s on/off pairs runs first, so the order's effect averages out
+# over calls (printed beside each pair)
+ORDER_FLIP = os.urandom(1)[0] & 1
 
 
 def repl_blocks(lines):
@@ -3304,17 +3348,11 @@ def phase_repl(torch, np, tmp, kept, report):
 
     repo = os.path.dirname(os.path.abspath(__file__))
     out = {}
-    # ---- the extractor: both targets built together, then the golden files
-    def timed(build):
-        t0 = time.perf_counter()
-        return build(), time.perf_counter() - t0
-
-    t = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as ex:
-        (binary, bin_s), (_lib, lib_s) = [
-            f.result() for f in (ex.submit(timed, native.binary_path),
-                                 ex.submit(timed, native.library_path))]
-    out["extractor_build_s"] = time.perf_counter() - t
+    # ---- the extractor (built in [2]), then the golden files
+    binary = native.binary_path()
+    built = report["extractor_build_s"]
+    out["extractor_build_s"] = max(built.values())
+    bin_s, lib_s = built["c2v_extract"], built["libc2v.so"]
     golden = os.path.join(repo, "tests", "golden")
     for name in ("Example.java", "Hard.java"):
         r = subprocess.run([binary, "--file", os.path.join(golden, name)],
@@ -3324,9 +3362,9 @@ def phase_repl(torch, np, tmp, kept, report):
         check(r.returncode == 0 and r.stdout == want,
               f"(extractor) c2v_extract --file {name} differs from "
               f"{name}.expected (exit {r.returncode}): {r.stderr[-500:]}")
-    print(f"  extractor built from the port's sources in "
-          f"{out['extractor_build_s']:.1f} s (c2v_extract {bin_s:.1f} s, "
-          f"libc2v.so {lib_s:.1f} s, together); "
+    print(f"  extractor built from the port's sources in [2] "
+          f"(c2v_extract {bin_s:.1f} s, libc2v.so {lib_s:.1f} s, beside "
+          f"the kernels); "
           f"c2v_extract --file on Example.java and Hard.java equals their "
           f".expected", flush=True)
 
@@ -3690,12 +3728,15 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
     path = data_prefix + ".train.c2v"
     tele4 = os.path.join(tmp, "tele_cost")
     cost = {}
-    for label, cfg in (("c", cfg_c), ("a", cfg_a)):
+    for n_label, (label, cfg) in enumerate((("c", cfg_c), ("a", cfg_a))):
         trainer = Code2VecTrainer(cfg, vocabs)
         trainer.train(path, epochs=1)  # warm: allocator, libraries
         runs = {"on": [], "off": []}
+        first = []
         for pair in range(TELE_LOOP_PAIRS):  # on off, off on, ...
-            for mode in (("on", "off") if pair % 2 == 0 else ("off", "on")):
+            on_first = (pair + n_label + ORDER_FLIP) % 2 == 0
+            first.append("on" if on_first else "off")
+            for mode in (("on", "off") if on_first else ("off", "on")):
                 on = mode == "on"
                 cfg.TELEMETRY_DIR = tele4 if on else None
                 cfg.TRACE = on
@@ -3703,11 +3744,12 @@ def phase_observed(torch, np, vocabs, tmp, data_prefix, test_path, kept,
                 runs[mode].append(loop_window(torch, trainer, path,
                                               TELE_LOOP_EPOCHS, steps))
         cfg.TELEMETRY_DIR, cfg.TRACE, cfg.WATCHDOG_STALL_S = None, False, 0.0
-        cost[label] = runs
+        cost[label] = {**runs, "first": first}
         med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
         print(f"  (cost) ({label}) steps/s over epochs 2..{TELE_LOOP_EPOCHS} "
               f"({(TELE_LOOP_EPOCHS - 1) * steps} steps), {TELE_LOOP_PAIRS} "
-              f"alternating pairs: telemetry + trace + watchdog on "
+              f"pair(s), first in each: {', '.join(first)}; telemetry + "
+              f"trace + watchdog on "
               + ", ".join(f"{x:.2f}" for x in runs["on"]) + "; all off "
               + ", ".join(f"{x:.2f}" for x in runs["off"])
               + f"; medians {med['on']:.2f} vs {med['off']:.2f} "
@@ -3810,11 +3852,11 @@ def finish_kill_resume(torch, chain, kept, report) -> None:
 # ~2-3 s of training then sees a few sweeps, fewer than the loss-spike
 # monitor's 8-sample warmup: a default 1 s cadence saw none in one run of
 # three); the stall leg's deadline and the injected producer sleep beyond
-# it; the NaN's first step; the plane's cost in alternating pairs of loop
-# runs (two; three until [25] needed the time)
+# it; the NaN's first step; the plane's cost in pairs of loop runs (one
+# since [30] needed the time; three until [25]), ordered as [16]'s
 SCRAPE_HEALTH_S, PLANE_HEALTH_S = 0.4, 0.05
 STALL_DEADLINE_S, STALL_SLEEP_MS = 1.0, 3000
-NAN_AT, PLANE_LOOP_PAIRS = 3, 2
+NAN_AT, PLANE_LOOP_PAIRS = 3, 1
 
 
 def http_get(port: int, path: str, timeout: float = 5.0):
@@ -4048,10 +4090,13 @@ def phase_live_plane(torch, np, vocabs, tmp, data_prefix, test_path, kept,
     trainer.train(path, epochs=1)  # warm: allocator, libraries
     arms = {"plane": ("on", "off"), "port_only": ("port", "none")}
     cost = {}
-    for name, (a_on, a_off) in arms.items():
+    for n_arm, (name, (a_on, a_off)) in enumerate(arms.items()):
         runs = {a_on: [], a_off: []}
+        first = []
         for pair in range(PLANE_LOOP_PAIRS):
-            for arm in ((a_on, a_off) if pair % 2 == 0 else (a_off, a_on)):
+            on_first = (pair + n_arm + ORDER_FLIP) % 2 == 0
+            first.append(a_on if on_first else a_off)
+            for arm in ((a_on, a_off) if on_first else (a_off, a_on)):
                 # telemetry and trace on in both arms of "plane"; the
                 # metrics port alone against nothing in "port_only"
                 cfg.TELEMETRY_DIR = tele if name == "plane" else None
@@ -4062,9 +4107,10 @@ def phase_live_plane(torch, np, vocabs, tmp, data_prefix, test_path, kept,
                                              TELE_LOOP_EPOCHS, steps,
                                              to_last_step=True))
         med = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
-        cost[name] = {"runs": runs, "medians": med}
+        cost[name] = {"runs": runs, "medians": med, "first": first}
         print(f"  (cost) (c) steps/s over epochs 2..{TELE_LOOP_EPOCHS} to "
-              f"the last step's end, {PLANE_LOOP_PAIRS} alternating pairs, "
+              f"the last step's end, {PLANE_LOOP_PAIRS} pair(s), first in "
+              f"each: {', '.join(first)}; "
               + ("telemetry + trace in both, the plane (--metrics_port, "
                  "--alerts_mode warn) on " if name == "plane" else
                  "--metrics_port alone (an in-memory registry, the per-step "
@@ -4090,8 +4136,8 @@ def phase_live_plane(torch, np, vocabs, tmp, data_prefix, test_path, kept,
 # ---- [18] the phase profiler, [19] the supervisor ----
 
 # [18]: steps between samples (a run of CLI_EPOCHS x 4 steps samples at
-# steps-into-run 2, 4 and 6; the first sample's probes run twice, the
-# warm-up unrecorded); the health cadence of the profiled runs (no flag:
+# steps-into-run 2, 4 and 6; a sample times PROBE_PASSES passes of the
+# probes, the first sample one more, the warm-up unrecorded); the health cadence of the profiled runs (no flag:
 # a wrapped Config.load_from_args sets it); how long the profiled run's
 # last step waits for a mid-run scrape to see the phase gauges; the
 # phase event's ms are rounded to 0.001, so its identity holds to this
@@ -4151,7 +4197,7 @@ def phase_profiler_phase(torch, np, vocabs, tmp, data_prefix, kept, report):
     from code2vec_tpu_torch.data.reader import open_reader
     from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
     from code2vec_tpu_torch.obs import Telemetry, promtext
-    from code2vec_tpu_torch.obs.phases import PhaseProfiler
+    from code2vec_tpu_torch.obs.phases import PROBE_PASSES, PhaseProfiler
     from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
     from code2vec_tpu_torch.ops.membench import measure_hbm_ceiling
     from code2vec_tpu_torch.ops.sparse_update_kernel import \
@@ -4252,12 +4298,13 @@ def phase_profiler_phase(torch, np, vocabs, tmp, data_prefix, kept, report):
         check(diff["differ"] == 0, f"({label}) the profiled run's final "
               f"state differs from the unprofiled run's: {diff}")
         # ---- launches: the probes add kernel 1 (forward_pool, backward;
-        # twice at the first sample), never kernel 5 ----
+        # PROBE_PASSES passes a sample and the first sample's warm-up
+        # pass), never kernel 5 ----
         per_step = {"attention_pool": 1,
                     "sparse_row_adam": 3 if label == "a" else 0}
         want_off = {k: v * n_steps for k, v in per_step.items()}
         want_on = dict(want_off, attention_pool=want_off["attention_pool"]
-                       + 2 * (len(samples) + 1))
+                       + 2 * (PROBE_PASSES * len(samples) + 1))
         check(runs["off"]["launches"] == want_off
               and runs["on"]["launches"] == want_on,
               f"({label}) launches off {runs['off']['launches']} (expected "
@@ -9191,11 +9238,10 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
     copy of the same committed step; (iii) /fleet during (ii): two
     members before the kill, one after; (iv) the shrink of a (data 2,
     model 2) cohort to (data 1, model 2) (`start_model_shrink`,
-    `finish_model_shrink`). (ii) runs first, with only [27]'s export
-    ranks beside it (its recovery and step times are the phase's
-    readings), then `beside_i()` starts what is to run beside (i)
-    ([28]'s pairs), then (i) with (ii)'s oracle and (iv) running beside
-    it. Every member's kernel 1 and kernel 5 launches are printed
+    `finish_model_shrink`). (iv) starts first, (ii) beside it (and
+    [27]'s export ranks), then `beside_i()` starts what is to run beside
+    (i) ([28]'s pairs), then (i) with (ii)'s oracle and the rest of (iv)
+    running beside it. Every member's kernel 1 and kernel 5 launches are printed
     (outside this process's count). Returns what `beside_i` returned."""
     import gc
     import shutil
@@ -9222,9 +9268,10 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
         return toks[toks.index("--dist_coordinator") + 1] \
             if "--dist_coordinator" in toks else None
 
+    # (iv) the shrink of a (data 2, model 2) cohort, the longest leg,
+    # beside (ii) and then (i)
+    model_shrink = start_model_shrink(tmp, dp_kept)
     # ---- (ii) kill_resize under the shrink policy, (iii) /fleet ----
-    # first and alone: its recovery and step times are the phase's
-    # readings
     fleet_port, member_base = free_port(), free_port()
     run, scrapes, texts, stdout = supervise(
         "shrink", ["--max_restarts", 2, "--resize_policy", "shrink",
@@ -9274,7 +9321,7 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
           f"{len(before)} with two members up before the kill, {len(after)} "
           f"with one after the resize; last {scrapes[-1:]}")
     shrink = run
-    # started only now, so (ii)'s readings are taken without it
+    # started only now, so (ii)'s readings are taken without them
     started = beside_i()
     # (ii)'s oracle, run beside (i): one process resumed from a copy of
     # the committed step the re-formed member restored
@@ -9286,8 +9333,6 @@ def phase_cohort(torch, tmp, dp_kept, report, beside_i=lambda: None):
             [sys.executable, "-c", COHORT_CHILD, *argv, "--save", oracle,
              "--auto_resume", COHORT_ORACLE], cwd=here, env=env, stdout=f,
             stderr=subprocess.STDOUT)
-    # (iv) the shrink of a (data 2, model 2) cohort, beside (i)
-    model_shrink = start_model_shrink(tmp, dp_kept)
     try:
         # ---- (i) kill_resume_2proc: the whole cohort relaunched ----
         run, _s, _t, stdout = supervise("relaunch", ["--max_restarts", 2])
@@ -9565,6 +9610,295 @@ def finish_studies(np, st, report) -> dict:
     return launches
 
 
+# ---- [30]: the profilers (code2vec_tpu_torch/tools) ----
+
+TOOLS_CHILD = "import chip_smoke; chip_smoke.tools_child()"
+TOOLS_STEPS, TOOLS_TIMEOUT_S = 2, 600
+TOOLS_VOCAB, TOOLS_IDS = 1 << 20, 2 * TRAIN_B * C
+TOOLS_DTYPES = ("bfloat16", "float32", "int8")
+# the JAX tools' output: profile_step's telemetry phases and printed
+# lines, xf_profile's phases, the sweeps' row keys
+PROFILE_PHASES = ["hbm_ceiling", "forward", "forward_backward",
+                  "full_step_adam", "full_step_adafactor"]
+PROFILE_LINES = {"forward": "forward only:",
+                 "forward_backward": "forward + backward:",
+                 "full_step_adam": "full step (adam):",
+                 "full_step_adafactor": "full step (adafactor):"}
+XF_PHASES = ["matmul_peak_bf16", "emb_gathers_in_proj", "attn_core_fwd",
+             "mlp_core_fwd", "encoder_fwd"] + [
+    f"{p}_{tag}" for tag in ("plain", "kernel")
+    for p in ("loss_fwd", "fwd_bwd", "full_step_adafactor")]
+REQUANT_KEYS = ["vocab", "emb", "block_rows", "mode", "fused_ms",
+                "reference_ms", "sweep_bytes", "fused_gbps"]
+SPARSE_KEYS = ["vocab", "emb", "n_ids", "dtype", "block_rows", "mode",
+               "unique_rows", "fused_ms", "reference_ms", "update_bytes",
+               "fused_gbps"]
+
+
+def tool_counters() -> dict:
+    """The wrappers of kernels 1-6 by their launch-count names."""
+    from code2vec_tpu_torch.ops.attention_kernel import attention_pool_fused
+    from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+    from code2vec_tpu_torch.ops.sparse_update_kernel import (
+        sparse_requant_adam_fused, sparse_row_adam_fused)
+    from code2vec_tpu_torch.ops.xf_attention import (mha_backward_fused,
+                                                     mha_forward_fused)
+    return {"attention_pool": attention_pool_fused,
+            "xf_attention_forward": mha_forward_fused,
+            "xf_attention_backward": mha_backward_fused,
+            "requantize": requantize_fused,
+            "sparse_row_adam": sparse_row_adam_fused,
+            "sparse_requant_adam": sparse_requant_adam_fused}
+
+
+def tools_bits(torch) -> dict:
+    """Kernel 4 and kernels 5, 6 against their plain versions on the
+    sweeps' cells (their tools' `cell_inputs`, `cell_arrays`): {name:
+    True when every output tensor has the plain version's bits}."""
+    from code2vec_tpu_torch.ops.quant import requantize_reference
+    from code2vec_tpu_torch.ops.requant_kernel import requantize_fused
+    from code2vec_tpu_torch import tree
+    from code2vec_tpu_torch.tools import requant_sweep
+    from code2vec_tpu_torch.tools import sparse_update_sweep as sus
+    out = {}
+    qt, upd = requant_sweep.cell_inputs(TOOLS_VOCAB, E, DEV)
+    mine = {k: v.clone() for k, v in qt.items()}
+    requantize_fused(mine, upd, 0x9E3779B9)
+    want = requantize_reference(qt, upd, 0x9E3779B9)
+    out["requantize"] = all(torch.equal(mine[k], want[k]) for k in ("q", "s"))
+    del qt, upd, mine, want
+    arrays = sus.cell_arrays(TOOLS_VOCAB, E, TOOLS_IDS)
+    for dtype in TOOLS_DTYPES:
+        table, ids, grads = sus.cell_tensors(arrays, dtype, DEV)
+        runs = []
+        for use_kernel in (True, False):
+            t = tree.map_leaves(torch.clone, table)
+            state = sus.init_row_adam(t)
+            count = torch.ones((), dtype=torch.int32, device=DEV)
+            for salt in (1, 2):
+                sus.apply_once(t, state, ids, grads, count, salt, use_kernel)
+                count.add_(1)
+            runs.append(([t["q"], t["s"]] if dtype == "int8" else [t])
+                        + [state.m, state.v])
+        out[f"sparse_{dtype}"] = all(torch.equal(a, b)
+                                     for a, b in zip(*runs))
+        del table, ids, grads, runs
+    return out
+
+
+def run_tools(torch, tele_dir: str) -> dict:
+    """[30]'s profilers in this process, each through its tool's `main`
+    on the card, counts at 0 just before: each tool's exit code, output
+    and seconds, the launches of kernels 1-6 (read before
+    `tools_bits`), profile_step's telemetry events, the bits."""
+    import contextlib
+    import io
+
+    from code2vec_tpu_torch.tools import (profile_step, requant_sweep,
+                                          sparse_update_sweep, xf_profile)
+    out = {}
+
+    def run(name, fn, argv):
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn(argv)
+        torch.cuda.synchronize()
+        out[name] = {"rc": rc, "stdout": buf.getvalue(),
+                     "s": time.perf_counter() - t}
+
+    counters = tool_counters()
+    # ---- the main path: counts at 0 just before, read just after ----
+    for wrapper in counters.values():
+        wrapper.launches = 0
+    steps = ["--steps", str(TOOLS_STEPS)]
+    run("profile_step", profile_step.main, steps + ["--telemetry_dir",
+                                                    tele_dir])
+    run("xf_profile", xf_profile.main, steps)
+    run("requant_sweep", requant_sweep.main,
+        steps + ["--vocabs", str(TOOLS_VOCAB)])
+    for dtype in TOOLS_DTYPES:
+        run(f"sparse_update_sweep {dtype}", sparse_update_sweep.main,
+            steps + ["--vocabs", str(TOOLS_VOCAB), "--ids", str(TOOLS_IDS),
+                     "--dtype", dtype])
+    launches = {k: w.launches for k, w in counters.items()}
+    events = []
+    for base, _dirs, files in os.walk(tele_dir):
+        if "events.jsonl" in files:
+            with open(os.path.join(base, "events.jsonl")) as f:
+                events += [json.loads(ln) for ln in f if ln.strip()]
+    return {"tools": out, "launches": launches,
+            "profile_events": [e for e in events
+                               if e.get("kind") == "profile"],
+            "bits": tools_bits(torch)}
+
+
+def tools_child() -> None:
+    """[30]'s process (`python3 -c 'import chip_smoke;
+    chip_smoke.tools_child()' <dir>`): it starts up (torch, the card,
+    the kernels built by the parent), says `TOOLS_READY`, waits for a
+    line on its standard input, then runs `run_tools` and prints
+    `TOOLS_RESULT <json>`."""
+    import torch
+
+    from code2vec_tpu_torch.ops import _build
+    for name in ("attention_pool", "xf_attention", "requant",
+                 "sparse_row_update"):
+        _build.load(name)
+    torch.ones(1, device="cuda").sum().item()
+    print("TOOLS_READY", flush=True)
+    sys.stdin.readline()
+    res = run_tools(torch, os.path.join(sys.argv[1], "tele"))
+    print("TOOLS_RESULT " + json.dumps(res), flush=True)
+
+
+def start_tools(tmp) -> dict:
+    """[30]'s process (`tools_child`), started early so its start-up
+    runs beside earlier phases; it does no work on the card until
+    `phase_tools` says go. Killed at exit if still running."""
+    import atexit
+    here = os.path.dirname(os.path.abspath(__file__))
+    tt = {"dir": os.path.join(tmp, "tools"),
+          "log": os.path.join(tmp, "tools.log")}
+    os.makedirs(tt["dir"])
+    with open(tt["log"], "w") as log:
+        tt["proc"] = subprocess.Popen(
+            [sys.executable, "-c", TOOLS_CHILD, tt["dir"]], cwd=here,
+            env=dict(os.environ, PYTHONPATH=here), stdin=subprocess.PIPE,
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda p=tt["proc"]: p.poll() is None and p.kill())
+    return tt
+
+
+def start_beside(fn, name: str) -> dict:
+    """`fn()` on a thread of this process, its outcome (or exception)
+    kept for `join_beside`."""
+    box = {}
+
+    def run() -> None:
+        try:
+            box["result"] = fn()
+        except BaseException as e:  # raised again by join_beside
+            box["error"] = e
+
+    box["thread"] = threading.Thread(target=run, daemon=True, name=name)
+    box["thread"].start()
+    return box
+
+
+def join_beside(box, timeout_s: float):
+    """Wait for `start_beside`'s thread; raise what it raised."""
+    box["thread"].join(timeout=timeout_s)
+    check(not box["thread"].is_alive(),
+          f"{box['thread'].name} still running after {timeout_s} s")
+    if "error" in box:
+        raise box["error"]
+    return box.get("result")
+
+
+def positive_ms(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def phase_tools(torch, tt, report) -> dict:
+    """[30]: `start_tools`' process told to go once no other process
+    uses the card, waited for and checked: each tool exits 0 and prints
+    the card line; profile_step's four phases printed and its five
+    telemetry phases written; xf_profile's phases in the JAX tool's
+    order with their keys; one row a sweep cell with the JAX keys at the
+    card's mode; every time finite and above 0; kernels 4, 5 and 6 the
+    plain versions' bits on the cells. Returns the launches."""
+    import re
+    import shutil
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    proc = tt["proc"]
+    try:
+        proc.stdin.write("go\n")
+        proc.stdin.close()
+    except BrokenPipeError:
+        pass  # it has died: its exit code and log are read below
+    rc = proc.wait(timeout=TOOLS_TIMEOUT_S)
+    with open(tt["log"]) as f:
+        log = f.read()
+    got = last_json_line(log, "TOOLS_RESULT")
+    check(rc == 0 and got is not None and "TOOLS_READY" in log,
+          f"(tools) exit {rc}: {log[-4000:]}")
+    res = got["tools"]
+    names = list(res)
+    check(all(res[k]["rc"] == 0 and "card: " in res[k]["stdout"]
+              for k in names),
+          f"(tools) exit codes { {k: res[k]['rc'] for k in names} }: "
+          + "; ".join(res[k]["stdout"][-1000:] for k in names
+                      if res[k]["rc"] != 0))
+
+    def json_rows(name):
+        return [json.loads(ln) for ln in res[name]["stdout"].splitlines()
+                if ln.startswith("{")]
+
+    text = res["profile_step"]["stdout"]
+    prof = {}
+    for phase, label in PROFILE_LINES.items():
+        m = re.search(re.escape(label) + r"\s+(-?[\d.]+) ms", text)
+        prof[phase] = float(m[1]) if m else None
+    hbm = re.search(r"HBM streaming \(1 GiB copy\): (\d+) GB/s", text)
+    ev_phases = [e["phase"] for e in got["profile_events"]]
+    check(all(positive_ms(v) for v in prof.values()) and hbm
+          and int(hbm[1]) > 0 and ev_phases == PROFILE_PHASES
+          and all(positive_ms(e.get("ms", e.get("gbps")))
+                  for e in got["profile_events"]),
+          f"(profile_step) {prof}, events {got['profile_events']}")
+    xf = json_rows("xf_profile")
+    check([r["phase"] for r in xf] == XF_PHASES
+          and all(positive_ms(r["ms"]) and positive_ms(r["tflops_per_sec"])
+                  for r in xf)
+          and "xla_logits_hbm_bytes" in xf[2]
+          and all("pc_per_sec" in r for r in xf
+                  if r["phase"].startswith("full_step")),
+          f"(xf_profile) rows {xf}")
+    (rq,) = json_rows("requant_sweep")
+    check(list(rq) == REQUANT_KEYS and rq["mode"] == "gpu"
+          and rq["block_rows"] == 32 and rq["vocab"] == TOOLS_VOCAB
+          and positive_ms(rq["fused_ms"]) and positive_ms(rq["reference_ms"]),
+          f"(requant_sweep) {rq}")
+    sparse = {d: json_rows(f"sparse_update_sweep {d}") for d in TOOLS_DTYPES}
+    check(all(len(rows) == 4 and all(
+        list(r) == SPARSE_KEYS and r["mode"] == "gpu" and r["dtype"] == d
+        and r["n_ids"] == TOOLS_IDS and 0 < r["unique_rows"] <= TOOLS_IDS
+        and positive_ms(r["fused_ms"]) and positive_ms(r["reference_ms"])
+        for r in rows) for d, rows in sparse.items()),
+        f"(sparse_update_sweep) {sparse}")
+    check(all(got["bits"].values()), f"(tools) kernels against their plain "
+          f"versions on the sweeps' cells: {got['bits']}")
+    launches = got["launches"]
+    check(all(launches[k] > 0 for k in launches),
+          f"(tools) kernel launches {launches}")
+    secs = {k: res[k]["s"] for k in names}
+    print(f"  (profile_step) HBM {hbm[1]} GB/s; " + ", ".join(
+              f"{k} {v:.2f} ms" for k, v in prof.items()), flush=True)
+    print("  (xf_profile) " + ", ".join(
+        f"{r['phase']} {r['ms']} ms ({r['tflops_per_sec']} TFLOP/s)"
+        for r in xf), flush=True)
+    print(f"  (requant_sweep) {json.dumps(rq)}", flush=True)
+    for d, rows in sparse.items():
+        r = rows[0]
+        print(f"  (sparse_update_sweep {d}) U {r['unique_rows']}, fused "
+              f"{r['fused_ms']} ms, reference {r['reference_ms']} ms; "
+              f"update_bytes by block " + ", ".join(
+                  f"{x['block_rows']}: {x['update_bytes']}" for x in rows),
+              flush=True)
+    print(f"  (tools) {time.perf_counter() - t_phase:.1f} s in all: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+          + f"; kernels against their plain versions on the cells "
+          f"{got['bits']}; kernel launches {launches}", flush=True)
+    report["tools"] = {"profile_step": prof, "hbm_gbps": int(hbm[1]),
+                       "xf_profile": xf, "requant_sweep": rq,
+                       "sparse_update_sweep": sparse, "seconds": secs,
+                       "bits": got["bits"], "launches": launches}
+    shutil.rmtree(tt["dir"])
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write all measurements to this JSON file")
@@ -9732,22 +10066,14 @@ def main(argv=None) -> int:
         finish_exports(np, vocabs, kept, report)
         lap("[18]")
 
-        # ---- 19. the restart supervisor ----
-        print("[19] the restart supervisor (train/kill, an exhausted "
-              "budget) with the fleet plane; [16]'s train/kill leg beside "
-              "it", flush=True)
-        kill_chain = start_kill_resume(tmp, kept)
-        phase_supervised(  # graftlint: disable=nondeterminism
-            torch, np, tmp, data_prefix, kept, report)
-        # `kept` holds [14]'s paths, step count and losses, no clock value
-        finish_kill_resume(  # graftlint: disable=nondeterminism
-            torch, kill_chain, kept, report)
-        lap("[19]")
-
-        # ---- 20. the serving fleet ----
+        # ---- 20. the serving fleet (alone: its p99 is checked) ----
         print("[20] the serving fleet over HTTP (replica pool, hot reload, "
               "a replica death, a refused step, the autoscaler) at "
               "java-large width", flush=True)
+        # the earlier phases' disk writes (the exports' 2.6 GB of text,
+        # the checkpoints) flushed first: the load's window holds only
+        # its own
+        os.sync()
         fleet_launches = phase_fleet(torch, np, vocabs, tmp, report)
         lap("[20]")
 
@@ -9767,6 +10093,21 @@ def main(argv=None) -> int:
                                         test_path, peaks, report)
         lap("[22]")
 
+        # ---- 19. the restart supervisor, beside [23] ----
+        print("[19] the restart supervisor (train/kill, an exhausted "
+              "budget) with the fleet plane; [16]'s train/kill leg beside "
+              "it; on a thread beside [23]", flush=True)
+
+        def supervised_legs() -> None:
+            kill_chain = start_kill_resume(tmp, kept)
+            phase_supervised(  # graftlint: disable=nondeterminism
+                torch, np, tmp, data_prefix, kept, report)
+            # `kept` holds [14]'s paths, step count and losses, no clock
+            finish_kill_resume(  # graftlint: disable=nondeterminism
+                torch, kill_chain, kept, report)
+
+        legs = start_beside(supervised_legs, "supervised-legs")
+
         # ---- 23. data-parallel training across processes ----
         print("[23] data-parallel training: two ranks on the card (gloo) "
               "through the command line and the function-level harness, "
@@ -9778,6 +10119,8 @@ def main(argv=None) -> int:
         # [27]'s model-2 exports, beside [24]
         model_exports = start_model_exports(tmp, kept)
         lap("[23]")
+        join_beside(legs, SUP_TIMEOUT_S)
+        lap("[19]")
 
         # ---- 24. the supervised training cohort ----
         print("[24] the supervised training cohort: (a) at two ranks on the "
@@ -9791,6 +10134,9 @@ def main(argv=None) -> int:
             torch, tmp, dp_kept, report,
             beside_i=lambda: start_cohort_pairs(tmp, kept, report))
         lap("[24]")
+
+        # [30]'s process starts up beside [25]-[29] and works at [30]
+        tools = start_tools(tmp)
 
         # ---- 25. the context axis (run in [23]'s children) ----
         print("[25] the context axis: the ring and the ctx steps ((e) with "
@@ -9838,7 +10184,14 @@ def main(argv=None) -> int:
         study_launches = finish_studies(np, studies, report)
         lap("[29]")
 
-    # ---- 30. result ----
+        # ---- 30. the profilers, with the card to themselves ----
+        print("[30] the profilers on the card: profile_step, xf_profile, "
+              "requant_sweep, sparse_update_sweep (bf16, float32, int8)",
+              flush=True)
+        tool_launches = phase_tools(torch, tools, report)
+        lap("[30]")
+
+    # ---- 31. result ----
     # kernel 1's times at the training shape, where most of its device
     # time on the main paths goes (the serving buckets are in --out)
     main_pool = next(r for r in pool_rows
@@ -9855,7 +10208,8 @@ def main(argv=None) -> int:
         + ctx_launches["attention_pool"] + model_launches["attention_pool"] \
         + chunk_launches["attention_pool"] \
         + vm_model_launches["attention_pool"] \
-        + cohort_launches["attention_pool"] + study_launches["attention_pool"]
+        + cohort_launches["attention_pool"] \
+        + study_launches["attention_pool"] + tool_launches["attention_pool"]
     main_requant = next(r for r in requant_rows
                         if r["V"] == JAVA_LARGE["token"] + 2)
 
@@ -9887,16 +10241,19 @@ def main(argv=None) -> int:
                   + cli_launches["sparse"]["sparse_row_adam"]
                   + phase_launches["sparse_row_adam"]
                   + vm_launches["sparse_row_adam"]
-                  + model_launches["sparse_row_adam"]),
+                  + model_launches["sparse_row_adam"]
+                  + tool_launches["sparse_row_adam"]),
         row_entry("sparse_requant_adam", "int8",
                   "code2vec_tpu/ops/pallas_sparse_update.py:204",
-                  train_launches["b"]["sparse_requant_adam"]),
+                  train_launches["b"]["sparse_requant_adam"]
+                  + tool_launches["sparse_requant_adam"]),
         {"name": main_requant["kernel"], "route": "cuda",
          "source": "code2vec_tpu_torch/csrc/requant.cu",
          "replaces": "code2vec_tpu/ops/pallas_requant.py:85",
          "launches": train_launches["d"]["requantize"]
          + cli_launches["int8"]["requantize"]
-         + attack_launches["requantize"] + study_launches["requantize"],
+         + attack_launches["requantize"] + study_launches["requantize"]
+         + tool_launches["requantize"],
          "max_abs_err": max(r["max_abs_err"] for r in requant_rows),
          "ms": main_requant["ms"], "plain_ms": main_requant["plain_ms"],
          "bound_ms": main_requant["bound_ms"],
@@ -9919,7 +10276,7 @@ def main(argv=None) -> int:
             "launches": sum(v[counter] for v in xf_launches.values())
             + attack_launches[counter] + ctx_launches[counter]
             + model_launches[counter] + cohort_launches.get(counter, 0)
-            + study_launches[counter],
+            + study_launches[counter] + tool_launches[counter],
             "max_abs_err": max(r["max_abs_err"] for r in xf_rows[direction]
                                if r["kernel"] == name),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
@@ -9942,7 +10299,8 @@ def main(argv=None) -> int:
                           "context": ctx_launches, "model": model_launches,
                           "chunked": chunk_launches,
                           "vm_model": vm_model_launches,
-                          "cohort": cohort_launches, "studies": study_launches}
+                          "cohort": cohort_launches, "studies": study_launches,
+                          "tools": tool_launches}
     report["total_s"] = time.perf_counter() - t_start
     print(f"  whole run {report['total_s']:.1f} s", flush=True)
     if args.out:

@@ -50,3 +50,9 @@ Entry points run on the CUDA card unless the caller asks for the CPU.
 """
 
 __version__ = "0.5.0"
+
+# before any thread of the port starts: the same oneDNN code path for
+# every CPU process (cpu_isa.py)
+from code2vec_tpu_torch.cpu_isa import request_amx as _request_amx  # noqa: E402
+
+_request_amx()

@@ -20,8 +20,15 @@ spot is a number.
 Phase derivation: the probe chain is CUMULATIVE (each probe re-runs its
 predecessors plus one more stage), so phase k's device time is the
 difference of consecutive synced probe times (`derive_chain_phases`,
-clamped at 0). An apply probe, where a kit has one, times the optimizer
-apply alone; otherwise the apply is the remainder `fused - chain`.
+clamped at 0). The chain runs PROBE_PASSES times in a row and each
+probe keeps its fastest pass: a stage adds well under a millisecond at
+java-large width, while one probe's host time can jump by several when
+another thread of the process (the infeed's prefetch, the health
+engine, a /metrics scrape) holds the interpreter lock as its sync
+returns. One such stall on probe k-1 clamps phase k to 0; interleaved
+passes put the stalls on different passes, and the minimum drops them.
+An apply probe, where a kit has one, times the optimizer apply alone;
+otherwise the apply is the remainder `fused - chain`.
 
 Publication: per-phase `train/phase/<name>_ms` timers and one `phase`
 JSONL event per sampled step; the analytic per-phase traffic
@@ -42,7 +49,8 @@ draws)` returns the loss tensor and `run_split` returns it too; a
 step's randomness is its `StepDraws` (training/draws.py), drawn once by
 the caller and handed to the probes and to the fused step alike. `_timed`
 waits through obs/telemetry.device_sync, which raises rather than
-degrades.
+degrades. The JAX package times the chain once a sample; the port takes
+the fastest of PROBE_PASSES passes (above).
 """
 
 from __future__ import annotations
@@ -53,8 +61,12 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence,
 
 from code2vec_tpu_torch.obs.telemetry import device_sync
 
-__all__ = ["DEVICE_PHASES", "PHASE_ORDER", "PhaseProfiler", "ProbeKit",
-           "derive_chain_phases"]
+__all__ = ["DEVICE_PHASES", "PHASE_ORDER", "PROBE_PASSES", "PhaseProfiler",
+           "ProbeKit", "derive_chain_phases"]
+
+# timed passes of the probe chain in a sample; each probe keeps its
+# fastest (the warm-up pass of the first sample comes on top)
+PROBE_PASSES = 3
 
 # canonical render order; heads emit the subset their ProbeKit supports
 PHASE_ORDER = ("infeed_wait", "embed_gather", "concat_dense",
@@ -193,7 +205,8 @@ class PhaseProfiler:
     def run_split(self, params, opt_state, batch, draws, *,
                   step: int = 0, infeed_wait_ms: Optional[float] = None,
                   recorder=None):
-        """One sampled step: synced probe dispatches for attribution,
+        """One sampled step: synced probe dispatches for attribution
+        (the chain PROBE_PASSES times, each probe's fastest pass kept),
         then the fused step for the state update. Returns the fused
         step's loss tensor, so the sampled step's trajectory is
         bit-identical to an unprofiled run's. The probes run BEFORE the
@@ -223,15 +236,15 @@ class PhaseProfiler:
                 tick()
 
         tele = self._tele
-        names: List[str] = []
-        cum: List[float] = []
-        chain_ms = 0.0
-        out = None
-        for name, fn in kit.chain:
-            chain_ms, out = self._timed(fn, params, batch, draws)
-            names.append(name)
-            cum.append(chain_ms)
-            tick()
+        names: List[str] = [name for name, _fn in kit.chain]
+        cum: List[float] = [float("inf")] * len(names)
+        for _pass in range(PROBE_PASSES):
+            out = None  # the last pass's output feeds the apply probe
+            for i, (_name, fn) in enumerate(kit.chain):
+                ms, out = self._timed(fn, params, batch, draws)
+                cum[i] = min(cum[i], ms)
+                tick()
+        chain_ms = cum[-1]
         phases: Dict[str, float] = dict(derive_chain_phases(names, cum))
         apply_ms = None
         if kit.apply_fn is not None:

@@ -95,3 +95,30 @@ def requantize_fused(qt: QuantTable, update: torch.Tensor, salt: int
 
 
 requantize_fused.launches = 0
+
+
+# the launch geometry of csrc/requant.cu (kThreads, kPiece)
+_THREADS = 256
+_PIECE = 16
+
+
+def block_rows(emb: int) -> int:
+    """The table rows one CTA of kernel 4 covers at width `emb` (16-byte
+    aligned tables, as torch allocates them): the vector kernel's
+    (kThreads / 32) * (32 / lanes) at emb = 16 lanes with lanes a power
+    of two up to 32, else the scalar kernel's one row a warp. The grid
+    is fixed by the source: this is the only block size there is."""
+    lanes = emb // _PIECE
+    if emb % _PIECE == 0 and 0 < lanes <= 32 and lanes & (lanes - 1) == 0:
+        return (_THREADS // 32) * (32 // lanes)
+    return _THREADS // 32
+
+
+def requant_traffic_bytes(qt: QuantTable, update: torch.Tensor) -> int:
+    """Analytic memory bytes of ONE fused sweep: q and s read and
+    written once, the update rows read once (the JAX package's
+    `requant_traffic_bytes`, ops/pallas_requant.py)."""
+    q, s = qt["q"], qt["s"]
+    return (q.numel() * q.element_size() * 2
+            + s.numel() * s.element_size() * 2
+            + update.numel() * update.element_size())

@@ -32,8 +32,11 @@ checkpoint module, reads the step with `verify=False` (this manager has
 just verified it; hashing a 0.77 GB step twice would double the reload
 IO), checks the tensors against the pool's live params
 (`pool.params_template()`: the same structure, shapes and dtypes) and
-moves them onto the replicas' device, on the default stream. Tests
-inject a stdlib `load_fn`.
+moves them onto the replicas' device: on the card through two pinned
+staging buffers and a side stream, so the replicas' batches on the
+default stream never queue behind the copy, and the weights reach the
+pool only once the side stream has finished. Tests inject a stdlib
+`load_fn`.
 
 Beyond the JAX package's counters, each sweep that finds a new step
 times its sha256 verification (`serve/reload_verify_ms`) and each
@@ -81,10 +84,17 @@ def committed_steps(ckpt_dir: str):
     return sorted(out)
 
 
+# the read-and-hash unit of a step's verification: both halves release
+# the interpreter lock and each chunk takes it back once, from the
+# serving threads that hold it: 48 times for a java-large step where
+# 1 MB chunks took it 770 times
+_HASH_CHUNK = 16 << 20
+
+
 def _hash_file(path: str) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
+        for chunk in iter(lambda: f.read(_HASH_CHUNK), b""):
             h.update(chunk)
     return h.hexdigest()
 
@@ -119,39 +129,90 @@ def verify_step_files(ckpt_dir: str, step: int) -> Optional[bool]:
 _SLICE_BYTES = 32 << 20
 
 
-def _copy_in_slices(t, device):
-    """A copy of `t` on `device`, made in row slices of at most
-    _SLICE_BYTES. On the card the copies run on the default stream, which
-    the replicas' batches share: each slice holds it for a few ms, where
-    one copy of a java-large table held it, and the batches queued behind
-    it, for up to 390 ms on an H100."""
-    import torch
-    out = torch.empty(t.shape, dtype=t.dtype, device=device)
-    if t.ndim == 0:
-        return out.copy_(t)
-    rows = max(1, _SLICE_BYTES // max(1, t[0].numel() * t.element_size()))
-    for i in range(0, t.shape[0], rows):
-        out[i:i + rows].copy_(t[i:i + rows])
-    return out
+class _SliceCopier:
+    """Copies host tensors onto `device` in row slices of at most
+    _SLICE_BYTES. On the card each slice is copied from the mapped file
+    into one of two page-locked staging buffers (a host copy, the
+    interpreter lock released) and from there onto the card with
+    `non_blocking=True` on a side stream, so the replicas' batches on
+    the default stream run beside the copies. (On the default stream
+    each slice's copy from the mapped, pageable file held the stream,
+    and the batches queued behind it: the slowest requests of a
+    java-large reload, 135-204 ms on an H100, were those sent while the
+    0.77 GB step went onto the card; one copy of a whole table had held
+    it for up to 390 ms.) Each output is allocated on the default stream
+    and the side stream waits for that stream before writing it: the
+    caching allocator may hand out a block that a batch freed while its
+    kernels are still queued there. A staging buffer is refilled only
+    once its previous copy has finished (an event each); `finish()`
+    waits for the side stream, so the copies are complete before
+    anything reads them. On the CPU the slices are plain copies."""
+
+    def __init__(self, device):
+        import torch
+        self.torch = torch
+        self.device = device
+        self.on_card = device.type == "cuda"
+        if self.on_card:
+            self.stream = torch.cuda.Stream(device)
+            self.staging = [torch.empty(_SLICE_BYTES, dtype=torch.uint8,
+                                        pin_memory=True) for _ in range(2)]
+            self.done = [None, None]
+            self.turn = 0
+
+    def _slice_to_card(self, dst, src) -> None:
+        i, self.turn = self.turn, 1 - self.turn
+        if self.done[i] is not None:
+            self.done[i].synchronize()
+        n = src.numel() * src.element_size()
+        buf = self.staging[i][:n].view(src.dtype).view(src.shape)
+        buf.copy_(src)
+        with self.torch.cuda.stream(self.stream):
+            dst.copy_(buf, non_blocking=True)
+            self.done[i] = self.torch.cuda.Event()
+            self.done[i].record(self.stream)
+
+    def copy(self, t):
+        out = self.torch.empty(t.shape, dtype=t.dtype, device=self.device)
+        if self.on_card:
+            # `out` may be a block whose last reader or writer, a batch's
+            # kernel, is still queued on the default stream
+            self.stream.wait_stream(
+                self.torch.cuda.current_stream(self.device))
+        copy_slice = self._slice_to_card if self.on_card \
+            else (lambda dst, src: dst.copy_(src))
+        if t.ndim == 0:
+            copy_slice(out, t)
+            return out
+        rows = max(1, _SLICE_BYTES // max(1, t[0].numel()
+                                          * t.element_size()))
+        for i in range(0, t.shape[0], rows):
+            copy_slice(out[i:i + rows], t[i:i + rows])
+        return out
+
+    def finish(self) -> None:
+        if self.on_card:
+            self.stream.synchronize()
 
 
 def load_params(ckpt_dir: str, step: int, template):
     """Step `step`'s params, already verified by the caller, checked
     against `template` (a live replica's params) and copied onto its
-    device. The state file is mapped, not read (a read would hold the
-    interpreter lock, and so every serving thread, for the length of a
-    table's copy), and copied in slices; no served tensor maps the
-    file."""
+    device (`_SliceCopier`). The state file is mapped, not read (a read
+    would hold the interpreter lock, and so every serving thread, for
+    the length of a table's copy); no served tensor maps the file."""
     from code2vec_tpu_torch.models.torch_model import _like
     from code2vec_tpu_torch.obs.telemetry import _first_tensor
     from code2vec_tpu_torch.training import checkpoint as ckpt
     restored = ckpt.load_checkpoint(ckpt_dir, step=step, verify=False,
                                     mmap=True)
-    device = _first_tensor(template).device
     # the structure, shapes and dtypes checked where the tensors lie
     host = _like(restored["params"], template, "params",
                  _first_tensor(restored["params"]).device)
-    return ckpt.map_state(lambda t: _copy_in_slices(t, device), host)
+    copier = _SliceCopier(_first_tensor(template).device)
+    params = ckpt.map_state(copier.copy, host)
+    copier.finish()
+    return params
 
 
 class ReloadManager:

@@ -34,9 +34,10 @@ replica with the fewest outstanding requests:
     replica's baseline, and `compile_delta()` reports any signature the
     serving path added afterwards.
 
-All replicas share one card and its default stream: their batches and
-the reload's host-to-device copy are ordered by the stream itself, so
-the swap needs no events.
+All replicas share one card and its default stream. The reload copies
+new weights on a side stream and hands them to `swap_params` only once
+that stream has finished (serving/reload.py), so the swap needs no
+events.
 
 Telemetry rides the shared registry: `serve/pool_size` /
 `serve/pool_ready` / `serve/pool_target` / `serve/pool_generation`

@@ -48,8 +48,8 @@ from code2vec_tpu_torch.models.torch_model import Code2VecTrainer
 from code2vec_tpu_torch.obs import health as thealth
 from code2vec_tpu_torch.obs import promtext
 from code2vec_tpu_torch.obs.exposition import render_prometheus
-from code2vec_tpu_torch.obs.phases import (PhaseProfiler, ProbeKit,
-                                          derive_chain_phases)
+from code2vec_tpu_torch.obs.phases import (PROBE_PASSES, PhaseProfiler,
+                                          ProbeKit, derive_chain_phases)
 from code2vec_tpu_torch.obs.telemetry import Telemetry
 from code2vec_tpu_torch.parallel.compat import free_port
 from code2vec_tpu_torch.training import sparse_update as tsu
@@ -390,8 +390,9 @@ def test_probes_never_write_the_state(kind):
 
 def test_run_split_beats_and_rebases_the_recorder():
     """The first sample beats the recorder after every warm-up and
-    measured probe, then rebases the step window after the probes; the
-    next sample has no warm-up. Tolerance: none (counts)."""
+    measured probe (PROBE_PASSES passes of the chain), then rebases the
+    step window after the probes; the next sample has no warm-up.
+    Tolerance: none (counts)."""
     params, opt_state, step, factory, batch, draws = _port_setup("dense")
 
     class FakeRecorder:
@@ -409,10 +410,76 @@ def test_run_split_beats_and_rebases_the_recorder():
                                 sample_every=1)
     prof.run_split(params, opt_state, batch, draws, recorder=FakeRecorder())
     n = len(prof._kit.chain)
-    assert FakeRecorder.ticks == 2 * n and FakeRecorder.rebased == 1
+    assert FakeRecorder.ticks == (1 + PROBE_PASSES) * n
+    assert FakeRecorder.rebased == 1
     assert FakeRecorder.ticks_at_rebase == FakeRecorder.ticks
     prof.run_split(params, opt_state, batch, draws, recorder=FakeRecorder())
-    assert FakeRecorder.ticks == 3 * n and FakeRecorder.rebased == 2
+    assert FakeRecorder.ticks == (1 + 2 * PROBE_PASSES) * n
+    assert FakeRecorder.rebased == 2
+
+
+# cumulative probe ms of a clean pass; the stall a probe's sync meets
+# on one pass when another thread holds the interpreter lock
+STALL_CHAIN = (("embed_gather", 1.0), ("concat_dense", 1.5),
+               ("forward_pool", 2.0), ("backward", 6.0))
+STALL_MS = 5.0
+
+
+@pytest.mark.parametrize("stalled", ["embed_gather", "concat_dense",
+                                     "forward_pool"])
+def test_a_stalled_probe_pass_clamps_no_phase(stalled, monkeypatch):
+    """A probe whose pass stalls for STALL_MS (more than the next
+    stage's increment) clamps the next phase to 0 when the chain is
+    timed once, as the JAX package times it; with PROBE_PASSES passes,
+    the stall on one of them, every phase is the clean chain's
+    difference and the event's identity holds. Each probe advances a
+    fake clock. Tolerance: 1e-9 ms (float sums of the clock)."""
+    from code2vec_tpu_torch.obs import phases as phases_mod
+    now = [0.0]
+    calls = {name: 0 for name, _ in STALL_CHAIN}
+
+    def probe(name, ms, stall_on):
+        def fn(*_a):
+            calls[name] += 1
+            extra = STALL_MS if (name == stalled
+                                 and calls[name] == stall_on) else 0.0
+            now[0] += (ms + extra) / 1e3
+            return torch.zeros(())
+        return fn
+
+    monkeypatch.setattr(phases_mod, "time", type(
+        "Clock", (), {"perf_counter": staticmethod(lambda: now[0]),
+                      "monotonic": staticmethod(lambda: now[0])}))
+
+    def run(passes, stall_on):
+        monkeypatch.setattr(phases_mod, "PROBE_PASSES", passes)
+        for k in calls:
+            calls[k] = 0
+        kit = ProbeKit([(n, probe(n, ms, stall_on)) for n, ms in STALL_CHAIN])
+        events = []
+        tele = Telemetry.memory("train")
+        tele.sinks = [type("Sink", (), {"write": lambda _s, e: events.append(e),
+                                        "close": lambda _s: None})()]
+        prof = PhaseProfiler(tele, fused_step=lambda *_a: probe(
+            "fused", 0.0, 0)(), probes_factory=lambda: kit,
+            sample_every=1)
+        calls["fused"] = 0
+        prof.run_split(None, None, None, None, step=1)
+        (ev,) = [e for e in events if e["kind"] == "phase"]
+        return ev
+
+    names = [n for n, _ in STALL_CHAIN]
+    nxt = names[names.index(stalled) + 1]
+    # the first sample's warm-up pass is call 1; the stall hits call 2
+    once = run(1, stall_on=2)
+    assert once[f"{nxt}_ms"] == 0.0
+    many = run(PROBE_PASSES, stall_on=2)
+    want = dict(derive_chain_phases(names, [ms for _, ms in STALL_CHAIN]))
+    for name in names:
+        assert many[f"{name}_ms"] == pytest.approx(want[name], abs=1e-9)
+    dev = sum(many[f"{n}_ms"] for n in names) + many["table_apply_ms"]
+    assert many["fused_ms"] == pytest.approx(
+        dev + many["residual_ms"], abs=0.01)
 
 
 def test_recorder_rebase_restarts_the_step_window():
